@@ -1,0 +1,2 @@
+"""Hand-written CUDA kernels of the port (sources in ``csrc/``, built by
+``build.py`` at first use)."""

@@ -1,0 +1,150 @@
+"""K1 on Hopper: the BN-folded Mix-StAGE mixture decoder as one CUDA kernel.
+
+Counterpart of ``mixstage_tpu/ops/pallas/fused_conv.py``: the TPU kernel
+``fused_mixstage_decoder`` (``:177-229``) becomes the hand-written CUDA C++
+kernel in ``csrc/fused_decoder.cu`` (design and bound noted there), bound
+with ``ctypes``.  ``fused_mixstage_decoder_plain`` is the same function in
+plain PyTorch (the counterpart of ``serve.py::folded_decoder_xla``): the CPU
+tests use it, and ``chip_smoke.py`` holds the kernel against it on the card.
+
+The wrapper validates its arguments, then on a CPU tensor computes the plain
+version; on a CUDA tensor it launches the kernel or raises — there is no
+fall-back.  ``fused_mixstage_decoder.launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from mixstage_tpu_torch.ops.cuda import build
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def fold_bn_into_conv(kernel, bias, bn_scale, bn_bias, bn_mean, bn_var,
+                      eps: float = 1e-5):
+    """Fold inference BatchNorm into the preceding conv (``fused_conv.py:
+    34-46``).  ``kernel`` is (..., Cout); returns (kernel', bias') with
+    conv(x, k') + b' == BN(conv(x, k) + b)."""
+    inv_std = bn_scale / torch.sqrt(bn_var + eps)
+    kernel = kernel * inv_std
+    if bias is None:
+        bias = torch.zeros_like(bn_bias)
+    return kernel, (bias - bn_mean) * inv_std + bn_bias
+
+
+def fused_mixstage_decoder_plain(x, w0, wc, biases, w_logits, b_logits,
+                                 groups: int, negative_slope: float = 0.2):
+    """The decoder in plain PyTorch: x (B, T, C0) → (B, T, G·F)."""
+    xt = x.transpose(1, 2)                                   # (B, C0, T)
+    outs = []
+    for g in range(groups):
+        h = F.leaky_relu(F.conv1d(xt, w0[g].permute(2, 1, 0), biases[g, 0],
+                                  padding=1), negative_slope)
+        for layer in range(wc.shape[0]):
+            h = F.leaky_relu(F.conv1d(h, wc[layer, g].permute(2, 1, 0),
+                                      biases[g, layer + 1], padding=1),
+                             negative_slope)
+        outs.append(h.transpose(1, 2) @ w_logits[g] + b_logits[g])
+    return torch.cat(outs, dim=-1)
+
+
+def _check(x, w0, wc, biases, w_logits, b_logits, groups):
+    tensors = dict(x=x, w0=w0, wc=wc, biases=biases, w_logits=w_logits,
+                   b_logits=b_logits)
+    for name, t in tensors.items():
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if x.ndim != 3 or w0.ndim != 4 or wc.ndim != 5 or w_logits.ndim != 3:
+        raise ValueError("expected x (B, T, C0), w0 (G, 3, C0, C), wc "
+                         "(L, G, 3, C, C) and w_logits (G, C, F)")
+    B, T, C0 = x.shape
+    G, C, L, F_ = groups, w0.shape[-1], wc.shape[0], w_logits.shape[-1]
+    want = dict(w0=(G, 3, C0, C), wc=(L, G, 3, C, C), biases=(G, L + 1, C),
+                w_logits=(G, C, F_), b_logits=(G, F_))
+    for name, shape in want.items():
+        if tuple(tensors[name].shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(tensors[name].shape)},"
+                             f" expected {shape} (groups={groups})")
+    return B, T, C0, C, L, F_, G
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C signatures of a loaded ``fused_decoder`` library
+    (pointers and the stream as ``c_void_p``, so none is cut to 32 bits)."""
+    fn = lib.mixstage_fused_decoder_f32
+    if fn.argtypes is None:
+        fn.argtypes = [_P] * 7 + [_I] * 7 + [ctypes.c_float, _P]
+        fn.restype = _I
+        tile = lib.mixstage_fused_decoder_tile
+        tile.argtypes = [_I] * 7 + [ctypes.c_size_t]
+        tile.restype = _I
+        lib.mixstage_cuda_error_string.argtypes = [_I]
+        lib.mixstage_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def tile_frames(B: int, T: int, C0: int, C: int, L: int, G: int,
+                sm_count: int, smem_limit: int) -> int:
+    """The kernel's output frames per CTA for this shape on a card of
+    ``sm_count`` SMs and ``smem_limit`` bytes of shared memory per CTA (0 if
+    no tile fits).  The rule lives beside the kernel's shared-memory layout
+    in ``csrc/fused_decoder.cu``; the launch applies it to its own card."""
+    lib = bind(build.load_library("fused_decoder"))
+    return lib.mixstage_fused_decoder_tile(B, T, C0, C, L, G, sm_count,
+                                           smem_limit)
+
+
+def device_tile_frames(B: int, T: int, C0: int, C: int, L: int, G: int,
+                       device) -> int:
+    """``tile_frames`` for the card ``device``: the tile its launch uses."""
+    props = torch.cuda.get_device_properties(device)
+    return tile_frames(B, T, C0, C, L, G, props.multi_processor_count,
+                       props.shared_memory_per_block_optin)
+
+
+def fused_mixstage_decoder(x, w0, wc, biases, w_logits, b_logits,
+                           groups: int, negative_slope: float = 0.2):
+    """The whole mixture decoder as one kernel launch.
+
+    x (B, T, C0) shared content⊕style features; w0 (G, 3, C0, C) folded
+    layer-0 kernels; wc (L, G, 3, C, C) folded chain kernels; biases
+    (G, L+1, C), row 0 for layer 0; w_logits (G, C, F), b_logits (G, F) the
+    grouped 1×1 output conv.  Returns per-group logits (B, T, G·F), to be
+    combined by ``index_select_outputs``.  All float32 and contiguous."""
+    B, T, C0, C, L, F_, G = _check(x, w0, wc, biases, w_logits, b_logits,
+                                   groups)
+    if x.device.type == "cpu":
+        return fused_mixstage_decoder_plain(x, w0, wc, biases, w_logits,
+                                            b_logits, groups, negative_slope)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_mixstage_decoder runs on CUDA (or the CPU "
+                         f"plain version), got device {x.device}")
+    lib = bind(build.load_library("fused_decoder"))
+    out = torch.empty((B, T, G * F_), device=x.device, dtype=x.dtype)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.mixstage_fused_decoder_f32(
+            x.data_ptr(), w0.data_ptr(), wc.data_ptr(), biases.data_ptr(),
+            w_logits.data_ptr(), b_logits.data_ptr(), out.data_ptr(),
+            B, T, C0, C, L, F_, G, float(negative_slope), stream)
+    if err != 0:
+        tile = device_tile_frames(B, T, C0, C, L, G, x.device)
+        raise RuntimeError(
+            f"fused_mixstage_decoder launch failed: "
+            f"{lib.mixstage_cuda_error_string(err).decode()} (error {err}; "
+            f"B={B} T={T} C0={C0} C={C} L={L} F={F_} G={G}; time tile {tile},"
+            f" 0 = none fits shared memory)")
+    fused_mixstage_decoder.launches += 1
+    return out
+
+
+fused_mixstage_decoder.launches = 0

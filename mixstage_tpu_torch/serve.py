@@ -1,0 +1,135 @@
+"""Serving fast path: audio → pose with BatchNorm folded into both conv chains.
+
+Counterpart of ``mixstage_tpu/serve.py:37-300`` (one device, the batch
+layout, no int8).  Compared with the eval forward:
+
+* BatchNorm is folded into the conv weights of the mixture decoder and of
+  the cluster-classifier chain (``fold_bn_into_conv``);
+* both chains run through kernel K1 (``ops/cuda/fused_conv.py``) when the
+  tensors live on CUDA: the classifier as one group, the mixture decoder as
+  M groups — two launches per call;
+* the content+style features (audio encoder, UNet, style table) run as
+  the model's own PyTorch layers.
+
+The folded weights keep the JAX layout (tap, in, out) but not its 128-lane
+padding of C0, which was TPU layout; the kernel masks ragged widths itself.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+from torch import nn
+
+from mixstage_tpu_torch.device import resolve_device
+from mixstage_tpu_torch.ops.cuda.fused_conv import (
+    fold_bn_into_conv, fused_mixstage_decoder, fused_mixstage_decoder_plain)
+from mixstage_tpu_torch.ops.mixture import index_select_outputs
+
+_FOLDED_KEYS = ("w0", "wc", "biases", "w_logits", "b_logits")
+
+
+def _detached(folded: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Contiguous copies that share no storage or autograd state with the
+    model's parameters (the kernel takes contiguous float32 arrays)."""
+    return {k: v.detach().clone(memory_format=torch.contiguous_format)
+            for k, v in folded.items()}
+
+
+def _fold(block, eps: float):
+    """(kernel (k, Cin/G, Cout), bias (Cout,)) of a ConvNormRelu with its
+    BatchNorm folded in."""
+    conv, norm = block.conv, block.norm
+    return fold_bn_into_conv(conv.weight.permute(2, 1, 0), conv.bias,
+                             norm.weight, norm.bias, norm.running_mean,
+                             norm.running_var, eps)
+
+
+@torch.no_grad()
+def extract_folded_decoder(model: nn.Module, eps: float = 1e-5
+                           ) -> Dict[str, torch.Tensor]:
+    """Fold BN into the mixture decoder (``serve.py:37-79``): w0 (G, 3, C0,
+    C), wc (L, G, 3, C, C), biases (G, L+1, C), w_logits (G, C, F),
+    b_logits (G, F)."""
+    G = model.num_clusters
+    folded = [_fold(layer, eps) for layer in model.decoder_layers()]
+
+    def per_group(k):            # (3, Cin, G·C) → (G, 3, Cin, C)
+        return k.reshape(k.shape[0], k.shape[1], G, -1).permute(2, 0, 1, 3)
+
+    lw = model.logits.weight[:, :, 0]                      # (G·F, C)
+    return _detached({
+        "w0": per_group(folded[0][0]),
+        "wc": torch.stack([per_group(k) for k, _ in folded[1:]]),
+        "biases": torch.stack([b.reshape(G, -1) for _, b in folded], dim=1),
+        "w_logits": lw.reshape(G, -1, lw.shape[1]).transpose(1, 2),
+        "b_logits": model.logits.bias.reshape(G, -1),
+    })
+
+
+@torch.no_grad()
+def extract_folded_classify(model: nn.Module, eps: float = 1e-5
+                            ) -> Dict[str, torch.Tensor]:
+    """Fold BN through the ClusterClassify chain (6 ConvNormRelu + 1×1
+    logits, ``serve.py:82-108``) into K1's layout with G=1."""
+    cc = model.classify_cluster
+    folded = [_fold(getattr(cc.stack, f"conv{i}"), eps)
+              for i in range(cc.stack.depth)]
+    return _detached({
+        "w0": folded[0][0][None],
+        "wc": torch.stack([k for k, _ in folded[1:]])[:, None],
+        "biases": torch.stack([b for _, b in folded])[None],
+        "w_logits": cc.logits.weight[:, :, 0].t()[None],
+        "b_logits": cc.logits.bias[None],
+    })
+
+
+def style_weights(style, num_speakers: int, device) -> torch.Tensor:
+    """(B,) integer ids → one-hot (B, S) rows; (B, S) float rows pass."""
+    style = torch.as_tensor(style, device=device)
+    if style.ndim == 1:
+        return nn.functional.one_hot(style.long(), num_speakers).float()
+    return style.float()
+
+
+def build_serving_fn(model: nn.Module, device=None,
+                     use_kernel: Optional[bool] = None):
+    """``fn(audio (B, T, mel), style (B,) ids or (B, S) rows) → pose
+    (B, T, out_feats)`` on ``device``.
+
+    ``device=None`` is the CUDA card, and raises when there is none.  The
+    model is moved to ``device`` in place.  ``use_kernel`` (default: on
+    CUDA) runs the classifier chain and the mixture decoder BN-folded through
+    K1; ``use_kernel=False`` is the plain path: the model's unfolded
+    classifier and the folded decoder in plain PyTorch.
+    """
+    device = resolve_device(device)
+    if use_kernel is None:
+        use_kernel = device.type == "cuda"
+    model = model.to(device).eval()
+    fd = extract_folded_decoder(model)
+    fc = extract_folded_classify(model)
+    G, S = model.num_clusters, model.num_speakers
+
+    @torch.inference_mode()
+    def fn(audio, style):
+        audio = torch.as_tensor(audio, dtype=torch.float32, device=device)
+        B, T = audio.shape[:2]
+        sw = style_weights(style, S, device)[:, None, :].expand(B, T, S)
+        if use_kernel:
+            x = model.features([audio], None, sw)
+            scores = fused_mixstage_decoder(
+                x, *(fc[k] for k in _FOLDED_KEYS), groups=1)
+            soft = torch.softmax(scores, dim=-1)
+            logits = fused_mixstage_decoder(
+                x, *(fd[k] for k in _FOLDED_KEYS), groups=G)
+        else:
+            x, _, soft = model.backbone([audio], None, sw)
+            logits = fused_mixstage_decoder_plain(
+                x, *(fd[k] for k in _FOLDED_KEYS), groups=G)
+        return index_select_outputs(logits, soft, G)
+
+    fn.device = device
+    fn.use_kernel = use_kernel
+    return fn
