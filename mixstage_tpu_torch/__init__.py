@@ -6,8 +6,10 @@ module names so each counterpart is easy to find, and imports nothing of it
 
 Ported so far: the BN-folded serving path of ``JointLateClusterSoftStyle4_G``
 (``serve.build_serving_fn``) with the fused mixture decoder as a hand-written
-CUDA kernel (``ops/cuda``), the flax weight bridge (``interop/weights.py``)
-and the HTTP micro-batcher (``serving/``).
+CUDA kernel (``ops/cuda``), the flax weight bridge (``interop/weights.py``),
+the HTTP micro-batcher (``serving/``), and the GAN train steps against
+``Speech2Gesture_D`` (``train/``) with the training decoder's forward and
+backward as hand-written CUDA kernels.
 """
 
 from mixstage_tpu_torch.device import resolve_device

@@ -7,8 +7,10 @@ NCHW layout, so a chain of layers permutes without copying.
 
 Submodule and parameter names follow the flax tree (``conv``/``norm``,
 ``stack.conv{i}``, ``unet.pre0`` ...), so ``interop/weights.py`` maps every
-leaf with one layout rule.  Only the inference forward is ported: BatchNorm
-runs on its running statistics (see ``BatchNorm``).
+leaf with one layout rule.  ``module.train()`` / ``.eval()`` is the mode:
+BatchNorm normalises with batch statistics and updates its running ones in
+training mode, as flax does (see ``BatchNorm``).  Dropout is not ported: the
+flagship configuration trains with ``p = 0``.
 
 Channel counts are the ACTUAL input widths of each conv (flax infers them
 from the data), with ``ConvNormRelu``'s per-group semantics kept: it
@@ -40,15 +42,20 @@ def _pad_amount(kernel_size, stride):
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm over the last (channel) axis, with flax's formula
-    ``(x - mean) * (rsqrt(var + eps) * scale) + bias``.
+    """BatchNorm over the last (channel) axis with flax's semantics
+    (``flax.linen.BatchNorm(momentum=0.9, epsilon=1e-5)``).
 
-    Running statistics only.  ``torch.nn.BatchNorm*`` is NOT a drop-in for
-    training this model: torch blends the running average with momentum 0.1
-    on the NEW value and stores the unbiased batch variance, while flax keeps
-    0.9 of the old value and stores the biased variance
-    (``mixstage_tpu/train/steps.py:331-332``).  The training slice adds that.
+    Both modes normalise as ``(x - mean) * (rsqrt(var + eps) * scale) +
+    bias``.  In eval mode ``mean``/``var`` are the running statistics.  In
+    training mode they are the batch statistics over every axis but the
+    last, reduced in float32 as ``mean(x)`` and ``max(0, mean(x²) - mean²)``
+    (the biased variance), and the running statistics are updated in place,
+    under ``no_grad``, as ``ra = 0.9·ra + 0.1·batch``.
+    ``torch.nn.BatchNorm*`` is not a drop-in: it stores the UNBIASED batch
+    variance in its running var.
     """
+
+    MOMENTUM = 0.9
 
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__()
@@ -59,8 +66,24 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
 
     def forward(self, x):
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return (x - self.running_mean) * mul + self.bias
+        if not self.training:
+            mean, var = self.running_mean, self.running_var
+        else:
+            axes = tuple(range(x.ndim - 1))
+            xf = x.float()
+            mean = xf.mean(axes)
+            var = ((xf * xf).mean(axes) - mean * mean).clamp_min(0.0)
+            self.update_running_stats(mean, var)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean) * mul + self.bias
+
+    @torch.no_grad()
+    def update_running_stats(self, mean, var):
+        """flax's rule: keep 0.9 of the OLD value, blend in 0.1 of the
+        batch statistic (``var`` biased)."""
+        m = self.MOMENTUM
+        self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
+        self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
 
 
 def _conv_channels_last(conv: nn.Module, x):
@@ -211,6 +234,22 @@ class PoseEncoder(nn.Module):
 
     def forward(self, x):
         return self.stack(x)
+
+
+class PoseStyleEncoder(nn.Module):
+    """Pose → speaker logits (``layers.py:348-370``): six downsampling 1D
+    ConvNormRelu, then the temporal mean.  (B, T, pose_feats) →
+    (B, num_speakers)."""
+
+    def __init__(self, input_channels: int = 96, num_speakers: int = 4):
+        super().__init__()
+        self.stack = _Conv1DStack([
+            (input_channels, 64, False), (64, 64, True), (64, 128, True),
+            (128, 128, True), (128, 256, True), (256, 256, True),
+            (256, num_speakers, True)])
+
+    def forward(self, x):
+        return self.stack(x).mean(dim=1)
 
 
 class TextEncoder1D(nn.Module):

@@ -1,11 +1,12 @@
 """Mix-StAGE generator: content + style → soft mixture of M decoders.
 
-Counterpart of ``mixstage_tpu/models/mix_stage.py:43-200`` (inference
-forward): audio content encoding → UNet → style-embedding concat → cluster
+Counterpart of ``mixstage_tpu/models/mix_stage.py:43-200``: audio content
+encoding → UNet → style-embedding concat → cluster
 classifier soft attention → grouped-conv mixture decoder → soft output
 selection.  Submodule names follow the flax tree, including the
 ``pose_encoder`` and ``concat_encoder`` that flax builds even in audio-only
-configs, so the weight bridge round-trips the whole tree.
+configs, so the weight bridge round-trips the whole tree.  The mode is
+``module.train()`` / ``.eval()`` (BatchNorm on batch or running statistics).
 
 Port scope: one audio stream and the curriculum pose input.  The text
 encoder and the ``concat_encoder`` fusion of audio + text come with the
@@ -30,7 +31,7 @@ CONTENT_FEATS = 256
 
 
 class JointLateClusterSoftStyle4_G(nn.Module):
-    """Mix-StAGE generator (inference forward)."""
+    """Mix-StAGE generator."""
 
     def __init__(self, in_channels: int = 256, out_feats: int = 96,
                  num_clusters: int = 8, num_speakers: int = 2,
@@ -102,7 +103,7 @@ class JointLateClusterSoftStyle4_G(nn.Module):
                 input_modalities: Sequence[str] = ("audio/log_mel_512",),
                 use_pose_input: bool = False,
                 time_steps: Optional[int] = None) -> Dict[str, torch.Tensor]:
-        """Eval forward: ``style_weights`` (B, T, num_speakers), one-hot for
+        """Forward: ``style_weights`` (B, T, num_speakers), one-hot for
         hard style ids.  Returns 'pose' (B, T, out_feats), 'labels_score' and
         'labels_cap_soft' (B, T, M)."""
         x, labels_score, labels_cap_soft = self.backbone(

@@ -22,7 +22,8 @@ from typing import Dict, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-SOURCES = {"fused_decoder": CSRC / "fused_decoder.cu"}
+SOURCES = {"fused_decoder": CSRC / "fused_decoder.cu",
+           "train_decoder": CSRC / "train_decoder.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

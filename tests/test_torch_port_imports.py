@@ -34,7 +34,10 @@ def test_no_jax_imports(path):
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, mixstage_tpu_torch, mixstage_tpu_torch.serve, "
-            "mixstage_tpu_torch.serving, mixstage_tpu_torch.interop; "
+            "mixstage_tpu_torch.serving, mixstage_tpu_torch.interop, "
+            "mixstage_tpu_torch.train, mixstage_tpu_torch.train.losses, "
+            "mixstage_tpu_torch.ops.cuda.train_decoder, "
+            "mixstage_tpu_torch.models.speech2gesture; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r}); print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT))

@@ -77,7 +77,7 @@ def test_layer_matches_flax(name):
     ref = jax_apply(flax_mod, params, stats, jnp.asarray(x), **jkw)
     load_flax_state(port_mod, params, stats)
     with torch.no_grad():
-        out = port_mod(torch.from_numpy(x), **kwargs).numpy()
+        out = port_mod.eval()(torch.from_numpy(x), **kwargs).numpy()
     assert out.shape == ref.shape
     np.testing.assert_allclose(out, ref, rtol=1e-4, atol=1e-4)
 

@@ -1,0 +1,76 @@
+#!/usr/bin/env python3
+"""Trace the full-width GAN train steps of the port on one CUDA card.
+
+Builds the flagship training configuration of ``chip_smoke.py`` (batch 32,
+64 frames, random weights from ``--seed``) and runs, five times each under
+``torch.profiler``: the G step with the fused decoder (K3), the G step
+with the plain decoder, and the D step.  For each it prints the host's wall
+time per step, the device busy time per step (union of kernel intervals),
+the device's idle share of the wall time, the share of busy time spent in
+K3's kernels, and the device kernels that take the most time.
+
+    python3 tools/profile_train.py [--seed 0] [--out profile.json]
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+from chip_smoke import TRAIN_CFG, B, T, train_batch  # noqa: E402
+from mixstage_tpu_torch.train import StepConfig, StepFactory  # noqa: E402
+from tools.profile_k1 import report, trace  # noqa: E402
+
+# the kernels of csrc/train_decoder.cu
+K3_KERNELS = ("gemm_kernel", "bn_act_kernel", "bn_bwd_kernel",
+              "col_sum_kernel")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args(argv)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    print(f"[profile] {smi}; torch {torch.__version__}", flush=True)
+    batch = train_batch(np.random.default_rng(args.seed), B, T)
+    out = {"card": smi}
+    for name, fused, step in (("G step, fused decoder", True, "g"),
+                              ("G step, plain decoder", False, "g"),
+                              ("D step", True, "d")):
+        factory = StepFactory(StepConfig(**TRAIN_CFG, fused_decoder=fused))
+        state = factory.init(seed=args.seed + 1)
+        device = factory.device
+        dbatch = {k: (tuple(torch.as_tensor(a, device=device) for a in v)
+                      if k == "x" else torch.as_tensor(v, device=device))
+                  for k, v in batch.items()}
+        fn = factory.make_steps()[step]
+        rec = trace(lambda: fn(state, dbatch))
+        k3_ms = sum(k["ms_per_call"] for k in rec["kernels"]
+                    if any(n in k["name"] for n in K3_KERNELS))
+        rec["k3_ms"] = k3_ms
+        report(f"{name} bs{B} T{T}", rec)
+        print(f"[profile]   K3 kernels {k3_ms:.4f} ms/step "
+              f"({k3_ms / rec['device_busy_ms']:.3f} of busy time); "
+              f"{sum(k['launches_per_call'] for k in rec['kernels']):g} "
+              f"kernel launches per step", flush=True)
+        out[name] = rec
+    if args.out:
+        with open(args.out, "w") as fh:
+            json.dump(out, fh, indent=1)
+    print(f"[profile] done ({smi})", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
