@@ -5,7 +5,8 @@ Drives the port's two main paths end to end at the full width of the
 flagship model — ``JointLateClusterSoftStyle4_G`` with 8 clusters, 8
 speakers, 256 channels, style_dim 10 and 96 pose features, on 64-frame
 clips of 128 mel bins at batch 32 — with random weights drawn from
-``--seed``: serving (phases 1-6) and GAN training (phases 7-9):
+``--seed``: serving (phases 1-6), GAN training (phases 7-9) and the int8
+serving tier with the streaming and waveform endpoints (phases 10-14):
 
 1. device: the card's name and power limit from ``nvidia-smi``;
 2. build: every CUDA kernel from the checkout's sources, one ``nvcc`` per
@@ -35,7 +36,29 @@ clips of 128 mel bins at batch 32 — with random weights drawn from
    step);
 9. training timings (CUDA events): G step, D step and the k-step driver's
    mean step, fused and unfused in four ABBA turns each; train pose
-   frames/s; K3-fwd and K3-bwd against their bounds and plain versions.
+   frames/s; K3-fwd and K3-bwd against their bounds and plain versions;
+10. int8 and chain kernels: K4 against ``decoder_int8_plain`` at every shape
+    the int8 path launches it at (bs32 × 64, one 64-frame clip, the bs32
+    128-frame bucket) and at B=1 T=4096 and a ragged B=3 T=50, with weights
+    quantized from seeded folded weights (mean |err| ≤ 1e-3 and max ≤ 1e-2
+    of mean |plain|, and no element differs: K4 rounds as its plain
+    version does); K2 against ``chain_plain`` at (32, 64, G=8, C=256,
+    L=3), (4, 64, 4, 128, 3) and a ragged B=3 T=50 (max |err| / max |ref|
+    ≤ 1e-4);
+11. int8 serving: ``build_serving_fn(model, quantize_int8=True, calib=...)``
+    at bs32 launches K1 once and K4 once, its pose is finite, drifts from
+    the f32 kernel route by (1e-4, 0.10), and is within K4's envelope of
+    the plain int8 route;
+12. int8 server: ``/v1/pose`` requests through an int8 server equal the
+    direct call at the server's batch size element for element, and so does
+    a streaming session over HTTP against ``StreamingSession`` over the
+    direct serving function;
+13. waveform: the on-card log-mel frontend against the numpy
+    ``log_mel_400`` (max |diff| ≤ 1e-3), and a ``/v1/pose_from_waveform``
+    request on a full-width 64-mel generator against the direct call
+    (max |diff| / mean |pose| ≤ 1e-5);
+14. timings (CUDA events): K4 and K2 beside their bounds and plain
+    versions; the bs32 int8 call against the f32 one in ABBA turns.
 
 It prints one JSON line of kernels, the ``nvidia-smi`` line, and last the
 device line ``{"ok": true, "device": {...}}``.  Any failed check exits
@@ -58,9 +81,16 @@ import numpy as np
 # published peaks of one H100 SXM (NVIDIA data sheet): f32 outside the
 # tensor cores, and HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
+PEAK_INT8_OPS = 1979e12      # dense int8 tensor-core rate
 PEAK_HBM_BYTES = 3.35e12
 KERNEL_TOL = 1e-4            # max |kernel - plain| / max |plain|
 DRIFT_TOL = 0.01             # the serving path's BN-fold drift contract
+WAVE_TOL = 1e-5              # served waveform pose against the direct call
+# K4 against its plain version, as fractions of mean |plain|: a requantized
+# LSB that float rounding flips amplifies through later layers
+# (tests/test_pallas.py:306-309)
+INT8_MEAN_TOL, INT8_MAX_TOL = 1e-3, 1e-2
+INT8_DRIFT = (1e-4, 0.10)    # int8 tier against f32 serving (test_pallas:160)
 # fused vs unfused G step: Adam mu per module.  Float32 rounding flips a few
 # of the ≈17M leaky units of the decoder that lie within ~1e-6 of 0, and
 # the flips move the gradients upstream of them (8.2e-4 of gen.style_emb
@@ -83,6 +113,13 @@ K1_SHAPES = {   # name: (B, T, G, L, F); every shape the main path launches
     "decoder_T4096": (1, 4096, 8, 3, 96),    # the server's largest bucket
     "classifier_T4096": (1, 4096, 1, 5, 8),
 }
+K4_SHAPES = {   # name: (B, T); every shape the int8 path launches, and more
+    "bs32": (B, T), "B1": (1, T), "T128": (B, 128), "T4096": (1, 4096),
+    "ragged": (3, 50)}
+K2_SHAPES = {   # name: (B, T, G, C, L)
+    "main": (B, T, 8, 256, 3), "small": (4, 64, 4, 128, 3),
+    "ragged": (3, 50, 8, 256, 3)}
+MEL_WAVE = 64                # audio/log_mel_400
 
 
 # the training configuration of bench.py:205-249 (in_channels 256 is the
@@ -128,10 +165,34 @@ def k3_work(b, t, g, f):
     return (flops, 4 * fwd), (2 * flops, 4 * bwd)
 
 
-def bound_ms(flops, nbytes):
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES
+def k4_work(b, t, g, layers, f):
+    """(int8 operations, bytes) of one K4 call: 2 per multiply-add of the
+    chain; the int8 weights, the f32 input, scales, multipliers and biases
+    read once and the f32 output written once."""
+    macs = 3 * C0 * C + layers * 3 * C * C + C * f
+    f32 = (b * t * C0 + C0 + g * C + layers * g * C + 2 * g * (layers + 1) * C
+           + 2 * g * f + b * t * g * f)
+    return 2 * b * t * g * macs, g * macs + 4 * f32
+
+
+def k2_work(b, t, g, c, layers):
+    """(flops, bytes) of one K2 call (f32, each input read once)."""
+    return (2 * b * t * g * layers * 3 * c * c,
+            4 * (2 * b * t * g * c + layers * g * 3 * c * c + layers * g * c))
+
+
+def bound_ms(flops, nbytes, peak=PEAK_F32_FLOPS):
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_HBM_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+def int8_errors(out, ref):
+    """(mean |diff|, max |diff|) / mean |ref|, max |diff|, and the count of
+    differing elements."""
+    err, scale = (out - ref).abs(), float(ref.abs().mean())
+    return (float(err.mean()) / scale, float(err.max()) / scale,
+            float(err.max()), int((err > 0).sum()))
 
 
 def cuda_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
@@ -276,6 +337,301 @@ def compare_states(torch, s0, s1, lr):
           f"differs by {gaps[worst]:.3e} (tol {MOMENT_TOL:g})")
     check(bias <= KERNEL_TOL, f"fused G step pre-BN bias mu {bias:.3e}")
     return p_err, s_err, gaps, bias
+
+
+def int8_phases(torch, args, device, smi, model, audio, styles, pose32,
+                results):
+    """Phases 10-14: K4 and K2 against their plain versions, the int8
+    serving path through the entry points and the HTTP server (streaming
+    included), the waveform endpoint, and their timings.  Returns the
+    kernels-line entries of K4 and K2."""
+    from mixstage_tpu_torch.data.audio import log_mel_400, log_mel_spectrogram
+    from mixstage_tpu_torch.models import JointLateClusterSoftStyle4_G
+    from mixstage_tpu_torch.models.layers import reset_parameters_
+    from mixstage_tpu_torch.ops.cuda import quant as q8
+    from mixstage_tpu_torch.ops.cuda.fused_conv import (
+        chain_plain, fused_grouped_conv_chain, fused_mixstage_decoder)
+    from mixstage_tpu_torch.serve import (build_serving_fn,
+                                          build_waveform_serving_fn)
+    from mixstage_tpu_torch.serving import (DynamicBatcher, PoseClient,
+                                            PoseService, start_http_server)
+    from mixstage_tpu_torch.streaming import session_over_serving_fn
+
+    G, L, F = MODEL["num_clusters"], 3, MODEL["out_feats"]
+    S = MODEL["num_speakers"]
+
+    # 10. int8 and chain kernels against their plain versions ------------
+    qgen = torch.Generator().manual_seed(args.seed + 9)
+    _, w0, wc, biases, wl, bl = random_folded(torch, qgen, 1, 1, G, L, F,
+                                              device)
+    calib_x = torch.randn(B, T, C0, generator=qgen).to(device)
+    qfd = q8.pack_decoder_int8(q8.quantize_folded_decoder(
+        dict(w0=w0, wc=wc, biases=biases, w_logits=wl, b_logits=bl),
+        calib_x))
+    k4_shapes = {}
+    for name, (b, t) in K4_SHAPES.items():
+        x = torch.randn(b, t, C0, generator=qgen).to(device)
+        out = q8.fused_mixstage_decoder_int8(x, qfd, groups=G)
+        ref = q8.decoder_int8_plain(x, qfd, G)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(out).all()), f"K4 {name}: non-finite")
+        mean_rel, max_rel, abs_err, ndiff = int8_errors(out, ref)
+        tile = q8.device_tile_frames(b, t, C0, C, L, G, device)
+        log(f"[kernel] fused_mixstage_decoder_int8 {name} B={b} T={t} G={G} "
+            f"C0={C0} C={C} L={L} F={F} (tile {tile} frames, "
+            f"{G * b * -(-t // tile)} CTAs): {ndiff} of {out.numel()} "
+            f"elements differ from the plain version; mean|err|/mean|ref| "
+            f"{mean_rel:.3e} (tol {INT8_MEAN_TOL:g}), max {max_rel:.3e} "
+            f"(tol {INT8_MAX_TOL:g})")
+        check(mean_rel <= INT8_MEAN_TOL and max_rel <= INT8_MAX_TOL,
+              f"K4 {name} outside the int8 envelope of its plain version")
+        check(ndiff == 0, f"K4 {name}: {ndiff} elements differ from the "
+              f"plain version, which it matches bit for bit by design")
+        k4_shapes[name] = dict(shape=dict(B=b, T=t, G=G, C0=C0, C=C, L=L,
+                                          F=F), tile=tile, max_abs_err=abs_err,
+                               mean_rel_err=mean_rel, max_rel_err=max_rel,
+                               differing=ndiff, args=x)
+    k2_shapes = {}
+    for name, (b, t, g, c, layers) in K2_SHAPES.items():
+        a = (torch.randn(b, t, g * c, generator=qgen).to(device),
+             (torch.randn(layers, g, 3, c, c, generator=qgen)
+              * (3 * c) ** -0.5).to(device),
+             (torch.randn(layers, g * c, generator=qgen) * 0.1).to(device))
+        out = fused_grouped_conv_chain(*a, groups=g)
+        ref = chain_plain(*a, groups=g)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(out).all()), f"K2 {name}: non-finite")
+        abs_err = float((out - ref).abs().max())
+        rel_err = abs_err / float(ref.abs().max())
+        log(f"[kernel] fused_grouped_conv_chain {name} B={b} T={t} G={g} "
+            f"C={c} L={layers}: max|err| {abs_err:.3e}, /max|ref| "
+            f"{rel_err:.3e} (tol {KERNEL_TOL:g})")
+        check(rel_err <= KERNEL_TOL, f"K2 {name} disagrees with its plain "
+              f"version: {rel_err:.3e}")
+        k2_shapes[name] = dict(shape=dict(B=b, T=t, G=g, C=c, L=layers),
+                               max_abs_err=abs_err, max_rel_err=rel_err,
+                               args=a)
+
+    # 11. int8 serving through the entry points ----------------------------
+    rng = np.random.default_rng(args.seed + 11)
+    calib = (rng.normal(size=(B, T, MEL)).astype(np.float32),
+             rng.integers(0, S, size=B).astype(np.int32))
+    serve8 = build_serving_fn(model, quantize_int8=True, calib=calib)
+    plain8 = build_serving_fn(model, use_kernel=False, quantize_int8=True,
+                              calib=calib)
+    check(serve8.device.type == "cuda" and serve8.use_kernel,
+          "int8 serving device")
+
+    def counts():
+        return (fused_mixstage_decoder.launches,
+                q8.fused_mixstage_decoder_int8.launches,
+                fused_grouped_conv_chain.launches)
+
+    fused_mixstage_decoder.launches = 0              # int8 path starts
+    q8.fused_mixstage_decoder_int8.launches = 0
+    fused_grouped_conv_chain.launches = 0
+    pose8 = serve8(audio, styles)
+    torch.cuda.synchronize()
+    check(counts() == (1, 1, 0), f"one int8 serving call launched (K1, K4, "
+          f"K2) {counts()} times, expected (1, 1, 0)")
+    check(tuple(pose8.shape) == (B, T, F), f"int8 pose {tuple(pose8.shape)}")
+    check(bool(torch.isfinite(pose8).all()), "non-finite int8 pose")
+    pose8_plain = plain8(audio, styles)
+    drift = float((pose8 - pose32).abs().mean() / pose32.abs().mean())
+    mean_rel, max_rel, _, ndiff = int8_errors(pose8, pose8_plain)
+    log(f"[int8] full width bs{B} T{T}: K1+K4 route vs plain int8 route: "
+        f"{ndiff} of {pose8.numel()} elements differ, mean {mean_rel:.3e}, "
+        f"max {max_rel:.3e}; drift vs the f32 kernel route {drift:.4e} "
+        f"(envelope {INT8_DRIFT})")
+    check(mean_rel <= INT8_MEAN_TOL and max_rel <= INT8_MAX_TOL,
+          "int8 kernel route outside K4's envelope of the plain route")
+    check(INT8_DRIFT[0] < drift < INT8_DRIFT[1], "int8 drift out of envelope")
+    results["int8"] = dict(drift_vs_f32=drift, vs_plain_mean=mean_rel,
+                           vs_plain_max=max_rel, vs_plain_differing=ndiff)
+
+    # 12. int8 server: /v1/pose and a streaming session -------------------
+    # The direct calls run at the batcher's batch size, the request tiled as
+    # the batcher pads it: int8 turns float differences of batch-size
+    # dependent convolution algorithms into flipped LSBs, so only the same
+    # batch shape can be held to equality.
+    scale = float(pose8.abs().mean())
+
+    def direct8(a, sty):
+        """``serve8`` on a batch of one, run as the batcher runs it."""
+        out = serve8(np.repeat(a, B, axis=0), np.repeat(sty, B, axis=0))
+        return out[:1].cpu().numpy()
+
+    def served_err(got, want):
+        """max |diff| / mean |pose|, and the count of differing elements."""
+        return (float(np.abs(got - want).max()) / scale,
+                int(np.count_nonzero(got != want)))
+
+    batcher = DynamicBatcher(serve8, batch_size=B, max_wait_ms=5.0)
+    service = PoseService(batcher, backend=serve8.device.type, num_styles=S,
+                          mel_bins=MEL)
+    server = start_http_server(service, port=0, host="127.0.0.1")
+    onehot = np.eye(S, dtype=np.float32)
+    try:
+        client = PoseClient(f"http://127.0.0.1:{server.server_address[1]}",
+                            timeout_s=300)
+        jobs = [("npz", 64, 2), ("json", 64, 5), ("npz", 100, 7)]
+        worst, ndiff = 0.0, 0
+        for kind_, n, sty in jobs:
+            a = rng.normal(size=(n, MEL)).astype(np.float32)
+            got = (client.pose if kind_ == "npz" else client.pose_json)(
+                a, style=sty)
+            bucket = 64 if n <= 64 else 128
+            padded = np.concatenate([a, np.repeat(a[-1:], bucket - n, 0)])
+            want = direct8(padded[None], onehot[[sty]])[0, :n]
+            check(got.shape == (n, F), f"int8 {kind_} response {got.shape}")
+            err, n_diff = served_err(got, want)
+            worst, ndiff = max(worst, err), ndiff + n_diff
+        log(f"[int8-server] {len(jobs)} /v1/pose requests (npz, json; 64 and"
+            f" 100 frames) vs the direct call at batch {B}: {ndiff} elements "
+            f"differ, max|diff|/mean|pose| {worst:.3e} (tol 0)")
+        check(ndiff == 0, "int8 served pose differs from direct")
+        x = rng.normal(size=(150, MEL)).astype(np.float32)
+        stream = client.stream(style=3, hop=32)
+        pieces = [stream.feed(x[i:i + 40]) for i in range(0, 150, 40)]
+        pieces.append(stream.finish())
+        got = np.concatenate([q for q in pieces if q.size])
+        sess = session_over_serving_fn(direct8, onehot[3], hop=32)
+        want = np.concatenate([q for q in (sess.feed(x), sess.finish())
+                               if q.size])
+        check(got.shape == (150, F), f"streamed pose {got.shape}")
+        stream_err, stream_diff = served_err(got, want)
+        stats = client.stats()
+        log(f"[int8-server] streaming session over HTTP (150 frames in "
+            f"chunks of 40, hop 32) vs StreamingSession over the direct "
+            f"serving fn at batch {B}: {stream_diff} elements differ, "
+            f"max|diff|/mean|pose| {stream_err:.3e} (tol 0); stats "
+            f"requests={stats['requests']} batches={stats['batches']} "
+            f"streams={stats['streams']}")
+        check(stream_diff == 0, "streamed pose differs")
+        check(stats["streams"] == 0, "the finished stream is still live")
+    finally:
+        server.shutdown()
+        server.server_close()
+        batcher.close()
+    launches = counts()                              # int8 path ends
+    check(launches[0] == launches[1] and launches[1] >= 1 + stats["batches"],
+          f"(K1, K4) launches over the int8 path {launches[:2]}: expected "
+          f"one each per int8 serving call")
+    check(launches[2] == 0, f"K2 launched {launches[2]} times over the int8 "
+          f"path, which does not call it")
+    log(f"[int8] (K1, K4, K2) launches over the int8 path (phases 11-12): "
+        f"{launches}")
+
+    # 13. waveform endpoint on a 64-mel generator --------------------------
+    model64 = JointLateClusterSoftStyle4_G(**MODEL)
+    reset_parameters_(model64, torch.Generator().manual_seed(args.seed + 12),
+                      random_bn_stats=True)
+    wave_fn = build_waveform_serving_fn(model64)
+    wav = (0.1 * rng.normal(size=(2, wave_fn.n_samples))).astype(np.float32)
+    with torch.inference_mode():
+        mel_dev = log_mel_spectrogram(torch.as_tensor(wav, device=device))
+    torch.cuda.synchronize()
+    mel_err = max(float(np.abs(mel_dev[i].cpu().numpy()
+                               - log_mel_400(wav[i].astype(np.float64)))
+                        .max())
+                  for i in range(2))
+    log(f"[waveform] on-card log-mel frontend (f32, cuFFT) vs numpy "
+        f"log_mel_400 (float64): max|diff| {mel_err:.3e} (tol 1e-3)")
+    check(mel_err <= 1e-3, "on-card frontend differs from log_mel_400")
+    wave_batcher = DynamicBatcher(wave_fn, batch_size=4, max_wait_ms=5.0)
+    mel_batcher = DynamicBatcher(build_serving_fn(model64), batch_size=4)
+    service = PoseService(mel_batcher, backend="cuda", num_styles=S,
+                          mel_bins=MEL_WAVE, waveform_batcher=wave_batcher)
+    server = start_http_server(service, port=0, host="127.0.0.1")
+    k1_before = fused_mixstage_decoder.launches
+    try:
+        client = PoseClient(f"http://127.0.0.1:{server.server_address[1]}",
+                            timeout_s=300)
+        got = client.pose_from_waveform(wav[0], style=4)
+        want = wave_fn(np.repeat(wav[:1], 4, axis=0),
+                       np.repeat(onehot[[4]], 4, axis=0))[0].cpu().numpy()
+    finally:
+        server.shutdown()
+        server.server_close()
+        wave_batcher.close()
+        mel_batcher.close()
+    wave_err = float(np.abs(got - want).max()) / float(np.abs(want).mean())
+    log(f"[waveform] /v1/pose_from_waveform ({wave_fn.n_samples} samples, "
+        f"64 mel bins, full width) -> pose {got.shape}; vs the direct call "
+        f"max|diff|/mean|pose| {wave_err:.3e} (tol {WAVE_TOL:g}); K1 "
+        f"launches {fused_mixstage_decoder.launches - k1_before}")
+    check(got.shape == (64, F) and bool(np.isfinite(got).all()),
+          f"waveform pose {got.shape}")
+    check(wave_err <= WAVE_TOL, "waveform served pose differs from direct")
+    results["waveform"] = dict(frontend_max_abs=mel_err, served_err=wave_err)
+
+    # 14. timings ----------------------------------------------------------
+    for name, rec in k4_shapes.items():
+        x = rec.pop("args")
+        rec["ms"] = cuda_ms(torch, lambda: q8.fused_mixstage_decoder_int8(
+            x, qfd, groups=G))
+        rec["plain_ms"] = cuda_ms(torch, lambda: q8.decoder_int8_plain(
+            x, qfd, G), reps=5)
+        sh = rec["shape"]
+        ops, nbytes = k4_work(sh["B"], sh["T"], G, L, F)
+        rec["bound_ms"], rec["bound_by"] = bound_ms(ops, nbytes, PEAK_INT8_OPS)
+        rec["tops"] = ops / (rec["ms"] / 1e3) / 1e12
+        log(f"[timing] {smi}: K4 {name}: {rec['ms']:.4f} ms "
+            f"({rec['tops']:.2f} TOP/s int8), plain {rec['plain_ms']:.4f} "
+            f"ms, bound {rec['bound_ms']:.4f} ms by {rec['bound_by']} "
+            f"({ops / 1e9:.2f} G int8 ops, {nbytes / 1e6:.2f} MB)")
+    for name, rec in k2_shapes.items():
+        a, g = rec.pop("args"), rec["shape"]["G"]
+        rec["ms"] = cuda_ms(torch, lambda: fused_grouped_conv_chain(
+            *a, groups=g))
+        rec["plain_ms"] = cuda_ms(torch, lambda: chain_plain(*a, groups=g))
+        sh = rec["shape"]
+        flops, nbytes = k2_work(sh["B"], sh["T"], g, sh["C"], sh["L"])
+        rec["bound_ms"], rec["bound_by"] = bound_ms(flops, nbytes)
+        log(f"[timing] {smi}: K2 {name}: {rec['ms']:.4f} ms "
+            f"({flops / (rec['ms'] / 1e3) / 1e12:.2f} TFLOP/s f32), plain "
+            f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms by "
+            f"{rec['bound_by']} ({flops / 1e9:.2f} GFLOP, "
+            f"{nbytes / 1e6:.1f} MB)")
+    audio_dev = torch.as_tensor(audio, device=device)
+    styles_dev = torch.as_tensor(styles, device=device)
+    serve32 = build_serving_fn(model)
+    calls = {"f32": serve32, "int8": serve8}
+    turns = {name: [] for name in calls}
+    for name in ["f32", "int8", "int8", "f32"]:
+        turns[name].append(cuda_ms(torch, lambda: calls[name](
+            audio_dev, styles_dev), reps=20))
+    call_t = {name: float(np.mean(v)) for name, v in turns.items()}
+    log(f"[timing] {smi}: bs{B} serving call, ABBA turns: f32 "
+        f"{call_t['f32']:.3f} ms ({B * T / call_t['f32'] * 1e3:.1f} pose "
+        f"frames/s; turns {turns['f32']}), int8 {call_t['int8']:.3f} ms "
+        f"({B * T / call_t['int8'] * 1e3:.1f} frames/s; turns "
+        f"{turns['int8']})")
+    results["int8"]["timing"] = dict(
+        call_ms=call_t, turns=turns,
+        frames_per_s={k: B * T / v * 1e3 for k, v in call_t.items()})
+    results["k4_shapes"], results["k2_shapes"] = k4_shapes, k2_shapes
+
+    main4, main2 = k4_shapes["bs32"], k2_shapes["main"]
+    k4 = {"name": "fused_mixstage_decoder_int8", "route": "cuda",
+          "source": "mixstage_tpu_torch/ops/cuda/csrc/decoder_int8.cu",
+          "replaces": "mixstage_tpu/ops/pallas/quant.py:266",
+          "launches": launches[1],
+          "max_abs_err": max(r["max_abs_err"] for r in k4_shapes.values()),
+          "ms": main4["ms"], "plain_ms": main4["plain_ms"],
+          "bound_ms": main4["bound_ms"], "bound_by": main4["bound_by"],
+          # no single PyTorch call computes the int8 conv chain
+          "library_ms": None}
+    k2 = {"name": "fused_grouped_conv_chain", "route": "cuda",
+          "source": "mixstage_tpu_torch/ops/cuda/csrc/fused_decoder.cu",
+          "replaces": "mixstage_tpu/ops/pallas/fused_conv.py:75",
+          # a public op: no path of the package calls it
+          "launches": launches[2],
+          "max_abs_err": max(r["max_abs_err"] for r in k2_shapes.values()),
+          "ms": main2["ms"], "plain_ms": main2["plain_ms"],
+          "bound_ms": main2["bound_ms"], "bound_by": main2["bound_by"],
+          "library_ms": None}
+    return k4, k2
 
 
 def main(argv=None) -> int:
@@ -669,12 +1025,15 @@ def main(argv=None) -> int:
                             mu_gaps=mu_gaps, mu_bias_gap=bias_gap,
                             pose_drift=pose_drift, timing=train_t,
                             coins=coins.tolist(), k3_launches=k3_launches)
-    results["kernels"] = [k1] + k3
+    k4, k2 = int8_phases(torch, args, device, smi, model, audio, styles,
+                         pose, results)
+    kernels = [k1] + k3 + [k4, k2]
+    results["kernels"] = kernels
     if args.out:
         with open(args.out, "w") as f:
             json.dump(results, f, indent=1)
     print(json.dumps({"kernels": [{k: v for k, v in kern.items()
-                                   if k != "shapes"} for kern in [k1] + k3]}))
+                                   if k != "shapes"} for kern in kernels]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -20,6 +20,11 @@ like ``params`` (Adam's ``mu`` / ``nu``): ``flax_params_to_torch`` and
 ``torch_params_to_flax`` convert any such tree, keyed by torch parameter
 name.  Any module whose names follow the flax tree goes through the bridge:
 the generator, the pose-style encoder and the discriminator.
+
+``quantized_decoder_from_jax`` carries the int8 serving tier's quantized
+decoder (``mixstage_tpu/ops/pallas/quant.py::quantize_folded_decoder``)
+into the port's layout, so both packages' int8 decoders can run on the same
+int8 weights.
 """
 
 from __future__ import annotations
@@ -228,4 +233,20 @@ def to_flax_opt_state(opt, modules: Dict[Any, nn.Module]) -> Dict[str, Any]:
             else:
                 tree[key] = sub
         out[field] = tree
+    return out
+
+
+def quantized_decoder_from_jax(qfd: Dict[str, Any], c0: int
+                               ) -> Dict[str, Any]:
+    """JAX's quantized decoder dict (numpy leaves, ``w0_i8`` with C0 padded
+    to 128 lanes, ``s_in`` a tuple of C0p per-channel scales or a float) →
+    the port's (``ops/cuda/quant.py``): tensors, the padding of C0 stripped
+    to the true width ``c0``, ``s_in`` a (c0,) tensor or a float."""
+    out = {k: torch.from_numpy(np.array(v)) for k, v in qfd.items()
+           if k != "s_in"}
+    out["w0_i8"] = out["w0_i8"][:, :, :c0].contiguous()
+    s_in = qfd["s_in"]
+    out["s_in"] = (torch.tensor(s_in[:c0], dtype=torch.float32)
+                   if isinstance(s_in, (tuple, list, np.ndarray))
+                   else float(s_in))
     return out

@@ -23,7 +23,8 @@ from typing import Dict, Tuple
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 SOURCES = {"fused_decoder": CSRC / "fused_decoder.cu",
-           "train_decoder": CSRC / "train_decoder.cu"}
+           "train_decoder": CSRC / "train_decoder.cu",
+           "decoder_int8": CSRC / "decoder_int8.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -41,9 +42,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library of kernel source ``name`` lives."""
-    digest = hashlib.sha256(SOURCES[name].read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    """Where the library of kernel source ``name`` lives (named by a hash of
+    the source, the shared headers and the flags)."""
+    text = SOURCES[name].read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 
 

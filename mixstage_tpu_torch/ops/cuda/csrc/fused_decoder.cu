@@ -26,10 +26,25 @@
 // kRows frames of one output channel, so every weight load feeds kRows FMAs
 // and every shared-memory float4 load feeds 4.  f32 FMA accumulation.
 // Tensor cores (wgmma) and TMA are left to a later version.
+//
+// The second entry point, mixstage_conv_chain_f32, replaces the TPU kernel
+// mixstage_tpu/ops/pallas/fused_conv.py::fused_grouped_conv_chain (body
+// _chain_kernel): L layers of grouped k=3 'same' conv + bias + leaky over
+// (B, T, G*C), i.e. the decoder above without layer 0 and the logits.  The
+// same plan: one CTA per (time tile, sequence, group), the group's C
+// channels resident in shared memory across all L layers, the tile's own
+// rows of the last layer stored to global memory in the (B, T, G*C) layout.
+// At (32, 64, G=8, C=256, L=3) it does ~19.3 GFLOP against ~52.5 MB, so it
+// is bound by operations too (~0.29 ms at the f32 FMA rate).
 
 #include <cuda_runtime.h>
 
+#include "launch_common.cuh"
+
 namespace {
+
+using mixstage::card;
+using mixstage::round4;
 
 // 16 rows per thread at one 512-thread CTA per SM (128 registers) was the
 // fastest register block at the bs32 serving shapes when this was tuned.
@@ -156,36 +171,77 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) fused_decoder_kernel(
                  G * F, t_first, slope);
 }
 
-inline int round4(int n) { return (n + 3) & ~3; }
+__global__ void __launch_bounds__(kThreads, kMinBlocks) conv_chain_kernel(
+    const float* __restrict__ x, const float* __restrict__ w,
+    const float* __restrict__ biases, float* __restrict__ out, int T, int C,
+    int L, int G, int tile_t, int stride, float slope) {
+  extern __shared__ __align__(16) float smem[];
+  const int halo = L;
+  const int nr = tile_t + 2 * halo;
+  const int b = blockIdx.y, g = blockIdx.z;
+  const int t_first = blockIdx.x * tile_t - halo;
+  const int v_lo = max(0, -t_first);
+  const int v_hi = min(nr, T - t_first);
+  const int GC = G * C;
+  float* buf[2] = {smem, smem + (size_t)nr * stride};
 
-// The shared-memory layout of one CTA: two buffers of tile_t + 2(L+1) rows,
-// each row `stride` floats (float4-aligned, wide enough for C0 and C).
+  // zero both buffers and load group g's channels of sequence b
+  const float* xb = x + (size_t)b * T * GC + (size_t)g * C;
+  for (int i = threadIdx.x; i < nr * stride; i += blockDim.x) {
+    const int r = i / stride, ch = i - r * stride;
+    const bool valid = r >= v_lo && r < v_hi && ch < C;
+    buf[0][i] = valid ? __ldg(xb + (size_t)(t_first + r) * GC + ch) : 0.f;
+    buf[1][i] = 0.f;
+  }
+  __syncthreads();
+  // layer l (0-based) reads rows [l, nr - l) of buf[l & 1]
+  for (int l = 0; l < L; ++l) {
+    layer<3, false>(buf[l & 1], stride, C,
+                    w + ((size_t)l * G + g) * 3 * C * C,
+                    biases + (size_t)l * GC + (size_t)g * C, C,
+                    max(l + 1, v_lo), min(nr - l - 1, v_hi),
+                    buf[(l + 1) & 1], stride, t_first, slope);
+    __syncthreads();
+  }
+  // the tile's own rows [halo, halo + tile_t) to out[b, t, g*C:(g+1)*C]
+  const float* last = buf[L & 1];
+  const int lo = max(halo, v_lo), hi = min(halo + tile_t, v_hi);
+  float* ob = out + (size_t)b * T * GC + (size_t)g * C;
+  for (int i = threadIdx.x; i < (hi - lo) * C; i += blockDim.x) {
+    const int r = lo + i / C, c = i % C;
+    ob[(size_t)(t_first + r) * GC + c] = last[r * stride + c];
+  }
+}
+
+// The shared-memory layout of one CTA: two buffers of tile_t + 2*halo rows
+// (halo = one frame per k=3 layer), each row `stride` floats (float4-aligned,
+// wide enough for every layer's input).
 inline int row_stride(int C0, int C) {
   return round4(C0) > round4(C) ? round4(C0) : round4(C);
 }
 
-inline size_t smem_bytes(int C0, int C, int L, int tile_t) {
-  return 2 * (size_t)(tile_t + 2 * (L + 1)) * row_stride(C0, C) *
-         sizeof(float);
+inline size_t smem_bytes(int stride, int halo, int tile_t) {
+  return 2 * (size_t)(tile_t + 2 * halo) * stride * sizeof(float);
+}
+
+// mixstage::pick_tile from 64 output frames per CTA.
+int pick_tile(int B, int T, int G, int stride, int halo, int sm_count,
+              size_t smem_limit) {
+  return mixstage::pick_tile(64, B, T, G, sm_count, smem_limit, [=](int t) {
+    return smem_bytes(stride, halo, t);
+  });
 }
 
 }  // namespace
 
 extern "C" {
 
-// Output frames per CTA on a card of `sm_count` SMs with `smem_limit` bytes
-// of dynamic shared memory per CTA: 64, halved (down to 8) while the grid
-// would leave over an eighth of the SMs idle or the tile overflows shared
-// memory.  A smaller tile recomputes more halo frames per output frame.
-// Returns 0 when not even the 8-frame tile fits.
+// Output frames per CTA of the decoder on a card of `sm_count` SMs with
+// `smem_limit` bytes of dynamic shared memory per CTA (pick_tile's rule);
+// 0 when not even the 8-frame tile fits.
 int mixstage_fused_decoder_tile(int B, int T, int C0, int C, int L, int G,
                                 int sm_count, size_t smem_limit) {
-  int tile = 64;
-  while (tile > 8 && ((long long)G * B * ((T + tile - 1) / tile) <
-                          sm_count * 7 / 8 ||
-                      smem_bytes(C0, C, L, tile) > smem_limit))
-    tile /= 2;
-  return smem_bytes(C0, C, L, tile) > smem_limit ? 0 : tile;
+  return pick_tile(B, T, G, row_stride(C0, C), L + 1, sm_count, smem_limit);
 }
 
 // Launch on `stream` on the current device, with the time tile chosen by
@@ -203,18 +259,13 @@ int mixstage_fused_decoder_f32(const float* x, const float* w0,
   if (B <= 0 || T <= 0 || C0 <= 0 || C <= 0 || L < 0 || F <= 0 || G <= 0 ||
       B > 65535 || G > 65535)
     return (int)cudaErrorInvalidValue;
-  int dev, sms, smem_limit;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&smem_limit,
-                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  int sms, smem_limit;
+  cudaError_t err = card(&sms, &smem_limit);
   if (err != cudaSuccess) return (int)err;
   const int tile_t =
       mixstage_fused_decoder_tile(B, T, C0, C, L, G, sms, smem_limit);
   if (tile_t == 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(C0, C, L, tile_t);
+  const size_t smem = smem_bytes(row_stride(C0, C), L + 1, tile_t);
   err = cudaFuncSetAttribute(fused_decoder_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
@@ -223,6 +274,34 @@ int mixstage_fused_decoder_f32(const float* x, const float* w0,
   fused_decoder_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       x, w0, wc, biases, wl, bl, out, T, C0, C, L, F, G, tile_t,
       row_stride(C0, C), slope);
+  return (int)cudaGetLastError();
+}
+
+// The grouped conv chain on `stream` on the current device, with
+// pick_tile's time tile (halo L); returns the cudaError_t of the launch
+// (cudaErrorInvalidValue for a bad shape or one whose smallest tile does not
+// fit shared memory).  Device pointers to
+// contiguous float32 arrays: x (B, T, G*C); w (L, G, 3, C, C);
+// biases (L, G*C); out (B, T, G*C).
+int mixstage_conv_chain_f32(const float* x, const float* w,
+                            const float* biases, float* out, int B, int T,
+                            int C, int L, int G, float slope, void* stream) {
+  if (B <= 0 || T <= 0 || C <= 0 || L < 0 || G <= 0 || B > 65535 ||
+      G > 65535)
+    return (int)cudaErrorInvalidValue;
+  int sms, smem_limit;
+  cudaError_t err = card(&sms, &smem_limit);
+  if (err != cudaSuccess) return (int)err;
+  const int tile_t = pick_tile(B, T, G, round4(C), L, sms, smem_limit);
+  if (tile_t == 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(round4(C), L, tile_t);
+  err = cudaFuncSetAttribute(conv_chain_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((T + tile_t - 1) / tile_t, B, G);
+  conv_chain_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      x, w, biases, out, T, C, L, G, tile_t, round4(C), slope);
   return (int)cudaGetLastError();
 }
 

@@ -1,15 +1,19 @@
-"""K1 on Hopper: the BN-folded Mix-StAGE mixture decoder as one CUDA kernel.
+"""K1 and K2 on Hopper: the BN-folded Mix-StAGE mixture decoder and the
+grouped conv chain, each as one CUDA kernel.
 
-Counterpart of ``mixstage_tpu/ops/pallas/fused_conv.py``: the TPU kernel
-``fused_mixstage_decoder`` (``:177-229``) becomes the hand-written CUDA C++
-kernel in ``csrc/fused_decoder.cu`` (design and bound noted there), bound
-with ``ctypes``.  ``fused_mixstage_decoder_plain`` is the same function in
-plain PyTorch (the counterpart of ``serve.py::folded_decoder_xla``): the CPU
-tests use it, and ``chip_smoke.py`` holds the kernel against it on the card.
+Counterpart of ``mixstage_tpu/ops/pallas/fused_conv.py``: the TPU kernels
+``fused_mixstage_decoder`` (K1, ``:177-229``) and ``fused_grouped_conv_chain``
+(K2, ``:73-115``) become the hand-written CUDA C++ kernels in
+``csrc/fused_decoder.cu`` (design and bounds noted there), bound with
+``ctypes``.  ``fused_mixstage_decoder_plain`` (the counterpart of
+``serve.py::folded_decoder_xla``) and ``chain_plain`` (of
+``chain_reference``) are the same functions in plain PyTorch: the CPU tests
+use them, and ``chip_smoke.py`` holds the kernels against them on the card.
 
-The wrapper validates its arguments, then on a CPU tensor computes the plain
-version; on a CUDA tensor it launches the kernel or raises — there is no
-fall-back.  ``fused_mixstage_decoder.launches`` counts kernel launches.
+Each wrapper validates its arguments, then on a CPU tensor computes the
+plain version; on a CUDA tensor it launches the kernel or raises — there is
+no fall-back.  ``fused_mixstage_decoder.launches`` and
+``fused_grouped_conv_chain.launches`` count kernel launches.
 """
 
 from __future__ import annotations
@@ -89,6 +93,9 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         tile.restype = _I
         lib.mixstage_cuda_error_string.argtypes = [_I]
         lib.mixstage_cuda_error_string.restype = ctypes.c_char_p
+        chain = lib.mixstage_conv_chain_f32
+        chain.argtypes = [_P] * 4 + [_I] * 5 + [ctypes.c_float, _P]
+        chain.restype = _I
     return lib
 
 
@@ -96,8 +103,9 @@ def tile_frames(B: int, T: int, C0: int, C: int, L: int, G: int,
                 sm_count: int, smem_limit: int) -> int:
     """The kernel's output frames per CTA for this shape on a card of
     ``sm_count`` SMs and ``smem_limit`` bytes of shared memory per CTA (0 if
-    no tile fits).  The rule lives beside the kernel's shared-memory layout
-    in ``csrc/fused_decoder.cu``; the launch applies it to its own card."""
+    no tile fits).  The rule (``csrc/launch_common.cuh``, shared with K4)
+    meets the kernel's shared-memory layout in ``csrc/fused_decoder.cu``;
+    the launch applies it to its own card."""
     lib = bind(build.load_library("fused_decoder"))
     return lib.mixstage_fused_decoder_tile(B, T, C0, C, L, G, sm_count,
                                            smem_limit)
@@ -148,3 +156,61 @@ def fused_mixstage_decoder(x, w0, wc, biases, w_logits, b_logits,
 
 
 fused_mixstage_decoder.launches = 0
+
+
+def chain_plain(x, weights, biases, groups: int, negative_slope: float = 0.2):
+    """The grouped conv chain in plain PyTorch (``chain_reference``,
+    ``fused_conv.py:118-133``): x (B, T, G·C) → (B, T, G·C)."""
+    L, G, _, C, _ = weights.shape
+    h = x.transpose(1, 2)                                    # (B, G·C, T)
+    for layer in range(L):
+        w = weights[layer].permute(0, 3, 2, 1).reshape(G * C, C, 3)
+        h = F.leaky_relu(F.conv1d(h, w, biases[layer], padding=1, groups=G),
+                         negative_slope)
+    return h.transpose(1, 2).contiguous()
+
+
+def fused_grouped_conv_chain(x, weights, biases, groups: int,
+                             negative_slope: float = 0.2):
+    """L layers of grouped k=3 'same' conv + bias + leaky as one kernel
+    launch: x (B, T, G·C), weights (L, G, 3, C, C) (tap, in, out), biases
+    (L, G·C); returns (B, T, G·C).  All float32 and contiguous."""
+    tensors = dict(x=x, weights=weights, biases=biases)
+    for name, t in tensors.items():
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if x.ndim != 3 or weights.ndim != 5:
+        raise ValueError("expected x (B, T, G·C) and weights (L, G, 3, C, C)")
+    B, T, GC = x.shape
+    L, G, K, C, C2 = weights.shape
+    if (G, K, C2, G * C, tuple(biases.shape)) != (groups, 3, C, GC,
+                                                  (L, GC)):
+        raise ValueError(f"x {tuple(x.shape)}, weights "
+                         f"{tuple(weights.shape)} and biases "
+                         f"{tuple(biases.shape)} do not fit groups={groups}")
+    if x.device.type == "cpu":
+        return chain_plain(x, weights, biases, groups, negative_slope)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_grouped_conv_chain runs on CUDA (or the CPU "
+                         f"plain version), got device {x.device}")
+    lib = bind(build.load_library("fused_decoder"))
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.mixstage_conv_chain_f32(
+            x.data_ptr(), weights.data_ptr(), biases.data_ptr(),
+            out.data_ptr(), B, T, C, L, G, float(negative_slope), stream)
+    if err != 0:
+        raise RuntimeError(
+            f"fused_grouped_conv_chain launch failed: "
+            f"{lib.mixstage_cuda_error_string(err).decode()} (error {err}; "
+            f"B={B} T={T} C={C} L={L} G={G})")
+    fused_grouped_conv_chain.launches += 1
+    return out
+
+
+fused_grouped_conv_chain.launches = 0

@@ -1,18 +1,24 @@
 """Serving fast path: audio → pose with BatchNorm folded into both conv chains.
 
-Counterpart of ``mixstage_tpu/serve.py:37-300`` (one device, the batch
-layout, no int8).  Compared with the eval forward:
+Counterpart of ``mixstage_tpu/serve.py:37-300,386-422`` (one device, the
+batch layout).  Compared with the eval forward:
 
 * BatchNorm is folded into the conv weights of the mixture decoder and of
   the cluster-classifier chain (``fold_bn_into_conv``);
 * both chains run through kernel K1 (``ops/cuda/fused_conv.py``) when the
   tensors live on CUDA: the classifier as one group, the mixture decoder as
   M groups — two launches per call;
+* the int8 tier (``quantize_int8=True``) quantizes the mixture decoder
+  against calibration features and runs it through kernel K4
+  (``ops/cuda/quant.py``) instead: one K1 launch (the classifier) and one
+  K4 launch per call;
 * the content+style features (audio encoder, UNet, style table) run as
   the model's own PyTorch layers.
 
 The folded weights keep the JAX layout (tap, in, out) but not its 128-lane
-padding of C0, which was TPU layout; the kernel masks ragged widths itself.
+padding of C0, which was TPU layout; the kernels mask ragged widths
+themselves.  ``build_waveform_serving_fn`` puts the log-mel frontend
+(``data/audio.py::log_mel_spectrogram``) in front, for raw 16 kHz audio.
 """
 
 from __future__ import annotations
@@ -22,9 +28,14 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from mixstage_tpu_torch.data.audio import log_mel_spectrogram
 from mixstage_tpu_torch.device import resolve_device
 from mixstage_tpu_torch.ops.cuda.fused_conv import (
     fold_bn_into_conv, fused_mixstage_decoder, fused_mixstage_decoder_plain)
+from mixstage_tpu_torch.ops.cuda.quant import (decoder_int8_plain,
+                                               fused_mixstage_decoder_int8,
+                                               pack_decoder_int8,
+                                               quantize_folded_decoder)
 from mixstage_tpu_torch.ops.mixture import index_select_outputs
 
 _FOLDED_KEYS = ("w0", "wc", "biases", "w_logits", "b_logits")
@@ -94,7 +105,8 @@ def style_weights(style, num_speakers: int, device) -> torch.Tensor:
 
 
 def build_serving_fn(model: nn.Module, device=None,
-                     use_kernel: Optional[bool] = None):
+                     use_kernel: Optional[bool] = None,
+                     quantize_int8: bool = False, calib=None):
     """``fn(audio (B, T, mel), style (B,) ids or (B, S) rows) → pose
     (B, T, out_feats)`` on ``device``.
 
@@ -103,7 +115,18 @@ def build_serving_fn(model: nn.Module, device=None,
     CUDA) runs the classifier chain and the mixture decoder BN-folded through
     K1; ``use_kernel=False`` is the plain path: the model's unfolded
     classifier and the folded decoder in plain PyTorch.
+
+    ``quantize_int8=True`` is the int8 tier: the mixture decoder is
+    quantized post-training against the features of ``calib=(audio, style
+    ids or (B, S) rows)`` (required) and runs through K4 on the kernel
+    route, through ``decoder_int8_plain`` on the plain one.  Its drift
+    against the f32 path is a few percent: an opt-in speed tier outside the
+    1% contract of the default path.
     """
+    if quantize_int8 and calib is None:
+        raise ValueError("quantize_int8 needs calib=(audio, style ids or "
+                         "(B, S) rows) for the one-shot activation "
+                         "calibration pass")
     device = resolve_device(device)
     if use_kernel is None:
         use_kernel = device.type == "cuda"
@@ -112,24 +135,77 @@ def build_serving_fn(model: nn.Module, device=None,
     fc = extract_folded_classify(model)
     G, S = model.num_clusters, model.num_speakers
 
-    @torch.inference_mode()
-    def fn(audio, style):
+    def inputs(audio, style):
+        """The audio on ``device`` and its (B, T, S) style rows."""
         audio = torch.as_tensor(audio, dtype=torch.float32, device=device)
         B, T = audio.shape[:2]
-        sw = style_weights(style, S, device)[:, None, :].expand(B, T, S)
+        return audio, style_weights(style, S, device)[:, None, :].expand(
+            B, T, S)
+
+    qfd = None
+    if quantize_int8:
+        with torch.inference_mode():
+            audio, sw = inputs(*calib)
+            qfd = quantize_folded_decoder(fd, model.features([audio], None,
+                                                             sw))
+        if use_kernel:
+            qfd = pack_decoder_int8(qfd)
+
+    @torch.inference_mode()
+    def fn(audio, style):
+        audio, sw = inputs(audio, style)
         if use_kernel:
             x = model.features([audio], None, sw)
             scores = fused_mixstage_decoder(
                 x, *(fc[k] for k in _FOLDED_KEYS), groups=1)
             soft = torch.softmax(scores, dim=-1)
-            logits = fused_mixstage_decoder(
-                x, *(fd[k] for k in _FOLDED_KEYS), groups=G)
+            if quantize_int8:
+                logits = fused_mixstage_decoder_int8(x, qfd, groups=G)
+            else:
+                logits = fused_mixstage_decoder(
+                    x, *(fd[k] for k in _FOLDED_KEYS), groups=G)
         else:
             x, _, soft = model.backbone([audio], None, sw)
-            logits = fused_mixstage_decoder_plain(
-                x, *(fd[k] for k in _FOLDED_KEYS), groups=G)
+            if quantize_int8:
+                logits = decoder_int8_plain(x, qfd, groups=G)
+            else:
+                logits = fused_mixstage_decoder_plain(
+                    x, *(fd[k] for k in _FOLDED_KEYS), groups=G)
         return index_select_outputs(logits, soft, G)
 
     fn.device = device
     fn.use_kernel = use_kernel
+    fn.quantize_int8 = quantize_int8
     return fn
+
+
+# the waveform path's framing (``serve.py:386-422``): 4.3 s of log-mel at
+# 103 frames/s, every round(103 / 15)-th frame for the 15 fps pose
+WAVE_SECONDS, MEL_FS, POSE_FS = 4.3, 103, 15
+
+
+def build_waveform_serving_fn(model: nn.Module, device=None):
+    """``fn(waveform (B, samples) at 16 kHz, style) → pose (B, 64, F)``
+    (``serve.py:386-422``): the on-device log-mel frontend over the first
+    4.3 s, every 7th mel frame (15 pose frames per second), then
+    ``build_serving_fn``.  For generators trained on audio/log_mel_400 (64
+    mel bins).  ``fn.n_samples`` is the least number of samples it
+    takes."""
+    stride = round(MEL_FS / POSE_FS)
+    mel_window = int(WAVE_SECONDS * MEL_FS)
+    # samples for mel_window STFT frames (n_fft 512, hop 160, no centring)
+    n_samples = (mel_window - 1) * 160 + 512
+    serve = build_serving_fn(model, device=device)
+
+    @torch.inference_mode()
+    def serve_wav(wav, style):
+        wav = torch.as_tensor(wav, dtype=torch.float32, device=serve.device)
+        if wav.shape[-1] < n_samples:
+            raise ValueError(f"need at least {n_samples} samples "
+                             f"({WAVE_SECONDS} s at 16 kHz), got "
+                             f"{wav.shape[-1]}")
+        mel = log_mel_spectrogram(wav[..., :n_samples])
+        return serve(mel[..., :mel_window:stride, :], style)
+
+    serve_wav.n_samples = n_samples
+    return serve_wav

@@ -1,7 +1,8 @@
 """Serving endpoint: dynamic micro-batching + a stdlib HTTP front door.
 
 Counterpart of ``mixstage_tpu/serving/server.py`` (``DynamicBatcher``
-``:74-253``, ``PoseService`` ``:255-478``, ``start_http_server`` ``:615``).
+``:74-253``, ``PoseService`` ``:255-478``, the handler ``:481-602``,
+``start_http_server`` ``:615``).
 Requests queue up; one worker drains up to ``batch_size`` of them (or what
 arrived within ``max_wait_ms``), pads to the batch size, runs ONE serving
 call and scatters the results.
@@ -11,12 +12,19 @@ call and scatters the results.
   carrying an ``.npz`` with ``audio``/``style`` → raw ``.npy`` pose bytes.
   Any length up to ``max_frames`` pads to a power-of-two bucket of at least
   ``frames`` frames and is trimmed back.
+* ``POST /v1/pose_from_waveform`` — the same with raw 16 kHz samples (a
+  1-D ``audio``), served by ``waveform_batcher`` over
+  ``serve.build_waveform_serving_fn``; 404 when none is configured.
+* ``POST /v1/stream`` — open a streaming session (``{"style": ..., "hop":
+  ...}`` → ``{"session": id, "window", "hop"}``); ``POST /v1/stream/<id>``
+  feeds mel frames and returns the newly final pose frames, ``POST
+  /v1/stream/<id>/finish`` flushes and closes, ``DELETE /v1/stream/<id>``
+  drops the session.  Sessions run overlapped windows with a crossfade
+  (``streaming.py``) and submit their windows through the same batcher, so
+  concurrent streams share device batches.
 * ``GET /healthz`` — liveness, backend, batch size.
-* ``GET /stats`` — request/batch counters, occupancy, latency percentiles.
-
-The streaming (``/v1/stream…``) and waveform (``/v1/pose_from_waveform``)
-endpoints come with a later slice; until then they answer 404, as the JAX
-server does for an endpoint it was not configured with.
+* ``GET /stats`` — request/batch counters, occupancy, latency percentiles,
+  live streaming sessions.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ import json
 import queue
 import threading
 import time
+import uuid
 from concurrent.futures import Future
 from concurrent.futures import TimeoutError as FuturesTimeout
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -36,6 +45,7 @@ import numpy as np
 import torch
 
 from mixstage_tpu_torch.ops.bucketing import pow2_pad
+from mixstage_tpu_torch.streaming import StreamingSession
 
 
 class Overloaded(RuntimeError):
@@ -210,11 +220,14 @@ class DynamicBatcher:
 
 
 class PoseService:
-    """The request-level protocol over a DynamicBatcher."""
+    """The request-level protocol over a DynamicBatcher (and, optionally, a
+    second one for raw waveforms), with streaming sessions."""
 
     def __init__(self, batcher: DynamicBatcher, backend: str = "unknown",
                  timeout_s: float = 30.0, num_styles: Optional[int] = None,
-                 frames: int = 64, mel_bins: Optional[int] = None,
+                 waveform_batcher: Optional[DynamicBatcher] = None,
+                 frames: int = 64, stream_idle_s: float = 300.0,
+                 mel_bins: Optional[int] = None, max_streams: int = 64,
                  max_frames: int = 4096,
                  max_body_bytes: int = 64 * 2 ** 20):
         self.batcher = batcher
@@ -224,10 +237,27 @@ class PoseService:
         # weights share one server (uniform batch shapes)
         self.num_styles = num_styles
         self.mel_bins = mel_bins
+        self.waveform_batcher = waveform_batcher
+        # the streaming window, and the smallest pow-2 bucket of /v1/pose
         self.frames = int(frames)
-        # caps the request length: a handful of pow-2 buckets in all
+        self.stream_idle_s = stream_idle_s
+        self.max_streams = int(max_streams)  # bounds abandoned sessions
+        # caps the request length: a handful of pow-2 buckets in all; the
+        # waveform cap is its sample count at the frontend's 160-sample hop
         self.max_frames = int(max_frames)
+        self.max_wave_samples = self.max_frames * 160
         self.max_body_bytes = int(max_body_bytes)   # enforced before reading
+        # id -> [StreamingSession, last used, lock]
+        self._streams: dict = {}
+        self._streams_lock = threading.Lock()
+
+    def _pick(self, waveform: bool) -> DynamicBatcher:
+        if not waveform:
+            return self.batcher
+        if self.waveform_batcher is None:
+            raise LookupError("waveform endpoint not configured (the model "
+                              "must use audio/log_mel_400)")
+        return self.waveform_batcher
 
     def _style(self, style):
         sty = _style_form(style)
@@ -243,46 +273,132 @@ class PoseService:
                              f"weights, got shape {sty.shape}")
         return sty
 
-    def _audio(self, audio) -> np.ndarray:
-        """Validate a request's audio; ValueError (→ HTTP 400)."""
+    def _mel(self, audio) -> np.ndarray:
         arr = np.asarray(audio, np.float32)
         if arr.ndim != 2:
             raise ValueError(f"audio must be a (frames, mel) matrix, got "
                              f"shape {arr.shape}")
-        if arr.shape[0] < 1:
-            raise ValueError("audio must have at least 1 frame")
-        if arr.shape[0] > self.max_frames:
-            raise ValueError(
-                f"audio has {arr.shape[0]} frames, over this server's cap "
-                f"of {self.max_frames}; split the request")
         if self.mel_bins is not None and arr.shape[1] != self.mel_bins:
             raise ValueError(f"audio has {arr.shape[1]} mel bins, the model "
                              f"expects {self.mel_bins}")
         return arr
 
-    def _infer(self, audio, style) -> np.ndarray:
-        """Bucket to a pow-2 frame count (repeat-last padding), serve, and
-        trim back to the true length."""
-        audio, true_len = pow2_pad(self._audio(audio), floor=self.frames)
-        pose = self.batcher.submit(audio, self._style(style)).result(
+    def _audio(self, audio, waveform: bool = False) -> np.ndarray:
+        """Validate a request's audio; ValueError (→ HTTP 400)."""
+        if waveform:
+            arr = np.asarray(audio, np.float32)
+            if arr.ndim != 1:
+                raise ValueError(f"waveform endpoint expects a 1-D 16 kHz "
+                                 f"sample array, got shape {arr.shape}")
+            if arr.shape[0] > self.max_wave_samples:
+                raise ValueError(
+                    f"waveform has {arr.shape[0]} samples, over this "
+                    f"server's cap of {self.max_wave_samples}; split the "
+                    f"request or use the streaming endpoint")
+            return arr
+        arr = self._mel(audio)
+        if arr.shape[0] < 1:
+            raise ValueError("audio must have at least 1 frame")
+        if arr.shape[0] > self.max_frames:
+            raise ValueError(
+                f"audio has {arr.shape[0]} frames, over this server's cap "
+                f"of {self.max_frames}; split the request or use the "
+                f"streaming endpoint")
+        return arr
+
+    def _infer(self, audio, style, waveform: bool = False) -> np.ndarray:
+        """Bucket mel windows to a pow-2 frame count (repeat-last padding),
+        serve, and trim back to the true length; waveforms go as they
+        are."""
+        audio, true_len = self._audio(audio, waveform), None
+        batcher = self._pick(waveform)
+        if not waveform:
+            audio, true_len = pow2_pad(audio, floor=self.frames)
+        pose = batcher.submit(audio, self._style(style)).result(
             self.timeout_s)
         return pose if true_len is None else pose[:true_len]
 
-    def infer_json(self, payload: dict) -> dict:
+    def infer_json(self, payload: dict, waveform: bool = False) -> dict:
         if "audio" not in payload:
             raise ValueError("payload must carry an 'audio' field")
-        return {"pose": self._infer(payload["audio"],
-                                    payload.get("style", 0)).tolist()}
+        return {"pose": self._infer(payload["audio"], payload.get("style", 0),
+                                    waveform).tolist()}
 
-    def infer_npz(self, body: bytes) -> bytes:
+    def infer_npz(self, body: bytes, waveform: bool = False) -> bytes:
         with np.load(io.BytesIO(body)) as z:
             if "audio" not in z:
                 raise ValueError("npz must carry an 'audio' array")
             audio = z["audio"]
             style = z["style"] if "style" in z else 0
         buf = io.BytesIO()
-        np.save(buf, self._infer(audio, style))
+        np.save(buf, self._infer(audio, style, waveform))
         return buf.getvalue()
+
+    # ---------------------------------------------------- streaming sessions
+    def _sweep_streams(self):
+        """Drop sessions idle past the budget (caller holds the lock)."""
+        now = time.time()
+        for sid in [k for k, v in self._streams.items()
+                    if now - v[1] > self.stream_idle_s]:
+            del self._streams[sid]
+
+    def _stream(self, sid: str):
+        with self._streams_lock:
+            self._sweep_streams()
+            entry = self._streams.get(sid)
+        if entry is None:
+            raise LookupError(f"unknown or expired session {sid!r}")
+        return entry
+
+    def stream_open(self, payload: dict) -> dict:
+        """Create a streaming session whose windows go through the shared
+        batcher."""
+        style = self._style(payload.get("style", 0))
+        hop = payload.get("hop")
+
+        def infer(window, sty):
+            return self.batcher.submit(window, sty).result(self.timeout_s)
+
+        sess = StreamingSession(infer, style, window=self.frames,
+                                hop=None if hop is None else int(hop))
+        sid = uuid.uuid4().hex[:16]
+        with self._streams_lock:
+            self._sweep_streams()
+            if len(self._streams) >= self.max_streams:
+                raise Overloaded(
+                    f"too many live streaming sessions ({self.max_streams});"
+                    f" close or finish some first")
+            self._streams[sid] = [sess, time.time(), threading.Lock()]
+        return {"session": sid, "window": sess.window, "hop": sess.hop}
+
+    def stream_feed(self, sid: str, payload: dict) -> dict:
+        entry = self._stream(sid)
+        if "audio" not in payload:
+            raise ValueError("payload must carry an 'audio' field")
+        audio = self._mel(payload["audio"])
+        with entry[2]:              # one feed at a time per session
+            out = entry[0].feed(audio)
+            entry[1] = time.time()
+            buffered = entry[0].frames_buffered
+        return {"pose": out.tolist(), "frames_buffered": buffered}
+
+    def stream_finish(self, sid: str) -> dict:
+        entry = self._stream(sid)
+        with entry[2]:
+            out = entry[0].finish()
+        with self._streams_lock:
+            self._streams.pop(sid, None)
+        return {"pose": out.tolist()}
+
+    def stream_close(self, sid: str) -> dict:
+        with self._streams_lock:
+            dropped = self._streams.pop(sid, None) is not None
+        return {"closed": dropped}
+
+    def stream_count(self) -> int:
+        with self._streams_lock:
+            self._sweep_streams()
+            return len(self._streams)
 
     def healthz(self) -> dict:
         return {"ok": True, "backend": self.backend,
@@ -305,19 +421,23 @@ def _make_handler(service: PoseService):
             self._send(code, json.dumps(obj).encode(), "application/json")
 
         def _not_found(self):
-            self._send_json(404, {"error": f"unknown or unconfigured path "
-                                           f"{self.path}"})
+            self._send_json(404, {"error": f"unknown path {self.path}"})
 
         def do_GET(self):
             if self.path == "/healthz":
                 self._send_json(200, service.healthz())
             elif self.path == "/stats":
-                self._send_json(200, service.batcher.stats())
+                self._send_json(200, {**service.batcher.stats(),
+                                      "streams": service.stream_count()})
             else:
                 self._not_found()
 
         def do_DELETE(self):
-            self._not_found()
+            parts = self.path.strip("/").split("/")
+            if len(parts) == 3 and parts[:2] == ["v1", "stream"]:
+                self._send_json(200, service.stream_close(parts[2]))
+            else:
+                self._not_found()
 
         def _drain(self, length: int):
             """Discard a refused body in bounded chunks so the client sees
@@ -356,25 +476,45 @@ def _make_handler(service: PoseService):
                 self._drain(length)
                 return
             body = self.rfile.read(length)
-            if self.path != "/v1/pose":
-                self._not_found()
-                return
+            parts = self.path.strip("/").split("/")
             try:
-                if self.headers.get("Content-Type", "").startswith(
-                        "application/octet-stream"):
-                    self._send(200, service.infer_npz(body),
-                               "application/octet-stream")
+                if parts[:2] == ["v1", "stream"]:
+                    self._stream(parts, body)
+                elif self.path in ("/v1/pose", "/v1/pose_from_waveform"):
+                    waveform = self.path.endswith("waveform")
+                    if self.headers.get("Content-Type", "").startswith(
+                            "application/octet-stream"):
+                        self._send(200, service.infer_npz(body, waveform),
+                                   "application/octet-stream")
+                    else:
+                        self._send_json(200, service.infer_json(
+                            json.loads(body.decode()), waveform))
                 else:
-                    self._send_json(200, service.infer_json(
-                        json.loads(body.decode())))
+                    self._not_found()
             except Overloaded as exc:       # queue full → shed, retryable
                 self._send_json(429, {"error": str(exc)})
+            except LookupError as exc:      # unknown session or endpoint
+                self._send_json(404, {"error": f"{type(exc).__name__}: "
+                                               f"{exc}"})
             except FuturesTimeout:          # device stuck / overloaded
                 self._send_json(503, {"error": "inference timed out; server "
                                                "overloaded or backend "
                                                "unavailable"})
             except Exception as exc:  # noqa: BLE001 — surface to the client
                 self._send_json(400, {"error": f"{type(exc).__name__}: {exc}"})
+
+        def _stream(self, parts, body: bytes):
+            """``/v1/stream`` opens, ``/v1/stream/<id>`` feeds,
+            ``/v1/stream/<id>/finish`` flushes."""
+            payload = json.loads(body.decode()) if body else {}
+            if len(parts) == 2:
+                self._send_json(200, service.stream_open(payload))
+            elif len(parts) == 3:
+                self._send_json(200, service.stream_feed(parts[2], payload))
+            elif len(parts) == 4 and parts[3] == "finish":
+                self._send_json(200, service.stream_finish(parts[2]))
+            else:
+                self._not_found()
 
     return Handler
 

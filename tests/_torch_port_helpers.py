@@ -61,7 +61,7 @@ def jax_apply(module, params, stats, *args, **kwargs):
     return jax.tree.map(np.asarray, out)
 
 
-def small_generators(seed: int = 0):
+def small_generators(seed: int = 0, mel: int = MEL):
     """The small JointLateClusterSoftStyle4_G in both packages, carrying the
     same random weights: (jax_module, params, stats, port_module)."""
     from mixstage_tpu.models.mix_stage import \
@@ -71,7 +71,7 @@ def small_generators(seed: int = 0):
 
     jg = JaxG(**SMALL)
     params, stats = flax_variables(
-        jg, [jnp.zeros((B, T, MEL))], jnp.zeros((B, T, FEATS)),
+        jg, [jnp.zeros((B, T, mel))], jnp.zeros((B, T, FEATS)),
         jnp.zeros((B, T, SMALL["num_speakers"])),
         input_modalities=list(MODALITIES), use_pose_input=False,
         train=False, seed=seed)

@@ -5,7 +5,11 @@ halos, T not a multiple of the tile, odd widths, no chain layer, one
 frame), its time-tile rule, and the serving path.  Tolerance: max |kernel -
 plain| ≤ 1e-4 · max |plain| (f32 accumulation order only).  K3's forward
 and backward at a small and a ragged shape, their launch counters, the
-checks of ``DecoderTrain``, and one fused G step.
+checks of ``DecoderTrain``, and one fused G step.  K4 (the int8 decoder) at
+the same edge shapes in both quantization schemes, held to the int8
+envelope (mean |diff| ≤ 1e-3, max ≤ 1e-2 of mean |plain|), its refusal of
+unpacked weights, and the int8 serving tier (one K1 and one K4 launch per
+call); K2 (the grouped conv chain) at edge shapes, to 1e-4.
 
 These need a CUDA device and skip without one.  This file imports neither
 JAX nor the JAX package, so on a machine without JAX it runs on its own:
@@ -219,3 +223,98 @@ def test_fused_g_step_launches_k3_once_each_on_card(cuda):
         assert after == (before[0] + fused, before[1] + fused)
         totals.append(float(losses["total"]))
     assert abs(totals[1] - totals[0]) <= 1e-4 * abs(totals[0])
+
+
+# ---------------------------------------------------------------------------
+# K4: the int8 decoder; K2: the grouped conv chain
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("per_channel", [True, False],
+                         ids=["per_channel", "per_tensor"])
+@pytest.mark.parametrize("shape", EDGE_SHAPES, ids=str)
+def test_int8_kernel_matches_plain_on_card(cuda, shape, per_channel):
+    from mixstage_tpu_torch.ops.cuda import quant as q8
+
+    B, T, G, C0, C, L, F = shape
+    x, w0, wc, biases, wl, bl = _folded(B, T, G, C0, C, L, F, cuda)
+    fd = dict(w0=w0, wc=wc, biases=biases, w_logits=wl, b_logits=bl)
+    qfd = q8.pack_decoder_int8(q8.quantize_folded_decoder(
+        fd, x, per_channel=per_channel))
+    before = q8.fused_mixstage_decoder_int8.launches
+    out = q8.fused_mixstage_decoder_int8(x, qfd, groups=G)
+    ref = q8.decoder_int8_plain(x, qfd, G)
+    torch.cuda.synchronize()
+    assert q8.fused_mixstage_decoder_int8.launches == before + 1
+    assert out.shape == (B, T, G * F)
+    err, scale = (out - ref).abs(), float(ref.abs().mean())
+    assert float(err.mean()) <= 1e-3 * scale
+    assert float(err.max()) <= 1e-2 * scale
+
+
+def test_int8_kernel_needs_packed_weights(cuda):
+    from mixstage_tpu_torch.ops.cuda import quant as q8
+
+    x, w0, wc, biases, wl, bl = _folded(2, 16, 2, 11, 8, 1, 4, cuda)
+    qfd = q8.quantize_folded_decoder(dict(w0=w0, wc=wc, biases=biases,
+                                          w_logits=wl, b_logits=bl), x)
+    with pytest.raises(ValueError, match="pack_decoder_int8"):
+        q8.fused_mixstage_decoder_int8(x, qfd, groups=2)
+
+
+# (B, T, G, C, L)
+CHAIN_SHAPES = [(2, 64, 4, 32, 3), (3, 50, 3, 20, 2), (1, 1, 2, 8, 1),
+                (2, 130, 1, 256, 4), (2, 17, 2, 12, 0)]
+
+
+@pytest.mark.parametrize("shape", CHAIN_SHAPES, ids=str)
+def test_chain_kernel_matches_plain_on_card(cuda, shape):
+    from mixstage_tpu_torch.ops.cuda.fused_conv import (
+        chain_plain, fused_grouped_conv_chain)
+
+    B, T, G, C, L = shape
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn(B, T, G * C, generator=gen).to(cuda)
+    w = (torch.randn(L, G, 3, C, C, generator=gen) * (3 * C) ** -.5).to(cuda)
+    b = (torch.randn(L, G * C, generator=gen) * 0.1).to(cuda)
+    before = fused_grouped_conv_chain.launches
+    out = fused_grouped_conv_chain(x, w, b, groups=G)
+    ref = chain_plain(x, w, b, groups=G)
+    torch.cuda.synchronize()
+    assert fused_grouped_conv_chain.launches == before + 1
+    err = float((out - ref).abs().max()) / float(ref.abs().max())
+    assert err <= 1e-4, err
+
+
+def test_int8_serving_path_on_card(cuda):
+    """One int8 serving call launches K1 (the classifier) once and K4 once;
+    the kernel route is within the int8 envelope of the plain route, and the
+    tier drifts from f32 serving by (1e-4, 0.10)."""
+    from mixstage_tpu_torch.models import JointLateClusterSoftStyle4_G
+    from mixstage_tpu_torch.models.layers import reset_parameters_
+    from mixstage_tpu_torch.ops.cuda import quant as q8
+    from mixstage_tpu_torch.ops.cuda.fused_conv import fused_mixstage_decoder
+    from mixstage_tpu_torch.serve import build_serving_fn
+
+    model = JointLateClusterSoftStyle4_G(num_clusters=4, num_speakers=3,
+                                         in_channels=64)
+    reset_parameters_(model, torch.Generator().manual_seed(1),
+                      random_bn_stats=True)
+    gen = torch.Generator().manual_seed(2)
+    audio = torch.randn(3, 128, 64, generator=gen)
+    calib = (torch.randn(4, 64, 64, generator=gen), [0, 1, 2, 0])
+    serve = build_serving_fn(model, quantize_int8=True, calib=calib)
+    before = (fused_mixstage_decoder.launches,
+              q8.fused_mixstage_decoder_int8.launches)
+    pose = serve(audio, [0, 1, 2])
+    torch.cuda.synchronize()
+    assert (fused_mixstage_decoder.launches,
+            q8.fused_mixstage_decoder_int8.launches) == (before[0] + 1,
+                                                         before[1] + 1)
+    ref = build_serving_fn(model, use_kernel=False, quantize_int8=True,
+                           calib=calib)(audio, [0, 1, 2])
+    err, scale = (pose - ref).abs(), float(ref.abs().mean())
+    assert float(err.mean()) <= 1e-3 * scale
+    assert float(err.max()) <= 1e-2 * scale
+    p32 = build_serving_fn(model)(audio, [0, 1, 2])
+    rel = float((pose - p32).abs().mean() / p32.abs().mean())
+    assert pose.is_cuda and 1e-4 < rel < 0.10, rel

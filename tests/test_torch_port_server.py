@@ -1,7 +1,10 @@
 """CPU round trip through the port's HTTP front door
 (mixstage_tpu_torch/serving): JSON and npz ``/v1/pose``, pow-2 bucketing of
 a 100-frame request to 128 frames and back, ``/healthz``, ``/stats``, a bad
-style (400) and the endpoints of later slices (404)."""
+style (400), unknown and unconfigured endpoints (404); a streaming session
+over HTTP against ``StreamingSession`` over the direct serving function,
+its finish, close and errors; ``/v1/pose_from_waveform`` on a 64-mel
+generator against the direct waveform serving function."""
 
 import json
 import urllib.error
@@ -14,9 +17,11 @@ import torch
 from mixstage_tpu_torch.models import JointLateClusterSoftStyle4_G
 from mixstage_tpu_torch.models.layers import reset_parameters_
 from mixstage_tpu_torch.ops.bucketing import next_pow2, pow2_pad
-from mixstage_tpu_torch.serve import build_serving_fn
+from mixstage_tpu_torch.serve import (build_serving_fn,
+                                      build_waveform_serving_fn)
 from mixstage_tpu_torch.serving import (DynamicBatcher, PoseClient,
                                         PoseService, start_http_server)
+from mixstage_tpu_torch.streaming import session_over_serving_fn
 
 MEL = 32
 
@@ -78,13 +83,83 @@ def test_bad_requests_and_later_endpoints(served):
     with pytest.raises(urllib.error.HTTPError) as err:
         client.pose(np.zeros((64, MEL + 1), np.float32))
     assert err.value.code == 400
-    for path in ("/v1/stream", "/v1/pose_from_waveform"):
-        req = urllib.request.Request(client.base_url + path, data=b"{}",
+    # no waveform batcher on this server; an unknown session; no such path
+    body = json.dumps({"audio": [0.0] * 100}).encode()
+    for path in ("/v1/pose_from_waveform", "/v1/stream/nosuchsession",
+                 "/v1/stream/nosuchsession/finish", "/v1/other"):
+        req = urllib.request.Request(client.base_url + path, data=body,
                                      headers={"Content-Type":
                                               "application/json"})
         with pytest.raises(urllib.error.HTTPError) as err:
             urllib.request.urlopen(req, timeout=10)
-        assert err.value.code == 404
+        assert err.value.code == 404, path
+
+
+def test_stream_routes(served):
+    """A session fed in uneven chunks over HTTP returns what
+    ``StreamingSession`` over the direct serving function returns (the
+    batcher pads to its batch size: float rounding only)."""
+    fn, client = served
+    x = np.random.default_rng(4).normal(size=(150, MEL)).astype(np.float32)
+    stream = client.stream(style=1, hop=32)
+    assert (stream.window, stream.hop) == (64, 32)
+    pieces = [stream.feed(x[i:i + 50]) for i in range(0, 150, 50)]
+    assert client.stats()["streams"] == 1
+    pieces.append(stream.finish())
+    got = np.concatenate([p for p in pieces if p.size])
+    sess = session_over_serving_fn(fn, np.eye(2, dtype=np.float32)[1],
+                                   hop=32)
+    want = np.concatenate([p for p in (sess.feed(x), sess.finish())
+                           if p.size])
+    assert got.shape == (150, 96)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    assert client.stats()["streams"] == 0
+    with pytest.raises(urllib.error.HTTPError) as err:
+        stream.feed(x[:10])                     # finished: gone
+    assert err.value.code == 404
+    other = client.stream(style=0)
+    with pytest.raises(urllib.error.HTTPError) as err:
+        other.feed(np.zeros((4, MEL + 1), np.float32))
+    assert err.value.code == 400
+    for closed in (True, False):                 # DELETE drops it once
+        req = urllib.request.Request(
+            f"{client.base_url}/v1/stream/{other.session}", method="DELETE")
+        with urllib.request.urlopen(req, timeout=10) as resp:
+            assert json.loads(resp.read()) == {"closed": closed}
+
+
+def test_waveform_route():
+    torch.set_num_threads(2)
+    model = JointLateClusterSoftStyle4_G(num_clusters=2, num_speakers=2,
+                                         in_channels=64)
+    reset_parameters_(model, torch.Generator().manual_seed(1),
+                      random_bn_stats=True)
+    wave_fn = build_waveform_serving_fn(model, device="cpu")
+    mel_fn = build_serving_fn(model, device="cpu")
+    batcher = DynamicBatcher(mel_fn, batch_size=2, max_wait_ms=5.0)
+    wave_batcher = DynamicBatcher(wave_fn, batch_size=2, max_wait_ms=5.0)
+    service = PoseService(batcher, backend="cpu", num_styles=2, mel_bins=64,
+                          waveform_batcher=wave_batcher)
+    server = start_http_server(service, port=0)
+    try:
+        client = PoseClient(f"http://127.0.0.1:{server.server_address[1]}")
+        wav = np.random.default_rng(5).normal(size=wave_fn.n_samples) \
+            .astype(np.float32)
+        pose = client.pose_from_waveform(wav, style=1)
+        want = wave_fn(wav[None], np.eye(2, dtype=np.float32)[[1]])[0]
+        assert pose.shape == (64, 96)
+        np.testing.assert_allclose(pose, want.numpy(), rtol=1e-5, atol=1e-5)
+        with pytest.raises(urllib.error.HTTPError) as err:
+            client.pose_from_waveform(wav[:1000])   # too short
+        assert err.value.code == 400
+        with pytest.raises(urllib.error.HTTPError) as err:
+            client.pose_from_waveform(np.zeros((2, 8), np.float32))
+        assert err.value.code == 400
+    finally:
+        server.shutdown()
+        server.server_close()
+        batcher.close()
+        wave_batcher.close()
 
 
 def test_bucketing_helpers():

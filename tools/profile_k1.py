@@ -8,7 +8,8 @@ times each under ``torch.profiler`` and prints, per version: the device
 kernels with their launch count and device time per call, the device busy
 time per call (union of kernel intervals), the host's wall time per call,
 and the device's idle share of that wall time.  It does the same for one
-bs32 serving call of the full-width flagship model.
+bs32 serving call of the full-width flagship model, f32 and int8 (K1's
+classifier launch, then K4).
 
     python3 tools/profile_k1.py [--seed 0] [--out profile.json]
 """
@@ -123,6 +124,11 @@ def main(argv=None) -> int:
                                generator=gen).to(device)
         out["serving_bs32"] = trace(lambda: serve(audio, styles))
         report(f"serving call bs{B} T{T}", out["serving_bs32"])
+        calib = (torch.randn(B, T, MEL, generator=gen),
+                 torch.randint(0, MODEL["num_speakers"], (B,), generator=gen))
+        serve8 = build_serving_fn(model, quantize_int8=True, calib=calib)
+        out["serving_int8_bs32"] = trace(lambda: serve8(audio, styles))
+        report(f"int8 serving call bs{B} T{T}", out["serving_int8_bs32"])
     if args.out:
         with open(args.out, "w") as fh:
             json.dump(out, fh, indent=1)
