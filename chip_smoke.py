@@ -11,9 +11,9 @@ serving tier with the streaming and waveform endpoints (phases 10-14):
 1. device: the card's name and power limit from ``nvidia-smi``;
 2. build: every CUDA kernel from the checkout's sources, one ``nvcc`` per
    source, all started together;
-3. kernels: each kernel against its plain PyTorch version on the card, at
-   every shape the main path launches it at (bs32 and one clip of 64
-   frames, the server's 128-frame bucket) and at T=4096
+3. kernels: K1 (3xTF32 on the tensor cores) against its plain PyTorch
+   version on the card, at every shape the main path launches it at (bs32
+   and one clip of 64 frames, the server's 128-frame bucket) and at T=4096
    (max |err| / max |ref| ≤ 1e-4);
 4. model: one serving call launches K1 exactly twice, and its pose stays
    within 1% (mean |diff| / mean |pose|) of the plain path and of the
@@ -40,11 +40,10 @@ serving tier with the streaming and waveform endpoints (phases 10-14):
 10. int8 and chain kernels: K4 against ``decoder_int8_plain`` at every shape
     the int8 path launches it at (bs32 × 64, one 64-frame clip, the bs32
     128-frame bucket) and at B=1 T=4096 and a ragged B=3 T=50, with weights
-    quantized from seeded folded weights (mean |err| ≤ 1e-3 and max ≤ 1e-2
-    of mean |plain|, and no element differs: K4 rounds as its plain
-    version does); K2 against ``chain_plain`` at (32, 64, G=8, C=256,
-    L=3), (4, 64, 4, 128, 3) and a ragged B=3 T=50 (max |err| / max |ref|
-    ≤ 1e-4);
+    quantized from seeded folded weights (no element differs: K4's integer
+    MMA sums are exact and it rounds as its plain version does); K2
+    against ``chain_plain`` at (32, 64, G=8, C=256, L=3), (4, 64, 4, 128,
+    3) and a ragged B=3 T=50 (max |err| / max |ref| ≤ 1e-4);
 11. int8 serving: ``build_serving_fn(model, quantize_int8=True, calib=...)``
     at bs32 launches K1 once and K4 once, its pose is finite, drifts from
     the f32 kernel route by (1e-4, 0.10), and is within K4's envelope of
@@ -59,6 +58,11 @@ serving tier with the streaming and waveform endpoints (phases 10-14):
     (max |diff| / mean |pose| ≤ 1e-5);
 14. timings (CUDA events): K4 and K2 beside their bounds and plain
     versions; the bs32 int8 call against the f32 one in ABBA turns.
+
+Each kernel's bound is that of its route: K1 at the TF32 tensor-core rate
+(3 MMAs per multiply-add; the f32 FMA bound beside it as ``ffma_bound_ms``),
+K4 at the int8 tensor-core rate, K2 and K3 at the f32 FMA rate; ``mma``
+names the inner product.
 
 It prints one JSON line of kernels, the ``nvidia-smi`` line, and last the
 device line ``{"ok": true, "device": {...}}``.  Any failed check exits
@@ -79,15 +83,17 @@ import time
 import numpy as np
 
 # published peaks of one H100 SXM (NVIDIA data sheet): f32 outside the
-# tensor cores, and HBM3 bandwidth
+# tensor cores, dense tensor-core rates, and HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
-PEAK_INT8_OPS = 1979e12      # dense int8 tensor-core rate
+PEAK_TF32_FLOPS = 495e12     # K1's route: 3 TF32 MMAs per multiply-add
+PEAK_INT8_OPS = 1979e12
 PEAK_HBM_BYTES = 3.35e12
 KERNEL_TOL = 1e-4            # max |kernel - plain| / max |plain|
 DRIFT_TOL = 0.01             # the serving path's BN-fold drift contract
 WAVE_TOL = 1e-5              # served waveform pose against the direct call
-# K4 against its plain version, as fractions of mean |plain|: a requantized
-# LSB that float rounding flips amplifies through later layers
+# the int8 kernel route against the plain int8 route, as fractions of mean
+# |plain|: K1's float rounding moves the mixture weights and the features,
+# and a requantized LSB it flips amplifies through later layers
 # (tests/test_pallas.py:306-309)
 INT8_MEAN_TOL, INT8_MAX_TOL = 1e-3, 1e-2
 INT8_DRIFT = (1e-4, 0.10)    # int8 tier against f32 serving (test_pallas:160)
@@ -182,6 +188,8 @@ def k2_work(b, t, g, c, layers):
 
 
 def bound_ms(flops, nbytes, peak=PEAK_F32_FLOPS):
+    """(least ms on the card, what bounds it): ``flops`` at ``peak`` or
+    ``nbytes`` at the HBM rate, whichever takes longer."""
     t_ops, t_bytes = flops / peak, nbytes / PEAK_HBM_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
@@ -376,15 +384,12 @@ def int8_phases(torch, args, device, smi, model, audio, styles, pose32,
         torch.cuda.synchronize()
         check(bool(torch.isfinite(out).all()), f"K4 {name}: non-finite")
         mean_rel, max_rel, abs_err, ndiff = int8_errors(out, ref)
-        tile = q8.device_tile_frames(b, t, C0, C, L, G, device)
+        tile = q8.device_tile_frames(b, t, C0, C, L, F, G, device)
         log(f"[kernel] fused_mixstage_decoder_int8 {name} B={b} T={t} G={G} "
             f"C0={C0} C={C} L={L} F={F} (tile {tile} frames, "
             f"{G * b * -(-t // tile)} CTAs): {ndiff} of {out.numel()} "
-            f"elements differ from the plain version; mean|err|/mean|ref| "
-            f"{mean_rel:.3e} (tol {INT8_MEAN_TOL:g}), max {max_rel:.3e} "
-            f"(tol {INT8_MAX_TOL:g})")
-        check(mean_rel <= INT8_MEAN_TOL and max_rel <= INT8_MAX_TOL,
-              f"K4 {name} outside the int8 envelope of its plain version")
+            f"elements differ from the plain version (tol 0); "
+            f"mean|err|/mean|ref| {mean_rel:.3e}, max {max_rel:.3e}")
         check(ndiff == 0, f"K4 {name}: {ndiff} elements differ from the "
               f"plain version, which it matches bit for bit by design")
         k4_shapes[name] = dict(shape=dict(B=b, T=t, G=G, C0=C0, C=C, L=L,
@@ -621,7 +626,7 @@ def int8_phases(torch, args, device, smi, model, audio, styles, pose32,
           "ms": main4["ms"], "plain_ms": main4["plain_ms"],
           "bound_ms": main4["bound_ms"], "bound_by": main4["bound_by"],
           # no single PyTorch call computes the int8 conv chain
-          "library_ms": None}
+          "library_ms": None, "mma": "s8"}
     k2 = {"name": "fused_grouped_conv_chain", "route": "cuda",
           "source": "mixstage_tpu_torch/ops/cuda/csrc/fused_decoder.cu",
           "replaces": "mixstage_tpu/ops/pallas/fused_conv.py:75",
@@ -630,7 +635,7 @@ def int8_phases(torch, args, device, smi, model, audio, styles, pose32,
           "max_abs_err": max(r["max_abs_err"] for r in k2_shapes.values()),
           "ms": main2["ms"], "plain_ms": main2["plain_ms"],
           "bound_ms": main2["bound_ms"], "bound_by": main2["bound_by"],
-          "library_ms": None}
+          "library_ms": None, "mma": "ffma"}
     return k4, k2
 
 
@@ -697,7 +702,7 @@ def main(argv=None) -> int:
         check(bool(torch.isfinite(out).all()), f"K1 {name}: non-finite")
         abs_err = float((out - ref).abs().max())
         rel_err = abs_err / float(ref.abs().max())
-        tile = device_tile_frames(b, t, C0, C, layers, g, device)
+        tile = device_tile_frames(b, t, C0, C, layers, f, g, device)
         log(f"[kernel] fused_mixstage_decoder {name} B={b} T={t} G={g} "
             f"C0={C0} C={C} L={layers} F={f} (tile {tile} frames, "
             f"{g * b * -(-t // tile)} CTAs): max|err| {abs_err:.3e}, "
@@ -827,22 +832,27 @@ def main(argv=None) -> int:
                 *a, groups=g))
         s = rec["shape"]
         flops, nbytes = k1_work(s["B"], s["T"], g, s["L"], s["F"])
-        rec["bound_ms"], rec["bound_by"] = bound_ms(flops, nbytes)
+        rec["bound_ms"], rec["bound_by"] = bound_ms(3 * flops, nbytes,
+                                                    PEAK_TF32_FLOPS)
+        rec["ffma_bound_ms"] = bound_ms(flops, nbytes)[0]
         rec["flops"], rec["bytes"] = flops, nbytes
         rec["tflops"] = flops / (rec["ms"] / 1e3) / 1e12
         log(f"[timing] {smi}: K1 {name}: {rec['ms']:.4f} ms "
-            f"({rec['tflops']:.2f} TFLOP/s f32), plain {rec['plain_ms']:.4f} "
-            f"ms, bound {rec['bound_ms']:.4f} ms by {rec['bound_by']} "
-            f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
+            f"({rec['tflops']:.2f} TFLOP/s of f32 work), plain "
+            f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms by "
+            f"{rec['bound_by']} (3xTF32 tensor cores; f32 FMA bound "
+            f"{rec['ffma_bound_ms']:.4f} ms; {flops / 1e9:.2f} GFLOP, "
+            f"{nbytes / 1e6:.1f} MB)")
     results["timing"] = dict(clip_p50_ms=p50, bs32_call_ms=call_ms,
                              bs32_frames_per_s=fps,
                              plain_bs32_call_ms=plain_call_ms,
                              features_ms=feats_ms)
 
     main_shapes = ("decoder", "classifier")
-    call_bound_ms, call_bound_by = bound_ms(
-        sum(per_shape[s]["flops"] for s in main_shapes),
-        sum(per_shape[s]["bytes"] for s in main_shapes))
+    call_flops = sum(per_shape[s]["flops"] for s in main_shapes)
+    call_bytes = sum(per_shape[s]["bytes"] for s in main_shapes)
+    call_bound_ms, call_bound_by = bound_ms(3 * call_flops, call_bytes,
+                                            PEAK_TF32_FLOPS)
     k1 = {
         "name": "fused_mixstage_decoder", "route": "cuda",
         "source": "mixstage_tpu_torch/ops/cuda/csrc/fused_decoder.cu",
@@ -855,6 +865,8 @@ def main(argv=None) -> int:
         "bound_ms": call_bound_ms,
         "bound_by": call_bound_by,
         "library_ms": None,
+        "mma": "3xtf32",
+        "ffma_bound_ms": bound_ms(call_flops, call_bytes)[0],
         "shapes": per_shape,
     }
 
@@ -1019,7 +1031,7 @@ def main(argv=None) -> int:
             "launches": count, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             # no single PyTorch call computes the train-mode conv + BN chain
-            "library_ms": None})
+            "library_ms": None, "mma": "ffma"})
     results["train"] = dict(total_fused=tot_f, total_unfused=tot_u,
                             param_diff=p_err, stat_diff=s_err,
                             mu_gaps=mu_gaps, mu_bias_gap=bias_gap,

@@ -1,5 +1,5 @@
 // Launch helpers shared by the decoder kernels (fused_decoder.cu,
-// decoder_int8.cu): the card query and the time-tile rule.  Host code only.
+// decoder_int8.cu): the card query and the time-tile rules.  Host code only.
 
 #pragma once
 
@@ -10,21 +10,55 @@ namespace mixstage {
 
 inline int round4(int n) { return (n + 3) & ~3; }
 
-// Output frames per CTA: `max_tile`, halved (down to 8) while half the tile
-// still covers T, while the grid of G * B * ceil(T / tile) CTAs would leave
-// over an eighth of the card's `sm_count` SMs idle, or while the CTA's
-// `smem_bytes(tile)` overflows `smem_limit`; 0 when not even the 8-frame
-// tile fits.  A smaller tile recomputes more halo frames per output frame.
-template <class SmemBytes>
-int pick_tile(int max_tile, int B, int T, int G, int sm_count,
-              size_t smem_limit, SmemBytes smem_bytes) {
+// The FFMA rule of K2 (mixstage_conv_chain_f32): output frames per CTA
+// from `max_tile`, halved (down to 8) while half the tile still covers T,
+// while the grid of G * B * ceil(T / tile) CTAs would leave over an eighth
+// of the card's `sm_count` SMs idle, or while `fits(tile)` is false; 0 when
+// not even the 8-frame tile fits.  A smaller tile recomputes more halo
+// frames per output frame.
+template <class Fits>
+int fill_tile(int max_tile, int B, int T, int G, int sm_count, Fits fits) {
   int tile = max_tile;
   while (tile > 8 && tile / 2 >= T) tile /= 2;
   while (tile > 8 && ((long long)G * B * ((T + tile - 1) / tile) <
                           sm_count * 7 / 8 ||
-                      smem_bytes(tile) > smem_limit))
+                      !fits(tile)))
     tile /= 2;
-  return smem_bytes(tile) > smem_limit ? 0 : tile;
+  return fits(tile) ? tile : 0;
+}
+
+// The tensor-core rule of K1 and K4.  Each CTA of those kernels stages its
+// group's whole weight set through shared memory once (a fixed cost per
+// CTA) and runs each layer's rows in passes of `quantum` rows (16-row MMA
+// tiles, one per warp row of the CTA): a CTA of `tile` frames costs about
+//   weight_rows + sum over the n_layers k=3 layers of
+//                 ceil(rows_l / quantum) * quantum
+// row-passes, rows_l = tile + 2 * (halo - l) - 2, and the grid runs in
+// ceil(CTAs / sm_count) waves.  Of the tiles 8, 16, ..., max_tile that
+// `fits` (shared memory, the kernel's rows per layer) and that half of
+// which does not already cover T, the one with the least estimated time
+// (waves x CTA cost) wins; ties go to the smaller tile (more CTAs to
+// spread over the SMs).  0 when no tile fits.  `weight_rows` is the weight
+// staging's cost in row-passes; the rule picked the fastest tile at every
+// shape chip_smoke.py launches (tools/profile_k1.py --sweep, PERF.md).
+template <class Fits>
+int cost_tile(int max_tile, int B, int T, int G, int halo, int n_layers,
+              int quantum, int weight_rows, int sm_count, Fits fits) {
+  int best = 0;
+  long long best_cost = 0;
+  for (int tile = 8; tile <= max_tile; tile *= 2) {
+    if (!fits(tile) || (tile > 8 && tile / 2 >= T)) continue;
+    long long rows = weight_rows;
+    for (int l = 0; l < n_layers; ++l)
+      rows += (tile + 2 * (halo - l) - 2 + quantum - 1) / quantum * quantum;
+    const long long ctas = (long long)G * B * ((T + tile - 1) / tile);
+    const long long cost = (ctas + sm_count - 1) / sm_count * rows;
+    if (best == 0 || cost < best_cost) {
+      best = tile;
+      best_cost = cost;
+    }
+  }
+  return best;
 }
 
 // The current card's SM count and opt-in shared memory per CTA.

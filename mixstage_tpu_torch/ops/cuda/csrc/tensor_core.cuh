@@ -1,0 +1,127 @@
+// Device helpers shared by the tensor-core decoder kernels (K1 in
+// fused_decoder.cu, K4 in decoder_int8.cu): the padded shared-memory
+// strides, the cp.async ring that stages weight chunks, and the warp-level
+// mma.sync instructions they run.
+//
+// Fragment layouts (PTX ISA, mma.m16n8k8 .tf32 and mma.m16n8k32 .s8), with
+// g = lane / 4 and t = lane % 4, in 32-bit words (one tf32 value, or four
+// int8 values of consecutive k):
+//   A (16 x 8 words, row-major):  a0 (g, t)  a1 (g+8, t)  a2 (g, t+4)
+//                                 a3 (g+8, t+4)
+//   B (8 words x 8, k-major):     b0 (t, g)  b1 (t+4, g)
+//   C (16 x 8, f32 or s32):       c0 (g, 2t)  c1 (g, 2t+1)  c2 (g+8, 2t)
+//                                 c3 (g+8, 2t+1)
+// An activation row stride of 4 mod 8 words puts the 32 lanes' A loads on
+// 32 distinct banks (row g lands on bank 4g mod 32 up to a permutation, plus
+// t); a staged weight row stride of 8 mod 16 words does the same for B
+// (row t on bank 8t, plus g).
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace mixstage {
+
+__host__ __device__ inline int round8(int n) { return (n + 7) & ~7; }
+
+// Row stride (words) of an activation tile whose rows hold k words.
+__host__ __device__ inline int act_stride(int k) { return round8(k) + 4; }
+
+// Row stride (words) of a staged weight chunk of cout columns.
+__host__ __device__ inline int weight_stride(int cout) {
+  const int w = round8(cout);
+  return w % 16 == 0 ? w + 8 : w;
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// Copy `bytes` (0 or the full size: 0 writes zeros) from global to shared
+// memory without passing through registers.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Start copying k rows [k0, k0 + kRows) of the row-major (krows, cout)
+// array w of 32-bit words into `dst` (row stride ws words), columns
+// [0, round8(cout)); rows >= krows and columns >= cout become 0.  16-byte
+// copies when every row start is 16-byte aligned, else 4-byte ones.
+template <int kRows>
+__device__ __forceinline__ void stage_chunk(uint32_t* dst, int ws,
+                                            const uint32_t* w, int krows,
+                                            int cout, int k0) {
+  const int wcols = round8(cout);
+  if ((cout & 3) == 0 && (reinterpret_cast<uintptr_t>(w) & 15) == 0) {
+    const int nv = wcols / 4;
+    for (int i = threadIdx.x; i < kRows * nv; i += blockDim.x) {
+      const int r = i / nv, c = 4 * (i - r * nv);
+      const bool ok = k0 + r < krows && c < cout;
+      cp_async16(dst + r * ws + c, ok ? w + (size_t)(k0 + r) * cout + c : w,
+                 ok ? 16 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kRows * wcols; i += blockDim.x) {
+      const int r = i / wcols, c = i - r * wcols;
+      const bool ok = k0 + r < krows && c < cout;
+      cp_async4(dst + r * ws + c, ok ? w + (size_t)(k0 + r) * cout + c : w,
+                ok ? 4 : 0);
+    }
+  }
+}
+
+// v rounded to tf32 (10 mantissa bits, to nearest, ties away from zero),
+// as the bits of an f32 whose low 13 bits are 0.
+__device__ __forceinline__ uint32_t to_tf32(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+
+// The 3xTF32 split: v = hi + lo (exactly up to lo's own rounding).
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = to_tf32(v);
+  lo = to_tf32(__fsub_rn(v, __uint_as_float(hi)));
+}
+
+// d += a (16x8 tf32) * b (8x8 tf32), f32 accumulation.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a (16x32 s8) * b (32x8 s8), exact s32 accumulation.
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
+                                       const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+}  // namespace mixstage

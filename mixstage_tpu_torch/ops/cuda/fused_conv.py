@@ -5,7 +5,8 @@ Counterpart of ``mixstage_tpu/ops/pallas/fused_conv.py``: the TPU kernels
 ``fused_mixstage_decoder`` (K1, ``:177-229``) and ``fused_grouped_conv_chain``
 (K2, ``:73-115``) become the hand-written CUDA C++ kernels in
 ``csrc/fused_decoder.cu`` (design and bounds noted there), bound with
-``ctypes``.  ``fused_mixstage_decoder_plain`` (the counterpart of
+``ctypes``: K1 on the tensor cores in 3xTF32 (f32 accuracy), K2 on the
+CUDA cores in f32 FMA.  ``fused_mixstage_decoder_plain`` (the counterpart of
 ``serve.py::folded_decoder_xla``) and ``chain_plain`` (of
 ``chain_reference``) are the same functions in plain PyTorch: the CPU tests
 use them, and ``chip_smoke.py`` holds the kernels against them on the card.
@@ -86,10 +87,10 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     (pointers and the stream as ``c_void_p``, so none is cut to 32 bits)."""
     fn = lib.mixstage_fused_decoder_f32
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 7 + [_I] * 7 + [ctypes.c_float, _P]
+        fn.argtypes = [_P] * 7 + [_I] * 7 + [ctypes.c_float, _I, _P]
         fn.restype = _I
         tile = lib.mixstage_fused_decoder_tile
-        tile.argtypes = [_I] * 7 + [ctypes.c_size_t]
+        tile.argtypes = [_I] * 8 + [ctypes.c_size_t]
         tile.restype = _I
         lib.mixstage_cuda_error_string.argtypes = [_I]
         lib.mixstage_cuda_error_string.restype = ctypes.c_char_p
@@ -99,23 +100,23 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
-def tile_frames(B: int, T: int, C0: int, C: int, L: int, G: int,
+def tile_frames(B: int, T: int, C0: int, C: int, L: int, F: int, G: int,
                 sm_count: int, smem_limit: int) -> int:
     """The kernel's output frames per CTA for this shape on a card of
     ``sm_count`` SMs and ``smem_limit`` bytes of shared memory per CTA (0 if
-    no tile fits).  The rule (``csrc/launch_common.cuh``, shared with K4)
-    meets the kernel's shared-memory layout in ``csrc/fused_decoder.cu``;
-    the launch applies it to its own card."""
+    no tile fits).  The rule (``csrc/launch_common.cuh::cost_tile``, shared
+    with K4) meets the kernel's rows per layer and shared-memory layout in
+    ``csrc/fused_decoder.cu``; the launch applies it to its own card."""
     lib = bind(build.load_library("fused_decoder"))
-    return lib.mixstage_fused_decoder_tile(B, T, C0, C, L, G, sm_count,
+    return lib.mixstage_fused_decoder_tile(B, T, C0, C, L, F, G, sm_count,
                                            smem_limit)
 
 
-def device_tile_frames(B: int, T: int, C0: int, C: int, L: int, G: int,
-                       device) -> int:
+def device_tile_frames(B: int, T: int, C0: int, C: int, L: int, F: int,
+                       G: int, device) -> int:
     """``tile_frames`` for the card ``device``: the tile its launch uses."""
     props = torch.cuda.get_device_properties(device)
-    return tile_frames(B, T, C0, C, L, G, props.multi_processor_count,
+    return tile_frames(B, T, C0, C, L, F, G, props.multi_processor_count,
                        props.shared_memory_per_block_optin)
 
 
@@ -127,7 +128,8 @@ def fused_mixstage_decoder(x, w0, wc, biases, w_logits, b_logits,
     layer-0 kernels; wc (L, G, 3, C, C) folded chain kernels; biases
     (G, L+1, C), row 0 for layer 0; w_logits (G, C, F), b_logits (G, F) the
     grouped 1×1 output conv.  Returns per-group logits (B, T, G·F), to be
-    combined by ``index_select_outputs``.  All float32 and contiguous."""
+    combined by ``index_select_outputs``.  All float32 and contiguous; C
+    and F at most 256 (one warp per 32 output columns)."""
     B, T, C0, C, L, F_, G = _check(x, w0, wc, biases, w_logits, b_logits,
                                    groups)
     if x.device.type == "cpu":
@@ -143,9 +145,9 @@ def fused_mixstage_decoder(x, w0, wc, biases, w_logits, b_logits,
         err = lib.mixstage_fused_decoder_f32(
             x.data_ptr(), w0.data_ptr(), wc.data_ptr(), biases.data_ptr(),
             w_logits.data_ptr(), b_logits.data_ptr(), out.data_ptr(),
-            B, T, C0, C, L, F_, G, float(negative_slope), stream)
+            B, T, C0, C, L, F_, G, float(negative_slope), 0, stream)
     if err != 0:
-        tile = device_tile_frames(B, T, C0, C, L, G, x.device)
+        tile = device_tile_frames(B, T, C0, C, L, F_, G, x.device)
         raise RuntimeError(
             f"fused_mixstage_decoder launch failed: "
             f"{lib.mixstage_cuda_error_string(err).decode()} (error {err}; "

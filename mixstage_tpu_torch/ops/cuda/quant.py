@@ -4,9 +4,10 @@ Counterpart of ``mixstage_tpu/ops/pallas/quant.py``: post-training symmetric
 int8 quantization of the folded decoder (``quantize_folded_decoder``), and
 the TPU kernel ``fused_mixstage_decoder_int8`` (``:263-317``, body
 ``_decoder_kernel_int8`` ``:223-260``) as the hand-written CUDA C++ kernel in
-``csrc/decoder_int8.cu`` (design and bound noted there), bound with
-``ctypes``.  ``decoder_int8_plain`` is the same function in plain PyTorch
-(the counterpart of ``decoder_int8_xla``): the CPU tests use it, and
+``csrc/decoder_int8.cu`` (design and bound noted there; int8 tensor cores,
+``mma.sync`` s8), bound with ``ctypes``.  ``decoder_int8_plain`` is the
+same function in plain PyTorch (the counterpart of ``decoder_int8_xla``):
+the CPU tests use it, and
 ``chip_smoke.py`` holds the kernel against it on the card.
 
 Scheme (as in the JAX package): int8 weights per (group, output channel),
@@ -171,8 +172,9 @@ def decoder_int8_plain(x, qfd: Dict, groups: int,
 
 def pack_words(w_i8):
     """(..., cin, cout) int8 → (..., ceil(cin/4), cout) int32: four
-    consecutive input channels to a word, channel 4i+j in byte j (the
-    operand layout of ``__dp4a``), zero-padded to a multiple of 4."""
+    consecutive input channels to a word, channel 4i+j in byte j, output
+    channel fastest: one word is one register of the s8 MMA's B fragment
+    (``csrc/tensor_core.cuh``); zero-padded to a multiple of 4."""
     *lead, cin, cout = w_i8.shape
     pad = -cin % 4
     if w_i8.numel() == 0:                   # no chain layer
@@ -224,24 +226,24 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C signatures of a loaded ``decoder_int8`` library."""
     fn = lib.mixstage_decoder_int8
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 12 + [_I] * 7 + [ctypes.c_float, _P]
+        fn.argtypes = [_P] * 12 + [_I] * 7 + [ctypes.c_float, _I, _P]
         fn.restype = _I
         tile = lib.mixstage_decoder_int8_tile
-        tile.argtypes = [_I] * 7 + [ctypes.c_size_t]
+        tile.argtypes = [_I] * 8 + [ctypes.c_size_t]
         tile.restype = _I
         lib.mixstage_decoder_int8_error_string.argtypes = [_I]
         lib.mixstage_decoder_int8_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def device_tile_frames(B: int, T: int, C0: int, C: int, L: int, G: int,
-                       device) -> int:
+def device_tile_frames(B: int, T: int, C0: int, C: int, L: int, F: int,
+                       G: int, device) -> int:
     """Output frames per CTA of the kernel's launch for this shape on the
     card ``device`` (0 if no tile fits its shared memory)."""
     lib = bind(build.load_library("decoder_int8"))
     props = torch.cuda.get_device_properties(device)
     return lib.mixstage_decoder_int8_tile(
-        B, T, C0, C, L, G, props.multi_processor_count,
+        B, T, C0, C, L, F, G, props.multi_processor_count,
         props.shared_memory_per_block_optin)
 
 
@@ -252,7 +254,7 @@ def fused_mixstage_decoder_int8(x, qfd: Dict, groups: int,
     x (B, T, C0) f32 content⊕style features, quantized inside; ``qfd`` from
     ``quantize_folded_decoder`` (on CUDA: passed through
     ``pack_decoder_int8``).  Returns per-group logits (B, T, G·F) f32, to be
-    combined by ``index_select_outputs``."""
+    combined by ``index_select_outputs``.  C and F at most 256."""
     B, T, C0, C, L, F_, G = _check(x, qfd, groups)
     if x.device.type == "cpu":
         return decoder_int8_plain(x, qfd, groups, negative_slope)
@@ -276,14 +278,14 @@ def fused_mixstage_decoder_int8(x, qfd: Dict, groups: int,
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.mixstage_decoder_int8(
             x.data_ptr(), *(t.data_ptr() for t in args), out.data_ptr(),
-            B, T, C0, C, L, F_, G, float(negative_slope), stream)
+            B, T, C0, C, L, F_, G, float(negative_slope), 0, stream)
     if err != 0:
         raise RuntimeError(
             f"fused_mixstage_decoder_int8 launch failed: "
             f"{lib.mixstage_decoder_int8_error_string(err).decode()} (error "
             f"{err}; B={B} T={T} C0={C0} C={C} L={L} F={F_} G={G}; time tile "
-            f"{device_tile_frames(B, T, C0, C, L, G, x.device)}, 0 = none "
-            f"fits shared memory)")
+            f"{device_tile_frames(B, T, C0, C, L, F_, G, x.device)}, "
+            f"0 = none fits shared memory)")
     fused_mixstage_decoder_int8.launches += 1
     return out
 

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Trace kernel K1 and its plain PyTorch version on one CUDA card.
 
-For each shape (bs32 classifier chain, and the decoder and classifier at
-the server's 4096-frame bucket) it runs K1 and the plain version
+For each shape (the bs32 decoder and classifier chain, and both at the
+server's 4096-frame bucket) it runs K1 and the plain version
 (``fused_mixstage_decoder_plain``: cuDNN convolutions and matmuls) five
 times each under ``torch.profiler`` and prints, per version: the device
 kernels with their launch count and device time per call, the device busy
@@ -11,12 +11,23 @@ and the device's idle share of that wall time.  It does the same for one
 bs32 serving call of the full-width flagship model, f32 and int8 (K1's
 classifier launch, then K4).
 
-    python3 tools/profile_k1.py [--seed 0] [--out profile.json]
+``--sweep`` also times K1 and K4 (CUDA events) at every time tile that
+fits, at every shape ``chip_smoke.py`` launches them at, beside the tile
+their rule picks.  ``--parent DIR`` builds an earlier version's
+``fused_decoder.cu`` and ``decoder_int8.cu`` found in DIR (with the
+headers they include, e.g. written there by ``git show
+<commit>:mixstage_tpu_torch/ops/cuda/csrc/<file>``) into
+``build/parent_kernels/`` and times them against the current kernels in
+turns (parent, current, current, parent) at those shapes.
+
+    python3 tools/profile_k1.py [--seed 0] [--sweep] [--parent DIR]
+                                [--out profile.json]
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import subprocess
 import sys
@@ -28,21 +39,25 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from chip_smoke import (C, C0, MEL, MODEL, B, T, k1_work,  # noqa: E402
-                        random_folded)
+from chip_smoke import (C, C0, K1_SHAPES, K4_SHAPES, MEL, MODEL, B, T,  # noqa: E402
+                        cuda_ms, k1_work, random_folded)
 from mixstage_tpu_torch import resolve_device  # noqa: E402
 from mixstage_tpu_torch.models import JointLateClusterSoftStyle4_G  # noqa: E402
 from mixstage_tpu_torch.models.layers import reset_parameters_  # noqa: E402
+from mixstage_tpu_torch.ops.cuda import build, fused_conv  # noqa: E402
+from mixstage_tpu_torch.ops.cuda import quant as q8  # noqa: E402
 from mixstage_tpu_torch.ops.cuda.fused_conv import (  # noqa: E402
     device_tile_frames, fused_mixstage_decoder, fused_mixstage_decoder_plain)
 from mixstage_tpu_torch.serve import build_serving_fn  # noqa: E402
 
 SHAPES = {   # name: (B, T, G, L, F)
+    "decoder": (B, T, 8, 3, 96),
     "classifier": (B, T, 1, 5, 8),
     "decoder_T4096": (1, 4096, 8, 3, 96),
     "classifier_T4096": (1, 4096, 1, 5, 8),
 }
 CALLS = 5
+_P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 def trace(fn) -> dict:
@@ -83,7 +98,7 @@ def trace(fn) -> dict:
 
 def report(label: str, rec: dict, flops: float = 0.0) -> None:
     rate = (f", {flops / (rec['device_busy_ms'] / 1e3) / 1e12:.2f} TFLOP/s "
-            f"f32 over busy time" if flops and rec["device_busy_ms"] else "")
+            f"over busy time" if flops and rec["device_busy_ms"] else "")
     print(f"[profile] {label}: wall {rec['wall_ms']:.4f} ms/call, device "
           f"busy {rec['device_busy_ms']:.4f} ms/call, idle share "
           f"{rec['idle_share']:.3f}{rate}", flush=True)
@@ -92,9 +107,155 @@ def report(label: str, rec: dict, flops: float = 0.0) -> None:
               f"{k['launches_per_call']:g}  {k['name'][:110]}", flush=True)
 
 
+def k1_inputs(gen, device):
+    """Seeded folded weights and features at every K1 shape."""
+    return {name: (random_folded(torch, gen, b, t, g, layers, f, device), g)
+            for name, (b, t, g, layers, f) in K1_SHAPES.items()}
+
+
+def k4_inputs(gen, device):
+    """One seeded quantized decoder (G=8, L=3, F=96) and features at every
+    K4 shape."""
+    G, L, F = MODEL["num_clusters"], 3, MODEL["out_feats"]
+    _, w0, wc, biases, wl, bl = random_folded(torch, gen, 1, 1, G, L, F,
+                                              device)
+    qfd = q8.pack_decoder_int8(q8.quantize_folded_decoder(
+        dict(w0=w0, wc=wc, biases=biases, w_logits=wl, b_logits=bl),
+        torch.randn(B, T, C0, generator=gen).to(device)))
+    xs = {name: torch.randn(b, t, C0, generator=gen).to(device)
+          for name, (b, t) in K4_SHAPES.items()}
+    return qfd, xs
+
+
+def sweep(k1_in, qfd, xs, device) -> dict:
+    """K1 and K4 at every tile that launches, beside the rule's tile."""
+    lib1 = fused_conv.bind(build.load_library("fused_decoder"))
+    lib4 = q8.bind(build.load_library("decoder_int8"))
+    G = MODEL["num_clusters"]
+    runs = {}
+    for name, (a, g) in k1_in.items():
+        b, t, layers, f = a[0].shape[0], a[0].shape[1], a[2].shape[0], \
+            a[4].shape[-1]
+        runs[f"K1 {name}"] = (
+            device_tile_frames(b, t, C0, C, layers, f, g, device),
+            lambda tile, a=a, g=g: launch_k1(lib1, a, g, tile))
+    for name, x in xs.items():
+        runs[f"K4 {name}"] = (
+            q8.device_tile_frames(x.shape[0], x.shape[1], C0, C, 3,
+                                  MODEL["out_feats"], G, device),
+            lambda tile, x=x: launch_k4(lib4, x, qfd, G, tile))
+    out = {}
+    for name, (rule, run) in runs.items():
+        times = {}
+        for tile in (8, 16, 32, 64):
+            try:
+                times[tile] = cuda_ms(torch, lambda: run(tile))
+            except RuntimeError:           # the tile's rows do not fit
+                continue
+        out[name] = dict(rule=rule, ms=times)
+        best = min(times, key=times.get)
+        print(f"[sweep] {name}: rule tile {rule}, fastest {best}; "
+              + ", ".join(f"{k}: {v:.4f}" for k, v in times.items())
+              + " ms", flush=True)
+    return out
+
+
+def build_parent(src: Path) -> dict:
+    """Build and bind the kernels of the sources in ``src``."""
+    dst = build.BUILD_DIR.parent / "parent_kernels"
+    dst.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    for name in ("fused_decoder", "decoder_int8"):
+        lib = dst / f"lib{name}.so"
+        jobs[name] = (lib, subprocess.Popen(
+            [build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(lib),
+             str(src / f"{name}.cu")], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (lib, proc) in jobs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on {src / name}.cu:\n{log}")
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[parent build] {name}: {line.strip()}", flush=True)
+        libs[name] = ctypes.CDLL(str(lib))
+    fn = libs["fused_decoder"].mixstage_fused_decoder_f32
+    fn.argtypes, fn.restype = [_P] * 7 + [_I] * 7 + [ctypes.c_float, _P], _I
+    fn = libs["decoder_int8"].mixstage_decoder_int8
+    fn.argtypes, fn.restype = [_P] * 12 + [_I] * 7 + [ctypes.c_float, _P], _I
+    return libs
+
+
+def launch_k1(lib, a, g, *tile):
+    """K1 of ``lib`` on the folded inputs ``a``; ``tile`` (output frames
+    per CTA) for the current library, none for the parent's."""
+    x, w0, wc, _, wl, _ = a
+    (b, t, c0), c, layers, f = x.shape, w0.shape[-1], wc.shape[0], wl.shape[-1]
+    out = torch.empty(b, t, g * f, device=x.device)
+    err = lib.mixstage_fused_decoder_f32(
+        *(v.data_ptr() for v in a), out.data_ptr(), b, t, c0, c, layers, f,
+        g, 0.2, *tile, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"K1 launch failed: error {err}")
+    return out
+
+
+def launch_k4(lib, x, qfd, g, *tile):
+    """K4 of ``lib`` on the packed weights ``qfd``; ``tile`` as in
+    ``launch_k1``."""
+    keys = ("s_vec", "w0_p", "wc_p", "wl_p", "m0", "mc", "ml", "rq",
+            "biases", "b_logits")
+    (b, t, c0), c = x.shape, qfd["w0_i8"].shape[-1]
+    layers, f = qfd["wc_i8"].shape[0], qfd["wl_i8"].shape[-1]
+    out = torch.empty(b, t, g * f, device=x.device)
+    err = lib.mixstage_decoder_int8(
+        x.data_ptr(), *(qfd[k].data_ptr() for k in keys), out.data_ptr(), b,
+        t, c0, c, layers, f, g, 0.2, *tile,
+        torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"K4 launch failed: error {err}")
+    return out
+
+
+def against_parent(libs, k1_in, qfd, xs) -> dict:
+    """Parent and current kernels in turns (P, C, C, P) at every shape;
+    also max |current - parent| / max |parent|."""
+    G = MODEL["num_clusters"]
+    calls = {f"K1 {name}": (lambda a=a, g=g: launch_k1(
+                 libs["fused_decoder"], a, g),
+             lambda a=a, g=g: fused_mixstage_decoder(*a, groups=g))
+             for name, (a, g) in k1_in.items()}
+    calls.update({f"K4 {name}": (lambda x=x: launch_k4(
+                      libs["decoder_int8"], x, qfd, G),
+                  lambda x=x: q8.fused_mixstage_decoder_int8(x, qfd,
+                                                             groups=G))
+                  for name, x in xs.items()})
+    out = {}
+    for name, (old, new) in calls.items():
+        ref, got = old(), new()
+        diff = float((got - ref).abs().max()) / float(ref.abs().max())
+        turns = dict(parent=[], current=[])
+        for who in ("parent", "current", "current", "parent"):
+            turns[who].append(cuda_ms(torch, old if who == "parent" else new))
+        rec = {k: sum(v) / len(v) for k, v in turns.items()}
+        rec.update(turns=turns, rel_diff=diff)
+        out[name] = rec
+        print(f"[parent] {name}: current {rec['current']:.4f} ms, parent "
+              f"{rec['parent']:.4f} ms ({rec['parent'] / rec['current']:.2f}x)"
+              f"; turns {turns}; max|current - parent|/max|parent| "
+              f"{diff:.3e}", flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--sweep", action="store_true",
+                    help="time K1 and K4 at every tile that fits")
+    ap.add_argument("--parent", type=Path, default=None,
+                    help="directory of an earlier fused_decoder.cu and "
+                         "decoder_int8.cu to time against")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     device = resolve_device()
@@ -105,10 +266,19 @@ def main(argv=None) -> int:
     gen = torch.Generator().manual_seed(args.seed)
     out = {"card": smi}
     with torch.inference_mode():
+        if args.sweep or args.parent:
+            k1_in = k1_inputs(gen, device)
+            qfd, xs = k4_inputs(gen, device)
+            if args.parent:
+                out["parent"] = against_parent(build_parent(args.parent),
+                                               k1_in, qfd, xs)
+            if args.sweep:
+                out["sweep"] = sweep(k1_in, qfd, xs, device)
+            del k1_in, xs
         for name, (b, t, g, layers, f) in SHAPES.items():
             a = random_folded(torch, gen, b, t, g, layers, f, device)
             flops, _ = k1_work(b, t, g, layers, f)
-            tile = device_tile_frames(b, t, C0, C, layers, g, device)
+            tile = device_tile_frames(b, t, C0, C, layers, f, g, device)
             k1 = trace(lambda: fused_mixstage_decoder(*a, groups=g))
             plain = trace(lambda: fused_mixstage_decoder_plain(*a, groups=g))
             report(f"{name} K1 (tile {tile})", k1, flops)
