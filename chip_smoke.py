@@ -36,7 +36,8 @@ serving tier with the streaming and waveform endpoints (phases 10-14):
    step);
 9. training timings (CUDA events): G step, D step and the k-step driver's
    mean step, fused and unfused in four ABBA turns each; train pose
-   frames/s; K3-fwd and K3-bwd against their bounds and plain versions;
+   frames/s; K3-fwd and K3-bwd (3xTF32 on the tensor cores) against their
+   bounds and plain versions;
 10. int8 and chain kernels: K4 against ``decoder_int8_plain`` at every shape
     the int8 path launches it at (bs32 × 64, one 64-frame clip, the bs32
     128-frame bucket) and at B=1 T=4096 and a ragged B=3 T=50, with weights
@@ -59,10 +60,10 @@ serving tier with the streaming and waveform endpoints (phases 10-14):
 14. timings (CUDA events): K4 and K2 beside their bounds and plain
     versions; the bs32 int8 call against the f32 one in ABBA turns.
 
-Each kernel's bound is that of its route: K1 at the TF32 tensor-core rate
-(3 MMAs per multiply-add; the f32 FMA bound beside it as ``ffma_bound_ms``),
-K4 at the int8 tensor-core rate, K2 and K3 at the f32 FMA rate; ``mma``
-names the inner product.
+Each kernel's bound is that of its route: K1 and K3 at the TF32
+tensor-core rate (3 MMAs per multiply-add; the f32 FMA bound beside it as
+``ffma_bound_ms``), K4 at the int8 tensor-core rate, K2 at the f32 FMA
+rate; ``mma`` names the inner product.
 
 It prints one JSON line of kernels, the ``nvidia-smi`` line, and last the
 device line ``{"ok": true, "device": {...}}``.  Any failed check exits
@@ -76,6 +77,7 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import json
+import re
 import subprocess
 import sys
 import time
@@ -85,7 +87,7 @@ import numpy as np
 # published peaks of one H100 SXM (NVIDIA data sheet): f32 outside the
 # tensor cores, dense tensor-core rates, and HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
-PEAK_TF32_FLOPS = 495e12     # K1's route: 3 TF32 MMAs per multiply-add
+PEAK_TF32_FLOPS = 495e12     # K1's and K3's route: 3 TF32 MMAs a multiply-add
 PEAK_INT8_OPS = 1979e12
 PEAK_HBM_BYTES = 3.35e12
 KERNEL_TOL = 1e-4            # max |kernel - plain| / max |plain|
@@ -134,6 +136,7 @@ TRAIN_CFG = dict(model="JointLateClusterSoftStyle4_G", gan=True,
                  criterion="L1Loss", num_clusters=8, num_speakers=8)
 F_POSE, LAYERS = MODEL["out_feats"], 4
 SCAN_K = 8
+K3_RAGGED = (3, 50)          # K3 alone at a ragged shape: the sequence ends
 TIMING_TURNS = 4             # timed turns of each decoder, in ABBA order
 
 
@@ -203,6 +206,44 @@ def int8_errors(out, ref):
             float(err.max()), int((err > 0).sum()))
 
 
+def kernel_name(mangled: str) -> str:
+    """``gemm_kernel<1, 64, 64>`` from an Itanium-mangled kernel name: the
+    last part of its nested name and its integer template arguments."""
+    i, parts = (3 if mangled.startswith("_ZN") else 2), []
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        parts.append(mangled[j:j + int(mangled[i:j])])
+        i = j + int(mangled[i:j])
+    name = parts[-1] if parts else mangled
+    targs = re.match(r"I((?:Li-?\d+E)+)E", mangled[i:])
+    if targs:
+        name += "<" + ", ".join(re.findall(r"Li(-?\d+)E", targs.group(1))) \
+            + ">"
+    return name
+
+
+def ptxas_summary(compiler_log: str):
+    """[(kernel, registers, spill store bytes, spill load bytes)] of each
+    entry function in an ``nvcc -Xptxas -v`` log."""
+    out, name, spill = [], None, (0, 0)
+    for line in compiler_log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, spill = kernel_name(m.group(1)), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append((name, int(m.group(1)), *spill))
+            name = None
+    return out
+
+
 def cuda_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
     """Mean device time of ``fn()`` over ``reps`` back-to-back calls."""
     for _ in range(warmup):
@@ -228,6 +269,24 @@ def random_folded(torch, gen, b, t, g, layers, f, device):
             draw(g, layers + 1, C, scale=0.1),
             draw(g, C, f, scale=C ** -0.5),
             draw(g, f, scale=0.1))
+
+
+def random_train(torch, gen, b, t, device):
+    """Seeded K3 inputs at the flagship widths: x (b, t, C0) and the
+    decoder's packed parameters (``train_decoder.py``'s layout)."""
+    g = MODEL["num_clusters"]
+
+    def draw(*shape, scale, shift=0.0):
+        return (torch.randn(*shape, generator=gen) * scale + shift).to(device)
+
+    return (draw(b, t, C0, scale=1.0),
+            draw(g, 3, C0, C, scale=(3 * C0) ** -0.5),
+            draw(LAYERS - 1, g, 3, C, C, scale=(3 * C) ** -0.5),
+            draw(g, LAYERS, C, scale=0.1),
+            draw(g, LAYERS, C, scale=0.2, shift=1.0),
+            draw(g, LAYERS, C, scale=0.1),
+            draw(g, C, F_POSE, scale=C ** -0.5),
+            draw(g, 1, F_POSE, scale=0.1))
 
 
 def train_batch(rng, b, t, k=None):
@@ -685,9 +744,9 @@ def main(argv=None) -> int:
     results["build_s"] = time.perf_counter() - t0
     for name, (sec, compiler_log) in built.items():
         log(f"[build] {name}: {sec:.1f} s  ({build.library_path(name).name})")
-        for line in compiler_log.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build]   {line.strip()}")
+        for kernel, regs, stores, loads in ptxas_summary(compiler_log):
+            log(f"[build]   {kernel}: {regs} registers, {stores} bytes spill "
+                f"stores, {loads} bytes spill loads")
     log(f"[build] all kernels in {results['build_s']:.1f} s")
 
     # 3. kernels against their plain versions ------------------------------
@@ -875,29 +934,13 @@ def main(argv=None) -> int:
     from mixstage_tpu_torch.train import StepConfig, StepFactory
 
     kgen = torch.Generator().manual_seed(args.seed + 3)
-
-    def k3_args(b, t):
-        g = MODEL["num_clusters"]
-
-        def draw(*shape, scale, shift=0.0):
-            return (torch.randn(*shape, generator=kgen) * scale
-                    + shift).to(device)
-
-        return (draw(b, t, C0, scale=1.0),
-                draw(g, 3, C0, C, scale=(3 * C0) ** -0.5),
-                draw(LAYERS - 1, g, 3, C, C, scale=(3 * C) ** -0.5),
-                draw(g, LAYERS, C, scale=0.1),
-                draw(g, LAYERS, C, scale=0.2, shift=1.0),
-                draw(g, LAYERS, C, scale=0.1),
-                draw(g, C, F_POSE, scale=C ** -0.5),
-                draw(g, 1, F_POSE, scale=0.1))
-
-    k3_main = k3_args(B, T)
+    k3_main = random_train(torch, kgen, B, T, device)
     fwd_err, bwd_err, fwd_out, dout = check_k3(torch, td, "bs32", k3_main,
                                                args.seed + 4)
-    for b_, t_ in ((3, 50),):                    # ragged: the sequence ends
+    for b_, t_ in (K3_RAGGED,):                  # ragged: the sequence ends
         e_f, e_b, _, _ = check_k3(torch, td, "ragged",
-                                  k3_args(b_, t_), args.seed + 5)
+                                  random_train(torch, kgen, b_, t_, device),
+                                  args.seed + 5)
         fwd_err, bwd_err = max(fwd_err, e_f), max(bwd_err, e_b)
 
     # 8. training: the main path through StepFactory -----------------------
@@ -1019,11 +1062,13 @@ def main(argv=None) -> int:
              bwd_err, k3_launches[1])):
         ms = cuda_ms(torch, lambda: fn(*args_), reps=10)
         plain_ms = cuda_ms(torch, lambda: plain_fn(*args_), reps=5)
-        bms, by = bound_ms(flops, nbytes)
+        bms, by = bound_ms(3 * flops, nbytes, PEAK_TF32_FLOPS)
+        ffma_ms = bound_ms(flops, nbytes)[0]
         log(f"[timing] {smi}: K3 {name} bs{B}: {ms:.4f} ms "
-            f"({flops / (ms / 1e3) / 1e12:.2f} TFLOP/s f32), plain "
-            f"{plain_ms:.4f} ms, bound {bms:.4f} ms by {by} "
-            f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
+            f"({flops / (ms / 1e3) / 1e12:.2f} TFLOP/s of f32 work), plain "
+            f"{plain_ms:.4f} ms, bound {bms:.4f} ms by {by} (3xTF32 tensor "
+            f"cores; f32 FMA bound {ffma_ms:.4f} ms; {flops / 1e9:.2f} "
+            f"GFLOP, {nbytes / 1e6:.1f} MB)")
         k3.append({
             "name": name, "route": "cuda",
             "source": "mixstage_tpu_torch/ops/cuda/csrc/train_decoder.cu",
@@ -1031,7 +1076,7 @@ def main(argv=None) -> int:
             "launches": count, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             # no single PyTorch call computes the train-mode conv + BN chain
-            "library_ms": None, "mma": "ffma"})
+            "library_ms": None, "mma": "3xtf32", "ffma_bound_ms": ffma_ms})
     results["train"] = dict(total_fused=tot_f, total_unfused=tot_u,
                             param_diff=p_err, stat_diff=s_err,
                             mu_gaps=mu_gaps, mu_bias_gap=bias_gap,

@@ -193,6 +193,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
             fn.restype = _I
         lib.mixstage_train_decoder_error_string.argtypes = [_I]
         lib.mixstage_train_decoder_error_string.restype = ctypes.c_char_p
+        lib.mixstage_train_decoder_scratch_floats.argtypes = [_I] * 6
+        lib.mixstage_train_decoder_scratch_floats.restype = ctypes.c_longlong
     return lib
 
 
@@ -202,6 +204,13 @@ def _raise_on(lib, err, what, dims):
             f"{what} launch failed: "
             f"{lib.mixstage_train_decoder_error_string(err).decode()} "
             f"(error {err}; B,T,C0,C,F,G = {dims})")
+
+
+def _scratch(lib, dims, new):
+    """The kernels' scratch: one activation (or layer 0's per-group dx
+    partials) and the column passes' partial sums."""
+    return torch.empty(lib.mixstage_train_decoder_scratch_floats(*dims),
+                       **new)
 
 
 def _ptrs(*ts):
@@ -229,7 +238,7 @@ def decoder_train_fwd(x, w0, wc, cb, gamma, beta, wl, bl
     cs = torch.empty((L, G, B, T, C), **new)
     mu = torch.empty((G, L, C), **new)
     var = torch.empty((G, L, C), **new)
-    h = torch.empty((G, B, T, C), **new)             # scratch activation
+    h = _scratch(lib, dims, new)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.mixstage_train_decoder_fwd_f32(
@@ -266,7 +275,7 @@ def decoder_train_bwd(dout, x, cs, mu, var, w0, wc, gamma, beta, wl
     dcb, dg, db = (torch.empty((G, L, C), **new) for _ in range(3))
     dwl = torch.empty_like(wl)
     dbl = torch.empty((G, 1, Fo), **new)
-    h = torch.empty((G, B, T, C), **new)             # scratch activation
+    h = _scratch(lib, dims, new)
     dh = torch.empty((G, B, T, C), **new)            # d(layer output)
     dc = torch.empty((G, B, T, C), **new)            # d(conv output)
     with torch.cuda.device(dev):

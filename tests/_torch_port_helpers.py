@@ -103,3 +103,33 @@ def style_rows(kind: str, seed: int = 0):
         return np.eye(S, dtype=np.float32)[rng.integers(0, S, size=B)]
     w = rng.uniform(size=(B, S)).astype(np.float32)
     return w / w.sum(axis=1, keepdims=True)
+
+
+# ---------------------------------------------------------------------------
+# 3xTF32: the tensor-core arithmetic of K1 and K3, emulated on the CPU
+# ---------------------------------------------------------------------------
+
+def tf32(v: torch.Tensor) -> torch.Tensor:
+    """cvt.rna.tf32.f32: f32 rounded to 10 mantissa bits, to nearest, ties
+    away from zero (on the magnitude's bits; finite inputs)."""
+    bits = v.contiguous().view(torch.int32)
+    sign = bits & -0x80000000
+    mag = ((bits & 0x7FFFFFFF) + 0x1000) & ~0x1FFF
+    return (sign | mag).view(torch.float32)
+
+
+def split(v):
+    """The 3xTF32 split: v = hi + lo, both TF32 values."""
+    hi = tf32(v)
+    return hi, tf32(v - hi)
+
+
+def product(a, b, passes: int):
+    """a @ b as the tensor cores take it: 3 passes (3xTF32: the small terms
+    first, f32 sums; each product of two TF32 values is exact in f32) or 1
+    (plain TF32)."""
+    (ah, al), (bh, bl) = split(a), split(b)
+    if passes == 1:
+        return ah @ bh
+    return (al @ bh + ah @ bl) + ah @ bh
+

@@ -4,13 +4,14 @@ K1 at edge shapes the serving path does not reach (several time tiles with
 halos, T not a multiple of the tile, odd widths, no chain layer, one
 frame), its time-tile rule, and the serving path.  Tolerance: max |kernel -
 plain| ≤ 1e-4 · max |plain| (3xTF32 products, f32 accumulation order).
-K3's forward and backward at a small and a ragged shape, their launch
-counters, the checks of ``DecoderTrain``, and one fused G step.  K4 (the
+K3's forward and backward (3xTF32 GEMM passes) at shapes that cross its
+tiles' edges, their launch counters, their repeating bit for bit, the
+checks of ``DecoderTrain``, and one fused G step.  K4 (the
 int8 decoder) at the same edge shapes in both quantization schemes, equal
 to its plain version in every element, its refusal of unpacked weights,
 and the int8 serving tier (one K1 and one K4 launch per call); K2 (the
-grouped conv chain) at edge shapes, to 1e-4.  The built K1 and K4 run on
-the tensor cores (their SASS holds HMMA and IMMA instructions).
+grouped conv chain) at edge shapes, to 1e-4.  The built K1, K3 and K4 run
+on the tensor cores (their SASS holds HMMA and IMMA instructions).
 
 These need a CUDA device and skip without one.  This file imports neither
 JAX nor the JAX package, so on a machine without JAX it runs on its own:
@@ -95,8 +96,9 @@ def test_tile_frames_fills_the_card_and_fits_shared_memory(cuda):
 
 def test_kernels_run_on_tensor_cores(cuda):
     """The built K1 holds tf32 HMMA instructions, K4 s8 IMMA ones and no
-    ``__dp4a`` (IDP.4A), read from their SASS with ``cuobjdump`` (it
-    ships beside ``nvcc``)."""
+    ``__dp4a`` (IDP.4A), and K3's GEMM passes (every instance of its
+    ``gemm_kernel``) tf32 HMMA ones and no FFMA, read from their SASS with
+    ``cuobjdump`` (it ships beside ``nvcc``)."""
     import subprocess
     from pathlib import Path
 
@@ -104,7 +106,7 @@ def test_kernels_run_on_tensor_cores(cuda):
 
     tool = Path(build.nvcc_path()).with_name("cuobjdump")
     sass = {}
-    for name in ("fused_decoder", "decoder_int8"):
+    for name in ("fused_decoder", "decoder_int8", "train_decoder"):
         build.load_library(name)
         sass[name] = subprocess.run(
             [tool, "-sass", str(build.library_path(name))], check=True,
@@ -113,6 +115,14 @@ def test_kernels_run_on_tensor_cores(cuda):
     assert hmma and all("TF32" in ln for ln in hmma), hmma[:3]
     assert "IMMA" in sass["decoder_int8"]
     assert "IDP.4A" not in sass["decoder_int8"]
+    # one section per function, each opened by a "Function : <name>" line
+    gemms = [f for f in sass["train_decoder"].split("Function : ")[1:]
+             if "gemm_kernel" in f.splitlines()[0]]
+    assert len(gemms) == 9, len(gemms)      # 3 operand shapes x 3 tiles
+    for body in gemms:
+        hmma = [ln for ln in body.splitlines() if "HMMA" in ln]
+        assert hmma and all("TF32" in ln for ln in hmma), hmma[:3]
+        assert "FFMA" not in body, body.splitlines()[0]
 
 
 def test_kernel_rejects_what_it_cannot_take(cuda):
@@ -169,9 +179,15 @@ def _rel_fro(a, b):
     return float((a - b).double().norm() / b.double().norm().clamp_min(1e-30))
 
 
-# (B, T, G, C0, C, F): a small decoder, and a ragged one (T and every width
-# off the 64-wide tiles) that checks the sequence ends
-K3_SHAPES = [(2, 16, 2, 37, 16, 7), (3, 50, 3, 70, 72, 9)]
+# (B, T, G, C0, C, F): a small decoder, a ragged one (T and every width
+# off the 64-wide tiles) that checks the sequence ends, and shapes that
+# cross the GEMM tiles' edges: B*T off every M tile (150, 140, 135), C0 and
+# C off a multiple of 8 (4-byte copies for C0 = 29 and 266, a zero-padded
+# tap width for C = 44 and 20), C over one 128-wide tile (136), F below one
+# 32-wide warp block, and T = 1, where both outer taps leave the sequence
+K3_SHAPES = [(2, 16, 2, 37, 16, 7), (3, 50, 3, 70, 72, 9),
+             (2, 70, 3, 29, 44, 12), (3, 45, 2, 266, 136, 96),
+             (5, 1, 2, 13, 20, 5)]
 
 
 @pytest.mark.parametrize("shape", K3_SHAPES, ids=str)
@@ -209,6 +225,26 @@ def test_train_decoder_kernels_match_plain_on_card(cuda, shape):
             assert float(w.abs().max()) < bound
         else:
             assert _rel_fro(g, w) <= 1e-4, (name, _rel_fro(g, w))
+
+
+def test_train_decoder_kernels_repeat_bit_for_bit(cuda):
+    """Two launches of K3-fwd and of K3-bwd on the same inputs give the same
+    bits: every sum (the GEMMs' MMAs, the column passes' splits, layer 0's
+    dx over the groups) runs in a fixed order, without atomics."""
+    from mixstage_tpu_torch.ops.cuda import train_decoder as td
+
+    B, T, G, C0, C, F = 4, 64, 3, 266, 136, 96
+    a = _train_args(B, T, G, C0, C, F, cuda)
+    first, second = td.decoder_train_fwd(*a), td.decoder_train_fwd(*a)
+    for p, q in zip(first, second):
+        assert torch.equal(p, q)
+    dout = torch.randn(G, B, T, F, generator=torch.Generator().manual_seed(1)
+                       ).to(cuda)
+    x, w0, wc, cb, gamma, beta, wl, bl = a
+    _, cs, mu, var = first
+    args = (dout, x, cs, mu, var, w0, wc, gamma, beta, wl)
+    for p, q in zip(td.decoder_train_bwd(*args), td.decoder_train_bwd(*args)):
+        assert torch.equal(p, q)
 
 
 def test_decoder_train_function_rejects_bad_inputs(cuda):

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_port_helpers import product, split, tf32
 from mixstage_tpu.serve import folded_decoder_xla
 
 NEG_SLOPE = 0.2
@@ -25,28 +26,6 @@ NEG_SLOPE = 0.2
 # of the flagship model (C0 = 256 channels + style_dim 10)
 CHAINS = {"decoder": (2, 266, 256, 3, 96), "classifier": (1, 266, 256, 5, 8)}
 B, T = 2, 16
-
-
-def tf32(v: torch.Tensor) -> torch.Tensor:
-    """cvt.rna.tf32.f32: f32 rounded to 10 mantissa bits, to nearest, ties
-    away from zero (on the magnitude's bits; finite inputs)."""
-    bits = v.contiguous().view(torch.int32)
-    sign = bits & -0x80000000
-    mag = ((bits & 0x7FFFFFFF) + 0x1000) & ~0x1FFF
-    return (sign | mag).view(torch.float32)
-
-
-def split(v):
-    hi = tf32(v)
-    return hi, tf32(v - hi)
-
-
-def product(a, b, passes: int):
-    """a @ b as the tensor cores take it: 3 passes (3xTF32) or 1 (TF32)."""
-    (ah, al), (bh, bl) = split(a), split(b)
-    if passes == 1:
-        return ah @ bh
-    return (al @ bh + ah @ bl) + ah @ bh
 
 
 def conv3(h, w, passes):

@@ -14,11 +14,12 @@ classifier launch, then K4).
 ``--sweep`` also times K1 and K4 (CUDA events) at every time tile that
 fits, at every shape ``chip_smoke.py`` launches them at, beside the tile
 their rule picks.  ``--parent DIR`` builds an earlier version's
-``fused_decoder.cu`` and ``decoder_int8.cu`` found in DIR (with the
-headers they include, e.g. written there by ``git show
-<commit>:mixstage_tpu_torch/ops/cuda/csrc/<file>``) into
+``fused_decoder.cu``, ``decoder_int8.cu`` and ``train_decoder.cu`` (with
+the headers they include, e.g. written there by
+``git show <commit>:mixstage_tpu_torch/ops/cuda/csrc/<file>``) into
 ``build/parent_kernels/`` and times them against the current kernels in
-turns (parent, current, current, parent) at those shapes.
+turns (parent, current, current, parent) at those shapes; K3-fwd and
+K3-bwd at bs32 x 64 and at the ragged B=3 T=50.
 
     python3 tools/profile_k1.py [--seed 0] [--sweep] [--parent DIR]
                                 [--out profile.json]
@@ -39,13 +40,15 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from chip_smoke import (C, C0, K1_SHAPES, K4_SHAPES, MEL, MODEL, B, T,  # noqa: E402
-                        cuda_ms, k1_work, random_folded)
+from chip_smoke import (C, C0, K1_SHAPES, K3_RAGGED, K4_SHAPES, MEL,  # noqa: E402
+                        MODEL, B, T, cuda_ms, k1_work, random_folded,
+                        random_train)
 from mixstage_tpu_torch import resolve_device  # noqa: E402
 from mixstage_tpu_torch.models import JointLateClusterSoftStyle4_G  # noqa: E402
 from mixstage_tpu_torch.models.layers import reset_parameters_  # noqa: E402
 from mixstage_tpu_torch.ops.cuda import build, fused_conv  # noqa: E402
 from mixstage_tpu_torch.ops.cuda import quant as q8  # noqa: E402
+from mixstage_tpu_torch.ops.cuda import train_decoder as td  # noqa: E402
 from mixstage_tpu_torch.ops.cuda.fused_conv import (  # noqa: E402
     device_tile_frames, fused_mixstage_decoder, fused_mixstage_decoder_plain)
 from mixstage_tpu_torch.serve import build_serving_fn  # noqa: E402
@@ -165,7 +168,7 @@ def build_parent(src: Path) -> dict:
     dst = build.BUILD_DIR.parent / "parent_kernels"
     dst.mkdir(parents=True, exist_ok=True)
     jobs = {}
-    for name in ("fused_decoder", "decoder_int8"):
+    for name in build.SOURCES:
         lib = dst / f"lib{name}.so"
         jobs[name] = (lib, subprocess.Popen(
             [build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(lib),
@@ -180,28 +183,105 @@ def build_parent(src: Path) -> dict:
             if "registers" in line or "spill" in line:
                 print(f"[parent build] {name}: {line.strip()}", flush=True)
         libs[name] = ctypes.CDLL(str(lib))
-    fn = libs["fused_decoder"].mixstage_fused_decoder_f32
-    fn.argtypes, fn.restype = [_P] * 7 + [_I] * 7 + [ctypes.c_float, _P], _I
-    fn = libs["decoder_int8"].mixstage_decoder_int8
-    fn.argtypes, fn.restype = [_P] * 12 + [_I] * 7 + [ctypes.c_float, _P], _I
+    # K1's and K4's C entry points are the current ones (with a time tile)
+    fused_conv.bind(libs["fused_decoder"])
+    q8.bind(libs["decoder_int8"])
+    # K3's, without the scratch query the current library adds
+    lib = libs["train_decoder"]
+    lib.mixstage_train_decoder_fwd_f32.argtypes = [_P] * 13 + [_I] * 6 + [_P]
+    lib.mixstage_train_decoder_bwd_f32.argtypes = [_P] * 21 + [_I] * 6 + [_P]
+    lib.mixstage_train_decoder_fwd_f32.restype = _I
+    lib.mixstage_train_decoder_bwd_f32.restype = _I
     return libs
 
 
-def launch_k1(lib, a, g, *tile):
-    """K1 of ``lib`` on the folded inputs ``a``; ``tile`` (output frames
-    per CTA) for the current library, none for the parent's."""
+def _k3_dims(x, w0, wl):
+    (b, t, c0), c, f, g = x.shape, w0.shape[-1], wl.shape[-1], w0.shape[0]
+    # the current kernels' scratch, at least the (G, B, T, C) the parent's
+    # take
+    scratch = td.bind(build.load_library(
+        "train_decoder")).mixstage_train_decoder_scratch_floats(
+            b, t, c0, c, f, g)
+    return (b, t, c0, c, f, g), torch.empty(scratch, device=x.device)
+
+
+def parent_k3_fwd(lib, a):
+    """The parent's K3-fwd on the inputs ``a`` of ``random_train``."""
+    x, w0, wc, cb, gamma, beta, wl, bl = a
+    dims, h = _k3_dims(x, w0, wl)
+    b, t, _, c, f, g = dims
+    new = dict(device=x.device, dtype=torch.float32)
+    out = torch.empty(g, b, t, f, **new)
+    cs = torch.empty(4, g, b, t, c, **new)
+    mu, var = torch.empty(g, 4, c, **new), torch.empty(g, 4, c, **new)
+    err = lib.mixstage_train_decoder_fwd_f32(
+        *(v.data_ptr() for v in (*a, out, cs, mu, var, h)), *dims,
+        torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"parent K3-fwd launch failed: error {err}")
+    return out, cs, mu, var
+
+
+def parent_k3_bwd(lib, dout, x, cs, mu, var, w0, wc, gamma, beta, wl):
+    """The parent's K3-bwd: (dx, dw0, dwc, dcb, dgamma, dbeta, dwl, dbl)."""
+    dims, h = _k3_dims(x, w0, wl)
+    _, _, _, c, f, g = dims
+    new = dict(device=x.device, dtype=torch.float32)
+    grads = (torch.empty_like(x), torch.empty_like(w0), torch.empty_like(wc),
+             *(torch.empty(g, 4, c, **new) for _ in range(3)),
+             torch.empty_like(wl), torch.empty(g, 1, f, **new))
+    dh, dc = torch.empty_like(cs[0]), torch.empty_like(cs[0])
+    err = lib.mixstage_train_decoder_bwd_f32(
+        *(v.data_ptr() for v in (dout, x, cs, mu, var, w0, wc, gamma, beta,
+                                 wl, *grads, h, dh, dc)), *dims,
+        torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"parent K3-bwd launch failed: error {err}")
+    return grads
+
+
+def k3_calls(lib, gen, device) -> dict:
+    """{name: (parent call, current call)} of K3-fwd and K3-bwd at bs32 x
+    64 and at the ragged shape, on seeded inputs."""
+    calls = {}
+    for shape, (b, t) in (("bs32", (B, T)), ("ragged", K3_RAGGED)):
+        a = random_train(torch, gen, b, t, device)
+        x, w0, wc, _, gamma, beta, wl, _ = a
+        _, cs, mu, var = td.decoder_train_fwd(*a)
+        dout = torch.randn(w0.shape[0], b, t, wl.shape[-1],
+                           generator=gen).to(device)
+        bwd = (dout, x, cs, mu, var, w0, wc, gamma, beta, wl)
+        calls[f"K3-fwd {shape}"] = (lambda a=a: parent_k3_fwd(lib, a),
+                                    lambda a=a: td.decoder_train_fwd(*a))
+        calls[f"K3-bwd {shape}"] = (
+            lambda bwd=bwd: parent_k3_bwd(lib, *bwd),
+            lambda bwd=bwd: td.decoder_train_bwd(*bwd))
+    return calls
+
+
+def rel_diff(got, ref) -> float:
+    """max |got - ref| / max |ref|, the worst over paired outputs."""
+    if isinstance(ref, torch.Tensor):
+        got, ref = (got,), (ref,)
+    return max(float((a - b).abs().max()) / float(b.abs().max().clamp_min(
+        1e-30)) for a, b in zip(got, ref))
+
+
+def launch_k1(lib, a, g, tile):
+    """K1 of ``lib`` on the folded inputs ``a`` with ``tile`` output frames
+    per CTA (0: the library's rule)."""
     x, w0, wc, _, wl, _ = a
     (b, t, c0), c, layers, f = x.shape, w0.shape[-1], wc.shape[0], wl.shape[-1]
     out = torch.empty(b, t, g * f, device=x.device)
     err = lib.mixstage_fused_decoder_f32(
         *(v.data_ptr() for v in a), out.data_ptr(), b, t, c0, c, layers, f,
-        g, 0.2, *tile, torch.cuda.current_stream().cuda_stream)
+        g, 0.2, tile, torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"K1 launch failed: error {err}")
     return out
 
 
-def launch_k4(lib, x, qfd, g, *tile):
+def launch_k4(lib, x, qfd, g, tile):
     """K4 of ``lib`` on the packed weights ``qfd``; ``tile`` as in
     ``launch_k1``."""
     keys = ("s_vec", "w0_p", "wc_p", "wl_p", "m0", "mc", "ml", "rq",
@@ -211,30 +291,34 @@ def launch_k4(lib, x, qfd, g, *tile):
     out = torch.empty(b, t, g * f, device=x.device)
     err = lib.mixstage_decoder_int8(
         x.data_ptr(), *(qfd[k].data_ptr() for k in keys), out.data_ptr(), b,
-        t, c0, c, layers, f, g, 0.2, *tile,
+        t, c0, c, layers, f, g, 0.2, tile,
         torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"K4 launch failed: error {err}")
     return out
 
 
-def against_parent(libs, k1_in, qfd, xs) -> dict:
+def against_parent(libs, k1_in, qfd, xs, k3) -> dict:
     """Parent and current kernels in turns (P, C, C, P) at every shape;
-    also max |current - parent| / max |parent|."""
+    also max |current - parent| / max |parent| (K3-bwd: the worst of its
+    gradients; its dcb is float noise around 0 in both)."""
     G = MODEL["num_clusters"]
     calls = {f"K1 {name}": (lambda a=a, g=g: launch_k1(
-                 libs["fused_decoder"], a, g),
+                 libs["fused_decoder"], a, g, 0),
              lambda a=a, g=g: fused_mixstage_decoder(*a, groups=g))
              for name, (a, g) in k1_in.items()}
     calls.update({f"K4 {name}": (lambda x=x: launch_k4(
-                      libs["decoder_int8"], x, qfd, G),
+                      libs["decoder_int8"], x, qfd, G, 0),
                   lambda x=x: q8.fused_mixstage_decoder_int8(x, qfd,
                                                              groups=G))
                   for name, x in xs.items()})
+    calls.update(k3)
     out = {}
     for name, (old, new) in calls.items():
         ref, got = old(), new()
-        diff = float((got - ref).abs().max()) / float(ref.abs().max())
+        if name.startswith("K3-bwd"):          # dcb: noise around 0
+            ref, got = ref[:3] + ref[4:], got[:3] + got[4:]
+        diff = rel_diff(got, ref)
         turns = dict(parent=[], current=[])
         for who in ("parent", "current", "current", "parent"):
             turns[who].append(cuda_ms(torch, old if who == "parent" else new))
@@ -254,8 +338,9 @@ def main(argv=None) -> int:
     ap.add_argument("--sweep", action="store_true",
                     help="time K1 and K4 at every tile that fits")
     ap.add_argument("--parent", type=Path, default=None,
-                    help="directory of an earlier fused_decoder.cu and "
-                         "decoder_int8.cu to time against")
+                    help="directory of an earlier fused_decoder.cu, "
+                         "decoder_int8.cu and train_decoder.cu to time "
+                         "against")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     device = resolve_device()
@@ -270,8 +355,10 @@ def main(argv=None) -> int:
             k1_in = k1_inputs(gen, device)
             qfd, xs = k4_inputs(gen, device)
             if args.parent:
-                out["parent"] = against_parent(build_parent(args.parent),
-                                               k1_in, qfd, xs)
+                libs = build_parent(args.parent)
+                k3 = k3_calls(libs["train_decoder"], gen, device)
+                out["parent"] = against_parent(libs, k1_in, qfd, xs, k3)
+                del k3
             if args.sweep:
                 out["sweep"] = sweep(k1_in, qfd, xs, device)
             del k1_in, xs

@@ -7,7 +7,8 @@ Builds the flagship training configuration of ``chip_smoke.py`` (batch 32,
 with the plain decoder, and the D step.  For each it prints the host's wall
 time per step, the device busy time per step (union of kernel intervals),
 the device's idle share of the wall time, the share of busy time spent in
-K3's kernels, and the device kernels that take the most time.
+K3's kernels (split into its GEMM passes and its column passes), and the
+device kernels that take the most time.
 
     python3 tools/profile_train.py [--seed 0] [--out profile.json]
 """
@@ -29,9 +30,19 @@ from chip_smoke import TRAIN_CFG, B, T, train_batch  # noqa: E402
 from mixstage_tpu_torch.train import StepConfig, StepFactory  # noqa: E402
 from tools.profile_k1 import report, trace  # noqa: E402
 
-# the kernels of csrc/train_decoder.cu
-K3_KERNELS = ("gemm_kernel", "bn_act_kernel", "bn_bwd_kernel",
-              "col_sum_kernel")
+# the kernels of csrc/train_decoder.cu: the GEMM passes (3xTF32 on the
+# tensor cores) and the column passes
+K3_GEMM = ("gemm_kernel<",)
+K3_COLUMN = ("bn_stats_kernel", "bn_act_kernel", "bn_bwd_sums_kernel",
+             "bn_bwd_dc_kernel", "col_sum_kernel", "reduce_splits_kernel",
+             "group_sum_kernel")
+
+
+def k3_ms(rec, names) -> float:
+    """Device ms per step of the kernels of csrc/train_decoder.cu whose
+    names hold one of ``names``."""
+    return sum(k["ms_per_call"] for k in rec["kernels"]
+               if any(f"::{n}" in k["name"] for n in names))
 
 
 def main(argv=None) -> int:
@@ -56,12 +67,14 @@ def main(argv=None) -> int:
                   for k, v in batch.items()}
         fn = factory.make_steps()[step]
         rec = trace(lambda: fn(state, dbatch))
-        k3_ms = sum(k["ms_per_call"] for k in rec["kernels"]
-                    if any(n in k["name"] for n in K3_KERNELS))
-        rec["k3_ms"] = k3_ms
+        gemm_ms, col_ms = k3_ms(rec, K3_GEMM), k3_ms(rec, K3_COLUMN)
+        rec.update(k3_ms=gemm_ms + col_ms, k3_gemm_ms=gemm_ms,
+                   k3_column_ms=col_ms)
         report(f"{name} bs{B} T{T}", rec)
-        print(f"[profile]   K3 kernels {k3_ms:.4f} ms/step "
-              f"({k3_ms / rec['device_busy_ms']:.3f} of busy time); "
+        print(f"[profile]   K3 kernels {gemm_ms + col_ms:.4f} ms/step "
+              f"({(gemm_ms + col_ms) / rec['device_busy_ms']:.3f} of busy "
+              f"time): GEMM passes {gemm_ms:.4f} ms, column passes "
+              f"{col_ms:.4f} ms; "
               f"{sum(k['launches_per_call'] for k in rec['kernels']):g} "
               f"kernel launches per step", flush=True)
         out[name] = rec
