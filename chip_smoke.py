@@ -6,7 +6,8 @@ flagship model — ``JointLateClusterSoftStyle4_G`` with 8 clusters, 8
 speakers, 256 channels, style_dim 10 and 96 pose features, on 64-frame
 clips of 128 mel bins at batch 32 — with random weights drawn from
 ``--seed``: serving (phases 1-6), GAN training (phases 7-9) and the int8
-serving tier with the streaming and waveform endpoints (phases 10-14):
+serving tier with the streaming and waveform endpoints (phases 10-14), and
+the bf16 tier, serving and GAN training (phases 15-17):
 
 1. device: the card's name and power limit from ``nvidia-smi``;
 2. build: every CUDA kernel from the checkout's sources, one ``nvcc`` per
@@ -58,12 +59,36 @@ serving tier with the streaming and waveform endpoints (phases 10-14):
     request on a full-width 64-mel generator against the direct call
     (max |diff| / mean |pose| ≤ 1e-5);
 14. timings (CUDA events): K4 and K2 beside their bounds and plain
-    versions; the bs32 int8 call against the f32 one in ABBA turns.
+    versions; the bs32 int8 call against the f32 one in ABBA turns;
+15. bf16 kernels: K1's bf16 mode (bf16 features, f32 weights) at every K1
+    shape, K3-fwd and K3-bwd's bf16 mode at bs32 × 64 and the ragged B=3
+    T=50, each against its plain version under the bf16 rule (below), the
+    max |diff| in bf16 ULPs beside it;
+16. bf16 entry points: a bf16 serving call at bs32 launches K1's bf16 mode
+    exactly twice and drifts ≤ 1% from the f32 kernel route; bf16
+    ``/v1/pose`` requests through the HTTP server equal the direct call at
+    the server's batch size; a fused bf16 G step (K3's bf16 mode launched
+    once each way) and the unfused bf16 G step from the same state, each
+    against the f32 G step under the bf16 rule (pose, total loss, G's Adam
+    mu per module); a bf16 D step and ``make_scan_train_step(8)`` with
+    seeded coins, finite;
+17. bf16 timings (CUDA events, ABBA turns against f32): the bs32 serving
+    call, the clip p50, the G, D and k-step driver's step, and each
+    bf16-mode kernel beside its bound and plain version.
+
+The bf16 rule: no bf16 output is held element-wise to another bf16 output
+(two valid roundings differ about as much as either differs from the
+truth); the kernel's output P and its plain version's Q each drift from
+the float32 truth R (the same function in float32 on the same inputs),
+drift = mean |O - R| / mean |R| (relative Frobenius error for gradients),
+and |drift(P) - drift(Q)| ≤ 0.10 drift(Q) + 1e-3.
 
 Each kernel's bound is that of its route: K1 and K3 at the TF32
 tensor-core rate (3 MMAs per multiply-add; the f32 FMA bound beside it as
 ``ffma_bound_ms``), K4 at the int8 tensor-core rate, K2 at the f32 FMA
-rate; ``mma`` names the inner product.
+rate; in bf16 mode K1 at the TF32 rate with 2 MMAs per multiply-add (bf16
+activations times f32 weights split in two) and K3 at the dense bf16 rate;
+``mma`` names the inner product, ``mode`` the dtype mode.
 
 It prints one JSON line of kernels, the ``nvidia-smi`` line, and last the
 device line ``{"ok": true, "device": {...}}``.  Any failed check exits
@@ -88,6 +113,7 @@ import numpy as np
 # tensor cores, dense tensor-core rates, and HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12     # K1's and K3's route: 3 TF32 MMAs a multiply-add
+PEAK_BF16_FLOPS = 989e12     # K3's bf16 mode: one bf16 MMA a multiply-add
 PEAK_INT8_OPS = 1979e12
 PEAK_HBM_BYTES = 3.35e12
 KERNEL_TOL = 1e-4            # max |kernel - plain| / max |plain|
@@ -105,6 +131,9 @@ INT8_DRIFT = (1e-4, 0.10)    # int8 tier against f32 serving (test_pallas:160)
 # at --seed 0 on an H100; tests/test_torch_port_train_steps.py says why);
 # a wrong gradient moves a module by O(1).
 MOMENT_TOL = 3e-3
+# the bf16 rule: |drift(kernel) - drift(plain)| <= BF16_REL drift(plain) +
+# BF16_ABS, each drift taken from the float32 truth
+BF16_REL, BF16_ABS = 0.10, 1e-3
 
 # the flagship model (bench.py:205-213) and its serving and training shapes
 MODEL = dict(num_clusters=8, num_speakers=8, in_channels=256, style_dim=10,
@@ -149,29 +178,34 @@ def check(ok: bool, msg: str) -> None:
         raise RuntimeError(f"check failed: {msg}")
 
 
-def k1_work(b, t, g, layers, f):
+def k1_work(b, t, g, layers, f, act_bytes=4):
     """(flops, bytes) of one K1 call: every multiply-add of the chain, and
-    each input read once and the output written once (f32)."""
+    each input read once and the output written once (f32 weights; the
+    features and logits of ``act_bytes``: 4 in f32 mode, 2 in bf16)."""
     flops = 2 * b * t * g * (3 * C0 * C + layers * 3 * C * C + C * f)
-    elems = (b * t * C0 + g * 3 * C0 * C + layers * g * 3 * C * C
-             + g * (layers + 1) * C + g * C * f + g * f + b * t * g * f)
-    return flops, 4 * elems
+    weights = (g * 3 * C0 * C + layers * g * 3 * C * C
+               + g * (layers + 1) * C + g * C * f + g * f)
+    return flops, 4 * weights + act_bytes * (b * t * C0 + b * t * g * f)
 
 
-def k3_work(b, t, g, f):
-    """(flops, bytes) of K3-fwd and of K3-bwd (f32, each input read once
-    and each output written once).  The backward does the forward's
-    multiply-adds twice: dW and d(input) of every conv and of the head."""
+def k3_work(b, t, g, f, elem=4):
+    """(flops, bytes) of K3-fwd and of K3-bwd, each input read once and
+    each output written once: x, the weights, out, cs and dout of ``elem``
+    bytes (4 in f32 mode, 2 in bf16), mu, var and every gradient f32.  The
+    backward does the forward's multiply-adds twice: dW and d(input) of
+    every conv and of the head."""
     n = b * t
     flops = 2 * n * g * (3 * C0 * C + (LAYERS - 1) * 3 * C * C + C * f)
     params = g * 3 * C0 * C + (LAYERS - 1) * g * 3 * C * C + g * C * f
     vec = g * LAYERS * C                     # one (G, 4, C) array
-    fwd = (n * C0 + params + 3 * vec + g * f           # x, weights, cb/γ/β, bl
-           + g * n * f + LAYERS * g * n * C + 2 * vec)  # out, cs, mu/var
-    bwd = (g * n * f + n * C0 + LAYERS * g * n * C + 2 * vec + params
-           + 2 * vec                                   # dout, x, cs, stats, γ/β
-           + n * C0 + params + 3 * vec + g * f)        # dx, dW, dcb/dγ/dβ, dbl
-    return (flops, 4 * fwd), (2 * flops, 4 * bwd)
+    fwd = (elem * (n * C0 + params + 3 * vec + g * f  # x, w, cb/γ/β, bl
+                   + g * n * f + LAYERS * g * n * C)  # out, cs
+           + 4 * 2 * vec)                             # mu/var
+    bwd = (elem * (g * n * f + n * C0 + LAYERS * g * n * C + params
+                   + 2 * vec)                         # dout, x, cs, w, γ/β
+           + 4 * (2 * vec                             # stats
+                  + n * C0 + params + 3 * vec + g * f))  # dx, dW, dcb.., dbl
+    return (flops, fwd), (2 * flops, bwd)
 
 
 def k4_work(b, t, g, layers, f):
@@ -303,6 +337,31 @@ def train_batch(rng, b, t, k=None):
 
 def rel_fro(a, b) -> float:
     return float((a - b).double().norm() / b.double().norm().clamp_min(1e-30))
+
+
+def drift(out, truth, frobenius=False) -> float:
+    """mean |out - truth| / mean |truth| (relative Frobenius error for a
+    gradient), in float64."""
+    if frobenius:
+        return rel_fro(out, truth)
+    d = (out.double() - truth.double()).abs().mean()
+    return float(d / truth.double().abs().mean())
+
+
+def bf16_rule(p, q, truth, frobenius=False):
+    """(drift(p), drift(q), whether |drift(p) - drift(q)| <= BF16_REL *
+    drift(q) + BF16_ABS)."""
+    dp, dq = drift(p, truth, frobenius), drift(q, truth, frobenius)
+    return dp, dq, abs(dp - dq) <= BF16_REL * dq + BF16_ABS
+
+
+def bf16_ulps(torch, p, q):
+    """(max |p - q| in bf16 ULPs at the scale of max |q|, the share of
+    elements where p and q differ)."""
+    p, q = p.float(), q.float()
+    top = q.abs().max().reshape(1)
+    ulp = float(torch.ldexp(torch.ones_like(top), torch.frexp(top)[1] - 8))
+    return float((p - q).abs().max()) / ulp, float((p != q).float().mean())
 
 
 def check_k3(torch, td, name, args, seed):
@@ -698,6 +757,397 @@ def int8_phases(torch, args, device, smi, model, audio, styles, pose32,
     return k4, k2
 
 
+def bf16_phases(torch, args, device, smi, model, audio, styles, pose32,
+                serve32, results):
+    """Phases 15-17: the bf16 modes of K1 and K3 against their plain
+    versions, the bf16 serving and training paths through the entry points
+    and the HTTP server, and their timings against f32.  Returns the
+    kernels-line entries of K1-bf16, K3-fwd-bf16 and K3-bwd-bf16."""
+    from mixstage_tpu_torch.models import JointLateClusterSoftStyle4_G
+    from mixstage_tpu_torch.ops.cuda import train_decoder as td
+    from mixstage_tpu_torch.ops.cuda.fused_conv import (
+        device_tile_frames, fused_mixstage_decoder,
+        fused_mixstage_decoder_plain)
+    from mixstage_tpu_torch.serve import build_serving_fn
+    from mixstage_tpu_torch.serving import (DynamicBatcher, PoseClient,
+                                            PoseService, start_http_server)
+    from mixstage_tpu_torch.train import StepConfig, StepFactory
+
+    bf16 = torch.bfloat16
+    S, F = MODEL["num_speakers"], MODEL["out_feats"]
+
+    # 15. bf16 kernels against their plain versions ------------------------
+    gen = torch.Generator().manual_seed(args.seed + 13)
+    k1_16 = {}
+    for name, (b, t, g, layers, f) in K1_SHAPES.items():
+        x, *w = random_folded(torch, gen, b, t, g, layers, f, device)
+        x16 = x.bfloat16()
+        with torch.no_grad():
+            out = fused_mixstage_decoder(x16, *w, groups=g)
+            ref = fused_mixstage_decoder_plain(x16, *w, groups=g)
+            truth = fused_mixstage_decoder_plain(x16.float(), *w, groups=g)
+        torch.cuda.synchronize()
+        check(out.dtype == bf16 and bool(torch.isfinite(out).all()),
+              f"K1-bf16 {name}: dtype {out.dtype} or non-finite")
+        dp, dq, ok = bf16_rule(out, ref, truth)
+        ulps, share = bf16_ulps(torch, out, ref)
+        abs_err = float((out.float() - ref.float()).abs().max())
+        tile = device_tile_frames(b, t, C0, C, layers, f, g, device, 2)
+        log(f"[bf16-kernel] fused_mixstage_decoder bf16 {name} B={b} T={t} "
+            f"G={g} L={layers} F={f} (tile {tile}): drift from f32 kernel "
+            f"{dp:.4e}, plain {dq:.4e} (bf16 rule: {'ok' if ok else 'FAIL'}"
+            f"); max|diff| {abs_err:.3e} = {ulps:.2f} bf16 ULPs of max|out|,"
+            f" {share:.2%} of elements differ")
+        check(ok, f"K1-bf16 {name} breaks the bf16 rule: {dp:.4e} vs "
+              f"{dq:.4e}")
+        k1_16[name] = dict(shape=dict(B=b, T=t, G=g, L=layers, F=f),
+                           tile=tile, drift=dp, plain_drift=dq,
+                           max_ulps=ulps, differing=share,
+                           max_abs_err=abs_err, args=(x16, *w))
+    x16, *w = k1_16["decoder"]["args"]
+    with torch.no_grad():
+        coarse = fused_mixstage_decoder_plain(
+            x16, *(t.bfloat16().float() for t in w), groups=8)
+        truth = fused_mixstage_decoder_plain(x16.float(), *w, groups=8)
+    dc, dq = drift(coarse, truth), k1_16["decoder"]["plain_drift"]
+    log(f"[bf16-kernel] for comparison, the decoder with its weights "
+        f"rounded to bf16 (another function) drifts {dc:.4e} (bf16 rule "
+        f"against the plain bf16 mode: "
+        f"{'ok' if abs(dc - dq) <= BF16_REL * dq + BF16_ABS else 'fails'})")
+    kgen = torch.Generator().manual_seed(args.seed + 14)
+    k3_16 = {}
+    names = ("dx", "dw0", "dwc", "dcb", "dgamma", "dbeta", "dwl", "dbl")
+    for name, (b_, t_) in (("bs32", (B, T)), ("ragged", K3_RAGGED)):
+        a32 = tuple(v.bfloat16().float()
+                    for v in random_train(torch, kgen, b_, t_, device))
+        a16 = tuple(v.bfloat16() for v in a32)
+        fwd = td.decoder_train_fwd(*a16)
+        ref = td.decoder_train_fwd_plain(*a16)
+        truth = td.decoder_train_fwd_plain(*a32)
+        torch.cuda.synchronize()
+        report, worst_f = [], 0.0
+        for what, p_, q_, r_ in zip(("out", "cs", "mu", "var"), fwd, ref,
+                                    truth):
+            check(p_.dtype == q_.dtype and bool(torch.isfinite(p_).all()),
+                  f"K3-fwd-bf16 {name} {what}")
+            dp, dq, ok = bf16_rule(p_, q_, r_)
+            worst_f = max(worst_f, float((p_.float() - q_.float()).abs()
+                                         .max()))
+            report.append(f"{what} {dp:.3e}/{dq:.3e}"
+                          + (" ({:.2f} ULPs of max, {:.2%} differ)".format(
+                              *bf16_ulps(torch, p_, q_))
+                             if p_.dtype == bf16 else ""))
+            check(ok, f"K3-fwd-bf16 {name} {what} breaks the bf16 rule: "
+                  f"{dp:.4e} vs {dq:.4e}")
+        dout = torch.randn(ref[0].shape, generator=torch.Generator()
+                           .manual_seed(args.seed + 15)).to(device).bfloat16()
+        x, w0, wc, _, gamma, beta, wl, _ = a16
+        bwd_args = (dout, x, ref[1], ref[2], ref[3], w0, wc, gamma, beta, wl)
+        got = td.decoder_train_bwd(*bwd_args)
+        want = td.decoder_train_bwd_plain(*bwd_args)
+        x, w0, wc, _, gamma, beta, wl, _ = a32
+        true = td.decoder_train_bwd_plain(dout.float(), x, *truth[1:], w0,
+                                          wc, gamma, beta, wl)
+        torch.cuda.synchronize()
+        worst_b = 0.0
+        for what, p_, q_, r_ in zip(names, got, want, true):
+            check(p_.dtype == torch.float32 and bool(torch.isfinite(p_).all()),
+                  f"K3-bwd-bf16 {name} {what}")
+            worst_b = max(worst_b, float((p_ - q_).abs().max()))
+            if what == "dcb":                # 0 analytically: float noise
+                bound = KERNEL_TOL * float(want[5].abs().max())
+                check(float(p_.abs().max()) < bound and
+                      float(q_.abs().max()) < bound,
+                      f"K3-bwd-bf16 {name} dcb not below {bound:.3e}")
+                continue
+            dp, dq, ok = bf16_rule(p_, q_, r_, frobenius=True)
+            report.append(f"{what} {dp:.3e}/{dq:.3e}")
+            check(ok, f"K3-bwd-bf16 {name} {what} breaks the bf16 rule: "
+                  f"{dp:.4e} vs {dq:.4e}")
+        log(f"[bf16-kernel] K3 bf16 {name} B={b_} T={t_}: drift from f32 "
+            f"kernel/plain " + ", ".join(report) + f" (bf16 rule: ok); "
+            f"max|err| vs plain fwd {worst_f:.3e}, bwd {worst_b:.3e}")
+        k3_16[name] = dict(fwd_err=worst_f, bwd_err=worst_b, fwd_args=a16,
+                           bwd_args=bwd_args)
+
+    # 16. bf16 entry points --------------------------------------------------
+    model16 = JointLateClusterSoftStyle4_G(**MODEL, dtype=bf16)
+    model16.load_state_dict(model.state_dict())
+    serve16 = build_serving_fn(model16)
+    check(serve16.dtype == bf16 and serve16.use_kernel, "bf16 serving fn")
+    fused_mixstage_decoder.launches = 0              # bf16 serving starts
+    fused_mixstage_decoder.launches_bf16 = 0
+    pose16 = serve16(audio, styles)
+    torch.cuda.synchronize()
+    counts = (fused_mixstage_decoder.launches,
+              fused_mixstage_decoder.launches_bf16)
+    check(counts == (2, 2), f"one bf16 serving call launched K1 (all, "
+          f"bf16 mode) {counts} times, expected (2, 2)")
+    check(pose16.dtype == torch.float32 and tuple(pose16.shape) == (B, T, F)
+          and bool(torch.isfinite(pose16).all()), "bf16 pose")
+    drift16 = drift(pose16, pose32)
+    log(f"[bf16] full width bs{B} T{T} serving: K1 launches (all, bf16) "
+        f"{counts}; drift from the f32 kernel route {drift16:.4e} "
+        f"(contract {DRIFT_TOL:g})")
+    check(drift16 <= DRIFT_TOL, "bf16 serving outside the 1% contract")
+    rng = np.random.default_rng(args.seed + 16)
+    onehot = np.eye(S, dtype=np.float32)
+
+    def direct16(a, sty):
+        """``serve16`` on a batch of one, run as the batcher runs it."""
+        out = serve16(np.repeat(a, B, axis=0), np.repeat(sty, B, axis=0))
+        return out[:1].cpu().numpy()
+
+    batcher = DynamicBatcher(serve16, batch_size=B, max_wait_ms=5.0)
+    service = PoseService(batcher, backend="cuda", num_styles=S,
+                          mel_bins=MEL)
+    server = start_http_server(service, port=0, host="127.0.0.1")
+    jobs = [("json", 64, 1), ("npz", 64, 6), ("npz", 100, 3)]
+    try:
+        client = PoseClient(f"http://127.0.0.1:{server.server_address[1]}",
+                            timeout_s=300)
+        ndiff, worst = 0, 0.0
+        for kind_, n, sty in jobs:
+            a = rng.normal(size=(n, MEL)).astype(np.float32)
+            got = (client.pose if kind_ == "npz" else client.pose_json)(
+                a, style=sty)
+            bucket = 64 if n <= 64 else 128
+            padded = np.concatenate([a, np.repeat(a[-1:], bucket - n, 0)])
+            want = direct16(padded[None], onehot[[sty]])[0, :n]
+            check(got.shape == (n, F), f"bf16 {kind_} response {got.shape}")
+            ndiff += int(np.count_nonzero(got != want))
+            worst = max(worst, float(np.abs(got - want).max()))
+        stats = client.stats()
+    finally:
+        server.shutdown()
+        server.server_close()
+        batcher.close()
+    launches16 = (fused_mixstage_decoder.launches,
+                  fused_mixstage_decoder.launches_bf16)  # bf16 serving ends
+    log(f"[bf16-server] {len(jobs)} /v1/pose requests (json, npz; 64 and 100"
+        f" frames) vs the direct call at batch {B}: {ndiff} elements differ "
+        f"(max|diff| {worst:.3e}; tol 0); K1 launches over the bf16 serving "
+        f"path (all, bf16 mode) {launches16}")
+    check(ndiff == 0, "bf16 served pose differs from the direct call")
+    check(launches16[0] == launches16[1] ==
+          2 * (1 + stats["batches"] + len(jobs)),
+          f"K1 launches {launches16} over the bf16 serving path: expected "
+          f"two bf16-mode launches per serving call")
+
+    trng = np.random.default_rng(args.seed + 17)
+    batch = train_batch(trng, B, T)
+    facs = {"f32": StepFactory(StepConfig(**TRAIN_CFG)),
+            "unfused": StepFactory(StepConfig(**TRAIN_CFG, dtype=bf16)),
+            "fused": StepFactory(StepConfig(**TRAIN_CFG, dtype=bf16,
+                                            fused_decoder=True))}
+
+    def k3_counts():
+        return (td.decoder_train_fwd.launches_bf16,
+                td.decoder_train_bwd.launches_bf16)
+
+    td.decoder_train_fwd.launches = td.decoder_train_bwd.launches = 0
+    td.decoder_train_fwd.launches_bf16 = 0          # bf16 training starts
+    td.decoder_train_bwd.launches_bf16 = 0
+    g_out = {}
+    for name, fac in facs.items():
+        before = k3_counts()
+        g_out[name] = fac.make_steps()["g"](fac.init(seed=args.seed + 7),
+                                            batch)
+        torch.cuda.synchronize()
+        want = tuple(c + (name == "fused") for c in before)
+        check(k3_counts() == want, f"{name} G step: K3 bf16 launches "
+              f"{k3_counts()}, expected {want}")
+    (r_state, r_loss, r_pose), (q_state, q_loss, q_pose) = (
+        g_out["f32"], g_out["unfused"])
+    train16 = {}
+    for name in ("fused", "unfused"):
+        p_state, p_loss, p_pose = g_out[name]
+        check(p_pose.dtype == bf16 and all(
+            v.dtype == torch.float32 and bool(torch.isfinite(v).all())
+            for v in p_loss.values()), f"{name} bf16 G step outputs")
+        rep = {"pose": drift(p_pose, r_pose),
+               "total": drift(p_loss["total"], r_loss["total"])}
+        gaps, _ = g_moment_gaps(r_state, p_state)
+        rep.update({f"mu {m}": v for m, v in gaps.items()})
+        train16[name] = rep
+    fails = []
+    for key, dq in train16["unfused"].items():
+        dp = train16["fused"][key]
+        if abs(dp - dq) > BF16_REL * dq + BF16_ABS:
+            fails.append(key)
+    log(f"[bf16-train] full width G step bs{B} T{T}, drift from the f32 G "
+        f"step, fused (K3 bf16) / unfused: "
+        + ", ".join(f"{k} {train16['fused'][k]:.4e}/{v:.4e}"
+                    for k, v in train16["unfused"].items())
+        + f"; K3 bf16 launches {k3_counts()}")
+    check(not fails, f"fused bf16 G step breaks the bf16 rule against the "
+          f"unfused one on {fails}")
+    fused16 = facs["fused"]
+    s16 = g_out["fused"][0]
+    s16, l_d, _ = fused16.make_steps()["d"](s16, batch)
+    torch.cuda.synchronize()
+    check(all(bool(torch.isfinite(v).all()) for v in l_d.values()),
+          "bf16 D step losses not finite")
+    coins = np.random.default_rng(args.seed + 8).random(SCAN_K) < \
+        fused16.cfg.d_prob
+    n_g = int((~coins).sum())
+    stacked = train_batch(trng, B, T, k=SCAN_K)
+    s16, l_scan, poses = fused16.make_scan_train_step(SCAN_K)(s16, stacked,
+                                                              coins)
+    torch.cuda.synchronize()
+    check(all(bool(torch.isfinite(v).all()) for v in l_scan.values())
+          and poses.dtype == bf16, "bf16 k-step driver outputs")
+    k3_16_launches = k3_counts()                    # bf16 training ends
+    check(k3_16_launches == (1 + n_g, 1 + n_g),
+          f"K3 bf16 launches {k3_16_launches} over the bf16 training path, "
+          f"expected one each per fused G step ({1 + n_g})")
+    log(f"[bf16-train] D step and make_scan_train_step({SCAN_K}) with coins "
+        f"{''.join('D' if c else 'G' for c in coins)}: losses finite (last "
+        f"total {float(l_scan['total'][-1]):.5f}); K3 bf16 launches over the "
+        f"bf16 training path {k3_16_launches}")
+
+    # 17. bf16 timings -----------------------------------------------------
+    audio_dev = torch.as_tensor(audio, device=device)
+    styles_dev = torch.as_tensor(styles, device=device)
+    calls = {"f32": serve32, "bf16": serve16}
+    for fn in calls.values():          # first calls of a shape pick cuDNN
+        for _ in range(20):            # algorithms: keep them out of turns
+            fn(audio_dev, styles_dev)
+    turns = {name: [] for name in calls}
+    for name in ["f32", "bf16", "bf16", "f32"]:
+        turns[name].append(cuda_ms(torch, lambda: calls[name](
+            audio_dev, styles_dev), reps=20))
+    call_t = {k: float(np.mean(v)) for k, v in turns.items()}
+    clip, clip_style = audio[:1], styles[:1]
+    p50 = {name: [] for name in calls}
+    for name in ["f32", "bf16", "bf16", "f32"]:
+        lat = []
+        for i in range(30):
+            t0 = time.perf_counter()
+            calls[name](clip, clip_style).cpu()
+            if i >= 5:
+                lat.append((time.perf_counter() - t0) * 1e3)
+        p50[name].append(float(np.percentile(lat, 50)))
+    log(f"[timing] {smi}: bs{B} serving call, ABBA turns: f32 "
+        f"{call_t['f32']:.3f} ms ({B * T / call_t['f32'] * 1e3:.1f} pose "
+        f"frames/s; turns {turns['f32']}), bf16 {call_t['bf16']:.3f} ms "
+        f"({B * T / call_t['bf16'] * 1e3:.1f} frames/s; turns "
+        f"{turns['bf16']}); clip p50 (host in, host out) f32 {p50['f32']} "
+        f"ms, bf16 {p50['bf16']} ms")
+    dbatch = {k: (tuple(torch.as_tensor(a, device=device) for a in v)
+                  if k == "x" else torch.as_tensor(v, device=device))
+              for k, v in batch.items()}
+    dstacked = {k: (tuple(torch.as_tensor(a, device=device) for a in v)
+                    if k == "x" else torch.as_tensor(v, device=device))
+                for k, v in stacked.items()}
+    tfacs = {"f32": StepFactory(StepConfig(**TRAIN_CFG, fused_decoder=True)),
+             "bf16": fused16}
+    tstates = {"f32": tfacs["f32"].init(seed=args.seed + 7), "bf16": s16}
+    tturns = {name: dict(g=[], d=[], scan=[]) for name in tfacs}
+    for name, fac in tfacs.items():    # warm-up outside the turns
+        for _ in range(3):
+            fac.make_steps()["g"](tstates[name], dbatch)
+            fac.make_steps()["d"](tstates[name], dbatch)
+    for name in ["f32", "bf16", "bf16", "f32"]:
+        fac, st = tfacs[name], tstates[name]
+        steps, run_k = fac.make_steps(), fac.make_scan_train_step(SCAN_K)
+        rec = tturns[name]
+        rec["g"].append(cuda_ms(torch, lambda: steps["g"](st, dbatch),
+                                reps=10))
+        rec["d"].append(cuda_ms(torch, lambda: steps["d"](st, dbatch),
+                                reps=10))
+        rec["scan"].append(cuda_ms(torch, lambda: run_k(st, dstacked, coins),
+                                   reps=3, warmup=1) / SCAN_K)
+    train_t = {}
+    for name, rec in tturns.items():
+        mean = {k: float(np.mean(v)) for k, v in rec.items()}
+        train_t[name] = dict(g_step_ms=mean["g"], d_step_ms=mean["d"],
+                             scan_step_ms=mean["scan"],
+                             frames_per_s=B * T / (mean["scan"] / 1e3),
+                             turns=rec)
+        log(f"[timing] {smi}: training, fused decoder, {name}, bs{B} T{T}, "
+            f"ABBA turns: G step {mean['g']:.3f} ms {rec['g']}, D step "
+            f"{mean['d']:.3f} ms {rec['d']}, make_scan_train_step({SCAN_K}) "
+            f"mean step {mean['scan']:.3f} ms {rec['scan']} = "
+            f"{train_t[name]['frames_per_s']:.1f} train pose frames/s")
+    entries = []
+    main_shapes = ("decoder", "classifier")
+    for s_ in main_shapes:
+        rec = k1_16[s_]
+        a = rec.pop("args")
+        g = rec["shape"]["G"]
+        with torch.no_grad():
+            rec["ms"] = cuda_ms(torch, lambda: fused_mixstage_decoder(
+                *a, groups=g))
+            rec["plain_ms"] = cuda_ms(
+                torch, lambda: fused_mixstage_decoder_plain(*a, groups=g),
+                reps=5)
+        sh = rec["shape"]
+        rec["flops"], rec["bytes"] = k1_work(sh["B"], sh["T"], g, sh["L"],
+                                             sh["F"], act_bytes=2)
+    for rec in k1_16.values():
+        rec.pop("args", None)
+    flops = sum(k1_16[s_]["flops"] for s_ in main_shapes)
+    nbytes = sum(k1_16[s_]["bytes"] for s_ in main_shapes)
+    bms, by = bound_ms(2 * flops, nbytes, PEAK_TF32_FLOPS)
+    ms = sum(k1_16[s_]["ms"] for s_ in main_shapes)
+    plain_ms = sum(k1_16[s_]["plain_ms"] for s_ in main_shapes)
+    log(f"[timing] {smi}: K1 bf16 mode per bs{B} call (decoder "
+        f"{k1_16['decoder']['ms']:.4f} + classifier "
+        f"{k1_16['classifier']['ms']:.4f}): {ms:.4f} ms "
+        f"({flops / (ms / 1e3) / 1e12:.2f} TFLOP/s of f32-equivalent work), "
+        f"plain {plain_ms:.4f} ms, bound {bms:.4f} ms by {by} (2 TF32 MMAs "
+        f"a multiply-add; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
+    entries.append({
+        "name": "fused_mixstage_decoder_bf16", "mode": "bf16",
+        "route": "cuda",
+        "source": "mixstage_tpu_torch/ops/cuda/csrc/fused_decoder.cu",
+        "replaces": "mixstage_tpu/ops/pallas/fused_conv.py:179",
+        "launches": launches16[1],
+        "max_abs_err": max(r["max_abs_err"] for r in k1_16.values()),
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+        "library_ms": None, "mma": "2xtf32",
+        "max_ulps": max(r["max_ulps"] for r in k1_16.values())})
+    (f_flops, f_bytes), (b_flops, b_bytes) = k3_work(
+        B, T, MODEL["num_clusters"], F_POSE, elem=2)
+    main = k3_16["bs32"]
+    for name, fn, plain_fn, args_, flops, nbytes, line, err, count in (
+            ("decoder_train_fwd", td.decoder_train_fwd,
+             td.decoder_train_fwd_plain, main["fwd_args"], f_flops, f_bytes,
+             126, max(r["fwd_err"] for r in k3_16.values()),
+             k3_16_launches[0]),
+            ("decoder_train_bwd", td.decoder_train_bwd,
+             td.decoder_train_bwd_plain, main["bwd_args"], b_flops, b_bytes,
+             284, max(r["bwd_err"] for r in k3_16.values()),
+             k3_16_launches[1])):
+        ms = cuda_ms(torch, lambda: fn(*args_), reps=10)
+        plain_ms = cuda_ms(torch, lambda: plain_fn(*args_), reps=5)
+        bms, by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
+        log(f"[timing] {smi}: K3 {name} bf16 mode bs{B}: {ms:.4f} ms "
+            f"({flops / (ms / 1e3) / 1e12:.2f} TFLOP/s), plain "
+            f"{plain_ms:.4f} ms, bound {bms:.4f} ms by {by} (dense bf16 "
+            f"tensor cores; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
+        entries.append({
+            "name": f"{name}_bf16", "mode": "bf16", "route": "cuda",
+            "source": "mixstage_tpu_torch/ops/cuda/csrc/train_decoder.cu",
+            "replaces": f"mixstage_tpu/ops/pallas/train_decoder.py:{line}",
+            "launches": count, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": None, "mma": "bf16"})
+    for rec in k3_16.values():
+        rec.pop("fwd_args")
+        rec.pop("bwd_args")
+    results["bf16"] = dict(
+        k1=k1_16, k3=k3_16, serving_drift=drift16, serving_launches=counts,
+        server_differing=ndiff, train_drift=train16,
+        k3_launches=k3_16_launches, coins=coins.tolist(),
+        timing=dict(call_ms=call_t, turns=turns, clip_p50_ms=p50,
+                    frames_per_s={k: B * T / v * 1e3
+                                  for k, v in call_t.items()},
+                    train=train_t))
+    return entries
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -887,8 +1337,8 @@ def main(argv=None) -> int:
         with torch.no_grad():
             rec["ms"] = cuda_ms(torch, lambda: fused_mixstage_decoder(
                 *a, groups=g))
-            rec["plain_ms"] = cuda_ms(torch, lambda: fused_mixstage_decoder_plain(
-                *a, groups=g))
+            rec["plain_ms"] = cuda_ms(
+                torch, lambda: fused_mixstage_decoder_plain(*a, groups=g))
         s = rec["shape"]
         flops, nbytes = k1_work(s["B"], s["T"], g, s["L"], s["F"])
         rec["bound_ms"], rec["bound_by"] = bound_ms(3 * flops, nbytes,
@@ -1084,7 +1534,12 @@ def main(argv=None) -> int:
                             coins=coins.tolist(), k3_launches=k3_launches)
     k4, k2 = int8_phases(torch, args, device, smi, model, audio, styles,
                          pose, results)
-    kernels = [k1] + k3 + [k4, k2]
+    k16 = bf16_phases(torch, args, device, smi, model, audio, styles, pose,
+                      serve, results)
+    for kern in [k1] + k3 + [k4]:
+        kern["mode"] = "f32" if kern is not k4 else "int8"
+    k2["mode"] = "f32"
+    kernels = [k1] + k3 + [k4, k2] + k16
     results["kernels"] = kernels
     if args.out:
         with open(args.out, "w") as f:

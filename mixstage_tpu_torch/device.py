@@ -6,7 +6,9 @@ missing CUDA device is an error, never a quiet fall-back to the CPU.
 Precision (the one place it is set): the f32 serving path must hold the
 repo's 1% BN-fold drift contract, so cuDNN convolutions run in full float32
 (``cudnn.allow_tf32 = False``; TF32 keeps ~3 decimal digits) and matmuls keep
-``"highest"`` precision.
+``"highest"`` precision.  The bfloat16 compute dtype takes flax's products:
+bf16 operands, float32 accumulation, so cuBLAS may not reduce bf16 GEMMs in
+reduced precision (``allow_bf16_reduced_precision_reduction = False``).
 """
 
 from __future__ import annotations
@@ -17,9 +19,11 @@ import torch
 
 
 def set_f32_precision() -> None:
-    """Full-float32 convolutions and matmuls on the card (no TF32)."""
+    """Full-float32 convolutions and matmuls on the card (no TF32), and
+    bf16 matmuls that accumulate in float32."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.set_float32_matmul_precision("highest")
 
 

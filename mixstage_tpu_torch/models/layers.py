@@ -15,6 +15,14 @@ flagship configuration trains with ``p = 0``.
 Channel counts are the ACTUAL input widths of each conv (flax infers them
 from the data), with ``ConvNormRelu``'s per-group semantics kept: it
 multiplies ``in/out_channels`` by ``groups`` like the reference.
+
+Compute dtype: every layer takes ``dtype`` (float32 or bfloat16) with
+flax's semantics (``flax/linen/linear.py``, ``normalization.py``): the
+parameters and the BatchNorm statistics stay float32; a conv casts its
+input and kernel to ``dtype``, convolves (float32 accumulation), rounds,
+then adds the bias in ``dtype``; BatchNorm reduces its batch statistics in
+float32, normalises in float32 and rounds its output to ``dtype``.  At
+float32 the layers compute exactly what they did before ``dtype`` existed.
 """
 
 from __future__ import annotations
@@ -43,7 +51,8 @@ def _pad_amount(kernel_size, stride):
 
 class BatchNorm(nn.Module):
     """BatchNorm over the last (channel) axis with flax's semantics
-    (``flax.linen.BatchNorm(momentum=0.9, epsilon=1e-5)``).
+    (``flax.linen.BatchNorm(momentum=0.9, epsilon=1e-5)``).  The output is
+    computed in float32 and rounded to ``dtype``.
 
     Both modes normalise as ``(x - mean) * (rsqrt(var + eps) * scale) +
     bias``.  In eval mode ``mean``/``var`` are the running statistics.  In
@@ -57,9 +66,11 @@ class BatchNorm(nn.Module):
 
     MOMENTUM = 0.9
 
-    def __init__(self, num_features: int, eps: float = 1e-5):
+    def __init__(self, num_features: int, eps: float = 1e-5,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.eps = eps
+        self.dtype = dtype
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -75,7 +86,9 @@ class BatchNorm(nn.Module):
             var = ((xf * xf).mean(axes) - mean * mean).clamp_min(0.0)
             self.update_running_stats(mean, var)
         mul = torch.rsqrt(var + self.eps) * self.weight
-        return (x - mean) * mul + self.bias
+        if self.dtype == torch.float32:
+            return (x - mean) * mul + self.bias
+        return ((x.float() - mean) * mul + self.bias).to(self.dtype)
 
     @torch.no_grad()
     def update_running_stats(self, mean, var):
@@ -86,11 +99,47 @@ class BatchNorm(nn.Module):
         self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
 
 
-def _conv_channels_last(conv: nn.Module, x):
-    """Apply an NCW/NCHW torch conv to a channels-last tensor."""
+def _cast(t, dtype: torch.dtype):
+    """``t`` in the compute ``dtype``; at float32 ``t`` as it is (so a
+    module moved to float64 computes as before)."""
+    return t if dtype == torch.float32 else t.to(dtype)
+
+
+def leaky_relu(x, negative_slope: float = 0.2):
+    """``flax.linen.leaky_relu``: ``where(x >= 0, x, slope * x)`` with the
+    slope in ``x.dtype`` (JAX casts the Python float to bf16: 0.2 becomes
+    0.2001953125), the product rounded to ``x.dtype``."""
+    if x.dtype != torch.float32:
+        negative_slope = float(torch.tensor(negative_slope, dtype=x.dtype))
+    return F.leaky_relu(x, negative_slope)
+
+
+def softmax(x, dim: int = -1):
+    """``jax.nn.softmax``: at float32 ``torch.softmax``; below it, JAX's
+    steps each rounded to ``x.dtype`` (shift by the max, exp, sum, divide),
+    as the JAX package's bf16 model computes them."""
+    if x.dtype == torch.float32:
+        return torch.softmax(x, dim=dim)
+    e = torch.exp(x - x.amax(dim=dim, keepdim=True))
+    return e / e.sum(dim=dim, keepdim=True)
+
+
+def _conv_channels_last(conv: nn.Module, x,
+                        dtype: torch.dtype = torch.float32):
+    """Apply an NCW/NCHW torch conv to a channels-last tensor.  Below
+    float32, flax's ``nn.Conv``: input and kernel cast to ``dtype``, the
+    conv rounded to ``dtype``, then the bias added in ``dtype``."""
     if x.ndim == 3:
-        return conv(x.permute(0, 2, 1)).permute(0, 2, 1)
-    return conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        to_first, to_last = (0, 2, 1), (0, 2, 1)
+    else:
+        to_first, to_last = (0, 3, 1, 2), (0, 2, 3, 1)
+    x = x.permute(*to_first)
+    if dtype == torch.float32:
+        return conv(x).permute(*to_last)
+    y = conv._conv_forward(x.to(dtype), conv.weight.to(dtype), None)
+    if conv.bias is not None:
+        y = y + conv.bias.to(dtype)[(slice(None),) + (None,) * (y.ndim - 2)]
+    return y.permute(*to_last)
 
 
 class ConvNormRelu(nn.Module):
@@ -104,7 +153,7 @@ class ConvNormRelu(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, type: str = "1d",
                  leaky: bool = False, downsample: bool = False,
                  kernel_size=None, stride=None, groups: int = 1,
-                 lowering: str = "conv"):
+                 lowering: str = "conv", dtype: torch.dtype = torch.float32):
         super().__init__()
         if lowering not in LOWERINGS:
             raise ValueError(f"unknown lowering {lowering!r}; expected one "
@@ -117,12 +166,13 @@ class ConvNormRelu(nn.Module):
         self.conv = conv_cls(in_channels * groups, out_channels * groups,
                              kernel_size, stride,
                              _pad_amount(kernel_size, stride), groups=groups)
-        self.norm = BatchNorm(out_channels * groups)
+        self.norm = BatchNorm(out_channels * groups, dtype=dtype)
         self.leaky = leaky
+        self.dtype = dtype
 
     def forward(self, x):
-        x = self.norm(_conv_channels_last(self.conv, x))
-        return F.leaky_relu(x, 0.2) if self.leaky else F.relu(x)
+        x = self.norm(_conv_channels_last(self.conv, x, self.dtype))
+        return leaky_relu(x, 0.2) if self.leaky else F.relu(x)
 
 
 class UNet1D(nn.Module):
@@ -131,10 +181,10 @@ class UNet1D(nn.Module):
     conv] stages.  T must be divisible by 2^max_depth."""
 
     def __init__(self, input_channels: int, output_channels: int,
-                 max_depth: int = 5):
+                 max_depth: int = 5, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.max_depth = max_depth
-        common = dict(type="1d", leaky=True)
+        common = dict(type="1d", leaky=True, dtype=dtype)
         self.pre0 = ConvNormRelu(input_channels, output_channels, **common)
         self.pre1 = ConvNormRelu(output_channels, output_channels, **common)
         for i in range(max_depth):
@@ -161,10 +211,33 @@ class UNet1D(nn.Module):
         return x
 
 
+def _bilinear_axis(x, out_size: int, axis: int):
+    """JAX's ``_bilinear_axis`` (``layers.py:178-196``): half-pixel centres,
+    no antialiasing, the interpolation weight cast to ``x.dtype`` and the
+    blend computed in it."""
+    in_size = x.shape[axis]
+    if in_size == out_size:
+        return x
+    src = (torch.arange(out_size, dtype=torch.float32, device=x.device)
+           + 0.5) * (in_size / out_size) - 0.5
+    src = src.clamp(0.0, in_size - 1)
+    lo = src.floor().long()
+    hi = (lo + 1).clamp_max(in_size - 1)
+    shape = [1] * x.ndim
+    shape[axis] = out_size
+    frac = (src - lo).to(x.dtype).reshape(shape)
+    return (x.index_select(axis, lo) * (1 - frac)
+            + x.index_select(axis, hi) * frac)
+
+
 def resize_bilinear_time(x, time_steps: int):
     """(B, H, W, C) → (B, time_steps, C): bilinear resize to
     (time_steps, 1) with half-pixel centres and no antialiasing, then drop W
-    (``layers.py:198-224``, the reference's ``F.interpolate``)."""
+    (``layers.py:198-224``, the reference's ``F.interpolate``).  Below
+    float32 the blend runs in ``x.dtype``, as JAX's does."""
+    if x.dtype != torch.float32:
+        x = _bilinear_axis(_bilinear_axis(x, time_steps, 1), 1, 2)
+        return x[:, :, 0, :]
     y = F.interpolate(x.permute(0, 3, 1, 2), size=(time_steps, 1),
                       mode="bilinear", align_corners=False, antialias=False)
     return y[..., 0].permute(0, 2, 1)
@@ -177,14 +250,15 @@ class AudioEncoder(nn.Module):
     CHANNELS = ((64, False), (64, True), (128, False), (128, True),
                 (256, False), (256, True), (256, False))
 
-    def __init__(self, lowerings: Optional[Tuple[str, ...]] = None):
+    def __init__(self, lowerings: Optional[Tuple[str, ...]] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if lowerings is not None and (
                 len(lowerings) != 8
                 or any(lo not in ("conv", "s2d", "im2col") for lo in lowerings)):
             raise ValueError(f"lowerings must be 8 entries from "
                              f"conv|s2d|im2col, got {lowerings!r}")
-        common = dict(type="2d", leaky=True)
+        common = dict(type="2d", leaky=True, dtype=dtype)
         cin = 1                                   # one log-mel channel
         for i, (cout, down) in enumerate(self.CHANNELS):
             self.add_module(f"conv{i}", ConvNormRelu(cin, cout,
@@ -207,12 +281,14 @@ class _Conv1DStack(nn.Module):
     """A stack of 1D leaky ConvNormRelu blocks from a (cin, cout, downsample)
     plan (``layers.py:311-326``)."""
 
-    def __init__(self, plan: Sequence[Tuple[int, int, bool]]):
+    def __init__(self, plan: Sequence[Tuple[int, int, bool]],
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.depth = len(plan)
         for i, (cin, cout, down) in enumerate(plan):
             self.add_module(f"conv{i}", ConvNormRelu(
-                cin, cout, type="1d", leaky=True, downsample=down))
+                cin, cout, type="1d", leaky=True, downsample=down,
+                dtype=dtype))
 
     def forward(self, x):
         for i in range(self.depth):
@@ -228,9 +304,10 @@ def _encoder_plan(input_channels: int):
 class PoseEncoder(nn.Module):
     """(B, T, pose_feats) → (B, T, 256) (``layers.py:329-345``)."""
 
-    def __init__(self, input_channels: int = 96):
+    def __init__(self, input_channels: int = 96,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.stack = _Conv1DStack(_encoder_plan(input_channels))
+        self.stack = _Conv1DStack(_encoder_plan(input_channels), dtype)
 
     def forward(self, x):
         return self.stack(x)
@@ -241,12 +318,13 @@ class PoseStyleEncoder(nn.Module):
     ConvNormRelu, then the temporal mean.  (B, T, pose_feats) →
     (B, num_speakers)."""
 
-    def __init__(self, input_channels: int = 96, num_speakers: int = 4):
+    def __init__(self, input_channels: int = 96, num_speakers: int = 4,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.stack = _Conv1DStack([
             (input_channels, 64, False), (64, 64, True), (64, 128, True),
             (128, 128, True), (128, 256, True), (256, 256, True),
-            (256, num_speakers, True)])
+            (256, num_speakers, True)], dtype)
 
     def forward(self, x):
         return self.stack(x).mean(dim=1)
@@ -255,9 +333,10 @@ class PoseStyleEncoder(nn.Module):
 class TextEncoder1D(nn.Module):
     """(B, T, emb) → (B, T, 256) (``layers.py:373-389``)."""
 
-    def __init__(self, input_channels: int = 300):
+    def __init__(self, input_channels: int = 300,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.stack = _Conv1DStack(_encoder_plan(input_channels))
+        self.stack = _Conv1DStack(_encoder_plan(input_channels), dtype)
 
     def forward(self, x):
         return self.stack(x)
@@ -267,24 +346,29 @@ class ClusterClassify(nn.Module):
     """(B, T, C) → per-frame cluster logits (B, T, num_clusters): 6
     ConvNormRelu + 1×1 conv (``layers.py:431-452``)."""
 
-    def __init__(self, num_clusters: int = 8, input_channels: int = 256):
+    def __init__(self, num_clusters: int = 8, input_channels: int = 256,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         plan = [(input_channels, 256, False)] + [(256, 256, False)] * 5
-        self.stack = _Conv1DStack(plan)
+        self.stack = _Conv1DStack(plan, dtype)
         self.logits = nn.Conv1d(256, num_clusters, 1)
+        self.dtype = dtype
 
     def forward(self, x):
-        return _conv_channels_last(self.logits, self.stack(x))
+        return _conv_channels_last(self.logits, self.stack(x), self.dtype)
 
 
 class GroupedPointwiseConv(nn.Module):
     """1×1 grouped conv as a per-group matmul (``layers.py:597-633``).
 
     ``weight`` is torch's grouped-conv layout ``(G·F, Cin/G, 1)``: row g·F+f
-    multiplies the inputs of group g."""
+    multiplies the inputs of group g.  Input, kernel and bias are cast to
+    ``dtype`` (flax's ``promote_dtype``)."""
 
-    def __init__(self, in_channels: int, features: int, groups: int):
+    def __init__(self, in_channels: int, features: int, groups: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         if in_channels % groups or features % groups:
             raise ValueError("in_channels and features must divide groups")
         self.groups = groups
@@ -294,24 +378,28 @@ class GroupedPointwiseConv(nn.Module):
         nn.init.normal_(self.weight, std=(in_channels // groups) ** -0.5)
 
     def forward(self, x):
-        G = self.groups
-        xg = x.reshape(x.shape[:-1] + (G, x.shape[-1] // G))
-        kg = self.weight[:, :, 0].reshape(G, -1, xg.shape[-1])   # (G, F, c)
-        y = torch.einsum("...gc,gfc->...gf", xg, kg)
-        return y.reshape(x.shape[:-1] + (self.weight.shape[0],)) + self.bias
+        G, dt = self.groups, self.dtype
+        xg = _cast(x, dt).reshape(x.shape[:-1] + (G, x.shape[-1] // G))
+        kg = _cast(self.weight[:, :, 0], dt).reshape(G, -1, xg.shape[-1])
+        y = torch.einsum("...gc,gfc->...gf", xg, kg)           # kg (G, F, c)
+        return y.reshape(x.shape[:-1] + (self.weight.shape[0],)) + \
+            _cast(self.bias, dt)
 
 
 class EmbLin(nn.Module):
     """Style table in the soft-matmul ('lin') mode the generator uses
     (``layers.py:636-654``): (..., S) style weights → (..., dim)."""
 
-    def __init__(self, num_embeddings: int, embedding_dim: int):
+    def __init__(self, num_embeddings: int, embedding_dim: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.embedding = nn.Parameter(
             torch.randn(num_embeddings, embedding_dim))
 
     def forward(self, x):
-        return x.to(self.embedding.dtype) @ self.embedding
+        emb = _cast(self.embedding, self.dtype)
+        return x.to(emb.dtype) @ emb
 
 
 @torch.no_grad()

@@ -7,6 +7,10 @@ selection.  Submodule names follow the flax tree, including the
 ``pose_encoder`` and ``concat_encoder`` that flax builds even in audio-only
 configs, so the weight bridge round-trips the whole tree.  The mode is
 ``module.train()`` / ``.eval()`` (BatchNorm on batch or running statistics).
+``dtype`` is the compute dtype (float32 or bfloat16, flax's semantics, see
+``layers.py``): parameters and BatchNorm statistics stay float32, the
+features, the cluster scores and softmax, and the pose are in ``dtype``, as
+in the JAX package's ``dtype=bfloat16`` model.
 
 Port scope: one audio stream and the curriculum pose input.  The text
 encoder and the ``concat_encoder`` fusion of audio + text come with the
@@ -23,7 +27,7 @@ from torch import nn
 from mixstage_tpu_torch.models.layers import (AudioEncoder, ClusterClassify,
                                               ConvNormRelu, EmbLin,
                                               GroupedPointwiseConv,
-                                              PoseEncoder, UNet1D)
+                                              PoseEncoder, UNet1D, softmax)
 from mixstage_tpu_torch.ops.mixture import index_select_outputs
 
 # width of the AudioEncoder / PoseEncoder output (layers.py:260-345)
@@ -36,29 +40,33 @@ class JointLateClusterSoftStyle4_G(nn.Module):
     def __init__(self, in_channels: int = 256, out_feats: int = 96,
                  num_clusters: int = 8, num_speakers: int = 2,
                  style_dim: int = 10, decoder_lowering: str = "conv",
-                 audio_lowerings: Optional[Tuple[str, ...]] = None):
+                 audio_lowerings: Optional[Tuple[str, ...]] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_clusters = num_clusters
         self.num_speakers = num_speakers
+        self.dtype = dtype
         M = num_clusters
-        self.audio_encoder = AudioEncoder(lowerings=audio_lowerings)
-        self.pose_encoder = PoseEncoder(input_channels=out_feats)
-        self.unet = UNet1D(CONTENT_FEATS, in_channels)
-        self.style_emb = EmbLin(num_speakers, style_dim)
+        self.audio_encoder = AudioEncoder(lowerings=audio_lowerings,
+                                          dtype=dtype)
+        self.pose_encoder = PoseEncoder(input_channels=out_feats, dtype=dtype)
+        self.unet = UNet1D(CONTENT_FEATS, in_channels, dtype=dtype)
+        self.style_emb = EmbLin(num_speakers, style_dim, dtype=dtype)
         # content mixture decoder: 4 grouped ConvNormRelu (jlcss4.py:69-83)
         self.decoder0 = ConvNormRelu(style_dim + in_channels, in_channels,
                                      type="1d", leaky=True, groups=M,
-                                     lowering=decoder_lowering)
+                                     lowering=decoder_lowering, dtype=dtype)
         for i in range(1, 4):
             self.add_module(f"decoder{i}", ConvNormRelu(
                 in_channels, in_channels, type="1d", leaky=True, groups=M,
-                lowering=decoder_lowering))
+                lowering=decoder_lowering, dtype=dtype))
         self.logits = GroupedPointwiseConv(in_channels * M, out_feats * M,
-                                           groups=M)
+                                           groups=M, dtype=dtype)
         self.concat_encoder = ConvNormRelu(2 * CONTENT_FEATS, CONTENT_FEATS,
-                                           type="1d", leaky=True)
+                                           type="1d", leaky=True, dtype=dtype)
         self.classify_cluster = ClusterClassify(
-            num_clusters=M, input_channels=style_dim + in_channels)
+            num_clusters=M, input_channels=style_dim + in_channels,
+            dtype=dtype)
 
     def decoder_layers(self):
         return [getattr(self, f"decoder{i}") for i in range(4)]
@@ -97,7 +105,7 @@ class JointLateClusterSoftStyle4_G(nn.Module):
         x = self.features(x_list, y, style_weights, input_modalities,
                           use_pose_input, time_steps)
         labels_score = self.classify_cluster(x)
-        return x, labels_score, torch.softmax(labels_score, dim=-1)
+        return x, labels_score, softmax(labels_score, dim=-1)
 
     def forward(self, x_list, y, style_weights,
                 input_modalities: Sequence[str] = ("audio/log_mel_512",),

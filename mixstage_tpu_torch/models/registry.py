@@ -1,7 +1,9 @@
 """Model registry (counterpart of ``mixstage_tpu/models/registry.py``).
 
 Holds the generator and the discriminator the port has so far; the style
-classifier and the simple baselines come with later slices.
+classifier and the simple baselines come with later slices.  Every class
+takes the compute ``dtype`` (float32 or bfloat16) as a keyword, as the JAX
+package's modules take ``dtype``.
 """
 
 from __future__ import annotations

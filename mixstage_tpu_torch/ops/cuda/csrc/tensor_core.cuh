@@ -1,16 +1,24 @@
 // Device helpers shared by the tensor-core decoder kernels (K1 in
-// fused_decoder.cu, K4 in decoder_int8.cu): the padded shared-memory
-// strides, the cp.async ring that stages weight chunks, and the warp-level
-// mma.sync instructions they run.
+// fused_decoder.cu, K3 in train_decoder.cu, K4 in decoder_int8.cu): the
+// padded shared-memory strides, the cp.async ring that stages weight
+// chunks, and the warp-level mma.sync / ldmatrix instructions they run.
 //
-// Fragment layouts (PTX ISA, mma.m16n8k8 .tf32 and mma.m16n8k32 .s8), with
-// g = lane / 4 and t = lane % 4, in 32-bit words (one tf32 value, or four
-// int8 values of consecutive k):
+// Fragment layouts (PTX ISA, mma.m16n8k8 .tf32, mma.m16n8k16 .bf16 and
+// mma.m16n8k32 .s8), with g = lane / 4 and t = lane % 4, in 32-bit words
+// (one tf32 value, two bf16 values of consecutive k, or four int8 values of
+// consecutive k):
 //   A (16 x 8 words, row-major):  a0 (g, t)  a1 (g+8, t)  a2 (g, t+4)
 //                                 a3 (g+8, t+4)
 //   B (8 words x 8, k-major):     b0 (t, g)  b1 (t+4, g)
 //   C (16 x 8, f32 or s32):       c0 (g, 2t)  c1 (g, 2t+1)  c2 (g+8, 2t)
 //                                 c3 (g+8, 2t+1)
+// For bf16, ldmatrix.x4 loads four 8 x 8 blocks of 16-bit values whose
+// eight rows (16 bytes each) lanes 8i .. 8i+7 address: without .trans,
+// lane (g, t) gets elements (g, 2t), (g, 2t+1) of each block, which are
+// a0..a3 of a row-major A (blocks: rows 0-7 / 8-15 x k 0-7 / 8-15) and b0,
+// b1 of an n-major B; with .trans it gets (2t, g), (2t+1, g), which are the
+// fragments of a k-major B or of an A stored k-major.  A row stride of 4
+// mod 8 words puts the eight rows of a block on distinct bank quads.
 // An activation row stride of 4 mod 8 words puts the 32 lanes' A loads on
 // 32 distinct banks (row g lands on bank 4g mod 32 up to a permutation, plus
 // t); a staged weight row stride of 8 mod 16 words does the same for B
@@ -18,6 +26,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -113,6 +122,42 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// A bf16 value as the tf32 bits of the same number (exact: 8 significant
+// bits of tf32's 11).
+__device__ __forceinline__ uint32_t bf16_as_tf32(__nv_bfloat16 v) {
+  return (uint32_t)__bfloat16_as_ushort(v) << 16;
+}
+
+// d += a (16x16 bf16) * b (16x8 bf16), f32 accumulation; each product of
+// two bf16 values is exact in f32.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Four 8x8 blocks of 16-bit values from shared memory; `row` is this
+// lane's row address (lanes 8i .. 8i+7: the rows of block i).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
+                                            const void* row) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(row)));
+}
+
+// ldmatrix_x4 with .trans: each block transposed.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* row) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(row)));
 }
 
 // d += a (16x32 s8) * b (32x8 s8), exact s32 accumulation.

@@ -60,9 +60,27 @@
 //     reads, so the GEMMs load plain operands.
 // wgmma, TMA and fusing the column passes into the GEMMs' prologues and
 // epilogues are left to later versions.
+//
+// bf16 mode (the *_bf16 entry points): the TPU kernels' dtype=bfloat16
+// function.  x, every weight, out, cs and dout are bf16; the GEMM passes
+// run the native mma.sync.m16n8k16 bf16 (one MMA per product, exact bf16
+// products, f32 accumulation in the same 32-deep chunk partials), their
+// operands staged as bf16 (half the bytes of a chunk) and loaded with
+// ldmatrix (.trans for the k-major operands).  The forward rounds each
+// conv's f32 sum to bf16 before the bias add and the sum again (flax's
+// nn.Conv), stores cs in bf16, computes BatchNorm and leaky in f32 and
+// rounds the activation; the logits are acc + bias rounded.  The backward
+// reads the bf16 cs, rounds each recomputed activation and dc to bf16
+// before they feed a product, keeps dh and every gradient in f32, and
+// sums dcb before dc is rounded, as _bwd_kernel does.  At the bs32 shape
+// it is bound by operations at the dense bf16 rate (~0.03 ms forward and
+// ~0.05 ms backward on an H100 SXM) or by its ~60-70 MB of HBM traffic.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "launch_common.cuh"
 #include "tensor_core.cuh"
@@ -70,6 +88,7 @@
 namespace {
 
 using mixstage::round8;
+using bf16 = __nv_bfloat16;
 
 constexpr int kL = 4;                 // conv layers
 constexpr float kEps = 1e-5f, kSlope = 0.2f;
@@ -81,42 +100,70 @@ constexpr int kMaxSplits = 32;
 
 enum Mode { kConv = 0, kConvT = 1, kDW = 2 };
 
+// How a staged vector (16 bytes: 4 f32 or 8 bf16 values) is copied: one
+// 16-byte cp.async, four 4-byte ones, or (bf16 rows of an odd width) value
+// by value through registers.
+enum Copy { kCopy2B = 0, kCopy4B = 1, kCopy16B = 2 };
+
+// Element pointers are passed untyped; the kernel's element type E (float,
+// or bf16 in bf16 mode) and output type O give them their types.
 struct Gemm {
-  const float* a; long long a_g;      // operand A, per-group stride
-  const float* b; long long b_g;      // operand B, per-group stride
-  const float* bias; long long bias_g;   // may be null
-  float* out; long long out_g;
+  const void* a; long long a_g;       // operand A, per-group stride
+  const void* b; long long b_g;       // operand B, per-group stride
+  const void* bias; long long bias_g;   // may be null
+  void* out; long long out_g;
   int M, N, R;        // output rows (kDW: taps * Jp), columns, reduction
   int J, Jp, taps, T, sign;   // J: width of the time-shifted operand,
                               // Jp = round8(J) its padded tap width
-  int vec_a, vec_b;   // 16-byte copies allowed for A / B
+  int copy_a, copy_b; // Copy modes of A / B
+  int round_acc;      // bf16 mode: round the sum to bf16 before the bias
 };
 
 __device__ __forceinline__ float leaky(float v) {
   return v >= 0.f ? v : kSlope * v;
 }
 
-// Shared-memory layout of one mode and tile.  A is staged row-major (frame
-// rows, kBK reduction columns; stride 4 mod 8 words) except for kDW, where
-// it is staged as it lies, frames x output rows (stride 8 mod 32); B is
-// staged reduction-major (stride 8 mod 32) except for kConvT, whose
-// weights are read transposed and staged n-major (stride 4 mod 8).  Each
-// way the fragment loads of a warp hit 32 distinct banks.
-template <int kMode, int BM, int BN>
+__device__ __forceinline__ float ld(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ld(const bf16* p) {
+  return __bfloat162float(__ldg(p));
+}
+
+// v stored as T (bf16: rounded to nearest even).
+template <class T>
+__device__ __forceinline__ T to(float v) {
+  if constexpr (std::is_same_v<T, float>) {
+    return v;
+  } else {
+    return __float2bfloat16_rn(v);
+  }
+}
+
+// Shared-memory layout of one mode and tile for elements E.  A is staged
+// row-major (frame rows, kBK reduction columns) except for kDW, where it
+// is staged as it lies, frames x output rows; B is staged reduction-major
+// except for kConvT, whose weights are read transposed and staged n-major.
+// f32: row strides 4 mod 8 words (row-major) and 8 mod 32 (transposed) put
+// a warp's fragment loads on 32 distinct banks; bf16: every stride is 4
+// mod 8 words, so each 8-row block of an ldmatrix falls on distinct bank
+// quads.
+template <int kMode, int BM, int BN, class E>
 struct Tile {
   static constexpr int kThreads = BM * BN / 32;    // a 32x32 block per warp
   static constexpr int kWarpsN = BN / 32;
   static constexpr bool kAT = kMode == kDW;
   static constexpr bool kBT = kMode == kConvT;
-  static constexpr int kAStride = kAT ? BM + 8 : kBK + 4;
-  static constexpr int kBStride = kBT ? kBK + 4 : BN + 8;
-  static constexpr int kAWords = (kAT ? kBK : BM) * kAStride;
-  static constexpr int kBWords = (kBT ? BN : kBK) * kBStride;
-  static constexpr int kStageWords = kAWords + kBWords;
-  static constexpr size_t kSmem = (size_t)kStages * kStageWords * 4;
-  // quads (4 consecutive words) of one chunk each thread stages
-  static constexpr int kQuadsA = BM * kBK / 4 / kThreads;
-  static constexpr int kQuadsB = BN * kBK / 4 / kThreads;
+  static constexpr int kV = 16 / sizeof(E);        // elements per vector
+  static constexpr int kVecs = kBK / kV;           // vectors per chunk row
+  static constexpr int kPad = sizeof(E) == 4 ? 4 : 8;
+  static constexpr int kAStride = kAT ? BM + 8 : kBK + kPad;
+  static constexpr int kBStride = kBT ? kBK + kPad : BN + 8;
+  static constexpr int kAElems = (kAT ? kBK : BM) * kAStride;
+  static constexpr int kBElems = (kBT ? BN : kBK) * kBStride;
+  static constexpr int kStageElems = kAElems + kBElems;
+  static constexpr size_t kSmem = (size_t)kStages * kStageElems * sizeof(E);
+  // vectors of one chunk each thread stages
+  static constexpr int kQuadsA = BM * kBK / kV / kThreads;
+  static constexpr int kQuadsB = BN * kBK / kV / kThreads;
 };
 
 // Position r = tap * Jp + j in a padded tap-by-channel reduction.
@@ -135,21 +182,27 @@ struct TapPos {
   }
 };
 
-// Copy the quad dst[0..3] = src[0..3] where `ok`, else zeros: one 16-byte
-// copy when `vec` (the quad is all in or all out and 16-byte aligned), else
-// four 4-byte ones, of which only the first `lim` (the words left in the
-// row; 4 or more: all) copy and the rest write zeros.
-__device__ __forceinline__ void copy_quad(float* dst, const float* src,
-                                          bool ok, int lim, bool vec,
-                                          const float* dummy) {
-  if (vec) {
+// Copy the vector dst[0..kV) = src[0..kV) where `ok`, else zeros, by the
+// Copy mode `mode`: 16 bytes at once (the vector is all in or all out and
+// 16-byte aligned), 4-byte pieces of which only those below `lim` (the
+// elements left in the row) copy and the rest write zeros, or (kCopy2B)
+// value by value.
+template <class E>
+__device__ __forceinline__ void copy_vec(E* dst, const E* src, bool ok,
+                                         int lim, int mode, const E* dummy) {
+  constexpr int kV = 16 / sizeof(E), kPer = 4 / sizeof(E);
+  if (mode == kCopy16B) {
     mixstage::cp_async16(dst, ok ? src : dummy, ok ? 16 : 0);
+  } else if (sizeof(E) == 4 || mode == kCopy4B) {
+#pragma unroll
+    for (int e = 0; e < kV / kPer; ++e) {
+      const bool oke = ok && e * kPer < lim;
+      mixstage::cp_async4(dst + e * kPer, oke ? src + e * kPer : dummy,
+                          oke ? 4 : 0);
+    }
   } else {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const bool oke = ok && e < lim;
-      mixstage::cp_async4(dst + e, oke ? src + e : dummy, oke ? 4 : 0);
-    }
+    for (int e = 0; e < kV; ++e) dst[e] = ok && e < lim ? src[e] : to<E>(0.f);
   }
 }
 
@@ -161,34 +214,38 @@ __device__ __forceinline__ void copy_quad(float* dst, const float* src,
 //   kDW   : A[k, j; r] = a[b, t + (k - taps/2), j] (r = b*T + t, frames;
 //           output row m = k * Jp + j), B[r; n] = b[r][n]
 // Taps that leave their own sequence, padded channels j >= J and every
-// index past the matrices read 0.
-template <int kMode, int BM, int BN>
+// index past the matrices read 0.  E is the operands' element type (float:
+// 3xTF32 MMAs; bf16: bf16 MMAs), O the output's.
+template <int kMode, int BM, int BN, class E, class O>
 __global__ void __launch_bounds__(BM * BN / 32, 16384 / (BM * BN))
 gemm_kernel(Gemm p) {
-  using Tl = Tile<kMode, BM, BN>;
-  constexpr int kThreads = Tl::kThreads;
-  extern __shared__ __align__(16) float smem[];
+  using Tl = Tile<kMode, BM, BN, E>;
+  constexpr int kThreads = Tl::kThreads, kV = Tl::kV, kVecs = Tl::kVecs;
+  constexpr bool kBf16 = std::is_same_v<E, bf16>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  E* smem = reinterpret_cast<E*>(smem_raw);
   const int tid = threadIdx.x;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN, grp = blockIdx.z;
-  const float* a = p.a + grp * p.a_g;
-  const float* b = p.b + grp * p.b_g;
-  const bool vec_a = p.vec_a, vec_b = p.vec_b;
+  const E* a = static_cast<const E*>(p.a) + grp * p.a_g;
+  const E* b = static_cast<const E*>(p.b) + grp * p.b_g;
+  const int copy_a = p.copy_a, copy_b = p.copy_b;
   const int half = p.taps / 2;
 
   // ---- A's staging positions
-  // kConv / kConvT: quad q of the chunk's 32 reduction columns, rows
-  // tid / 8 + i * (kThreads / 8).  kDW: quad of output rows m (fixed),
-  // frame rows tid / (BM / 4) + i * (BN / 8) of the chunk.
+  // kConv / kConvT: vector q of the chunk's 32 reduction columns, rows
+  // tid / kVecs + i * (kThreads / kVecs).  kDW: vector of output rows m
+  // (fixed), frame rows tid / (BM / kV) + i * (kThreads / (BM / kV)) of
+  // the chunk.
   int a_row[Tl::kQuadsA], a_t[Tl::kQuadsA], a_base[Tl::kQuadsA];
   bool a_ok[Tl::kQuadsA];
   TapPos apos{0, 0};
   int dw_k = 0, dw_j = 0;
   bool dw_ok = false;
   if constexpr (kMode != kDW) {
-    apos.init(4 * (tid & 7), p.Jp);
+    apos.init(kV * (tid % kVecs), p.Jp);
 #pragma unroll
     for (int i = 0; i < Tl::kQuadsA; ++i) {
-      a_row[i] = (tid >> 3) + i * (kThreads / 8);
+      a_row[i] = tid / kVecs + i * (kThreads / kVecs);
       const int m = m0 + a_row[i];
       a_ok[i] = m < p.M;
       const int bb = a_ok[i] ? m / p.T : 0;
@@ -196,31 +253,31 @@ gemm_kernel(Gemm p) {
       a_base[i] = bb * p.T;
     }
   } else {
-    const int m = m0 + 4 * (tid % (BM / 4));
+    const int m = m0 + kV * (tid % (BM / kV));
     dw_k = m / p.Jp;
     dw_j = m - dw_k * p.Jp;
     dw_ok = m < p.M && dw_j < p.J;
 #pragma unroll
     for (int i = 0; i < Tl::kQuadsA; ++i) {
-      a_row[i] = tid / (BM / 4) + i * (BN / 8);     // frame r of chunk 0
+      a_row[i] = tid / (BM / kV) + i * (kThreads / (BM / kV));  // frame r
       const int bb = a_row[i] / p.T;
       a_base[i] = bb;                                // sequence b
       a_t[i] = a_row[i] - bb * p.T;                  // frame t
     }
   }
   // ---- B's staging positions
-  // kConv / kDW: quad of columns n, reduction rows tid / (BN / 4) +
-  // i * (BM / 8).  kConvT: quad q of reduction columns (A's), n rows
-  // tid / 8 + i * (kThreads / 8).
+  // kConv / kDW: vector of columns n, reduction rows tid / (BN / kV) +
+  // i * (kThreads / (BN / kV)).  kConvT: vector q of reduction columns
+  // (A's), n rows tid / kVecs + i * (kThreads / kVecs).
   int b_row[Tl::kQuadsB];
   TapPos bpos[Tl::kQuadsB];
-  const int b_col = 4 * (tid % (BN / 4));
+  const int b_col = kV * (tid % (BN / kV));
 #pragma unroll
   for (int i = 0; i < Tl::kQuadsB; ++i) {
     if constexpr (kMode == kConvT) {
-      b_row[i] = (tid >> 3) + i * (kThreads / 8);
+      b_row[i] = tid / kVecs + i * (kThreads / kVecs);
     } else {
-      b_row[i] = tid / (BN / 4) + i * (BM / 8);
+      b_row[i] = tid / (BN / kV) + i * (kThreads / (BN / kV));
       if constexpr (kMode == kConv) bpos[i].init(b_row[i], p.Jp);
     }
   }
@@ -229,44 +286,44 @@ gemm_kernel(Gemm p) {
   const int nchunks = (p.R + kBK - 1) / kBK;
   auto stage = [&](int c) {
     if (c < nchunks) {
-      float* As = smem + (c % kStages) * Tl::kStageWords;
-      float* Bs = As + Tl::kAWords;
+      E* As = smem + (c % kStages) * Tl::kStageElems;
+      E* Bs = As + Tl::kAElems;
       if constexpr (kMode != kDW) {
-        const int q = 4 * (tid & 7);
+        const int q = kV * (tid % kVecs);
         const bool rok = r_chunk + q < p.R && apos.j < p.J;
         const int shift = p.sign * (apos.k - half);
-        const float* src = a + apos.j;
+        const E* src = a + apos.j;
 #pragma unroll
         for (int i = 0; i < Tl::kQuadsA; ++i) {
           const int tt = a_t[i] + shift;
           const bool ok = rok && a_ok[i] && tt >= 0 && tt < p.T;
-          copy_quad(As + a_row[i] * Tl::kAStride + q,
-                    src + (long long)(a_base[i] + tt) * p.J, ok,
-                    p.J - apos.j, vec_a, a);
+          copy_vec(As + a_row[i] * Tl::kAStride + q,
+                   src + (long long)(a_base[i] + tt) * p.J, ok,
+                   p.J - apos.j, copy_a, a);
         }
         if constexpr (kMode == kConvT) {
-          const float* wsrc = b + (long long)apos.k * p.N * p.J + apos.j;
+          const E* wsrc = b + (long long)apos.k * p.N * p.J + apos.j;
 #pragma unroll
           for (int i = 0; i < Tl::kQuadsB; ++i) {
             const int n = n0 + b_row[i];
-            copy_quad(Bs + b_row[i] * Tl::kBStride + q,
-                      wsrc + (long long)n * p.J, rok && n < p.N,
-                      p.J - apos.j, vec_b, b);
+            copy_vec(Bs + b_row[i] * Tl::kBStride + q,
+                     wsrc + (long long)n * p.J, rok && n < p.N,
+                     p.J - apos.j, copy_b, b);
           }
         }
         apos.advance(p.Jp);
       } else {
-        const int col = 4 * (tid % (BM / 4));
+        const int col = kV * (tid % (BM / kV));
         const int shift = dw_k - half;
-        const float* src = a + dw_j;
+        const E* src = a + dw_j;
 #pragma unroll
         for (int i = 0; i < Tl::kQuadsA; ++i) {
           const int tt = a_t[i] + shift;
           const bool ok = dw_ok && r_chunk + a_row[i] < p.R && tt >= 0 &&
                           tt < p.T;
-          copy_quad(As + a_row[i] * Tl::kAStride + col,
-                    src + ((long long)a_base[i] * p.T + tt) * p.J, ok,
-                    p.J - dw_j, vec_a, a);
+          copy_vec(As + a_row[i] * Tl::kAStride + col,
+                   src + ((long long)a_base[i] * p.T + tt) * p.J, ok,
+                   p.J - dw_j, copy_a, a);
           a_t[i] += kBK;                     // the frame kBK rows on
           while (a_t[i] >= p.T) {
             a_t[i] -= p.T;
@@ -286,8 +343,8 @@ gemm_kernel(Gemm p) {
             row = (long long)bpos[i].k * p.J + bpos[i].j;
             bpos[i].advance(p.Jp);
           }
-          copy_quad(Bs + b_row[i] * Tl::kBStride + b_col,
-                    b + row * p.N + n, ok, p.N - n, vec_b, b);
+          copy_vec(Bs + b_row[i] * Tl::kBStride + b_col, b + row * p.N + n,
+                   ok, p.N - n, copy_b, b);
         }
       }
       r_chunk += kBK;
@@ -300,6 +357,8 @@ gemm_kernel(Gemm p) {
   const int warp = tid >> 5;
   const int wm = 32 * (warp / Tl::kWarpsN), wn = 32 * (warp % Tl::kWarpsN);
   const bool live = m0 + wm < p.M && n0 + wn < p.N;
+  // bf16: this lane's ldmatrix row (lanes 8i .. 8i+7 address block i)
+  const int lrow = lane & 7, lblk = lane >> 3;
   float acc[2][4][4];
 #pragma unroll
   for (int i = 0; i < 2; ++i)
@@ -315,8 +374,8 @@ gemm_kernel(Gemm p) {
     __syncthreads();            // ... for every thread; chunk c-1 is done
     stage(c + kStages - 1);     // into chunk c-1's slot
     if (!live) continue;
-    const float* As = smem + (c % kStages) * Tl::kStageWords;
-    const float* Bs = As + Tl::kAWords;
+    const E* As = smem + (c % kStages) * Tl::kStageElems;
+    const E* Bs = As + Tl::kAElems;
     // the chunk's products sum into a zeroed partial, added to acc in f32:
     // an MMA's accumulation truncates, and into acc every truncation would
     // lose up to an ulp of acc (a bias over a 6144-deep sum); into the
@@ -328,38 +387,81 @@ gemm_kernel(Gemm p) {
       for (int j = 0; j < 4; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) part[i][j][e] = 0.f;
+    if constexpr (!kBf16) {
 #pragma unroll
-    for (int ks = 0; ks < kBK; ks += 8) {
-      uint32_t ah[2][4], al[2][4], bh[4][2], bl[4][2];
+      for (int ks = 0; ks < kBK; ks += 8) {
+        uint32_t ah[2][4], al[2][4], bh[4][2], bl[4][2];
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
+        for (int i = 0; i < 2; ++i)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int m = wm + 16 * i + g + 8 * (e & 1);
-          const int k = ks + t + 4 * (e >> 1);
-          const float v = Tl::kAT ? As[k * Tl::kAStride + m]
-                                  : As[m * Tl::kAStride + k];
-          mixstage::split_tf32(v, ah[i][e], al[i][e]);
+          for (int e = 0; e < 4; ++e) {
+            const int m = wm + 16 * i + g + 8 * (e & 1);
+            const int k = ks + t + 4 * (e >> 1);
+            const float v = Tl::kAT ? As[k * Tl::kAStride + m]
+                                    : As[m * Tl::kAStride + k];
+            mixstage::split_tf32(v, ah[i][e], al[i][e]);
+          }
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int n = wn + 8 * j + g;
+            const int k = ks + t + 4 * e;
+            const float v = Tl::kBT ? Bs[n * Tl::kBStride + k]
+                                    : Bs[k * Tl::kBStride + n];
+            mixstage::split_tf32(v, bh[j][e], bl[j][e]);
+          }
+        // the small terms first; each pass is 8 independent MMAs
+#pragma unroll
+        for (int pass = 0; pass < 3; ++pass)
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              mixstage::mma_tf32(part[i][j], pass == 0 ? al[i] : ah[i],
+                                 pass == 1 ? bl[j] : bh[j]);
+      }
+    } else {
+#pragma unroll
+      for (int ks = 0; ks < kBK; ks += 16) {
+        uint32_t af[2][4], bfr[4][2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          // blocks (m 0-7 | 8-15) x (k 0-7 | 8-15) of m-fragment i
+          const int mb = wm + 16 * i, kb = ks;
+          if constexpr (Tl::kAT) {           // stored k-major: transpose
+            mixstage::ldmatrix_x4_trans(
+                af[i], As + (kb + 8 * (lblk >> 1) + lrow) * Tl::kAStride +
+                           mb + 8 * (lblk & 1));
+          } else {
+            mixstage::ldmatrix_x4(
+                af[i], As + (mb + 8 * (lblk & 1) + lrow) * Tl::kAStride + kb +
+                           8 * (lblk >> 1));
+          }
         }
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int n = wn + 8 * j + g;
-          const int k = ks + t + 4 * e;
-          const float v = Tl::kBT ? Bs[n * Tl::kBStride + k]
-                                  : Bs[k * Tl::kBStride + n];
-          mixstage::split_tf32(v, bh[j][e], bl[j][e]);
+        for (int j = 0; j < 4; j += 2) {
+          // blocks (k 0-7 | 8-15) of n-fragments j and j + 1
+          uint32_t r[4];
+          const int nb = wn + 8 * j + 8 * (lblk >> 1);
+          if constexpr (Tl::kBT) {           // stored n-major
+            mixstage::ldmatrix_x4(r, Bs + (nb + lrow) * Tl::kBStride + ks +
+                                         8 * (lblk & 1));
+          } else {                           // stored k-major: transpose
+            mixstage::ldmatrix_x4_trans(
+                r, Bs + (ks + 8 * (lblk & 1) + lrow) * Tl::kBStride + nb);
+          }
+          bfr[j][0] = r[0];
+          bfr[j][1] = r[1];
+          bfr[j + 1][0] = r[2];
+          bfr[j + 1][1] = r[3];
         }
-      // the small terms first; each pass is 8 independent MMAs
-#pragma unroll
-      for (int pass = 0; pass < 3; ++pass)
 #pragma unroll
         for (int i = 0; i < 2; ++i)
 #pragma unroll
           for (int j = 0; j < 4; ++j)
-            mixstage::mma_tf32(part[i][j], pass == 0 ? al[i] : ah[i],
-                               pass == 1 ? bl[j] : bh[j]);
+            mixstage::mma_bf16(part[i][j], af[i], bfr[j]);
+      }
     }
 #pragma unroll
     for (int i = 0; i < 2; ++i)
@@ -371,8 +473,10 @@ gemm_kernel(Gemm p) {
   mixstage::cp_async_wait<0>();           // only empty groups are left
   if (!live) return;
 
-  float* out = p.out + grp * p.out_g;
-  const float* bias = p.bias ? p.bias + grp * p.bias_g : nullptr;
+  O* out = static_cast<O*>(p.out) + grp * p.out_g;
+  const E* bias =
+      p.bias ? static_cast<const E*>(p.bias) + grp * p.bias_g : nullptr;
+  const bool round_acc = kBf16 && p.round_acc;
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -390,15 +494,17 @@ gemm_kernel(Gemm p) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int n = n0 + wn + 8 * j + 2 * t + e;
-          if (n < p.N)
-            out[row * p.N + n] =
-                acc[i][j][2 * h + e] + (bias ? __ldg(bias + n) : 0.f);
+          if (n < p.N) {
+            float v = acc[i][j][2 * h + e];
+            if (round_acc) v = __bfloat162float(__float2bfloat16_rn(v));
+            out[row * p.N + n] = to<O>(v + (bias ? ld(bias + n) : 0.f));
+          }
         }
     }
 }
 
 // ---------------------------------------------------------------------------
-// column passes
+// column passes (E: the type of c, h, dc and dout; sums in f32)
 // ---------------------------------------------------------------------------
 
 // Sum of the 8 row lanes of a column, in a fixed order, into every lane.
@@ -437,17 +543,19 @@ __device__ __forceinline__ float splits_sum(const float* part, int q,
   return total;
 }
 
-// Per-layer parameters of group g: mu/var/gamma/beta are (G, 4, C) arrays,
-// already offset to the layer.
+// Per-layer parameters of group g: mu/var (f32) and gamma/beta (E) are
+// (G, 4, C) arrays, already offset to the layer.
+template <class E>
 struct LayerParams {
-  const float* mu; const float* var; const float* gamma; const float* beta;
+  const float* mu; const float* var; const E* gamma; const E* beta;
 };
 
 // BatchNorm statistics of one layer, split by rows: for 32 columns of group
 // blockIdx.y over this split's rows, sum c and c^2 into part (q = 0, 1).
 // c is (G, rows, C).
+template <class E>
 __global__ void __launch_bounds__(kColW * kColLanes) bn_stats_kernel(
-    const float* __restrict__ c, float* part, int rows, int C) {
+    const E* __restrict__ c, float* part, int rows, int C) {
   __shared__ float s[kColLanes][kColW];
   const int ch = blockIdx.x * kColW + threadIdx.x;
   const bool live = ch < C;
@@ -457,7 +565,7 @@ __global__ void __launch_bounds__(kColW * kColLanes) bn_stats_kernel(
   float a = 0.f, q = 0.f;
   if (live)
     for (int n = lo + threadIdx.y; n < hi; n += kColLanes) {
-      const float v = __ldg(c + goff + (long long)n * C + ch);
+      const float v = ld(c + goff + (long long)n * C + ch);
       a += v;
       q += v * v;
     }
@@ -472,9 +580,10 @@ __global__ void __launch_bounds__(kColW * kColLanes) bn_stats_kernel(
 // h = leaky(BN(c)) over this split's rows of 32 columns of group
 // blockIdx.y.  With `part`, the statistics are bn_stats_kernel's sums
 // (written to mu_out / var_out by split 0); else lp.mu / lp.var.
+template <class E>
 __global__ void __launch_bounds__(kColW * kColLanes) bn_act_kernel(
-    const float* __restrict__ c, LayerParams lp, const float* part,
-    float* mu_out, float* var_out, float* __restrict__ h, int rows, int C) {
+    const E* __restrict__ c, LayerParams<E> lp, const float* part,
+    float* mu_out, float* var_out, E* __restrict__ h, int rows, int C) {
   const int ch = blockIdx.x * kColW + threadIdx.x, g = blockIdx.y;
   if (ch >= C) return;
   const int pidx = g * kL * C + ch;
@@ -491,31 +600,33 @@ __global__ void __launch_bounds__(kColW * kColLanes) bn_act_kernel(
     var = __ldg(lp.var + pidx);
   }
   const float inv = 1.f / sqrtf(var + kEps);
-  const float ga = __ldg(lp.gamma + pidx), be = __ldg(lp.beta + pidx);
+  const float ga = ld(lp.gamma + pidx), be = ld(lp.beta + pidx);
   const long long goff = (long long)g * rows * C;
   int lo, hi;
   split_rows(rows, lo, hi);
   for (int n = lo + threadIdx.y; n < hi; n += kColLanes) {
     const long long i = goff + (long long)n * C + ch;
-    h[i] = leaky((__ldg(c + i) - mu) * inv * ga + be);
+    h[i] = to<E>(leaky((ld(c + i) - mu) * inv * ga + be));
   }
 }
 
+template <class E>
 struct BnCoef {
   float mu, inv, ga, be;
-  __device__ BnCoef(LayerParams lp, int pidx)
+  __device__ BnCoef(LayerParams<E> lp, int pidx)
       : mu(__ldg(lp.mu + pidx)),
         inv(1.f / sqrtf(__ldg(lp.var + pidx) + kEps)),
-        ga(__ldg(lp.gamma + pidx)),
-        be(__ldg(lp.beta + pidx)) {}
+        ga(ld(lp.gamma + pidx)),
+        be(ld(lp.beta + pidx)) {}
 };
 
 // BatchNorm + leaky backward, first pass: over this split's rows of 32
 // columns of group blockIdx.y, sum dpre = leaky'(pre) * dh (q = 0) and
 // dpre * xhat (q = 1) into part.
+template <class E>
 __global__ void __launch_bounds__(kColW * kColLanes) bn_bwd_sums_kernel(
-    const float* __restrict__ c, const float* __restrict__ dh,
-    LayerParams lp, float* part, int rows, int C) {
+    const E* __restrict__ c, const float* __restrict__ dh,
+    LayerParams<E> lp, float* part, int rows, int C) {
   __shared__ float s[kColLanes][kColW];
   const int ch = blockIdx.x * kColW + threadIdx.x;
   const bool live = ch < C;
@@ -524,10 +635,10 @@ __global__ void __launch_bounds__(kColW * kColLanes) bn_bwd_sums_kernel(
   split_rows(rows, lo, hi);
   float sdb = 0.f, sdg = 0.f;
   if (live) {
-    const BnCoef k(lp, blockIdx.y * kL * C + ch);
+    const BnCoef<E> k(lp, blockIdx.y * kL * C + ch);
     for (int n = lo + threadIdx.y; n < hi; n += kColLanes) {
       const long long i = goff + (long long)n * C + ch;
-      const float xhat = (__ldg(c + i) - k.mu) * k.inv;
+      const float xhat = (ld(c + i) - k.mu) * k.inv;
       const float d = __ldg(dh + i);
       const float dpre = xhat * k.ga + k.be >= 0.f ? d : kSlope * d;
       sdb += dpre;
@@ -545,14 +656,15 @@ __global__ void __launch_bounds__(kColW * kColLanes) bn_bwd_sums_kernel(
 // BatchNorm + leaky backward, second pass: dbeta, dgamma from the first
 // pass's sums (split 0 writes them), then dc = inv * (dxhat - mean(dxhat)
 // - xhat * mean(dxhat * xhat)) over this split's rows, and the split's sum
-// of dc into part (q = 2).  With h_prev, also h_prev = leaky(BN(c_prev))
-// over the same rows: the previous layer's activation, which the dW pass
-// reads next.
+// of dc (before dc is stored as E) into part (q = 2).  With h_prev, also
+// h_prev = leaky(BN(c_prev)) over the same rows: the previous layer's
+// activation, which the dW pass reads next.
+template <class E>
 __global__ void __launch_bounds__(kColW * kColLanes) bn_bwd_dc_kernel(
-    const float* __restrict__ c, const float* __restrict__ dh,
-    float* __restrict__ dc, LayerParams lp, float* part, float* dgamma,
-    float* dbeta, int rows, int C, const float* __restrict__ c_prev,
-    LayerParams lp_prev, float* __restrict__ h_prev) {
+    const E* __restrict__ c, const float* __restrict__ dh,
+    E* __restrict__ dc, LayerParams<E> lp, float* part, float* dgamma,
+    float* dbeta, int rows, int C, const E* __restrict__ c_prev,
+    LayerParams<E> lp_prev, E* __restrict__ h_prev) {
   __shared__ float s[kColLanes][kColW];
   const int ch = blockIdx.x * kColW + threadIdx.x;
   const bool live = ch < C;
@@ -562,7 +674,7 @@ __global__ void __launch_bounds__(kColW * kColLanes) bn_bwd_dc_kernel(
   split_rows(rows, lo, hi);
   float scb = 0.f;
   if (live) {
-    const BnCoef k(lp, pidx);
+    const BnCoef<E> k(lp, pidx);
     const float sdb = splits_sum(part, 0, C, ch);
     const float sdg = splits_sum(part, 1, C, ch);
     if (blockIdx.z == 0 && threadIdx.y == 0) {
@@ -573,19 +685,19 @@ __global__ void __launch_bounds__(kColW * kColLanes) bn_bwd_dc_kernel(
     const float mean_dxx = k.ga * sdg / rows;     // mean(dpre * gamma * xhat)
     for (int n = lo + threadIdx.y; n < hi; n += kColLanes) {
       const long long i = goff + (long long)n * C + ch;
-      const float xhat = (__ldg(c + i) - k.mu) * k.inv;
+      const float xhat = (ld(c + i) - k.mu) * k.inv;
       const float d = __ldg(dh + i);
       const float dpre = xhat * k.ga + k.be >= 0.f ? d : kSlope * d;
       const float v = k.inv * (dpre * k.ga - mean_dx - xhat * mean_dxx);
-      dc[i] = v;
+      dc[i] = to<E>(v);
       scb += v;
     }
     if (h_prev) {
-      const BnCoef kp(lp_prev, pidx);
+      const BnCoef<E> kp(lp_prev, pidx);
       for (int n = lo + threadIdx.y; n < hi; n += kColLanes) {
         const long long i = goff + (long long)n * C + ch;
-        h_prev[i] = leaky((__ldg(c_prev + i) - kp.mu) * kp.inv * kp.ga +
-                          kp.be);
+        h_prev[i] = to<E>(leaky((ld(c_prev + i) - kp.mu) * kp.inv * kp.ga +
+                                kp.be));
       }
     }
   }
@@ -595,8 +707,9 @@ __global__ void __launch_bounds__(kColW * kColLanes) bn_bwd_dc_kernel(
 
 // The split's column sums of a (G, rows, F) into part (q = 2): the logits'
 // bias gradient.
+template <class E>
 __global__ void __launch_bounds__(kColW * kColLanes) col_sum_kernel(
-    const float* __restrict__ a, float* part, int rows, int F) {
+    const E* __restrict__ a, float* part, int rows, int F) {
   __shared__ float s[kColLanes][kColW];
   const int f = blockIdx.x * kColW + threadIdx.x;
   int lo, hi;
@@ -604,7 +717,7 @@ __global__ void __launch_bounds__(kColW * kColLanes) col_sum_kernel(
   float acc = 0.f;
   if (f < F)
     for (int n = lo + threadIdx.y; n < hi; n += kColLanes)
-      acc += __ldg(a + ((long long)blockIdx.y * rows + n) * F + f);
+      acc += ld(a + ((long long)blockIdx.y * rows + n) * F + f);
   acc = lane_sum(s, acc);
   if (f < F && threadIdx.y == 0) part_at(part, 2, F)[f] = acc;
 }
@@ -661,54 +774,65 @@ int pick_tile(int M, int N, int groups, int sms) {
   return best;
 }
 
-template <int kMode, int BM, int BN>
+template <int kMode, int BM, int BN, class E, class O>
 cudaError_t launch_gemm(const Gemm& p, int groups, cudaStream_t stream) {
-  using Tl = Tile<kMode, BM, BN>;
+  using Tl = Tile<kMode, BM, BN, E>;
   const cudaError_t err = cudaFuncSetAttribute(
-      gemm_kernel<kMode, BM, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)Tl::kSmem);
+      gemm_kernel<kMode, BM, BN, E, O>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Tl::kSmem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.N + BN - 1) / BN, (p.M + BM - 1) / BM, groups);
-  gemm_kernel<kMode, BM, BN><<<grid, Tl::kThreads, Tl::kSmem, stream>>>(p);
+  gemm_kernel<kMode, BM, BN, E, O>
+      <<<grid, Tl::kThreads, Tl::kSmem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <int kMode>
+template <int kMode, class E, class O>
 cudaError_t gemm(const Gemm& p, int groups, int sms, cudaStream_t stream) {
   switch (pick_tile(p.M, p.N, groups, sms)) {
-    case 0: return launch_gemm<kMode, 128, 128>(p, groups, stream);
-    case 1: return launch_gemm<kMode, 128, 64>(p, groups, stream);
-    default: return launch_gemm<kMode, 64, 64>(p, groups, stream);
+    case 0: return launch_gemm<kMode, 128, 128, E, O>(p, groups, stream);
+    case 1: return launch_gemm<kMode, 128, 64, E, O>(p, groups, stream);
+    default: return launch_gemm<kMode, 64, 64, E, O>(p, groups, stream);
   }
 }
 
-// 16-byte copies need rows of a multiple of 4 words from 16-byte aligned
-// bases, in every group.
-bool vec_ok(const float* base, long long group_stride, int row_words) {
-  return row_words % 4 == 0 && group_stride % 4 == 0 &&
-         (reinterpret_cast<uintptr_t>(base) & 15) == 0;
+// How rows of `row_elems` elements E from `base`, groups `group_stride`
+// elements apart, can be staged: 16-byte copies need every row start
+// 16-byte aligned, 4-byte ones 4-byte aligned; else value by value.
+template <class E>
+int copy_mode(const E* base, long long group_stride, int row_elems) {
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(base);
+  const long long row = (long long)row_elems * sizeof(E);
+  const long long grp = group_stride * (long long)sizeof(E);
+  if (row % 16 == 0 && grp % 16 == 0 && addr % 16 == 0) return kCopy16B;
+  if (row % 4 == 0 && grp % 4 == 0 && addr % 4 == 0) return kCopy4B;
+  return kCopy2B;
 }
 
 // A conv (kConv) or transposed conv (kConvT, sign -1) over `rows` frames:
 // J input channels (kConvT: the layer's output channels), `cols` outputs.
-Gemm conv(int mode, const float* a, long long a_g, const float* w,
-          long long w_g, const float* bias, long long bias_g, float* out,
-          long long out_g, int rows, int cols, int J, int taps, int T,
-          int sign) {
+// `round_acc`: the bf16 forward's rounding of the sum before the bias.
+template <class E>
+Gemm conv(int mode, const E* a, long long a_g, const E* w, long long w_g,
+          const E* bias, long long bias_g, void* out, long long out_g,
+          int rows, int cols, int J, int taps, int T, int sign,
+          bool round_acc = false) {
   const int Jp = round8(J);
   return Gemm{a, a_g, w, w_g, bias, bias_g, out, out_g, rows, cols,
-              taps * Jp, J, Jp, taps, T, sign, vec_ok(a, a_g, J),
-              vec_ok(w, w_g, mode == kConv ? cols : J)};
+              taps * Jp, J, Jp, taps, T, sign, copy_mode(a, a_g, J),
+              copy_mode(w, w_g, mode == kConv ? cols : J), round_acc};
 }
 
 // The per-tap weight gradient: out (taps, J, cols) = the time-shifted a
 // (rows frames x J)^T @ d (rows x cols).
-Gemm dweight(const float* a, long long a_g, const float* d, long long d_g,
+template <class E>
+Gemm dweight(const E* a, long long a_g, const E* d, long long d_g,
              float* out, long long out_g, int rows, int cols, int J,
              int taps, int T) {
   const int Jp = round8(J);
   return Gemm{a, a_g, d, d_g, nullptr, 0, out, out_g, taps * Jp, cols, rows,
-              J, Jp, taps, T, 1, vec_ok(a, a_g, J), vec_ok(d, d_g, cols)};
+              J, Jp, taps, T, 1, copy_mode(a, a_g, J),
+              copy_mode(d, d_g, cols), 0};
 }
 
 int splits(int rows) {
@@ -728,7 +852,7 @@ bool bad_dims(int B, int T, int C0, int C, int F, int G) {
 }
 
 // Floats of the scratch `h` both entry points take: one (G, B*T,
-// max(C, C0)) activation (or layer 0's per-group dx partials) and the
+// max(C, C0)) activation (or layer 0's per-group dx partials, f32) and the
 // column passes' partial sums.
 long long scratch_floats(int B, int T, int C0, int C, int F, int G) {
   const long long width = C > F ? C : F;
@@ -742,11 +866,135 @@ long long scratch_floats(int B, int T, int C0, int C, int F, int G) {
     if (err_ != cudaSuccess) return (int)err_;      \
   } while (0)
 
+// K3 forward for elements E (float or bf16); see the entry points.
+template <class E>
+int forward(const E* x, const E* w0, const E* wc, const E* cb,
+            const E* gamma, const E* beta, const E* wl, const E* bl, E* out,
+            E* cs, float* mu, float* var, float* scratch, int B, int T,
+            int C0, int C, int F, int G, void* stream_) {
+  if (bad_dims(B, T, C0, C, F, G)) return (int)cudaErrorInvalidValue;
+  cudaStream_t stream = (cudaStream_t)stream_;
+  constexpr bool kBf16 = std::is_same_v<E, bf16>;
+  int sms, smem_limit;
+  MIXSTAGE_CHECK(mixstage::card(&sms, &smem_limit));
+  const int N = B * T, S = splits(N);
+  const long long act = (long long)N * C;
+  E* h = reinterpret_cast<E*>(scratch);
+  float* part = scratch + (long long)G * N * (C > C0 ? C : C0);
+  for (int l = 0; l < kL; ++l) {
+    const int cin = l == 0 ? C0 : C;
+    const E* w = l == 0 ? w0 : wc + (long long)(l - 1) * G * 3 * C * C;
+    E* c = cs + l * G * act;
+    MIXSTAGE_CHECK((gemm<kConv, E, E>(
+        conv(kConv, l == 0 ? x : h, l == 0 ? 0 : act, w, 3LL * cin * C,
+             cb + l * C, kL * C, c, act, N, C, cin, 3, T, 1, kBf16),
+        G, sms, stream)));
+    bn_stats_kernel<E><<<col_grid(C, G, S), kColBlock, 0, stream>>>(
+        c, part, N, C);
+    MIXSTAGE_CHECK(cudaGetLastError());
+    const LayerParams<E> lp{nullptr, nullptr, gamma + l * C, beta + l * C};
+    bn_act_kernel<E><<<col_grid(C, G, S), kColBlock, 0, stream>>>(
+        c, lp, part, mu + l * C, var + l * C, h, N, C);
+    MIXSTAGE_CHECK(cudaGetLastError());
+  }
+  MIXSTAGE_CHECK((gemm<kConv, E, E>(
+      conv(kConv, h, act, wl, (long long)C * F, bl, F, out, (long long)N * F,
+           N, F, C, 1, T, 1),
+      G, sms, stream)));
+  return 0;
+}
+
+// K3 backward for elements E (float or bf16); see the entry points.
+template <class E>
+int backward(const E* dout, const E* x, const E* cs, const float* mu,
+             const float* var, const E* w0, const E* wc, const E* gamma,
+             const E* beta, const E* wl, float* dx, float* dw0, float* dwc,
+             float* dcb, float* dgamma, float* dbeta, float* dwl, float* dbl,
+             float* scratch, float* dh, E* dc, int B, int T, int C0, int C,
+             int F, int G, void* stream_) {
+  if (bad_dims(B, T, C0, C, F, G)) return (int)cudaErrorInvalidValue;
+  cudaStream_t stream = (cudaStream_t)stream_;
+  int sms, smem_limit;
+  MIXSTAGE_CHECK(mixstage::card(&sms, &smem_limit));
+  const int N = B * T, S = splits(N);
+  const long long act = (long long)N * C;
+  E* h = reinterpret_cast<E*>(scratch);
+  float* part = scratch + (long long)G * N * (C > C0 ? C : C0);
+  auto params = [&](int l) {
+    return LayerParams<E>{mu + l * C, var + l * C, gamma + l * C,
+                          beta + l * C};
+  };
+  const int red_threads = 256;
+  auto reduce = [&](int width, float* o, int out_g) {
+    reduce_splits_kernel<<<(G * width + red_threads - 1) / red_threads,
+                           red_threads, 0, stream>>>(part, S, G, width, o,
+                                                     out_g);
+    return cudaGetLastError();
+  };
+  // logits head: h3, dwl = h3^T dout, dbl = sum dout, dh = dout wl^T
+  bn_act_kernel<E><<<col_grid(C, G, S), kColBlock, 0, stream>>>(
+      cs + (kL - 1) * G * act, params(kL - 1), nullptr, nullptr, nullptr, h,
+      N, C);
+  MIXSTAGE_CHECK(cudaGetLastError());
+  MIXSTAGE_CHECK((gemm<kDW, E, float>(
+      dweight(h, act, dout, (long long)N * F, dwl, (long long)C * F, N, F, C,
+              1, T),
+      G, sms, stream)));
+  col_sum_kernel<E><<<col_grid(F, G, S), kColBlock, 0, stream>>>(dout, part,
+                                                                 N, F);
+  MIXSTAGE_CHECK(cudaGetLastError());
+  MIXSTAGE_CHECK(reduce(F, dbl, F));
+  MIXSTAGE_CHECK((gemm<kConvT, E, float>(
+      conv(kConvT, dout, (long long)N * F, wl, (long long)C * F,
+           (const E*)nullptr, 0, dh, act, N, C, F, 1, T, 1),
+      G, sms, stream)));
+  for (int l = kL - 1; l >= 0; --l) {
+    const E* c = cs + l * G * act;
+    bn_bwd_sums_kernel<E><<<col_grid(C, G, S), kColBlock, 0, stream>>>(
+        c, dh, params(l), part, N, C);
+    MIXSTAGE_CHECK(cudaGetLastError());
+    // with the layer's input h_{l-1}, recomputed (l > 0)
+    bn_bwd_dc_kernel<E><<<col_grid(C, G, S), kColBlock, 0, stream>>>(
+        c, dh, dc, params(l), part, dgamma + l * C, dbeta + l * C, N, C,
+        l > 0 ? cs + (l - 1) * G * act : nullptr, params(l > 0 ? l - 1 : 0),
+        l > 0 ? h : nullptr);
+    MIXSTAGE_CHECK(cudaGetLastError());
+    MIXSTAGE_CHECK(reduce(C, dcb + l * C, kL * C));
+    const int cin = l == 0 ? C0 : C;
+    const long long wsz = 3LL * cin * C;
+    float* dw = l == 0 ? dw0 : dwc + (long long)(l - 1) * G * wsz;
+    const E* w = l == 0 ? w0 : wc + (long long)(l - 1) * G * wsz;
+    MIXSTAGE_CHECK((gemm<kDW, E, float>(
+        dweight(l == 0 ? x : h, l == 0 ? 0 : act, dc, act, dw, wsz, N, C,
+                cin, 3, T),
+        G, sms, stream)));
+    // d(input): taps shifted back; layer 0 writes one dx partial per group
+    // into the scratch (free by now) and sums them in group order
+    if (l > 0) {
+      MIXSTAGE_CHECK((gemm<kConvT, E, float>(
+          conv(kConvT, dc, act, w, wsz, (const E*)nullptr, 0, dh, act, N, C,
+               C, 3, T, -1),
+          G, sms, stream)));
+    } else {
+      const long long nx = (long long)N * C0;
+      MIXSTAGE_CHECK((gemm<kConvT, E, float>(
+          conv(kConvT, dc, act, w, wsz, (const E*)nullptr, 0, scratch, nx, N,
+               C0, C, 3, T, -1),
+          G, sms, stream)));
+      const long long blocks = (nx + 255) / 256;
+      group_sum_kernel<<<(int)(blocks < 4096 ? blocks : 4096), 256, 0,
+                         stream>>>(scratch, G, nx, dx);
+      MIXSTAGE_CHECK(cudaGetLastError());
+    }
+  }
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
 
-// Floats of the scratch array `h` of the two entry points below.
+// Floats of the scratch array `h` of the entry points below.
 long long mixstage_train_decoder_scratch_floats(int B, int T, int C0, int C,
                                                 int F, int G) {
   return scratch_floats(B, T, C0, C, F, G);
@@ -761,34 +1009,20 @@ int mixstage_train_decoder_fwd_f32(
     const float* x, const float* w0, const float* wc, const float* cb,
     const float* gamma, const float* beta, const float* wl, const float* bl,
     float* out, float* cs, float* mu, float* var, float* h, int B, int T,
-    int C0, int C, int F, int G, void* stream_) {
-  if (bad_dims(B, T, C0, C, F, G)) return (int)cudaErrorInvalidValue;
-  cudaStream_t stream = (cudaStream_t)stream_;
-  int sms, smem_limit;
-  MIXSTAGE_CHECK(mixstage::card(&sms, &smem_limit));
-  const int N = B * T, S = splits(N);
-  const long long act = (long long)N * C;
-  float* part = h + (long long)G * N * (C > C0 ? C : C0);
-  for (int l = 0; l < kL; ++l) {
-    const int cin = l == 0 ? C0 : C;
-    const float* w = l == 0 ? w0 : wc + (long long)(l - 1) * G * 3 * C * C;
-    float* c = cs + l * G * act;
-    MIXSTAGE_CHECK(gemm<kConv>(
-        conv(kConv, l == 0 ? x : h, l == 0 ? 0 : act, w, 3LL * cin * C,
-             cb + l * C, kL * C, c, act, N, C, cin, 3, T, 1),
-        G, sms, stream));
-    bn_stats_kernel<<<col_grid(C, G, S), kColBlock, 0, stream>>>(c, part, N,
-                                                                 C);
-    MIXSTAGE_CHECK(cudaGetLastError());
-    const LayerParams lp{nullptr, nullptr, gamma + l * C, beta + l * C};
-    bn_act_kernel<<<col_grid(C, G, S), kColBlock, 0, stream>>>(
-        c, lp, part, mu + l * C, var + l * C, h, N, C);
-    MIXSTAGE_CHECK(cudaGetLastError());
-  }
-  MIXSTAGE_CHECK(gemm<kConv>(conv(kConv, h, act, wl, (long long)C * F, bl, F,
-                                  out, (long long)N * F, N, F, C, 1, T, 1),
-                             G, sms, stream));
-  return 0;
+    int C0, int C, int F, int G, void* stream) {
+  return forward<float>(x, w0, wc, cb, gamma, beta, wl, bl, out, cs, mu, var,
+                        h, B, T, C0, C, F, G, stream);
+}
+
+// The bf16 mode of the forward: as mixstage_train_decoder_fwd_f32 with x,
+// every weight, out and cs bfloat16; mu, var and h float32.
+int mixstage_train_decoder_fwd_bf16(
+    const bf16* x, const bf16* w0, const bf16* wc, const bf16* cb,
+    const bf16* gamma, const bf16* beta, const bf16* wl, const bf16* bl,
+    bf16* out, bf16* cs, float* mu, float* var, float* h, int B, int T,
+    int C0, int C, int F, int G, void* stream) {
+  return forward<bf16>(x, w0, wc, cb, gamma, beta, wl, bl, out, cs, mu, var,
+                       h, B, T, C0, C, F, G, stream);
 }
 
 // K3 backward on `stream`; returns the first cudaError_t (0 = success).
@@ -802,77 +1036,24 @@ int mixstage_train_decoder_bwd_f32(
     const float* beta, const float* wl, float* dx, float* dw0, float* dwc,
     float* dcb, float* dgamma, float* dbeta, float* dwl, float* dbl,
     float* h, float* dh, float* dc, int B, int T, int C0, int C, int F,
-    int G, void* stream_) {
-  if (bad_dims(B, T, C0, C, F, G)) return (int)cudaErrorInvalidValue;
-  cudaStream_t stream = (cudaStream_t)stream_;
-  int sms, smem_limit;
-  MIXSTAGE_CHECK(mixstage::card(&sms, &smem_limit));
-  const int N = B * T, S = splits(N);
-  const long long act = (long long)N * C;
-  float* part = h + (long long)G * N * (C > C0 ? C : C0);
-  auto params = [&](int l) {
-    return LayerParams{mu + l * C, var + l * C, gamma + l * C, beta + l * C};
-  };
-  const int red_threads = 256;
-  auto reduce = [&](int width, float* o, int out_g) {
-    reduce_splits_kernel<<<(G * width + red_threads - 1) / red_threads,
-                           red_threads, 0, stream>>>(part, S, G, width, o,
-                                                     out_g);
-    return cudaGetLastError();
-  };
-  // logits head: h3, dwl = h3^T dout, dbl = sum dout, dh = dout wl^T
-  bn_act_kernel<<<col_grid(C, G, S), kColBlock, 0, stream>>>(
-      cs + (kL - 1) * G * act, params(kL - 1), nullptr, nullptr, nullptr, h,
-      N, C);
-  MIXSTAGE_CHECK(cudaGetLastError());
-  MIXSTAGE_CHECK(gemm<kDW>(dweight(h, act, dout, (long long)N * F, dwl,
-                                   (long long)C * F, N, F, C, 1, T),
-                           G, sms, stream));
-  col_sum_kernel<<<col_grid(F, G, S), kColBlock, 0, stream>>>(dout, part, N,
-                                                              F);
-  MIXSTAGE_CHECK(cudaGetLastError());
-  MIXSTAGE_CHECK(reduce(F, dbl, F));
-  MIXSTAGE_CHECK(gemm<kConvT>(conv(kConvT, dout, (long long)N * F, wl,
-                                   (long long)C * F, nullptr, 0, dh, act, N,
-                                   C, F, 1, T, 1),
-                              G, sms, stream));
-  for (int l = kL - 1; l >= 0; --l) {
-    const float* c = cs + l * G * act;
-    bn_bwd_sums_kernel<<<col_grid(C, G, S), kColBlock, 0, stream>>>(
-        c, dh, params(l), part, N, C);
-    MIXSTAGE_CHECK(cudaGetLastError());
-    // with the layer's input h_{l-1}, recomputed (l > 0)
-    bn_bwd_dc_kernel<<<col_grid(C, G, S), kColBlock, 0, stream>>>(
-        c, dh, dc, params(l), part, dgamma + l * C, dbeta + l * C, N, C,
-        l > 0 ? cs + (l - 1) * G * act : nullptr, params(l > 0 ? l - 1 : 0),
-        l > 0 ? h : nullptr);
-    MIXSTAGE_CHECK(cudaGetLastError());
-    MIXSTAGE_CHECK(reduce(C, dcb + l * C, kL * C));
-    const int cin = l == 0 ? C0 : C;
-    const long long wsz = 3LL * cin * C;
-    float* dw = l == 0 ? dw0 : dwc + (long long)(l - 1) * G * wsz;
-    const float* w = l == 0 ? w0 : wc + (long long)(l - 1) * G * wsz;
-    MIXSTAGE_CHECK(gemm<kDW>(dweight(l == 0 ? x : h, l == 0 ? 0 : act, dc,
-                                     act, dw, wsz, N, C, cin, 3, T),
-                             G, sms, stream));
-    // d(input): taps shifted back; layer 0 writes one dx partial per group
-    // into h (free by now) and sums them in group order
-    if (l > 0) {
-      MIXSTAGE_CHECK(gemm<kConvT>(conv(kConvT, dc, act, w, wsz, nullptr, 0,
-                                       dh, act, N, C, C, 3, T, -1),
-                                  G, sms, stream));
-    } else {
-      const long long nx = (long long)N * C0;
-      MIXSTAGE_CHECK(gemm<kConvT>(conv(kConvT, dc, act, w, wsz, nullptr, 0,
-                                       h, nx, N, C0, C, 3, T, -1),
-                                  G, sms, stream));
-      const long long blocks = (nx + 255) / 256;
-      group_sum_kernel<<<(int)(blocks < 4096 ? blocks : 4096), 256, 0,
-                         stream>>>(h, G, nx, dx);
-      MIXSTAGE_CHECK(cudaGetLastError());
-    }
-  }
-  return 0;
+    int G, void* stream) {
+  return backward<float>(dout, x, cs, mu, var, w0, wc, gamma, beta, wl, dx,
+                         dw0, dwc, dcb, dgamma, dbeta, dwl, dbl, h, dh, dc,
+                         B, T, C0, C, F, G, stream);
+}
+
+// The bf16 mode of the backward: dout, x, cs, the weights and the scratch
+// dc bfloat16; mu, var, every gradient, h and dh float32.
+int mixstage_train_decoder_bwd_bf16(
+    const bf16* dout, const bf16* x, const bf16* cs, const float* mu,
+    const float* var, const bf16* w0, const bf16* wc, const bf16* gamma,
+    const bf16* beta, const bf16* wl, float* dx, float* dw0, float* dwc,
+    float* dcb, float* dgamma, float* dbeta, float* dwl, float* dbl,
+    float* h, float* dh, bf16* dc, int B, int T, int C0, int C, int F,
+    int G, void* stream) {
+  return backward<bf16>(dout, x, cs, mu, var, w0, wc, gamma, beta, wl, dx,
+                        dw0, dwc, dcb, dgamma, dbeta, dwl, dbl, h, dh, dc,
+                        B, T, C0, C, F, G, stream);
 }
 
 const char* mixstage_train_decoder_error_string(int code) {

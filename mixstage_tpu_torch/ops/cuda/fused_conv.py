@@ -11,9 +11,16 @@ CUDA cores in f32 FMA.  ``fused_mixstage_decoder_plain`` (the counterpart of
 ``chain_reference``) are the same functions in plain PyTorch: the CPU tests
 use them, and ``chip_smoke.py`` holds the kernels against them on the card.
 
+K1 also has the TPU kernel's bf16 mode: bfloat16 features with float32
+(BN-folded) weights, products of the two in float32, bias and leaky in
+float32, each layer's output and the logits rounded to bfloat16
+(``fused_conv.py:141-176``, ``out_shape`` ``x.dtype``).  The plain version
+rounds at the same points, so it is the kernel's twin at either dtype.
+
 Each wrapper validates its arguments, then on a CPU tensor computes the
 plain version; on a CUDA tensor it launches the kernel or raises — there is
-no fall-back.  ``fused_mixstage_decoder.launches`` and
+no fall-back.  ``fused_mixstage_decoder.launches`` (both modes),
+``fused_mixstage_decoder.launches_bf16`` (bf16 mode) and
 ``fused_grouped_conv_chain.launches`` count kernel launches.
 """
 
@@ -44,26 +51,38 @@ def fold_bn_into_conv(kernel, bias, bn_scale, bn_bias, bn_mean, bn_var,
 
 def fused_mixstage_decoder_plain(x, w0, wc, biases, w_logits, b_logits,
                                  groups: int, negative_slope: float = 0.2):
-    """The decoder in plain PyTorch: x (B, T, C0) → (B, T, G·F)."""
-    xt = x.transpose(1, 2)                                   # (B, C0, T)
+    """The decoder in plain PyTorch: x (B, T, C0) → (B, T, G·F) in
+    ``x.dtype``.  Float32 sums of float32 products; for bfloat16 ``x`` each
+    layer's output and the logits are rounded to bfloat16, as the kernel
+    rounds them."""
+    dt = x.dtype
+
+    def rounded(v):              # at float32 both casts are no-ops
+        return v.to(dt).float()
+
+    xt = x.float().transpose(1, 2)                           # (B, C0, T)
     outs = []
     for g in range(groups):
-        h = F.leaky_relu(F.conv1d(xt, w0[g].permute(2, 1, 0), biases[g, 0],
-                                  padding=1), negative_slope)
+        h = rounded(F.leaky_relu(F.conv1d(xt, w0[g].permute(2, 1, 0),
+                                          biases[g, 0], padding=1),
+                                 negative_slope))
         for layer in range(wc.shape[0]):
-            h = F.leaky_relu(F.conv1d(h, wc[layer, g].permute(2, 1, 0),
-                                      biases[g, layer + 1], padding=1),
-                             negative_slope)
-        outs.append(h.transpose(1, 2) @ w_logits[g] + b_logits[g])
+            h = rounded(F.leaky_relu(F.conv1d(
+                h, wc[layer, g].permute(2, 1, 0), biases[g, layer + 1],
+                padding=1), negative_slope))
+        outs.append((h.transpose(1, 2) @ w_logits[g] + b_logits[g]).to(dt))
     return torch.cat(outs, dim=-1)
 
 
 def _check(x, w0, wc, biases, w_logits, b_logits, groups):
     tensors = dict(x=x, w0=w0, wc=wc, biases=biases, w_logits=w_logits,
                    b_logits=b_logits)
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     for name, t in tensors.items():
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if name != "x" and t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32 (the weights stay "
+                            f"float32 in both modes), got {t.dtype}")
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
         if not t.is_contiguous():
@@ -87,10 +106,12 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     (pointers and the stream as ``c_void_p``, so none is cut to 32 bits)."""
     fn = lib.mixstage_fused_decoder_f32
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 7 + [_I] * 7 + [ctypes.c_float, _I, _P]
-        fn.restype = _I
+        for fn in (lib.mixstage_fused_decoder_f32,
+                   lib.mixstage_fused_decoder_bf16):
+            fn.argtypes = [_P] * 7 + [_I] * 7 + [ctypes.c_float, _I, _P]
+            fn.restype = _I
         tile = lib.mixstage_fused_decoder_tile
-        tile.argtypes = [_I] * 8 + [ctypes.c_size_t]
+        tile.argtypes = [_I] * 8 + [ctypes.c_size_t, _I]
         tile.restype = _I
         lib.mixstage_cuda_error_string.argtypes = [_I]
         lib.mixstage_cuda_error_string.restype = ctypes.c_char_p
@@ -101,23 +122,24 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 def tile_frames(B: int, T: int, C0: int, C: int, L: int, F: int, G: int,
-                sm_count: int, smem_limit: int) -> int:
+                sm_count: int, smem_limit: int, act_bytes: int = 4) -> int:
     """The kernel's output frames per CTA for this shape on a card of
     ``sm_count`` SMs and ``smem_limit`` bytes of shared memory per CTA (0 if
-    no tile fits).  The rule (``csrc/launch_common.cuh::cost_tile``, shared
+    no tile fits), for activations of ``act_bytes`` bytes (4: float32, 2:
+    the bf16 mode).  The rule (``csrc/launch_common.cuh::cost_tile``, shared
     with K4) meets the kernel's rows per layer and shared-memory layout in
     ``csrc/fused_decoder.cu``; the launch applies it to its own card."""
     lib = bind(build.load_library("fused_decoder"))
     return lib.mixstage_fused_decoder_tile(B, T, C0, C, L, F, G, sm_count,
-                                           smem_limit)
+                                           smem_limit, act_bytes)
 
 
 def device_tile_frames(B: int, T: int, C0: int, C: int, L: int, F: int,
-                       G: int, device) -> int:
+                       G: int, device, act_bytes: int = 4) -> int:
     """``tile_frames`` for the card ``device``: the tile its launch uses."""
     props = torch.cuda.get_device_properties(device)
     return tile_frames(B, T, C0, C, L, F, G, props.multi_processor_count,
-                       props.shared_memory_per_block_optin)
+                       props.shared_memory_per_block_optin, act_bytes)
 
 
 def fused_mixstage_decoder(x, w0, wc, biases, w_logits, b_logits,
@@ -129,7 +151,8 @@ def fused_mixstage_decoder(x, w0, wc, biases, w_logits, b_logits,
     (G, L+1, C), row 0 for layer 0; w_logits (G, C, F), b_logits (G, F) the
     grouped 1×1 output conv.  Returns per-group logits (B, T, G·F), to be
     combined by ``index_select_outputs``.  All float32 and contiguous; C
-    and F at most 256 (one warp per 32 output columns)."""
+    and F at most 256 (one warp per 32 output columns).  A bfloat16 ``x``
+    runs the bf16 mode (float32 weights) and returns bfloat16 logits."""
     B, T, C0, C, L, F_, G = _check(x, w0, wc, biases, w_logits, b_logits,
                                    groups)
     if x.device.type == "cpu":
@@ -139,25 +162,32 @@ def fused_mixstage_decoder(x, w0, wc, biases, w_logits, b_logits,
         raise ValueError(f"fused_mixstage_decoder runs on CUDA (or the CPU "
                          f"plain version), got device {x.device}")
     lib = bind(build.load_library("fused_decoder"))
+    bf16 = x.dtype == torch.bfloat16
+    launch = lib.mixstage_fused_decoder_bf16 if bf16 else \
+        lib.mixstage_fused_decoder_f32
     out = torch.empty((B, T, G * F_), device=x.device, dtype=x.dtype)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.mixstage_fused_decoder_f32(
+        err = launch(
             x.data_ptr(), w0.data_ptr(), wc.data_ptr(), biases.data_ptr(),
             w_logits.data_ptr(), b_logits.data_ptr(), out.data_ptr(),
             B, T, C0, C, L, F_, G, float(negative_slope), 0, stream)
     if err != 0:
-        tile = device_tile_frames(B, T, C0, C, L, F_, G, x.device)
+        tile = device_tile_frames(B, T, C0, C, L, F_, G, x.device,
+                                  x.element_size())
         raise RuntimeError(
-            f"fused_mixstage_decoder launch failed: "
+            f"fused_mixstage_decoder ({x.dtype}) launch failed: "
             f"{lib.mixstage_cuda_error_string(err).decode()} (error {err}; "
             f"B={B} T={T} C0={C0} C={C} L={L} F={F_} G={G}; time tile {tile},"
             f" 0 = none fits shared memory)")
     fused_mixstage_decoder.launches += 1
+    if bf16:
+        fused_mixstage_decoder.launches_bf16 += 1
     return out
 
 
 fused_mixstage_decoder.launches = 0
+fused_mixstage_decoder.launches_bf16 = 0
 
 
 def chain_plain(x, weights, biases, groups: int, negative_slope: float = 0.2):

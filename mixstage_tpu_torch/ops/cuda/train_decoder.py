@@ -20,6 +20,16 @@ order, not autograd); on CUDA tensors they launch the kernels or raise —
 there is no fall-back.  Each counts its launches in ``.launches``.
 ``DecoderTrain`` is the ``torch.autograd.Function`` of the pair (the
 custom_vjp of ``:353-385``).
+
+bf16 mode (the TPU kernels' ``dtype=bfloat16`` function, every weight cast
+to the features' dtype by ``fused_decoder_train``, ``:486-493``): x, the
+weights, out and cs are bfloat16; each conv's float32 sum of exact bf16
+products is rounded to bf16 before the bias add (``:93-95``), BatchNorm's
+statistics and the leaky unit run in float32 and the activation is rounded
+(``:105-106``); the backward recomputes the activations from the bf16 cs,
+rounds dc to bf16 before the dW and d(input) products (``:227``), and
+returns every gradient in float32 (``:332-341``).  mu and var are float32
+in both modes.
 """
 
 from __future__ import annotations
@@ -52,28 +62,43 @@ def _bn_leaky(cf, mu, var, gamma, beta):
     return xhat, pre, torch.where(pre >= 0, pre, SLOPE * pre)
 
 
+def _conv_bias(h, w, cb):
+    """K3's conv + bias: at float32 one conv with its bias; below it the
+    float32 sum rounded to ``h.dtype`` before the bias add, and the sum
+    rounded again (flax's ``nn.Conv``, ``train_decoder.py:93-95``)."""
+    dt = h.dtype
+    if dt == torch.float32:
+        return F.conv1d(h, w, cb, padding=1)
+    acc = F.conv1d(h.float(), w.float(), None, padding=1)
+    return (acc.to(dt).float() + cb.float()[:, None]).to(dt)
+
+
 def decoder_train_fwd_plain(x, w0, wc, cb, gamma, beta, wl, bl):
     """The training forward in plain PyTorch, group by group with
-    ``F.conv1d``: returns (out (G,B,T,F), cs (4,G,B,T,C), mu, var (G,4,C))."""
+    ``F.conv1d``: returns (out (G,B,T,F), cs (4,G,B,T,C) in ``x.dtype``,
+    mu, var (G,4,C) float32), rounding as K3 does at either dtype."""
     B, T, _ = x.shape
     G, C, Fo = w0.shape[0], w0.shape[-1], wl.shape[-1]
+    dt = x.dtype
     outs, cs, mus, vrs = [], [], [], []
     for g in range(G):
         h = x.transpose(1, 2)                               # (B, cin, T)
         cs_g, mu_g, var_g = [], [], []
         for layer in range(L):
             w = w0[g] if layer == 0 else wc[layer - 1, g]   # (3, cin, C)
-            c = F.conv1d(h, w.permute(2, 1, 0), cb[g, layer], padding=1)
-            cf = c.transpose(1, 2).reshape(B * T, C)
+            c = _conv_bias(h, w.permute(2, 1, 0), cb[g, layer])
+            c = c.transpose(1, 2).reshape(B * T, C)
+            cf = c.float()
             mu = cf.mean(0)
             var = (cf * cf).mean(0) - mu * mu
-            _, _, act = _bn_leaky(cf, mu, var, gamma[g, layer],
-                                  beta[g, layer])
-            cs_g.append(cf.reshape(B, T, C))
+            _, _, act = _bn_leaky(cf, mu, var, gamma[g, layer].float(),
+                                  beta[g, layer].float())
+            cs_g.append(c.reshape(B, T, C))
             mu_g.append(mu)
             var_g.append(var)
-            h = act.reshape(B, T, C).transpose(1, 2)
-        outs.append(h.transpose(1, 2) @ wl[g] + bl[g])
+            h = act.to(dt).reshape(B, T, C).transpose(1, 2)
+        outs.append((h.transpose(1, 2).float() @ wl[g].float()
+                     + bl[g].float()).to(dt))
         cs.append(torch.stack(cs_g))
         mus.append(torch.stack(mu_g))
         vrs.append(torch.stack(var_g))
@@ -95,22 +120,32 @@ def decoder_train_bwd_plain(dout, x, cs, mu, var, w0, wc, gamma, beta, wl):
     layer walking back: leaky', dγ, dβ, the train-mode BN backward
     ``inv·(dxhat − mean(dxhat) − xhat·mean(dxhat·xhat))``, dcb, the per-tap
     dW and d(input) with the taps shifted back; dx is summed over groups.
-    Returns (dx, dw0, dwc, dcb, dgamma, dbeta, dwl, dbl)."""
+    Returns (dx, dw0, dwc, dcb, dgamma, dbeta, dwl, dbl), all float32.
+    With bfloat16 inputs the recomputed activations and dc are rounded to
+    bfloat16 where they feed a product, as K3 rounds them."""
     B, T, C0 = x.shape
     G, C, N = w0.shape[0], w0.shape[-1], B * T
-    dx = torch.zeros_like(x)
-    dw0, dwc = torch.empty_like(w0), torch.empty_like(wc)
-    dcb, dg, db = (torch.empty_like(gamma) for _ in range(3))
-    dwl = torch.empty_like(wl)
-    dbl = torch.empty((G, 1, wl.shape[-1]), dtype=x.dtype, device=x.device)
+    dt = x.dtype
+
+    def rounded(v):              # at float32 both casts are no-ops
+        return v.to(dt).float()
+
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx = torch.zeros(x.shape, **f32)
+    dw0, dwc = torch.empty(w0.shape, **f32), torch.empty(wc.shape, **f32)
+    dcb, dg, db = (torch.empty(gamma.shape, **f32) for _ in range(3))
+    dwl = torch.empty(wl.shape, **f32)
+    dbl = torch.empty((G, 1, wl.shape[-1]), **f32)
+    x, cs, w0, wc, gamma, beta, wl = (t.float() for t in (x, cs, w0, wc,
+                                                          gamma, beta, wl))
 
     def act(g, layer):
         return _bn_leaky(cs[layer, g].reshape(N, C), mu[g, layer],
                          var[g, layer], gamma[g, layer], beta[g, layer])
 
     for g in range(G):
-        do = dout[g].reshape(N, -1)
-        h3 = act(g, L - 1)[2]
+        do = dout[g].reshape(N, -1).float()
+        h3 = rounded(act(g, L - 1)[2])
         dwl[g] = h3.T @ do
         dbl[g, 0] = do.sum(0)
         dh = do @ wl[g].T
@@ -124,10 +159,11 @@ def decoder_train_bwd_plain(dout, x, cs, mu, var, w0, wc, gamma, beta, wl):
             dc = inv * (dxhat - dxhat.mean(0)
                         - xhat * (dxhat * xhat).mean(0))
             dcb[g, layer] = dc.sum(0)
+            dc = rounded(dc)
             if layer == 0:
                 inp, w = x, w0[g]
             else:
-                inp, w = act(g, layer - 1)[2].reshape(B, T, C), \
+                inp, w = rounded(act(g, layer - 1)[2]).reshape(B, T, C), \
                     wc[layer - 1, g]
             cin = inp.shape[-1]
             taps = (_shift(inp, -1), inp, _shift(inp, 1))
@@ -150,16 +186,26 @@ def decoder_train_bwd_plain(dout, x, cs, mu, var, w0, wc, gamma, beta, wl):
 # ---------------------------------------------------------------------------
 
 
+_STATS = ("mu", "var")           # float32 in both modes
+
+
 def _check(**tensors):
-    dev = next(iter(tensors.values())).device
+    """The device of ``tensors`` and their mode's dtype (float32, or
+    bfloat16 for all but mu / var); raises on anything else."""
+    first = next(iter(tensors.values()))
+    dev, dt = first.device, first.dtype
+    if dt not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"K3 takes float32 or bfloat16 tensors, got {dt}")
     for name, t in tensors.items():
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        want = torch.float32 if name in _STATS else dt
+        if t.dtype != want:
+            raise TypeError(f"{name} must be {want} (the {dt} mode), got "
+                            f"{t.dtype}")
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, expected {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    return dev
+    return dev, dt
 
 
 def _shapes(x, w0, wl):
@@ -184,13 +230,14 @@ def _expect(B, T, C0, C, Fo, G, **tensors):
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C signatures of a loaded ``train_decoder`` library."""
     if lib.mixstage_train_decoder_fwd_f32.argtypes is None:
-        lib.mixstage_train_decoder_fwd_f32.argtypes = \
-            [_P] * 13 + [_I] * 6 + [_P]
-        lib.mixstage_train_decoder_bwd_f32.argtypes = \
-            [_P] * 21 + [_I] * 6 + [_P]
-        for fn in (lib.mixstage_train_decoder_fwd_f32,
-                   lib.mixstage_train_decoder_bwd_f32):
-            fn.restype = _I
+        for mode in ("f32", "bf16"):
+            getattr(lib, f"mixstage_train_decoder_fwd_{mode}").argtypes = \
+                [_P] * 13 + [_I] * 6 + [_P]
+            getattr(lib, f"mixstage_train_decoder_bwd_{mode}").argtypes = \
+                [_P] * 21 + [_I] * 6 + [_P]
+            for way in ("fwd", "bwd"):
+                getattr(lib, f"mixstage_train_decoder_{way}_{mode}"
+                        ).restype = _I
         lib.mixstage_train_decoder_error_string.argtypes = [_I]
         lib.mixstage_train_decoder_error_string.restype = ctypes.c_char_p
         lib.mixstage_train_decoder_scratch_floats.argtypes = [_I] * 6
@@ -217,12 +264,18 @@ def _ptrs(*ts):
     return [t.data_ptr() for t in ts]
 
 
+def _mode(dt):
+    return "bf16" if dt == torch.bfloat16 else "f32"
+
+
 def decoder_train_fwd(x, w0, wc, cb, gamma, beta, wl, bl
                       ) -> Tuple[torch.Tensor, ...]:
     """K3-fwd: (out (G,B,T,F), cs (4,G,B,T,C), mu, var (G,4,C)).  All
-    float32 and contiguous; plain version on the CPU, kernel on CUDA."""
-    dev = _check(x=x, w0=w0, wc=wc, cb=cb, gamma=gamma, beta=beta, wl=wl,
-                 bl=bl)
+    contiguous, all float32 or all bfloat16 (the bf16 mode: out and cs
+    bfloat16, mu and var float32); plain version on the CPU, kernel on
+    CUDA."""
+    dev, dt = _check(x=x, w0=w0, wc=wc, cb=cb, gamma=gamma, beta=beta,
+                     wl=wl, bl=bl)
     dims = _shapes(x, w0, wl)
     _expect(*dims, x=x, w0=w0, wc=wc, cb=cb, gamma=gamma, beta=beta, wl=wl,
             bl=bl)
@@ -234,30 +287,35 @@ def decoder_train_fwd(x, w0, wc, cb, gamma, beta, wl, bl
     B, T, C0, C, Fo, G = dims
     lib = bind(build.load_library("train_decoder"))
     new = dict(device=dev, dtype=torch.float32)
-    out = torch.empty((G, B, T, Fo), **new)
-    cs = torch.empty((L, G, B, T, C), **new)
+    out = torch.empty((G, B, T, Fo), device=dev, dtype=dt)
+    cs = torch.empty((L, G, B, T, C), device=dev, dtype=dt)
     mu = torch.empty((G, L, C), **new)
     var = torch.empty((G, L, C), **new)
     h = _scratch(lib, dims, new)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.mixstage_train_decoder_fwd_f32(
+        err = getattr(lib, f"mixstage_train_decoder_fwd_{_mode(dt)}")(
             *_ptrs(x, w0, wc, cb, gamma, beta, wl, bl, out, cs, mu, var, h),
             *dims, stream)
-    _raise_on(lib, err, "decoder_train_fwd", dims)
+    _raise_on(lib, err, f"decoder_train_fwd ({dt})", dims)
     decoder_train_fwd.launches += 1
+    if dt == torch.bfloat16:
+        decoder_train_fwd.launches_bf16 += 1
     return out, cs, mu, var
 
 
 decoder_train_fwd.launches = 0
+decoder_train_fwd.launches_bf16 = 0
 
 
 def decoder_train_bwd(dout, x, cs, mu, var, w0, wc, gamma, beta, wl
                       ) -> Tuple[torch.Tensor, ...]:
     """K3-bwd: (dx, dw0, dwc, dcb, dgamma, dbeta, dwl, dbl), all float32,
-    dx summed over the groups.  Plain version on the CPU, kernel on CUDA."""
-    dev = _check(dout=dout, x=x, cs=cs, mu=mu, var=var, w0=w0, wc=wc,
-                 gamma=gamma, beta=beta, wl=wl)
+    dx summed over the groups.  The inputs all float32, or all bfloat16 but
+    mu and var (the bf16 mode).  Plain version on the CPU, kernel on
+    CUDA."""
+    dev, dt = _check(dout=dout, x=x, cs=cs, mu=mu, var=var, w0=w0, wc=wc,
+                     gamma=gamma, beta=beta, wl=wl)
     dims = _shapes(x, w0, wl)
     _expect(*dims, dout=dout, x=x, cs=cs, mu=mu, var=var, w0=w0, wc=wc,
             gamma=gamma, beta=beta, wl=wl)
@@ -270,32 +328,37 @@ def decoder_train_bwd(dout, x, cs, mu, var, w0, wc, gamma, beta, wl
     B, T, C0, C, Fo, G = dims
     lib = bind(build.load_library("train_decoder"))
     new = dict(device=dev, dtype=torch.float32)
-    dx = torch.empty_like(x)
-    dw0, dwc = torch.empty_like(w0), torch.empty_like(wc)
+    dx = torch.empty(x.shape, **new)
+    dw0, dwc = torch.empty(w0.shape, **new), torch.empty(wc.shape, **new)
     dcb, dg, db = (torch.empty((G, L, C), **new) for _ in range(3))
-    dwl = torch.empty_like(wl)
+    dwl = torch.empty(wl.shape, **new)
     dbl = torch.empty((G, 1, Fo), **new)
     h = _scratch(lib, dims, new)
     dh = torch.empty((G, B, T, C), **new)            # d(layer output)
-    dc = torch.empty((G, B, T, C), **new)            # d(conv output)
+    dc = torch.empty((G, B, T, C), device=dev, dtype=dt)   # d(conv output)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.mixstage_train_decoder_bwd_f32(
+        err = getattr(lib, f"mixstage_train_decoder_bwd_{_mode(dt)}")(
             *_ptrs(dout, x, cs, mu, var, w0, wc, gamma, beta, wl,
                    dx, dw0, dwc, dcb, dg, db, dwl, dbl, h, dh, dc),
             *dims, stream)
-    _raise_on(lib, err, "decoder_train_bwd", dims)
+    _raise_on(lib, err, f"decoder_train_bwd ({dt})", dims)
     decoder_train_bwd.launches += 1
+    if dt == torch.bfloat16:
+        decoder_train_bwd.launches_bf16 += 1
     return dx, dw0, dwc, dcb, dg, db, dwl, dbl
 
 
 decoder_train_bwd.launches = 0
+decoder_train_bwd.launches_bf16 = 0
 
 
 class DecoderTrain(torch.autograd.Function):
     """(x, w0, wc, cb, gamma, beta, wl, bl) → (out, mu, var): K3-fwd in the
     forward, K3-bwd in the backward.  mu / var are not differentiable (the
-    JAX custom_vjp drops their cotangents, ``train_decoder.py:373``)."""
+    JAX custom_vjp drops their cotangents, ``train_decoder.py:373``).  In
+    the bf16 mode K3-bwd's float32 gradients are rounded to the inputs'
+    bfloat16 by autograd, as JAX's custom_vjp casts them (``:381-384``)."""
 
     @staticmethod
     def forward(ctx, x, w0, wc, cb, gamma, beta, wl, bl):
@@ -348,8 +411,11 @@ def fused_decoder_train(x, model):
     """The generator's mixture decoder in training mode through K3:
     x (B, T, C0) shared content⊕style features → (xr (B, T, G·F) per-group
     pose logits, mu, var (G, 4, C) float32 batch statistics for the running
-    stats update)."""
-    p = extract_train_decoder(model)
+    stats update).  The float32 parameters are cast to ``x.dtype`` inside
+    the graph (``train_decoder.py:486-493``): at bfloat16 K3 runs its bf16
+    mode and the casts' backward hands float32 gradients to the
+    parameters."""
+    p = {k: v.to(x.dtype) for k, v in extract_train_decoder(model).items()}
     B, T, _ = x.shape
     G = model.num_clusters
     out, mu, var = DecoderTrain.apply(

@@ -19,6 +19,12 @@ The folded weights keep the JAX layout (tap, in, out) but not its 128-lane
 padding of C0, which was TPU layout; the kernels mask ragged widths
 themselves.  ``build_waveform_serving_fn`` puts the log-mel frontend
 (``data/audio.py::log_mel_spectrogram``) in front, for raw 16 kHz audio.
+
+A model built with ``dtype=torch.bfloat16`` serves at that compute dtype,
+as the JAX package's bf16 tier does: audio and style rows are cast to it,
+the features and both chains' activations are bfloat16 (K1's bf16 mode),
+the folded weights stay float32 (folded from the float32 parameters), and
+the pose comes back as float32, an exact upcast.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from torch import nn
 
 from mixstage_tpu_torch.data.audio import log_mel_spectrogram
 from mixstage_tpu_torch.device import resolve_device
+from mixstage_tpu_torch.models.layers import softmax
 from mixstage_tpu_torch.ops.cuda.fused_conv import (
     fold_bn_into_conv, fused_mixstage_decoder, fused_mixstage_decoder_plain)
 from mixstage_tpu_torch.ops.cuda.quant import (decoder_int8_plain,
@@ -96,12 +103,14 @@ def extract_folded_classify(model: nn.Module, eps: float = 1e-5
     })
 
 
-def style_weights(style, num_speakers: int, device) -> torch.Tensor:
-    """(B,) integer ids → one-hot (B, S) rows; (B, S) float rows pass."""
+def style_weights(style, num_speakers: int, device,
+                  dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(B,) integer ids → one-hot (B, S) rows; (B, S) float rows pass; in
+    ``dtype``."""
     style = torch.as_tensor(style, device=device)
     if style.ndim == 1:
-        return nn.functional.one_hot(style.long(), num_speakers).float()
-    return style.float()
+        return nn.functional.one_hot(style.long(), num_speakers).to(dtype)
+    return style.to(dtype)
 
 
 def build_serving_fn(model: nn.Module, device=None,
@@ -122,7 +131,15 @@ def build_serving_fn(model: nn.Module, device=None,
     route, through ``decoder_int8_plain`` on the plain one.  Its drift
     against the f32 path is a few percent: an opt-in speed tier outside the
     1% contract of the default path.
+
+    The call runs at the model's compute dtype (``model.dtype``); the pose
+    is returned as float32 either way.
     """
+    dtype = model.dtype
+    if quantize_int8 and dtype != torch.float32:
+        raise NotImplementedError(
+            f"the int8 tier on a {dtype} model comes later (ROADMAP queue "
+            f"2, A3): quantize a float32 model")
     if quantize_int8 and calib is None:
         raise ValueError("quantize_int8 needs calib=(audio, style ids or "
                          "(B, S) rows) for the one-shot activation "
@@ -136,11 +153,12 @@ def build_serving_fn(model: nn.Module, device=None,
     G, S = model.num_clusters, model.num_speakers
 
     def inputs(audio, style):
-        """The audio on ``device`` and its (B, T, S) style rows."""
-        audio = torch.as_tensor(audio, dtype=torch.float32, device=device)
+        """The audio on ``device`` and its (B, T, S) style rows, in the
+        compute dtype."""
+        audio = torch.as_tensor(audio, device=device).to(dtype)
         B, T = audio.shape[:2]
-        return audio, style_weights(style, S, device)[:, None, :].expand(
-            B, T, S)
+        return audio, style_weights(style, S, device, dtype)[:, None, :] \
+            .expand(B, T, S)
 
     qfd = None
     if quantize_int8:
@@ -158,7 +176,7 @@ def build_serving_fn(model: nn.Module, device=None,
             x = model.features([audio], None, sw)
             scores = fused_mixstage_decoder(
                 x, *(fc[k] for k in _FOLDED_KEYS), groups=1)
-            soft = torch.softmax(scores, dim=-1)
+            soft = softmax(scores, dim=-1)
             if quantize_int8:
                 logits = fused_mixstage_decoder_int8(x, qfd, groups=G)
             else:
@@ -171,9 +189,10 @@ def build_serving_fn(model: nn.Module, device=None,
             else:
                 logits = fused_mixstage_decoder_plain(
                     x, *(fd[k] for k in _FOLDED_KEYS), groups=G)
-        return index_select_outputs(logits, soft, G)
+        return index_select_outputs(logits, soft, G).float()
 
     fn.device = device
+    fn.dtype = dtype
     fn.use_kernel = use_kernel
     fn.quantize_int8 = quantize_int8
     return fn

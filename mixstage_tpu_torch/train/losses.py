@@ -60,9 +60,19 @@ def sample_wise_weight_mean(loss, w):
     return (w * loss).mean()
 
 
+def log_softmax(x, dim: int = -1):
+    """``jax.nn.log_softmax``: at float32 ``F.log_softmax``; below it JAX's
+    steps (shift by the max, exp, sum, log, subtract), each rounded to
+    ``x.dtype``."""
+    if x.dtype == torch.float32:
+        return F.log_softmax(x, dim=dim)
+    shifted = x - x.amax(dim=dim, keepdim=True).detach()
+    return shifted - torch.exp(shifted).sum(dim=dim, keepdim=True).log()
+
+
 def cross_entropy(logits, labels):
     """Mean softmax cross-entropy with integer labels."""
-    logp = F.log_softmax(logits, dim=-1)
+    logp = log_softmax(logits, dim=-1)
     picked = logp.gather(-1, labels.long()[..., None])[..., 0]
     return -picked.mean()
 

@@ -2,9 +2,10 @@
 
 Counterpart of ``mixstage_tpu/train/steps.py`` for the flagship
 configuration (``JointLateClusterSoftStyle4_G`` against
-``Speech2Gesture_D``, audio input, f32).  The JAX package jits pure
-functions of a state pytree; here the modules live in ``TrainState`` and a
-step updates it in place, with ``module.train()`` / ``.eval()`` as the mode:
+``Speech2Gesture_D``, audio input, float32 or bfloat16 compute).  The JAX
+package jits pure functions of a state pytree; here the modules live in
+``TrainState`` and a step updates it in place, with ``module.train()`` /
+``.eval()`` as the mode:
 
 * G step: G and D in TRAIN mode.  D's running statistics update from the
   fakes; its parameters get no update (gradients w.r.t. G's leaves only).
@@ -17,6 +18,11 @@ step updates it in place, with ``module.train()`` / ``.eval()`` as the mode:
 * ``fused_decoder``: the backbone runs through autograd and the mixture
   decoder through kernel K3 (``ops/cuda/train_decoder.py``); the decoder's
   running statistics take the flax rule from K3's batch mean / variance.
+* ``dtype=torch.bfloat16`` (``steps.py:136-137``): the modules compute in
+  bf16 with float32 parameters, BatchNorm statistics and Adam state; the
+  batch's float leaves are cast to bf16 (``bench.py:227-229``), the losses
+  are computed in bf16 as flax computes them and returned as float32
+  scalars (``steps.py:689-695``), the pose in bf16.  K3 runs its bf16 mode.
 
 Configurations the port does not cover yet raise ``NotImplementedError``.
 """
@@ -31,7 +37,8 @@ import torch
 import torch.nn.functional as F
 
 from mixstage_tpu_torch.device import resolve_device
-from mixstage_tpu_torch.models.layers import PoseStyleEncoder, reset_parameters_
+from mixstage_tpu_torch.models.layers import (PoseStyleEncoder,
+                                              reset_parameters_, softmax)
 from mixstage_tpu_torch.models.registry import (get_model_def,
                                                 infer_discriminator_name)
 from mixstage_tpu_torch.ops.mixture import index_select_outputs
@@ -118,8 +125,9 @@ def _unsupported(cfg: StepConfig) -> Optional[str]:
         return f"the weighted GAN comes later {later}"
     if cfg.joint:
         return f"the joint discriminator comes later {later}"
-    if cfg.dtype != torch.float32:
-        return f"dtype {cfg.dtype}: bf16 training comes later {later}"
+    if cfg.dtype not in (torch.float32, torch.bfloat16):
+        return (f"dtype {cfg.dtype}: the port trains in float32 or "
+                f"bfloat16; the float64 parity mode comes later {later}")
     if cfg.noise > 0:
         return f"pose noise comes later {later}"
     if cfg.p_dropout > 0:
@@ -134,7 +142,9 @@ def _unsupported(cfg: StepConfig) -> Optional[str]:
     return None
 
 
-def _to_device(batch: Batch, device) -> Batch:
+def _to_device(batch: Batch, device, dtype=torch.float32) -> Batch:
+    """The batch on ``device``, its float leaves in the compute ``dtype``
+    (``bench.py:227-229``)."""
     if batch.get("confidence") is not None:
         raise NotImplementedError("the confidence loss comes later "
                                   "(ROADMAP queue 1)")
@@ -143,12 +153,12 @@ def _to_device(batch: Batch, device) -> Batch:
         if v is None:
             out[k] = None
         elif k == "x":
-            out[k] = [torch.as_tensor(a, dtype=torch.float32, device=device)
-                      for a in v]
+            out[k] = [torch.as_tensor(a, dtype=torch.float32,
+                                      device=device).to(dtype) for a in v]
         else:
             t = torch.as_tensor(np.asarray(v) if not torch.is_tensor(v)
                                 else v, device=device)
-            out[k] = t.float() if t.is_floating_point() else t
+            out[k] = t.float().to(dtype) if t.is_floating_point() else t
     return out
 
 
@@ -187,10 +197,12 @@ class StepFactory:
         gen = self.gen_cls(out_feats=cfg.out_feats,
                            num_clusters=cfg.num_clusters or 1,
                            num_speakers=cfg.num_speakers,
-                           style_dim=cfg.style_dim, **mk)
+                           style_dim=cfg.style_dim, dtype=cfg.dtype, **mk)
         psenc = PoseStyleEncoder(input_channels=cfg.out_feats,
-                                 num_speakers=cfg.num_speakers)
-        disc = self.disc_cls(in_channels=cfg.out_feats, out_shape=1)
+                                 num_speakers=cfg.num_speakers,
+                                 dtype=cfg.dtype)
+        disc = self.disc_cls(in_channels=cfg.out_feats, out_shape=1,
+                             dtype=cfg.dtype)
         return gen, psenc, disc
 
     def _state(self, gen, psenc, disc) -> TrainState:
@@ -239,7 +251,7 @@ class StepFactory:
         cfg = self.cfg
         score = psenc_score[:, None, :].expand(-1, T, -1)
         if cfg.softmax:
-            w = torch.softmax(score, dim=-1)
+            w = softmax(score, dim=-1)
             if cfg.argmax:
                 w = F.one_hot(w.argmax(-1), cfg.num_speakers).to(score.dtype)
             return w
@@ -296,18 +308,18 @@ class StepFactory:
         cfg = self.cfg
         T = batch["y"].shape[1]
         psenc_flag = (not sample_flag) and (train or not cfg.train_only)
-        zero = torch.zeros((), device=self.device)
+        zero = torch.zeros((), device=self.device, dtype=cfg.dtype)
         if psenc_flag:
             score = self._apply_psenc(state, batch["y"])
             id_in = L.cross_entropy(score, batch["style"][:, 0])
             style_weights = self._style_weights_train(score, T)
         elif batch.get("style_soft") is not None:
             id_in = zero
-            style_weights = batch["style_soft"].float()
+            style_weights = batch["style_soft"].to(cfg.dtype)
         else:
             id_in = zero
             style_weights = F.one_hot(batch["style"].long(),
-                                      cfg.num_speakers).float()
+                                      cfg.num_speakers).to(cfg.dtype)
         out = self._apply_gen_style(state, batch, style_weights,
                                     use_pose_input, train)
         pose = out["pose"]
@@ -330,6 +342,20 @@ class StepFactory:
         return self._style_forward(state, batch, use_pose_input, train,
                                    sample_flag)
 
+    def _lambda(self, value: float):
+        """The λ ramp's weight: a host float at float32; below it a float32
+        scalar, so the weighted GAN loss (and the total) stay float32, as
+        JAX's device-computed λ keeps them (``losses.py:81-93``)."""
+        if self.cfg.dtype == torch.float32:
+            return value
+        return torch.full((), value, device=self.device, dtype=torch.float32)
+
+    @staticmethod
+    def _f32(losses):
+        """Loss scalars as float32, whatever the compute dtype
+        (``steps.py:689-695``); at float32 the tensors themselves."""
+        return {k: v.detach().float() for k, v in losses.items()}
+
     @staticmethod
     def _modes(state, g_train: bool, d_train: bool):
         state.gen.train(g_train)
@@ -345,10 +371,11 @@ class StepFactory:
                 use_pose_input: bool = False):
         """GAN G step (``steps.py:508-554``): (state, losses, pose)."""
         cfg = self.cfg
-        batch = _to_device(batch, self.device)
+        batch = _to_device(batch, self.device, cfg.dtype)
         y = batch["y"]
-        lambda_gan = L.lambda_schedule(state.lambda_step, cfg.lambda_gan)
-        W = torch.ones((y.shape[0],), device=self.device)
+        lambda_gan = self._lambda(L.lambda_schedule(state.lambda_step,
+                                                    cfg.lambda_gan))
+        W = torch.ones((y.shape[0],), device=self.device, dtype=cfg.dtype)
         self._modes(state, True, True)
         with torch.enable_grad():
             pose, internal, _ = self._forward(state, batch, use_pose_input,
@@ -371,17 +398,17 @@ class StepFactory:
         state.curriculum_step += 1
         losses = {"pose": pose_loss, "G_gan": G_gan, "total": total, "W": W,
                   **internal}
-        return state, {k: v.detach() for k, v in losses.items()}, \
-            pose.detach()
+        return state, self._f32(losses), pose.detach()
 
     def _d_step(self, state: TrainState, batch: Batch, rng=None,
                 use_pose_input: bool = False):
         """GAN D step (``steps.py:557-605``): (state, losses, pose)."""
         cfg = self.cfg
-        batch = _to_device(batch, self.device)
+        batch = _to_device(batch, self.device, cfg.dtype)
         y = batch["y"]
-        lambda_D = L.lambda_schedule(state.lambda_step, cfg.lambda_D)
-        W = torch.ones((y.shape[0],), device=self.device)
+        lambda_D = self._lambda(L.lambda_schedule(state.lambda_step,
+                                                  cfg.lambda_D))
+        W = torch.ones((y.shape[0],), device=self.device, dtype=cfg.dtype)
         self._modes(state, False, True)
         with torch.no_grad():
             pose, internal, _ = self._forward(state, batch, use_pose_input,
@@ -403,21 +430,21 @@ class StepFactory:
         state.lambda_step += 1
         losses = {"real_D": real_D, "fake_D": fake_D, "total": total,
                   "W": W, **internal}
-        return state, {k: v.detach() for k, v in losses.items()}, pose
+        return state, self._f32(losses), pose
 
     @torch.no_grad()
     def _eval_step(self, state: TrainState, batch: Batch,
                    use_pose_input: bool = False, sample_flag: bool = False):
         """Eval / sampling forward (``steps.py:608-616``): (losses, pose,
         aux), every module in eval mode."""
-        batch = _to_device(batch, self.device)
+        batch = _to_device(batch, self.device, self.cfg.dtype)
         self._modes(state, False, False)
         pose, internal, aux = self._forward(state, batch, use_pose_input,
                                             False, sample_flag)
         pose_loss = self.criterion(pose, batch["y"]).mean()
         losses = {"pose": pose_loss,
                   "total": pose_loss + sum(internal.values()), **internal}
-        return losses, pose, aux
+        return self._f32(losses), pose, aux
 
     # -- multi-step training driver -------------------------------------------
     def union_keys(self) -> Sequence[str]:
@@ -430,7 +457,8 @@ class StepFactory:
     def make_scan_train_step(self, k: int):
         """k sequential train steps per call (``steps.py:656-723``):
         ``fn(state, stacked_batches, coins (k,) host bools: True = D step,
-        rngs=None) → (state, {key: (k,) float32}, poses (k, B, T, F))``.
+        rngs=None) → (state, {key: (k,) float32}, poses (k, B, T, F) in
+        the compute dtype)``.
         The audio-input branch only, as in the JAX package; the losses stay
         on the device (no host sync per step)."""
         keys = self.union_keys()
@@ -449,7 +477,7 @@ class StepFactory:
                 state, losses, pose = step(state, batch,
                                            use_pose_input=False)
                 zero = torch.zeros((), device=self.device)
-                rows.append([losses.get(key, zero).float() for key in keys])
+                rows.append([losses.get(key, zero) for key in keys])
                 poses.append(pose)
             stacked = torch.stack([torch.stack(r) for r in rows])
             return state, {key: stacked[:, j] for j, key in enumerate(keys)}, \

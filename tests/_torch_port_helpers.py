@@ -133,3 +133,56 @@ def product(a, b, passes: int):
         return ah @ bh
     return (al @ bh + ah @ bl) + ah @ bh
 
+
+
+# ---------------------------------------------------------------------------
+# the bf16 rule: how a bf16 output is held to a reference bf16 output
+# ---------------------------------------------------------------------------
+
+# Two valid bf16 roundings of one computation differ about as much as either
+# differs from the float32 truth, so no bf16 output is held element-wise to
+# another.  The port's bf16 output P and the reference's Q each drift from
+# the truth R (the same function in float32 on the same inputs and
+# weights): |drift(P) - drift(Q)| <= 0.10 * drift(Q) + 1e-3.  The rule is
+# two-sided: it fails a port that rounds too little as well as too much.
+BF16_REL, BF16_ABS = 0.10, 1e-3
+
+
+def drift(out, truth, frobenius: bool = False) -> float:
+    """mean |out - truth| / mean |truth|, or the relative Frobenius error
+    (for gradients), in float64."""
+    out = np.asarray(out, np.float64)
+    truth = np.asarray(truth, np.float64)
+    if frobenius:
+        return float(np.linalg.norm(out - truth)
+                     / max(np.linalg.norm(truth), 1e-30))
+    return float(np.abs(out - truth).mean() / np.abs(truth).mean())
+
+
+def bf16_rule(p, q, truth, frobenius: bool = False):
+    """(drift(p), drift(q), whether p meets the bf16 rule against q)."""
+    dp, dq = drift(p, truth, frobenius), drift(q, truth, frobenius)
+    return dp, dq, abs(dp - dq) <= BF16_REL * dq + BF16_ABS
+
+
+def as_np(t) -> np.ndarray:
+    """A torch or JAX array (bf16 included) as a float32 numpy array."""
+    if isinstance(t, torch.Tensor):
+        return t.detach().float().numpy()
+    return np.asarray(jnp.asarray(t).astype(jnp.float32))
+
+
+def bf16_values(a: np.ndarray) -> np.ndarray:
+    """``a`` rounded to bfloat16 and back: inputs both dtypes read alike."""
+    return as_np(torch.from_numpy(np.ascontiguousarray(a)).bfloat16())
+
+
+def jax_nominal(fn, *args):
+    """``fn(*args)`` compiled with XLA's excess precision off, so every bf16
+    operation rounds where the JAX source rounds (flax's rounding points).
+    XLA's default on the CPU keeps float32 between the bf16 operations it
+    fuses: a compiler-dependent function that rounds less (a bf16 eval
+    forward of the small generator drifts 0.0050 from float32 with it, 0.0057
+    without; the port, eager, 0.0057)."""
+    return jax.jit(fn).lower(*args).compile(
+        compiler_options={"xla_allow_excess_precision": False})(*args)

@@ -13,6 +13,15 @@ and the int8 serving tier (one K1 and one K4 launch per call); K2 (the
 grouped conv chain) at edge shapes, to 1e-4.  The built K1, K3 and K4 run
 on the tensor cores (their SASS holds HMMA and IMMA instructions).
 
+The bf16 modes of K1 and K3 against their plain versions, under the bf16
+rule (``bf16_rule`` below): no bf16 output is held element-wise to
+another, since two valid bf16 roundings of one computation differ about as
+much as either differs from the float32 truth; instead each output's drift
+from the truth (the same function in float32 on the same inputs) must match
+the plain version's drift to 10% (+1e-3).  Both wrappers refuse other
+dtype pairs, and a bf16 serving call and a fused bf16 G step launch the bf16
+modes.
+
 These need a CUDA device and skip without one.  This file imports neither
 JAX nor the JAX package, so on a machine without JAX it runs on its own:
 
@@ -118,10 +127,12 @@ def test_kernels_run_on_tensor_cores(cuda):
     # one section per function, each opened by a "Function : <name>" line
     gemms = [f for f in sass["train_decoder"].split("Function : ")[1:]
              if "gemm_kernel" in f.splitlines()[0]]
-    assert len(gemms) == 9, len(gemms)      # 3 operand shapes x 3 tiles
+    # 3 operand shapes x 3 tiles, in f32 (3xTF32) and in the bf16 mode
+    assert len(gemms) == 18, len(gemms)
     for body in gemms:
+        kind = "BF16" if "bfloat16" in body.splitlines()[0] else "TF32"
         hmma = [ln for ln in body.splitlines() if "HMMA" in ln]
-        assert hmma and all("TF32" in ln for ln in hmma), hmma[:3]
+        assert hmma and all(kind in ln for ln in hmma), hmma[:3]
         assert "FFMA" not in body, body.splitlines()[0]
 
 
@@ -382,3 +393,167 @@ def test_int8_serving_path_on_card(cuda):
     p32 = build_serving_fn(model)(audio, [0, 1, 2])
     rel = float((pose - p32).abs().mean() / p32.abs().mean())
     assert pose.is_cuda and 1e-4 < rel < 0.10, rel
+
+
+# ---------------------------------------------------------------------------
+# bf16 modes of K1 and K3
+# ---------------------------------------------------------------------------
+
+BF16_REL, BF16_ABS = 0.10, 1e-3
+
+
+def _drift(out, truth, frobenius=False):
+    """mean |out - truth| / mean |truth| (relative Frobenius error for a
+    gradient)."""
+    d = (out.double() - truth.double())
+    if frobenius:
+        return float(d.norm() / truth.double().norm().clamp_min(1e-30))
+    return float(d.abs().mean() / truth.double().abs().mean())
+
+
+def bf16_rule(p, q, truth, frobenius=False):
+    """(drift of the kernel's p, of the plain version's q, whether
+    |drift(p) - drift(q)| <= 0.10 * drift(q) + 1e-3)."""
+    dp, dq = _drift(p, truth, frobenius), _drift(q, truth, frobenius)
+    return dp, dq, abs(dp - dq) <= BF16_REL * dq + BF16_ABS
+
+
+@pytest.mark.parametrize("shape", EDGE_SHAPES, ids=str)
+def test_bf16_decoder_kernel_follows_plain_on_card(cuda, shape):
+    from mixstage_tpu_torch.ops.cuda.fused_conv import (
+        fused_mixstage_decoder, fused_mixstage_decoder_plain)
+
+    B, T, G, C0, C, L, F = shape
+    x, *w = _folded(B, T, G, C0, C, L, F, cuda)
+    x16 = x.bfloat16()
+    before = (fused_mixstage_decoder.launches,
+              fused_mixstage_decoder.launches_bf16)
+    out = fused_mixstage_decoder(x16, *w, groups=G)
+    ref = fused_mixstage_decoder_plain(x16, *w, groups=G)
+    truth = fused_mixstage_decoder_plain(x16.float(), *w, groups=G)
+    torch.cuda.synchronize()
+    assert (fused_mixstage_decoder.launches,
+            fused_mixstage_decoder.launches_bf16) == (before[0] + 1,
+                                                      before[1] + 1)
+    assert out.dtype == torch.bfloat16 and out.shape == (B, T, G * F)
+    dp, dq, ok = bf16_rule(out, ref, truth)
+    assert ok, (dp, dq)
+
+
+@pytest.mark.parametrize("shape", K3_SHAPES, ids=str)
+def test_bf16_train_decoder_kernels_follow_plain_on_card(cuda, shape):
+    """K3-fwd (out, cs, mu, var) and K3-bwd (every gradient but dcb, by
+    relative Frobenius drift) in bf16 mode against their plain versions,
+    each against the float32 plain version on the same (bf16-valued)
+    inputs; dcb is 0 analytically and stays below 1e-4·max|dbeta|."""
+    from mixstage_tpu_torch.ops.cuda import train_decoder as td
+
+    B, T, G, C0, C, F = shape
+    a32 = tuple(t.bfloat16().float() for t in _train_args(B, T, G, C0, C,
+                                                          F, cuda))
+    a16 = tuple(t.bfloat16() for t in a32)
+    before = (td.decoder_train_fwd.launches_bf16,
+              td.decoder_train_bwd.launches_bf16)
+    fwd = td.decoder_train_fwd(*a16)
+    ref = td.decoder_train_fwd_plain(*a16)
+    truth = td.decoder_train_fwd_plain(*a32)
+    torch.cuda.synchronize()
+    for name, p, q, r in zip(("out", "cs", "mu", "var"), fwd, ref, truth):
+        assert p.dtype == q.dtype, name
+        dp, dq, ok = bf16_rule(p, q, r)
+        assert ok, (name, dp, dq)
+    dout = torch.randn(G, B, T, F, generator=torch.Generator().manual_seed(1)
+                       ).to(cuda).bfloat16()
+    x, w0, wc, cb, gamma, beta, wl, bl = a16
+    args = (dout, x, ref[1], ref[2], ref[3], w0, wc, gamma, beta, wl)
+    got = td.decoder_train_bwd(*args)
+    want = td.decoder_train_bwd_plain(*args)
+    x, w0, wc, cb, gamma, beta, wl, bl = a32
+    true = td.decoder_train_bwd_plain(dout.float(), x, *truth[1:], w0, wc,
+                                      gamma, beta, wl)
+    torch.cuda.synchronize()
+    assert (td.decoder_train_fwd.launches_bf16,
+            td.decoder_train_bwd.launches_bf16) == (before[0] + 1,
+                                                    before[1] + 1)
+    names = ["dx", "dw0", "dwc", "dcb", "dgamma", "dbeta", "dwl", "dbl"]
+    for name, p, q, r in zip(names, got, want, true):
+        assert p.dtype == torch.float32 and p.shape == r.shape, name
+        if name == "dcb":
+            bound = 1e-4 * float(want[5].abs().max())
+            assert float(p.abs().max()) < bound
+            assert float(q.abs().max()) < bound
+        else:
+            dp, dq, ok = bf16_rule(p, q, r, frobenius=True)
+            assert ok, (name, dp, dq)
+
+
+def test_bf16_wrappers_refuse_other_dtype_pairs(cuda):
+    from mixstage_tpu_torch.ops.cuda import train_decoder as td
+    from mixstage_tpu_torch.ops.cuda.fused_conv import fused_mixstage_decoder
+
+    x, *w = _folded(2, 16, 2, 11, 8, 1, 4, cuda)
+    with pytest.raises(TypeError, match="float32"):     # bf16 weights
+        fused_mixstage_decoder(x.bfloat16(), *(t.bfloat16() for t in w),
+                               groups=2)
+    with pytest.raises(TypeError, match="bfloat16"):    # half features
+        fused_mixstage_decoder(x.half(), *w, groups=2)
+    a = _train_args(2, 8, 2, 11, 8, 4, cuda)
+    with pytest.raises(TypeError, match="bfloat16"):    # mixed modes
+        td.decoder_train_fwd(a[0].bfloat16(), *a[1:])
+    out, cs, mu, var = td.decoder_train_fwd(*(t.bfloat16() for t in a))
+    dout = out.clone()
+    x, w0, wc, cb, gamma, beta, wl, bl = (t.bfloat16() for t in a)
+    with pytest.raises(TypeError, match="float32"):     # bf16 statistics
+        td.decoder_train_bwd(dout, x, cs, mu.bfloat16(), var, w0, wc, gamma,
+                             beta, wl)
+
+
+def test_bf16_serving_and_fused_g_step_on_card(cuda):
+    """A bf16 serving call launches K1's bf16 mode twice and drifts ≤ 1%
+    from the f32 kernel route; a fused bf16 G step launches K3's bf16 mode
+    once each way, with finite losses."""
+    import numpy as np
+
+    from mixstage_tpu_torch.models import JointLateClusterSoftStyle4_G
+    from mixstage_tpu_torch.models.layers import reset_parameters_
+    from mixstage_tpu_torch.ops.cuda import train_decoder as td
+    from mixstage_tpu_torch.ops.cuda.fused_conv import fused_mixstage_decoder
+    from mixstage_tpu_torch.serve import build_serving_fn
+    from mixstage_tpu_torch.train import StepConfig, StepFactory
+
+    kw = dict(num_clusters=4, num_speakers=3, in_channels=64)
+    models = {dt: JointLateClusterSoftStyle4_G(**kw, dtype=dt)
+              for dt in (torch.float32, torch.bfloat16)}
+    for m in models.values():
+        reset_parameters_(m, torch.Generator().manual_seed(1),
+                          random_bn_stats=True)
+    audio = torch.randn(3, 128, 64, generator=torch.Generator().manual_seed(2))
+    p32 = build_serving_fn(models[torch.float32])(audio, [0, 1, 2])
+    serve16 = build_serving_fn(models[torch.bfloat16])
+    before = fused_mixstage_decoder.launches_bf16
+    p16 = serve16(audio, [0, 1, 2])
+    torch.cuda.synchronize()
+    assert fused_mixstage_decoder.launches_bf16 == before + 2
+    assert p16.dtype == torch.float32
+    rel = float((p16 - p32).abs().mean() / p32.abs().mean())
+    assert rel <= 0.01, rel
+
+    rng = np.random.default_rng(0)
+    batch = {"x": (rng.normal(size=(4, 64, 32)).astype(np.float32),),
+             "y": rng.normal(size=(4, 64, 96)).astype(np.float32),
+             "labels": rng.integers(0, 2, size=(4, 64)),
+             "style": np.repeat(rng.integers(0, 2, size=(4, 1)), 64, 1)}
+    f = StepFactory(StepConfig(model="JointLateClusterSoftStyle4_G", gan=True,
+                               num_clusters=2, num_speakers=2,
+                               model_kwargs=(("in_channels", 64),),
+                               fused_decoder=True, dtype=torch.bfloat16))
+    before = (td.decoder_train_fwd.launches_bf16,
+              td.decoder_train_bwd.launches_bf16)
+    _, losses, pose = f.make_steps()["g"](f.init(seed=0), batch)
+    torch.cuda.synchronize()
+    assert (td.decoder_train_fwd.launches_bf16,
+            td.decoder_train_bwd.launches_bf16) == (before[0] + 1,
+                                                    before[1] + 1)
+    assert pose.dtype == torch.bfloat16
+    assert all(v.dtype == torch.float32 and bool(torch.isfinite(v).all())
+               for v in losses.values())

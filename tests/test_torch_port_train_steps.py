@@ -327,7 +327,7 @@ def test_factory_runs_on_the_card_by_default():
 
 
 @pytest.mark.parametrize("change", [
-    dict(weighted=True), dict(joint=True), dict(dtype=torch.bfloat16),
+    dict(weighted=True), dict(joint=True), dict(dtype=torch.float64),
     dict(noise=0.1), dict(p_dropout=0.1), dict(gan=False),
     dict(input_modalities=("audio/log_mel_512", "text/w2v")),
     dict(model="StyleClassifier_G")], ids=str)

@@ -11,6 +11,10 @@ and the device's idle share of that wall time.  It does the same for one
 bs32 serving call of the full-width flagship model, f32 and int8 (K1's
 classifier launch, then K4).
 
+``--dtype bfloat16`` runs the same at the bf16 compute dtype: K1's bf16
+mode (bf16 features, f32 weights) against its plain version, and one bs32
+serving call of a bf16 model (the int8 tier is f32-only).
+
 ``--sweep`` also times K1 and K4 (CUDA events) at every time tile that
 fits, at every shape ``chip_smoke.py`` launches them at, beside the tile
 their rule picks.  ``--parent DIR`` builds an earlier version's
@@ -21,7 +25,8 @@ the headers they include, e.g. written there by
 turns (parent, current, current, parent) at those shapes; K3-fwd and
 K3-bwd at bs32 x 64 and at the ragged B=3 T=50.
 
-    python3 tools/profile_k1.py [--seed 0] [--sweep] [--parent DIR]
+    python3 tools/profile_k1.py [--seed 0] [--dtype float32|bfloat16]
+                                [--sweep] [--parent DIR]
                                 [--out profile.json]
 """
 
@@ -183,8 +188,12 @@ def build_parent(src: Path) -> dict:
             if "registers" in line or "spill" in line:
                 print(f"[parent build] {name}: {line.strip()}", flush=True)
         libs[name] = ctypes.CDLL(str(lib))
-    # K1's and K4's C entry points are the current ones (with a time tile)
-    fused_conv.bind(libs["fused_decoder"])
+    # K1's f32 and K4's C entry points are the current ones (with a time
+    # tile)
+    lib = libs["fused_decoder"]
+    lib.mixstage_fused_decoder_f32.argtypes = [_P] * 7 + [_I] * 7 + [
+        ctypes.c_float, _I, _P]
+    lib.mixstage_fused_decoder_f32.restype = _I
     q8.bind(libs["decoder_int8"])
     # K3's, without the scratch query the current library adds
     lib = libs["train_decoder"]
@@ -335,6 +344,9 @@ def against_parent(libs, k1_in, qfd, xs, k3) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"),
+                    default="float32", help="the compute dtype of the "
+                    "traced K1 calls and serving call")
     ap.add_argument("--sweep", action="store_true",
                     help="time K1 and K4 at every tile that fits")
     ap.add_argument("--parent", type=Path, default=None,
@@ -347,9 +359,11 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
-    print(f"[profile] {smi}; torch {torch.__version__}", flush=True)
+    dtype = getattr(torch, args.dtype)
+    print(f"[profile] {smi}; torch {torch.__version__}; {args.dtype}",
+          flush=True)
     gen = torch.Generator().manual_seed(args.seed)
-    out = {"card": smi}
+    out = {"card": smi, "dtype": args.dtype}
     with torch.inference_mode():
         if args.sweep or args.parent:
             k1_in = k1_inputs(gen, device)
@@ -363,16 +377,18 @@ def main(argv=None) -> int:
                 out["sweep"] = sweep(k1_in, qfd, xs, device)
             del k1_in, xs
         for name, (b, t, g, layers, f) in SHAPES.items():
-            a = random_folded(torch, gen, b, t, g, layers, f, device)
+            x, *w = random_folded(torch, gen, b, t, g, layers, f, device)
+            a = (x.to(dtype), *w)            # the weights stay f32
             flops, _ = k1_work(b, t, g, layers, f)
-            tile = device_tile_frames(b, t, C0, C, layers, f, g, device)
+            tile = device_tile_frames(b, t, C0, C, layers, f, g, device,
+                                      x.to(dtype).element_size())
             k1 = trace(lambda: fused_mixstage_decoder(*a, groups=g))
             plain = trace(lambda: fused_mixstage_decoder_plain(*a, groups=g))
             report(f"{name} K1 (tile {tile})", k1, flops)
             report(f"{name} plain", plain, flops)
             out[name] = dict(tile=tile, flops=flops, k1=k1, plain=plain)
 
-        model = JointLateClusterSoftStyle4_G(**MODEL)
+        model = JointLateClusterSoftStyle4_G(**MODEL, dtype=dtype)
         reset_parameters_(model, torch.Generator().manual_seed(args.seed + 1),
                           random_bn_stats=True)
         serve = build_serving_fn(model)
@@ -380,12 +396,18 @@ def main(argv=None) -> int:
         styles = torch.randint(0, MODEL["num_speakers"], (B,),
                                generator=gen).to(device)
         out["serving_bs32"] = trace(lambda: serve(audio, styles))
-        report(f"serving call bs{B} T{T}", out["serving_bs32"])
+        report(f"{args.dtype} serving call bs{B} T{T}", out["serving_bs32"])
+        if dtype != torch.float32:           # the int8 tier is f32-only
+            return finish(out, args, smi)
         calib = (torch.randn(B, T, MEL, generator=gen),
                  torch.randint(0, MODEL["num_speakers"], (B,), generator=gen))
         serve8 = build_serving_fn(model, quantize_int8=True, calib=calib)
         out["serving_int8_bs32"] = trace(lambda: serve8(audio, styles))
         report(f"int8 serving call bs{B} T{T}", out["serving_int8_bs32"])
+    return finish(out, args, smi)
+
+
+def finish(out, args, smi) -> int:
     if args.out:
         with open(args.out, "w") as fh:
             json.dump(out, fh, indent=1)
