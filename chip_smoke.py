@@ -6,8 +6,9 @@ flagship model — ``JointLateClusterSoftStyle4_G`` with 8 clusters, 8
 speakers, 256 channels, style_dim 10 and 96 pose features, on 64-frame
 clips of 128 mel bins at batch 32 — with random weights drawn from
 ``--seed``: serving (phases 1-6), GAN training (phases 7-9) and the int8
-serving tier with the streaming and waveform endpoints (phases 10-14), and
-the bf16 tier, serving and GAN training (phases 15-17):
+serving tier with the streaming and waveform endpoints (phases 10-14), the
+bf16 tier, serving and GAN training (phases 15-17), and the int8 tier on the
+bf16 model (phases 18-19):
 
 1. device: the card's name and power limit from ``nvidia-smi``;
 2. build: every CUDA kernel from the checkout's sources, one ``nvcc`` per
@@ -74,7 +75,21 @@ the bf16 tier, serving and GAN training (phases 15-17):
     seeded coins, finite;
 17. bf16 timings (CUDA events, ABBA turns against f32): the bs32 serving
     call, the clip p50, the G, D and k-step driver's step, and each
-    bf16-mode kernel beside its bound and plain version.
+    bf16-mode kernel beside its bound and plain version;
+18. K4's bf16-feature mode against ``decoder_int8_plain`` on the same bf16
+    features at every K4 shape (no element differs: a bf16 feature widens
+    to f32 exactly), K2's bf16 mode against ``chain_plain``'s at every K2
+    shape under the bf16 rule (ULPs beside it); each timed beside its
+    bound and plain version, K4-bf16 against K4's f32 mode in ABBA turns;
+19. the int8 tier on the bf16 model: one bs32 call of
+    ``build_serving_fn(model16, quantize_int8=True, calib=...)`` launches
+    K1's bf16 mode once and K4's bf16 mode once, drifts from the f32
+    kernel route by (1e-4, 0.10), and its kernel and plain routes drift
+    alike (the bf16 rule); ``/v1/pose`` requests and a 150-frame stream
+    through a server over it equal the direct calls at the server's batch
+    size; the call timed against the int8 call on the f32 model in ABBA
+    turns, with its device busy time, launches and idle share
+    (``torch.profiler``).
 
 The bf16 rule: no bf16 output is held element-wise to another bf16 output
 (two valid roundings differ about as much as either differs from the
@@ -83,11 +98,13 @@ the float32 truth R (the same function in float32 on the same inputs),
 drift = mean |O - R| / mean |R| (relative Frobenius error for gradients),
 and |drift(P) - drift(Q)| ≤ 0.10 drift(Q) + 1e-3.
 
-Each kernel's bound is that of its route: K1 and K3 at the TF32
-tensor-core rate (3 MMAs per multiply-add; the f32 FMA bound beside it as
-``ffma_bound_ms``), K4 at the int8 tensor-core rate, K2 at the f32 FMA
-rate; in bf16 mode K1 at the TF32 rate with 2 MMAs per multiply-add (bf16
-activations times f32 weights split in two) and K3 at the dense bf16 rate;
+Each kernel's bound is the least time the card could take for its work,
+whatever route the kernel runs: K1, K2 and K3 at the TF32 tensor-core
+rate (3 MMAs per multiply-add; the f32 FMA bound beside it as
+``ffma_bound_ms``), K4 at the int8 tensor-core rate; in bf16 mode K1 and
+K2 at the TF32 rate with 2 MMAs per multiply-add (bf16 activations times
+f32 weights split in two; ``ffma_bound_ms`` beside), K3 at the dense bf16
+rate, K4 at its f32 mode's rate with 2-byte features;
 ``mma`` names the inner product, ``mode`` the dtype mode.
 
 It prints one JSON line of kernels, the ``nvidia-smi`` line, and last the
@@ -112,7 +129,7 @@ import numpy as np
 # published peaks of one H100 SXM (NVIDIA data sheet): f32 outside the
 # tensor cores, dense tensor-core rates, and HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
-PEAK_TF32_FLOPS = 495e12     # K1's and K3's route: 3 TF32 MMAs a multiply-add
+PEAK_TF32_FLOPS = 495e12     # K1, K2, K3: 3 TF32 MMAs a multiply-add
 PEAK_BF16_FLOPS = 989e12     # K3's bf16 mode: one bf16 MMA a multiply-add
 PEAK_INT8_OPS = 1979e12
 PEAK_HBM_BYTES = 3.35e12
@@ -134,6 +151,14 @@ MOMENT_TOL = 3e-3
 # the bf16 rule: |drift(kernel) - drift(plain)| <= BF16_REL drift(plain) +
 # BF16_ABS, each drift taken from the float32 truth
 BF16_REL, BF16_ABS = 0.10, 1e-3
+# K2's bf16 mode against its plain version: both round the same f32 sums
+# at the same points, so they differ by at most one bf16 ULP of max |out|,
+# and only where two summation orders fall on either side of a rounding
+# boundary and the flip spreads through later layers (1.3-3.0% of the
+# elements at the three-layer shapes below, 6.1% at the four-layer "deep",
+# --seed 0 on an H100).  A kernel that skips one layer's rounding differs
+# in 40-58% of them (tests/test_torch_port_cuda.py on such a copy).
+K2_BF16_ULPS, K2_BF16_SHARE = 1.0, 0.20
 
 # the flagship model (bench.py:205-213) and its serving and training shapes
 MODEL = dict(num_clusters=8, num_speakers=8, in_channels=256, style_dim=10,
@@ -155,7 +180,8 @@ K4_SHAPES = {   # name: (B, T); every shape the int8 path launches, and more
     "ragged": (3, 50)}
 K2_SHAPES = {   # name: (B, T, G, C, L)
     "main": (B, T, 8, 256, 3), "small": (4, 64, 4, 128, 3),
-    "ragged": (3, 50, 8, 256, 3)}
+    "ragged": (3, 50, 8, 256, 3),
+    "deep": (2, 130, 1, 256, 4)}     # four layers: bf16 flips spread most
 MEL_WAVE = 64                # audio/log_mel_400
 
 
@@ -208,20 +234,23 @@ def k3_work(b, t, g, f, elem=4):
     return (flops, fwd), (2 * flops, bwd)
 
 
-def k4_work(b, t, g, layers, f):
+def k4_work(b, t, g, layers, f, x_bytes=4):
     """(int8 operations, bytes) of one K4 call: 2 per multiply-add of the
-    chain; the int8 weights, the f32 input, scales, multipliers and biases
-    read once and the f32 output written once."""
+    chain; the int8 weights, the input (``x_bytes`` a feature: 4 in f32
+    mode, 2 in the bf16-feature mode), the f32 scales, multipliers and
+    biases read once and the f32 output written once."""
     macs = 3 * C0 * C + layers * 3 * C * C + C * f
-    f32 = (b * t * C0 + C0 + g * C + layers * g * C + 2 * g * (layers + 1) * C
+    f32 = (C0 + g * C + layers * g * C + 2 * g * (layers + 1) * C
            + 2 * g * f + b * t * g * f)
-    return 2 * b * t * g * macs, g * macs + 4 * f32
+    return 2 * b * t * g * macs, g * macs + 4 * f32 + x_bytes * b * t * C0
 
 
-def k2_work(b, t, g, c, layers):
-    """(flops, bytes) of one K2 call (f32, each input read once)."""
+def k2_work(b, t, g, c, layers, act_bytes=4):
+    """(flops, bytes) of one K2 call, each input read once: activations of
+    ``act_bytes`` (4 in f32 mode, 2 in bf16), f32 weights and biases."""
     return (2 * b * t * g * layers * 3 * c * c,
-            4 * (2 * b * t * g * c + layers * g * 3 * c * c + layers * g * c))
+            act_bytes * 2 * b * t * g * c
+            + 4 * (layers * g * 3 * c * c + layers * g * c))
 
 
 def bound_ms(flops, nbytes, peak=PEAK_F32_FLOPS):
@@ -276,6 +305,48 @@ def ptxas_summary(compiler_log: str):
             out.append((name, int(m.group(1)), *spill))
             name = None
     return out
+
+
+def trace(torch, fn, calls: int = 5) -> dict:
+    """Device kernels, busy time (union of kernel intervals), host wall
+    time and the device's idle share of it, per call of ``fn``, from
+    ``calls`` calls under ``torch.profiler`` after 3 warm-up calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / calls
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    spans, kernels = [], {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        start, end = e.time_range.start, e.time_range.end
+        spans.append((start, end))
+        k = kernels.setdefault(e.name, [0, 0.0])
+        k[0] += 1
+        k[1] += (end - start) / 1e3
+    busy_us, edge = 0.0, float("-inf")
+    for start, end in sorted(spans):
+        if end > edge:
+            busy_us += end - max(start, edge)
+            edge = end
+    busy_ms = busy_us / 1e3 / calls
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])
+    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
+                idle_share=(1 - busy_ms / wall_ms) if wall_ms else None,
+                launches_per_call=sum(c for c, _ in kernels.values()) / calls,
+                kernels=[dict(name=n, launches_per_call=c / calls,
+                              ms_per_call=ms / calls) for n, (c, ms) in top])
 
 
 def cuda_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
@@ -465,6 +536,67 @@ def compare_states(torch, s0, s1, lr):
     return p_err, s_err, gaps, bias
 
 
+def serve_over_http(serve_fn, rng, jobs, stream_style=None):
+    """``jobs`` [(kind "json" or "npz", frames, style id)] as ``/v1/pose``
+    requests through an HTTP server over ``serve_fn`` (batch B) and, with
+    ``stream_style``, one 150-frame ``/v1/stream…`` session (chunks of 40,
+    hop 32), each against ``serve_fn`` called directly at the server's
+    batch size with the request tiled as the batcher pads it: int8 turns
+    the float differences of batch-size dependent convolution algorithms
+    into flipped LSBs, so only the same batch shape can be held to
+    equality.  Returns (differing elements of the responses, their max
+    |diff|, differing elements of the stream or None, the server's
+    ``/stats``)."""
+    from mixstage_tpu_torch.serving import (DynamicBatcher, PoseClient,
+                                            PoseService, start_http_server)
+    from mixstage_tpu_torch.streaming import session_over_serving_fn
+
+    S, F = MODEL["num_speakers"], MODEL["out_feats"]
+    onehot = np.eye(S, dtype=np.float32)
+
+    def direct(a, sty):
+        """``serve_fn`` on a batch of one, run as the batcher runs it."""
+        out = serve_fn(np.repeat(a, B, axis=0), np.repeat(sty, B, axis=0))
+        return out[:1].cpu().numpy()
+
+    batcher = DynamicBatcher(serve_fn, batch_size=B, max_wait_ms=5.0)
+    service = PoseService(batcher, backend=serve_fn.device.type,
+                          num_styles=S, mel_bins=MEL)
+    server = start_http_server(service, port=0, host="127.0.0.1")
+    ndiff, worst, stream_diff = 0, 0.0, None
+    try:
+        client = PoseClient(f"http://127.0.0.1:{server.server_address[1]}",
+                            timeout_s=300)
+        for kind_, n, sty in jobs:
+            a = rng.normal(size=(n, MEL)).astype(np.float32)
+            got = (client.pose if kind_ == "npz" else client.pose_json)(
+                a, style=sty)
+            bucket = 64 if n <= 64 else 128
+            padded = np.concatenate([a, np.repeat(a[-1:], bucket - n, 0)])
+            want = direct(padded[None], onehot[[sty]])[0, :n]
+            check(got.shape == (n, F), f"{kind_} response {got.shape}")
+            ndiff += int(np.count_nonzero(got != want))
+            worst = max(worst, float(np.abs(got - want).max()))
+        if stream_style is not None:
+            x = rng.normal(size=(150, MEL)).astype(np.float32)
+            stream = client.stream(style=stream_style, hop=32)
+            pieces = [stream.feed(x[i:i + 40]) for i in range(0, 150, 40)]
+            pieces.append(stream.finish())
+            got = np.concatenate([q for q in pieces if q.size])
+            sess = session_over_serving_fn(direct, onehot[stream_style],
+                                           hop=32)
+            want = np.concatenate([q for q in (sess.feed(x), sess.finish())
+                                   if q.size])
+            check(got.shape == (150, F), f"streamed pose {got.shape}")
+            stream_diff = int(np.count_nonzero(got != want))
+        stats = client.stats()
+    finally:
+        server.shutdown()
+        server.server_close()
+        batcher.close()
+    return ndiff, worst, stream_diff, stats
+
+
 def int8_phases(torch, args, device, smi, model, audio, styles, pose32,
                 results):
     """Phases 10-14: K4 and K2 against their plain versions, the int8
@@ -481,7 +613,6 @@ def int8_phases(torch, args, device, smi, model, audio, styles, pose32,
                                           build_waveform_serving_fn)
     from mixstage_tpu_torch.serving import (DynamicBatcher, PoseClient,
                                             PoseService, start_http_server)
-    from mixstage_tpu_torch.streaming import session_over_serving_fn
 
     G, L, F = MODEL["num_clusters"], 3, MODEL["out_feats"]
     S = MODEL["num_speakers"]
@@ -573,69 +704,20 @@ def int8_phases(torch, args, device, smi, model, audio, styles, pose32,
                            vs_plain_max=max_rel, vs_plain_differing=ndiff)
 
     # 12. int8 server: /v1/pose and a streaming session -------------------
-    # The direct calls run at the batcher's batch size, the request tiled as
-    # the batcher pads it: int8 turns float differences of batch-size
-    # dependent convolution algorithms into flipped LSBs, so only the same
-    # batch shape can be held to equality.
-    scale = float(pose8.abs().mean())
-
-    def direct8(a, sty):
-        """``serve8`` on a batch of one, run as the batcher runs it."""
-        out = serve8(np.repeat(a, B, axis=0), np.repeat(sty, B, axis=0))
-        return out[:1].cpu().numpy()
-
-    def served_err(got, want):
-        """max |diff| / mean |pose|, and the count of differing elements."""
-        return (float(np.abs(got - want).max()) / scale,
-                int(np.count_nonzero(got != want)))
-
-    batcher = DynamicBatcher(serve8, batch_size=B, max_wait_ms=5.0)
-    service = PoseService(batcher, backend=serve8.device.type, num_styles=S,
-                          mel_bins=MEL)
-    server = start_http_server(service, port=0, host="127.0.0.1")
-    onehot = np.eye(S, dtype=np.float32)
-    try:
-        client = PoseClient(f"http://127.0.0.1:{server.server_address[1]}",
-                            timeout_s=300)
-        jobs = [("npz", 64, 2), ("json", 64, 5), ("npz", 100, 7)]
-        worst, ndiff = 0.0, 0
-        for kind_, n, sty in jobs:
-            a = rng.normal(size=(n, MEL)).astype(np.float32)
-            got = (client.pose if kind_ == "npz" else client.pose_json)(
-                a, style=sty)
-            bucket = 64 if n <= 64 else 128
-            padded = np.concatenate([a, np.repeat(a[-1:], bucket - n, 0)])
-            want = direct8(padded[None], onehot[[sty]])[0, :n]
-            check(got.shape == (n, F), f"int8 {kind_} response {got.shape}")
-            err, n_diff = served_err(got, want)
-            worst, ndiff = max(worst, err), ndiff + n_diff
-        log(f"[int8-server] {len(jobs)} /v1/pose requests (npz, json; 64 and"
-            f" 100 frames) vs the direct call at batch {B}: {ndiff} elements "
-            f"differ, max|diff|/mean|pose| {worst:.3e} (tol 0)")
-        check(ndiff == 0, "int8 served pose differs from direct")
-        x = rng.normal(size=(150, MEL)).astype(np.float32)
-        stream = client.stream(style=3, hop=32)
-        pieces = [stream.feed(x[i:i + 40]) for i in range(0, 150, 40)]
-        pieces.append(stream.finish())
-        got = np.concatenate([q for q in pieces if q.size])
-        sess = session_over_serving_fn(direct8, onehot[3], hop=32)
-        want = np.concatenate([q for q in (sess.feed(x), sess.finish())
-                               if q.size])
-        check(got.shape == (150, F), f"streamed pose {got.shape}")
-        stream_err, stream_diff = served_err(got, want)
-        stats = client.stats()
-        log(f"[int8-server] streaming session over HTTP (150 frames in "
-            f"chunks of 40, hop 32) vs StreamingSession over the direct "
-            f"serving fn at batch {B}: {stream_diff} elements differ, "
-            f"max|diff|/mean|pose| {stream_err:.3e} (tol 0); stats "
-            f"requests={stats['requests']} batches={stats['batches']} "
-            f"streams={stats['streams']}")
-        check(stream_diff == 0, "streamed pose differs")
-        check(stats["streams"] == 0, "the finished stream is still live")
-    finally:
-        server.shutdown()
-        server.server_close()
-        batcher.close()
+    jobs = [("npz", 64, 2), ("json", 64, 5), ("npz", 100, 7)]
+    ndiff, worst, stream_diff, stats = serve_over_http(serve8, rng, jobs,
+                                                       stream_style=3)
+    log(f"[int8-server] {len(jobs)} /v1/pose requests (npz, json; 64 and"
+        f" 100 frames) vs the direct call at batch {B}: {ndiff} elements "
+        f"differ, max|diff|/mean|pose| {worst / float(pose8.abs().mean()):.3e}"
+        f" (tol 0); streaming session over HTTP (150 frames in chunks of "
+        f"40, hop 32) vs StreamingSession over the direct serving fn: "
+        f"{stream_diff} elements differ (tol 0); stats requests="
+        f"{stats['requests']} batches={stats['batches']} "
+        f"streams={stats['streams']}")
+    check(ndiff == 0, "int8 served pose differs from direct")
+    check(stream_diff == 0, "streamed pose differs")
+    check(stats["streams"] == 0, "the finished stream is still live")
     launches = counts()                              # int8 path ends
     check(launches[0] == launches[1] and launches[1] >= 1 + stats["batches"],
           f"(K1, K4) launches over the int8 path {launches[:2]}: expected "
@@ -672,7 +754,8 @@ def int8_phases(torch, args, device, smi, model, audio, styles, pose32,
                             timeout_s=300)
         got = client.pose_from_waveform(wav[0], style=4)
         want = wave_fn(np.repeat(wav[:1], 4, axis=0),
-                       np.repeat(onehot[[4]], 4, axis=0))[0].cpu().numpy()
+                       np.repeat(np.eye(S, dtype=np.float32)[[4]], 4, axis=0)
+                       )[0].cpu().numpy()
     finally:
         server.shutdown()
         server.server_close()
@@ -710,11 +793,14 @@ def int8_phases(torch, args, device, smi, model, audio, styles, pose32,
         rec["plain_ms"] = cuda_ms(torch, lambda: chain_plain(*a, groups=g))
         sh = rec["shape"]
         flops, nbytes = k2_work(sh["B"], sh["T"], g, sh["C"], sh["L"])
-        rec["bound_ms"], rec["bound_by"] = bound_ms(flops, nbytes)
+        rec["bound_ms"], rec["bound_by"] = bound_ms(3 * flops, nbytes,
+                                                    PEAK_TF32_FLOPS)
+        rec["ffma_bound_ms"] = bound_ms(flops, nbytes)[0]
         log(f"[timing] {smi}: K2 {name}: {rec['ms']:.4f} ms "
             f"({flops / (rec['ms'] / 1e3) / 1e12:.2f} TFLOP/s f32), plain "
             f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms by "
-            f"{rec['bound_by']} ({flops / 1e9:.2f} GFLOP, "
+            f"{rec['bound_by']} (3 TF32 MMAs a multiply-add; f32 FMA bound "
+            f"{rec['ffma_bound_ms']:.4f} ms; {flops / 1e9:.2f} GFLOP, "
             f"{nbytes / 1e6:.1f} MB)")
     audio_dev = torch.as_tensor(audio, device=device)
     styles_dev = torch.as_tensor(styles, device=device)
@@ -753,7 +839,8 @@ def int8_phases(torch, args, device, smi, model, audio, styles, pose32,
           "max_abs_err": max(r["max_abs_err"] for r in k2_shapes.values()),
           "ms": main2["ms"], "plain_ms": main2["plain_ms"],
           "bound_ms": main2["bound_ms"], "bound_by": main2["bound_by"],
-          "library_ms": None, "mma": "ffma"}
+          "library_ms": None, "mma": "ffma",
+          "ffma_bound_ms": main2["ffma_bound_ms"]}
     return k4, k2
 
 
@@ -769,8 +856,6 @@ def bf16_phases(torch, args, device, smi, model, audio, styles, pose32,
         device_tile_frames, fused_mixstage_decoder,
         fused_mixstage_decoder_plain)
     from mixstage_tpu_torch.serve import build_serving_fn
-    from mixstage_tpu_torch.serving import (DynamicBatcher, PoseClient,
-                                            PoseService, start_http_server)
     from mixstage_tpu_torch.train import StepConfig, StepFactory
 
     bf16 = torch.bfloat16
@@ -891,37 +976,8 @@ def bf16_phases(torch, args, device, smi, model, audio, styles, pose32,
         f"(contract {DRIFT_TOL:g})")
     check(drift16 <= DRIFT_TOL, "bf16 serving outside the 1% contract")
     rng = np.random.default_rng(args.seed + 16)
-    onehot = np.eye(S, dtype=np.float32)
-
-    def direct16(a, sty):
-        """``serve16`` on a batch of one, run as the batcher runs it."""
-        out = serve16(np.repeat(a, B, axis=0), np.repeat(sty, B, axis=0))
-        return out[:1].cpu().numpy()
-
-    batcher = DynamicBatcher(serve16, batch_size=B, max_wait_ms=5.0)
-    service = PoseService(batcher, backend="cuda", num_styles=S,
-                          mel_bins=MEL)
-    server = start_http_server(service, port=0, host="127.0.0.1")
     jobs = [("json", 64, 1), ("npz", 64, 6), ("npz", 100, 3)]
-    try:
-        client = PoseClient(f"http://127.0.0.1:{server.server_address[1]}",
-                            timeout_s=300)
-        ndiff, worst = 0, 0.0
-        for kind_, n, sty in jobs:
-            a = rng.normal(size=(n, MEL)).astype(np.float32)
-            got = (client.pose if kind_ == "npz" else client.pose_json)(
-                a, style=sty)
-            bucket = 64 if n <= 64 else 128
-            padded = np.concatenate([a, np.repeat(a[-1:], bucket - n, 0)])
-            want = direct16(padded[None], onehot[[sty]])[0, :n]
-            check(got.shape == (n, F), f"bf16 {kind_} response {got.shape}")
-            ndiff += int(np.count_nonzero(got != want))
-            worst = max(worst, float(np.abs(got - want).max()))
-        stats = client.stats()
-    finally:
-        server.shutdown()
-        server.server_close()
-        batcher.close()
+    ndiff, worst, _, stats = serve_over_http(serve16, rng, jobs)
     launches16 = (fused_mixstage_decoder.launches,
                   fused_mixstage_decoder.launches_bf16)  # bf16 serving ends
     log(f"[bf16-server] {len(jobs)} /v1/pose requests (json, npz; 64 and 100"
@@ -1146,6 +1202,240 @@ def bf16_phases(torch, args, device, smi, model, audio, styles, pose32,
                                   for k, v in call_t.items()},
                     train=train_t))
     return entries
+
+
+def int8_bf16_phases(torch, args, device, smi, model, audio, styles,
+                     pose32, results):
+    """Phases 18-19: the bf16 modes of K4 (bf16 features) and K2 against
+    their plain versions and timed, then the int8 tier on a bf16 model
+    through the entry points and the HTTP server (streaming included),
+    timed against the int8 tier on the f32 model.  Returns the kernels-line
+    entries of K4-bf16 and K2-bf16."""
+    from mixstage_tpu_torch.models import JointLateClusterSoftStyle4_G
+    from mixstage_tpu_torch.ops.cuda import quant as q8
+    from mixstage_tpu_torch.ops.cuda.fused_conv import (
+        chain_plain, fused_grouped_conv_chain, fused_mixstage_decoder)
+    from mixstage_tpu_torch.serve import build_serving_fn
+
+    bf16 = torch.bfloat16
+    G, L, F = MODEL["num_clusters"], 3, MODEL["out_feats"]
+    S = MODEL["num_speakers"]
+    k4, k2 = q8.fused_mixstage_decoder_int8, fused_grouped_conv_chain
+
+    # 18. K4's bf16-feature mode and K2's bf16 mode -------------------------
+    gen = torch.Generator().manual_seed(args.seed + 18)
+    _, w0, wc, biases, wl, bl = random_folded(torch, gen, 1, 1, G, L, F,
+                                              device)
+    qfd = q8.pack_decoder_int8(q8.quantize_folded_decoder(
+        dict(w0=w0, wc=wc, biases=biases, w_logits=wl, b_logits=bl),
+        torch.randn(B, T, C0, generator=gen).to(device).bfloat16()))
+    k4_16 = {}
+    for name, (b, t) in K4_SHAPES.items():
+        x = torch.randn(b, t, C0, generator=gen).to(device).bfloat16()
+        out = k4(x, qfd, groups=G)
+        ref = q8.decoder_int8_plain(x, qfd, G)
+        torch.cuda.synchronize()
+        check(out.dtype == torch.float32 and bool(torch.isfinite(out).all()),
+              f"K4-bf16 {name}: dtype {out.dtype} or non-finite")
+        mean_rel, max_rel, abs_err, ndiff = int8_errors(out, ref)
+        log(f"[bf16-kernel] fused_mixstage_decoder_int8 bf16 features {name}"
+            f" B={b} T={t} G={G} C0={C0} C={C} L={L} F={F}: {ndiff} of "
+            f"{out.numel()} elements differ from the plain version (tol 0);"
+            f" mean|err|/mean|ref| {mean_rel:.3e}")
+        check(ndiff == 0, f"K4-bf16 {name}: {ndiff} elements differ from "
+              f"the plain version (a bf16 feature widens exactly)")
+        k4_16[name] = dict(shape=dict(B=b, T=t, G=G, C0=C0, C=C, L=L, F=F),
+                           max_abs_err=abs_err, differing=ndiff, args=x)
+    k2_16 = {}
+    for name, (b, t, g, c, layers) in K2_SHAPES.items():
+        a = (torch.randn(b, t, g * c, generator=gen).to(device).bfloat16(),
+             (torch.randn(layers, g, 3, c, c, generator=gen)
+              * (3 * c) ** -0.5).to(device),
+             (torch.randn(layers, g * c, generator=gen) * 0.1).to(device))
+        out = k2(*a, groups=g)
+        ref = chain_plain(*a, groups=g)
+        truth = chain_plain(a[0].float(), *a[1:], groups=g)
+        torch.cuda.synchronize()
+        check(out.dtype == bf16 and bool(torch.isfinite(out).all()),
+              f"K2-bf16 {name}: dtype {out.dtype} or non-finite")
+        dp, dq, ok = bf16_rule(out, ref, truth)
+        ulps, share = bf16_ulps(torch, out, ref)
+        abs_err = float((out.float() - ref.float()).abs().max())
+        log(f"[bf16-kernel] fused_grouped_conv_chain bf16 {name} B={b} T={t}"
+            f" G={g} C={c} L={layers}: drift from f32 {dp:.4e}, plain "
+            f"{dq:.4e} (bf16 rule: {'ok' if ok else 'FAIL'}); max|diff| "
+            f"{abs_err:.3e} = {ulps:.2f} bf16 ULPs of max|out|, {share:.2%} "
+            f"of elements differ")
+        check(ok, f"K2-bf16 {name} breaks the bf16 rule: {dp:.4e} vs "
+              f"{dq:.4e}")
+        check(ulps <= K2_BF16_ULPS and share <= K2_BF16_SHARE,
+              f"K2-bf16 {name}: {ulps:.2f} bf16 ULPs, {share:.2%} of elements"
+              f" differ from the plain version (limits {K2_BF16_ULPS}, "
+              f"{K2_BF16_SHARE:.0%}: a rounding skipped or added)")
+        k2_16[name] = dict(shape=dict(B=b, T=t, G=g, C=c, L=layers),
+                           drift=dp, plain_drift=dq, max_ulps=ulps,
+                           differing=share, max_abs_err=abs_err, args=a)
+    x16 = k4_16["bs32"]["args"]
+    x32 = x16.float()
+    modes = {"f32": lambda: k4(x32, qfd, groups=G),
+             "bf16": lambda: k4(x16, qfd, groups=G)}
+    k4_turns = {m: [] for m in modes}
+    for m in ["f32", "bf16", "bf16", "f32"]:
+        k4_turns[m].append(cuda_ms(torch, modes[m], reps=50))
+    for name, rec in k4_16.items():
+        x = rec.pop("args")
+        rec["ms"] = (float(np.mean(k4_turns["bf16"])) if name == "bs32"
+                     else cuda_ms(torch, lambda: k4(x, qfd, groups=G)))
+        rec["plain_ms"] = cuda_ms(torch, lambda: q8.decoder_int8_plain(
+            x, qfd, G), reps=5)
+        sh = rec["shape"]
+        ops, nbytes = k4_work(sh["B"], sh["T"], G, L, F, x_bytes=2)
+        rec["bound_ms"], rec["bound_by"] = bound_ms(ops, nbytes, PEAK_INT8_OPS)
+        log(f"[timing] {smi}: K4-bf16 {name}: {rec['ms']:.4f} ms "
+            f"({ops / (rec['ms'] / 1e3) / 1e12:.2f} TOP/s int8), plain "
+            f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms by "
+            f"{rec['bound_by']} "
+            f"({ops / 1e9:.2f} G int8 ops, {nbytes / 1e6:.2f} MB)")
+    log(f"[timing] {smi}: K4 bs{B} x {T}, ABBA turns: f32 features "
+        f"{np.mean(k4_turns['f32']):.4f} ms {k4_turns['f32']}, bf16 "
+        f"features {np.mean(k4_turns['bf16']):.4f} ms {k4_turns['bf16']}")
+    for name, rec in k2_16.items():
+        a, g = rec.pop("args"), rec["shape"]["G"]
+        rec["ms"] = cuda_ms(torch, lambda: k2(*a, groups=g))
+        rec["plain_ms"] = cuda_ms(torch, lambda: chain_plain(*a, groups=g))
+        sh = rec["shape"]
+        flops, nbytes = k2_work(sh["B"], sh["T"], g, sh["C"], sh["L"],
+                                act_bytes=2)
+        rec["bound_ms"], rec["bound_by"] = bound_ms(2 * flops, nbytes,
+                                                    PEAK_TF32_FLOPS)
+        rec["ffma_bound_ms"] = bound_ms(flops, nbytes)[0]
+        log(f"[timing] {smi}: K2-bf16 {name}: {rec['ms']:.4f} ms "
+            f"({flops / (rec['ms'] / 1e3) / 1e12:.2f} TFLOP/s), plain "
+            f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms by "
+            f"{rec['bound_by']} (2 TF32 MMAs a multiply-add; f32 FMA bound "
+            f"{rec['ffma_bound_ms']:.4f} ms; {flops / 1e9:.2f} GFLOP, "
+            f"{nbytes / 1e6:.1f} MB)")
+
+    # 19. the int8 tier on a bf16 model -------------------------------------
+    model16 = JointLateClusterSoftStyle4_G(**MODEL, dtype=bf16)
+    model16.load_state_dict(model.state_dict())
+    rng = np.random.default_rng(args.seed + 19)
+    calib = (rng.normal(size=(B, T, MEL)).astype(np.float32),
+             rng.integers(0, S, size=B).astype(np.int32))
+    serve816 = build_serving_fn(model16, quantize_int8=True, calib=calib)
+    plain816 = build_serving_fn(model16, use_kernel=False,
+                                quantize_int8=True, calib=calib)
+    check(serve816.dtype == bf16 and serve816.use_kernel and
+          serve816.quantize_int8, "int8-bf16 serving fn")
+
+    def counts():
+        return (fused_mixstage_decoder.launches,
+                fused_mixstage_decoder.launches_bf16, k4.launches,
+                k4.launches_bf16, k2.launches, k2.launches_bf16)
+
+    for fn in (fused_mixstage_decoder, k4, k2):      # int8-bf16 path starts
+        fn.launches = fn.launches_bf16 = 0
+    pose = serve816(audio, styles)
+    torch.cuda.synchronize()
+    check(counts() == (1, 1, 1, 1, 0, 0), f"one int8-bf16 serving call "
+          f"launched (K1, K1-bf16, K4, K4-bf16, K2, K2-bf16) {counts()} "
+          f"times, expected (1, 1, 1, 1, 0, 0)")
+    check(pose.dtype == torch.float32 and tuple(pose.shape) == (B, T, F)
+          and bool(torch.isfinite(pose).all()), "int8-bf16 pose")
+    pose_plain = plain816(audio, styles)
+    d_k, d_p, ok = bf16_rule(pose, pose_plain, pose32)
+    mean_rel, max_rel, _, ndiff = int8_errors(pose, pose_plain)
+    log(f"[int8-bf16] full width bs{B} T{T}: drift from the f32 kernel route:"
+        f" K1-bf16+K4-bf16 route {d_k:.4e}, plain int8-bf16 route {d_p:.4e}"
+        f" (envelope {INT8_DRIFT}; bf16 rule: {'ok' if ok else 'FAIL'}); "
+        f"the routes differ in {ndiff} of {pose.numel()} elements, mean "
+        f"{mean_rel:.3e}, max {max_rel:.3e} of mean|plain|")
+    check(INT8_DRIFT[0] < d_k < INT8_DRIFT[1],
+          "int8-bf16 drift out of envelope")
+    check(ok, f"int8-bf16 kernel route breaks the bf16 rule against the "
+          f"plain route: {d_k:.4e} vs {d_p:.4e}")
+    jobs = [("json", 64, 2), ("npz", 64, 5), ("npz", 100, 1)]
+    served_diff, _, stream_diff, stats = serve_over_http(
+        serve816, rng, jobs, stream_style=6)
+    launches = counts()                              # int8-bf16 path ends
+    log(f"[int8-bf16-server] {len(jobs)} /v1/pose requests (json, npz; 64 "
+        f"and 100 frames): {served_diff} elements differ from the direct "
+        f"call at batch {B}; a 150-frame stream over HTTP (chunks of 40, "
+        f"hop 32): {stream_diff} differ from StreamingSession over the "
+        f"direct call (tol 0); stats requests={stats['requests']} "
+        f"batches={stats['batches']} streams={stats['streams']}; (K1, "
+        f"K1-bf16, K4, K4-bf16, K2, K2-bf16) launches over the int8-bf16 "
+        f"path {launches}")
+    check(served_diff == 0, "int8-bf16 served pose differs from direct")
+    check(stream_diff == 0, "int8-bf16 streamed pose differs from direct")
+    check(stats["streams"] == 0, "the finished stream is still live")
+    check(launches[0] == launches[1] == launches[2] == launches[3] and
+          launches[3] >= 1 + stats["batches"] and launches[4:] == (0, 0),
+          f"launches {launches} over the int8-bf16 path: expected one K1 "
+          f"and one K4 launch, both bf16 mode, per serving call and no K2")
+
+    audio_dev = torch.as_tensor(audio, device=device)
+    styles_dev = torch.as_tensor(styles, device=device)
+    calls = {"int8-f32": build_serving_fn(model, quantize_int8=True,
+                                          calib=calib),
+             "int8-bf16": serve816}
+    for fn in calls.values():          # first calls of a shape pick cuDNN
+        for _ in range(20):            # algorithms: keep them out of turns
+            fn(audio_dev, styles_dev)
+    turns = {name: [] for name in calls}
+    for name in ["int8-f32", "int8-bf16", "int8-bf16", "int8-f32"]:
+        turns[name].append(cuda_ms(torch, lambda: calls[name](
+            audio_dev, styles_dev), reps=20))
+    call_t = {k: float(np.mean(v)) for k, v in turns.items()}
+    prof = {}
+    for name, fn in calls.items():
+        prof[name] = trace(torch, lambda: fn(audio_dev, styles_dev))
+        top = ", ".join(f"{k['ms_per_call']:.4f} ms x"
+                        f"{k['launches_per_call']:g} {kernel_name(k['name'])}"
+                        for k in prof[name]["kernels"][:3])
+        log(f"[profile] {smi}: {name} bs{B} serving call: device busy "
+            f"{prof[name]['device_busy_ms']:.4f} ms, wall "
+            f"{prof[name]['wall_ms']:.4f} ms, idle share "
+            f"{prof[name]['idle_share']:.3f}, "
+            f"{prof[name]['launches_per_call']:g} launches; top: {top}")
+    log(f"[timing] {smi}: bs{B} int8 serving call, ABBA turns: f32 model "
+        f"{call_t['int8-f32']:.3f} ms ({B * T / call_t['int8-f32'] * 1e3:.1f}"
+        f" pose frames/s; turns {turns['int8-f32']}), bf16 model "
+        f"{call_t['int8-bf16']:.3f} ms "
+        f"({B * T / call_t['int8-bf16'] * 1e3:.1f} frames/s; turns "
+        f"{turns['int8-bf16']})")
+    for p_ in prof.values():
+        p_["kernels"] = p_["kernels"][:8]
+    results["int8_bf16"] = dict(
+        k4=k4_16, k2=k2_16, k4_turns=k4_turns, drift_kernel=d_k,
+        drift_plain=d_p, routes_differing=ndiff, served_differing=served_diff,
+        stream_differing=stream_diff, launches=launches,
+        timing=dict(call_ms=call_t, turns=turns, profile=prof,
+                    frames_per_s={k: B * T / v * 1e3
+                                  for k, v in call_t.items()}))
+    main4, main2 = k4_16["bs32"], k2_16["main"]
+    return [
+        {"name": "fused_mixstage_decoder_int8_bf16", "mode": "bf16",
+         "route": "cuda",
+         "source": "mixstage_tpu_torch/ops/cuda/csrc/decoder_int8.cu",
+         "replaces": "mixstage_tpu/ops/pallas/quant.py:266",
+         "launches": launches[3],
+         "max_abs_err": max(r["max_abs_err"] for r in k4_16.values()),
+         "ms": main4["ms"], "plain_ms": main4["plain_ms"],
+         "bound_ms": main4["bound_ms"], "bound_by": main4["bound_by"],
+         "library_ms": None, "mma": "s8"},
+        {"name": "fused_grouped_conv_chain_bf16", "mode": "bf16",
+         "route": "cuda",
+         "source": "mixstage_tpu_torch/ops/cuda/csrc/fused_decoder.cu",
+         "replaces": "mixstage_tpu/ops/pallas/fused_conv.py:75",
+         # a public op: no path of the package calls it
+         "launches": launches[5],
+         "max_abs_err": max(r["max_abs_err"] for r in k2_16.values()),
+         "ms": main2["ms"], "plain_ms": main2["plain_ms"],
+         "bound_ms": main2["bound_ms"], "bound_by": main2["bound_by"],
+         "library_ms": None, "mma": "ffma",
+         "ffma_bound_ms": main2["ffma_bound_ms"],
+         "max_ulps": max(r["max_ulps"] for r in k2_16.values())}]
 
 
 def main(argv=None) -> int:
@@ -1536,10 +1826,12 @@ def main(argv=None) -> int:
                          pose, results)
     k16 = bf16_phases(torch, args, device, smi, model, audio, styles, pose,
                       serve, results)
+    k8_16 = int8_bf16_phases(torch, args, device, smi, model, audio, styles,
+                             pose, results)
     for kern in [k1] + k3 + [k4]:
         kern["mode"] = "f32" if kern is not k4 else "int8"
     k2["mode"] = "f32"
-    kernels = [k1] + k3 + [k4, k2] + k16
+    kernels = [k1] + k3 + [k4, k2] + k16 + k8_16
     results["kernels"] = kernels
     if args.out:
         with open(args.out, "w") as f:

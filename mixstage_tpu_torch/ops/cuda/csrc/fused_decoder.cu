@@ -70,6 +70,16 @@
 // coalesced loads and kRows frames of one output channel per thread.  At
 // (32, 64, G=8, C=256, L=3) it does ~19.3 GFLOP against ~52.5 MB, bound by
 // operations (~0.29 ms at the f32 FMA rate).
+//
+// Its bf16 mode (mixstage_conv_chain_bf16) is the TPU kernel's
+// dtype=bfloat16 function: bf16 activations, f32 weights and biases, f32
+// sums of the exact products, the f32 bias and leaky (slope f32(0.2), not
+// the bf16-rounded slope of flax's layers), each layer's output rounded to
+// bf16 (_chain_kernel's astype(x_ref.dtype)).  It is the same FFMA routine
+// templated on the activation type: the tile stays f32 in shared memory,
+// holding bf16 values, so only the loads, the rounding of each layer's
+// output and the stores differ.  ~35.7 MB at the serving shape; still bound
+// by operations.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -99,6 +109,12 @@ __device__ __forceinline__ A to_act(float v) {
   } else {
     return __float2bfloat16_rn(v);
   }
+}
+
+// An activation as f32 (exact).
+__device__ __forceinline__ float act_f32(float v) { return v; }
+__device__ __forceinline__ float act_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
 }
 
 // ---------------------------------------------------------------------------
@@ -433,7 +449,9 @@ constexpr int kUnrollCi = 2;
 // One k=3 'same' conv layer producing tile rows [lo, hi).  `in` is the tile
 // in shared memory (row stride `stride` floats, row r <-> time t_first + r);
 // output row r reads input rows r - 1 .. r + 1.  It writes leaky(acc) to
-// the shared tile `out`.  w is (3, cin, cout) with cout fastest.
+// the shared tile `out`, as an activation of type A (rounded to bf16 in bf16
+// mode) held in f32.  w is (3, cin, cout) with cout fastest.
+template <class A>
 __device__ __forceinline__ void layer(
     const float* in, int stride, int cin, const float* __restrict__ w,
     const float* __restrict__ bias, int cout, int lo, int hi, float* out,
@@ -482,14 +500,18 @@ __device__ __forceinline__ void layer(
 #pragma unroll
     for (int j = 0; j < kRows; ++j) {
       const int r = r0 + j;
-      if (r < hi) out[r * out_stride + c] = leaky(acc[j], slope);
+      if (r < hi)
+        out[r * out_stride + c] = act_f32(to_act<A>(leaky(acc[j], slope)));
     }
   }
 }
 
+// The chain for activations of type A (float: f32 mode; __nv_bfloat16:
+// bf16 mode); weights and biases are f32 either way.
+template <class A>
 __global__ void __launch_bounds__(kThreads, kMinBlocks) conv_chain_kernel(
-    const float* __restrict__ x, const float* __restrict__ w,
-    const float* __restrict__ biases, float* __restrict__ out, int T, int C,
+    const A* __restrict__ x, const float* __restrict__ w,
+    const float* __restrict__ biases, A* __restrict__ out, int T, int C,
     int L, int G, int tile_t, int stride, float slope) {
   extern __shared__ __align__(16) float smem[];
   const int halo = L;
@@ -502,17 +524,18 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) conv_chain_kernel(
   float* buf[2] = {smem, smem + (size_t)nr * stride};
 
   // zero both buffers and load group g's channels of sequence b
-  const float* xb = x + (size_t)b * T * GC + (size_t)g * C;
+  const A* xb = x + (size_t)b * T * GC + (size_t)g * C;
   for (int i = threadIdx.x; i < nr * stride; i += blockDim.x) {
     const int r = i / stride, ch = i - r * stride;
     const bool valid = r >= v_lo && r < v_hi && ch < C;
-    buf[0][i] = valid ? __ldg(xb + (size_t)(t_first + r) * GC + ch) : 0.f;
+    buf[0][i] =
+        valid ? act_f32(__ldg(xb + (size_t)(t_first + r) * GC + ch)) : 0.f;
     buf[1][i] = 0.f;
   }
   __syncthreads();
   // layer l (0-based) reads rows [l, nr - l) of buf[l & 1]
   for (int l = 0; l < L; ++l) {
-    layer(buf[l & 1], stride, C, w + ((size_t)l * G + g) * 3 * C * C,
+    layer<A>(buf[l & 1], stride, C, w + ((size_t)l * G + g) * 3 * C * C,
           biases + (size_t)l * GC + (size_t)g * C, C, max(l + 1, v_lo),
           min(nr - l - 1, v_hi), buf[(l + 1) & 1], stride, slope);
     __syncthreads();
@@ -520,10 +543,10 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) conv_chain_kernel(
   // the tile's own rows [halo, halo + tile_t) to out[b, t, g*C:(g+1)*C]
   const float* last = buf[L & 1];
   const int lo = max(halo, v_lo), hi = min(halo + tile_t, v_hi);
-  float* ob = out + (size_t)b * T * GC + (size_t)g * C;
+  A* ob = out + (size_t)b * T * GC + (size_t)g * C;
   for (int i = threadIdx.x; i < (hi - lo) * C; i += blockDim.x) {
     const int r = lo + i / C, c = i % C;
-    ob[(size_t)(t_first + r) * GC + c] = last[r * stride + c];
+    ob[(size_t)(t_first + r) * GC + c] = to_act<A>(last[r * stride + c]);
   }
 }
 
@@ -621,15 +644,14 @@ int mixstage_fused_decoder_bf16(const __nv_bfloat16* x, const float* w0,
                                        C0, C, L, F, G, slope, tile_t, stream);
 }
 
-// The grouped conv chain on `stream` on the current device, with
-// mixstage::fill_tile's time tile (halo L); returns the cudaError_t of the
-// launch (cudaErrorInvalidValue for a bad shape or one whose smallest tile
-// does not fit shared memory).  Device pointers to contiguous float32
-// arrays: x (B, T, G*C); w (L, G, 3, C, C); biases (L, G*C);
-// out (B, T, G*C).
-int mixstage_conv_chain_f32(const float* x, const float* w,
-                            const float* biases, float* out, int B, int T,
-                            int C, int L, int G, float slope, void* stream) {
+}  // extern "C"
+
+namespace {
+
+template <class A>
+int launch_chain(const A* x, const float* w, const float* biases, A* out,
+                 int B, int T, int C, int L, int G, float slope,
+                 void* stream) {
   if (B <= 0 || T <= 0 || C <= 0 || L < 0 || G <= 0 || B > 65535 ||
       G > 65535)
     return (int)cudaErrorInvalidValue;
@@ -639,14 +661,40 @@ int mixstage_conv_chain_f32(const float* x, const float* w,
   const int tile_t = chain_tile(B, T, C, L, G, sms, smem_limit);
   if (tile_t == 0) return (int)cudaErrorInvalidValue;
   const size_t smem = chain_smem_bytes(C, L, tile_t);
-  err = cudaFuncSetAttribute(conv_chain_kernel,
+  err = cudaFuncSetAttribute(conv_chain_kernel<A>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((T + tile_t - 1) / tile_t, B, G);
-  conv_chain_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+  conv_chain_kernel<A><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       x, w, biases, out, T, C, L, G, tile_t, round4(C), slope);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// The grouped conv chain on `stream` on the current device, with
+// mixstage::fill_tile's time tile (halo L); returns the cudaError_t of the
+// launch (cudaErrorInvalidValue for a bad shape or one whose smallest tile
+// does not fit shared memory).  Device pointers to contiguous float32
+// arrays: x (B, T, G*C); w (L, G, 3, C, C); biases (L, G*C);
+// out (B, T, G*C).
+int mixstage_conv_chain_f32(const float* x, const float* w,
+                            const float* biases, float* out, int B, int T,
+                            int C, int L, int G, float slope, void* stream) {
+  return launch_chain<float>(x, w, biases, out, B, T, C, L, G, slope, stream);
+}
+
+// bf16 mode: as mixstage_conv_chain_f32 with x and out (B, T, G*C)
+// contiguous bfloat16; w and biases stay float32.
+int mixstage_conv_chain_bf16(const __nv_bfloat16* x, const float* w,
+                             const float* biases, __nv_bfloat16* out, int B,
+                             int T, int C, int L, int G, float slope,
+                             void* stream) {
+  return launch_chain<__nv_bfloat16>(x, w, biases, out, B, T, C, L, G, slope,
+                                     stream);
 }
 
 const char* mixstage_cuda_error_string(int code) {

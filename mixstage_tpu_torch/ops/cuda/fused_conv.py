@@ -16,12 +16,18 @@ K1 also has the TPU kernel's bf16 mode: bfloat16 features with float32
 float32, each layer's output and the logits rounded to bfloat16
 (``fused_conv.py:141-176``, ``out_shape`` ``x.dtype``).  The plain version
 rounds at the same points, so it is the kernel's twin at either dtype.
+K2 has the TPU kernel's bf16 mode as well (``_chain_kernel`` casts each
+layer's output to ``x_ref.dtype``): bfloat16 activations, float32 weights
+and biases, float32 sums, bias and leaky (slope float32 0.2), each layer's
+output rounded to bfloat16; ``chain_plain`` rounds at the same points.
 
 Each wrapper validates its arguments, then on a CPU tensor computes the
 plain version; on a CUDA tensor it launches the kernel or raises — there is
 no fall-back.  ``fused_mixstage_decoder.launches`` (both modes),
-``fused_mixstage_decoder.launches_bf16`` (bf16 mode) and
-``fused_grouped_conv_chain.launches`` count kernel launches.
+``fused_mixstage_decoder.launches_bf16`` (bf16 mode),
+``fused_grouped_conv_chain.launches`` (both modes) and
+``fused_grouped_conv_chain.launches_bf16`` (bf16 mode) count kernel
+launches.
 """
 
 from __future__ import annotations
@@ -115,9 +121,10 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         tile.restype = _I
         lib.mixstage_cuda_error_string.argtypes = [_I]
         lib.mixstage_cuda_error_string.restype = ctypes.c_char_p
-        chain = lib.mixstage_conv_chain_f32
-        chain.argtypes = [_P] * 4 + [_I] * 5 + [ctypes.c_float, _P]
-        chain.restype = _I
+        for chain in (lib.mixstage_conv_chain_f32,
+                      lib.mixstage_conv_chain_bf16):
+            chain.argtypes = [_P] * 4 + [_I] * 5 + [ctypes.c_float, _P]
+            chain.restype = _I
     return lib
 
 
@@ -192,25 +199,32 @@ fused_mixstage_decoder.launches_bf16 = 0
 
 def chain_plain(x, weights, biases, groups: int, negative_slope: float = 0.2):
     """The grouped conv chain in plain PyTorch (``chain_reference``,
-    ``fused_conv.py:118-133``): x (B, T, G·C) → (B, T, G·C)."""
+    ``fused_conv.py:118-133``): x (B, T, G·C) → (B, T, G·C) in ``x.dtype``.
+    Float32 sums of float32 products; for bfloat16 ``x`` each layer's output
+    is rounded to bfloat16, as the kernel rounds it."""
+    dt = x.dtype
     L, G, _, C, _ = weights.shape
-    h = x.transpose(1, 2)                                    # (B, G·C, T)
+    h = x.float().transpose(1, 2)                            # (B, G·C, T)
     for layer in range(L):
         w = weights[layer].permute(0, 3, 2, 1).reshape(G * C, C, 3)
         h = F.leaky_relu(F.conv1d(h, w, biases[layer], padding=1, groups=G),
-                         negative_slope)
-    return h.transpose(1, 2).contiguous()
+                         negative_slope).to(dt).float()
+    return h.transpose(1, 2).to(dt).contiguous()
 
 
 def fused_grouped_conv_chain(x, weights, biases, groups: int,
                              negative_slope: float = 0.2):
     """L layers of grouped k=3 'same' conv + bias + leaky as one kernel
     launch: x (B, T, G·C), weights (L, G, 3, C, C) (tap, in, out), biases
-    (L, G·C); returns (B, T, G·C).  All float32 and contiguous."""
+    (L, G·C); returns (B, T, G·C) in ``x.dtype``.  All contiguous; x float32
+    or bfloat16 (the bf16 mode), the weights and biases float32."""
     tensors = dict(x=x, weights=weights, biases=biases)
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     for name, t in tensors.items():
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if name != "x" and t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32 (in both modes), got "
+                            f"{t.dtype}")
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
         if not t.is_contiguous():
@@ -230,19 +244,25 @@ def fused_grouped_conv_chain(x, weights, biases, groups: int,
         raise ValueError(f"fused_grouped_conv_chain runs on CUDA (or the CPU "
                          f"plain version), got device {x.device}")
     lib = bind(build.load_library("fused_decoder"))
+    bf16 = x.dtype == torch.bfloat16
+    launch = lib.mixstage_conv_chain_bf16 if bf16 else \
+        lib.mixstage_conv_chain_f32
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.mixstage_conv_chain_f32(
+        err = launch(
             x.data_ptr(), weights.data_ptr(), biases.data_ptr(),
             out.data_ptr(), B, T, C, L, G, float(negative_slope), stream)
     if err != 0:
         raise RuntimeError(
-            f"fused_grouped_conv_chain launch failed: "
+            f"fused_grouped_conv_chain ({x.dtype}) launch failed: "
             f"{lib.mixstage_cuda_error_string(err).decode()} (error {err}; "
             f"B={B} T={T} C={C} L={L} G={G})")
     fused_grouped_conv_chain.launches += 1
+    if bf16:
+        fused_grouped_conv_chain.launches_bf16 += 1
     return out
 
 
 fused_grouped_conv_chain.launches = 0
+fused_grouped_conv_chain.launches_bf16 = 0

@@ -24,7 +24,14 @@ The kernel reads its weights packed four input channels to a 32-bit word
 JAX-layout int8 arrays stay in the dict for the plain version.  The wrapper
 validates its arguments, then on a CPU tensor computes the plain version; on
 a CUDA tensor it launches the kernel or raises — there is no fall-back.
-``fused_mixstage_decoder_int8.launches`` counts kernel launches.
+
+Like the TPU kernel, it takes float32 or bfloat16 features (the int8 tier
+on a bf16 model): a bf16 feature is promoted to float32 exactly and then
+quantized by the same float32 division, so the two modes share everything
+after the input stage, and the logits are float32 in both.
+``fused_mixstage_decoder_int8.launches`` counts kernel launches (both
+modes), ``fused_mixstage_decoder_int8.launches_bf16`` those of the bf16
+mode.
 """
 
 from __future__ import annotations
@@ -86,7 +93,10 @@ def quantize_folded_decoder(fd: Dict[str, torch.Tensor], x_calib,
                             negative_slope: float = 0.2,
                             per_channel: bool = True) -> Dict:
     """Quantize an ``extract_folded_decoder`` dict against calibration
-    features ``x_calib`` (B, T, C0) (``quant.py:47-164``).
+    features ``x_calib`` (B, T, C0) (``quant.py:47-164``), float32 or the
+    bfloat16 features of a bf16 model: those are promoted to float32
+    exactly, as JAX's calibration promotes its bf16 × f32 einsums, so the
+    input scales are max |x| / 127 in float32 either way.
 
     Returns int8 ``w0_i8`` (G, 3, C0, C), ``wc_i8`` (L, G, 3, C, C),
     ``wl_i8`` (G, C, F); f32 dequant multipliers ``m0`` (G, C), ``mc``
@@ -133,9 +143,11 @@ def quantize_folded_decoder(fd: Dict[str, torch.Tensor], x_calib,
 
 def quantize_input(x, s_in):
     """``clip(round(x / s_in), ±127)`` as int8; ``s_in`` a float or a
-    per-channel (C0,) tensor (``quant.py:176-180``)."""
+    per-channel (C0,) tensor (``quant.py:176-180``).  A bfloat16 ``x`` is
+    promoted to float32 (exactly) before the float32 division, as JAX
+    promotes bf16 / f32."""
     s = torch.as_tensor(s_in, dtype=torch.float32, device=x.device)
-    return torch.clamp(torch.round(x / s), -127, 127).to(torch.int8)
+    return torch.clamp(torch.round(x.float() / s), -127, 127).to(torch.int8)
 
 
 def _qconv3(q, w_i8, mult, bias, rq, negative_slope):
@@ -155,7 +167,7 @@ def _qconv3(q, w_i8, mult, bias, rq, negative_slope):
 def decoder_int8_plain(x, qfd: Dict, groups: int,
                        negative_slope: float = 0.2):
     """The int8 decoder in plain PyTorch (``decoder_int8_xla``,
-    ``quant.py:183-220``): x (B, T, C0) f32 → (B, T, G·F) f32."""
+    ``quant.py:183-220``): x (B, T, C0) f32 or bf16 → (B, T, G·F) f32."""
     q_in = quantize_input(x, qfd["s_in"]).double()
     outs = []
     for g in range(groups):
@@ -199,8 +211,8 @@ def pack_decoder_int8(qfd: Dict) -> Dict:
 
 
 def _check(x, qfd, groups):
-    if x.dtype != torch.float32:
-        raise TypeError(f"x must be float32, got {x.dtype}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     if x.ndim != 3:
         raise ValueError(f"x must be (B, T, C0), got shape {tuple(x.shape)}")
     B, T, C0 = x.shape
@@ -226,8 +238,9 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C signatures of a loaded ``decoder_int8`` library."""
     fn = lib.mixstage_decoder_int8
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 12 + [_I] * 7 + [ctypes.c_float, _I, _P]
-        fn.restype = _I
+        for fn in (lib.mixstage_decoder_int8, lib.mixstage_decoder_int8_bf16):
+            fn.argtypes = [_P] * 12 + [_I] * 7 + [ctypes.c_float, _I, _P]
+            fn.restype = _I
         tile = lib.mixstage_decoder_int8_tile
         tile.argtypes = [_I] * 8 + [ctypes.c_size_t]
         tile.restype = _I
@@ -251,8 +264,8 @@ def fused_mixstage_decoder_int8(x, qfd: Dict, groups: int,
                                 negative_slope: float = 0.2):
     """The whole int8 mixture decoder as one kernel launch.
 
-    x (B, T, C0) f32 content⊕style features, quantized inside; ``qfd`` from
-    ``quantize_folded_decoder`` (on CUDA: passed through
+    x (B, T, C0) f32 or bf16 content⊕style features, quantized inside;
+    ``qfd`` from ``quantize_folded_decoder`` (on CUDA: passed through
     ``pack_decoder_int8``).  Returns per-group logits (B, T, G·F) f32, to be
     combined by ``index_select_outputs``.  C and F at most 256."""
     B, T, C0, C, L, F_, G = _check(x, qfd, groups)
@@ -273,21 +286,27 @@ def fused_mixstage_decoder_int8(x, qfd: Dict, groups: int,
             raise ValueError("the packed operands must be contiguous and on "
                              "x's device")
     lib = bind(build.load_library("decoder_int8"))
+    bf16 = x.dtype == torch.bfloat16
+    launch = lib.mixstage_decoder_int8_bf16 if bf16 else \
+        lib.mixstage_decoder_int8
     out = torch.empty((B, T, G * F_), device=x.device, dtype=torch.float32)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.mixstage_decoder_int8(
+        err = launch(
             x.data_ptr(), *(t.data_ptr() for t in args), out.data_ptr(),
             B, T, C0, C, L, F_, G, float(negative_slope), 0, stream)
     if err != 0:
         raise RuntimeError(
-            f"fused_mixstage_decoder_int8 launch failed: "
+            f"fused_mixstage_decoder_int8 ({x.dtype}) launch failed: "
             f"{lib.mixstage_decoder_int8_error_string(err).decode()} (error "
             f"{err}; B={B} T={T} C0={C0} C={C} L={L} F={F_} G={G}; time tile "
             f"{device_tile_frames(B, T, C0, C, L, F_, G, x.device)}, "
             f"0 = none fits shared memory)")
     fused_mixstage_decoder_int8.launches += 1
+    if bf16:
+        fused_mixstage_decoder_int8.launches_bf16 += 1
     return out
 
 
 fused_mixstage_decoder_int8.launches = 0
+fused_mixstage_decoder_int8.launches_bf16 = 0

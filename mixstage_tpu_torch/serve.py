@@ -24,7 +24,11 @@ A model built with ``dtype=torch.bfloat16`` serves at that compute dtype,
 as the JAX package's bf16 tier does: audio and style rows are cast to it,
 the features and both chains' activations are bfloat16 (K1's bf16 mode),
 the folded weights stay float32 (folded from the float32 parameters), and
-the pose comes back as float32, an exact upcast.
+the pose comes back as float32, an exact upcast.  Its int8 tier
+(``serve.py:203-279``) calibrates on the bf16 model's features, hands them
+to K4's bf16-feature mode (``decoder_int8_plain`` on the plain route), and
+rounds K4's float32 logits to bfloat16 before the mixture, as JAX's
+``.astype(x.dtype)`` does.
 """
 
 from __future__ import annotations
@@ -132,14 +136,10 @@ def build_serving_fn(model: nn.Module, device=None,
     against the f32 path is a few percent: an opt-in speed tier outside the
     1% contract of the default path.
 
-    The call runs at the model's compute dtype (``model.dtype``); the pose
-    is returned as float32 either way.
+    The call runs at the model's compute dtype (``model.dtype``), the int8
+    tier included; the pose is returned as float32 either way.
     """
     dtype = model.dtype
-    if quantize_int8 and dtype != torch.float32:
-        raise NotImplementedError(
-            f"the int8 tier on a {dtype} model comes later (ROADMAP queue "
-            f"2, A3): quantize a float32 model")
     if quantize_int8 and calib is None:
         raise ValueError("quantize_int8 needs calib=(audio, style ids or "
                          "(B, S) rows) for the one-shot activation "
@@ -162,6 +162,9 @@ def build_serving_fn(model: nn.Module, device=None,
 
     qfd = None
     if quantize_int8:
+        # JAX calibrates on f32 audio and style rows (``serve.py:203-213``);
+        # a bf16 model's first conv and its style table cast them to bf16
+        # first, so rounding them here gives the same features
         with torch.inference_mode():
             audio, sw = inputs(*calib)
             qfd = quantize_folded_decoder(fd, model.features([audio], None,
@@ -177,15 +180,16 @@ def build_serving_fn(model: nn.Module, device=None,
             scores = fused_mixstage_decoder(
                 x, *(fc[k] for k in _FOLDED_KEYS), groups=1)
             soft = softmax(scores, dim=-1)
-            if quantize_int8:
-                logits = fused_mixstage_decoder_int8(x, qfd, groups=G)
+            if quantize_int8:          # f32 logits, in the compute dtype
+                logits = fused_mixstage_decoder_int8(x, qfd, groups=G) \
+                    .to(dtype)
             else:
                 logits = fused_mixstage_decoder(
                     x, *(fd[k] for k in _FOLDED_KEYS), groups=G)
         else:
             x, _, soft = model.backbone([audio], None, sw)
             if quantize_int8:
-                logits = decoder_int8_plain(x, qfd, groups=G)
+                logits = decoder_int8_plain(x, qfd, groups=G).to(dtype)
             else:
                 logits = fused_mixstage_decoder_plain(
                     x, *(fd[k] for k in _FOLDED_KEYS), groups=G)

@@ -101,10 +101,3 @@ def test_bf16_waveform_serving_within_contract_of_f32():
     out = fn16(wav, [0, 1])
     assert out.dtype == torch.float32 and out.shape == (2, 64, 96)
     assert _drift(out, fn32(wav, [0, 1])) <= DRIFT_TOL
-
-
-def test_int8_tier_on_a_bf16_model_is_refused(setup):
-    *_, port16, audio = setup
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tserve.build_serving_fn(port16, device="cpu", quantize_int8=True,
-                                calib=(audio, [0, 1]))

@@ -13,7 +13,8 @@ classifier launch, then K4).
 
 ``--dtype bfloat16`` runs the same at the bf16 compute dtype: K1's bf16
 mode (bf16 features, f32 weights) against its plain version, and one bs32
-serving call of a bf16 model (the int8 tier is f32-only).
+serving call of a bf16 model, f32-weight and int8 (K1's bf16 mode on the
+classifier, then K4's bf16-feature mode).
 
 ``--sweep`` also times K1 and K4 (CUDA events) at every time tile that
 fits, at every shape ``chip_smoke.py`` launches them at, beside the tile
@@ -37,17 +38,15 @@ import ctypes
 import json
 import subprocess
 import sys
-import time
 from pathlib import Path
 
 import torch
-from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from chip_smoke import (C, C0, K1_SHAPES, K3_RAGGED, K4_SHAPES, MEL,  # noqa: E402
                         MODEL, B, T, cuda_ms, k1_work, random_folded,
-                        random_train)
+                        random_train, trace)
 from mixstage_tpu_torch import resolve_device  # noqa: E402
 from mixstage_tpu_torch.models import JointLateClusterSoftStyle4_G  # noqa: E402
 from mixstage_tpu_torch.models.layers import reset_parameters_  # noqa: E402
@@ -66,42 +65,6 @@ SHAPES = {   # name: (B, T, G, L, F)
 }
 CALLS = 5
 _P, _I = ctypes.c_void_p, ctypes.c_int
-
-
-def trace(fn) -> dict:
-    """Device kernels, busy time and idle share of ``CALLS`` calls of fn."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(CALLS):
-        fn()
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / CALLS
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
-        for _ in range(CALLS):
-            fn()
-        torch.cuda.synchronize()
-    spans, kernels = [], {}
-    for e in p.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        start, end = e.time_range.start, e.time_range.end
-        spans.append((start, end))
-        k = kernels.setdefault(e.name, [0, 0.0])
-        k[0] += 1
-        k[1] += (end - start) / 1e3
-    busy_us, edge = 0.0, float("-inf")
-    for start, end in sorted(spans):
-        if end > edge:
-            busy_us += end - max(start, edge)
-            edge = end
-    busy_ms = busy_us / 1e3 / CALLS
-    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])
-    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
-                idle_share=(1 - busy_ms / wall_ms) if wall_ms else None,
-                kernels=[dict(name=n, launches_per_call=c / CALLS,
-                              ms_per_call=ms / CALLS) for n, (c, ms) in top])
 
 
 def report(label: str, rec: dict, flops: float = 0.0) -> None:
@@ -382,8 +345,10 @@ def main(argv=None) -> int:
             flops, _ = k1_work(b, t, g, layers, f)
             tile = device_tile_frames(b, t, C0, C, layers, f, g, device,
                                       x.to(dtype).element_size())
-            k1 = trace(lambda: fused_mixstage_decoder(*a, groups=g))
-            plain = trace(lambda: fused_mixstage_decoder_plain(*a, groups=g))
+            k1 = trace(torch, lambda: fused_mixstage_decoder(*a, groups=g),
+                       CALLS)
+            plain = trace(torch, lambda: fused_mixstage_decoder_plain(
+                *a, groups=g), CALLS)
             report(f"{name} K1 (tile {tile})", k1, flops)
             report(f"{name} plain", plain, flops)
             out[name] = dict(tile=tile, flops=flops, k1=k1, plain=plain)
@@ -395,15 +360,15 @@ def main(argv=None) -> int:
         audio = torch.randn(B, T, MEL, generator=gen).to(device)
         styles = torch.randint(0, MODEL["num_speakers"], (B,),
                                generator=gen).to(device)
-        out["serving_bs32"] = trace(lambda: serve(audio, styles))
+        out["serving_bs32"] = trace(torch, lambda: serve(audio, styles), CALLS)
         report(f"{args.dtype} serving call bs{B} T{T}", out["serving_bs32"])
-        if dtype != torch.float32:           # the int8 tier is f32-only
-            return finish(out, args, smi)
         calib = (torch.randn(B, T, MEL, generator=gen),
                  torch.randint(0, MODEL["num_speakers"], (B,), generator=gen))
         serve8 = build_serving_fn(model, quantize_int8=True, calib=calib)
-        out["serving_int8_bs32"] = trace(lambda: serve8(audio, styles))
-        report(f"int8 serving call bs{B} T{T}", out["serving_int8_bs32"])
+        out["serving_int8_bs32"] = trace(torch, lambda: serve8(audio, styles),
+                                          CALLS)
+        report(f"int8 serving call ({args.dtype} model) bs{B} T{T}",
+               out["serving_int8_bs32"])
     return finish(out, args, smi)
 
 
