@@ -61,12 +61,16 @@ bf16 model (phases 18-19):
     (max |diff| / mean |pose| ≤ 1e-5);
 14. timings (CUDA events): K4 and K2 beside their bounds and plain
     versions; the bs32 int8 call against the f32 one in ABBA turns;
-15. bf16 kernels: K1's bf16 mode (bf16 features, f32 weights) at every K1
-    shape, K3-fwd and K3-bwd's bf16 mode at bs32 × 64 and the ragged B=3
-    T=50, each against its plain version under the bf16 rule (below), the
-    max |diff| in bf16 ULPs beside it;
+15. bf16 kernels: K1's bf16 mode (bf16 features, f32 weights split in
+    three bf16 terms, ``wgmma``) at every K1 shape, under the bf16 rule
+    (below), within one bf16 ULP of max |plain| and with at most 20% of
+    its elements differing from its plain version (45% for the seven
+    rounded layers of the classifier chain, ``k1_bf16_share``); K3-fwd
+    and K3-bwd's bf16 mode at bs32 × 64 and the ragged B=3 T=50 under the
+    bf16 rule, the max |diff| in bf16 ULPs beside it;
 16. bf16 entry points: a bf16 serving call at bs32 launches K1's bf16 mode
-    exactly twice and drifts ≤ 1% from the f32 kernel route; bf16
+    exactly twice on weights packed when the serving function was built
+    (no packing per call) and drifts ≤ 1% from the f32 kernel route; bf16
     ``/v1/pose`` requests through the HTTP server equal the direct call at
     the server's batch size; a fused bf16 G step (K3's bf16 mode launched
     once each way) and the unfused bf16 G step from the same state, each
@@ -101,10 +105,12 @@ and |drift(P) - drift(Q)| ≤ 0.10 drift(Q) + 1e-3.
 Each kernel's bound is the least time the card could take for its work,
 whatever route the kernel runs: K1, K2 and K3 at the TF32 tensor-core
 rate (3 MMAs per multiply-add; the f32 FMA bound beside it as
-``ffma_bound_ms``), K4 at the int8 tensor-core rate; in bf16 mode K1 and
-K2 at the TF32 rate with 2 MMAs per multiply-add (bf16 activations times
-f32 weights split in two; ``ffma_bound_ms`` beside), K3 at the dense bf16
-rate, K4 at its f32 mode's rate with 2-byte features;
+``ffma_bound_ms``), K4 at the int8 tensor-core rate; in bf16 mode K1 at
+the dense bf16 rate with 3 MMAs per multiply-add (bf16 activations times
+f32 weights split in three bf16 terms; the 2xTF32 bound of its earlier
+route beside it as ``tf32x2_bound_ms``), K2 at the TF32 rate with 2 MMAs
+per multiply-add (``ffma_bound_ms`` beside), K3 at the dense bf16 rate,
+K4 at its f32 mode's rate with 2-byte features;
 ``mma`` names the inner product, ``mode`` the dtype mode.
 
 It prints one JSON line of kernels, the ``nvidia-smi`` line, and last the
@@ -130,7 +136,7 @@ import numpy as np
 # tensor cores, dense tensor-core rates, and HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12     # K1, K2, K3: 3 TF32 MMAs a multiply-add
-PEAK_BF16_FLOPS = 989e12     # K3's bf16 mode: one bf16 MMA a multiply-add
+PEAK_BF16_FLOPS = 989e12     # K1-bf16: 3 bf16 MMAs a multiply-add; K3-bf16: 1
 PEAK_INT8_OPS = 1979e12
 PEAK_HBM_BYTES = 3.35e12
 KERNEL_TOL = 1e-4            # max |kernel - plain| / max |plain|
@@ -151,14 +157,30 @@ MOMENT_TOL = 3e-3
 # the bf16 rule: |drift(kernel) - drift(plain)| <= BF16_REL drift(plain) +
 # BF16_ABS, each drift taken from the float32 truth
 BF16_REL, BF16_ABS = 0.10, 1e-3
-# K2's bf16 mode against its plain version: both round the same f32 sums
-# at the same points, so they differ by at most one bf16 ULP of max |out|,
-# and only where two summation orders fall on either side of a rounding
-# boundary and the flip spreads through later layers (1.3-3.0% of the
-# elements at the three-layer shapes below, 6.1% at the four-layer "deep",
-# --seed 0 on an H100).  A kernel that skips one layer's rounding differs
-# in 40-58% of them (tests/test_torch_port_cuda.py on such a copy).
-K2_BF16_ULPS, K2_BF16_SHARE = 1.0, 0.20
+# K1's and K2's bf16 modes against their plain versions: both round the
+# same f32 sums at the same points, so they differ by at most one bf16 ULP
+# of max |out|, and only where two summation orders fall on either side of
+# a rounding boundary and the flip spreads through later layers (K2:
+# 1.3-3.0% of the elements at the three-layer shapes below, 6.1% at the
+# four-layer "deep", --seed 0 on an H100).  A kernel that skips one layer's
+# rounding differs in 40-58% of them (tests/test_torch_port_cuda.py on
+# such a copy of K2).
+BF16_ULPS, BF16_SHARE = 1.0, 0.20
+# K1's classifier chain (L = 5) rounds seven layers, and there the flips
+# that two valid summation orders start saturate: K1-bf16's parent (2xTF32
+# mma.sync) differed from the plain version in 27.9-32.7% of the elements
+# at the classifier shapes (this script), this kernel in up to 37.5%, and
+# the bf16 rule passes a copy that rounds its last hidden layer toward
+# zero, which differs in 62-71% (tools/k1_bf16_variants.py; NVIDIA H100
+# 80GB HBM3, 700 W; PERF.md).  Chains of up to three hidden layers (the
+# decoder, L = 3) keep BF16_SHARE.
+K1_BF16_SHARE_DEEP = 0.45
+
+
+def k1_bf16_share(layers: int) -> float:
+    """K1-bf16's limit on the share of elements differing from its plain
+    version, for a chain of ``layers`` hidden layers."""
+    return BF16_SHARE if layers <= 3 else K1_BF16_SHARE_DEEP
 
 # the flagship model (bench.py:205-213) and its serving and training shapes
 MODEL = dict(num_clusters=8, num_speakers=8, in_channels=256, style_dim=10,
@@ -851,10 +873,11 @@ def bf16_phases(torch, args, device, smi, model, audio, styles, pose32,
     and the HTTP server, and their timings against f32.  Returns the
     kernels-line entries of K1-bf16, K3-fwd-bf16 and K3-bwd-bf16."""
     from mixstage_tpu_torch.models import JointLateClusterSoftStyle4_G
+    from mixstage_tpu_torch.ops.cuda import fused_conv as fc
     from mixstage_tpu_torch.ops.cuda import train_decoder as td
     from mixstage_tpu_torch.ops.cuda.fused_conv import (
         device_tile_frames, fused_mixstage_decoder,
-        fused_mixstage_decoder_plain)
+        fused_mixstage_decoder_plain, pack_decoder_bf16)
     from mixstage_tpu_torch.serve import build_serving_fn
     from mixstage_tpu_torch.train import StepConfig, StepFactory
 
@@ -885,6 +908,10 @@ def bf16_phases(torch, args, device, smi, model, audio, styles, pose32,
             f" {share:.2%} of elements differ")
         check(ok, f"K1-bf16 {name} breaks the bf16 rule: {dp:.4e} vs "
               f"{dq:.4e}")
+        check(ulps <= BF16_ULPS and share <= k1_bf16_share(layers),
+              f"K1-bf16 {name}: {ulps:.2f} bf16 ULPs of max |plain| (limit "
+              f"{BF16_ULPS:g}), {share:.2%} of elements differ (limit "
+              f"{k1_bf16_share(layers):.0%})")
         k1_16[name] = dict(shape=dict(B=b, T=t, G=g, L=layers, F=f),
                            tile=tile, drift=dp, plain_drift=dq,
                            max_ulps=ulps, differing=share,
@@ -960,6 +987,9 @@ def bf16_phases(torch, args, device, smi, model, audio, styles, pose32,
     model16.load_state_dict(model.state_dict())
     serve16 = build_serving_fn(model16)
     check(serve16.dtype == bf16 and serve16.use_kernel, "bf16 serving fn")
+    packs = []                   # K1-bf16's weights are packed at build time
+    fc.pack_decoder_bf16 = lambda fd: packs.append(fd) or \
+        pack_decoder_bf16(fd)
     fused_mixstage_decoder.launches = 0              # bf16 serving starts
     fused_mixstage_decoder.launches_bf16 = 0
     pose16 = serve16(audio, styles)
@@ -980,10 +1010,13 @@ def bf16_phases(torch, args, device, smi, model, audio, styles, pose32,
     ndiff, worst, _, stats = serve_over_http(serve16, rng, jobs)
     launches16 = (fused_mixstage_decoder.launches,
                   fused_mixstage_decoder.launches_bf16)  # bf16 serving ends
+    fc.pack_decoder_bf16 = pack_decoder_bf16
+    check(not packs, f"the bf16 serving path packed K1-bf16's weights "
+          f"{len(packs)} times after the serving function was built")
     log(f"[bf16-server] {len(jobs)} /v1/pose requests (json, npz; 64 and 100"
         f" frames) vs the direct call at batch {B}: {ndiff} elements differ "
         f"(max|diff| {worst:.3e}; tol 0); K1 launches over the bf16 serving "
-        f"path (all, bf16 mode) {launches16}")
+        f"path (all, bf16 mode) {launches16}, none packing its weights")
     check(ndiff == 0, "bf16 served pose differs from the direct call")
     check(launches16[0] == launches16[1] ==
           2 * (1 + stats["batches"] + len(jobs)),
@@ -1132,9 +1165,10 @@ def bf16_phases(torch, args, device, smi, model, audio, styles, pose32,
         rec = k1_16[s_]
         a = rec.pop("args")
         g = rec["shape"]["G"]
-        with torch.no_grad():
+        packed = pack_decoder_bf16(dict(w0=a[1], wc=a[2], w_logits=a[4]))
+        with torch.no_grad():            # weights packed once, as served
             rec["ms"] = cuda_ms(torch, lambda: fused_mixstage_decoder(
-                *a, groups=g))
+                *a, groups=g, packed=packed))
             rec["plain_ms"] = cuda_ms(
                 torch, lambda: fused_mixstage_decoder_plain(*a, groups=g),
                 reps=5)
@@ -1145,25 +1179,35 @@ def bf16_phases(torch, args, device, smi, model, audio, styles, pose32,
         rec.pop("args", None)
     flops = sum(k1_16[s_]["flops"] for s_ in main_shapes)
     nbytes = sum(k1_16[s_]["bytes"] for s_ in main_shapes)
-    bms, by = bound_ms(2 * flops, nbytes, PEAK_TF32_FLOPS)
+    bms, by = bound_ms(3 * flops, nbytes, PEAK_BF16_FLOPS)
+    tf32x2_ms, _ = bound_ms(2 * flops, nbytes, PEAK_TF32_FLOPS)
     ms = sum(k1_16[s_]["ms"] for s_ in main_shapes)
     plain_ms = sum(k1_16[s_]["plain_ms"] for s_ in main_shapes)
+    for s_ in main_shapes:
+        rec = k1_16[s_]
+        rec["bound_ms"] = bound_ms(3 * rec["flops"], rec["bytes"],
+                                   PEAK_BF16_FLOPS)[0]
     log(f"[timing] {smi}: K1 bf16 mode per bs{B} call (decoder "
-        f"{k1_16['decoder']['ms']:.4f} + classifier "
-        f"{k1_16['classifier']['ms']:.4f}): {ms:.4f} ms "
+        f"{k1_16['decoder']['ms']:.4f}, bound "
+        f"{k1_16['decoder']['bound_ms']:.4f} + classifier "
+        f"{k1_16['classifier']['ms']:.4f}, bound "
+        f"{k1_16['classifier']['bound_ms']:.4f}): {ms:.4f} ms "
         f"({flops / (ms / 1e3) / 1e12:.2f} TFLOP/s of f32-equivalent work), "
-        f"plain {plain_ms:.4f} ms, bound {bms:.4f} ms by {by} (2 TF32 MMAs "
-        f"a multiply-add; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
+        f"plain {plain_ms:.4f} ms, bound {bms:.4f} ms by {by} (3 bf16 MMAs "
+        f"a multiply-add; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); "
+        f"2xTF32 bound {tf32x2_ms:.4f} ms")
     entries.append({
         "name": "fused_mixstage_decoder_bf16", "mode": "bf16",
         "route": "cuda",
-        "source": "mixstage_tpu_torch/ops/cuda/csrc/fused_decoder.cu",
+        "source": "mixstage_tpu_torch/ops/cuda/csrc/fused_decoder_bf16.cu",
         "replaces": "mixstage_tpu/ops/pallas/fused_conv.py:179",
         "launches": launches16[1],
         "max_abs_err": max(r["max_abs_err"] for r in k1_16.values()),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-        "library_ms": None, "mma": "2xtf32",
-        "max_ulps": max(r["max_ulps"] for r in k1_16.values())})
+        "library_ms": None, "mma": "wgmma-bf16x3",
+        "tf32x2_bound_ms": tf32x2_ms,
+        "max_ulps": max(r["max_ulps"] for r in k1_16.values()),
+        "max_differing": max(r["differing"] for r in k1_16.values())})
     (f_flops, f_bytes), (b_flops, b_bytes) = k3_work(
         B, T, MODEL["num_clusters"], F_POSE, elem=2)
     main = k3_16["bs32"]
@@ -1268,10 +1312,10 @@ def int8_bf16_phases(torch, args, device, smi, model, audio, styles,
             f"of elements differ")
         check(ok, f"K2-bf16 {name} breaks the bf16 rule: {dp:.4e} vs "
               f"{dq:.4e}")
-        check(ulps <= K2_BF16_ULPS and share <= K2_BF16_SHARE,
+        check(ulps <= BF16_ULPS and share <= BF16_SHARE,
               f"K2-bf16 {name}: {ulps:.2f} bf16 ULPs, {share:.2%} of elements"
-              f" differ from the plain version (limits {K2_BF16_ULPS}, "
-              f"{K2_BF16_SHARE:.0%}: a rounding skipped or added)")
+              f" differ from the plain version (limits {BF16_ULPS}, "
+              f"{BF16_SHARE:.0%}: a rounding skipped or added)")
         k2_16[name] = dict(shape=dict(B=b, T=t, G=g, C=c, L=layers),
                            drift=dp, plain_drift=dq, max_ulps=ulps,
                            differing=share, max_abs_err=abs_err, args=a)

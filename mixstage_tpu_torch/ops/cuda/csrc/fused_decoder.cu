@@ -42,23 +42,7 @@
 // Row strides of 4 mod 8 words (activations) and
 // 8 mod 16 words (weights) keep the fragment loads free of bank conflicts.
 // The operands are split when a fragment is loaded from shared memory.
-//
-// bf16 mode (mixstage_fused_decoder_bf16): the TPU kernel's dtype=bfloat16
-// function, jnp.dot(bf16 x, f32 w, preferred_element_type=f32): bf16
-// activations, f32 (BN-folded) weights, f32 sums, bias and leaky in f32,
-// each layer's output and the logits rounded to bf16.  The activations
-// live in shared memory as bf16 (half the bytes; row stride 4 mod 8
-// halfwords keeps the 16-bit fragment loads on distinct banks).  A bf16
-// value is exact in TF32 (8 significant bits of 11), so only the weights
-// are split: a product is act*w_lo + act*w_hi, two TF32 MMAs instead of
-// three, each product exact in f32 and the pair keeping ~22 bits of w (a
-// three-way bf16 split of w on m16n8k16 would cost three bf16 MMAs of
-// twice the depth, about the same; the two-pass TF32 route keeps this
-// kernel's staging and fragment layout).  Rounding the weights to bf16
-// would be another function.  Each 8-deep k-step's MMAs sum into a zeroed
-// partial added to the accumulator in f32, as K3 does per 32-deep chunk (an
-// MMA's accumulation truncates; see kstep_bf16).  It is bound by
-// operations at half the TF32 rate (2 MMAs per multiply-add).
+// (K1's bf16 mode is its own kernel, fused_decoder_bf16.cu.)
 //
 // The second entry point, mixstage_conv_chain_f32, replaces the TPU kernel
 // mixstage_tpu/ops/pallas/fused_conv.py::fused_grouped_conv_chain (body
@@ -184,78 +168,20 @@ __device__ __forceinline__ void kstep_tf32_n(int nm,
   }
 }
 
-// One k-step of kstep_tf32 in bf16 mode: `a` points at bf16 activations,
-// exact in TF32 (a bf16 value's bits shifted up), so only the weights are
-// split; two passes, the small terms first.  Each m-tile's products of the
-// k-step sum into a zeroed partial that is added to acc in f32 (an MMA's
-// accumulation truncates; into acc it would lose up to an ulp of acc per
-// k-step).  Partials of a whole 32-deep chunk would hold 80 more registers
-// per thread, past the 255 of this 8-warp CTA (ptxas spilled 600 bytes).
-template <int NM, bool kFullN>
-__device__ __forceinline__ void kstep_bf16(float (&acc)[kMTiles][4][4],
-                                           const __nv_bfloat16* a,
-                                           const int (&arow)[kMTiles][2],
-                                           const float* b, int ws, int nt) {
-  uint32_t bh[4][2], bl[4][2];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    if (kFullN || j < nt) {
-      mixstage::split_tf32(b[8 * j], bh[j][0], bl[j][0]);
-      mixstage::split_tf32(b[8 * j + 4 * ws], bh[j][1], bl[j][1]);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < NM; ++i) {
-    uint32_t av[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      av[e] = mixstage::bf16_as_tf32(a[arow[i][e & 1] + 4 * (e >> 1)]);
-    float part[4][4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) part[j][e] = 0.f;
-#pragma unroll
-    for (int pass = 0; pass < 2; ++pass)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (kFullN || j < nt)
-          mixstage::mma_tf32(part[j], av, pass == 0 ? bl[j] : bh[j]);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] += part[j][e];
-  }
-}
-
-template <int NM, bool kFullN>
-__device__ __forceinline__ void kstep_bf16_n(int nm,
-                                             float (&acc)[kMTiles][4][4],
-                                             const __nv_bfloat16* a,
-                                             const int (&arow)[kMTiles][2],
-                                             const float* b, int ws, int nt) {
-  if (nm == NM) {
-    kstep_bf16<NM, kFullN>(acc, a, arow, b, ws, nt);
-  } else if constexpr (NM > 1) {
-    kstep_bf16_n<NM - 1, kFullN>(nm, acc, a, arow, b, ws, nt);
-  }
-}
-
 // One KT-tap layer (KT = 3: 'same' conv; KT = 1: the 1x1 logits) producing
 // tile rows [lo, hi) (at most kMaxRows).  `in` is the tile in shared memory
-// (row stride `stride` activations of type A, row r <-> time t_first + r,
-// columns >= cin finite); output row r reads input rows r - KT/2 .. r +
-// KT/2.  w is (KT, cin, cout) with cout fastest.  Hidden layers write
-// leaky(acc + bias) to the shared tile `out`; the logits layer writes acc +
-// bias to global row t of `out` (row stride out_stride), both rounded to A.  `ring` holds kStages chunks of `slot`
+// (row stride `stride` floats, row r <-> time t_first + r, columns >= cin
+// finite); output row r reads input rows r - KT/2 .. r + KT/2.  w is (KT,
+// cin, cout) with cout fastest.  Hidden layers write leaky(acc + bias) to
+// the shared tile `out`; the logits layer writes acc + bias to global row t
+// of `out` (row stride out_stride).  `ring` holds kStages chunks of `slot`
 // words.  Warp (wn, wm) computes columns [32 wn, 32 wn + 32) of m-tiles
 // wm, wm + kWarpsM, ...  Every thread of the CTA calls it (it synchronises).
-template <int KT, bool kLogits, class A>
+template <int KT, bool kLogits>
 __device__ __forceinline__ void layer_tc(
-    const A* in, int stride, int cin, const float* __restrict__ w,
-    const float* __restrict__ bias, int cout, int lo, int hi, A* out,
+    const float* in, int stride, int cin, const float* __restrict__ w,
+    const float* __restrict__ bias, int cout, int lo, int hi, float* out,
     int out_stride, int t_first, float slope, uint32_t* ring, int slot) {
-  constexpr bool kBf16 = !std::is_same_v<A, float>;
   const int rows = hi - lo;
   if (rows <= 0) return;                  // the same for the whole CTA
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
@@ -305,25 +231,18 @@ __device__ __forceinline__ void layer_tc(
     const int tap = c / kchunks, kc = (c - tap * kchunks) * kChunkRows;
     const float* wsl = reinterpret_cast<const float*>(ring + (c % kStages) *
                                                       slot);
-    const A* a = in + (r0 + tap - KT / 2) * stride + t;
+    const float* a = in + (r0 + tap - KT / 2) * stride + t;
     const float* b = wsl + t * ws + n0 + g;
 #pragma unroll
     for (int ks = 0; ks < kChunkRows; ks += 8) {
       const int k0 = kc + ks;
       if (k0 >= kpad) break;
-      const A* ak = a + k0;
+      const float* ak = a + k0;
       const float* bk = b + ks * ws;
-      if constexpr (kBf16) {
-        if (nt == 4)
-          kstep_bf16_n<kMTiles, true>(nm, acc, ak, arow, bk, ws, nt);
-        else
-          kstep_bf16_n<kMTiles, false>(nm, acc, ak, arow, bk, ws, nt);
-      } else {
-        if (nt == 4)
-          kstep_tf32_n<kMTiles, true>(nm, acc, ak, arow, bk, ws, nt);
-        else
-          kstep_tf32_n<kMTiles, false>(nm, acc, ak, arow, bk, ws, nt);
-      }
+      if (nt == 4)
+        kstep_tf32_n<kMTiles, true>(nm, acc, ak, arow, bk, ws, nt);
+      else
+        kstep_tf32_n<kMTiles, false>(nm, acc, ak, arow, bk, ws, nt);
     }
   }
   mixstage::cp_async_wait<0>();           // only empty groups are left
@@ -339,9 +258,9 @@ __device__ __forceinline__ void layer_tc(
         if (i < nm && r < hi && c < cout) {
           const float v = acc[i][j][e] + __ldg(bias + c);
           if (kLogits) {
-            out[(size_t)(t_first + r) * out_stride + c] = to_act<A>(v);
+            out[(size_t)(t_first + r) * out_stride + c] = v;
           } else {
-            out[r * out_stride + c] = to_act<A>(leaky(v, slope));
+            out[r * out_stride + c] = leaky(v, slope);
           }
         }
       }
@@ -349,17 +268,13 @@ __device__ __forceinline__ void layer_tc(
   }
 }
 
-// The decoder for activations of type A (float: f32 mode; __nv_bfloat16:
-// bf16 mode); the weights are f32 either way.
-template <class A>
 __global__ void __launch_bounds__(kTcThreads, 1) fused_decoder_kernel(
-    const A* __restrict__ x, const float* __restrict__ w0,
+    const float* __restrict__ x, const float* __restrict__ w0,
     const float* __restrict__ wc, const float* __restrict__ biases,
     const float* __restrict__ wl, const float* __restrict__ bl,
-    A* __restrict__ out, int T, int C0, int C, int L, int F, int G,
+    float* __restrict__ out, int T, int C0, int C, int L, int F, int G,
     int tile_t, int stride, int slot, float slope) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  A* smem = reinterpret_cast<A*>(smem_raw);
+  extern __shared__ __align__(16) float smem[];
   const int halo = L + 1;
   const int nr = tile_t + 2 * halo;         // tile rows incl. both halos
   const int b = blockIdx.y, g = blockIdx.z;
@@ -367,32 +282,31 @@ __global__ void __launch_bounds__(kTcThreads, 1) fused_decoder_kernel(
   // rows holding t in [0, T); the rest stay zero: the 'same' zero padding
   const int v_lo = max(0, -t_first);
   const int v_hi = min(nr, T - t_first);
-  A* buf[2] = {smem, smem + (size_t)nr * stride};
+  float* buf[2] = {smem, smem + (size_t)nr * stride};
   uint32_t* ring = reinterpret_cast<uint32_t*>(smem + 2 * (size_t)nr * stride);
 
   // zero both buffers and load the input rows (channels < C0) of sequence
   // b, one warp per row
-  const A* xb = x + (size_t)b * T * C0;
-  const A zero = to_act<A>(0.f);
+  const float* xb = x + (size_t)b * T * C0;
   for (int r = threadIdx.x >> 5; r < nr; r += blockDim.x >> 5) {
     const bool valid = r >= v_lo && r < v_hi;
     for (int ch = threadIdx.x & 31; ch < stride; ch += 32) {
       buf[0][r * stride + ch] =
-          valid && ch < C0 ? __ldg(xb + (size_t)(t_first + r) * C0 + ch) : zero;
-      buf[1][r * stride + ch] = zero;
+          valid && ch < C0 ? __ldg(xb + (size_t)(t_first + r) * C0 + ch) : 0.f;
+      buf[1][r * stride + ch] = 0.f;
     }
   }
   __syncthreads();
 
   const int nb = L + 1;                     // folded biases per group
   // layer 0: buf0 (C0 wide) -> buf1; layer l reads rows [l, nr - l)
-  layer_tc<3, false, A>(buf[0], stride, C0, w0 + (size_t)g * 3 * C0 * C,
+  layer_tc<3, false>(buf[0], stride, C0, w0 + (size_t)g * 3 * C0 * C,
                      biases + (size_t)g * nb * C, C, max(1, v_lo),
                      min(nr - 1, v_hi), buf[1], stride, t_first, slope, ring,
                      slot);
   __syncthreads();
   for (int l = 1; l <= L; ++l) {
-    layer_tc<3, false, A>(buf[l & 1], stride, C,
+    layer_tc<3, false>(buf[l & 1], stride, C,
                        wc + ((size_t)(l - 1) * G + g) * 3 * C * C,
                        biases + ((size_t)g * nb + l) * C, C, max(l + 1, v_lo),
                        min(nr - l - 1, v_hi), buf[(l + 1) & 1], stride,
@@ -401,7 +315,7 @@ __global__ void __launch_bounds__(kTcThreads, 1) fused_decoder_kernel(
   }
   // 1x1 logits of the tile's own rows [halo, halo + tile_t) into
   // out[b, t, g*F:(g+1)*F]
-  layer_tc<1, true, A>(buf[(L + 1) & 1], stride, C, wl + (size_t)g * C * F,
+  layer_tc<1, true>(buf[(L + 1) & 1], stride, C, wl + (size_t)g * C * F,
                     bl + (size_t)g * F, F, max(halo, v_lo),
                     min(halo + tile_t, v_hi),
                     out + (size_t)b * T * G * F + g * F, G * F, t_first, slope,
@@ -409,25 +323,24 @@ __global__ void __launch_bounds__(kTcThreads, 1) fused_decoder_kernel(
 }
 
 // K1's shared memory: two activation buffers of tile_t + 2(L+1) rows (row
-// stride act_stride(max(C0, C)) activations of act_bytes each: 4 in f32
-// mode, 2 in bf16 mode), then the weight ring of f32 chunks.
+// stride act_stride(max(C0, C)) floats), then the weight ring of f32
+// chunks.
 struct TcLayout {
-  int stride, slot, act_bytes;
-  TcLayout(int C0, int C, int F, int act_bytes)
+  int stride, slot;
+  TcLayout(int C0, int C, int F)
       : stride(mixstage::act_stride(C0 > C ? C0 : C)),
-        slot(kChunkRows * mixstage::weight_stride(C > F ? C : F)),
-        act_bytes(act_bytes) {}
+        slot(kChunkRows * mixstage::weight_stride(C > F ? C : F)) {}
   size_t bytes(int L, int tile_t) const {
-    return 2 * (size_t)(tile_t + 2 * (L + 1)) * stride * act_bytes +
-           (size_t)kStages * slot * sizeof(float);
+    return (2 * (size_t)(tile_t + 2 * (L + 1)) * stride +
+            (size_t)kStages * slot) * sizeof(float);
   }
 };
 
 // A tile fits when its layers' rows fit the warps' m-tiles (layer 0
 // computes tile_t + 2L rows) and its buffers fit shared memory.
-int tc_tile(int B, int T, int C0, int C, int L, int F, int G, int act_bytes,
-            int sm_count, size_t smem_limit) {
-  const TcLayout lay(C0, C, F, act_bytes);
+int tc_tile(int B, int T, int C0, int C, int L, int F, int G, int sm_count,
+            size_t smem_limit) {
+  const TcLayout lay(C0, C, F);
   return mixstage::cost_tile(
       kMaxTile, B, T, G, L + 1, L + 1, 16 * kWarpsM, kWeightRows, sm_count,
       [&](int t) {
@@ -569,23 +482,20 @@ extern "C" {
 
 // Output frames per CTA of the decoder on a card of `sm_count` SMs with
 // `smem_limit` bytes of dynamic shared memory per CTA (the rule
-// mixstage::cost_tile), for activations of `act_bytes` bytes (4: f32 mode,
-// 2: bf16 mode); 0 when no tile fits.
+// mixstage::cost_tile); 0 when no tile fits.
 int mixstage_fused_decoder_tile(int B, int T, int C0, int C, int L, int F,
-                                int G, int sm_count, size_t smem_limit,
-                                int act_bytes) {
-  return tc_tile(B, T, C0, C, L, F, G, act_bytes, sm_count, smem_limit);
+                                int G, int sm_count, size_t smem_limit) {
+  return tc_tile(B, T, C0, C, L, F, G, sm_count, smem_limit);
 }
 
 }  // extern "C"
 
 namespace {
 
-template <class A>
-int launch_decoder(const A* x, const float* w0, const float* wc,
+int launch_decoder(const float* x, const float* w0, const float* wc,
                    const float* biases, const float* wl, const float* bl,
-                   A* out, int B, int T, int C0, int C, int L, int F, int G,
-                   float slope, int tile_t, void* stream) {
+                   float* out, int B, int T, int C0, int C, int L, int F,
+                   int G, float slope, int tile_t, void* stream) {
   if (B <= 0 || T <= 0 || C0 <= 0 || C <= 0 || L < 0 || F <= 0 || G <= 0 ||
       B > 65535 || G > 65535 || C > 32 * kWarpsN || F > 32 * kWarpsN ||
       tile_t < 0)
@@ -593,20 +503,18 @@ int launch_decoder(const A* x, const float* w0, const float* wc,
   int sms, smem_limit;
   cudaError_t err = card(&sms, &smem_limit);
   if (err != cudaSuccess) return (int)err;
-  const int act_bytes = (int)sizeof(A);
-  if (tile_t == 0)
-    tile_t = tc_tile(B, T, C0, C, L, F, G, act_bytes, sms, smem_limit);
-  const TcLayout lay(C0, C, F, act_bytes);
+  if (tile_t == 0) tile_t = tc_tile(B, T, C0, C, L, F, G, sms, smem_limit);
+  const TcLayout lay(C0, C, F);
   if (tile_t == 0 || tile_t + 2 * L > kMaxRows ||
       lay.bytes(L, tile_t) > (size_t)smem_limit)
     return (int)cudaErrorInvalidValue;
   const size_t smem = lay.bytes(L, tile_t);
-  err = cudaFuncSetAttribute(fused_decoder_kernel<A>,
+  err = cudaFuncSetAttribute(fused_decoder_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((T + tile_t - 1) / tile_t, B, G);
-  fused_decoder_kernel<A><<<grid, kTcThreads, smem, (cudaStream_t)stream>>>(
+  fused_decoder_kernel<<<grid, kTcThreads, smem, (cudaStream_t)stream>>>(
       x, w0, wc, biases, wl, bl, out, T, C0, C, L, F, G, tile_t, lay.stride,
       lay.slot, slope);
   return (int)cudaGetLastError();
@@ -628,20 +536,8 @@ int mixstage_fused_decoder_f32(const float* x, const float* w0,
                                const float* wl, const float* bl, float* out,
                                int B, int T, int C0, int C, int L, int F,
                                int G, float slope, int tile_t, void* stream) {
-  return launch_decoder<float>(x, w0, wc, biases, wl, bl, out, B, T, C0, C,
-                               L, F, G, slope, tile_t, stream);
-}
-
-// bf16 mode: as mixstage_fused_decoder_f32 with x (B, T, C0) and out
-// (B, T, G*F) contiguous bfloat16; the weights stay float32.
-int mixstage_fused_decoder_bf16(const __nv_bfloat16* x, const float* w0,
-                                const float* wc, const float* biases,
-                                const float* wl, const float* bl,
-                                __nv_bfloat16* out, int B, int T, int C0,
-                                int C, int L, int F, int G, float slope,
-                                int tile_t, void* stream) {
-  return launch_decoder<__nv_bfloat16>(x, w0, wc, biases, wl, bl, out, B, T,
-                                       C0, C, L, F, G, slope, tile_t, stream);
+  return launch_decoder(x, w0, wc, biases, wl, bl, out, B, T, C0, C, L, F,
+                        G, slope, tile_t, stream);
 }
 
 }  // extern "C"

@@ -1,5 +1,6 @@
 // Launch helpers shared by the decoder kernels (fused_decoder.cu,
-// decoder_int8.cu): the card query and the time-tile rules.  Host code only.
+// fused_decoder_bf16.cu, decoder_int8.cu): the card query and the
+// time-tile rules.  Host code only.
 
 #pragma once
 

@@ -124,12 +124,6 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// A bf16 value as the tf32 bits of the same number (exact: 8 significant
-// bits of tf32's 11).
-__device__ __forceinline__ uint32_t bf16_as_tf32(__nv_bfloat16 v) {
-  return (uint32_t)__bfloat16_as_ushort(v) << 16;
-}
-
 // d += a (16x16 bf16) * b (16x8 bf16), f32 accumulation; each product of
 // two bf16 values is exact in f32.
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],

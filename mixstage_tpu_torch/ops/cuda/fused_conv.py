@@ -3,23 +3,31 @@ grouped conv chain, each as one CUDA kernel.
 
 Counterpart of ``mixstage_tpu/ops/pallas/fused_conv.py``: the TPU kernels
 ``fused_mixstage_decoder`` (K1, ``:177-229``) and ``fused_grouped_conv_chain``
-(K2, ``:73-115``) become the hand-written CUDA C++ kernels in
-``csrc/fused_decoder.cu`` (design and bounds noted there), bound with
-``ctypes``: K1 on the tensor cores in 3xTF32 (f32 accuracy), K2 on the
-CUDA cores in f32 FMA.  ``fused_mixstage_decoder_plain`` (the counterpart of
-``serve.py::folded_decoder_xla``) and ``chain_plain`` (of
-``chain_reference``) are the same functions in plain PyTorch: the CPU tests
-use them, and ``chip_smoke.py`` holds the kernels against them on the card.
+(K2, ``:73-115``) become hand-written CUDA C++ kernels (design and bounds
+noted in each source), bound with ``ctypes``: K1's float32 mode
+(``csrc/fused_decoder.cu``) on the tensor cores in 3xTF32 (f32 accuracy),
+K2 (same file) on the CUDA cores in f32 FMA.  ``fused_mixstage_decoder_plain``
+(the counterpart of ``serve.py::folded_decoder_xla``) and ``chain_plain``
+(of ``chain_reference``) are the same functions in plain PyTorch: the CPU
+tests use them, and ``chip_smoke.py`` holds the kernels against them on the
+card.
 
 K1 also has the TPU kernel's bf16 mode: bfloat16 features with float32
 (BN-folded) weights, products of the two in float32, bias and leaky in
 float32, each layer's output and the logits rounded to bfloat16
-(``fused_conv.py:141-176``, ``out_shape`` ``x.dtype``).  The plain version
-rounds at the same points, so it is the kernel's twin at either dtype.
-K2 has the TPU kernel's bf16 mode as well (``_chain_kernel`` casts each
-layer's output to ``x_ref.dtype``): bfloat16 activations, float32 weights
-and biases, float32 sums, bias and leaky (slope float32 0.2), each layer's
-output rounded to bfloat16; ``chain_plain`` rounds at the same points.
+(``fused_conv.py:141-176``, ``out_shape`` ``x.dtype``).  Its kernel
+(``csrc/fused_decoder_bf16.cu``) runs ``wgmma`` on the bf16 tensor cores
+with each float32 weight split into three bfloat16 terms that sum to it
+exactly (``split_bf16x3``), so a bf16 feature times a weight is exact in
+three bf16 products.  The split and the layout the kernel streams
+(``pack_decoder_bf16``) are done once by the serving function; the public
+``fused_mixstage_decoder`` takes them as ``packed=`` or packs per call.
+The plain version rounds at the same points, so it is the kernel's twin at
+either dtype.  K2 has the TPU kernel's bf16 mode as well (``_chain_kernel``
+casts each layer's output to ``x_ref.dtype``): bfloat16 activations,
+float32 weights and biases, float32 sums, bias and leaky (slope float32
+0.2), each layer's output rounded to bfloat16; ``chain_plain`` rounds at
+the same points.
 
 Each wrapper validates its arguments, then on a CPU tensor computes the
 plain version; on a CUDA tensor it launches the kernel or raises — there is
@@ -112,12 +120,10 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     (pointers and the stream as ``c_void_p``, so none is cut to 32 bits)."""
     fn = lib.mixstage_fused_decoder_f32
     if fn.argtypes is None:
-        for fn in (lib.mixstage_fused_decoder_f32,
-                   lib.mixstage_fused_decoder_bf16):
-            fn.argtypes = [_P] * 7 + [_I] * 7 + [ctypes.c_float, _I, _P]
-            fn.restype = _I
+        fn.argtypes = [_P] * 7 + [_I] * 7 + [ctypes.c_float, _I, _P]
+        fn.restype = _I
         tile = lib.mixstage_fused_decoder_tile
-        tile.argtypes = [_I] * 8 + [ctypes.c_size_t, _I]
+        tile.argtypes = [_I] * 8 + [ctypes.c_size_t]
         tile.restype = _I
         lib.mixstage_cuda_error_string.argtypes = [_I]
         lib.mixstage_cuda_error_string.restype = ctypes.c_char_p
@@ -128,17 +134,38 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
+def bind_bf16(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C signatures of a loaded ``fused_decoder_bf16`` library."""
+    fn = lib.mixstage_fused_decoder_bf16
+    if fn.argtypes is None:
+        fn.argtypes = [_P] * 5 + [_I] * 7 + [ctypes.c_float, _I,
+                                             ctypes.c_longlong, _P]
+        fn.restype = _I
+        lib.mixstage_fused_decoder_bf16_tile.argtypes = [_I] * 8 + [
+            ctypes.c_size_t]
+        lib.mixstage_fused_decoder_bf16_tile.restype = _I
+        lib.mixstage_fused_decoder_bf16_error_string.argtypes = [_I]
+        lib.mixstage_fused_decoder_bf16_error_string.restype = \
+            ctypes.c_char_p
+    return lib
+
+
 def tile_frames(B: int, T: int, C0: int, C: int, L: int, F: int, G: int,
                 sm_count: int, smem_limit: int, act_bytes: int = 4) -> int:
     """The kernel's output frames per CTA for this shape on a card of
     ``sm_count`` SMs and ``smem_limit`` bytes of shared memory per CTA (0 if
-    no tile fits), for activations of ``act_bytes`` bytes (4: float32, 2:
-    the bf16 mode).  The rule (``csrc/launch_common.cuh::cost_tile``, shared
-    with K4) meets the kernel's rows per layer and shared-memory layout in
-    ``csrc/fused_decoder.cu``; the launch applies it to its own card."""
+    no tile fits): the float32 mode's (``act_bytes`` 4,
+    ``csrc/fused_decoder.cu``) or the bf16 mode's (2,
+    ``csrc/fused_decoder_bf16.cu``).  Both follow
+    ``csrc/launch_common.cuh::cost_tile`` with their own rows per pass and
+    shared-memory layout; the launch applies the rule to its own card."""
+    if act_bytes == 2:
+        lib = bind_bf16(build.load_library("fused_decoder_bf16"))
+        return lib.mixstage_fused_decoder_bf16_tile(B, T, C0, C, L, F, G,
+                                                    sm_count, smem_limit)
     lib = bind(build.load_library("fused_decoder"))
     return lib.mixstage_fused_decoder_tile(B, T, C0, C, L, F, G, sm_count,
-                                           smem_limit, act_bytes)
+                                           smem_limit)
 
 
 def device_tile_frames(B: int, T: int, C0: int, C: int, L: int, F: int,
@@ -149,8 +176,83 @@ def device_tile_frames(B: int, T: int, C0: int, C: int, L: int, F: int,
                        props.shared_memory_per_block_optin, act_bytes)
 
 
+def split_bf16x3(w):
+    """float32 ``w`` as three bfloat16 terms that sum to it exactly:
+    w1 = bf16(w), w2 = bf16(w - w1), w3 = w - w1 - w2 (8 + 8 + 8
+    significant bits cover float32's 24; exact unless w3 falls below
+    bfloat16's normal range, |w| < 2^-110 or so).  Each difference is exact
+    in float32."""
+    w1 = w.to(torch.bfloat16)
+    r = w - w1.float()
+    w2 = r.to(torch.bfloat16)
+    return w1, w2, (r - w2.float()).to(torch.bfloat16)
+
+
+def _pack_layer(w):
+    """(G, taps, cin, cout) float32 → (G, taps · ceil(cin/16) · 48 ·
+    round64(cout)) bfloat16: per tap and 16 input channels one chunk
+    [3 terms][2 halves of 8 channels][cout padded to 64][8 channels], the
+    K-major shared-memory image ``wgmma`` reads (``csrc/wgmma.cuh``)."""
+    G, taps, cin, cout = w.shape
+    nk, mp = -(-cin // 16), -(-cout // 64) * 64
+    # (G, taps, 3 terms, cin, cout)
+    t = torch.stack(split_bf16x3(w.float()), dim=2)
+    t = F.pad(t, (0, mp - cout, 0, 16 * nk - cin))
+    t = t.reshape(G, taps, 3, nk, 2, 8, mp).permute(0, 1, 3, 2, 4, 6, 5)
+    return t.reshape(G, -1)
+
+
+def pack_decoder_bf16(fd):
+    """The bf16 kernel's weight operand for a folded decoder ``fd`` (keys
+    ``w0`` (G, 3, C0, C), ``wc`` (L, G, 3, C, C), ``w_logits`` (G, C, F)):
+    a (G, n) bfloat16 tensor holding, per group, every layer's chunks in
+    the kernel's order (layer 0, chain layers 1..L, the 1x1 logits; each
+    by ``_pack_layer``), the three terms of ``split_bf16x3`` padded with
+    zeros in K and in the output channels.  Done once per serving
+    function, on the weights' device."""
+    with torch.no_grad():
+        layers = [fd["w0"]] + list(fd["wc"]) + [fd["w_logits"][:, None]]
+        return torch.cat([_pack_layer(w) for w in layers], dim=1).contiguous()
+
+
+def packed_elems(C0: int, C: int, L: int, F: int) -> int:
+    """bfloat16 elements of one group in ``pack_decoder_bf16``'s layout."""
+    def layer(taps, cin, cout):
+        return taps * -(-cin // 16) * 48 * (-(-cout // 64) * 64)
+    return layer(3, C0, C) + L * layer(3, C, C) + layer(1, C, F)
+
+
+def _launch_bf16(x, packed, biases, b_logits, dims, negative_slope):
+    B, T, C0, C, L, F_, G = dims
+    gstride = packed_elems(C0, C, L, F_)
+    if (packed.dtype != torch.bfloat16 or tuple(packed.shape) != (G, gstride)
+            or packed.device != x.device or not packed.is_contiguous()
+            or packed.data_ptr() % 16):
+        raise ValueError(f"packed must be pack_decoder_bf16's contiguous, "
+                         f"16-byte aligned ({G}, {gstride}) bfloat16 tensor "
+                         f"on {x.device}, got {packed.dtype} "
+                         f"{tuple(packed.shape)} on {packed.device}")
+    lib = bind_bf16(build.load_library("fused_decoder_bf16"))
+    out = torch.empty((B, T, G * F_), device=x.device, dtype=x.dtype)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.mixstage_fused_decoder_bf16(
+            x.data_ptr(), packed.data_ptr(), biases.data_ptr(),
+            b_logits.data_ptr(), out.data_ptr(), B, T, C0, C, L, F_, G,
+            float(negative_slope), 0, gstride, stream)
+    if err != 0:
+        tile = device_tile_frames(B, T, C0, C, L, F_, G, x.device, 2)
+        raise RuntimeError(
+            f"fused_mixstage_decoder (bfloat16) launch failed: "
+            f"{lib.mixstage_fused_decoder_bf16_error_string(err).decode()} "
+            f"(error {err}; B={B} T={T} C0={C0} C={C} L={L} F={F_} G={G}; "
+            f"time tile {tile}, 0 = none fits shared memory)")
+    return out
+
+
 def fused_mixstage_decoder(x, w0, wc, biases, w_logits, b_logits,
-                           groups: int, negative_slope: float = 0.2):
+                           groups: int, negative_slope: float = 0.2,
+                           packed=None):
     """The whole mixture decoder as one kernel launch.
 
     x (B, T, C0) shared content⊕style features; w0 (G, 3, C0, C) folded
@@ -158,38 +260,41 @@ def fused_mixstage_decoder(x, w0, wc, biases, w_logits, b_logits,
     (G, L+1, C), row 0 for layer 0; w_logits (G, C, F), b_logits (G, F) the
     grouped 1×1 output conv.  Returns per-group logits (B, T, G·F), to be
     combined by ``index_select_outputs``.  All float32 and contiguous; C
-    and F at most 256 (one warp per 32 output columns).  A bfloat16 ``x``
-    runs the bf16 mode (float32 weights) and returns bfloat16 logits."""
-    B, T, C0, C, L, F_, G = _check(x, w0, wc, biases, w_logits, b_logits,
-                                   groups)
+    and F at most 256.  A bfloat16 ``x`` runs the bf16 mode (float32
+    weights) and returns bfloat16 logits; on CUDA its kernel reads the
+    weights as ``packed = pack_decoder_bf16(...)``, packed once by the
+    caller, or packed here on each call when ``packed`` is None."""
+    dims = _check(x, w0, wc, biases, w_logits, b_logits, groups)
+    B, T, C0, C, L, F_, G = dims
     if x.device.type == "cpu":
         return fused_mixstage_decoder_plain(x, w0, wc, biases, w_logits,
                                             b_logits, groups, negative_slope)
     if x.device.type != "cuda":
         raise ValueError(f"fused_mixstage_decoder runs on CUDA (or the CPU "
                          f"plain version), got device {x.device}")
+    if x.dtype == torch.bfloat16:
+        if packed is None:
+            packed = pack_decoder_bf16(dict(w0=w0, wc=wc, w_logits=w_logits))
+        out = _launch_bf16(x, packed, biases, b_logits, dims, negative_slope)
+        fused_mixstage_decoder.launches += 1
+        fused_mixstage_decoder.launches_bf16 += 1
+        return out
     lib = bind(build.load_library("fused_decoder"))
-    bf16 = x.dtype == torch.bfloat16
-    launch = lib.mixstage_fused_decoder_bf16 if bf16 else \
-        lib.mixstage_fused_decoder_f32
     out = torch.empty((B, T, G * F_), device=x.device, dtype=x.dtype)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = launch(
+        err = lib.mixstage_fused_decoder_f32(
             x.data_ptr(), w0.data_ptr(), wc.data_ptr(), biases.data_ptr(),
             w_logits.data_ptr(), b_logits.data_ptr(), out.data_ptr(),
             B, T, C0, C, L, F_, G, float(negative_slope), 0, stream)
     if err != 0:
-        tile = device_tile_frames(B, T, C0, C, L, F_, G, x.device,
-                                  x.element_size())
+        tile = device_tile_frames(B, T, C0, C, L, F_, G, x.device)
         raise RuntimeError(
             f"fused_mixstage_decoder ({x.dtype}) launch failed: "
             f"{lib.mixstage_cuda_error_string(err).decode()} (error {err}; "
             f"B={B} T={T} C0={C0} C={C} L={L} F={F_} G={G}; time tile {tile},"
             f" 0 = none fits shared memory)")
     fused_mixstage_decoder.launches += 1
-    if bf16:
-        fused_mixstage_decoder.launches_bf16 += 1
     return out
 
 

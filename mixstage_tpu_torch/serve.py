@@ -23,8 +23,10 @@ themselves.  ``build_waveform_serving_fn`` puts the log-mel frontend
 A model built with ``dtype=torch.bfloat16`` serves at that compute dtype,
 as the JAX package's bf16 tier does: audio and style rows are cast to it,
 the features and both chains' activations are bfloat16 (K1's bf16 mode),
-the folded weights stay float32 (folded from the float32 parameters), and
-the pose comes back as float32, an exact upcast.  Its int8 tier
+the folded weights stay float32 (folded from the float32 parameters;
+K1's bf16 kernel reads them split into three bfloat16 terms, packed once
+when the serving function is built), and the pose comes back as float32,
+an exact upcast.  Its int8 tier
 (``serve.py:203-279``) calibrates on the bf16 model's features, hands them
 to K4's bf16-feature mode (``decoder_int8_plain`` on the plain route), and
 rounds K4's float32 logits to bfloat16 before the mixture, as JAX's
@@ -42,7 +44,8 @@ from mixstage_tpu_torch.data.audio import log_mel_spectrogram
 from mixstage_tpu_torch.device import resolve_device
 from mixstage_tpu_torch.models.layers import softmax
 from mixstage_tpu_torch.ops.cuda.fused_conv import (
-    fold_bn_into_conv, fused_mixstage_decoder, fused_mixstage_decoder_plain)
+    fold_bn_into_conv, fused_mixstage_decoder, fused_mixstage_decoder_plain,
+    pack_decoder_bf16)
 from mixstage_tpu_torch.ops.cuda.quant import (decoder_int8_plain,
                                                fused_mixstage_decoder_int8,
                                                pack_decoder_int8,
@@ -171,6 +174,12 @@ def build_serving_fn(model: nn.Module, device=None,
                                                              sw))
         if use_kernel:
             qfd = pack_decoder_int8(qfd)
+    # K1's bf16 kernel streams the weights split and packed: once, here
+    packed = {}
+    if use_kernel and dtype == torch.bfloat16:
+        packed["classifier"] = pack_decoder_bf16(fc)
+        if not quantize_int8:
+            packed["decoder"] = pack_decoder_bf16(fd)
 
     @torch.inference_mode()
     def fn(audio, style):
@@ -178,14 +187,16 @@ def build_serving_fn(model: nn.Module, device=None,
         if use_kernel:
             x = model.features([audio], None, sw)
             scores = fused_mixstage_decoder(
-                x, *(fc[k] for k in _FOLDED_KEYS), groups=1)
+                x, *(fc[k] for k in _FOLDED_KEYS), groups=1,
+                packed=packed.get("classifier"))
             soft = softmax(scores, dim=-1)
             if quantize_int8:          # f32 logits, in the compute dtype
                 logits = fused_mixstage_decoder_int8(x, qfd, groups=G) \
                     .to(dtype)
             else:
                 logits = fused_mixstage_decoder(
-                    x, *(fd[k] for k in _FOLDED_KEYS), groups=G)
+                    x, *(fd[k] for k in _FOLDED_KEYS), groups=G,
+                    packed=packed.get("decoder"))
         else:
             x, _, soft = model.backbone([audio], None, sw)
             if quantize_int8:

@@ -18,9 +18,15 @@ rule (``bf16_rule`` below): no bf16 output is held element-wise to
 another, since two valid bf16 roundings of one computation differ about as
 much as either differs from the float32 truth; instead each output's drift
 from the truth (the same function in float32 on the same inputs) must match
-the plain version's drift to 10% (+1e-3).  Both wrappers refuse other
-dtype pairs, and a bf16 serving call and a fused bf16 G step launch the bf16
-modes.  K4's bf16-feature mode equals its plain version in every element
+the plain version's drift to 10% (+1e-3).  K1's bf16 mode (``wgmma`` on
+weights split into three bf16 terms) must also stay within one bf16 ULP
+of max |plain| with at most a fifth of its elements differing (45% for
+chains of more than three hidden layers), at every edge shape and every
+time tile its launch takes; its SASS holds BF16 HGMMA.  Both wrappers
+refuse other dtype pairs, and a bf16 serving call and a fused bf16 G
+step launch the bf16 modes; the bf16 and int8-bf16 serving calls at full
+width launch K1-bf16 on weights packed when the serving function was
+built.  K4's bf16-feature mode equals its plain version in every element
 (a bf16 feature widens to float32 exactly; the rest is the f32 mode), at
 one 64-frame clip and a ragged B=3 T=50 of the flagship widths and at the
 edge shapes; K2's bf16 mode follows its plain version under the bf16 rule,
@@ -108,7 +114,8 @@ def test_tile_frames_fills_the_card_and_fits_shared_memory(cuda):
 
 
 def test_kernels_run_on_tensor_cores(cuda):
-    """The built K1 holds tf32 HMMA instructions, K4 s8 IMMA ones and no
+    """The built K1 holds tf32 HMMA instructions (its f32 mode), K1's bf16
+    mode BF16 HGMMA ones (wgmma) and no HMMA, K4 s8 IMMA ones and no
     ``__dp4a`` (IDP.4A), and K3's GEMM passes (every instance of its
     ``gemm_kernel``) tf32 HMMA ones and no FFMA, read from their SASS with
     ``cuobjdump`` (it ships beside ``nvcc``)."""
@@ -119,13 +126,18 @@ def test_kernels_run_on_tensor_cores(cuda):
 
     tool = Path(build.nvcc_path()).with_name("cuobjdump")
     sass = {}
-    for name in ("fused_decoder", "decoder_int8", "train_decoder"):
+    for name in ("fused_decoder", "fused_decoder_bf16", "decoder_int8",
+                 "train_decoder"):
         build.load_library(name)
         sass[name] = subprocess.run(
             [tool, "-sass", str(build.library_path(name))], check=True,
             capture_output=True, text=True).stdout
     hmma = [ln for ln in sass["fused_decoder"].splitlines() if "HMMA" in ln]
     assert hmma and all("TF32" in ln for ln in hmma), hmma[:3]
+    hgmma = [ln for ln in sass["fused_decoder_bf16"].splitlines()
+             if "HGMMA" in ln]
+    assert hgmma and all("BF16" in ln for ln in hgmma), hgmma[:3]
+    assert " HMMA" not in sass["fused_decoder_bf16"]
     assert "IMMA" in sass["decoder_int8"]
     assert "IDP.4A" not in sass["decoder_int8"]
     # one section per function, each opened by a "Function : <name>" line
@@ -422,13 +434,23 @@ def bf16_rule(p, q, truth, frobenius=False):
     return dp, dq, abs(dp - dq) <= BF16_REL * dq + BF16_ABS
 
 
-# K2's bf16 mode against its plain version: the same f32 sums rounded at
-# the same points, so they differ by at most one bf16 ULP of max |out|,
-# and only where two summation orders fall on either side of a rounding
-# boundary and the flip spreads through later layers (5.7% of the
-# elements at (2, 130, 1, 256, 4) below, on an H100).  A kernel that skips
-# one layer's rounding differs in 40-58% of them.
-K2_BF16_ULPS, K2_BF16_SHARE = 1.0, 0.20
+# K1's and K2's bf16 modes against their plain versions: the same f32 sums
+# rounded at the same points, so they differ by at most one bf16 ULP of
+# max |out|, and only where two summation orders fall on either side of a
+# rounding boundary and the flip spreads through later layers (K2: 5.7% of
+# the elements at (2, 130, 1, 256, 4) below, on an H100).  A kernel that
+# skips one layer's rounding differs in 40-58% of them.
+BF16_ULPS, BF16_SHARE = 1.0, 0.20
+# K1's classifier chain (L = 5) rounds seven layers, where the flips of two
+# valid summation orders saturate: K1-bf16's parent differed from the plain
+# version in 27.9-32.7% of the elements there, this kernel in up to 37.5%;
+# rounding the last hidden layer toward zero gives 62-71% and passes the
+# bf16 rule (chip_smoke.py's K1_BF16_SHARE_DEEP).
+K1_BF16_SHARE_DEEP = 0.45
+
+
+def k1_bf16_share(layers):
+    return BF16_SHARE if layers <= 3 else K1_BF16_SHARE_DEEP
 
 
 def bf16_ulps(p, q):
@@ -460,6 +482,45 @@ def test_bf16_decoder_kernel_follows_plain_on_card(cuda, shape):
     assert out.dtype == torch.bfloat16 and out.shape == (B, T, G * F)
     dp, dq, ok = bf16_rule(out, ref, truth)
     assert ok, (dp, dq)
+    ulps, share = bf16_ulps(out, ref)
+    assert ulps <= BF16_ULPS and share <= k1_bf16_share(L), (ulps, share)
+
+
+@pytest.mark.parametrize("shape", EDGE_SHAPES, ids=str)
+def test_bf16_decoder_kernel_at_every_tile(cuda, shape):
+    """K1-bf16 launched directly at every time tile (the rule picks one),
+    each through the kernel instance its rows need, held like the wrapper's
+    launch; a packed operand of the wrong size is refused."""
+    from mixstage_tpu_torch.ops.cuda import build
+    from mixstage_tpu_torch.ops.cuda import fused_conv as fc
+
+    B, T, G, C0, C, L, F = shape
+    x, w0, wc, biases, wl, bl = _folded(B, T, G, C0, C, L, F, cuda)
+    x16 = x.bfloat16()
+    lib = fc.bind_bf16(build.load_library("fused_decoder_bf16"))
+    gstride = fc.packed_elems(C0, C, L, F)
+    packed = fc.pack_decoder_bf16(dict(w0=w0, wc=wc, w_logits=wl))
+    ref = fc.fused_mixstage_decoder_plain(x16, w0, wc, biases, wl, bl, G)
+    truth = fc.fused_mixstage_decoder_plain(x, w0, wc, biases, wl, bl, G)
+    for tile in (8, 16, 32, 64):
+        out = torch.empty(B, T, G * F, device=cuda, dtype=torch.bfloat16)
+        err = lib.mixstage_fused_decoder_bf16(
+            x16.data_ptr(), packed.data_ptr(), biases.data_ptr(),
+            bl.data_ptr(), out.data_ptr(), B, T, C0, C, L, F, G, 0.2, tile,
+            gstride, torch.cuda.current_stream().cuda_stream)
+        if err:              # the tile's rows are wider than every instance
+            assert min(tile + 2 * L, T) > 72, (tile, err)
+            continue
+        torch.cuda.synchronize()
+        dp, dq, ok = bf16_rule(out, ref, truth)
+        ulps, share = bf16_ulps(out, ref)
+        assert ok and ulps <= BF16_ULPS and share <= k1_bf16_share(L), (
+            tile, dp, dq, ulps, share)
+    out = torch.empty(B, T, G * F, device=cuda, dtype=torch.bfloat16)
+    assert lib.mixstage_fused_decoder_bf16(
+        x16.data_ptr(), packed.data_ptr(), biases.data_ptr(), bl.data_ptr(),
+        out.data_ptr(), B, T, C0, C, L, F, G, 0.2, 0, gstride + 8,
+        torch.cuda.current_stream().cuda_stream) != 0
 
 
 @pytest.mark.parametrize("shape", K3_SHAPES, ids=str)
@@ -581,6 +642,51 @@ def test_bf16_serving_and_fused_g_step_on_card(cuda):
                for v in losses.values())
 
 
+def test_bf16_serving_launches_k1_on_weights_packed_at_build(cuda,
+                                                             monkeypatch):
+    """At the flagship widths (bs32 x 64), the bf16 serving call launches
+    K1-bf16 twice and the int8 call on the bf16 model once, each on weights
+    packed when the serving function was built: no call packs them, and a
+    call launches no more kernels than before the split moved to build time
+    (378 and 380, torch.profiler on an H100)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mixstage_tpu_torch.models import JointLateClusterSoftStyle4_G
+    from mixstage_tpu_torch.models.layers import reset_parameters_
+    from mixstage_tpu_torch.ops.cuda import fused_conv as fc
+    from mixstage_tpu_torch.serve import build_serving_fn
+
+    model = JointLateClusterSoftStyle4_G(
+        num_clusters=8, num_speakers=8, in_channels=256, style_dim=10,
+        out_feats=96, dtype=torch.bfloat16)
+    reset_parameters_(model, torch.Generator().manual_seed(1),
+                      random_bn_stats=True)
+    gen = torch.Generator().manual_seed(2)
+    audio = torch.randn(32, 64, 128, generator=gen).to(cuda)
+    styles = torch.randint(0, 8, (32,), generator=gen).to(cuda)
+    calib = (torch.randn(32, 64, 128, generator=gen), torch.arange(32) % 8)
+    fns = {"bf16": (build_serving_fn(model), 2, 378),
+           "int8-bf16": (build_serving_fn(model, quantize_int8=True,
+                                          calib=calib), 1, 380)}
+    packs = []
+    pack = fc.pack_decoder_bf16
+    monkeypatch.setattr(fc, "pack_decoder_bf16",
+                        lambda fd: packs.append(fd) or pack(fd))
+    for name, (fn, k1, most) in fns.items():
+        for _ in range(3):                      # cuDNN picks its algorithms
+            fn(audio, styles)
+        torch.cuda.synchronize()
+        before = fc.fused_mixstage_decoder.launches_bf16
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn(audio, styles)
+            torch.cuda.synchronize()
+        launches = sum(1 for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+        assert fc.fused_mixstage_decoder.launches_bf16 == before + k1, name
+        assert 0 < launches <= most, (name, launches)
+    assert not packs
+
+
 # (B, T, G, C0, C, L, F): one clip and a ragged batch at the flagship widths
 K4_BF16_SHAPES = [(1, 64, 8, 266, 256, 3, 96), (3, 50, 8, 266, 256, 3, 96)]
 
@@ -636,4 +742,4 @@ def test_chain_kernel_bf16_follows_plain_on_card(cuda, shape):
     dp, dq, ok = bf16_rule(out, ref, truth)
     assert ok, (dp, dq)
     ulps, share = bf16_ulps(out, ref)
-    assert ulps <= K2_BF16_ULPS and share <= K2_BF16_SHARE, (ulps, share)
+    assert ulps <= BF16_ULPS and share <= BF16_SHARE, (ulps, share)

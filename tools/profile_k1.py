@@ -16,15 +16,19 @@ mode (bf16 features, f32 weights) against its plain version, and one bs32
 serving call of a bf16 model, f32-weight and int8 (K1's bf16 mode on the
 classifier, then K4's bf16-feature mode).
 
-``--sweep`` also times K1 and K4 (CUDA events) at every time tile that
-fits, at every shape ``chip_smoke.py`` launches them at, beside the tile
-their rule picks.  ``--parent DIR`` builds an earlier version's
-``fused_decoder.cu``, ``decoder_int8.cu`` and ``train_decoder.cu`` (with
-the headers they include, e.g. written there by
-``git show <commit>:mixstage_tpu_torch/ops/cuda/csrc/<file>``) into
-``build/parent_kernels/`` and times them against the current kernels in
-turns (parent, current, current, parent) at those shapes; K3-fwd and
-K3-bwd at bs32 x 64 and at the ragged B=3 T=50.
+``--sweep`` also times K1 (in the ``--dtype`` mode) and K4 (CUDA events)
+at every time tile that fits, at every shape ``chip_smoke.py`` launches
+them at, beside the tile their rule picks.  ``--parent DIR`` builds the
+kernel sources of an earlier version found in DIR (``fused_decoder.cu``,
+``decoder_int8.cu``, ``train_decoder.cu`` and, once it exists,
+``fused_decoder_bf16.cu``, with the headers they include, e.g. written
+there by ``git show <commit>:mixstage_tpu_torch/ops/cuda/csrc/<file>``)
+into ``build/parent_kernels/`` and times them against the current kernels
+in turns (parent, current, current, parent) at those shapes, K1 in the
+``--dtype`` mode (bf16: the parent's ``mixstage_fused_decoder_bf16`` on
+bf16 features into a bf16 output, from ``fused_decoder_bf16.cu`` if the
+parent has it, else from ``fused_decoder.cu`` with float32 weights);
+K3-fwd and K3-bwd at bs32 x 64 and at the ragged B=3 T=50.
 
     python3 tools/profile_k1.py [--seed 0] [--dtype float32|bfloat16]
                                 [--sweep] [--parent DIR]
@@ -45,8 +49,8 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from chip_smoke import (C, C0, K1_SHAPES, K3_RAGGED, K4_SHAPES, MEL,  # noqa: E402
-                        MODEL, B, T, cuda_ms, k1_work, random_folded,
-                        random_train, trace)
+                        MODEL, B, T, bf16_ulps, cuda_ms, k1_work,
+                        random_folded, random_train, trace)
 from mixstage_tpu_torch import resolve_device  # noqa: E402
 from mixstage_tpu_torch.models import JointLateClusterSoftStyle4_G  # noqa: E402
 from mixstage_tpu_torch.models.layers import reset_parameters_  # noqa: E402
@@ -78,10 +82,17 @@ def report(label: str, rec: dict, flops: float = 0.0) -> None:
               f"{k['launches_per_call']:g}  {k['name'][:110]}", flush=True)
 
 
-def k1_inputs(gen, device):
-    """Seeded folded weights and features at every K1 shape."""
-    return {name: (random_folded(torch, gen, b, t, g, layers, f, device), g)
-            for name, (b, t, g, layers, f) in K1_SHAPES.items()}
+def k1_inputs(gen, device, dtype):
+    """Seeded folded weights and features (of ``dtype``) at every K1 shape;
+    at bf16 also the weights packed for the bf16 kernel."""
+    out = {}
+    for name, (b, t, g, layers, f) in K1_SHAPES.items():
+        x, *w = random_folded(torch, gen, b, t, g, layers, f, device)
+        packed = (fused_conv.pack_decoder_bf16(dict(w0=w[0], wc=w[1],
+                                                    w_logits=w[3]))
+                  if dtype == torch.bfloat16 else None)
+        out[name] = ((x.to(dtype), *w), g, packed)
+    return out
 
 
 def k4_inputs(gen, device):
@@ -101,15 +112,19 @@ def k4_inputs(gen, device):
 def sweep(k1_in, qfd, xs, device) -> dict:
     """K1 and K4 at every tile that launches, beside the rule's tile."""
     lib1 = fused_conv.bind(build.load_library("fused_decoder"))
+    lib16 = fused_conv.bind_bf16(build.load_library("fused_decoder_bf16"))
     lib4 = q8.bind(build.load_library("decoder_int8"))
     G = MODEL["num_clusters"]
     runs = {}
-    for name, (a, g) in k1_in.items():
+    for name, (a, g, packed) in k1_in.items():
         b, t, layers, f = a[0].shape[0], a[0].shape[1], a[2].shape[0], \
             a[4].shape[-1]
+        act = a[0].element_size()
         runs[f"K1 {name}"] = (
-            device_tile_frames(b, t, C0, C, layers, f, g, device),
-            lambda tile, a=a, g=g: launch_k1(lib1, a, g, tile))
+            device_tile_frames(b, t, C0, C, layers, f, g, device, act),
+            lambda tile, a=a, g=g, packed=packed: (
+                launch_k1(lib1, a, g, tile) if packed is None
+                else launch_k1_bf16(lib16, a, g, tile, packed)))
     for name, x in xs.items():
         runs[f"K4 {name}"] = (
             q8.device_tile_frames(x.shape[0], x.shape[1], C0, C, 3,
@@ -132,11 +147,14 @@ def sweep(k1_in, qfd, xs, device) -> dict:
 
 
 def build_parent(src: Path) -> dict:
-    """Build and bind the kernels of the sources in ``src``."""
+    """Build and bind the kernels of the sources in ``src`` (those of
+    ``build.SOURCES`` that it has)."""
     dst = build.BUILD_DIR.parent / "parent_kernels"
     dst.mkdir(parents=True, exist_ok=True)
     jobs = {}
     for name in build.SOURCES:
+        if not (src / f"{name}.cu").exists():
+            continue
         lib = dst / f"lib{name}.so"
         jobs[name] = (lib, subprocess.Popen(
             [build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(lib),
@@ -152,11 +170,17 @@ def build_parent(src: Path) -> dict:
                 print(f"[parent build] {name}: {line.strip()}", flush=True)
         libs[name] = ctypes.CDLL(str(lib))
     # K1's f32 and K4's C entry points are the current ones (with a time
-    # tile)
+    # tile); K1's bf16 one too where the parent has fused_decoder_bf16.cu,
+    # else the one in its fused_decoder.cu (float32 weights, as f32's)
     lib = libs["fused_decoder"]
-    lib.mixstage_fused_decoder_f32.argtypes = [_P] * 7 + [_I] * 7 + [
-        ctypes.c_float, _I, _P]
-    lib.mixstage_fused_decoder_f32.restype = _I
+    fns = [lib.mixstage_fused_decoder_f32]
+    if "fused_decoder_bf16" in libs:
+        fused_conv.bind_bf16(libs["fused_decoder_bf16"])
+    else:
+        fns.append(lib.mixstage_fused_decoder_bf16)
+    for fn in fns:
+        fn.argtypes = [_P] * 7 + [_I] * 7 + [ctypes.c_float, _I, _P]
+        fn.restype = _I
     q8.bind(libs["decoder_int8"])
     # K3's, without the scratch query the current library adds
     lib = libs["train_decoder"]
@@ -241,15 +265,36 @@ def rel_diff(got, ref) -> float:
 
 def launch_k1(lib, a, g, tile):
     """K1 of ``lib`` on the folded inputs ``a`` with ``tile`` output frames
-    per CTA (0: the library's rule)."""
+    per CTA (0: the library's rule), through its entry point that takes
+    float32 weights: ``mixstage_fused_decoder_f32`` for float32 features,
+    ``mixstage_fused_decoder_bf16`` (a parent's fused_decoder.cu) for
+    bfloat16 ones, whose output is bfloat16."""
     x, w0, wc, _, wl, _ = a
     (b, t, c0), c, layers, f = x.shape, w0.shape[-1], wc.shape[0], wl.shape[-1]
-    out = torch.empty(b, t, g * f, device=x.device)
-    err = lib.mixstage_fused_decoder_f32(
-        *(v.data_ptr() for v in a), out.data_ptr(), b, t, c0, c, layers, f,
-        g, 0.2, tile, torch.cuda.current_stream().cuda_stream)
+    fn = (lib.mixstage_fused_decoder_bf16 if x.dtype == torch.bfloat16
+          else lib.mixstage_fused_decoder_f32)
+    out = torch.empty(b, t, g * f, device=x.device, dtype=x.dtype)
+    err = fn(*(v.data_ptr() for v in a), out.data_ptr(), b, t, c0, c, layers,
+             f, g, 0.2, tile, torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"K1 launch failed: error {err}")
+    return out
+
+
+def launch_k1_bf16(lib, a, g, tile, packed):
+    """K1-bf16 of a ``fused_decoder_bf16`` library on bfloat16 features and
+    the weights ``packed`` by ``pack_decoder_bf16``; ``tile`` as in
+    ``launch_k1``."""
+    x, w0, wc, biases, wl, bl = a
+    (b, t, c0), c, layers, f = x.shape, w0.shape[-1], wc.shape[0], wl.shape[-1]
+    out = torch.empty(b, t, g * f, device=x.device, dtype=torch.bfloat16)
+    err = lib.mixstage_fused_decoder_bf16(
+        x.data_ptr(), packed.data_ptr(), biases.data_ptr(), bl.data_ptr(),
+        out.data_ptr(), b, t, c0, c, layers, f, g, 0.2, tile,
+        fused_conv.packed_elems(c0, c, layers, f),
+        torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"K1-bf16 launch failed: error {err}")
     return out
 
 
@@ -275,10 +320,17 @@ def against_parent(libs, k1_in, qfd, xs, k3) -> dict:
     also max |current - parent| / max |parent| (K3-bwd: the worst of its
     gradients; its dcb is float noise around 0 in both)."""
     G = MODEL["num_clusters"]
-    calls = {f"K1 {name}": (lambda a=a, g=g: launch_k1(
-                 libs["fused_decoder"], a, g, 0),
-             lambda a=a, g=g: fused_mixstage_decoder(*a, groups=g))
-             for name, (a, g) in k1_in.items()}
+
+    def parent_k1(a, g, packed):
+        if packed is not None and "fused_decoder_bf16" in libs:
+            return launch_k1_bf16(libs["fused_decoder_bf16"], a, g, 0, packed)
+        return launch_k1(libs["fused_decoder"], a, g, 0)
+
+    calls = {f"K1 {name}": (
+                 lambda a=a, g=g, p=packed: parent_k1(a, g, p),
+                 lambda a=a, g=g, p=packed: fused_mixstage_decoder(
+                     *a, groups=g, packed=p))
+             for name, (a, g, packed) in k1_in.items()}
     calls.update({f"K4 {name}": (lambda x=x: launch_k4(
                       libs["decoder_int8"], x, qfd, G, 0),
                   lambda x=x: q8.fused_mixstage_decoder_int8(x, qfd,
@@ -290,17 +342,24 @@ def against_parent(libs, k1_in, qfd, xs, k3) -> dict:
         ref, got = old(), new()
         if name.startswith("K3-bwd"):          # dcb: noise around 0
             ref, got = ref[:3] + ref[4:], got[:3] + got[4:]
-        diff = rel_diff(got, ref)
+        bf16 = isinstance(got, torch.Tensor) and got.dtype == torch.bfloat16
+        diff = rel_diff(got.float(), ref.float()) if bf16 else \
+            rel_diff(got, ref)
+        ulps = bf16_ulps(torch, got, ref) if bf16 else None
         turns = dict(parent=[], current=[])
         for who in ("parent", "current", "current", "parent"):
             turns[who].append(cuda_ms(torch, old if who == "parent" else new))
         rec = {k: sum(v) / len(v) for k, v in turns.items()}
         rec.update(turns=turns, rel_diff=diff)
+        if ulps:
+            rec.update(bf16_ulps=ulps[0], differing=ulps[1])
         out[name] = rec
         print(f"[parent] {name}: current {rec['current']:.4f} ms, parent "
               f"{rec['parent']:.4f} ms ({rec['parent'] / rec['current']:.2f}x)"
               f"; turns {turns}; max|current - parent|/max|parent| "
-              f"{diff:.3e}", flush=True)
+              f"{diff:.3e}" + (f" ({ulps[0]:.2f} bf16 ULPs of max|parent|, "
+                               f"{ulps[1]:.2%} of elements differ)"
+                               if ulps else ""), flush=True)
     return out
 
 
@@ -313,9 +372,10 @@ def main(argv=None) -> int:
     ap.add_argument("--sweep", action="store_true",
                     help="time K1 and K4 at every tile that fits")
     ap.add_argument("--parent", type=Path, default=None,
-                    help="directory of an earlier fused_decoder.cu, "
-                         "decoder_int8.cu and train_decoder.cu to time "
-                         "against")
+                    help="directory of an earlier version's kernel "
+                         "sources (fused_decoder.cu, decoder_int8.cu, "
+                         "train_decoder.cu, fused_decoder_bf16.cu if it "
+                         "has one) to time against")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     device = resolve_device()
@@ -329,7 +389,7 @@ def main(argv=None) -> int:
     out = {"card": smi, "dtype": args.dtype}
     with torch.inference_mode():
         if args.sweep or args.parent:
-            k1_in = k1_inputs(gen, device)
+            k1_in = k1_inputs(gen, device, dtype)
             qfd, xs = k4_inputs(gen, device)
             if args.parent:
                 libs = build_parent(args.parent)
@@ -342,11 +402,15 @@ def main(argv=None) -> int:
         for name, (b, t, g, layers, f) in SHAPES.items():
             x, *w = random_folded(torch, gen, b, t, g, layers, f, device)
             a = (x.to(dtype), *w)            # the weights stay f32
+            # bf16: the weights packed once, as the serving function does
+            packed = (fused_conv.pack_decoder_bf16(dict(w0=w[0], wc=w[1],
+                                                        w_logits=w[3]))
+                      if dtype == torch.bfloat16 else None)
             flops, _ = k1_work(b, t, g, layers, f)
             tile = device_tile_frames(b, t, C0, C, layers, f, g, device,
                                       x.to(dtype).element_size())
-            k1 = trace(torch, lambda: fused_mixstage_decoder(*a, groups=g),
-                       CALLS)
+            k1 = trace(torch, lambda: fused_mixstage_decoder(
+                *a, groups=g, packed=packed), CALLS)
             plain = trace(torch, lambda: fused_mixstage_decoder_plain(
                 *a, groups=g), CALLS)
             report(f"{name} K1 (tile {tile})", k1, flops)
