@@ -66,8 +66,11 @@ bf16 model (phases 18-19):
     (below), within one bf16 ULP of max |plain| and with at most 20% of
     its elements differing from its plain version (45% for the seven
     rounded layers of the classifier chain, ``k1_bf16_share``); K3-fwd
-    and K3-bwd's bf16 mode at bs32 × 64 and the ragged B=3 T=50 under the
-    bf16 rule, the max |diff| in bf16 ULPs beside it;
+    and K3-bwd's bf16 mode (``wgmma`` GEMM passes) at bs32 × 64 and the
+    ragged B=3 T=50 under the bf16 rule, out and cs also within one bf16
+    ULP of max |plain| and ``K3_BF16_SHARE`` of their elements differing;
+    the registers and spills of K3's bf16 GEMM instances and ptxas's
+    advisories on them;
 16. bf16 entry points: a bf16 serving call at bs32 launches K1's bf16 mode
     exactly twice on weights packed when the serving function was built
     (no packing per call) and drifts ≤ 1% from the f32 kernel route; bf16
@@ -175,6 +178,19 @@ BF16_ULPS, BF16_SHARE = 1.0, 0.20
 # 80GB HBM3, 700 W; PERF.md).  Chains of up to three hidden layers (the
 # decoder, L = 3) keep BF16_SHARE.
 K1_BF16_SHARE_DEEP = 0.45
+# K3-fwd's bf16 mode against its plain version: out and cs within one bf16
+# ULP of max |plain|, and a share of differing elements at most the limit
+# below.  cs is one conv of bf16 inputs, rounded twice; out follows four
+# BatchNorm + leaky layers, where the flips of two valid summation orders
+# spread (K3-bf16's parent, mma.sync m16n8k16, differed in up to 7.50% of
+# cs and 50.69% of out at the shapes this script and the card tests run,
+# the wgmma kernel in up to 7.51% and 48.54%; NVIDIA H100 80GB HBM3, 700 W;
+# tools/k3_bf16_probe.py, tools/k3_bf16_variants.py).  A copy that skips
+# the rounding of the sum before the bias add passes the bf16 rule and
+# differs in 59.6% of cs and 80.4% of out (tools/k3_bf16_variants.py's
+# no-round; 60% and 81% in the kernel's sums emulated on the CPU,
+# tests/test_torch_port_k3_bf16_wgmma.py).
+K3_BF16_SHARE = {"out": 0.65, "cs": 0.20}
 
 
 def k1_bf16_share(layers: int) -> float:
@@ -293,7 +309,8 @@ def int8_errors(out, ref):
 
 def kernel_name(mangled: str) -> str:
     """``gemm_kernel<1, 64, 64>`` from an Itanium-mangled kernel name: the
-    last part of its nested name and its integer template arguments."""
+    last part of its nested name and its template arguments (integers,
+    ``float`` and named types such as ``__nv_bfloat16``)."""
     i, parts = (3 if mangled.startswith("_ZN") else 2), []
     while i < len(mangled) and mangled[i].isdigit():
         j = i
@@ -302,10 +319,25 @@ def kernel_name(mangled: str) -> str:
         parts.append(mangled[j:j + int(mangled[i:j])])
         i = j + int(mangled[i:j])
     name = parts[-1] if parts else mangled
-    targs = re.match(r"I((?:Li-?\d+E)+)E", mangled[i:])
-    if targs:
-        name += "<" + ", ".join(re.findall(r"Li(-?\d+)E", targs.group(1))) \
-            + ">"
+    rest, args = mangled[i:], []
+    if rest.startswith("I"):         # template arguments, up to their E
+        j = 1
+        while j < len(rest) and rest[j] != "E":
+            m = re.match(r"Li(-?\d+)E|f|(\d+)", rest[j:])
+            if not m:
+                break
+            if m.group(1) is not None:
+                args.append(m.group(1))
+                j += m.end()
+            elif m.group(0) == "f":
+                args.append("float")
+                j += 1
+            else:
+                n = int(m.group(2))
+                args.append(rest[j + m.end():j + m.end() + n])
+                j += m.end() + n
+        if args:
+            name += "<" + ", ".join(args) + ">"
     return name
 
 
@@ -926,6 +958,18 @@ def bf16_phases(torch, args, device, smi, model, audio, styles, pose32,
         f"rounded to bf16 (another function) drifts {dc:.4e} (bf16 rule "
         f"against the plain bf16 mode: "
         f"{'ok' if abs(dc - dq) <= BF16_REL * dq + BF16_ABS else 'fails'})")
+    # K3's bf16 GEMM (wgmma): its instances' registers and spills, and
+    # ptxas's advisories (a wgmma it serialises says so)
+    k3_ptxas = results["ptxas"]["train_decoder"]
+    wg = [k for k in k3_ptxas["kernels"]
+          if k[0].startswith("wgmma_gemm_kernel")]
+    check(len(wg) == 12, f"{len(wg)} wgmma_gemm_kernel instances built, "
+          f"expected 12")
+    for kernel, regs, stores, loads in wg:
+        log(f"[bf16-kernel] K3 bf16 GEMM {kernel}: {regs} registers, "
+            f"{stores} B spill stores, {loads} B spill loads")
+    log(f"[bf16-kernel] K3 ptxas advisories: "
+        f"{k3_ptxas['advisories'] or 'none'}")
     kgen = torch.Generator().manual_seed(args.seed + 14)
     k3_16 = {}
     names = ("dx", "dw0", "dwc", "dcb", "dgamma", "dbeta", "dwl", "dbl")
@@ -937,7 +981,7 @@ def bf16_phases(torch, args, device, smi, model, audio, styles, pose32,
         ref = td.decoder_train_fwd_plain(*a16)
         truth = td.decoder_train_fwd_plain(*a32)
         torch.cuda.synchronize()
-        report, worst_f = [], 0.0
+        report, worst_f, shares = [], 0.0, {}
         for what, p_, q_, r_ in zip(("out", "cs", "mu", "var"), fwd, ref,
                                     truth):
             check(p_.dtype == q_.dtype and bool(torch.isfinite(p_).all()),
@@ -945,12 +989,17 @@ def bf16_phases(torch, args, device, smi, model, audio, styles, pose32,
             dp, dq, ok = bf16_rule(p_, q_, r_)
             worst_f = max(worst_f, float((p_.float() - q_.float()).abs()
                                          .max()))
-            report.append(f"{what} {dp:.3e}/{dq:.3e}"
-                          + (" ({:.2f} ULPs of max, {:.2%} differ)".format(
-                              *bf16_ulps(torch, p_, q_))
-                             if p_.dtype == bf16 else ""))
+            report.append(f"{what} {dp:.3e}/{dq:.3e}")
             check(ok, f"K3-fwd-bf16 {name} {what} breaks the bf16 rule: "
                   f"{dp:.4e} vs {dq:.4e}")
+            if p_.dtype == bf16:     # out, cs: ULPs and the differing share
+                ulps, share = bf16_ulps(torch, p_, q_)
+                shares[what] = (ulps, share)
+                report[-1] += f" ({ulps:.2f} ULPs of max, {share:.2%} differ)"
+                check(ulps <= BF16_ULPS and share <= K3_BF16_SHARE[what],
+                      f"K3-fwd-bf16 {name} {what}: {ulps:.2f} bf16 ULPs of "
+                      f"max |plain| (limit {BF16_ULPS:g}), {share:.2%} of "
+                      f"elements differ (limit {K3_BF16_SHARE[what]:.0%})")
         dout = torch.randn(ref[0].shape, generator=torch.Generator()
                            .manual_seed(args.seed + 15)).to(device).bfloat16()
         x, w0, wc, _, gamma, beta, wl, _ = a16
@@ -980,7 +1029,7 @@ def bf16_phases(torch, args, device, smi, model, audio, styles, pose32,
             f"kernel/plain " + ", ".join(report) + f" (bf16 rule: ok); "
             f"max|err| vs plain fwd {worst_f:.3e}, bwd {worst_b:.3e}")
         k3_16[name] = dict(fwd_err=worst_f, bwd_err=worst_b, fwd_args=a16,
-                           bwd_args=bwd_args)
+                           bwd_args=bwd_args, shares=shares)
 
     # 16. bf16 entry points --------------------------------------------------
     model16 = JointLateClusterSoftStyle4_G(**MODEL, dtype=bf16)
@@ -1233,7 +1282,7 @@ def bf16_phases(torch, args, device, smi, model, audio, styles, pose32,
             "replaces": f"mixstage_tpu/ops/pallas/train_decoder.py:{line}",
             "launches": count, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-            "library_ms": None, "mma": "bf16"})
+            "library_ms": None, "mma": "wgmma-bf16"})
     for rec in k3_16.values():
         rec.pop("fwd_args")
         rec.pop("bwd_args")
@@ -1526,11 +1575,16 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     built = build.build_all(force=True)
     results["build_s"] = time.perf_counter() - t0
+    results["ptxas"] = {}
     for name, (sec, compiler_log) in built.items():
         log(f"[build] {name}: {sec:.1f} s  ({build.library_path(name).name})")
-        for kernel, regs, stores, loads in ptxas_summary(compiler_log):
+        kernels = ptxas_summary(compiler_log)
+        for kernel, regs, stores, loads in kernels:
             log(f"[build]   {kernel}: {regs} registers, {stores} bytes spill "
                 f"stores, {loads} bytes spill loads")
+        results["ptxas"][name] = dict(kernels=kernels, advisories=[
+            ln.strip() for ln in compiler_log.splitlines()
+            if "Potential Performance Loss" in ln])
     log(f"[build] all kernels in {results['build_s']:.1f} s")
 
     # 3. kernels against their plain versions ------------------------------

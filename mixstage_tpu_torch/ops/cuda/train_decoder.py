@@ -22,8 +22,9 @@ there is no fall-back.  Each counts its launches in ``.launches``.
 custom_vjp of ``:353-385``).
 
 bf16 mode (the TPU kernels' ``dtype=bfloat16`` function, every weight cast
-to the features' dtype by ``fused_decoder_train``, ``:486-493``): x, the
-weights, out and cs are bfloat16; each conv's float32 sum of exact bf16
+to the features' dtype by ``fused_decoder_train``, ``:486-493``; its GEMM
+passes on ``wgmma``, ``csrc/train_gemm_bf16.cuh``): x, the weights, out
+and cs are bfloat16; each conv's float32 sum of exact bf16
 products is rounded to bf16 before the bias add (``:93-95``), BatchNorm's
 statistics and the leaky unit run in float32 and the activation is rounded
 (``:105-106``); the backward recomputes the activations from the bf16 cs,
@@ -242,7 +243,28 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.mixstage_train_decoder_error_string.restype = ctypes.c_char_p
         lib.mixstage_train_decoder_scratch_floats.argtypes = [_I] * 6
         lib.mixstage_train_decoder_scratch_floats.restype = ctypes.c_longlong
+        lib.mixstage_train_decoder_bf16_plan.argtypes = [_I] * 8 + [
+            ctypes.POINTER(ctypes.c_int)] * 2
+        lib.mixstage_train_decoder_bf16_plan.restype = None
+        lib.mixstage_train_decoder_bf16_force.argtypes = [_I, _I]
+        lib.mixstage_train_decoder_bf16_force.restype = None
     return lib
+
+
+# the bf16 mode's GEMM tiles (csrc/train_gemm_bf16.cuh::kTiles), by index
+BF16_TILES = ("128x128", "64x256", "64x192", "64x96")
+BF16_MODES = {"conv": 0, "convT": 1, "dW": 2}
+
+
+def bf16_plan(lib, mode, B, T, J, N, taps, G, sms) -> Tuple[int, int]:
+    """(tile index into ``BF16_TILES``, dW's splits of the frames) that the
+    bf16 mode's wgmma GEMM picks for one pass (``mode`` of ``BF16_MODES``)
+    on a card of ``sms`` SMs."""
+    tile, splits = ctypes.c_int(), ctypes.c_int()
+    lib.mixstage_train_decoder_bf16_plan(BF16_MODES[mode], B, T, J, N, taps,
+                                         G, sms, ctypes.byref(tile),
+                                         ctypes.byref(splits))
+    return tile.value, splits.value
 
 
 def _raise_on(lib, err, what, dims):
@@ -335,7 +357,9 @@ def decoder_train_bwd(dout, x, cs, mu, var, w0, wc, gamma, beta, wl
     dbl = torch.empty((G, 1, Fo), **new)
     h = _scratch(lib, dims, new)
     dh = torch.empty((G, B, T, C), **new)            # d(layer output)
-    dc = torch.empty((G, B, T, C), device=dev, dtype=dt)   # d(conv output)
+    # d(conv output); the bf16 mode keeps it as an image in the scratch h
+    dc = torch.empty((G, B, T, C) if dt == torch.float32 else (0,),
+                     device=dev, dtype=dt)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = getattr(lib, f"mixstage_train_decoder_bwd_{_mode(dt)}")(

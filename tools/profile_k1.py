@@ -18,7 +18,9 @@ classifier, then K4's bf16-feature mode).
 
 ``--sweep`` also times K1 (in the ``--dtype`` mode) and K4 (CUDA events)
 at every time tile that fits, at every shape ``chip_smoke.py`` launches
-them at, beside the tile their rule picks.  ``--parent DIR`` builds the
+them at, beside the tile their rule picks; at bf16 also K3's bf16 mode at
+bs32 x 64 and ragged B=3 T=50 with its GEMM passes forced onto each tile
+and its weight gradients onto 1, 2 and 4 splits, beside the plan.  ``--parent DIR`` builds the
 kernel sources of an earlier version found in DIR (``fused_decoder.cu``,
 ``decoder_int8.cu``, ``train_decoder.cu`` and, once it exists,
 ``fused_decoder_bf16.cu``, with the headers they include, e.g. written
@@ -28,10 +30,13 @@ in turns (parent, current, current, parent) at those shapes, K1 in the
 ``--dtype`` mode (bf16: the parent's ``mixstage_fused_decoder_bf16`` on
 bf16 features into a bf16 output, from ``fused_decoder_bf16.cu`` if the
 parent has it, else from ``fused_decoder.cu`` with float32 weights);
-K3-fwd and K3-bwd at bs32 x 64 and at the ragged B=3 T=50.
+K3-fwd and K3-bwd at bs32 x 64 and at the ragged B=3 T=50: the f32 mode,
+checked against the parent bit for bit, and at bf16 also the bf16 mode
+(the parent's ``*_bf16`` entry points), with out's and cs's bf16 ULPs and
+differing shares.  ``--k3`` limits ``--parent`` and ``--sweep`` to K3.
 
     python3 tools/profile_k1.py [--seed 0] [--dtype float32|bfloat16]
-                                [--sweep] [--parent DIR]
+                                [--sweep] [--parent DIR] [--k3]
                                 [--out profile.json]
 """
 
@@ -146,6 +151,50 @@ def sweep(k1_in, qfd, xs, device) -> dict:
     return out
 
 
+def k3_bf16_sweep(gen, device) -> dict:
+    """K3's bf16 mode at bs32 x 64 and the ragged shape with every GEMM
+    pass forced onto each tile of ``td.BF16_TILES`` and every dW pass onto
+    1, 2 and 4 splits of the frames (CUDA events), beside the plan's
+    choice; and the plan of each pass at bs32."""
+    lib = td.bind(build.load_library("train_decoder"))
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    G, F = MODEL["num_clusters"], MODEL["out_feats"]
+    for mode, j, n, taps in (("conv", C0, C, 3), ("conv", C, C, 3),
+                             ("conv", C, F, 1), ("convT", F, C, 1),
+                             ("convT", C, C, 3), ("convT", C, C0, 3),
+                             ("dW", C, F, 1), ("dW", C, C, 3),
+                             ("dW", C0, C, 3)):
+        tile, splits = td.bf16_plan(lib, mode, B, T, j, n, taps, G, sms)
+        print(f"[sweep] K3-bf16 plan bs{B}: {mode} J={j} N={n} taps={taps}:"
+              f" tile {td.BF16_TILES[tile]}, {splits} split(s)", flush=True)
+    out = {}
+    for shape, (b, t) in (("bs32", (B, T)), ("ragged", K3_RAGGED)):
+        a = tuple(v.bfloat16()
+                  for v in random_train(torch, gen, b, t, device))
+        x, w0, wc, _, gamma, beta, wl, _ = a
+        _, cs, mu, var = td.decoder_train_fwd(*a)
+        dout = torch.randn(w0.shape[0], b, t, wl.shape[-1],
+                           generator=gen).to(device).bfloat16()
+        bwd = (dout, x, cs, mu, var, w0, wc, gamma, beta, wl)
+        rec = {}
+        for tile in range(-1, len(td.BF16_TILES)):
+            name = "plan" if tile < 0 else td.BF16_TILES[tile]
+            for splits in (0, 1, 2, 4):
+                lib.mixstage_train_decoder_bf16_force(tile, splits)
+                key = f"{name}/{'plan' if splits == 0 else splits}"
+                rec[key] = dict(bwd=cuda_ms(
+                    torch, lambda: td.decoder_train_bwd(*bwd), reps=10))
+                if splits == 0:
+                    rec[key]["fwd"] = cuda_ms(
+                        torch, lambda: td.decoder_train_fwd(*a), reps=10)
+        lib.mixstage_train_decoder_bf16_force(-1, 0)
+        out[shape] = rec
+        print(f"[sweep] K3-bf16 {shape} (tile/splits: fwd, bwd ms): "
+              + ", ".join(f"{k}: " + "/".join(f"{v:.4f}" for v in r.values())
+                          for k, r in rec.items()), flush=True)
+    return out
+
+
 def build_parent(src: Path) -> dict:
     """Build and bind the kernels of the sources in ``src`` (those of
     ``build.SOURCES`` that it has)."""
@@ -182,12 +231,14 @@ def build_parent(src: Path) -> dict:
         fn.argtypes = [_P] * 7 + [_I] * 7 + [ctypes.c_float, _I, _P]
         fn.restype = _I
     q8.bind(libs["decoder_int8"])
-    # K3's, without the scratch query the current library adds
+    # K3's (both modes), without the scratch query the current library adds
     lib = libs["train_decoder"]
-    lib.mixstage_train_decoder_fwd_f32.argtypes = [_P] * 13 + [_I] * 6 + [_P]
-    lib.mixstage_train_decoder_bwd_f32.argtypes = [_P] * 21 + [_I] * 6 + [_P]
-    lib.mixstage_train_decoder_fwd_f32.restype = _I
-    lib.mixstage_train_decoder_bwd_f32.restype = _I
+    for mode in ("f32", "bf16"):
+        fwd = getattr(lib, f"mixstage_train_decoder_fwd_{mode}")
+        bwd = getattr(lib, f"mixstage_train_decoder_bwd_{mode}")
+        fwd.argtypes = [_P] * 13 + [_I] * 6 + [_P]
+        bwd.argtypes = [_P] * 21 + [_I] * 6 + [_P]
+        fwd.restype = bwd.restype = _I
     return libs
 
 
@@ -201,16 +252,21 @@ def _k3_dims(x, w0, wl):
     return (b, t, c0, c, f, g), torch.empty(scratch, device=x.device)
 
 
+def _mode(x):
+    return "bf16" if x.dtype == torch.bfloat16 else "f32"
+
+
 def parent_k3_fwd(lib, a):
-    """The parent's K3-fwd on the inputs ``a`` of ``random_train``."""
+    """The parent's K3-fwd on the inputs ``a`` of ``random_train`` (all
+    float32, or all bfloat16: its bf16 mode)."""
     x, w0, wc, cb, gamma, beta, wl, bl = a
     dims, h = _k3_dims(x, w0, wl)
     b, t, _, c, f, g = dims
     new = dict(device=x.device, dtype=torch.float32)
-    out = torch.empty(g, b, t, f, **new)
-    cs = torch.empty(4, g, b, t, c, **new)
+    out = torch.empty(g, b, t, f, device=x.device, dtype=x.dtype)
+    cs = torch.empty(4, g, b, t, c, device=x.device, dtype=x.dtype)
     mu, var = torch.empty(g, 4, c, **new), torch.empty(g, 4, c, **new)
-    err = lib.mixstage_train_decoder_fwd_f32(
+    err = getattr(lib, f"mixstage_train_decoder_fwd_{_mode(x)}")(
         *(v.data_ptr() for v in (*a, out, cs, mu, var, h)), *dims,
         torch.cuda.current_stream().cuda_stream)
     if err:
@@ -219,15 +275,17 @@ def parent_k3_fwd(lib, a):
 
 
 def parent_k3_bwd(lib, dout, x, cs, mu, var, w0, wc, gamma, beta, wl):
-    """The parent's K3-bwd: (dx, dw0, dwc, dcb, dgamma, dbeta, dwl, dbl)."""
+    """The parent's K3-bwd: (dx, dw0, dwc, dcb, dgamma, dbeta, dwl, dbl),
+    float32 in both modes."""
     dims, h = _k3_dims(x, w0, wl)
     _, _, _, c, f, g = dims
     new = dict(device=x.device, dtype=torch.float32)
-    grads = (torch.empty_like(x), torch.empty_like(w0), torch.empty_like(wc),
+    grads = (torch.empty(x.shape, **new), torch.empty(w0.shape, **new),
+             torch.empty(wc.shape, **new),
              *(torch.empty(g, 4, c, **new) for _ in range(3)),
-             torch.empty_like(wl), torch.empty(g, 1, f, **new))
-    dh, dc = torch.empty_like(cs[0]), torch.empty_like(cs[0])
-    err = lib.mixstage_train_decoder_bwd_f32(
+             torch.empty(wl.shape, **new), torch.empty(g, 1, f, **new))
+    dh, dc = torch.empty(cs[0].shape, **new), torch.empty_like(cs[0])
+    err = getattr(lib, f"mixstage_train_decoder_bwd_{_mode(x)}")(
         *(v.data_ptr() for v in (dout, x, cs, mu, var, w0, wc, gamma, beta,
                                  wl, *grads, h, dh, dc)), *dims,
         torch.cuda.current_stream().cuda_stream)
@@ -236,22 +294,29 @@ def parent_k3_bwd(lib, dout, x, cs, mu, var, w0, wc, gamma, beta, wl):
     return grads
 
 
-def k3_calls(lib, gen, device) -> dict:
+def k3_calls(lib, gen, device, dtype) -> dict:
     """{name: (parent call, current call)} of K3-fwd and K3-bwd at bs32 x
-    64 and at the ragged shape, on seeded inputs."""
+    64 and at the ragged shape, on seeded inputs: the f32 mode, and at
+    ``dtype`` bfloat16 also the bf16 mode (``-bf16`` names)."""
     calls = {}
-    for shape, (b, t) in (("bs32", (B, T)), ("ragged", K3_RAGGED)):
-        a = random_train(torch, gen, b, t, device)
-        x, w0, wc, _, gamma, beta, wl, _ = a
-        _, cs, mu, var = td.decoder_train_fwd(*a)
-        dout = torch.randn(w0.shape[0], b, t, wl.shape[-1],
-                           generator=gen).to(device)
-        bwd = (dout, x, cs, mu, var, w0, wc, gamma, beta, wl)
-        calls[f"K3-fwd {shape}"] = (lambda a=a: parent_k3_fwd(lib, a),
-                                    lambda a=a: td.decoder_train_fwd(*a))
-        calls[f"K3-bwd {shape}"] = (
-            lambda bwd=bwd: parent_k3_bwd(lib, *bwd),
-            lambda bwd=bwd: td.decoder_train_bwd(*bwd))
+    modes = [torch.float32] + ([torch.bfloat16]
+                               if dtype == torch.bfloat16 else [])
+    for mode in modes:
+        tag = "-bf16" if mode == torch.bfloat16 else ""
+        for shape, (b, t) in (("bs32", (B, T)), ("ragged", K3_RAGGED)):
+            a = tuple(v.to(mode)
+                      for v in random_train(torch, gen, b, t, device))
+            x, w0, wc, _, gamma, beta, wl, _ = a
+            _, cs, mu, var = td.decoder_train_fwd(*a)
+            dout = torch.randn(w0.shape[0], b, t, wl.shape[-1],
+                               generator=gen).to(device).to(mode)
+            bwd = (dout, x, cs, mu, var, w0, wc, gamma, beta, wl)
+            calls[f"K3-fwd{tag} {shape}"] = (
+                lambda a=a: parent_k3_fwd(lib, a),
+                lambda a=a: td.decoder_train_fwd(*a))
+            calls[f"K3-bwd{tag} {shape}"] = (
+                lambda bwd=bwd: parent_k3_bwd(lib, *bwd),
+                lambda bwd=bwd: td.decoder_train_bwd(*bwd))
     return calls
 
 
@@ -318,7 +383,8 @@ def launch_k4(lib, x, qfd, g, tile):
 def against_parent(libs, k1_in, qfd, xs, k3) -> dict:
     """Parent and current kernels in turns (P, C, C, P) at every shape;
     also max |current - parent| / max |parent| (K3-bwd: the worst of its
-    gradients; its dcb is float noise around 0 in both)."""
+    gradients; its dcb is float noise around 0 in both), and whether K3's
+    f32 mode equals the parent's bit for bit (``bitwise``)."""
     G = MODEL["num_clusters"]
 
     def parent_k1(a, g, packed):
@@ -340,17 +406,29 @@ def against_parent(libs, k1_in, qfd, xs, k3) -> dict:
     out = {}
     for name, (old, new) in calls.items():
         ref, got = old(), new()
+        bitwise = None
+        if name.startswith("K3") and "bf16" not in name:
+            bitwise = all(torch.equal(p, q) for p, q in zip(got, ref))
         if name.startswith("K3-bwd"):          # dcb: noise around 0
             ref, got = ref[:3] + ref[4:], got[:3] + got[4:]
-        bf16 = isinstance(got, torch.Tensor) and got.dtype == torch.bfloat16
-        diff = rel_diff(got.float(), ref.float()) if bf16 else \
-            rel_diff(got, ref)
-        ulps = bf16_ulps(torch, got, ref) if bf16 else None
+        if name.startswith("K3-fwd-bf16"):     # out, cs in bf16 ULPs
+            ulps = [bf16_ulps(torch, p, q) for p, q in zip(got[:2], ref[:2])]
+            ulps = (max(u for u, _ in ulps), max(s for _, s in ulps))
+            diff = rel_diff(tuple(v.float() for v in got),
+                            tuple(v.float() for v in ref))
+        else:
+            bf16 = isinstance(got, torch.Tensor) and \
+                got.dtype == torch.bfloat16
+            diff = rel_diff(got.float(), ref.float()) if bf16 else \
+                rel_diff(got, ref)
+            ulps = bf16_ulps(torch, got, ref) if bf16 else None
         turns = dict(parent=[], current=[])
         for who in ("parent", "current", "current", "parent"):
             turns[who].append(cuda_ms(torch, old if who == "parent" else new))
         rec = {k: sum(v) / len(v) for k, v in turns.items()}
         rec.update(turns=turns, rel_diff=diff)
+        if bitwise is not None:
+            rec["bitwise"] = bitwise
         if ulps:
             rec.update(bf16_ulps=ulps[0], differing=ulps[1])
         out[name] = rec
@@ -359,7 +437,9 @@ def against_parent(libs, k1_in, qfd, xs, k3) -> dict:
               f"; turns {turns}; max|current - parent|/max|parent| "
               f"{diff:.3e}" + (f" ({ulps[0]:.2f} bf16 ULPs of max|parent|, "
                                f"{ulps[1]:.2%} of elements differ)"
-                               if ulps else ""), flush=True)
+                               if ulps else "")
+              + ("" if bitwise is None else
+                 f"; bit for bit: {'yes' if bitwise else 'NO'}"), flush=True)
     return out
 
 
@@ -376,6 +456,9 @@ def main(argv=None) -> int:
                          "sources (fused_decoder.cu, decoder_int8.cu, "
                          "train_decoder.cu, fused_decoder_bf16.cu if it "
                          "has one) to time against")
+    ap.add_argument("--k3", action="store_true",
+                    help="with --parent or --sweep: K3 only (no K1, K4 or "
+                         "serving traces)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     device = resolve_device()
@@ -389,16 +472,21 @@ def main(argv=None) -> int:
     out = {"card": smi, "dtype": args.dtype}
     with torch.inference_mode():
         if args.sweep or args.parent:
-            k1_in = k1_inputs(gen, device, dtype)
-            qfd, xs = k4_inputs(gen, device)
+            k1_in, qfd, xs = ({}, None, {}) if args.k3 else (
+                k1_inputs(gen, device, dtype), *k4_inputs(gen, device))
             if args.parent:
                 libs = build_parent(args.parent)
-                k3 = k3_calls(libs["train_decoder"], gen, device)
+                k3 = k3_calls(libs["train_decoder"], gen, device, dtype)
                 out["parent"] = against_parent(libs, k1_in, qfd, xs, k3)
                 del k3
             if args.sweep:
-                out["sweep"] = sweep(k1_in, qfd, xs, device)
+                if not args.k3:
+                    out["sweep"] = sweep(k1_in, qfd, xs, device)
+                if dtype == torch.bfloat16:
+                    out["sweep_k3_bf16"] = k3_bf16_sweep(gen, device)
             del k1_in, xs
+            if args.k3:
+                return finish(out, args, smi)
         for name, (b, t, g, layers, f) in SHAPES.items():
             x, *w = random_folded(torch, gen, b, t, g, layers, f, device)
             a = (x.to(dtype), *w)            # the weights stay f32

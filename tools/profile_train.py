@@ -32,12 +32,15 @@ from chip_smoke import TRAIN_CFG, B, T, train_batch  # noqa: E402
 from mixstage_tpu_torch.train import StepConfig, StepFactory  # noqa: E402
 from tools.profile_k1 import report, trace  # noqa: E402
 
-# the kernels of csrc/train_decoder.cu: the GEMM passes (3xTF32 or bf16 on
-# the tensor cores) and the column passes
-K3_GEMM = ("gemm_kernel<",)
-K3_COLUMN = ("bn_stats_kernel", "bn_act_kernel", "bn_bwd_sums_kernel",
-             "bn_bwd_dc_kernel", "col_sum_kernel", "reduce_splits_kernel",
-             "group_sum_kernel")
+# the kernels of csrc/train_decoder.cu: the GEMM passes (f32: 3xTF32
+# mma.sync; bf16: the wgmma GEMM of csrc/train_gemm_bf16.cuh, the packing
+# of its operand images and the sum of its split-K partials) and the column
+# passes (bf16: the image-writing ones too)
+K3_GEMM = ("gemm_kernel<", "wgmma_gemm_kernel<", "pack_kernel",
+           "split_sum_kernel")
+K3_COLUMN = ("bn_stats_kernel", "bn_act_kernel", "bn_act_img_kernel",
+             "bn_bwd_sums_kernel", "bn_bwd_dc_kernel", "bn_bwd_dc_img_kernel",
+             "col_sum_kernel", "reduce_splits_kernel", "group_sum_kernel")
 
 
 def k3_ms(rec, names) -> float:
@@ -73,7 +76,7 @@ def main(argv=None) -> int:
                       if k == "x" else torch.as_tensor(v, device=device))
                   for k, v in batch.items()}
         fn = factory.make_steps()[step]
-        rec = trace(lambda: fn(state, dbatch))
+        rec = trace(torch, lambda: fn(state, dbatch))
         gemm_ms, col_ms = k3_ms(rec, K3_GEMM), k3_ms(rec, K3_COLUMN)
         rec.update(k3_ms=gemm_ms + col_ms, k3_gemm_ms=gemm_ms,
                    k3_column_ms=col_ms)
