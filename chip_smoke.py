@@ -40,11 +40,13 @@ bf16 model (phases 18-19):
    mean step, fused and unfused in four ABBA turns each; train pose
    frames/s; K3-fwd and K3-bwd (3xTF32 on the tensor cores) against their
    bounds and plain versions;
-10. int8 and chain kernels: K4 against ``decoder_int8_plain`` at every shape
-    the int8 path launches it at (bs32 × 64, one 64-frame clip, the bs32
-    128-frame bucket) and at B=1 T=4096 and a ragged B=3 T=50, with weights
-    quantized from seeded folded weights (no element differs: K4's integer
-    MMA sums are exact and it rounds as its plain version does); K2
+10. int8 and chain kernels: the registers, spills and ptxas advisories of
+    K4's seven ``wgmma`` s8 instances; K4 against ``decoder_int8_plain`` at
+    every shape the int8 path launches it at (bs32 × 64, one 64-frame clip,
+    the bs32 128-frame bucket) and at B=1 T=4096 and a ragged B=3 T=50,
+    with weights quantized from seeded folded weights (no element differs:
+    K4's integer MMA sums are exact and it rounds as its plain version
+    does); K2
     against ``chain_plain`` at (32, 64, G=8, C=256, L=3), (4, 64, 4, 128,
     3) and a ragged B=3 T=50 (max |err| / max |ref| ≤ 1e-4);
 11. int8 serving: ``build_serving_fn(model, quantize_int8=True, calib=...)``
@@ -403,13 +405,19 @@ def trace(torch, fn, calls: int = 5) -> dict:
                               ms_per_call=ms / calls) for n, (c, ms) in top])
 
 
-def cuda_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
-    """Mean device time of ``fn()`` over ``reps`` back-to-back calls."""
+def cuda_ms(torch, fn, reps: int = 20, warmup: int = 3,
+            queued: bool = False) -> float:
+    """Mean device time of ``fn()`` over ``reps`` back-to-back calls.  With
+    ``queued`` the calls are enqueued while the card sleeps (about 10 ms)
+    before the first event, so they run without host gaps between them:
+    the device time of a kernel whose host call takes longer than it."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    if queued:
+        torch.cuda._sleep(20_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -672,6 +680,18 @@ def int8_phases(torch, args, device, smi, model, audio, styles, pose32,
     S = MODEL["num_speakers"]
 
     # 10. int8 and chain kernels against their plain versions ------------
+    # K4's wgmma instances (one per width N): registers, spills, and
+    # ptxas's advisories (a wgmma it serialises says so)
+    k4_ptxas = results["ptxas"]["decoder_int8"]
+    inst = [k for k in k4_ptxas["kernels"]
+            if k[0].startswith("decoder_int8_kernel")]
+    check(len(inst) == 7, f"{len(inst)} decoder_int8_kernel instances "
+          f"built, expected 7")
+    for kernel, regs, stores, loads in inst:
+        log(f"[kernel] K4 {kernel}: {regs} registers, {stores} B spill "
+            f"stores, {loads} B spill loads")
+    log(f"[kernel] K4 ptxas advisories: "
+        f"{k4_ptxas['advisories'] or 'none'}")
     qgen = torch.Generator().manual_seed(args.seed + 9)
     _, w0, wc, biases, wl, bl = random_folded(torch, qgen, 1, 1, G, L, F,
                                               device)
@@ -884,7 +904,7 @@ def int8_phases(torch, args, device, smi, model, audio, styles, pose32,
           "ms": main4["ms"], "plain_ms": main4["plain_ms"],
           "bound_ms": main4["bound_ms"], "bound_by": main4["bound_by"],
           # no single PyTorch call computes the int8 conv chain
-          "library_ms": None, "mma": "s8"}
+          "library_ms": None, "mma": "wgmma-s8"}
     k2 = {"name": "fused_grouped_conv_chain", "route": "cuda",
           "source": "mixstage_tpu_torch/ops/cuda/csrc/fused_decoder.cu",
           "replaces": "mixstage_tpu/ops/pallas/fused_conv.py:75",
@@ -1516,7 +1536,7 @@ def int8_bf16_phases(torch, args, device, smi, model, audio, styles,
          "max_abs_err": max(r["max_abs_err"] for r in k4_16.values()),
          "ms": main4["ms"], "plain_ms": main4["plain_ms"],
          "bound_ms": main4["bound_ms"], "bound_by": main4["bound_by"],
-         "library_ms": None, "mma": "s8"},
+         "library_ms": None, "mma": "wgmma-s8"},
         {"name": "fused_grouped_conv_chain_bf16", "mode": "bf16",
          "route": "cuda",
          "source": "mixstage_tpu_torch/ops/cuda/csrc/fused_decoder.cu",

@@ -1,4 +1,5 @@
-// Int8 BN-folded Mix-StAGE mixture decoder for NVIDIA Hopper (sm_90a).
+// K4: the int8 BN-folded Mix-StAGE mixture decoder for NVIDIA Hopper
+// (sm_90a), on f32 features or the bf16 features of a bf16 model.
 //
 // Replaces the TPU kernel mixstage_tpu/ops/pallas/quant.py::
 // fused_mixstage_decoder_int8 (body _decoder_kernel_int8).  Per group g:
@@ -16,360 +17,507 @@
 // the plain version does (decoder_int8_plain): __fmul_rn / __fadd_rn keep
 // nvcc from contracting a*b + c into an FMA (one ulp there flips a
 // requantized LSB), __fdiv_rn quantizes the input, rintf rounds half to
-// even like torch.round and jnp.round.  These intrinsics stay local to this
-// file; the f32 kernels keep their FMAs.
+// even like torch.round and jnp.round.  In the bf16-feature mode
+// (mixstage_decoder_int8_bf16; quantize_input promotes bf16 / f32) each
+// feature is loaded as one 2-byte value (a row of C0 = 266 bf16 values is
+// 532 bytes, so rows are only 4-byte aligned), widened exactly, then
+// divided and quantized as in the f32 mode; nothing else differs, and the
+// logits are f32 in both modes.
 //
-// What bounds it: ~26.8 G int8 operations per bs32 decoder call against
-// ~6.6 MB of int8 weights and ~8.5 MB of f32 activations in and out, so on
-// the card's int8 tensor-core rate it is bound by operations (~0.014 ms).
-// It runs on the int8 tensor cores (mma.sync.m16n8k32 s8 x s8 -> s32),
-// with K1's plan (fused_decoder.cu): one CTA owns a (time tile, sequence,
-// group) block and holds the tile's int8 activations in shared memory
-// across all L + 2 layers, so no intermediate layer touches HBM; rows
-// outside [0, T) stay zero, which is the per-sequence zero padding.  A row
-// is stored as 32-bit words of four consecutive channels, which is the
-// A-fragment layout of the s8 MMA; the weights come packed the same way
-// (ops/cuda/quant.py::pack_decoder_int8, output channel fastest), which is
-// its B-fragment layout, and reach shared memory in chunks of 16 words
-// (64 channels) through a ring of 3 cp.async stages (tensor_core.cuh), so
-// each weight word leaves L2 once per CTA and feeds every row of the tile.
-// K is padded to 8 words (32 channels) with zero weights.  16 warps: each
-// owns 32 output columns and every other 16-row m-tile of the layer, its B
-// fragments loaded once per k-step for all of them.  The k-step is
-// compiled for each count of live m-tiles, so the MMAs run without a
-// branch between them.
+// What bounds it: 26.83 G int8 operations per bs32 decoder call (G = 8,
+// C0 = 266, C = 256, L = 3, F = 96) against 6.6 MB of int8 weights and
+// 8.5 MB of f32 activations in and out: bound by operations at the card's
+// 1,979 TOP/s int8 rate, 0.0136 ms.  Only wgmma reaches that rate on
+// Hopper; the mma.sync kernel this one replaces ran at 6.4% of it.
 //
-// bf16-feature mode (mixstage_decoder_int8_bf16): the TPU kernel also takes
-// the bfloat16 features of a bf16 model, and quantize_input promotes them:
-// x / s_in is bf16 / f32, an f32 division of the exactly widened value.
-// Only the input stage differs: each feature is loaded as one 2-byte value
-// (a row of C0 = 266 bf16 values is 532 bytes, so row starts are only 4-byte
-// aligned and no wider load is safe), widened exactly, then __fdiv_rn and
-// quant8 as in the f32 mode.  The MMAs, the epilogue and the f32 logits
-// are the same code.  It moves ~1.1 MB less input at bs32 and stays bound
-// by operations.
+// The plan.  One CTA owns a (time tile, sequence, group) block and keeps
+// the tile's int8 activations in shared memory across all L + 2 layers (a
+// halo of L + 1 frames on each side is recomputed by the neighbouring
+// tile; rows outside [0, T) stay zero: the per-sequence 'same' padding).
+// Each layer is a transposed GEMM per tap, D^T[c_out, rows] = W^T[c_out,
+// c_in] X^T[c_in, rows], on wgmma m64nNk32 s8 with exact s32 sums: A (M =
+// 64 output channels per consumer warpgroup) is a chunk of 32 input
+// channels of one tap's weights, B (N rows) the activation tile.  8-bit
+// wgmma has no transpose, so both operands are K-major without swizzle
+// (wgmma.cuh): activations as [channel / 16][row][16 bytes], so the three
+// taps of a k=3 conv are one B descriptor moved by -16, 0, +16 bytes; the
+// weights as ops/cuda/quant.py::pack_decoder_int8 packs them once, when
+// the serving function is built, chunk by chunk in exactly the image
+// wgmma reads: per (layer, group, tap, 32 input channels) [2 halves of 16
+// channels][c_out padded to 64][16 bytes], zero past c_in and c_out.  N is
+// the kernel instance's (kWidths): the narrowest that covers the tile's
+// widest layer, tile + 2L rows and never more than T, so every wgmma has
+// one shape.  C0 = 266 is read as 288 channels of zero weights past 266.
+//
+// A warp-specialised pipeline.  One thread of a producer warpgroup streams
+// every chunk of every layer, in order, into a ring of kStages
+// shared-memory stages of kGroupChunks chunks each, one cp.async.bulk copy
+// per stage (a group's chunks lie one after the other in the image)
+// completing on the stage's full mbarrier; it runs ahead across layer
+// boundaries, so the next layer's weights are in flight during each
+// epilogue.  Four consumer warpgroups (one per 64 output channels; C, F <=
+// 256) wait on a stage, issue its wgmmas as one straight-line committed
+// group (ptxas serialises wgmmas behind a divergent path: a warpgroup past
+// c_out multiplies m-block 0 again and stores nothing), and release each
+// stage on its empty mbarrier once the group after it is issued and it has
+// completed (wgmma.wait_group 1).  The s32 sums are
+// exact, so there are no partials: one accumulator set serves a layer,
+// zeroed by its first wgmma (scale-d 0).  The epilogue (dequantize, bias,
+// leaky, requantize; op for op as above) writes the next layer's image
+// into the other buffer, then a proxy fence and a barrier of the consumers
+// hand it to the next layer's wgmmas; the logits go to global memory in
+// f32.  The producer is a whole warpgroup so that setmaxnreg can hand its
+// registers to the consumers.  The time tile and N follow the cost rule of
+// pick_tile below.
+//
+// What the measurements found (NVIDIA H100 80GB HBM3, 700 W; bs32 x 64;
+// tools/k4_variants.py, PERF.md section 6).  The mma.sync kernel
+// before this one (0.2129 ms) lost 11% without its MMAs (their fragment
+// loads kept), 29% without its weight copies, 37% without both, nothing
+// without its epilogue stores: its fragment loads, barriers and fixed
+// costs bound it.  This kernel's first version, one bulk copy and one
+// handshake per 32-channel chunk (0.1235 ms), lost nothing without its
+// copies and 37% without its MMAs: it paid per chunk, so a stage now
+// holds a group of four chunks, one copy and one handshake for each
+// (0.0932 ms).  Its epilogue then cost 39% and its input stage 17%: both
+// rounded through rintf and float-to-int conversions, which quant8 now
+// does with adds (0.0855 ms), and the input stage now has its loads in
+// flight together, off the critical path.  What is left is about a third
+// each: the wgmmas (both operands from shared memory), the epilogues, and
+// fixed costs (the launch, the ring's first fill, a barrier a layer), in
+// series within a CTA; the byte-wide stores of the epilogue cost nothing
+// measurable.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "launch_common.cuh"
-#include "tensor_core.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
-using mixstage::round8;
+using mixstage::card;
+namespace sm90 = mixstage::sm90;
 
-constexpr int kWarpsN = 8;            // each owns 32 output columns
-constexpr int kWarpsM = 2;            // and every other 16-row m-tile
-constexpr int kThreads = 32 * kWarpsN * kWarpsM;
-constexpr int kMTiles = 4;            // m-tiles per warp at most
-constexpr int kMaxRows = 16 * kMTiles * kWarpsM;
-constexpr int kStages = 3;            // chunks in the weight ring
-constexpr int kChunkRows = 16;        // k rows (words) per chunk
-constexpr int kMaxTile = 64;          // output frames per CTA at most
-// the weight staging's cost per CTA in row-passes (launch_common.cuh)
-constexpr int kWeightRows = 64;
+constexpr int kConsumerWGs = 4;             // one per 64 output channels
+constexpr int kConsumerWarps = 4 * kConsumerWGs;
+constexpr int kConsumerThreads = 32 * kConsumerWarps;
+constexpr int kThreads = kConsumerThreads + 128;  // + the producer warpgroup
+// registers per thread: 5 x 128 threads launch with 96 each, and
+// setmaxnreg moves them within that allocation (as fused_decoder_bf16.cu)
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 112;
+constexpr int kMaxCout = 64 * kConsumerWGs;
+constexpr int kChunkK = 32;                 // input channels per chunk
+constexpr int kGroupChunks = 4;             // chunks per stage and group
+constexpr int kStages = 4;                  // groups in the ring, at most
+constexpr int kMaxTile = 64;
+constexpr int kInputBatch = 4;              // input words a thread loads at once
+constexpr int kBarBytes = 2 * 8 * kStages;  // the ring's mbarriers
+// the cost rule's fixed cost of a CTA (input stage, pipeline fill), in
+// rows of N
+constexpr int kFixedRows = 16;
 
-__device__ __forceinline__ int quant8(float v) {   // clip(round(v), +-127)
-  return (int)fminf(fmaxf(rintf(v), -127.f), 127.f);
+__host__ __device__ inline int round32(int n) { return (n + 31) & ~31; }
+__host__ __device__ inline int round64(int n) { return (n + 63) & ~63; }
+
+// Bytes of one packed chunk: 32 input channels x c_out padded to 64.
+__host__ __device__ inline int chunk_bytes(int cout) {
+  return kChunkK * round64(cout);
 }
 
-// A feature as f32: the f32 value, or the bf16 value widened (exact).
-__device__ __forceinline__ float feature(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float feature(const __nv_bfloat16* p) {
-  return __bfloat162float(__ldg(p));
+// Byte of channel m, row r in an activation image of nrows rows.
+__device__ __forceinline__ int act_byte(int m, int r, int nrows) {
+  return ((m >> 4) * nrows + r) * 16 + (m & 15);
 }
 
-// One k-step (8 words: 32 input channels) of a warp's NM m-tiles x 4
-// n-tiles.  `a` points at the warp's A word (row 0 of its first m-tile,
-// word k0 + t), arow[i][h] are the row offsets (words) of m-tile i's
-// fragment rows g + 8h; `b` points at the warp's B word (k row t, column
-// n0 + g) in the staged chunk, row stride ws.  Without kFullN only the
-// first nt n-tiles are live.
-template <int NM, bool kFullN>
-__device__ __forceinline__ void kstep_s8(int (&acc)[kMTiles][4][4],
-                                         const uint32_t* a,
-                                         const int (&arow)[kMTiles][2],
-                                         const uint32_t* b, int ws, int nt) {
-  uint32_t bf[4][2], af[NM][4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    if (kFullN || j < nt) {
-      bf[j][0] = b[8 * j];
-      bf[j][1] = b[8 * j + 4 * ws];
-    }
+// clip(round(v), +-127), rounding half to even: clamped first (the same
+// result for every v; NaN gives -127 either way), then rounded by adding
+// 1.5 * 2^23, whose float has an ulp of 1, and read back from its low
+// bits: two full-rate adds where rintf and a float-to-int conversion would
+// each take the SM's quarter-rate conversion unit.
+__device__ __forceinline__ int quant8(float v) {
+  const float c = fminf(fmaxf(v, -127.f), 127.f);
+  return __float_as_int(__fadd_rn(c, 12582912.f)) - 0x4B400000;
+}
+
+// Feature i of x as f32: the f32 value, or the bf16 value widened (exact).
+__device__ __forceinline__ float feature(const void* x, size_t i, bool bf16) {
+  return bf16 ? __bfloat162float(
+                    __ldg(static_cast<const __nv_bfloat16*>(x) + i))
+              : __ldg(static_cast<const float*>(x) + i);
+}
+
+// Layer l of the chain (0: C0 -> C, 1..L: C -> C, L + 1: the logits).
+struct Layer {
+  int cin, cout, taps, nk;                  // nk: 32-channel chunks per tap
+  __host__ __device__ Layer(int l, int C0, int C, int L, int F)
+      : cin(l == 0 ? C0 : C), cout(l == L + 1 ? F : C),
+        taps(l == L + 1 ? 1 : 3), nk((cin + kChunkK - 1) / kChunkK) {}
+  __host__ __device__ int chunks() const { return taps * nk; }
+  __host__ __device__ size_t bytes() const {  // one group's image
+    return (size_t)chunks() * chunk_bytes(cout);
   }
+};
+
+// The NC wgmmas of a group of NC chunks as one committed group, in
+// straight-line code from the fence to the commit: chunk c's A (a[c], this
+// warpgroup's 64 rows of its image) times its B (b[c]) into d; the
+// layer's first wgmma (first) zeroes d.
+template <int N, int NC>
+__device__ __forceinline__ void mma_group(int (&d)[N / 2],
+                                          const uint32_t (&a)[kGroupChunks],
+                                          const uint32_t (&b)[kGroupChunks],
+                                          bool first, uint32_t lbo_a,
+                                          uint32_t lbo_b) {
 #pragma unroll
-  for (int i = 0; i < NM; ++i)
+  for (int i = 0; i < N / 2; ++i) sm90::fence_operand(d[i]);
+  sm90::wgmma_fence();
 #pragma unroll
-    for (int e = 0; e < 4; ++e) af[i][e] = a[arow[i][e & 1] + 4 * (e >> 1)];
-#pragma unroll
-  for (int i = 0; i < NM; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      if (kFullN || j < nt) mixstage::mma_s8(acc[i][j], af[i], bf[j]);
+  for (int c = 0; c < NC; ++c)
+    sm90::wgmma_s8<N>(d, sm90::matrix_desc(a[c], lbo_a, 128),
+                      sm90::matrix_desc(b[c], lbo_b, 128),
+                      (c > 0 || !first) ? 1 : 0);
+  sm90::wgmma_commit();
 }
 
-// kstep_s8<nm, kFullN> for a runtime nm in [1, NM].
-template <int NM, bool kFullN>
-__device__ __forceinline__ void kstep_s8_n(int nm, int (&acc)[kMTiles][4][4],
-                                           const uint32_t* a,
-                                           const int (&arow)[kMTiles][2],
-                                           const uint32_t* b, int ws, int nt) {
-  if (nm == NM) {
-    kstep_s8<NM, kFullN>(acc, a, arow, b, ws, nt);
-  } else if constexpr (NM > 1) {
-    kstep_s8_n<NM - 1, kFullN>(nm, acc, a, arow, b, ws, nt);
-  }
-}
-
-// One KT-tap int8 layer (KT = 3: 'same' conv; KT = 1: the 1x1 logits)
-// producing tile rows [lo, hi) (at most kMaxRows).  `in` is the int8 tile
-// as words of four channels (row stride `stride` words, row r <-> time
-// t_first + r); output row r reads input rows r - KT/2 .. r + KT/2.  w is
-// (KT, cinw, cout) words with cout fastest.  Hidden layers write the
-// requantized int8 activations to the shared tile `out` (row stride
-// out_stride bytes); the logits layer writes f32 to global row t of `out`
-// (row stride out_stride floats).  `ring` holds kStages chunks of `slot`
-// words.  Warp (wn, wm) computes columns [32 wn, 32 wn + 32) of m-tiles
-// wm, wm + 2, ...  Every thread of the CTA calls it (it synchronises).
-template <int KT, bool kLogits>
-__device__ __forceinline__ void layer8(
-    const uint32_t* in, int stride, int cinw, const int* __restrict__ w,
-    const float* __restrict__ mult, const float* __restrict__ bias,
-    const float* __restrict__ rq, int cout, int lo, int hi, void* out,
-    int out_stride, int t_first, float slope, uint32_t* ring, int slot) {
-  const int rows = hi - lo;
-  if (rows <= 0) return;                  // the same for the whole CTA
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int warp = threadIdx.x >> 5;
-  const int n0 = 32 * (warp % kWarpsN), wm = warp / kWarpsN;
-  const int kpad = round8(cinw);
-  const int kchunks = (kpad + kChunkRows - 1) / kChunkRows;
-  const int nchunks = KT * kchunks;
-  const int ws = mixstage::weight_stride(cout);
-  // this warp's m-tiles wm + kWarpsM * i, i < nm, and n-tiles j < nt
-  const int nm = min(kMTiles, ((rows + 15) / 16 - wm + kWarpsM - 1) / kWarpsM);
-  const int nt = min(4, (cout - n0 + 7) / 8);
-  const bool live = nm > 0 && nt > 0;
-  // rows past hi recompute row hi - 1 (never stored): no load leaves the tile
-  const int r0 = lo + 16 * wm + g;
-  int arow[kMTiles][2];
-#pragma unroll
-  for (int i = 0; i < kMTiles; ++i)
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-      arow[i][h] = (min(r0 + 16 * kWarpsM * i + 8 * h, hi - 1) - r0) * stride;
-  int acc[kMTiles][4][4];
-#pragma unroll
-  for (int i = 0; i < kMTiles; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
-
-  auto stage = [&](int c) {               // chunk c: tap c / kchunks
-    if (c < nchunks) {
-      const int tap = c / kchunks;
-      mixstage::stage_chunk<kChunkRows>(
-          ring + (c % kStages) * slot, ws,
-          reinterpret_cast<const uint32_t*>(w + (size_t)tap * cinw * cout),
-          cinw, cout, (c - tap * kchunks) * kChunkRows);
-    }
-    mixstage::cp_async_commit();          // an empty group keeps the count
-  };
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) stage(s);
-  for (int c = 0; c < nchunks; ++c) {
-    mixstage::cp_async_wait<kStages - 2>();   // chunk c has landed ...
-    __syncthreads();            // ... for every thread; chunk c-1 is done
-    stage(c + kStages - 1);     // into chunk c-1's slot
-    if (!live) continue;
-    const int tap = c / kchunks, kc = (c - tap * kchunks) * kChunkRows;
-    const uint32_t* a = in + (r0 + tap - KT / 2) * stride + t;
-    const uint32_t* b = ring + (c % kStages) * slot + t * ws + n0 + g;
-#pragma unroll
-    for (int ks = 0; ks < kChunkRows; ks += 8) {
-      const int k0 = kc + ks;
-      if (k0 >= kpad) break;
-      if (nt == 4)
-        kstep_s8_n<kMTiles, true>(nm, acc, a + k0, arow, b + ks * ws, ws, nt);
-      else
-        kstep_s8_n<kMTiles, false>(nm, acc, a + k0, arow, b + ks * ws, ws,
-                                   nt);
-    }
-  }
-  mixstage::cp_async_wait<0>();           // only empty groups are left
-  if (!live) return;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int c = n0 + 8 * j + 2 * t + (e & 1);
-      if (c >= cout) continue;
-      const float m = __ldg(mult + c), bc = __ldg(bias + c);
-      const float r = kLogits ? 0.f : __ldg(rq + c);
-#pragma unroll
-      for (int i = 0; i < kMTiles; ++i) {
-        const int row = r0 + 16 * kWarpsM * i + 8 * (e >> 1);
-        if (i >= nm || row >= hi) continue;
-        float y = __fadd_rn(__fmul_rn(__int2float_rn(acc[i][j][e]), m), bc);
-        if (kLogits) {
-          static_cast<float*>(out)[(size_t)(t_first + row) * out_stride + c] =
-              y;
-        } else {
-          y = y >= 0.f ? y : __fmul_rn(slope, y);
-          static_cast<int8_t*>(out)[row * out_stride + c] =
-              (int8_t)quant8(__fmul_rn(y, r));
-        }
-      }
-    }
+// mma_group<N, nc> for a runtime nc in [1, NC] (a layer's last group may
+// hold fewer chunks).
+template <int N, int NC>
+__device__ __forceinline__ void mma_group_n(int nc, int (&d)[N / 2],
+                                            const uint32_t (&a)[kGroupChunks],
+                                            const uint32_t (&b)[kGroupChunks],
+                                            bool first, uint32_t lbo_a,
+                                            uint32_t lbo_b) {
+  if (nc == NC) {
+    mma_group<N, NC>(d, a, b, first, lbo_a, lbo_b);
+  } else if constexpr (NC > 1) {
+    mma_group_n<N, NC - 1>(nc, d, a, b, first, lbo_a, lbo_b);
   }
 }
 
-// X: the feature type (float, or __nv_bfloat16 in the bf16-feature mode).
-template <class X>
+// N: the rows (B's columns) of every wgmma, at least any layer's rows.
+// 512 consumer threads (4 warpgroups) and a producer warpgroup.  x is f32,
+// or bf16 where x_bf16.
+template <int N>
 __global__ void __launch_bounds__(kThreads, 1) decoder_int8_kernel(
-    const X* __restrict__ x, const float* __restrict__ s_in,
-    const int* __restrict__ w0, const int* __restrict__ wc,
-    const int* __restrict__ wl, const float* __restrict__ m0,
+    const void* __restrict__ x, int x_bf16, const float* __restrict__ s_in,
+    const int8_t* __restrict__ w0, const int8_t* __restrict__ wc,
+    const int8_t* __restrict__ wl, const float* __restrict__ m0,
     const float* __restrict__ mc, const float* __restrict__ ml,
     const float* __restrict__ rq, const float* __restrict__ biases,
     const float* __restrict__ bl, float* __restrict__ out, int T, int C0,
-    int C, int L, int F, int G, int tile_t, int stride, int slot,
-    float slope) {
-  extern __shared__ __align__(16) uint32_t smem[];
-  const int halo = L + 1;
-  const int nr = tile_t + 2 * halo;         // tile rows incl. both halos
+    int C, int L, int F, int G, int tile_t, int nrows, int kp0, int stage,
+    int nstages, float slope) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + kStages;
+  unsigned char* ring = smem + kBarBytes;
+  int8_t* buf0 = reinterpret_cast<int8_t*>(ring + (size_t)nstages * stage);
+  int8_t* buf1 = buf0 + (size_t)kp0 * nrows;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int halo = L + 1, nr = tile_t + 2 * halo;
   const int b = blockIdx.y, g = blockIdx.z;
   const int t_first = blockIdx.x * tile_t - halo;   // time of tile row 0
   // rows holding t in [0, T); the rest stay zero: the 'same' zero padding
   const int v_lo = max(0, -t_first);
   const int v_hi = min(nr, T - t_first);
-  const int c0w = (C0 + 3) / 4, cw = (C + 3) / 4;
-  uint32_t* buf[2] = {smem, smem + (size_t)nr * stride};
-  uint32_t* ring = smem + 2 * (size_t)nr * stride;
+  if (tid == 0) {
+    for (int s = 0; s < nstages; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], kConsumerWarps);
+    }
+    sm90::fence_mbar_init();
+  }
+  __syncthreads();        // the barriers exist before any thread uses them
 
-  // zero both buffers; quantize the input rows of sequence b into buf0, four
-  // channels to a word (channel 4i+e in byte e), one warp per row
-  const X* xb = x + (size_t)b * T * C0;
-  for (int r = threadIdx.x >> 5; r < nr; r += blockDim.x >> 5) {
-    const bool valid = r >= v_lo && r < v_hi;
-    const X* xr = xb + (size_t)(t_first + r) * C0;
-    for (int wd = threadIdx.x & 31; wd < stride; wd += 32) {
-      unsigned word = 0;
-      if (valid && wd < c0w) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int ch = 4 * wd + e;
-          if (ch < C0) {
-            const int q = quant8(__fdiv_rn(feature(xr + ch), __ldg(s_in + ch)));
-            word |= ((unsigned)q & 0xffu) << (8 * e);
+  if (warp >= kConsumerWarps) {
+    // ---- producer: every chunk of every layer, in the consumers' order
+    sm90::setmaxnreg_dec<kProducerRegs>();
+    if (warp == kConsumerWarps && lane == 0) {
+      int s = 0;
+      uint32_t ph = 0;
+      for (int l = 0; l <= L + 1; ++l) {
+        const Layer ly(l, C0, C, L, F);
+        const int8_t* src = l == 0 ? w0 + g * ly.bytes()
+                            : l <= L
+                                ? wc + ((size_t)(l - 1) * G + g) * ly.bytes()
+                                : wl + g * ly.bytes();
+        // a group's chunks lie one after the other in the image
+        for (int c0 = 0; c0 < ly.chunks(); c0 += kGroupChunks) {
+          const uint32_t bytes =
+              min(kGroupChunks, ly.chunks() - c0) * chunk_bytes(ly.cout);
+          sm90::mbar_wait(&empty[s], ph ^ 1);   // round 0 passes at once
+          sm90::mbar_arrive_expect_tx(&full[s], bytes);
+          sm90::bulk_copy(ring + (size_t)s * stage, src, bytes, &full[s]);
+          src += bytes;
+          if (++s == nstages) {
+            s = 0;
+            ph ^= 1;
           }
         }
       }
-      buf[0][r * stride + wd] = word;
-      buf[1][r * stride + wd] = 0;
+    }
+    return;
+  }
+
+  // ---- consumers: zero buf1; quantize the input rows of sequence b into
+  // buf0, four channels to a 32-bit word (zero outside [v_lo, v_hi) and
+  // past C0); nrows is odd, so the 16-byte lines of one row's channel
+  // slices fall on distinct banks
+  sm90::setmaxnreg_inc<kConsumerRegs>();
+  {
+    uint4* z = reinterpret_cast<uint4*>(buf1);
+    const int nz = round32(C) * nrows / 16;
+    for (int i = tid; i < nz; i += kConsumerThreads)
+      z[i] = make_uint4(0, 0, 0, 0);
+    // kInputBatch words a thread, their loads all in flight before the
+    // first division; a feature outside the sequence or past C0 is 0 / 1
+    const int nw = kp0 / 4, items = nrows * nw;   // words of a row, in all
+    for (int i0 = tid; i0 < items; i0 += kInputBatch * kConsumerThreads) {
+      float v[kInputBatch][4], sc[kInputBatch][4];
+#pragma unroll
+      for (int k = 0; k < kInputBatch; ++k) {
+        const int i = i0 + k * kConsumerThreads;
+        const int r = i / nw, wd = i - r * nw;
+        const bool live = i < items && r >= v_lo && r < v_hi;
+        const size_t row = ((size_t)b * T + (t_first + r)) * C0;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int ch = 4 * wd + e;
+          const bool ok = live && ch < C0;
+          v[k][e] = ok ? feature(x, row + ch, x_bf16) : 0.f;
+          sc[k][e] = ok ? __ldg(s_in + ch) : 1.f;
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kInputBatch; ++k) {
+        const int i = i0 + k * kConsumerThreads;
+        if (i < items) {
+          const int r = i / nw, wd = i - r * nw;
+          uint32_t word = 0;
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            word |= ((uint32_t)quant8(__fdiv_rn(v[k][e], sc[k][e])) & 0xffu)
+                    << (8 * e);
+          *reinterpret_cast<uint32_t*>(buf0 + act_byte(4 * wd, r, nrows)) =
+              word;
+        }
+      }
     }
   }
-  __syncthreads();
+  sm90::fence_proxy_async();
+  sm90::named_barrier(1, kConsumerThreads);
 
-  const int nb = L + 1;                     // layers with a bias, per group
-  const int stride_b = 4 * stride;          // row stride in bytes
-  // layer 0: buf0 (C0 wide) -> buf1; layer l reads rows [l, nr - l)
-  layer8<3, false>(buf[0], stride, c0w, w0 + (size_t)g * 3 * c0w * C,
-                   m0 + (size_t)g * C, biases + (size_t)g * nb * C,
-                   rq + (size_t)g * nb * C, C, max(1, v_lo),
-                   min(nr - 1, v_hi), buf[1], stride_b, t_first, slope, ring,
-                   slot);
-  __syncthreads();
-  for (int l = 1; l <= L; ++l) {
-    layer8<3, false>(buf[l & 1], stride, cw,
-                     wc + ((size_t)(l - 1) * G + g) * 3 * cw * C,
-                     mc + ((size_t)(l - 1) * G + g) * C,
-                     biases + ((size_t)g * nb + l) * C,
-                     rq + ((size_t)g * nb + l) * C, C, max(l + 1, v_lo),
-                     min(nr - l - 1, v_hi), buf[(l + 1) & 1], stride_b,
-                     t_first, slope, ring, slot);
-    __syncthreads();
+  const int wg = warp >> 2, w4 = warp & 3;
+  const uint32_t lbo_b = (uint32_t)nrows * 16;       // next 16 channels
+  int s = 0;
+  uint32_t ph = 0;
+  int acc[N / 2];
+  for (int l = 0; l <= L + 1; ++l) {
+    const bool logits = l == L + 1;
+    const Layer ly(l, C0, C, L, F);
+    const int mp = round64(ly.cout);
+    // rows [lo, hi) of this layer's output (layer l reads [l, nr - l)),
+    // computed as the N rows from lo
+    const int lo = logits ? max(halo, v_lo) : max(l + 1, v_lo);
+    const int hi = logits ? min(halo + tile_t, v_hi) : min(nr - l - 1, v_hi);
+    const int8_t* in = (l & 1) ? buf1 : buf0;
+    int8_t* nxt = (l & 1) ? buf0 : buf1;
+    // B of tap 0: rows lo - 1 .. (k=3), lo .. (the 1x1 logits)
+    const uint32_t b_addr =
+        sm90::smem_u32(in) + (uint32_t)(lo - ly.taps / 2) * 16;
+    // a warpgroup past c_out multiplies m-block 0 again
+    const int mb = wg * 64 < mp ? wg : 0;
+    const uint32_t a_addr = sm90::smem_u32(ring) + (uint32_t)mb * 64 * 16;
+    // the epilogue's dequant multipliers, biases and requant reciprocals of
+    // this thread's two channels, loaded while the MMAs run
+    const int ch0 = wg * 64 + 16 * w4 + (lane >> 2);
+    float mu[2], bi[2], rr[2];
+    {
+      const float* mult = l == 0   ? m0 + (size_t)g * C
+                          : logits ? ml + (size_t)g * F
+                                   : mc + ((size_t)(l - 1) * G + g) * C;
+      const float* bias = logits ? bl + (size_t)g * F
+                                 : biases + ((size_t)g * (L + 1) + l) * C;
+      const float* req = rq + ((size_t)g * (L + 1) + l) * C;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = ch0 + 8 * h;
+        const bool ok = m < ly.cout;
+        mu[h] = ok ? __ldg(mult + m) : 0.f;
+        bi[h] = ok ? __ldg(bias + m) : 0.f;
+        rr[h] = ok && !logits ? __ldg(req + m) : 0.f;
+      }
+    }
+    const int n = ly.chunks();
+    const uint32_t cbytes = chunk_bytes(ly.cout);
+    int tap = 0, kc = 0, s_prev = -1;
+    for (int c0 = 0; c0 < n; c0 += kGroupChunks) {
+      const int nc = min(kGroupChunks, n - c0);
+      // wait for the group's stage; its chunks' A and B addresses
+      sm90::mbar_wait(&full[s], ph);
+      uint32_t a[kGroupChunks], bb[kGroupChunks];
+#pragma unroll
+      for (int i = 0; i < kGroupChunks; ++i) {
+        a[i] = a_addr + (uint32_t)s * stage + i * cbytes;
+        bb[i] = b_addr + (uint32_t)(2 * kc * nrows + tap) * 16;
+        if (++kc == ly.nk) {
+          kc = 0;
+          ++tap;
+        }
+      }
+      mma_group_n<N, kGroupChunks>(nc, acc, a, bb, c0 == 0, mp * 16,
+                                   lbo_b);
+      // the group before this one has completed: this warp releases its
+      // stage
+      sm90::wgmma_wait<1>();
+      if (s_prev >= 0 && lane == 0) sm90::mbar_arrive(&empty[s_prev]);
+      s_prev = s;
+      if (++s == nstages) {
+        s = 0;
+        ph ^= 1;
+      }
+    }
+    sm90::wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) sm90::fence_operand(acc[i]);
+    if (s_prev >= 0 && lane == 0) sm90::mbar_arrive(&empty[s_prev]);
+
+    // epilogue, op for op as decoder_int8_plain: register 4j + e holds
+    // channel ch0 + 8 (e / 2), row r0 + 8j + e % 2 (wgmma.cuh)
+    if (wg * 64 < ly.cout) {
+      const int r0 = lo + 2 * (lane & 3);
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1, m = ch0 + 8 * h, r = r0 + 8 * j + (e & 1);
+          if (m < ly.cout && r < hi) {
+            float y = __fadd_rn(__fmul_rn(__int2float_rn(acc[4 * j + e]),
+                                          mu[h]), bi[h]);
+            if (logits) {
+              out[((size_t)b * T + (t_first + r)) * G * F + (size_t)g * F +
+                  m] = y;
+            } else {
+              y = y >= 0.f ? y : __fmul_rn(slope, y);
+              const int q = quant8(__fmul_rn(y, rr[h]));
+              nxt[act_byte(m, r, nrows)] = (int8_t)q;
+            }
+          }
+        }
+      }
+    }
+    if (!logits) {
+      sm90::fence_proxy_async();
+      sm90::named_barrier(1, kConsumerThreads);
+    }
   }
-  // 1x1 logits of the tile's own rows [halo, halo + tile_t) into
-  // out[b, t, g*F:(g+1)*F]
-  layer8<1, true>(buf[(L + 1) & 1], stride, cw, wl + (size_t)g * cw * F,
-                  ml + (size_t)g * F, bl + (size_t)g * F, nullptr, F,
-                  max(halo, v_lo), min(halo + tile_t, v_hi),
-                  out + (size_t)b * T * G * F + (size_t)g * F, G * F, t_first,
-                  slope, ring, slot);
 }
 
-// The shared memory of one CTA: two buffers of tile_t + 2(L+1) rows (row
-// stride act_stride of the wider of C0 and C in words of four int8
-// channels), then the weight ring.
-struct Layout {
-  int stride, slot;
-  Layout(int C0, int C, int F)
-      : stride(mixstage::act_stride((C0 > C ? C0 + 3 : C + 3) / 4)),
-        slot(kChunkRows * mixstage::weight_stride(C > F ? C : F)) {}
-  size_t bytes(int L, int tile_t) const {
-    return (2 * (size_t)(tile_t + 2 * (L + 1)) * stride +
-            (size_t)kStages * slot) * sizeof(uint32_t);
+// The kernel instances: wgmma widths N (rows), narrowest first.
+constexpr int kWidths[] = {16, 24, 32, 48, 64, 80, 128};
+using Kernel = decltype(&decoder_int8_kernel<16>);
+constexpr Kernel kKernels[] = {
+    decoder_int8_kernel<16>, decoder_int8_kernel<24>,
+    decoder_int8_kernel<32>, decoder_int8_kernel<48>,
+    decoder_int8_kernel<64>, decoder_int8_kernel<80>,
+    decoder_int8_kernel<128>};
+constexpr int kInstances = sizeof(kWidths) / sizeof(kWidths[0]);
+
+// A launch's instance and shared memory for tiles of tile_t frames.  Layer
+// 0 computes the most rows, tile_t + 2L and never more than T; the
+// instance is the narrowest N that covers them (inst = -1: none).  The
+// shared memory holds the barriers, the weight ring and two activation
+// images of nrows rows: buf0 of kp0 channels (the input, C0, and every
+// other hidden layer), buf1 of round32(C); nrows is the tile's tile_t +
+// 2(L + 1) rows or, if more, the L + 2 + N that a layer's N rows from its
+// first row (at most row L + 1) read with their taps, made odd.  The ring
+// has kStages stages, or as few as 2 where the images need the room (a
+// wide C0, a deep chain), so the widths the mma.sync kernel before it took
+// still fit.
+struct Plan {
+  int inst = -1, nrows = 0, kp0, kp1, stage, nstages = kStages;
+  size_t bytes = 0;
+  Plan(int T, int C0, int C, int L, int F, int tile_t, size_t smem_limit)
+      : kp0(round32(C0 > C ? C0 : C)), kp1(round32(C)),
+        stage(kGroupChunks * chunk_bytes(C > F ? C : F)) {
+    const int rows = tile_t + 2 * L < T ? tile_t + 2 * L : T;
+    for (int i = kInstances - 1; i >= 0 && tile_t > 0; --i)
+      if (rows <= kWidths[i]) inst = i;
+    if (inst < 0) return;
+    nrows = tile_t + 2 * (L + 1);
+    if (nrows < L + 2 + kWidths[inst]) nrows = L + 2 + kWidths[inst];
+    nrows |= 1;
+    const size_t images = (size_t)(kp0 + kp1) * nrows;
+    while (nstages > 2 &&
+           kBarBytes + (size_t)nstages * stage + images > smem_limit)
+      --nstages;
+    bytes = kBarBytes + (size_t)nstages * stage + images;
+  }
+  bool fits(size_t smem_limit) const {
+    return inst >= 0 && bytes <= smem_limit;
   }
 };
 
+// The time tile: of the tiles 8, 16, 32, 64 that fit and half of which
+// does not already cover T, the one with the least estimated time, waves
+// of CTAs (ceil(G B ceil(T / tile) / sm_count)) times a CTA's cost, which
+// is kFixedRows + N rows (every layer computes N rows); ties go to the
+// smaller tile.  0 when none fits.  At bs32 x 64 (G = 8) it picks 64 (256
+// CTAs, two waves on 132 SMs, N = 64: of layer 0's 70 rows only T = 64
+// exist); one 64-frame clip 8 (64 CTAs, one wave, N = 16); the ragged
+// B=3 T=50 16 (96 CTAs, one wave, N = 24).
 int pick_tile(int B, int T, int C0, int C, int L, int F, int G, int sm_count,
               size_t smem_limit) {
-  const Layout lay(C0, C, F);
-  return mixstage::cost_tile(
-      kMaxTile, B, T, G, L + 1, L + 1, 16 * kWarpsM, kWeightRows, sm_count,
-      [&](int t) {
-        return t + 2 * L <= kMaxRows && lay.bytes(L, t) <= smem_limit;
-      });
+  int best = 0;
+  long long best_cost = 0;
+  for (int tile = 8; tile <= kMaxTile; tile *= 2) {
+    if (tile > 8 && tile / 2 >= T) continue;
+    const Plan plan(T, C0, C, L, F, tile, smem_limit);
+    if (!plan.fits(smem_limit)) continue;
+    const long long ctas = (long long)G * B * ((T + tile - 1) / tile);
+    const long long cost = (ctas + sm_count - 1) / sm_count *
+                           (kFixedRows + kWidths[plan.inst]);
+    if (best == 0 || cost < best_cost) {
+      best = tile;
+      best_cost = cost;
+    }
+  }
+  return best;
 }
 
-}  // namespace
-
-extern "C" {
-
-// Output frames per CTA on a card of `sm_count` SMs with `smem_limit` bytes
-// of dynamic shared memory per CTA (the rule mixstage::cost_tile); 0 when
-// no tile fits.
-int mixstage_decoder_int8_tile(int B, int T, int C0, int C, int L, int F,
-                               int G, int sm_count, size_t smem_limit) {
-  return pick_tile(B, T, C0, C, L, F, G, sm_count, smem_limit);
-}
-
-}  // extern "C"
-
-namespace {
-
-template <class X>
-int launch(const X* x, const float* s_in, const int* w0, const int* wc,
-           const int* wl, const float* m0, const float* mc, const float* ml,
-           const float* rq, const float* biases, const float* bl, float* out,
-           int B, int T, int C0, int C, int L, int F, int G, float slope,
-           int tile_t, void* stream) {
+int launch(const void* x, bool bf16, const float* s_in, const int8_t* w0,
+           const int8_t* wc, const int8_t* wl, const float* m0,
+           const float* mc, const float* ml, const float* rq,
+           const float* biases, const float* bl, float* out, int B, int T,
+           int C0, int C, int L, int F, int G, float slope, int tile_t,
+           void* stream) {
+  // bulk copies read 16-byte aligned chunks
+  const bool aligned = ((uintptr_t)w0 | (L > 0 ? (uintptr_t)wc : 0) |
+                        (uintptr_t)wl) % 16 == 0;
   if (B <= 0 || T <= 0 || C0 <= 0 || C <= 0 || L < 0 || F <= 0 || G <= 0 ||
-      B > 65535 || G > 65535 || C > 32 * kWarpsN || F > 32 * kWarpsN ||
-      tile_t < 0)
+      B > 65535 || G > 65535 || C > kMaxCout || F > kMaxCout || tile_t < 0 ||
+      !aligned)
     return (int)cudaErrorInvalidValue;
   int sms, smem_limit;
-  cudaError_t err = mixstage::card(&sms, &smem_limit);
+  cudaError_t err = card(&sms, &smem_limit);
   if (err != cudaSuccess) return (int)err;
   if (tile_t == 0) tile_t = pick_tile(B, T, C0, C, L, F, G, sms, smem_limit);
-  const Layout lay(C0, C, F);
-  if (tile_t == 0 || tile_t + 2 * L > kMaxRows ||
-      lay.bytes(L, tile_t) > (size_t)smem_limit)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = lay.bytes(L, tile_t);
-  err = cudaFuncSetAttribute(decoder_int8_kernel<X>,
+  const Plan plan(T, C0, C, L, F, tile_t, smem_limit);
+  if (!plan.fits(smem_limit)) return (int)cudaErrorInvalidValue;
+  const Kernel kernel = kKernels[plan.inst];
+  err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+                             (int)plan.bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((T + tile_t - 1) / tile_t, B, G);
-  decoder_int8_kernel<X><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      x, s_in, w0, wc, wl, m0, mc, ml, rq, biases, bl, out, T, C0, C, L, F,
-      G, tile_t, lay.stride, lay.slot, slope);
+  kernel<<<grid, kThreads, plan.bytes, (cudaStream_t)stream>>>(
+      x, bf16 ? 1 : 0, s_in, w0, wc, wl, m0, mc, ml, rq, biases, bl, out, T,
+      C0, C, L, F, G, tile_t, plan.nrows, plan.kp0, plan.stage, plan.nstages,
+      slope);
   return (int)cudaGetLastError();
 }
 
@@ -377,40 +525,57 @@ int launch(const X* x, const float* s_in, const int* w0, const int* wc,
 
 extern "C" {
 
+// Output frames per CTA on a card of `sm_count` SMs with `smem_limit` bytes
+// of dynamic shared memory per CTA (pick_tile's rule); 0 when no tile fits.
+int mixstage_decoder_int8_tile(int B, int T, int C0, int C, int L, int F,
+                               int G, int sm_count, size_t smem_limit) {
+  return pick_tile(B, T, C0, C, L, F, G, sm_count, smem_limit);
+}
+
+// The wgmma width N (rows) of a launch with tiles of tile_t frames at T
+// frames and L chain layers; 0 when no instance covers its rows.
+int mixstage_decoder_int8_width(int T, int L, int tile_t) {
+  const Plan plan(T, 1, 1, L, 1, tile_t, (size_t)-1);
+  return plan.inst < 0 ? 0 : kWidths[plan.inst];
+}
+
 // Launch on `stream` on the current device with `tile_t` output frames per
 // CTA (0: mixstage_decoder_int8_tile's choice for that device); returns the
 // cudaError_t of the launch (0 = success; cudaErrorInvalidValue for a bad
-// shape, or a tile whose rows or shared memory do not fit).  All pointers
-// are device pointers to contiguous arrays:
+// shape, an image not 16-byte aligned, or a tile that does not fit).  All
+// pointers are device pointers to contiguous arrays:
 //   x (B, T, C0) f32; s_in (C0,) f32 input scales;
-//   w0 (G, 3, ceil(C0/4), C), wc (L, G, 3, ceil(C/4), C), wl (G, ceil(C/4), F)
-//   int32 words of four int8 input channels (channel 4i+e in byte e);
+//   w0 (G, 3, n0, 2, c64, 16), wc (L, G, 3, n, 2, c64, 16), wl (G, n, 2,
+//   f64, 16) int8 images (pack_decoder_int8): per tap and 32 input
+//   channels (n0 = ceil(C0 / 32), n = ceil(C / 32)), two halves of 16
+//   channels, each output channel (padded to c64 = round64(C), f64 =
+//   round64(F)) a 16-byte line of its weights, zero past C0, C and F;
 //   m0 (G, C), mc (L, G, C), ml (G, F) f32 dequant multipliers;
 //   rq (G, L+1, C) f32 requant reciprocals; biases (G, L+1, C), bl (G, F);
 //   out (B, T, G*F) f32.
-int mixstage_decoder_int8(const float* x, const float* s_in, const int* w0,
-                          const int* wc, const int* wl, const float* m0,
-                          const float* mc, const float* ml, const float* rq,
+int mixstage_decoder_int8(const float* x, const float* s_in,
+                          const int8_t* w0, const int8_t* wc,
+                          const int8_t* wl, const float* m0, const float* mc,
+                          const float* ml, const float* rq,
                           const float* biases, const float* bl, float* out,
                           int B, int T, int C0, int C, int L, int F, int G,
                           float slope, int tile_t, void* stream) {
-  return launch<float>(x, s_in, w0, wc, wl, m0, mc, ml, rq, biases, bl, out,
-                       B, T, C0, C, L, F, G, slope, tile_t, stream);
+  return launch(x, false, s_in, w0, wc, wl, m0, mc, ml, rq, biases, bl, out,
+                B, T, C0, C, L, F, G, slope, tile_t, stream);
 }
 
 // bf16-feature mode: as mixstage_decoder_int8 with x (B, T, C0) contiguous
 // bfloat16; everything else, out included, as there.
 int mixstage_decoder_int8_bf16(const __nv_bfloat16* x, const float* s_in,
-                               const int* w0, const int* wc, const int* wl,
-                               const float* m0, const float* mc,
-                               const float* ml, const float* rq,
-                               const float* biases, const float* bl,
-                               float* out, int B, int T, int C0, int C, int L,
-                               int F, int G, float slope, int tile_t,
-                               void* stream) {
-  return launch<__nv_bfloat16>(x, s_in, w0, wc, wl, m0, mc, ml, rq, biases,
-                               bl, out, B, T, C0, C, L, F, G, slope, tile_t,
-                               stream);
+                               const int8_t* w0, const int8_t* wc,
+                               const int8_t* wl, const float* m0,
+                               const float* mc, const float* ml,
+                               const float* rq, const float* biases,
+                               const float* bl, float* out, int B, int T,
+                               int C0, int C, int L, int F, int G,
+                               float slope, int tile_t, void* stream) {
+  return launch(x, true, s_in, w0, wc, wl, m0, mc, ml, rq, biases, bl, out,
+                B, T, C0, C, L, F, G, slope, tile_t, stream);
 }
 
 const char* mixstage_decoder_int8_error_string(int code) {

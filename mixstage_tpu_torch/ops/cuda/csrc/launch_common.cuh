@@ -28,7 +28,7 @@ int fill_tile(int max_tile, int B, int T, int G, int sm_count, Fits fits) {
   return fits(tile) ? tile : 0;
 }
 
-// The tensor-core rule of K1 and K4.  Each CTA of those kernels stages its
+// The tensor-core rule of K1 (both modes).  Each CTA of K1 stages its
 // group's whole weight set through shared memory once (a fixed cost per
 // CTA) and runs each layer's rows in passes of `quantum` rows (16-row MMA
 // tiles, one per warp row of the CTA): a CTA of `tile` frames costs about

@@ -1,16 +1,15 @@
-// Device helpers shared by the tensor-core decoder kernels (K1 in
-// fused_decoder.cu, K3 in train_decoder.cu, K4 in decoder_int8.cu): the
-// padded shared-memory strides, the cp.async ring that stages weight
-// chunks, and the warp-level mma.sync / ldmatrix instructions they run.
+// Device helpers shared by the mma.sync decoder kernels (K1 in
+// fused_decoder.cu, K3 in train_decoder.cu): the padded shared-memory
+// strides, the cp.async ring that stages weight chunks, and the warp-level
+// mma.sync / ldmatrix instructions they run.
 //
-// Fragment layouts (PTX ISA, mma.m16n8k8 .tf32, mma.m16n8k16 .bf16 and
-// mma.m16n8k32 .s8), with g = lane / 4 and t = lane % 4, in 32-bit words
-// (one tf32 value, two bf16 values of consecutive k, or four int8 values of
-// consecutive k):
+// Fragment layouts (PTX ISA, mma.m16n8k8 .tf32 and mma.m16n8k16 .bf16),
+// with g = lane / 4 and t = lane % 4, in 32-bit words (one tf32 value or
+// two bf16 values of consecutive k):
 //   A (16 x 8 words, row-major):  a0 (g, t)  a1 (g+8, t)  a2 (g, t+4)
 //                                 a3 (g+8, t+4)
 //   B (8 words x 8, k-major):     b0 (t, g)  b1 (t+4, g)
-//   C (16 x 8, f32 or s32):       c0 (g, 2t)  c1 (g, 2t+1)  c2 (g+8, 2t)
+//   C (16 x 8, f32):              c0 (g, 2t)  c1 (g, 2t+1)  c2 (g+8, 2t)
 //                                 c3 (g+8, 2t+1)
 // For bf16, ldmatrix.x4 loads four 8 x 8 blocks of 16-bit values whose
 // eight rows (16 bytes each) lanes 8i .. 8i+7 address: without .trans,
@@ -152,15 +151,6 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
       "[%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_addr(row)));
-}
-
-// d += a (16x32 s8) * b (32x8 s8), exact s32 accumulation.
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
-                                       const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 }  // namespace mixstage

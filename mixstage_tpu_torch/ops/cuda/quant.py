@@ -5,9 +5,9 @@ int8 quantization of the folded decoder (``quantize_folded_decoder``), and
 the TPU kernel ``fused_mixstage_decoder_int8`` (``:263-317``, body
 ``_decoder_kernel_int8`` ``:223-260``) as the hand-written CUDA C++ kernel in
 ``csrc/decoder_int8.cu`` (design and bound noted there; int8 tensor cores,
-``mma.sync`` s8), bound with ``ctypes``.  ``decoder_int8_plain`` is the
-same function in plain PyTorch (the counterpart of ``decoder_int8_xla``):
-the CPU tests use it, and
+``wgmma`` s8 fed by bulk copies), bound with ``ctypes``.
+``decoder_int8_plain`` is the same function in plain PyTorch (the
+counterpart of ``decoder_int8_xla``): the CPU tests use it, and
 ``chip_smoke.py`` holds the kernel against it on the card.
 
 Scheme (as in the JAX package): int8 weights per (group, output channel),
@@ -19,9 +19,10 @@ multiplier per output channel, adds the bias and applies LeakyReLU in f32,
 then requantizes with the reciprocal scales ``rq``.  The 1×1 logits
 dequantize to f32.
 
-The kernel reads its weights packed four input channels to a 32-bit word
-(``pack_decoder_int8``, done once when a serving function is built); the
-JAX-layout int8 arrays stay in the dict for the plain version.  The wrapper
+The kernel reads its weights as the shared-memory images its ``wgmma``s
+read (``pack_image``, through ``pack_decoder_int8``, done once when a
+serving function is built); the JAX-layout int8 arrays stay in the dict for
+the plain version.  The wrapper
 validates its arguments, then on a CPU tensor computes the plain version; on
 a CUDA tensor it launches the kernel or raises — there is no fall-back.
 
@@ -48,7 +49,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _INT8_KEYS = ("w0_i8", "wc_i8", "wl_i8")
 _F32_KEYS = ("m0", "mc", "ml", "rq", "biases", "b_logits")
-_PACKED_KEYS = ("w0_p", "wc_p", "wl_p", "s_vec")
+_PACKED_KEYS = ("w0_img", "wc_img", "wl_img", "s_vec")
+CHUNK_K = 32          # input channels per weight chunk (the kernel's kChunkK)
 
 
 # a symmetric int8 scale is max |·| / 127, computed as max |·| · f32(1/127):
@@ -185,8 +187,9 @@ def decoder_int8_plain(x, qfd: Dict, groups: int,
 def pack_words(w_i8):
     """(..., cin, cout) int8 → (..., ceil(cin/4), cout) int32: four
     consecutive input channels to a word, channel 4i+j in byte j, output
-    channel fastest: one word is one register of the s8 MMA's B fragment
-    (``csrc/tensor_core.cuh``); zero-padded to a multiple of 4."""
+    channel fastest (the operands of K4's earlier ``mma.sync`` kernel,
+    which ``tools/profile_k1.py --parent`` times against the current one);
+    zero-padded to a multiple of 4."""
     *lead, cin, cout = w_i8.shape
     pad = -cin % 4
     if w_i8.numel() == 0:                   # no chain layer
@@ -198,16 +201,36 @@ def pack_words(w_i8):
     return w.contiguous().view(torch.int32)[..., 0]
 
 
+def image_shape(lead, cin: int, cout: int):
+    """The shape ``pack_image`` gives a (*lead, cin, cout) weight."""
+    return (*lead, -(-cin // CHUNK_K), 2, -(-cout // 64) * 64, 16)
+
+
+def pack_image(w_i8):
+    """(..., cin, cout) int8 → (..., ceil(cin/32), 2, round64(cout), 16)
+    int8: per chunk of 32 input channels the K-major image that K4's
+    ``wgmma`` reads as its A operand (``csrc/decoder_int8.cu``): two halves
+    of 16 input channels, each output channel a 16-byte line of its weights
+    (input channel 32k + 16h + i in byte i of line (k, h, c_out)), zero
+    past cin and cout.  A chunk is one contiguous bulk copy."""
+    *lead, cin, cout = w_i8.shape
+    nk, _, mp, _ = image_shape((), cin, cout)
+    w = w_i8.new_zeros(*lead, nk * CHUNK_K, mp)
+    w[..., :cin, :cout] = w_i8
+    return w.reshape(*lead, nk, 2, 16, mp).transpose(-1, -2).contiguous()
+
+
 def pack_decoder_int8(qfd: Dict) -> Dict:
-    """``qfd`` plus the kernel's operands: the int8 weights as words of four
-    input channels (``w0_p``, ``wc_p``, ``wl_p``) and the input scale as a
-    (C0,) f32 vector ``s_vec`` (a per-tensor scale repeated)."""
+    """``qfd`` plus the kernel's operands: the int8 weights as ``wgmma``
+    images (``w0_img`` (G, 3, ·), ``wc_img`` (L, G, 3, ·), ``wl_img`` (G,
+    ·); ``pack_image``) and the input scale as a (C0,) f32 vector ``s_vec``
+    (a per-tensor scale repeated)."""
     c0 = qfd["w0_i8"].shape[2]
     s_vec = torch.as_tensor(qfd["s_in"], dtype=torch.float32,
                             device=qfd["m0"].device).expand(c0).contiguous()
-    return {**qfd, "w0_p": pack_words(qfd["w0_i8"]),
-            "wc_p": pack_words(qfd["wc_i8"]),
-            "wl_p": pack_words(qfd["wl_i8"]), "s_vec": s_vec}
+    return {**qfd, "w0_img": pack_image(qfd["w0_i8"]),
+            "wc_img": pack_image(qfd["wc_i8"]),
+            "wl_img": pack_image(qfd["wl_i8"]), "s_vec": s_vec}
 
 
 def _check(x, qfd, groups):
@@ -280,11 +303,20 @@ def fused_mixstage_decoder_int8(x, qfd: Dict, groups: int,
                          f"pass it through pack_decoder_int8 first")
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
-    args = [qfd[k] for k in ("s_vec", "w0_p", "wc_p", "wl_p") + _F32_KEYS]
+    args = [qfd[k] for k in ("s_vec", "w0_img", "wc_img", "wl_img")
+            + _F32_KEYS]
     for t in args:
         if t.device != x.device or not t.is_contiguous():
             raise ValueError("the packed operands must be contiguous and on "
                              "x's device")
+    want = dict(w0_img=image_shape((G, 3), C0, C),
+                wc_img=image_shape((L, G, 3), C, C),
+                wl_img=image_shape((G,), C, F_))
+    for name, shape in want.items():
+        if qfd[name].dtype != torch.int8 or tuple(qfd[name].shape) != shape:
+            raise ValueError(f"{name} is {qfd[name].dtype} "
+                             f"{tuple(qfd[name].shape)}, expected int8 "
+                             f"{shape}: pack_decoder_int8 of these weights")
     lib = bind(build.load_library("decoder_int8"))
     bf16 = x.dtype == torch.bfloat16
     launch = lib.mixstage_decoder_int8_bf16 if bf16 else \

@@ -11,7 +11,7 @@ int8 decoder) at the same edge shapes in both quantization schemes, equal
 to its plain version in every element, its refusal of unpacked weights,
 and the int8 serving tier (one K1 and one K4 launch per call); K2 (the
 grouped conv chain) at edge shapes, to 1e-4.  The built K1, K3 and K4 run
-on the tensor cores (their SASS holds HMMA and IMMA instructions).
+on the tensor cores (their SASS holds HMMA, HGMMA and IGMMA instructions).
 
 The bf16 modes of K1 and K3 against their plain versions, under the bf16
 rule (``bf16_rule`` below): no bf16 output is held element-wise to
@@ -118,8 +118,9 @@ def test_tile_frames_fills_the_card_and_fits_shared_memory(cuda):
 
 def test_kernels_run_on_tensor_cores(cuda):
     """The built K1 holds tf32 HMMA instructions (its f32 mode), K1's bf16
-    mode BF16 HGMMA ones (wgmma) and no HMMA, K4 s8 IMMA ones and no
-    ``__dp4a`` (IDP.4A), K3's f32 GEMM passes (every instance of its
+    mode BF16 HGMMA ones (wgmma) and no HMMA, every instance of K4's
+    ``decoder_int8_kernel`` s8 IGMMA ones (wgmma) and no IMMA (mma.sync)
+    or ``__dp4a`` (IDP.4A), K3's f32 GEMM passes (every instance of its
     ``gemm_kernel``) tf32 HMMA ones and no FFMA, and its bf16 GEMM passes
     (every instance of ``wgmma_gemm_kernel``) BF16 HGMMA ones, no HMMA and
     no FFMA, read from their SASS with ``cuobjdump`` (it ships beside
@@ -143,7 +144,13 @@ def test_kernels_run_on_tensor_cores(cuda):
              if "HGMMA" in ln]
     assert hgmma and all("BF16" in ln for ln in hgmma), hgmma[:3]
     assert " HMMA" not in sass["fused_decoder_bf16"]
-    assert "IMMA" in sass["decoder_int8"]
+    k4 = [f for f in sass["decoder_int8"].split("Function : ")[1:]
+          if "decoder_int8_kernel" in f.splitlines()[0]]
+    assert len(k4) == 7, len(k4)          # one per wgmma width N
+    for body in k4:
+        igmma = [ln for ln in body.splitlines() if "IGMMA" in ln]
+        assert igmma and all("S8" in ln for ln in igmma), igmma[:3]
+    assert "IMMA" not in sass["decoder_int8"]
     assert "IDP.4A" not in sass["decoder_int8"]
     # one section per function, each opened by a "Function : <name>" line
     functions = sass["train_decoder"].split("Function : ")[1:]
@@ -357,6 +364,26 @@ def test_int8_kernel_matches_plain_on_card(cuda, shape, per_channel):
     assert q8.fused_mixstage_decoder_int8.launches == before + 1
     assert out.shape == (B, T, G * F)
     # exact integer MMA sums and the plain version's f32 epilogue, op by op
+    assert int((out != ref).sum()) == 0
+
+
+# (B, T, G, C0, C, L, F): the widths the mma.sync kernel before the wgmma
+# one took, where the ring shrinks to make room for the images: C0 = 7000
+# (2 stages) and a chain of 60 layers (3 stages, wgmma width 128)
+K4_WIDE_SHAPES = [(1, 64, 2, 7000, 256, 3, 96), (1, 200, 1, 266, 256, 60, 8)]
+
+
+@pytest.mark.parametrize("shape", K4_WIDE_SHAPES, ids=str)
+def test_int8_kernel_at_its_widest_on_card(cuda, shape):
+    from mixstage_tpu_torch.ops.cuda import quant as q8
+
+    B, T, G, C0, C, L, F = shape
+    x, w0, wc, biases, wl, bl = _folded(B, T, G, C0, C, L, F, cuda)
+    qfd = q8.pack_decoder_int8(q8.quantize_folded_decoder(
+        dict(w0=w0, wc=wc, biases=biases, w_logits=wl, b_logits=bl), x))
+    out = q8.fused_mixstage_decoder_int8(x, qfd, groups=G)
+    ref = q8.decoder_int8_plain(x, qfd, G)
+    torch.cuda.synchronize()
     assert int((out != ref).sum()) == 0
 
 

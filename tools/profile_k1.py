@@ -33,10 +33,13 @@ parent has it, else from ``fused_decoder.cu`` with float32 weights);
 K3-fwd and K3-bwd at bs32 x 64 and at the ragged B=3 T=50: the f32 mode,
 checked against the parent bit for bit, and at bf16 also the bf16 mode
 (the parent's ``*_bf16`` entry points), with out's and cs's bf16 ULPs and
-differing shares.  ``--k3`` limits ``--parent`` and ``--sweep`` to K3.
+differing shares; K4 in both modes (f32 and bf16 features) at every K4
+shape, checked against the parent bit for bit (a parent older than the
+wgmma kernel gets its own operands, ``quant.pack_words``).
+``--k3`` limits ``--parent`` and ``--sweep`` to K3, ``--k4`` to K4.
 
     python3 tools/profile_k1.py [--seed 0] [--dtype float32|bfloat16]
-                                [--sweep] [--parent DIR] [--k3]
+                                [--sweep] [--parent DIR] [--k3 | --k4]
                                 [--out profile.json]
 """
 
@@ -102,20 +105,25 @@ def k1_inputs(gen, device, dtype):
 
 def k4_inputs(gen, device):
     """One seeded quantized decoder (G=8, L=3, F=96) and features at every
-    K4 shape."""
+    K4 shape.  The dict holds the current kernel's wgmma images and, as
+    ``w0_p``, ``wc_p``, ``wl_p``, the words of four channels that the
+    earlier ``mma.sync`` kernel (a ``--parent`` of that age) takes."""
     G, L, F = MODEL["num_clusters"], 3, MODEL["out_feats"]
     _, w0, wc, biases, wl, bl = random_folded(torch, gen, 1, 1, G, L, F,
                                               device)
     qfd = q8.pack_decoder_int8(q8.quantize_folded_decoder(
         dict(w0=w0, wc=wc, biases=biases, w_logits=wl, b_logits=bl),
         torch.randn(B, T, C0, generator=gen).to(device)))
+    qfd.update({k + "_p": q8.pack_words(qfd[k + "_i8"])
+                for k in ("w0", "wc", "wl")})
     xs = {name: torch.randn(b, t, C0, generator=gen).to(device)
           for name, (b, t) in K4_SHAPES.items()}
     return qfd, xs
 
 
 def sweep(k1_in, qfd, xs, device) -> dict:
-    """K1 and K4 at every tile that launches, beside the rule's tile."""
+    """K1 and K4 at every tile that launches, beside the rule's tile (K4:
+    with the wgmma width N each tile takes)."""
     lib1 = fused_conv.bind(build.load_library("fused_decoder"))
     lib16 = fused_conv.bind_bf16(build.load_library("fused_decoder_bf16"))
     lib4 = q8.bind(build.load_library("decoder_int8"))
@@ -130,11 +138,15 @@ def sweep(k1_in, qfd, xs, device) -> dict:
             lambda tile, a=a, g=g, packed=packed: (
                 launch_k1(lib1, a, g, tile) if packed is None
                 else launch_k1_bf16(lib16, a, g, tile, packed)))
+    widths = {}
     for name, x in xs.items():
         runs[f"K4 {name}"] = (
             q8.device_tile_frames(x.shape[0], x.shape[1], C0, C, 3,
                                   MODEL["out_feats"], G, device),
             lambda tile, x=x: launch_k4(lib4, x, qfd, G, tile))
+        widths[f"K4 {name}"] = {
+            tile: lib4.mixstage_decoder_int8_width(x.shape[1], 3, tile)
+            for tile in (8, 16, 32, 64)}
     out = {}
     for name, (rule, run) in runs.items():
         times = {}
@@ -143,10 +155,12 @@ def sweep(k1_in, qfd, xs, device) -> dict:
                 times[tile] = cuda_ms(torch, lambda: run(tile))
             except RuntimeError:           # the tile's rows do not fit
                 continue
-        out[name] = dict(rule=rule, ms=times)
+        out[name] = dict(rule=rule, ms=times, widths=widths.get(name))
         best = min(times, key=times.get)
+        n = widths.get(name, {})
         print(f"[sweep] {name}: rule tile {rule}, fastest {best}; "
-              + ", ".join(f"{k}: {v:.4f}" for k, v in times.items())
+              + ", ".join(f"{k}" + (f" (N={n[k]})" if n else "")
+                          + f": {v:.4f}" for k, v in times.items())
               + " ms", flush=True)
     return out
 
@@ -195,13 +209,13 @@ def k3_bf16_sweep(gen, device) -> dict:
     return out
 
 
-def build_parent(src: Path) -> dict:
+def build_parent(src: Path, names=tuple(build.SOURCES)) -> dict:
     """Build and bind the kernels of the sources in ``src`` (those of
-    ``build.SOURCES`` that it has)."""
+    ``names``, by default ``build.SOURCES``, that it has)."""
     dst = build.BUILD_DIR.parent / "parent_kernels"
     dst.mkdir(parents=True, exist_ok=True)
     jobs = {}
-    for name in build.SOURCES:
+    for name in names:
         if not (src / f"{name}.cu").exists():
             continue
         lib = dst / f"lib{name}.so"
@@ -221,16 +235,19 @@ def build_parent(src: Path) -> dict:
     # K1's f32 and K4's C entry points are the current ones (with a time
     # tile); K1's bf16 one too where the parent has fused_decoder_bf16.cu,
     # else the one in its fused_decoder.cu (float32 weights, as f32's)
-    lib = libs["fused_decoder"]
-    fns = [lib.mixstage_fused_decoder_f32]
-    if "fused_decoder_bf16" in libs:
-        fused_conv.bind_bf16(libs["fused_decoder_bf16"])
-    else:
-        fns.append(lib.mixstage_fused_decoder_bf16)
-    for fn in fns:
-        fn.argtypes = [_P] * 7 + [_I] * 7 + [ctypes.c_float, _I, _P]
-        fn.restype = _I
+    if "fused_decoder" in libs:
+        lib = libs["fused_decoder"]
+        fns = [lib.mixstage_fused_decoder_f32]
+        if "fused_decoder_bf16" in libs:
+            fused_conv.bind_bf16(libs["fused_decoder_bf16"])
+        else:
+            fns.append(lib.mixstage_fused_decoder_bf16)
+        for fn in fns:
+            fn.argtypes = [_P] * 7 + [_I] * 7 + [ctypes.c_float, _I, _P]
+            fn.restype = _I
     q8.bind(libs["decoder_int8"])
+    if "train_decoder" not in libs:
+        return libs
     # K3's (both modes), without the scratch query the current library adds
     lib = libs["train_decoder"]
     for mode in ("f32", "bf16"):
@@ -363,15 +380,20 @@ def launch_k1_bf16(lib, a, g, tile, packed):
     return out
 
 
-def launch_k4(lib, x, qfd, g, tile):
-    """K4 of ``lib`` on the packed weights ``qfd``; ``tile`` as in
+def launch_k4(lib, x, qfd, g, tile, parent=False):
+    """K4 of ``lib`` on the packed weights ``qfd`` (f32 or bf16 features
+    ``x``): the wgmma images, or with ``parent`` the words of four
+    channels of the earlier ``mma.sync`` kernel; ``tile`` as in
     ``launch_k1``."""
-    keys = ("s_vec", "w0_p", "wc_p", "wl_p", "m0", "mc", "ml", "rq",
-            "biases", "b_logits")
+    w = ("w0_p", "wc_p", "wl_p") if parent else ("w0_img", "wc_img",
+                                                 "wl_img")
+    keys = ("s_vec", *w, "m0", "mc", "ml", "rq", "biases", "b_logits")
     (b, t, c0), c = x.shape, qfd["w0_i8"].shape[-1]
     layers, f = qfd["wc_i8"].shape[0], qfd["wl_i8"].shape[-1]
     out = torch.empty(b, t, g * f, device=x.device)
-    err = lib.mixstage_decoder_int8(
+    fn = (lib.mixstage_decoder_int8_bf16 if x.dtype == torch.bfloat16
+          else lib.mixstage_decoder_int8)
+    err = fn(
         x.data_ptr(), *(qfd[k].data_ptr() for k in keys), out.data_ptr(), b,
         t, c0, c, layers, f, g, 0.2, tile,
         torch.cuda.current_stream().cuda_stream)
@@ -381,10 +403,13 @@ def launch_k4(lib, x, qfd, g, tile):
 
 
 def against_parent(libs, k1_in, qfd, xs, k3) -> dict:
-    """Parent and current kernels in turns (P, C, C, P) at every shape;
-    also max |current - parent| / max |parent| (K3-bwd: the worst of its
-    gradients; its dcb is float noise around 0 in both), and whether K3's
-    f32 mode equals the parent's bit for bit (``bitwise``)."""
+    """Parent and current kernels in turns (P, C, C, P) at every shape,
+    each turn queued behind a sleep (``cuda_ms(queued=True)``), so that the
+    current kernel's Python wrapper and the parent's bare ``ctypes`` call
+    add no host time to a short kernel's; also max |current - parent| /
+    max |parent| (K3-bwd: the worst of its gradients; its dcb is float
+    noise around 0 in both), and whether K3's f32 mode and K4 (both modes)
+    equal the parent's bit for bit (``bitwise``)."""
     G = MODEL["num_clusters"]
 
     def parent_k1(a, g, packed):
@@ -397,11 +422,16 @@ def against_parent(libs, k1_in, qfd, xs, k3) -> dict:
                  lambda a=a, g=g, p=packed: fused_mixstage_decoder(
                      *a, groups=g, packed=p))
              for name, (a, g, packed) in k1_in.items()}
-    calls.update({f"K4 {name}": (lambda x=x: launch_k4(
-                      libs["decoder_int8"], x, qfd, G, 0),
-                  lambda x=x: q8.fused_mixstage_decoder_int8(x, qfd,
+    # K4 in both modes; a parent older than the wgmma kernel takes its
+    # words of four channels
+    words = not hasattr(libs["decoder_int8"], "mixstage_decoder_int8_width")
+    for name, x in xs.items():
+        for tag, xm in (("", x), ("-bf16", x.bfloat16())):
+            calls[f"K4{tag} {name}"] = (
+                lambda xm=xm: launch_k4(libs["decoder_int8"], xm, qfd, G, 0,
+                                        parent=words),
+                lambda xm=xm: q8.fused_mixstage_decoder_int8(xm, qfd,
                                                              groups=G))
-                  for name, x in xs.items()})
     calls.update(k3)
     out = {}
     for name, (old, new) in calls.items():
@@ -409,6 +439,8 @@ def against_parent(libs, k1_in, qfd, xs, k3) -> dict:
         bitwise = None
         if name.startswith("K3") and "bf16" not in name:
             bitwise = all(torch.equal(p, q) for p, q in zip(got, ref))
+        if name.startswith("K4"):                # exact in both modes
+            bitwise = torch.equal(got, ref)
         if name.startswith("K3-bwd"):          # dcb: noise around 0
             ref, got = ref[:3] + ref[4:], got[:3] + got[4:]
         if name.startswith("K3-fwd-bf16"):     # out, cs in bf16 ULPs
@@ -424,7 +456,8 @@ def against_parent(libs, k1_in, qfd, xs, k3) -> dict:
             ulps = bf16_ulps(torch, got, ref) if bf16 else None
         turns = dict(parent=[], current=[])
         for who in ("parent", "current", "current", "parent"):
-            turns[who].append(cuda_ms(torch, old if who == "parent" else new))
+            turns[who].append(cuda_ms(torch, old if who == "parent" else new,
+                                      queued=True))
         rec = {k: sum(v) / len(v) for k, v in turns.items()}
         rec.update(turns=turns, rel_diff=diff)
         if bitwise is not None:
@@ -459,6 +492,9 @@ def main(argv=None) -> int:
     ap.add_argument("--k3", action="store_true",
                     help="with --parent or --sweep: K3 only (no K1, K4 or "
                          "serving traces)")
+    ap.add_argument("--k4", action="store_true",
+                    help="with --parent or --sweep: K4 only (both modes; "
+                         "no K1, K3 or serving traces)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     device = resolve_device()
@@ -473,19 +509,22 @@ def main(argv=None) -> int:
     with torch.inference_mode():
         if args.sweep or args.parent:
             k1_in, qfd, xs = ({}, None, {}) if args.k3 else (
-                k1_inputs(gen, device, dtype), *k4_inputs(gen, device))
+                {} if args.k4 else k1_inputs(gen, device, dtype),
+                *k4_inputs(gen, device))
             if args.parent:
-                libs = build_parent(args.parent)
-                k3 = k3_calls(libs["train_decoder"], gen, device, dtype)
+                libs = build_parent(args.parent, ("decoder_int8",)
+                                    if args.k4 else tuple(build.SOURCES))
+                k3 = {} if args.k4 else k3_calls(libs["train_decoder"], gen,
+                                                 device, dtype)
                 out["parent"] = against_parent(libs, k1_in, qfd, xs, k3)
                 del k3
             if args.sweep:
                 if not args.k3:
                     out["sweep"] = sweep(k1_in, qfd, xs, device)
-                if dtype == torch.bfloat16:
+                if dtype == torch.bfloat16 and not args.k4:
                     out["sweep_k3_bf16"] = k3_bf16_sweep(gen, device)
             del k1_in, xs
-            if args.k3:
+            if args.k3 or args.k4:
                 return finish(out, args, smi)
         for name, (b, t, g, layers, f) in SHAPES.items():
             x, *w = random_folded(torch, gen, b, t, g, layers, f, device)
