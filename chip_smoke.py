@@ -13,13 +13,17 @@ bf16 model (phases 18-19):
 1. device: the card's name and power limit from ``nvidia-smi``;
 2. build: every CUDA kernel from the checkout's sources, one ``nvcc`` per
    source, all started together;
-3. kernels: K1 (3xTF32 on the tensor cores) against its plain PyTorch
-   version on the card, at every shape the main path launches it at (bs32
-   and one clip of 64 frames, the server's 128-frame bucket) and at T=4096
-   (max |err| / max |ref| ≤ 1e-4);
-4. model: one serving call launches K1 exactly twice, and its pose stays
-   within 1% (mean |diff| / mean |pose|) of the plain path and of the
-   unfolded eval forward;
+3. kernels: K1's f32 mode (``wgmma``: six bf16 products of three-term
+   bf16 splits of both operands) against its plain PyTorch version on the
+   card, on weights packed once as the serving function packs them, at
+   every shape the main path launches it at (bs32 and one clip of 64
+   frames, the server's 128-frame bucket) and at T=4096 (max |err| / max
+   |ref| ≤ 1e-4); the registers and spills of its f32-mode instances and
+   ptxas's advisories on them;
+4. model: one serving call launches K1's f32 mode exactly twice, on
+   weights packed when the serving function was built (no call packs
+   them), and its pose stays within 1% (mean |diff| / mean |pose|) of the
+   plain path and of the unfolded eval forward;
 5. server: concurrent JSON and npz ``/v1/pose`` requests through the HTTP
    micro-batcher, ``/healthz`` (backend cuda) and ``/stats``;
 6. timings: p50 latency of one 64-frame clip, bs32 frames/s, each K1 shape
@@ -108,9 +112,11 @@ drift = mean |O - R| / mean |R| (relative Frobenius error for gradients),
 and |drift(P) - drift(Q)| ≤ 0.10 drift(Q) + 1e-3.
 
 Each kernel's bound is the least time the card could take for its work,
-whatever route the kernel runs: K1, K2 and K3 at the TF32 tensor-core
-rate (3 MMAs per multiply-add; the f32 FMA bound beside it as
-``ffma_bound_ms``), K4 at the int8 tensor-core rate; in bf16 mode K1 at
+whatever route the kernel runs: K1 at the dense bf16 rate with 6 MMAs per
+multiply-add (the 3xTF32 bound of its earlier route, 3 MMAs at the TF32
+rate, beside it as ``tf32x3_bound_ms``), K2 and K3 at the TF32
+tensor-core rate (3 MMAs per multiply-add; the f32 FMA bound beside each
+as ``ffma_bound_ms``), K4 at the int8 tensor-core rate; in bf16 mode K1 at
 the dense bf16 rate with 3 MMAs per multiply-add (bf16 activations times
 f32 weights split in three bf16 terms; the 2xTF32 bound of its earlier
 route beside it as ``tf32x2_bound_ms``), K2 at the TF32 rate with 2 MMAs
@@ -140,8 +146,9 @@ import numpy as np
 # published peaks of one H100 SXM (NVIDIA data sheet): f32 outside the
 # tensor cores, dense tensor-core rates, and HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
-PEAK_TF32_FLOPS = 495e12     # K1, K2, K3: 3 TF32 MMAs a multiply-add
-PEAK_BF16_FLOPS = 989e12     # K1-bf16: 3 bf16 MMAs a multiply-add; K3-bf16: 1
+PEAK_TF32_FLOPS = 495e12     # K2, K3: 3 TF32 MMAs a multiply-add
+PEAK_BF16_FLOPS = 989e12     # K1: 6 bf16 MMAs a multiply-add (bf16 mode 3);
+#                              K3-bf16: 1
 PEAK_INT8_OPS = 1979e12
 PEAK_HBM_BYTES = 3.35e12
 KERNEL_TOL = 1e-4            # max |kernel - plain| / max |plain|
@@ -176,7 +183,7 @@ BF16_ULPS, BF16_SHARE = 1.0, 0.20
 # mma.sync) differed from the plain version in 27.9-32.7% of the elements
 # at the classifier shapes (this script), this kernel in up to 37.5%, and
 # the bf16 rule passes a copy that rounds its last hidden layer toward
-# zero, which differs in 62-71% (tools/k1_bf16_variants.py; NVIDIA H100
+# zero, which differs in 62-71% (tools/k1_variants.py --mode bf16; NVIDIA H100
 # 80GB HBM3, 700 W; PERF.md).  Chains of up to three hidden layers (the
 # decoder, L = 3) keep BF16_SHARE.
 K1_BF16_SHARE_DEEP = 0.45
@@ -906,7 +913,7 @@ def int8_phases(torch, args, device, smi, model, audio, styles, pose32,
           # no single PyTorch call computes the int8 conv chain
           "library_ms": None, "mma": "wgmma-s8"}
     k2 = {"name": "fused_grouped_conv_chain", "route": "cuda",
-          "source": "mixstage_tpu_torch/ops/cuda/csrc/fused_decoder.cu",
+          "source": "mixstage_tpu_torch/ops/cuda/csrc/conv_chain.cu",
           "replaces": "mixstage_tpu/ops/pallas/fused_conv.py:75",
           # a public op: no path of the package calls it
           "launches": launches[2],
@@ -1268,7 +1275,7 @@ def bf16_phases(torch, args, device, smi, model, audio, styles, pose32,
     entries.append({
         "name": "fused_mixstage_decoder_bf16", "mode": "bf16",
         "route": "cuda",
-        "source": "mixstage_tpu_torch/ops/cuda/csrc/fused_decoder_bf16.cu",
+        "source": "mixstage_tpu_torch/ops/cuda/csrc/fused_decoder_wgmma.cu",
         "replaces": "mixstage_tpu/ops/pallas/fused_conv.py:179",
         "launches": launches16[1],
         "max_abs_err": max(r["max_abs_err"] for r in k1_16.values()),
@@ -1539,7 +1546,7 @@ def int8_bf16_phases(torch, args, device, smi, model, audio, styles,
          "library_ms": None, "mma": "wgmma-s8"},
         {"name": "fused_grouped_conv_chain_bf16", "mode": "bf16",
          "route": "cuda",
-         "source": "mixstage_tpu_torch/ops/cuda/csrc/fused_decoder.cu",
+         "source": "mixstage_tpu_torch/ops/cuda/csrc/conv_chain.cu",
          "replaces": "mixstage_tpu/ops/pallas/fused_conv.py:75",
          # a public op: no path of the package calls it
          "launches": launches[5],
@@ -1569,9 +1576,10 @@ def main(argv=None) -> int:
     from mixstage_tpu_torch.models import JointLateClusterSoftStyle4_G
     from mixstage_tpu_torch.models.layers import reset_parameters_
     from mixstage_tpu_torch.ops.cuda import build
+    from mixstage_tpu_torch.ops.cuda import fused_conv as fc
     from mixstage_tpu_torch.ops.cuda.fused_conv import (
         device_tile_frames, fused_mixstage_decoder,
-        fused_mixstage_decoder_plain)
+        fused_mixstage_decoder_plain, pack_decoder_bf16)
     from mixstage_tpu_torch.serve import build_serving_fn, style_weights
     from mixstage_tpu_torch.serving import (DynamicBatcher, PoseClient,
                                             PoseService, start_http_server)
@@ -1610,10 +1618,23 @@ def main(argv=None) -> int:
     # 3. kernels against their plain versions ------------------------------
     gen = torch.Generator().manual_seed(args.seed)
     per_shape = {}
+    # K1's instances (N, terms): the f32 mode's (terms 3) registers, spills
+    # and ptxas's advisories (a wgmma it serialises says so)
+    k1_ptxas = results["ptxas"]["fused_decoder_wgmma"]
+    inst = [k for k in k1_ptxas["kernels"]
+            if k[0].startswith("decoder_kernel")]
+    check(len(inst) == 10, f"{len(inst)} decoder_kernel instances built, "
+          f"expected 10 (5 widths x 2 modes)")
+    for kernel, regs, stores, loads in inst:
+        if kernel.endswith(", 3>"):
+            log(f"[kernel] K1 f32 mode {kernel}: {regs} registers, {stores} "
+                f"B spill stores, {loads} B spill loads")
+    log(f"[kernel] K1 ptxas advisories: {k1_ptxas['advisories'] or 'none'}")
     for name, (b, t, g, layers, f) in K1_SHAPES.items():
         a = random_folded(torch, gen, b, t, g, layers, f, device)
+        packed = pack_decoder_bf16(dict(w0=a[1], wc=a[2], w_logits=a[4]))
         with torch.no_grad():
-            out = fused_mixstage_decoder(*a, groups=g)
+            out = fused_mixstage_decoder(*a, groups=g, packed=packed)
             ref = fused_mixstage_decoder_plain(*a, groups=g)
         torch.cuda.synchronize()
         check(bool(torch.isfinite(out).all()), f"K1 {name}: non-finite")
@@ -1628,7 +1649,7 @@ def main(argv=None) -> int:
               f"version: {rel_err:.3e}")
         per_shape[name] = dict(shape=dict(B=b, T=t, G=g, C0=C0, C=C, L=layers,
                                           F=f), tile=tile, max_abs_err=abs_err,
-                               max_rel_err=rel_err, args=a)
+                               max_rel_err=rel_err, args=(a, packed))
 
     # 4. model: the main path through the entry points ---------------------
     model = JointLateClusterSoftStyle4_G(**MODEL)
@@ -1641,12 +1662,17 @@ def main(argv=None) -> int:
     audio = rng.normal(size=(B, T, MEL)).astype(np.float32)
     styles = rng.integers(0, MODEL["num_speakers"], size=B).astype(np.int32)
 
+    packs = []                   # K1's weights are packed at build time
+    fc.pack_decoder_bf16 = lambda fd: packs.append(fd) or \
+        pack_decoder_bf16(fd)
     fused_mixstage_decoder.launches = 0              # main path starts
+    fused_mixstage_decoder.launches_bf16 = 0
     pose = serve(audio, styles)
     torch.cuda.synchronize()
-    check(fused_mixstage_decoder.launches == 2,
-          f"one serving call launched K1 {fused_mixstage_decoder.launches} "
-          f"times, expected 2")
+    counts = (fused_mixstage_decoder.launches,
+              fused_mixstage_decoder.launches_bf16)
+    check(counts == (2, 0), f"one serving call launched K1 (all, bf16 mode)"
+          f" {counts} times, expected (2, 0)")
     pose_plain = plain(audio, styles)
     with torch.inference_mode():
         sw = style_weights(styles, MODEL["num_speakers"], device)
@@ -1710,11 +1736,15 @@ def main(argv=None) -> int:
         server.server_close()
         batcher.close()
     launches = fused_mixstage_decoder.launches       # main path ends
-    check(launches == 2 * (2 + stats["batches"]),
+    fc.pack_decoder_bf16 = pack_decoder_bf16
+    check(launches == 2 * (2 + stats["batches"]) and
+          fused_mixstage_decoder.launches_bf16 == 0,
           f"K1 launches {launches} over the main path, expected "
-          f"2 per serving call")
+          f"2 per serving call, all in the f32 mode")
+    check(not packs, f"the serving path packed K1's weights {len(packs)} "
+          f"times after the serving function was built")
     log(f"[server] K1 launches over the main path (model + server phases): "
-        f"{launches}")
+        f"{launches}, all in the f32 mode, none packing its weights")
 
     # 6. timings -------------------------------------------------------------
     clip, clip_style = audio[:1], styles[:1]
@@ -1741,23 +1771,23 @@ def main(argv=None) -> int:
         f" = {fps:.1f} pose frames/s (plain path {plain_call_ms:.3f} ms); "
         f"features (audio encoder + UNet + style) {feats_ms:.3f} ms")
     for name, rec in per_shape.items():
-        a, g = rec.pop("args"), rec["shape"]["G"]
-        with torch.no_grad():
+        (a, packed), g = rec.pop("args"), rec["shape"]["G"]
+        with torch.no_grad():            # weights packed once, as served
             rec["ms"] = cuda_ms(torch, lambda: fused_mixstage_decoder(
-                *a, groups=g))
+                *a, groups=g, packed=packed))
             rec["plain_ms"] = cuda_ms(
                 torch, lambda: fused_mixstage_decoder_plain(*a, groups=g))
         s = rec["shape"]
         flops, nbytes = k1_work(s["B"], s["T"], g, s["L"], s["F"])
-        rec["bound_ms"], rec["bound_by"] = bound_ms(3 * flops, nbytes,
-                                                    PEAK_TF32_FLOPS)
+        rec["bound_ms"], rec["bound_by"] = bound_ms(6 * flops, nbytes,
+                                                    PEAK_BF16_FLOPS)
         rec["ffma_bound_ms"] = bound_ms(flops, nbytes)[0]
         rec["flops"], rec["bytes"] = flops, nbytes
         rec["tflops"] = flops / (rec["ms"] / 1e3) / 1e12
         log(f"[timing] {smi}: K1 {name}: {rec['ms']:.4f} ms "
             f"({rec['tflops']:.2f} TFLOP/s of f32 work), plain "
             f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms by "
-            f"{rec['bound_by']} (3xTF32 tensor cores; f32 FMA bound "
+            f"{rec['bound_by']} (6 bf16 MMAs a multiply-add; f32 FMA bound "
             f"{rec['ffma_bound_ms']:.4f} ms; {flops / 1e9:.2f} GFLOP, "
             f"{nbytes / 1e6:.1f} MB)")
     results["timing"] = dict(clip_p50_ms=p50, bs32_call_ms=call_ms,
@@ -1768,11 +1798,11 @@ def main(argv=None) -> int:
     main_shapes = ("decoder", "classifier")
     call_flops = sum(per_shape[s]["flops"] for s in main_shapes)
     call_bytes = sum(per_shape[s]["bytes"] for s in main_shapes)
-    call_bound_ms, call_bound_by = bound_ms(3 * call_flops, call_bytes,
-                                            PEAK_TF32_FLOPS)
+    call_bound_ms, call_bound_by = bound_ms(6 * call_flops, call_bytes,
+                                            PEAK_BF16_FLOPS)
     k1 = {
         "name": "fused_mixstage_decoder", "route": "cuda",
-        "source": "mixstage_tpu_torch/ops/cuda/csrc/fused_decoder.cu",
+        "source": "mixstage_tpu_torch/ops/cuda/csrc/fused_decoder_wgmma.cu",
         "replaces": "mixstage_tpu/ops/pallas/fused_conv.py:179",
         "launches": launches,
         "max_abs_err": max(r["max_abs_err"] for r in per_shape.values()),
@@ -1782,7 +1812,9 @@ def main(argv=None) -> int:
         "bound_ms": call_bound_ms,
         "bound_by": call_bound_by,
         "library_ms": None,
-        "mma": "3xtf32",
+        "mma": "wgmma-bf16x6",
+        "tf32x3_bound_ms": bound_ms(3 * call_flops, call_bytes,
+                                    PEAK_TF32_FLOPS)[0],
         "ffma_bound_ms": bound_ms(call_flops, call_bytes)[0],
         "shapes": per_shape,
     }

@@ -105,7 +105,7 @@ constexpr int kConsumerWarps = 4 * kConsumerWGs;
 constexpr int kConsumerThreads = 32 * kConsumerWarps;
 constexpr int kThreads = kConsumerThreads + 128;  // + the producer warpgroup
 // registers per thread: 5 x 128 threads launch with 96 each, and
-// setmaxnreg moves them within that allocation (as fused_decoder_bf16.cu)
+// setmaxnreg moves them within that allocation (as fused_decoder_wgmma.cu)
 constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 112;
 constexpr int kMaxCout = 64 * kConsumerWGs;

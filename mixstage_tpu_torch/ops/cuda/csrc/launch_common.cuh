@@ -1,6 +1,6 @@
-// Launch helpers shared by the decoder kernels (fused_decoder.cu,
-// fused_decoder_bf16.cu, decoder_int8.cu): the card query and the
-// time-tile rules.  Host code only.
+// Launch helpers shared by the decoder kernels (fused_decoder_wgmma.cu,
+// conv_chain.cu, decoder_int8.cu): the card query and the time-tile
+// rules.  Host code only.
 
 #pragma once
 
@@ -28,10 +28,10 @@ int fill_tile(int max_tile, int B, int T, int G, int sm_count, Fits fits) {
   return fits(tile) ? tile : 0;
 }
 
-// The tensor-core rule of K1 (both modes).  Each CTA of K1 stages its
+// The tensor-core rule of K1 (both modes).  Each CTA of K1 streams its
 // group's whole weight set through shared memory once (a fixed cost per
-// CTA) and runs each layer's rows in passes of `quantum` rows (16-row MMA
-// tiles, one per warp row of the CTA): a CTA of `tile` frames costs about
+// CTA) and runs each layer's rows in passes of `quantum` rows (8: the
+// step of wgmma's N): a CTA of `tile` frames costs about
 //   weight_rows + sum over the n_layers k=3 layers of
 //                 ceil(rows_l / quantum) * quantum
 // row-passes, rows_l = tile + 2 * (halo - l) - 2, and the grid runs in

@@ -1,7 +1,6 @@
-// Device helpers shared by the mma.sync decoder kernels (K1 in
-// fused_decoder.cu, K3 in train_decoder.cu): the padded shared-memory
-// strides, the cp.async ring that stages weight chunks, and the warp-level
-// mma.sync / ldmatrix instructions they run.
+// Device helpers of the mma.sync kernel K3 in its f32 mode
+// (train_decoder.cu): the cp.async copies that stage its operands, and the
+// warp-level mma.sync / ldmatrix instructions.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k8 .tf32 and mma.m16n8k16 .bf16),
 // with g = lane / 4 and t = lane % 4, in 32-bit words (one tf32 value or
@@ -18,10 +17,6 @@
 // b1 of an n-major B; with .trans it gets (2t, g), (2t+1, g), which are the
 // fragments of a k-major B or of an A stored k-major.  A row stride of 4
 // mod 8 words puts the eight rows of a block on distinct bank quads.
-// An activation row stride of 4 mod 8 words puts the 32 lanes' A loads on
-// 32 distinct banks (row g lands on bank 4g mod 32 up to a permutation, plus
-// t); a staged weight row stride of 8 mod 16 words does the same for B
-// (row t on bank 8t, plus g).
 
 #pragma once
 
@@ -32,15 +27,6 @@
 namespace mixstage {
 
 __host__ __device__ inline int round8(int n) { return (n + 7) & ~7; }
-
-// Row stride (words) of an activation tile whose rows hold k words.
-__host__ __device__ inline int act_stride(int k) { return round8(k) + 4; }
-
-// Row stride (words) of a staged weight chunk of cout columns.
-__host__ __device__ inline int weight_stride(int cout) {
-  const int w = round8(cout);
-  return w % 16 == 0 ? w + 8 : w;
-}
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return (unsigned)__cvta_generic_to_shared(p);
@@ -70,33 +56,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Start copying k rows [k0, k0 + kRows) of the row-major (krows, cout)
-// array w of 32-bit words into `dst` (row stride ws words), columns
-// [0, round8(cout)); rows >= krows and columns >= cout become 0.  16-byte
-// copies when every row start is 16-byte aligned, else 4-byte ones.
-template <int kRows>
-__device__ __forceinline__ void stage_chunk(uint32_t* dst, int ws,
-                                            const uint32_t* w, int krows,
-                                            int cout, int k0) {
-  const int wcols = round8(cout);
-  if ((cout & 3) == 0 && (reinterpret_cast<uintptr_t>(w) & 15) == 0) {
-    const int nv = wcols / 4;
-    for (int i = threadIdx.x; i < kRows * nv; i += blockDim.x) {
-      const int r = i / nv, c = 4 * (i - r * nv);
-      const bool ok = k0 + r < krows && c < cout;
-      cp_async16(dst + r * ws + c, ok ? w + (size_t)(k0 + r) * cout + c : w,
-                 ok ? 16 : 0);
-    }
-  } else {
-    for (int i = threadIdx.x; i < kRows * wcols; i += blockDim.x) {
-      const int r = i / wcols, c = i - r * wcols;
-      const bool ok = k0 + r < krows && c < cout;
-      cp_async4(dst + r * ws + c, ok ? w + (size_t)(k0 + r) * cout + c : w,
-                ok ? 4 : 0);
-    }
-  }
 }
 
 // v rounded to tf32 (10 mantissa bits, to nearest, ties away from zero),

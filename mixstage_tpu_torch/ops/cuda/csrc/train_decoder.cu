@@ -21,7 +21,7 @@
 // 53.7 GFLOP of f32 multiply-adds against ~100-130 MB of HBM traffic.  The
 // products run on the tensor cores in 3xTF32 (each f32 operand split into
 // hi = tf32(v) and lo = tf32(v - hi); a product is lo*hi + hi*lo + hi*hi
-// with f32 accumulation, as K1 in fused_decoder.cu), so both are bound by
+// with f32 accumulation), so both are bound by
 // operations at a third of the card's TF32 rate: 0.16 ms forward and 0.33
 // ms backward on an H100 SXM.  The tensor cores' accumulation truncates:
 // summed straight into one accumulator, a 2048- or 6144-deep product

@@ -1,4 +1,4 @@
-// PTX helpers of the Hopper-only kernels (fused_decoder_bf16.cu, the bf16
+// PTX helpers of the Hopper-only kernels (fused_decoder_wgmma.cu, the bf16
 // GEMM of train_decoder.cu in train_gemm_bf16.cuh, decoder_int8.cu):
 // warpgroup MMAs (wgmma, bf16 and s8) on operands in shared memory,
 // mbarriers, bulk asynchronous copies (cp.async.bulk), named barriers and

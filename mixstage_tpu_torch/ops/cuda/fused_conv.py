@@ -4,26 +4,26 @@ grouped conv chain, each as one CUDA kernel.
 Counterpart of ``mixstage_tpu/ops/pallas/fused_conv.py``: the TPU kernels
 ``fused_mixstage_decoder`` (K1, ``:177-229``) and ``fused_grouped_conv_chain``
 (K2, ``:73-115``) become hand-written CUDA C++ kernels (design and bounds
-noted in each source), bound with ``ctypes``: K1's float32 mode
-(``csrc/fused_decoder.cu``) on the tensor cores in 3xTF32 (f32 accuracy),
-K2 (same file) on the CUDA cores in f32 FMA.  ``fused_mixstage_decoder_plain``
-(the counterpart of ``serve.py::folded_decoder_xla``) and ``chain_plain``
-(of ``chain_reference``) are the same functions in plain PyTorch: the CPU
-tests use them, and ``chip_smoke.py`` holds the kernels against them on the
-card.
+noted in each source), bound with ``ctypes``: K1 (``csrc/fused_decoder_wgmma.cu``)
+on the bf16 tensor cores with ``wgmma``, K2 (``csrc/conv_chain.cu``) on the
+CUDA cores in f32 FMA.  ``fused_mixstage_decoder_plain`` (the counterpart of
+``serve.py::folded_decoder_xla``) and ``chain_plain`` (of
+``chain_reference``) are the same functions in plain PyTorch: the CPU tests
+use them, and ``chip_smoke.py`` holds the kernels against them on the card.
 
-K1 also has the TPU kernel's bf16 mode: bfloat16 features with float32
-(BN-folded) weights, products of the two in float32, bias and leaky in
-float32, each layer's output and the logits rounded to bfloat16
-(``fused_conv.py:141-176``, ``out_shape`` ``x.dtype``).  Its kernel
-(``csrc/fused_decoder_bf16.cu``) runs ``wgmma`` on the bf16 tensor cores
-with each float32 weight split into three bfloat16 terms that sum to it
-exactly (``split_bf16x3``), so a bf16 feature times a weight is exact in
-three bf16 products.  The split and the layout the kernel streams
-(``pack_decoder_bf16``) are done once by the serving function; the public
-``fused_mixstage_decoder`` takes them as ``packed=`` or packs per call.
-The plain version rounds at the same points, so it is the kernel's twin at
-either dtype.  K2 has the TPU kernel's bf16 mode as well (``_chain_kernel``
+K1 runs float32 weights in both of the TPU kernel's modes: float32
+features, and bfloat16 features with each layer's output and the logits
+rounded to bfloat16 (``fused_conv.py:141-176``, ``out_shape`` ``x.dtype``);
+products in float32, bias and leaky in float32.  Its kernel splits each
+float32 weight into three bfloat16 terms that sum to it exactly
+(``split_bf16x3``), so a bf16 feature times a weight is exact in three bf16
+products; in the float32 mode the kernel splits each feature the same way
+and takes a product as the six bf16 products of the two splits whose terms
+are largest (f32 accuracy).  The weights' split and the layout the kernel
+streams (``pack_decoder_bf16``) are done once by the serving function; the
+public ``fused_mixstage_decoder`` takes them as ``packed=`` or packs per
+call.  The plain version rounds at the same points, so it is the kernel's
+twin at either dtype.  K2 has the TPU kernel's bf16 mode as well (``_chain_kernel``
 casts each layer's output to ``x_ref.dtype``): bfloat16 activations,
 float32 weights and biases, float32 sums, bias and leaky (slope float32
 0.2), each layer's output rounded to bfloat16; ``chain_plain`` rounds at
@@ -116,15 +116,9 @@ def _check(x, w0, wc, biases, w_logits, b_logits, groups):
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare the C signatures of a loaded ``fused_decoder`` library
-    (pointers and the stream as ``c_void_p``, so none is cut to 32 bits)."""
-    fn = lib.mixstage_fused_decoder_f32
-    if fn.argtypes is None:
-        fn.argtypes = [_P] * 7 + [_I] * 7 + [ctypes.c_float, _I, _P]
-        fn.restype = _I
-        tile = lib.mixstage_fused_decoder_tile
-        tile.argtypes = [_I] * 8 + [ctypes.c_size_t]
-        tile.restype = _I
+    """Declare the C signatures of a loaded ``conv_chain`` library (K2;
+    pointers and the stream as ``c_void_p``, so none is cut to 32 bits)."""
+    if lib.mixstage_conv_chain_f32.argtypes is None:
         lib.mixstage_cuda_error_string.argtypes = [_I]
         lib.mixstage_cuda_error_string.restype = ctypes.c_char_p
         for chain in (lib.mixstage_conv_chain_f32,
@@ -134,19 +128,20 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
-def bind_bf16(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare the C signatures of a loaded ``fused_decoder_bf16`` library."""
-    fn = lib.mixstage_fused_decoder_bf16
-    if fn.argtypes is None:
-        fn.argtypes = [_P] * 5 + [_I] * 7 + [ctypes.c_float, _I,
-                                             ctypes.c_longlong, _P]
-        fn.restype = _I
-        lib.mixstage_fused_decoder_bf16_tile.argtypes = [_I] * 8 + [
-            ctypes.c_size_t]
-        lib.mixstage_fused_decoder_bf16_tile.restype = _I
-        lib.mixstage_fused_decoder_bf16_error_string.argtypes = [_I]
-        lib.mixstage_fused_decoder_bf16_error_string.restype = \
-            ctypes.c_char_p
+def bind_decoder(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C signatures of a loaded ``fused_decoder_wgmma`` library
+    (K1, both modes)."""
+    if lib.mixstage_fused_decoder_f32.argtypes is None:
+        for mode in ("f32", "bf16"):
+            fn = getattr(lib, f"mixstage_fused_decoder_{mode}")
+            fn.argtypes = [_P] * 5 + [_I] * 7 + [ctypes.c_float, _I,
+                                                 ctypes.c_longlong, _P]
+            fn.restype = _I
+            tile = getattr(lib, f"mixstage_fused_decoder_{mode}_tile")
+            tile.argtypes = [_I] * 8 + [ctypes.c_size_t]
+            tile.restype = _I
+        lib.mixstage_fused_decoder_error_string.argtypes = [_I]
+        lib.mixstage_fused_decoder_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -154,18 +149,13 @@ def tile_frames(B: int, T: int, C0: int, C: int, L: int, F: int, G: int,
                 sm_count: int, smem_limit: int, act_bytes: int = 4) -> int:
     """The kernel's output frames per CTA for this shape on a card of
     ``sm_count`` SMs and ``smem_limit`` bytes of shared memory per CTA (0 if
-    no tile fits): the float32 mode's (``act_bytes`` 4,
-    ``csrc/fused_decoder.cu``) or the bf16 mode's (2,
-    ``csrc/fused_decoder_bf16.cu``).  Both follow
-    ``csrc/launch_common.cuh::cost_tile`` with their own rows per pass and
+    no tile fits): the float32 mode's (``act_bytes`` 4) or the bf16 mode's
+    (2).  Both follow ``csrc/launch_common.cuh::cost_tile`` with their own
     shared-memory layout; the launch applies the rule to its own card."""
-    if act_bytes == 2:
-        lib = bind_bf16(build.load_library("fused_decoder_bf16"))
-        return lib.mixstage_fused_decoder_bf16_tile(B, T, C0, C, L, F, G,
-                                                    sm_count, smem_limit)
-    lib = bind(build.load_library("fused_decoder"))
-    return lib.mixstage_fused_decoder_tile(B, T, C0, C, L, F, G, sm_count,
-                                           smem_limit)
+    lib = bind_decoder(build.load_library("fused_decoder_wgmma"))
+    mode = "bf16" if act_bytes == 2 else "f32"
+    return getattr(lib, f"mixstage_fused_decoder_{mode}_tile")(
+        B, T, C0, C, L, F, G, sm_count, smem_limit)
 
 
 def device_tile_frames(B: int, T: int, C0: int, C: int, L: int, F: int,
@@ -203,7 +193,7 @@ def _pack_layer(w):
 
 
 def pack_decoder_bf16(fd):
-    """The bf16 kernel's weight operand for a folded decoder ``fd`` (keys
+    """K1's weight operand (both modes) for a folded decoder ``fd`` (keys
     ``w0`` (G, 3, C0, C), ``wc`` (L, G, 3, C, C), ``w_logits`` (G, C, F)):
     a (G, n) bfloat16 tensor holding, per group, every layer's chunks in
     the kernel's order (layer 0, chain layers 1..L, the 1x1 logits; each
@@ -222,7 +212,8 @@ def packed_elems(C0: int, C: int, L: int, F: int) -> int:
     return layer(3, C0, C) + L * layer(3, C, C) + layer(1, C, F)
 
 
-def _launch_bf16(x, packed, biases, b_logits, dims, negative_slope):
+def _launch(x, packed, biases, b_logits, dims, negative_slope):
+    """K1 in x's mode on the weights ``packed`` by ``pack_decoder_bf16``."""
     B, T, C0, C, L, F_, G = dims
     gstride = packed_elems(C0, C, L, F_)
     if (packed.dtype != torch.bfloat16 or tuple(packed.shape) != (G, gstride)
@@ -232,19 +223,22 @@ def _launch_bf16(x, packed, biases, b_logits, dims, negative_slope):
                          f"16-byte aligned ({G}, {gstride}) bfloat16 tensor "
                          f"on {x.device}, got {packed.dtype} "
                          f"{tuple(packed.shape)} on {packed.device}")
-    lib = bind_bf16(build.load_library("fused_decoder_bf16"))
+    lib = bind_decoder(build.load_library("fused_decoder_wgmma"))
+    launch = (lib.mixstage_fused_decoder_bf16 if x.dtype == torch.bfloat16
+              else lib.mixstage_fused_decoder_f32)
     out = torch.empty((B, T, G * F_), device=x.device, dtype=x.dtype)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.mixstage_fused_decoder_bf16(
+        err = launch(
             x.data_ptr(), packed.data_ptr(), biases.data_ptr(),
             b_logits.data_ptr(), out.data_ptr(), B, T, C0, C, L, F_, G,
             float(negative_slope), 0, gstride, stream)
     if err != 0:
-        tile = device_tile_frames(B, T, C0, C, L, F_, G, x.device, 2)
+        tile = device_tile_frames(B, T, C0, C, L, F_, G, x.device,
+                                  x.element_size())
         raise RuntimeError(
-            f"fused_mixstage_decoder (bfloat16) launch failed: "
-            f"{lib.mixstage_fused_decoder_bf16_error_string(err).decode()} "
+            f"fused_mixstage_decoder ({x.dtype}) launch failed: "
+            f"{lib.mixstage_fused_decoder_error_string(err).decode()} "
             f"(error {err}; B={B} T={T} C0={C0} C={C} L={L} F={F_} G={G}; "
             f"time tile {tile}, 0 = none fits shared memory)")
     return out
@@ -261,40 +255,22 @@ def fused_mixstage_decoder(x, w0, wc, biases, w_logits, b_logits,
     grouped 1×1 output conv.  Returns per-group logits (B, T, G·F), to be
     combined by ``index_select_outputs``.  All float32 and contiguous; C
     and F at most 256.  A bfloat16 ``x`` runs the bf16 mode (float32
-    weights) and returns bfloat16 logits; on CUDA its kernel reads the
+    weights) and returns bfloat16 logits.  On CUDA the kernel reads the
     weights as ``packed = pack_decoder_bf16(...)``, packed once by the
     caller, or packed here on each call when ``packed`` is None."""
     dims = _check(x, w0, wc, biases, w_logits, b_logits, groups)
-    B, T, C0, C, L, F_, G = dims
     if x.device.type == "cpu":
         return fused_mixstage_decoder_plain(x, w0, wc, biases, w_logits,
                                             b_logits, groups, negative_slope)
     if x.device.type != "cuda":
         raise ValueError(f"fused_mixstage_decoder runs on CUDA (or the CPU "
                          f"plain version), got device {x.device}")
-    if x.dtype == torch.bfloat16:
-        if packed is None:
-            packed = pack_decoder_bf16(dict(w0=w0, wc=wc, w_logits=w_logits))
-        out = _launch_bf16(x, packed, biases, b_logits, dims, negative_slope)
-        fused_mixstage_decoder.launches += 1
-        fused_mixstage_decoder.launches_bf16 += 1
-        return out
-    lib = bind(build.load_library("fused_decoder"))
-    out = torch.empty((B, T, G * F_), device=x.device, dtype=x.dtype)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.mixstage_fused_decoder_f32(
-            x.data_ptr(), w0.data_ptr(), wc.data_ptr(), biases.data_ptr(),
-            w_logits.data_ptr(), b_logits.data_ptr(), out.data_ptr(),
-            B, T, C0, C, L, F_, G, float(negative_slope), 0, stream)
-    if err != 0:
-        tile = device_tile_frames(B, T, C0, C, L, F_, G, x.device)
-        raise RuntimeError(
-            f"fused_mixstage_decoder ({x.dtype}) launch failed: "
-            f"{lib.mixstage_cuda_error_string(err).decode()} (error {err}; "
-            f"B={B} T={T} C0={C0} C={C} L={L} F={F_} G={G}; time tile {tile},"
-            f" 0 = none fits shared memory)")
+    if packed is None:
+        packed = pack_decoder_bf16(dict(w0=w0, wc=wc, w_logits=w_logits))
+    out = _launch(x, packed, biases, b_logits, dims, negative_slope)
     fused_mixstage_decoder.launches += 1
+    if x.dtype == torch.bfloat16:
+        fused_mixstage_decoder.launches_bf16 += 1
     return out
 
 
@@ -348,7 +324,7 @@ def fused_grouped_conv_chain(x, weights, biases, groups: int,
     if x.device.type != "cuda":
         raise ValueError(f"fused_grouped_conv_chain runs on CUDA (or the CPU "
                          f"plain version), got device {x.device}")
-    lib = bind(build.load_library("fused_decoder"))
+    lib = bind(build.load_library("conv_chain"))
     bf16 = x.dtype == torch.bfloat16
     launch = lib.mixstage_conv_chain_bf16 if bf16 else \
         lib.mixstage_conv_chain_f32

@@ -7,7 +7,8 @@ batch layout).  Compared with the eval forward:
   the cluster-classifier chain (``fold_bn_into_conv``);
 * both chains run through kernel K1 (``ops/cuda/fused_conv.py``) when the
   tensors live on CUDA: the classifier as one group, the mixture decoder as
-  M groups — two launches per call;
+  M groups — two launches per call, on float32 weights split into three
+  bfloat16 terms and packed once, when the serving function is built;
 * the int8 tier (``quantize_int8=True``) quantizes the mixture decoder
   against calibration features and runs it through kernel K4
   (``ops/cuda/quant.py``) instead: one K1 launch (the classifier) and one
@@ -23,9 +24,8 @@ themselves.  ``build_waveform_serving_fn`` puts the log-mel frontend
 A model built with ``dtype=torch.bfloat16`` serves at that compute dtype,
 as the JAX package's bf16 tier does: audio and style rows are cast to it,
 the features and both chains' activations are bfloat16 (K1's bf16 mode),
-the folded weights stay float32 (folded from the float32 parameters;
-K1's bf16 kernel reads them split into three bfloat16 terms, packed once
-when the serving function is built), and the pose comes back as float32,
+the folded weights stay float32 (folded from the float32 parameters,
+packed for K1 as at float32), and the pose comes back as float32,
 an exact upcast.  Its int8 tier
 (``serve.py:203-279``) calibrates on the bf16 model's features, hands them
 to K4's bf16-feature mode (``decoder_int8_plain`` on the plain route), and
@@ -174,9 +174,9 @@ def build_serving_fn(model: nn.Module, device=None,
                                                              sw))
         if use_kernel:
             qfd = pack_decoder_int8(qfd)
-    # K1's bf16 kernel streams the weights split and packed: once, here
+    # K1 streams the weights split and packed (both modes): once, here
     packed = {}
-    if use_kernel and dtype == torch.bfloat16:
+    if use_kernel:
         packed["classifier"] = pack_decoder_bf16(fc)
         if not quantize_int8:
             packed["decoder"] = pack_decoder_bf16(fd)

@@ -2,7 +2,7 @@
 packed image the kernel streams, and the kernel's sums emulated against
 JAX.
 
-K1's bf16 mode (``mixstage_tpu_torch/ops/cuda/csrc/fused_decoder_bf16.cu``)
+K1's bf16 mode (``mixstage_tpu_torch/ops/cuda/csrc/fused_decoder_wgmma.cu``)
 multiplies bf16 features by float32 weights on the bf16 tensor cores: each
 weight w is split once (``split_bf16x3``) into w1 = bf16(w), w2 = bf16(w -
 w1), w3 = w - w1 - w2, three bfloat16 values that sum to w exactly, so a

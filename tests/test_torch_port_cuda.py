@@ -2,8 +2,11 @@
 
 K1 at edge shapes the serving path does not reach (several time tiles with
 halos, T not a multiple of the tile, odd widths, no chain layer, one
-frame), its time-tile rule, and the serving path.  Tolerance: max |kernel -
-plain| ≤ 1e-4 · max |plain| (3xTF32 products, f32 accumulation order).
+frame), at every time tile, at the widest C0 and the deepest chain that
+its ``mma.sync`` parent took, its time-tile rule, and the serving path.
+Tolerance: max |kernel - plain| ≤ 1e-4 · max |plain| (K1's f32 mode: six
+bf16 products of three-term splits of both operands, f32 accumulation
+order).
 K3's forward and backward (3xTF32 GEMM passes) at shapes that cross its
 tiles' edges, their launch counters, their repeating bit for bit, the
 checks of ``DecoderTrain``, and one fused G step.  K4 (the
@@ -11,7 +14,8 @@ int8 decoder) at the same edge shapes in both quantization schemes, equal
 to its plain version in every element, its refusal of unpacked weights,
 and the int8 serving tier (one K1 and one K4 launch per call); K2 (the
 grouped conv chain) at edge shapes, to 1e-4.  The built K1, K3 and K4 run
-on the tensor cores (their SASS holds HMMA, HGMMA and IGMMA instructions).
+on the tensor cores (their SASS holds HGMMA, HMMA and IGMMA instructions),
+K2 on the CUDA cores.
 
 The bf16 modes of K1 and K3 against their plain versions, under the bf16
 rule (``bf16_rule`` below): no bf16 output is held element-wise to
@@ -22,7 +26,9 @@ the plain version's drift to 10% (+1e-3).  K1's bf16 mode (``wgmma`` on
 weights split into three bf16 terms) must also stay within one bf16 ULP
 of max |plain| with at most a fifth of its elements differing (45% for
 chains of more than three hidden layers), at every edge shape and every
-time tile its launch takes; its SASS holds BF16 HGMMA.  Both wrappers
+time tile its launch takes, and equal the kernel of the version before it
+bit for bit where that source lies in ``build/parent/``; its SASS holds
+BF16 HGMMA.  Both wrappers
 refuse other dtype pairs, and a bf16 serving call and a fused bf16 G
 step launch the bf16 modes; the bf16 and int8-bf16 serving calls at full
 width launch K1-bf16 on weights packed when the serving function was
@@ -97,18 +103,20 @@ def test_kernel_matches_plain_on_card(cuda, shape):
 
 
 def test_tile_frames_fills_the_card_and_fits_shared_memory(cuda):
-    """K1's tile rule (``launch_common.cuh::cost_tile``) on an H100: the
-    tile with the fewest estimated row-passes (weight staging plus 16-row
-    MMA tiles over the frames and halo) times waves of CTAs."""
+    """K1's tile rule in the f32 mode (``launch_common.cuh::cost_tile``) on
+    an H100: the tile with the fewest estimated row-passes (weight
+    streaming plus 8-row passes over the frames and halo) times waves of
+    CTAs, among those whose three-term activation image and a ring of at
+    least 2 stages fit shared memory."""
     from mixstage_tpu_torch.ops.cuda.fused_conv import tile_frames
 
     h100 = dict(sm_count=132, smem_limit=232448)
     # decoder bs32 T=64: 256 CTAs of 64 frames are two waves on 132 SMs;
     # 32-frame tiles would be four waves of CTAs that cost more than half
     assert tile_frames(32, 64, 266, 256, 3, 96, 8, **h100) == 64
-    # classifier chain bs32 T=64, one group: 32-frame tiles leave 68 SMs
-    # idle (64 frames and 12 halo rows overflow shared memory), 8-frame
-    # ones take two waves; 16 frames run 128 CTAs in one
+    # classifier chain bs32 T=64, one group: 32- and 64-frame tiles leave
+    # 68 and 100 SMs idle, 8-frame ones take two waves; 16 frames run 128
+    # CTAs in one
     assert tile_frames(32, 64, 266, 256, 5, 8, 1, **h100) == 16
     # one 64-frame clip through the decoder: 64 CTAs of 8 frames, one wave
     assert tile_frames(1, 64, 266, 256, 3, 96, 8, **h100) == 8
@@ -117,14 +125,15 @@ def test_tile_frames_fills_the_card_and_fits_shared_memory(cuda):
 
 
 def test_kernels_run_on_tensor_cores(cuda):
-    """The built K1 holds tf32 HMMA instructions (its f32 mode), K1's bf16
-    mode BF16 HGMMA ones (wgmma) and no HMMA, every instance of K4's
-    ``decoder_int8_kernel`` s8 IGMMA ones (wgmma) and no IMMA (mma.sync)
-    or ``__dp4a`` (IDP.4A), K3's f32 GEMM passes (every instance of its
-    ``gemm_kernel``) tf32 HMMA ones and no FFMA, and its bf16 GEMM passes
-    (every instance of ``wgmma_gemm_kernel``) BF16 HGMMA ones, no HMMA and
-    no FFMA, read from their SASS with ``cuobjdump`` (it ships beside
-    ``nvcc``)."""
+    """Every instance of K1's ``decoder_kernel`` holds BF16 HGMMA
+    instructions (wgmma) and no HMMA, in its f32 mode (terms 3) as in its
+    bf16 mode (terms 1); K2's library (FFMA) no HMMA or HGMMA; every
+    instance of K4's ``decoder_int8_kernel`` s8 IGMMA ones (wgmma) and no
+    IMMA (mma.sync) or ``__dp4a`` (IDP.4A), K3's f32 GEMM passes (every
+    instance of its ``gemm_kernel``) tf32 HMMA ones and no FFMA, and its
+    bf16 GEMM passes (every instance of ``wgmma_gemm_kernel``) BF16 HGMMA
+    ones, no HMMA and no FFMA, read from their SASS with ``cuobjdump`` (it
+    ships beside ``nvcc``)."""
     import subprocess
     from pathlib import Path
 
@@ -132,18 +141,26 @@ def test_kernels_run_on_tensor_cores(cuda):
 
     tool = Path(build.nvcc_path()).with_name("cuobjdump")
     sass = {}
-    for name in ("fused_decoder", "fused_decoder_bf16", "decoder_int8",
+    for name in ("fused_decoder_wgmma", "conv_chain", "decoder_int8",
                  "train_decoder"):
         build.load_library(name)
         sass[name] = subprocess.run(
             [tool, "-sass", str(build.library_path(name))], check=True,
             capture_output=True, text=True).stdout
-    hmma = [ln for ln in sass["fused_decoder"].splitlines() if "HMMA" in ln]
-    assert hmma and all("TF32" in ln for ln in hmma), hmma[:3]
-    hgmma = [ln for ln in sass["fused_decoder_bf16"].splitlines()
-             if "HGMMA" in ln]
-    assert hgmma and all("BF16" in ln for ln in hgmma), hgmma[:3]
-    assert " HMMA" not in sass["fused_decoder_bf16"]
+    # one section per function, each opened by a "Function : <name>" line;
+    # decoder_kernel<N, terms> mangles its terms as "Li3EE" or "Li1EE"
+    k1 = [f for f in sass["fused_decoder_wgmma"].split("Function : ")[1:]
+          if "decoder_kernel" in f.splitlines()[0]]
+    for terms in ("Li3EE", "Li1EE"):
+        mode = [f for f in k1 if terms in f.splitlines()[0]]
+        assert len(mode) == 5, (terms, len(mode))   # one per wgmma width
+        for body in mode:
+            hgmma = [ln for ln in body.splitlines() if "HGMMA" in ln]
+            assert hgmma and all("BF16" in ln for ln in hgmma), hgmma[:3]
+    assert " HMMA" not in sass["fused_decoder_wgmma"]
+    assert "HMMA" not in sass["conv_chain"]
+    assert "HGMMA" not in sass["conv_chain"]
+    assert "FFMA" in sass["conv_chain"]
     k4 = [f for f in sass["decoder_int8"].split("Function : ")[1:]
           if "decoder_int8_kernel" in f.splitlines()[0]]
     assert len(k4) == 7, len(k4)          # one per wgmma width N
@@ -172,6 +189,62 @@ def test_kernels_run_on_tensor_cores(cuda):
         assert hgmma and all("BF16" in ln for ln in hgmma), hgmma[:3]
         assert " HMMA" not in body and "FFMA" not in body, \
             body.splitlines()[0]
+
+
+@pytest.mark.parametrize("shape", EDGE_SHAPES, ids=str)
+def test_decoder_kernel_at_every_tile(cuda, shape):
+    """K1's f32 mode launched directly at every time tile (the rule picks
+    one), each through the kernel instance its rows need and the ring its
+    shared memory leaves, held like the wrapper's launch; a packed operand
+    of the wrong size is refused."""
+    from mixstage_tpu_torch.ops.cuda import build
+    from mixstage_tpu_torch.ops.cuda import fused_conv as fc
+
+    B, T, G, C0, C, L, F = shape
+    x, w0, wc, biases, wl, bl = _folded(B, T, G, C0, C, L, F, cuda)
+    lib = fc.bind_decoder(build.load_library("fused_decoder_wgmma"))
+    gstride = fc.packed_elems(C0, C, L, F)
+    packed = fc.pack_decoder_bf16(dict(w0=w0, wc=wc, w_logits=wl))
+    ref = fc.fused_mixstage_decoder_plain(x, w0, wc, biases, wl, bl, G)
+
+    def launch(tile, size=gstride):
+        out = torch.empty(B, T, G * F, device=cuda)
+        err = lib.mixstage_fused_decoder_f32(
+            x.data_ptr(), packed.data_ptr(), biases.data_ptr(),
+            bl.data_ptr(), out.data_ptr(), B, T, C0, C, L, F, G, 0.2, tile,
+            size, torch.cuda.current_stream().cuda_stream)
+        return err, out
+
+    for tile in (8, 16, 32, 64):
+        err, out = launch(tile)
+        if err:              # the tile's rows are wider than every instance
+            assert min(tile + 2 * L, T) > 72, (tile, err)
+            continue
+        torch.cuda.synchronize()
+        rel = float((out - ref).abs().max()) / float(ref.abs().max())
+        assert rel <= 1e-4, (tile, rel)
+    assert launch(0, gstride + 8)[0] != 0
+
+
+# (B, T, G, C0, C, L, F): the widest C0 (at L = 3) and the deepest chain
+# (at C0 = 266) that K1's mma.sync f32 kernel before the wgmma mode took at
+# T = 64 (its tile function on an H100: tools/profile_k1.py --parent); the
+# f32 mode takes them with a 2-stage ring
+K1_PARENT_WIDEST = [(1, 64, 2, 1280, 256, 3, 96), (1, 64, 1, 266, 256, 32, 8)]
+
+
+@pytest.mark.parametrize("shape", K1_PARENT_WIDEST, ids=str)
+def test_kernel_at_the_parents_widest_on_card(cuda, shape):
+    from mixstage_tpu_torch.ops.cuda.fused_conv import (
+        fused_mixstage_decoder, fused_mixstage_decoder_plain)
+
+    B, T, G, C0, C, L, F = shape
+    a = _folded(B, T, G, C0, C, L, F, cuda)
+    out = fused_mixstage_decoder(*a, groups=G)
+    ref = fused_mixstage_decoder_plain(*a, groups=G)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max()) / float(ref.abs().max())
+    assert err <= 1e-4, err
 
 
 def test_kernel_rejects_what_it_cannot_take(cuda):
@@ -551,7 +624,7 @@ def test_bf16_decoder_kernel_at_every_tile(cuda, shape):
     B, T, G, C0, C, L, F = shape
     x, w0, wc, biases, wl, bl = _folded(B, T, G, C0, C, L, F, cuda)
     x16 = x.bfloat16()
-    lib = fc.bind_bf16(build.load_library("fused_decoder_bf16"))
+    lib = fc.bind_decoder(build.load_library("fused_decoder_wgmma"))
     gstride = fc.packed_elems(C0, C, L, F)
     packed = fc.pack_decoder_bf16(dict(w0=w0, wc=wc, w_logits=wl))
     ref = fc.fused_mixstage_decoder_plain(x16, w0, wc, biases, wl, bl, G)
@@ -575,6 +648,57 @@ def test_bf16_decoder_kernel_at_every_tile(cuda, shape):
         x16.data_ptr(), packed.data_ptr(), biases.data_ptr(), bl.data_ptr(),
         out.data_ptr(), B, T, C0, C, L, F, G, 0.2, 0, gstride + 8,
         torch.cuda.current_stream().cuda_stream) != 0
+
+
+# (B, T, G, C0, C, L, F): the decoder and the classifier chain at bs32 and
+# at the server's 4096-frame bucket
+K1_SERVING_SHAPES = [(32, 64, 8, 266, 256, 3, 96), (32, 64, 1, 266, 256, 5, 8),
+                     (1, 4096, 8, 266, 256, 3, 96),
+                     (1, 4096, 1, 266, 256, 5, 8)]
+_parents = {}
+
+
+@pytest.mark.parametrize("shape", K1_SERVING_SHAPES + EDGE_SHAPES, ids=str)
+def test_bf16_decoder_kernel_equals_its_parent_bit_for_bit(cuda, shape):
+    """K1's bf16 mode equals the bf16 kernel of the version before the f32
+    mode joined it (its ``fused_decoder_bf16.cu`` and the headers it
+    includes, written into ``build/parent/`` with ``git show
+    <commit>:mixstage_tpu_torch/ops/cuda/csrc/<file>``) in every element,
+    on the same packed weights."""
+    import ctypes
+    import subprocess
+    from pathlib import Path
+
+    from mixstage_tpu_torch.ops.cuda import build
+    from mixstage_tpu_torch.ops.cuda import fused_conv as fc
+
+    src = Path(__file__).resolve().parents[1] / "build" / "parent" / \
+        "fused_decoder_bf16.cu"
+    if not src.exists():
+        pytest.skip(f"needs the parent's kernel source at {src}")
+    if src not in _parents:
+        lib = src.with_name("libparent_fused_decoder_bf16.so")
+        subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(lib),
+                        str(src)], check=True, capture_output=True)
+        _parents[src] = ctypes.CDLL(str(lib))
+        fn = _parents[src].mixstage_fused_decoder_bf16
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
+            ctypes.c_float, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    B, T, G, C0, C, L, F = shape
+    x, w0, wc, biases, wl, bl = _folded(B, T, G, C0, C, L, F, cuda)
+    x16 = x.bfloat16()
+    packed = fc.pack_decoder_bf16(dict(w0=w0, wc=wc, w_logits=wl))
+    out = fc.fused_mixstage_decoder(x16, w0, wc, biases, wl, bl, groups=G,
+                                    packed=packed)
+    ref = torch.empty_like(out)
+    assert _parents[src].mixstage_fused_decoder_bf16(
+        x16.data_ptr(), packed.data_ptr(), biases.data_ptr(), bl.data_ptr(),
+        ref.data_ptr(), B, T, C0, C, L, F, G, 0.2, 0,
+        fc.packed_elems(C0, C, L, F),
+        torch.cuda.current_stream().cuda_stream) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
 
 
 @pytest.mark.parametrize("shape", K3_SHAPES, ids=str)

@@ -3,7 +3,8 @@ one, same weights: the folded weights, and the served pose vs JAX
 ``build_serving_fn(use_pallas=False)`` at rtol=atol=1e-4, with (B,) ids and
 (B, S) soft rows; the K1-routed path (its CPU plain version here) and the
 plain path vs the port's unfolded eval forward within the BN-fold contract
-(rtol=atol=5e-3, as tests/test_pallas.py holds the JAX path)."""
+(rtol=atol=5e-3, as tests/test_pallas.py holds the JAX path); the kernel
+route packs K1's weights once, when the serving function is built."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -79,3 +80,38 @@ def test_build_serving_fn_without_a_device_needs_cuda(setup):
         pytest.skip("this machine has a CUDA device, so device=None is valid")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tserve.build_serving_fn(setup[3])
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["f32", "int8"])
+def test_kernel_route_packs_k1_weights_once(setup, int8, monkeypatch):
+    """On the kernel route ``build_serving_fn`` packs K1's weights (split
+    in three bf16 terms, ``pack_decoder_bf16``) once, when the function is
+    built: the classifier's, and the decoder's unless K4 runs it (int8);
+    no call packs them again.  On the CPU the wrappers run their plain
+    versions, so the packed weights leave the pose unchanged: it equals a
+    serving function built without them bit for bit."""
+    from mixstage_tpu_torch.ops.cuda import fused_conv as fc
+
+    _, _, _, port, audio = setup
+    sty = style_rows("soft", seed=8)
+    calib = (audio, np.array([0, 1], np.int32)) if int8 else None
+    packs = []
+    pack = fc.pack_decoder_bf16
+
+    def counting(fd):
+        packs.append(fd)
+        return pack(fd)
+
+    monkeypatch.setattr(tserve, "pack_decoder_bf16", counting)
+    fn = tserve.build_serving_fn(port, device="cpu", use_kernel=True,
+                                 quantize_int8=int8, calib=calib)
+    assert [fd["w0"].shape[0] for fd in packs] == \
+        [1] + ([] if int8 else [SMALL["num_clusters"]])
+    monkeypatch.setattr(fc, "pack_decoder_bf16", counting)
+    out = fn(audio, sty)
+    fn(audio, sty)
+    assert len(packs) == (1 if int8 else 2)       # none per call
+    monkeypatch.setattr(tserve, "pack_decoder_bf16", lambda fd: None)
+    ref = tserve.build_serving_fn(port, device="cpu", use_kernel=True,
+                                  quantize_int8=int8, calib=calib)(audio, sty)
+    assert torch.equal(out, ref)

@@ -1,16 +1,20 @@
-"""K1's 3xTF32 arithmetic, emulated on the CPU, against JAX.
+"""3xTF32 arithmetic, emulated on the CPU, against JAX.
 
-K1 (``mixstage_tpu_torch/ops/cuda/csrc/fused_decoder.cu``) multiplies on
-the tensor cores in TF32: each f32 operand v is split into
-hi = cvt.rna.tf32.f32(v) and lo = cvt.rna.tf32.f32(v - hi), and a product
-is taken as a_lo*b_hi + a_hi*b_lo + a_hi*b_hi with f32 sums.  Here
-``cvt.rna.tf32.f32`` is emulated on the f32 bit pattern (its low 13 bits
-rounded off, half away from zero), the three products of TF32 values are
-exact in f32, and the sums are f32 matmuls.  The folded decoder run so at
-the serving widths stays within 1e-5 of max |ref| of JAX's
+K3's f32 mode (``mixstage_tpu_torch/ops/cuda/csrc/train_decoder.cu``, its
+``gemm_kernel`` on ``mma.sync``) multiplies on the tensor cores in TF32:
+each f32 operand v is split into hi = cvt.rna.tf32.f32(v) and
+lo = cvt.rna.tf32.f32(v - hi), and a product is taken as
+a_lo*b_hi + a_hi*b_lo + a_hi*b_hi with f32 sums.  (K1 used the same
+arithmetic until its f32 mode moved to six bf16 products on ``wgmma``,
+``tests/test_torch_port_k1_f32_wgmma.py``.)  Here ``cvt.rna.tf32.f32`` is
+emulated on the f32 bit pattern (its low 13 bits rounded off, half away
+from zero), the three products of TF32 values are exact in f32, and the
+sums are f32 matmuls.  The folded decoder's k=3 convs and logits run so at
+the serving widths stay within 1e-5 of max |ref| of JAX's
 ``folded_decoder_xla`` (float32 on the CPU); one TF32 product alone (what
-the tensor cores give without the split) lands above the kernel's 1e-4
-tolerance, which is why the kernel splits.
+the tensor cores give without the split) lands above the kernels' 1e-4
+tolerance, which is why the kernel splits (``test_torch_port_tf32x3_train.py``
+holds K3's own chain to JAX the same way).
 """
 
 import jax.numpy as jnp

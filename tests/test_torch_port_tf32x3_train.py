@@ -2,8 +2,9 @@
 
 K3 (``mixstage_tpu_torch/ops/cuda/csrc/train_decoder.cu``) takes every
 GEMM product of the training decoder's forward and backward on the tensor
-cores in 3xTF32, as K1 does: each f32 operand v is split into
-hi = cvt.rna.tf32.f32(v) and lo = cvt.rna.tf32.f32(v - hi), a product is
+cores in 3xTF32 (as K1 did before its f32 mode moved to wgmma): each f32
+operand v is split into hi = cvt.rna.tf32.f32(v) and
+lo = cvt.rna.tf32.f32(v - hi), a product is
 a_lo*b_hi + a_hi*b_lo + a_hi*b_hi with f32 sums, while BatchNorm's
 statistics, its backward and the leaky units stay in f32.  Here every
 product of the chain goes through ``product`` (``_torch_port_helpers``),

@@ -20,32 +20,41 @@ classifier, then K4's bf16-feature mode).
 at every time tile that fits, at every shape ``chip_smoke.py`` launches
 them at, beside the tile their rule picks; at bf16 also K3's bf16 mode at
 bs32 x 64 and ragged B=3 T=50 with its GEMM passes forced onto each tile
-and its weight gradients onto 1, 2 and 4 splits, beside the plan.  ``--parent DIR`` builds the
-kernel sources of an earlier version found in DIR (``fused_decoder.cu``,
-``decoder_int8.cu``, ``train_decoder.cu`` and, once it exists,
-``fused_decoder_bf16.cu``, with the headers they include, e.g. written
-there by ``git show <commit>:mixstage_tpu_torch/ops/cuda/csrc/<file>``)
-into ``build/parent_kernels/`` and times them against the current kernels
-in turns (parent, current, current, parent) at those shapes, K1 in the
-``--dtype`` mode (bf16: the parent's ``mixstage_fused_decoder_bf16`` on
-bf16 features into a bf16 output, from ``fused_decoder_bf16.cu`` if the
-parent has it, else from ``fused_decoder.cu`` with float32 weights);
+and its weight gradients onto 1, 2 and 4 splits, beside the plan.
+``--parent DIR`` builds every kernel source of an earlier version found in
+DIR (``*.cu``, with the headers they include, e.g. written there by ``git
+show <commit>:mixstage_tpu_torch/ops/cuda/csrc/<file>``) into
+``build/parent_kernels/`` and times them against the current kernels in
+turns (parent, current, current, parent) at those shapes.  K1 in the
+``--dtype`` mode: from the parent's ``fused_decoder_wgmma.cu`` where it
+has one (both modes on packed weights); else float32 from its
+``fused_decoder.cu`` (``mixstage_fused_decoder_f32``, the ``mma.sync``
+kernel on unpacked weights) and bf16 from its ``fused_decoder_bf16.cu``
+(or, older, its ``fused_decoder.cu``); K1's bf16 mode is checked against
+a parent on packed weights bit for bit.  A parent with the ``mma.sync``
+K1 also reports the widest C0 (at L = 3) and the deepest chain (at C0 =
+266) its tile function takes at T = 64 on this card, and the current f32
+mode runs both against its plain version.  With the float32 ``--dtype``
+the bs32 serving calls (f32 and int8) are traced and timed with the
+parent's K1 in place of the current one, in turns.
 K3-fwd and K3-bwd at bs32 x 64 and at the ragged B=3 T=50: the f32 mode,
 checked against the parent bit for bit, and at bf16 also the bf16 mode
 (the parent's ``*_bf16`` entry points), with out's and cs's bf16 ULPs and
 differing shares; K4 in both modes (f32 and bf16 features) at every K4
 shape, checked against the parent bit for bit (a parent older than the
 wgmma kernel gets its own operands, ``quant.pack_words``).
-``--k3`` limits ``--parent`` and ``--sweep`` to K3, ``--k4`` to K4.
+``--k1`` limits ``--parent`` and ``--sweep`` to K1, ``--k3`` to K3,
+``--k4`` to K4 (the last two without the traces).
 
     python3 tools/profile_k1.py [--seed 0] [--dtype float32|bfloat16]
-                                [--sweep] [--parent DIR] [--k3 | --k4]
+                                [--sweep] [--parent DIR] [--k1 | --k3 | --k4]
                                 [--out profile.json]
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import json
 import subprocess
@@ -62,6 +71,7 @@ from chip_smoke import (C, C0, K1_SHAPES, K3_RAGGED, K4_SHAPES, MEL,  # noqa: E4
 from mixstage_tpu_torch import resolve_device  # noqa: E402
 from mixstage_tpu_torch.models import JointLateClusterSoftStyle4_G  # noqa: E402
 from mixstage_tpu_torch.models.layers import reset_parameters_  # noqa: E402
+from mixstage_tpu_torch import serve as tserve  # noqa: E402
 from mixstage_tpu_torch.ops.cuda import build, fused_conv  # noqa: E402
 from mixstage_tpu_torch.ops.cuda import quant as q8  # noqa: E402
 from mixstage_tpu_torch.ops.cuda import train_decoder as td  # noqa: E402
@@ -91,14 +101,13 @@ def report(label: str, rec: dict, flops: float = 0.0) -> None:
 
 
 def k1_inputs(gen, device, dtype):
-    """Seeded folded weights and features (of ``dtype``) at every K1 shape;
-    at bf16 also the weights packed for the bf16 kernel."""
+    """Seeded folded weights and features (of ``dtype``) at every K1 shape,
+    and the weights packed for the kernel."""
     out = {}
     for name, (b, t, g, layers, f) in K1_SHAPES.items():
         x, *w = random_folded(torch, gen, b, t, g, layers, f, device)
-        packed = (fused_conv.pack_decoder_bf16(dict(w0=w[0], wc=w[1],
-                                                    w_logits=w[3]))
-                  if dtype == torch.bfloat16 else None)
+        packed = fused_conv.pack_decoder_bf16(dict(w0=w[0], wc=w[1],
+                                                   w_logits=w[3]))
         out[name] = ((x.to(dtype), *w), g, packed)
     return out
 
@@ -124,8 +133,7 @@ def k4_inputs(gen, device):
 def sweep(k1_in, qfd, xs, device) -> dict:
     """K1 and K4 at every tile that launches, beside the rule's tile (K4:
     with the wgmma width N each tile takes)."""
-    lib1 = fused_conv.bind(build.load_library("fused_decoder"))
-    lib16 = fused_conv.bind_bf16(build.load_library("fused_decoder_bf16"))
+    lib1 = fused_conv.bind_decoder(build.load_library("fused_decoder_wgmma"))
     lib4 = q8.bind(build.load_library("decoder_int8"))
     G = MODEL["num_clusters"]
     runs = {}
@@ -135,9 +143,8 @@ def sweep(k1_in, qfd, xs, device) -> dict:
         act = a[0].element_size()
         runs[f"K1 {name}"] = (
             device_tile_frames(b, t, C0, C, layers, f, g, device, act),
-            lambda tile, a=a, g=g, packed=packed: (
-                launch_k1(lib1, a, g, tile) if packed is None
-                else launch_k1_bf16(lib16, a, g, tile, packed)))
+            lambda tile, a=a, g=g, packed=packed: launch_k1_packed(
+                lib1, a, g, tile, packed))
     widths = {}
     for name, x in xs.items():
         runs[f"K4 {name}"] = (
@@ -209,14 +216,15 @@ def k3_bf16_sweep(gen, device) -> dict:
     return out
 
 
-def build_parent(src: Path, names=tuple(build.SOURCES)) -> dict:
-    """Build and bind the kernels of the sources in ``src`` (those of
-    ``names``, by default ``build.SOURCES``, that it has)."""
+def build_parent(src: Path, names=None) -> dict:
+    """Build and bind the kernels of the sources in ``src`` (every
+    ``*.cu``, or those of ``names`` it has)."""
     dst = build.BUILD_DIR.parent / "parent_kernels"
     dst.mkdir(parents=True, exist_ok=True)
     jobs = {}
-    for name in names:
-        if not (src / f"{name}.cu").exists():
+    for cu in sorted(src.glob("*.cu")):
+        name = cu.stem
+        if names is not None and name not in names:
             continue
         lib = dst / f"lib{name}.so"
         jobs[name] = (lib, subprocess.Popen(
@@ -232,20 +240,30 @@ def build_parent(src: Path, names=tuple(build.SOURCES)) -> dict:
             if "registers" in line or "spill" in line:
                 print(f"[parent build] {name}: {line.strip()}", flush=True)
         libs[name] = ctypes.CDLL(str(lib))
-    # K1's f32 and K4's C entry points are the current ones (with a time
-    # tile); K1's bf16 one too where the parent has fused_decoder_bf16.cu,
-    # else the one in its fused_decoder.cu (float32 weights, as f32's)
+    # K1: both modes on packed weights (fused_decoder_wgmma.cu), the bf16
+    # mode alone on packed weights (fused_decoder_bf16.cu), or both on
+    # unpacked float32 weights (fused_decoder.cu, older: mma.sync); K4's C
+    # entry point is the current one (with a time tile)
+    if "fused_decoder_wgmma" in libs:
+        fused_conv.bind_decoder(libs["fused_decoder_wgmma"])
+    if "fused_decoder_bf16" in libs:
+        fn = libs["fused_decoder_bf16"].mixstage_fused_decoder_bf16
+        fn.argtypes = [_P] * 5 + [_I] * 7 + [ctypes.c_float, _I,
+                                             ctypes.c_longlong, _P]
+        fn.restype = _I
     if "fused_decoder" in libs:
         lib = libs["fused_decoder"]
         fns = [lib.mixstage_fused_decoder_f32]
-        if "fused_decoder_bf16" in libs:
-            fused_conv.bind_bf16(libs["fused_decoder_bf16"])
-        else:
+        if "fused_decoder_bf16" not in libs:
             fns.append(lib.mixstage_fused_decoder_bf16)
         for fn in fns:
             fn.argtypes = [_P] * 7 + [_I] * 7 + [ctypes.c_float, _I, _P]
             fn.restype = _I
-    q8.bind(libs["decoder_int8"])
+        lib.mixstage_fused_decoder_tile.argtypes = [_I] * 8 + [
+            ctypes.c_size_t]
+        lib.mixstage_fused_decoder_tile.restype = _I
+    if "decoder_int8" in libs:
+        q8.bind(libs["decoder_int8"])
     if "train_decoder" not in libs:
         return libs
     # K3's (both modes), without the scratch query the current library adds
@@ -363,21 +381,42 @@ def launch_k1(lib, a, g, tile):
     return out
 
 
-def launch_k1_bf16(lib, a, g, tile, packed):
-    """K1-bf16 of a ``fused_decoder_bf16`` library on bfloat16 features and
-    the weights ``packed`` by ``pack_decoder_bf16``; ``tile`` as in
-    ``launch_k1``."""
+def launch_k1_packed(lib, a, g, tile, packed):
+    """K1 of a ``fused_decoder_wgmma`` library (both modes) or a
+    ``fused_decoder_bf16`` one (bfloat16 features) on the weights
+    ``packed`` by ``pack_decoder_bf16``, in the mode of the features;
+    ``tile`` as in ``launch_k1``."""
     x, w0, wc, biases, wl, bl = a
     (b, t, c0), c, layers, f = x.shape, w0.shape[-1], wc.shape[0], wl.shape[-1]
-    out = torch.empty(b, t, g * f, device=x.device, dtype=torch.bfloat16)
-    err = lib.mixstage_fused_decoder_bf16(
+    mode = "bf16" if x.dtype == torch.bfloat16 else "f32"
+    out = torch.empty(b, t, g * f, device=x.device, dtype=x.dtype)
+    err = getattr(lib, f"mixstage_fused_decoder_{mode}")(
         x.data_ptr(), packed.data_ptr(), biases.data_ptr(), bl.data_ptr(),
         out.data_ptr(), b, t, c0, c, layers, f, g, 0.2, tile,
         fused_conv.packed_elems(c0, c, layers, f),
         torch.cuda.current_stream().cuda_stream)
     if err:
-        raise RuntimeError(f"K1-bf16 launch failed: error {err}")
+        raise RuntimeError(f"K1 ({mode}) launch failed: error {err}")
     return out
+
+
+def k1_packed(libs, dtype):
+    """The parent's library whose K1 takes packed weights in ``dtype``'s
+    mode, or None (its K1 takes float32 weights as they are)."""
+    if "fused_decoder_wgmma" in libs:
+        return libs["fused_decoder_wgmma"]
+    if dtype == torch.bfloat16 and "fused_decoder_bf16" in libs:
+        return libs["fused_decoder_bf16"]
+    return None
+
+
+def parent_k1(libs, a, g, packed, tile=0):
+    """The parent's K1 on the folded inputs ``a`` (``packed`` where it takes
+    packed weights)."""
+    lib = k1_packed(libs, a[0].dtype)
+    if lib is not None:
+        return launch_k1_packed(lib, a, g, tile, packed)
+    return launch_k1(libs["fused_decoder"], a, g, tile)
 
 
 def launch_k4(lib, x, qfd, g, tile, parent=False):
@@ -408,23 +447,20 @@ def against_parent(libs, k1_in, qfd, xs, k3) -> dict:
     current kernel's Python wrapper and the parent's bare ``ctypes`` call
     add no host time to a short kernel's; also max |current - parent| /
     max |parent| (K3-bwd: the worst of its gradients; its dcb is float
-    noise around 0 in both), and whether K3's f32 mode and K4 (both modes)
-    equal the parent's bit for bit (``bitwise``)."""
+    noise around 0 in both), and whether K3's f32 mode, K4 (both modes) and
+    K1's bf16 mode (against a parent on packed weights) equal the parent's
+    bit for bit (``bitwise``)."""
     G = MODEL["num_clusters"]
 
-    def parent_k1(a, g, packed):
-        if packed is not None and "fused_decoder_bf16" in libs:
-            return launch_k1_bf16(libs["fused_decoder_bf16"], a, g, 0, packed)
-        return launch_k1(libs["fused_decoder"], a, g, 0)
-
     calls = {f"K1 {name}": (
-                 lambda a=a, g=g, p=packed: parent_k1(a, g, p),
+                 lambda a=a, g=g, p=packed: parent_k1(libs, a, g, p),
                  lambda a=a, g=g, p=packed: fused_mixstage_decoder(
                      *a, groups=g, packed=p))
              for name, (a, g, packed) in k1_in.items()}
     # K4 in both modes; a parent older than the wgmma kernel takes its
     # words of four channels
-    words = not hasattr(libs["decoder_int8"], "mixstage_decoder_int8_width")
+    words = xs and not hasattr(libs["decoder_int8"],
+                               "mixstage_decoder_int8_width")
     for name, x in xs.items():
         for tag, xm in (("", x), ("-bf16", x.bfloat16())):
             calls[f"K4{tag} {name}"] = (
@@ -441,6 +477,9 @@ def against_parent(libs, k1_in, qfd, xs, k3) -> dict:
             bitwise = all(torch.equal(p, q) for p, q in zip(got, ref))
         if name.startswith("K4"):                # exact in both modes
             bitwise = torch.equal(got, ref)
+        if name.startswith("K1") and got.dtype == torch.bfloat16 and \
+                k1_packed(libs, torch.bfloat16) is not None:
+            bitwise = torch.equal(got, ref)      # the same bf16 mode
         if name.startswith("K3-bwd"):          # dcb: noise around 0
             ref, got = ref[:3] + ref[4:], got[:3] + got[4:]
         if name.startswith("K3-fwd-bf16"):     # out, cs in bf16 ULPs
@@ -476,6 +515,93 @@ def against_parent(libs, k1_in, qfd, xs, k3) -> dict:
     return out
 
 
+def parent_widest(libs, device) -> dict:
+    """The widest C0 (at L = 3, F = 96) and the deepest chain (at C0 = 266,
+    F = 8) that the parent's ``mma.sync`` K1 takes at B = 1, T = 64 (its
+    tile function on this card), and the current f32 mode at both against
+    its plain version (max |err| / max |ref|)."""
+    lib = libs["fused_decoder"]
+    props = torch.cuda.get_device_properties(device)
+    sms, smem = props.multi_processor_count, \
+        props.shared_memory_per_block_optin
+
+    def takes(c0, layers, f):
+        return lib.mixstage_fused_decoder_tile(1, T, c0, C, layers, f, 1, sms,
+                                               smem) > 0
+
+    wide = max(c0 for c0 in range(C, 4097) if takes(c0, 3, 96))
+    deep = max(n for n in range(129) if takes(C0, n, 8))
+    gen = torch.Generator().manual_seed(5)
+    out = {}
+    for name, (g, c0, layers, f) in (("widest_C0", (2, wide, 3, 96)),
+                                     ("deepest_L", (1, C0, deep, 8))):
+        def draw(*shape, scale):
+            return (torch.randn(*shape, generator=gen) * scale).to(device)
+
+        a = (draw(1, T, c0, scale=1.0), draw(g, 3, c0, C, scale=(3 * c0)
+                                             ** -.5),
+             draw(layers, g, 3, C, C, scale=(3 * C) ** -.5),
+             draw(g, layers + 1, C, scale=0.1), draw(g, C, f, scale=C ** -.5),
+             draw(g, f, scale=0.1))
+        got = fused_mixstage_decoder(*a, groups=g)
+        ref = fused_mixstage_decoder_plain(*a, groups=g)
+        tile = device_tile_frames(1, T, c0, C, layers, f, g, device)
+        out[name] = dict(C0=c0, L=layers, tile=tile, rel_err=rel_diff(got,
+                                                                      ref))
+        print(f"[parent] {name}: the parent takes C0={c0} L={layers} at "
+              f"T={T}; the f32 mode (tile {tile}) max|err|/max|ref| "
+              f"{out[name]['rel_err']:.3e}", flush=True)
+    return out
+
+
+@contextlib.contextmanager
+def k1_of(fn):
+    """Serving calls with ``fn`` in place of the port's K1 wrapper."""
+    old = tserve.fused_mixstage_decoder
+    tserve.fused_mixstage_decoder = fn
+    try:
+        yield
+    finally:
+        tserve.fused_mixstage_decoder = old
+
+
+def serving_turns(calls, libs) -> dict:
+    """Each serving call with the parent's K1 and with the current one, in
+    turns (P, C, C, P): device busy time, idle share and launches per call
+    (``trace``), and its CUDA-event time (mean of 20 calls)."""
+    def parent(x, w0, wc, biases, wl, bl, groups, negative_slope=0.2,
+               packed=None):
+        return parent_k1(libs, (x, w0, wc, biases, wl, bl), groups, packed)
+
+    out = {}
+    for name, fn in calls.items():
+        turns = dict(parent=[], current=[])
+        for who in ("parent", "current", "current", "parent"):
+            with k1_of(parent) if who == "parent" else contextlib.nullcontext():
+                rec = trace(torch, fn, CALLS)
+                rec["event_ms"] = cuda_ms(torch, fn, reps=20)
+            turns[who].append(rec)
+        rec = {}
+        for who, recs in turns.items():
+            mean = {k: sum(r[k] for r in recs) / len(recs)
+                    for k in ("device_busy_ms", "idle_share",
+                              "launches_per_call", "event_ms")}
+            mean["frames_per_s"] = B * T / (mean["event_ms"] / 1e3)
+            mean["turns"] = [{k: r[k] for k in ("device_busy_ms",
+                                                "idle_share", "event_ms")}
+                             for r in recs]
+            rec[who] = mean
+        out[name] = rec
+        p, c = rec["parent"], rec["current"]
+        print(f"[parent] {name}: busy {p['device_busy_ms']:.4f} -> "
+              f"{c['device_busy_ms']:.4f} ms, idle {p['idle_share']:.3f} -> "
+              f"{c['idle_share']:.3f}, launches {p['launches_per_call']:g} -> "
+              f"{c['launches_per_call']:g}; CUDA events {p['event_ms']:.3f} "
+              f"-> {c['event_ms']:.3f} ms = {p['frames_per_s']:.1f} -> "
+              f"{c['frames_per_s']:.1f} frames/s; turns {rec}", flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -486,15 +612,18 @@ def main(argv=None) -> int:
                     help="time K1 and K4 at every tile that fits")
     ap.add_argument("--parent", type=Path, default=None,
                     help="directory of an earlier version's kernel "
-                         "sources (fused_decoder.cu, decoder_int8.cu, "
-                         "train_decoder.cu, fused_decoder_bf16.cu if it "
-                         "has one) to time against")
-    ap.add_argument("--k3", action="store_true",
-                    help="with --parent or --sweep: K3 only (no K1, K4 or "
-                         "serving traces)")
-    ap.add_argument("--k4", action="store_true",
-                    help="with --parent or --sweep: K4 only (both modes; "
-                         "no K1, K3 or serving traces)")
+                         "sources (*.cu and the headers they include) to "
+                         "time against")
+    only = ap.add_mutually_exclusive_group()
+    only.add_argument("--k1", action="store_true",
+                      help="with --parent or --sweep: K1 only (no K3 or "
+                           "K4)")
+    only.add_argument("--k3", action="store_true",
+                      help="with --parent or --sweep: K3 only (no K1, K4 "
+                           "or serving traces)")
+    only.add_argument("--k4", action="store_true",
+                      help="with --parent or --sweep: K4 only (both "
+                           "modes; no K1, K3 or serving traces)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     device = resolve_device()
@@ -506,22 +635,26 @@ def main(argv=None) -> int:
           flush=True)
     gen = torch.Generator().manual_seed(args.seed)
     out = {"card": smi, "dtype": args.dtype}
+    libs = None
     with torch.inference_mode():
         if args.sweep or args.parent:
-            k1_in, qfd, xs = ({}, None, {}) if args.k3 else (
-                {} if args.k4 else k1_inputs(gen, device, dtype),
-                *k4_inputs(gen, device))
+            k1_in = {} if args.k3 or args.k4 else k1_inputs(gen, device,
+                                                            dtype)
+            qfd, xs = (None, {}) if args.k1 or args.k3 else k4_inputs(
+                gen, device)
             if args.parent:
                 libs = build_parent(args.parent, ("decoder_int8",)
-                                    if args.k4 else tuple(build.SOURCES))
-                k3 = {} if args.k4 else k3_calls(libs["train_decoder"], gen,
-                                                 device, dtype)
+                                    if args.k4 else None)
+                k3 = {} if args.k1 or args.k4 else k3_calls(
+                    libs["train_decoder"], gen, device, dtype)
                 out["parent"] = against_parent(libs, k1_in, qfd, xs, k3)
                 del k3
+                if k1_in and "fused_decoder" in libs:
+                    out["parent_widest"] = parent_widest(libs, device)
             if args.sweep:
                 if not args.k3:
                     out["sweep"] = sweep(k1_in, qfd, xs, device)
-                if dtype == torch.bfloat16 and not args.k4:
+                if dtype == torch.bfloat16 and not (args.k1 or args.k4):
                     out["sweep_k3_bf16"] = k3_bf16_sweep(gen, device)
             del k1_in, xs
             if args.k3 or args.k4:
@@ -529,10 +662,9 @@ def main(argv=None) -> int:
         for name, (b, t, g, layers, f) in SHAPES.items():
             x, *w = random_folded(torch, gen, b, t, g, layers, f, device)
             a = (x.to(dtype), *w)            # the weights stay f32
-            # bf16: the weights packed once, as the serving function does
-            packed = (fused_conv.pack_decoder_bf16(dict(w0=w[0], wc=w[1],
-                                                        w_logits=w[3]))
-                      if dtype == torch.bfloat16 else None)
+            # packed once, as the serving function does
+            packed = fused_conv.pack_decoder_bf16(dict(w0=w[0], wc=w[1],
+                                                       w_logits=w[3]))
             flops, _ = k1_work(b, t, g, layers, f)
             tile = device_tile_frames(b, t, C0, C, layers, f, g, device,
                                       x.to(dtype).element_size())
@@ -560,6 +692,11 @@ def main(argv=None) -> int:
                                           CALLS)
         report(f"int8 serving call ({args.dtype} model) bs{B} T{T}",
                out["serving_int8_bs32"])
+        if libs is not None and dtype == torch.float32:
+            out["serving_turns"] = serving_turns(
+                {"f32 serving call bs32": lambda: serve(audio, styles),
+                 "int8 serving call (f32 model) bs32":
+                     lambda: serve8(audio, styles)}, libs)
     return finish(out, args, smi)
 
 
