@@ -29,21 +29,25 @@ bf16 model (phases 18-19):
 6. timings: p50 latency of one 64-frame clip, bs32 frames/s, each K1 shape
    and its plain version (CUDA events), with the card's name and power
    limit beside them;
-7. training kernels: K3-fwd (out, cs, mu, var at max |err| / max |ref| ≤
-   1e-4) and K3-bwd (every gradient at relative Frobenius error ≤ 1e-4;
-   dcb, 0 analytically, below 1e-4·max |dbeta|) against their plain
-   versions at bs32 × 64 and at a ragged B=3, T=50;
+7. training kernels: the registers, spills and ptxas advisories of K3's
+   f32-mode GEMM instances (``wgmma``: six bf16 products of three-term
+   bf16 splits of both operands); K3-fwd (out, cs, mu, var at max |err| /
+   max |ref| ≤ 1e-4) and K3-bwd (every gradient at relative Frobenius
+   error ≤ 1e-4; dcb, 0 analytically, below 1e-4·max |dbeta|) against
+   their plain versions at bs32 × 64 and at a ragged B=3, T=50;
 8. training steps through ``StepFactory``: one fused G step (K3 launched
    exactly once each way) against the unfused one from the same state
    (total loss rtol 1e-4, params atol 2·lr, BN statistics 1e-4 of each
    leaf's scale, G's Adam mu — its gradients — per module at relative
-   Frobenius ``MOMENT_TOL``), a D step, and ``make_scan_train_step(8)``
+   Frobenius ``MOMENT_TOL``, logged beside the gap of the 3xTF32 route
+   K3 ran before, ``MU_GAP_TF32X3``), a D step, and
+   ``make_scan_train_step(8)``
    with seeded coins (finite losses, K3 launched once each way per G
    step);
 9. training timings (CUDA events): G step, D step and the k-step driver's
    mean step, fused and unfused in four ABBA turns each; train pose
-   frames/s; K3-fwd and K3-bwd (3xTF32 on the tensor cores) against their
-   bounds and plain versions;
+   frames/s; K3-fwd and K3-bwd (six bf16 products on ``wgmma``) against
+   their bounds and plain versions;
 10. int8 and chain kernels: the registers, spills and ptxas advisories of
     K4's seven ``wgmma`` s8 instances; K4 against ``decoder_int8_plain`` at
     every shape the int8 path launches it at (bs32 × 64, one 64-frame clip,
@@ -112,11 +116,12 @@ drift = mean |O - R| / mean |R| (relative Frobenius error for gradients),
 and |drift(P) - drift(Q)| ≤ 0.10 drift(Q) + 1e-3.
 
 Each kernel's bound is the least time the card could take for its work,
-whatever route the kernel runs: K1 at the dense bf16 rate with 6 MMAs per
-multiply-add (the 3xTF32 bound of its earlier route, 3 MMAs at the TF32
-rate, beside it as ``tf32x3_bound_ms``), K2 and K3 at the TF32
-tensor-core rate (3 MMAs per multiply-add; the f32 FMA bound beside each
-as ``ffma_bound_ms``), K4 at the int8 tensor-core rate; in bf16 mode K1 at
+whatever route the kernel runs: K1 and K3 at the dense bf16 rate with 6
+MMAs per multiply-add (the 3xTF32 bound of their earlier routes, 3 MMAs at
+the TF32 rate, beside each as ``tf32x3_bound_ms``; K3's f32 FMA bound as
+``ffma_bound_ms``), K2 at the TF32 tensor-core rate (3 MMAs per
+multiply-add; ``ffma_bound_ms`` beside), K4 at the int8 tensor-core rate;
+in bf16 mode K1 at
 the dense bf16 rate with 3 MMAs per multiply-add (bf16 activations times
 f32 weights split in three bf16 terms; the 2xTF32 bound of its earlier
 route beside it as ``tf32x2_bound_ms``), K2 at the TF32 rate with 2 MMAs
@@ -146,9 +151,9 @@ import numpy as np
 # published peaks of one H100 SXM (NVIDIA data sheet): f32 outside the
 # tensor cores, dense tensor-core rates, and HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
-PEAK_TF32_FLOPS = 495e12     # K2, K3: 3 TF32 MMAs a multiply-add
-PEAK_BF16_FLOPS = 989e12     # K1: 6 bf16 MMAs a multiply-add (bf16 mode 3);
-#                              K3-bf16: 1
+PEAK_TF32_FLOPS = 495e12     # K2: 3 TF32 MMAs a multiply-add
+PEAK_BF16_FLOPS = 989e12     # K1, K3: 6 bf16 MMAs a multiply-add (bf16
+#                              modes: K1 3, K3 1)
 PEAK_INT8_OPS = 1979e12
 PEAK_HBM_BYTES = 3.35e12
 KERNEL_TOL = 1e-4            # max |kernel - plain| / max |plain|
@@ -166,6 +171,10 @@ INT8_DRIFT = (1e-4, 0.10)    # int8 tier against f32 serving (test_pallas:160)
 # at --seed 0 on an H100; tests/test_torch_port_train_steps.py says why);
 # a wrong gradient moves a module by O(1).
 MOMENT_TOL = 3e-3
+# the largest of those gaps with K3 on its 3xTF32 mma.sync route at --seed
+# 0 (NVIDIA H100 80GB HBM3, 700 W; PERF.md), the yardstick of its wgmma
+# route's
+MU_GAP_TF32X3 = 2.372e-4
 # the bf16 rule: |drift(kernel) - drift(plain)| <= BF16_REL drift(plain) +
 # BF16_ABS, each drift taken from the float32 truth
 BF16_REL, BF16_ABS = 0.10, 1e-3
@@ -194,9 +203,9 @@ K1_BF16_SHARE_DEEP = 0.45
 # spread (K3-bf16's parent, mma.sync m16n8k16, differed in up to 7.50% of
 # cs and 50.69% of out at the shapes this script and the card tests run,
 # the wgmma kernel in up to 7.51% and 48.54%; NVIDIA H100 80GB HBM3, 700 W;
-# tools/k3_bf16_probe.py, tools/k3_bf16_variants.py).  A copy that skips
+# tools/k3_probe.py, tools/k3_variants.py).  A copy that skips
 # the rounding of the sum before the bias add passes the bf16 rule and
-# differs in 59.6% of cs and 80.4% of out (tools/k3_bf16_variants.py's
+# differs in 59.6% of cs and 80.4% of out (tools/k3_variants.py's
 # no-round; 60% and 81% in the kernel's sums emulated on the CPU,
 # tests/test_torch_port_k3_bf16_wgmma.py).
 K3_BF16_SHARE = {"out": 0.65, "cs": 0.20}
@@ -317,9 +326,10 @@ def int8_errors(out, ref):
 
 
 def kernel_name(mangled: str) -> str:
-    """``gemm_kernel<1, 64, 64>`` from an Itanium-mangled kernel name: the
-    last part of its nested name and its template arguments (integers,
-    ``float`` and named types such as ``__nv_bfloat16``)."""
+    """``wgmma_gemm_kernel<2, 1, 96, float, 3>`` from an Itanium-mangled
+    kernel name: the last part of its nested name and its template
+    arguments (integers, ``float`` and named types such as
+    ``__nv_bfloat16``)."""
     i, parts = (3 if mangled.startswith("_ZN") else 2), []
     while i < len(mangled) and mangled[i].isdigit():
         j = i
@@ -989,9 +999,9 @@ def bf16_phases(torch, args, device, smi, model, audio, styles, pose32,
     # ptxas's advisories (a wgmma it serialises says so)
     k3_ptxas = results["ptxas"]["train_decoder"]
     wg = [k for k in k3_ptxas["kernels"]
-          if k[0].startswith("wgmma_gemm_kernel")]
-    check(len(wg) == 12, f"{len(wg)} wgmma_gemm_kernel instances built, "
-          f"expected 12")
+          if k[0].startswith("wgmma_gemm_kernel") and k[0].endswith(", 1>")]
+    check(len(wg) == 12, f"{len(wg)} bf16-mode wgmma_gemm_kernel instances "
+          f"built, expected 12")
     for kernel, regs, stores, loads in wg:
         log(f"[bf16-kernel] K3 bf16 GEMM {kernel}: {regs} registers, "
             f"{stores} B spill stores, {loads} B spill loads")
@@ -1823,6 +1833,18 @@ def main(argv=None) -> int:
     from mixstage_tpu_torch.ops.cuda import train_decoder as td
     from mixstage_tpu_torch.train import StepConfig, StepFactory
 
+    # K3's f32-mode GEMM instances (wgmma_gemm_kernel<..., 3>): registers,
+    # spills and ptxas's advisories (a wgmma it serialises says so)
+    k3_ptxas = results["ptxas"]["train_decoder"]
+    wg = [k for k in k3_ptxas["kernels"]
+          if k[0].startswith("wgmma_gemm_kernel") and k[0].endswith(", 3>")]
+    check(len(wg) == 12, f"{len(wg)} f32-mode wgmma_gemm_kernel instances "
+          f"built, expected 12")
+    for kernel, regs, stores, loads in wg:
+        log(f"[train-kernel] K3 f32 GEMM {kernel}: {regs} registers, "
+            f"{stores} B spill stores, {loads} B spill loads")
+    log(f"[train-kernel] K3 ptxas advisories: "
+        f"{k3_ptxas['advisories'] or 'none'}")
     kgen = torch.Generator().manual_seed(args.seed + 3)
     k3_main = random_train(torch, kgen, B, T, device)
     fwd_err, bwd_err, fwd_out, dout = check_k3(torch, td, "bs32", k3_main,
@@ -1867,7 +1889,8 @@ def main(argv=None) -> int:
         f"{tot_f:.6f} vs unfused {tot_u:.6f}; params max|diff| {p_err:.3e} "
         f"(tol 2·lr = {2 * lr:g}); BN stats max diff / scale {s_err:.3e}; "
         f"Adam mu max module gap {max(mu_gaps.values()):.3e} (tol "
-        f"{MOMENT_TOL:g}); pose mean drift {pose_drift:.3e}; K3 launches "
+        f"{MOMENT_TOL:g}; the 3xTF32 route's {MU_GAP_TF32X3:.3e}); pose "
+        f"mean drift {pose_drift:.3e}; K3 launches "
         f"{k3_counts()}")
     s_fused, l_d, _ = fused.make_steps()["d"](s_fused, batch)
     torch.cuda.synchronize()
@@ -1952,13 +1975,15 @@ def main(argv=None) -> int:
              bwd_err, k3_launches[1])):
         ms = cuda_ms(torch, lambda: fn(*args_), reps=10)
         plain_ms = cuda_ms(torch, lambda: plain_fn(*args_), reps=5)
-        bms, by = bound_ms(3 * flops, nbytes, PEAK_TF32_FLOPS)
+        bms, by = bound_ms(6 * flops, nbytes, PEAK_BF16_FLOPS)
+        tf32x3_ms = bound_ms(3 * flops, nbytes, PEAK_TF32_FLOPS)[0]
         ffma_ms = bound_ms(flops, nbytes)[0]
         log(f"[timing] {smi}: K3 {name} bs{B}: {ms:.4f} ms "
             f"({flops / (ms / 1e3) / 1e12:.2f} TFLOP/s of f32 work), plain "
-            f"{plain_ms:.4f} ms, bound {bms:.4f} ms by {by} (3xTF32 tensor "
-            f"cores; f32 FMA bound {ffma_ms:.4f} ms; {flops / 1e9:.2f} "
-            f"GFLOP, {nbytes / 1e6:.1f} MB)")
+            f"{plain_ms:.4f} ms, bound {bms:.4f} ms by {by} (six bf16 "
+            f"products at the dense bf16 rate; 3xTF32 bound {tf32x3_ms:.4f}"
+            f" ms, f32 FMA bound {ffma_ms:.4f} ms; {flops / 1e9:.2f} GFLOP, "
+            f"{nbytes / 1e6:.1f} MB)")
         k3.append({
             "name": name, "route": "cuda",
             "source": "mixstage_tpu_torch/ops/cuda/csrc/train_decoder.cu",
@@ -1966,7 +1991,8 @@ def main(argv=None) -> int:
             "launches": count, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             # no single PyTorch call computes the train-mode conv + BN chain
-            "library_ms": None, "mma": "3xtf32", "ffma_bound_ms": ffma_ms})
+            "library_ms": None, "mma": "bf16x6",
+            "tf32x3_bound_ms": tf32x3_ms, "ffma_bound_ms": ffma_ms})
     results["train"] = dict(total_fused=tot_f, total_unfused=tot_u,
                             param_diff=p_err, stat_diff=s_err,
                             mu_gaps=mu_gaps, mu_bias_gap=bias_gap,

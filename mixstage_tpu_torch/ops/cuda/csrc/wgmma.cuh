@@ -1,8 +1,9 @@
-// PTX helpers of the Hopper-only kernels (fused_decoder_wgmma.cu, the bf16
+// PTX helpers of the Hopper-only kernels (fused_decoder_wgmma.cu, the
 // GEMM of train_decoder.cu in train_gemm_bf16.cuh, decoder_int8.cu):
 // warpgroup MMAs (wgmma, bf16 and s8) on operands in shared memory,
-// mbarriers, bulk asynchronous copies (cp.async.bulk), named barriers and
-// setmaxnreg.  sm_90a only.
+// mbarriers, bulk asynchronous copies (cp.async.bulk, and the tensor
+// copies of cp.async.bulk.tensor), named barriers and setmaxnreg.  sm_90a
+// only.
 //
 // wgmma.mma_async m64nNk16 .bf16: D (64 x N, f32, registers) += A (64 x
 // 16) * B (16 x N), A and B read from shared memory through 64-bit matrix
@@ -373,7 +374,7 @@ __device__ __forceinline__ void wgmma_s8<128>(int (&d)[64], uint64_t a,
 // the distance between core matrices adjacent in K and the stride
 // dimension byte offset the distance between core matrices adjacent in M
 // (N), as for K-major (CuTe's INTERLEAVE layouts).  The train decoder's
-// bf16 GEMM (train_gemm_bf16.cuh) uses the N it instantiates.
+// GEMM (train_gemm_bf16.cuh) uses the N it instantiates.
 template <int N>
 struct WgmmaT;
 
@@ -397,6 +398,33 @@ struct WgmmaT<48> {
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+  }
+};
+
+template <>
+struct WgmmaT<64> {
+  template <int TA, int TB>
+  static __device__ __forceinline__ void mma(float (&d)[32], uint64_t a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
         : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
   }
 };
@@ -534,6 +562,22 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src,
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
       "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Copy the box at coordinates (c0, ..., c4) of the 5-dimensional tensor
+// of the tensor map `map` (a CUtensorMap in kernel parameter space) into
+// this CTA's shared memory at dst, dimension 0 fastest; the copy
+// completes its bytes on `bar`.
+__device__ __forceinline__ void tensor_copy5(void* dst, const void* map,
+                                             int c0, int c1, int c2, int c3,
+                                             int c4, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5, %6}], [%7];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(c4), "r"(smem_u32(bar))
       : "memory");
 }
 

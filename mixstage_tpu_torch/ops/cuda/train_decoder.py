@@ -21,10 +21,15 @@ there is no fall-back.  Each counts its launches in ``.launches``.
 ``DecoderTrain`` is the ``torch.autograd.Function`` of the pair (the
 custom_vjp of ``:353-385``).
 
+Both modes run every GEMM pass on ``wgmma`` (``csrc/train_gemm_bf16.cuh``).
+f32 mode: every operand element is split into three bfloat16 terms that sum
+to it exactly (``fused_conv.split_bf16x3``) and each product is taken as
+the six bf16 products of the two splits whose terms are largest, small ones
+first, in float32 sums (f32 accuracy); everything it stores is float32.
+
 bf16 mode (the TPU kernels' ``dtype=bfloat16`` function, every weight cast
-to the features' dtype by ``fused_decoder_train``, ``:486-493``; its GEMM
-passes on ``wgmma``, ``csrc/train_gemm_bf16.cuh``): x, the weights, out
-and cs are bfloat16; each conv's float32 sum of exact bf16
+to the features' dtype by ``fused_decoder_train``, ``:486-493``): x, the
+weights, out and cs are bfloat16; each conv's float32 sum of exact bf16
 products is rounded to bf16 before the bias add (``:93-95``), BatchNorm's
 statistics and the leaky unit run in float32 and the activation is rounded
 (``:105-106``); the backward recomputes the activations from the bf16 cs,
@@ -235,7 +240,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
             getattr(lib, f"mixstage_train_decoder_fwd_{mode}").argtypes = \
                 [_P] * 13 + [_I] * 6 + [_P]
             getattr(lib, f"mixstage_train_decoder_bwd_{mode}").argtypes = \
-                [_P] * 21 + [_I] * 6 + [_P]
+                [_P] * 20 + [_I] * 6 + [_P]
             for way in ("fwd", "bwd"):
                 getattr(lib, f"mixstage_train_decoder_{way}_{mode}"
                         ).restype = _I
@@ -243,27 +248,38 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.mixstage_train_decoder_error_string.restype = ctypes.c_char_p
         lib.mixstage_train_decoder_scratch_floats.argtypes = [_I] * 6
         lib.mixstage_train_decoder_scratch_floats.restype = ctypes.c_longlong
-        lib.mixstage_train_decoder_bf16_plan.argtypes = [_I] * 8 + [
+        lib.mixstage_train_decoder_plan.argtypes = [_I] * 9 + [
             ctypes.POINTER(ctypes.c_int)] * 2
-        lib.mixstage_train_decoder_bf16_plan.restype = None
-        lib.mixstage_train_decoder_bf16_force.argtypes = [_I, _I]
-        lib.mixstage_train_decoder_bf16_force.restype = None
+        lib.mixstage_train_decoder_plan.restype = None
+        lib.mixstage_train_decoder_force.argtypes = [_I, _I]
+        lib.mixstage_train_decoder_force.restype = None
     return lib
 
 
-# the bf16 mode's GEMM tiles (csrc/train_gemm_bf16.cuh::kTiles), by index
-BF16_TILES = ("128x128", "64x256", "64x192", "64x96")
-BF16_MODES = {"conv": 0, "convT": 1, "dW": 2}
+# the GEMM's tiles (csrc/train_gemm_bf16.cuh::kTiles), by index, both
+# modes; the f32 mode's dW, whose tiles hold every tap (kTilesAllTaps)
+GEMM_TILES = ("128x128", "64x256", "64x192", "64x96")
+GEMM_TILES_ALL_TAPS = ("128x64", "64x128", "64x96", "128x48")
+GEMM_PASSES = {"conv": 0, "convT": 1, "dW": 2}
 
 
-def bf16_plan(lib, mode, B, T, J, N, taps, G, sms) -> Tuple[int, int]:
-    """(tile index into ``BF16_TILES``, dW's splits of the frames) that the
-    bf16 mode's wgmma GEMM picks for one pass (``mode`` of ``BF16_MODES``)
-    on a card of ``sms`` SMs."""
+def gemm_tiles(mode, terms):
+    """The tile names of GEMM pass ``mode`` in the mode of ``terms``."""
+    return GEMM_TILES_ALL_TAPS if mode == "dW" and terms == 3 else \
+        GEMM_TILES
+
+
+def gemm_plan(lib, mode, B, T, J, N, taps, G, sms, terms
+              ) -> Tuple[int, int]:
+    """(tile index into ``gemm_tiles(mode, terms)``, dW's splits of the
+    frames) that the
+    wgmma GEMM picks for one pass (``mode`` of ``GEMM_PASSES``) on a card
+    of ``sms`` SMs, in the mode of ``terms`` bf16 terms (1: bf16, 3:
+    f32)."""
     tile, splits = ctypes.c_int(), ctypes.c_int()
-    lib.mixstage_train_decoder_bf16_plan(BF16_MODES[mode], B, T, J, N, taps,
-                                         G, sms, ctypes.byref(tile),
-                                         ctypes.byref(splits))
+    lib.mixstage_train_decoder_plan(GEMM_PASSES[mode], terms, B, T, J, N,
+                                    taps, G, sms, ctypes.byref(tile),
+                                    ctypes.byref(splits))
     return tile.value, splits.value
 
 
@@ -276,8 +292,10 @@ def _raise_on(lib, err, what, dims):
 
 
 def _scratch(lib, dims, new):
-    """The kernels' scratch: one activation (or layer 0's per-group dx
-    partials) and the column passes' partial sums."""
+    """The kernels' scratch, sized for either mode: the GEMMs' operand
+    images (three bf16 terms an element in the f32 mode), the column
+    passes' partial sums, dW's split-K partials and layer 0's per-group dx
+    partials."""
     return torch.empty(lib.mixstage_train_decoder_scratch_floats(*dims),
                        **new)
 
@@ -357,14 +375,11 @@ def decoder_train_bwd(dout, x, cs, mu, var, w0, wc, gamma, beta, wl
     dbl = torch.empty((G, 1, Fo), **new)
     h = _scratch(lib, dims, new)
     dh = torch.empty((G, B, T, C), **new)            # d(layer output)
-    # d(conv output); the bf16 mode keeps it as an image in the scratch h
-    dc = torch.empty((G, B, T, C) if dt == torch.float32 else (0,),
-                     device=dev, dtype=dt)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = getattr(lib, f"mixstage_train_decoder_bwd_{_mode(dt)}")(
             *_ptrs(dout, x, cs, mu, var, w0, wc, gamma, beta, wl,
-                   dx, dw0, dwc, dcb, dg, db, dwl, dbl, h, dh, dc),
+                   dx, dw0, dwc, dcb, dg, db, dwl, dbl, h, dh),
             *dims, stream)
     _raise_on(lib, err, f"decoder_train_bwd ({dt})", dims)
     decoder_train_bwd.launches += 1

@@ -7,15 +7,17 @@ its ``mma.sync`` parent took, its time-tile rule, and the serving path.
 Tolerance: max |kernel - plain| ≤ 1e-4 · max |plain| (K1's f32 mode: six
 bf16 products of three-term splits of both operands, f32 accumulation
 order).
-K3's forward and backward (3xTF32 GEMM passes) at shapes that cross its
-tiles' edges, their launch counters, their repeating bit for bit, the
+K3's forward and backward (``wgmma`` GEMM passes on three-term bf16
+splits of both operands, six products a multiply-add) at shapes that cross
+its tiles' edges and at widths beyond the main path's, their launch
+counters, their repeating bit for bit (also at the main path's shape), the
 checks of ``DecoderTrain``, and one fused G step.  K4 (the
 int8 decoder) at the same edge shapes in both quantization schemes, equal
 to its plain version in every element, its refusal of unpacked weights,
 and the int8 serving tier (one K1 and one K4 launch per call); K2 (the
 grouped conv chain) at edge shapes, to 1e-4.  The built K1, K3 and K4 run
-on the tensor cores (their SASS holds HGMMA, HMMA and IGMMA instructions),
-K2 on the CUDA cores.
+on the tensor cores (their SASS holds HGMMA and IGMMA instructions), K2 on
+the CUDA cores.
 
 The bf16 modes of K1 and K3 against their plain versions, under the bf16
 rule (``bf16_rule`` below): no bf16 output is held element-wise to
@@ -129,11 +131,10 @@ def test_kernels_run_on_tensor_cores(cuda):
     instructions (wgmma) and no HMMA, in its f32 mode (terms 3) as in its
     bf16 mode (terms 1); K2's library (FFMA) no HMMA or HGMMA; every
     instance of K4's ``decoder_int8_kernel`` s8 IGMMA ones (wgmma) and no
-    IMMA (mma.sync) or ``__dp4a`` (IDP.4A), K3's f32 GEMM passes (every
-    instance of its ``gemm_kernel``) tf32 HMMA ones and no FFMA, and its
-    bf16 GEMM passes (every instance of ``wgmma_gemm_kernel``) BF16 HGMMA
-    ones, no HMMA and no FFMA, read from their SASS with ``cuobjdump`` (it
-    ships beside ``nvcc``)."""
+    IMMA (mma.sync) or ``__dp4a`` (IDP.4A), and K3's GEMM passes in both
+    modes (every instance of ``wgmma_gemm_kernel``, terms 3 and 1) BF16
+    HGMMA ones, no HMMA and no FFMA (the ``mma.sync`` route is gone), read
+    from their SASS with ``cuobjdump`` (it ships beside ``nvcc``)."""
     import subprocess
     from pathlib import Path
 
@@ -169,26 +170,23 @@ def test_kernels_run_on_tensor_cores(cuda):
         assert igmma and all("S8" in ln for ln in igmma), igmma[:3]
     assert "IMMA" not in sass["decoder_int8"]
     assert "IDP.4A" not in sass["decoder_int8"]
-    # one section per function, each opened by a "Function : <name>" line
+    # one section per function, each opened by a "Function : <name>" line;
+    # wgmma_gemm_kernel<mode, kWM, kN, O, terms> mangles its terms last,
+    # before its return type: "Li3EEEv" or "Li1EEEv"
     functions = sass["train_decoder"].split("Function : ")[1:]
-    gemms = [f for f in functions
-             if "gemm_kernel" in f.splitlines()[0]
-             and "wgmma_gemm_kernel" not in f.splitlines()[0]]
-    # f32: 3 operand shapes x 3 tiles on 3xTF32 mma.sync
-    assert len(gemms) == 9, len(gemms)
-    for body in gemms:
-        hmma = [ln for ln in body.splitlines() if "HMMA" in ln]
-        assert hmma and all("TF32" in ln for ln in hmma), hmma[:3]
-        assert "FFMA" not in body, body.splitlines()[0]
-    # bf16: 3 operand shapes x 4 tiles on wgmma
+    assert not [f for f in functions if "gemm_kernel" in f.splitlines()[0]
+                and "wgmma_gemm_kernel" not in f.splitlines()[0]]
+    assert " HMMA" not in sass["train_decoder"]
     wgmmas = [f for f in functions
               if "wgmma_gemm_kernel" in f.splitlines()[0]]
-    assert len(wgmmas) == 12, len(wgmmas)
-    for body in wgmmas:
-        hgmma = [ln for ln in body.splitlines() if "HGMMA" in ln]
-        assert hgmma and all("BF16" in ln for ln in hgmma), hgmma[:3]
-        assert " HMMA" not in body and "FFMA" not in body, \
-            body.splitlines()[0]
+    for terms in ("Li3EEEv", "Li1EEEv"):
+        # 3 operand shapes x 4 tiles a mode
+        mode = [f for f in wgmmas if terms in f.splitlines()[0]]
+        assert len(mode) == 12, (terms, len(mode))
+        for body in mode:
+            hgmma = [ln for ln in body.splitlines() if "HGMMA" in ln]
+            assert hgmma and all("BF16" in ln for ln in hgmma), hgmma[:3]
+            assert "FFMA" not in body, body.splitlines()[0]
 
 
 @pytest.mark.parametrize("shape", EDGE_SHAPES, ids=str)
@@ -303,10 +301,11 @@ def _rel_fro(a, b):
 
 # (B, T, G, C0, C, F): a small decoder, a ragged one (T and every width
 # off the 64-wide tiles) that checks the sequence ends, and shapes that
-# cross the GEMM tiles' edges: B*T off every M tile (150, 140, 135), C0 and
-# C off a multiple of 8 (4-byte copies for C0 = 29 and 266, a zero-padded
-# tap width for C = 44 and 20), C over one 128-wide tile (136), F below one
-# 32-wide warp block, and T = 1, where both outer taps leave the sequence
+# cross the GEMM tiles' edges: padded rows off every M tile (35, 154, 143,
+# 139, 11), C0 and C off a multiple of 8 (a zero-padded channel group in the
+# images: C0 = 29 and 266, C = 44 and 20), C over one 128-wide tile (136),
+# F below one 8-wide channel group, and T = 1, where both outer taps leave
+# the sequence
 K3_SHAPES = [(2, 16, 2, 37, 16, 7), (3, 50, 3, 70, 72, 9),
              (2, 70, 3, 29, 44, 12), (3, 45, 2, 266, 136, 96),
              (5, 1, 2, 13, 20, 5)]
@@ -353,9 +352,9 @@ def test_train_decoder_kernels_match_plain_on_card(cuda, shape):
                          ids=["f32", "bf16"])
 def test_train_decoder_kernels_repeat_bit_for_bit(cuda, dtype):
     """Two launches of K3-fwd and of K3-bwd on the same inputs give the same
-    bits: every sum (the GEMMs' MMAs, the bf16 mode's split-K partials of
-    dW, the column passes' splits, layer 0's dx over the groups) runs in a
-    fixed order, without atomics."""
+    bits: every sum (the GEMMs' MMAs, the split-K partials of dW, the
+    column passes' splits, layer 0's dx over the groups) runs in a fixed
+    order, without atomics."""
     from mixstage_tpu_torch.ops.cuda import train_decoder as td
 
     B, T, G, C0, C, F = 4, 64, 3, 266, 136, 96
@@ -370,6 +369,76 @@ def test_train_decoder_kernels_repeat_bit_for_bit(cuda, dtype):
     args = (dout, x, cs, mu, var, w0, wc, gamma, beta, wl)
     for p, q in zip(td.decoder_train_bwd(*args), td.decoder_train_bwd(*args)):
         assert torch.equal(p, q)
+
+
+def _check_train_kernels(td, a, seed=1):
+    """K3-fwd and K3-bwd on ``a`` against their plain versions: out, cs,
+    mu, var at max|err| <= 1e-4 max|ref|, every gradient at relative
+    Frobenius <= 1e-4, dcb below 1e-4 max|dbeta|."""
+    out = td.decoder_train_fwd(*a)
+    ref = td.decoder_train_fwd_plain(*a)
+    torch.cuda.synchronize()
+    for name, got, want in zip(("out", "cs", "mu", "var"), out, ref):
+        err = float((got - want).abs().max()) / float(want.abs().max())
+        assert err <= 1e-4, (name, err)
+    x, w0, wc, cb, gamma, beta, wl, bl = a
+    dout = torch.randn(out[0].shape, generator=torch.Generator().manual_seed(
+        seed)).to(x.device)
+    args = (dout, x, *out[1:], w0, wc, gamma, beta, wl)
+    got, want = td.decoder_train_bwd(*args), td.decoder_train_bwd_plain(*args)
+    torch.cuda.synchronize()
+    names = ["dx", "dw0", "dwc", "dcb", "dgamma", "dbeta", "dwl", "dbl"]
+    for name, g, w in zip(names, got, want):
+        if name == "dcb":
+            assert float(g.abs().max()) < 1e-4 * float(want[5].abs().max())
+        else:
+            assert _rel_fro(g, w) <= 1e-4, (name, _rel_fro(g, w))
+
+
+def test_train_decoder_f32_repeats_bit_for_bit_at_the_main_shape(cuda):
+    """At the training path's bs32 x 64 shape, where the plan splits the
+    weight gradients over the frames, two launches of K3-fwd and two of
+    K3-bwd in the f32 mode give the same bits."""
+    from mixstage_tpu_torch.ops.cuda import train_decoder as td
+
+    B, T, G, C0, C, F = 32, 64, 8, 266, 256, 96
+    a = _train_args(B, T, G, C0, C, F, cuda)
+    first, second = td.decoder_train_fwd(*a), td.decoder_train_fwd(*a)
+    for p, q in zip(first, second):
+        assert torch.equal(p, q)
+    dout = torch.randn(G, B, T, F, generator=torch.Generator().manual_seed(2)
+                       ).to(cuda)
+    x, w0, wc, cb, gamma, beta, wl, bl = a
+    args = (dout, x, *first[1:], w0, wc, gamma, beta, wl)
+    for p, q in zip(td.decoder_train_bwd(*args), td.decoder_train_bwd(*args)):
+        assert torch.equal(p, q)
+
+
+def test_train_decoder_f32_beyond_the_main_widths_on_card(cuda):
+    """K3's f32 mode at C0 = 1280 and C = 384 (a small B*T): widths its
+    3xTF32 parent took (``bad_dims`` bounds only the frames, C0, C and F),
+    held against the plain versions as at every other shape."""
+    from mixstage_tpu_torch.ops.cuda import train_decoder as td
+
+    _check_train_kernels(td, _train_args(2, 24, 2, 1280, 384, 96, cuda))
+
+
+def test_train_decoder_f32_at_every_tile_and_split_on_card(cuda):
+    """K3's f32 mode with every GEMM pass forced onto each of its four
+    tiles (``td.gemm_tiles``) and every weight gradient onto 1 and 3 splits
+    of the frames, at the ragged C0 = 266, C = 136 (two N tiles) shape."""
+    from mixstage_tpu_torch.ops.cuda import build
+    from mixstage_tpu_torch.ops.cuda import train_decoder as td
+
+    lib = td.bind(build.load_library("train_decoder"))
+    a = _train_args(3, 45, 2, 266, 136, 96, cuda)
+    try:
+        for tile in range(len(td.GEMM_TILES)):
+            for splits in (1, 3):
+                lib.mixstage_train_decoder_force(tile, splits)
+                _check_train_kernels(td, a)
+    finally:
+        lib.mixstage_train_decoder_force(-1, 0)
 
 
 def test_decoder_train_function_rejects_bad_inputs(cuda):

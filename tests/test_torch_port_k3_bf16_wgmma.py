@@ -22,7 +22,10 @@ Here, without the card:
   a chunk into the ring, and of its descriptors gives, for every
   warpgroup, tap and 16-deep step, exactly the operand element the GEMM
   needs, by direct indexing, at every width of ``K3_SHAPES`` and in every
-  tile the plan may pick;
+  tile the plan may pick; with ``terms`` 3 the same model covers the f32
+  mode's three term images of each operand (its own chunk depths, each
+  term one image further on in global memory and in the slot), tested in
+  ``test_torch_port_k3_f32_wgmma.py``;
 * the kernel's summation order emulated in plain PyTorch (exact bf16
   products, f32 chunk partials, split partials in order), forward and
   backward, follows JAX's Pallas K3 at ``dtype=bfloat16`` (interpret mode,
@@ -49,6 +52,9 @@ from test_torch_port_cuda import K3_SHAPES
 SOURCE = (Path(ttd.__file__).resolve().parent / "csrc"
           / "train_gemm_bf16.cuh")
 KC_CONV, KC_DW = 64, 128     # reduction depth of a chunk (kKCConv, kKCDW)
+KC_F32 = {"conv": 16, "dW": 32}  # the f32 mode's (kKCConvF32, kKCDWF32)
+# the f32 mode's dW tiles, every tap's accumulator a CTA (kTilesAllTaps)
+TILES_ALL_TAPS = [(2, 64), (1, 64), (1, 48), (2, 48)]
 MAX_SPLIT_K = 4               # the kernel's kMaxSplitK
 TILES = [(2, 128), (1, 128), (1, 96), (1, 48)]   # (kWM, kN): kTiles
 EPS, SLOPE, L = 1e-5, 0.2, 4
@@ -100,32 +106,34 @@ def act_image(C_, Bn, Tn):
     return np.where((f >= 0) & (ch < C_), f * C_ + ch, -1), rows
 
 
-def conv_image(taps, K, N):
-    """kConv weights w (taps, K, N): [tap][chunk][n / 8][KC_CONV][8]."""
-    nc, ng = -(-K // KC_CONV), up(N, COL_ALIGN) // 8
+def conv_image(taps, K, N, kc=KC_CONV):
+    """kConv weights w (taps, K, N): [tap][chunk][n / 8][kc][8]."""
+    nc, ng = -(-K // kc), up(N, COL_ALIGN) // 8
     k = np.arange(taps)[:, None, None, None, None]
-    row = (np.arange(nc)[None, :, None, None, None] * KC_CONV
-           + np.arange(KC_CONV)[None, None, None, :, None])
+    row = (np.arange(nc)[None, :, None, None, None] * kc
+           + np.arange(kc)[None, None, None, :, None])
     col = (8 * np.arange(ng)[None, None, :, None, None]
            + np.arange(8)[None, None, None, None, :])
     return np.where((row < K) & (col < N), (k * K + row) * N + col, -1)
 
 
-def convt_image(taps, J, K):
+def convt_image(taps, J, K, kc=KC_CONV):
     """kConvT weights w (taps, J, K): [tap][chunk][k / 8][J rows][8]."""
-    nc, jr = -(-K // KC_CONV), up(J, COL_ALIGN)
+    nc, jr = -(-K // kc), up(J, COL_ALIGN)
     k = np.arange(taps)[:, None, None, None, None]
-    col = (np.arange(nc)[None, :, None, None, None] * KC_CONV
-           + 8 * np.arange(KC_CONV // 8)[None, None, :, None, None]
+    col = (np.arange(nc)[None, :, None, None, None] * kc
+           + 8 * np.arange(kc // 8)[None, None, :, None, None]
            + np.arange(8)[None, None, None, None, :])
     j = np.arange(jr)[None, None, None, :, None]
     return np.where((j < J) & (col < K), (k * J + j) * K + col, -1)
 
 
-def geometry(mode, wm, kn):
-    """The kernel's Tile<mode, wm, kn> (bytes)."""
+def geometry(mode, wm, kn, terms=1):
+    """The kernel's Tile<mode, wm, kn, terms> (bytes)."""
     dw = mode == "dW"
-    g = dict(BM=64 * wm, BN=kn * (2 // wm), KC=KC_DW if dw else KC_CONV)
+    kc = (KC_DW if dw else KC_CONV) if terms == 1 else \
+        KC_F32["dW" if dw else "conv"]
+    g = dict(BM=64 * wm, BN=kn * (2 // wm), KC=kc)
     g["ARows"] = g["KC"] + 2 if dw else g["BM"] + 2
     g["AGroups"] = g["BM"] // 8 if dw else g["KC"] // 8
     g["AGroupBytes"] = g["ARows"] * 16
@@ -134,6 +142,8 @@ def geometry(mode, wm, kn):
     g["BGroups"] = g["KC"] // 8 if mode == "convT" else g["BN"] // 8
     g["BGroupBytes"] = g["BRows"] * 16
     g["BTapBytes"] = g["BGroups"] * g["BGroupBytes"]
+    g["BTermBytes"] = (1 if dw else 3) * g["BTapBytes"]
+    g["Slot"] = up(terms * (g["ABytes"] + g["BTermBytes"]), 128)
     return g
 
 
@@ -154,55 +164,122 @@ def read(img, addr, lbo, sbo, mn, k, mn_major):
     return img[off // 2]
 
 
-def check_tile(mode, wm, kn, Bn, Tn, K, N, taps, m_tile, n_tile, chunk):
+def term_image(img, u, terms):
+    """Term u of an image whose elements are source indices: index * terms
+    + u (-1 stays a zero)."""
+    return np.where(img >= 0, img * terms + u, -1)
+
+
+def check_tile(mode, wm, kn, Bn, Tn, K, N, taps, m_tile, n_tile, chunk,
+               terms=1):
     """One chunk of one CTA tile: the kernel's bulk copies from the global
-    images (chunk_copy), then every element its two consumer warpgroups
-    read through their descriptors, for every tap and 16-deep step,
-    against the operand by direct indexing (source indices; -1 = zero)."""
-    g = geometry(mode, wm, kn)
+    images (chunk_copy; with ``terms`` 3, each term's from its own image
+    into its place in the slot), then every element its two consumer
+    warpgroups read through their descriptors, for every tap, 16-deep step
+    and term, against the operand by direct indexing (source indices
+    index * terms + term; -1 = zero)."""
+    g = geometry(mode, wm, kn, terms)
     m0, n0 = m_tile * g["BM"], n_tile * g["BN"]
     sign = -1 if mode == "convT" else 1
-    slot = np.full((g["ABytes"] + 3 * g["BTapBytes"]) // 2, -2, np.int64)
-    c = chunk
-    if mode == "dW":      # a: frames x K (M: K's channels), d: frames x N
+    slot = np.full(g["Slot"] // 2, -2, np.int64)
+    c, kc = chunk, g["KC"]
+    for u in range(terms):
+        abase = u * g["ABytes"]
+        bbase = terms * g["ABytes"] + u * g["BTermBytes"]
+        if mode == "dW":  # a: frames x K (M: K's channels), d: frames x N
+            a_img, rows = act_image(K, Bn, Tn)
+            d_img, _ = act_image(N, Bn, Tn)
+            a_img, d_img = (term_image(v, u, terms) for v in (a_img, d_img))
+            for i in range(g["AGroups"]):
+                copy(slot, abase + i * g["AGroupBytes"], a_img,
+                     ((m0 // 8 + i) * rows + c * kc) * 8, g["AGroupBytes"])
+            for j in range(g["BGroups"]):
+                copy(slot, bbase + j * g["BGroupBytes"], d_img,
+                     ((n0 // 8 + j) * rows + c * kc + 1) * 8,
+                     g["BGroupBytes"])
+            continue
         a_img, rows = act_image(K, Bn, Tn)
-        d_img, _ = act_image(N, Bn, Tn)
+        a_img = term_image(a_img, u, terms)
         for i in range(g["AGroups"]):
-            copy(slot, i * g["AGroupBytes"], a_img,
-                 ((m0 // 8 + i) * rows + c * g["KC"]) * 8, g["AGroupBytes"])
-        for j in range(g["BGroups"]):
-            copy(slot, g["ABytes"] + j * g["BGroupBytes"], d_img,
-                 ((n0 // 8 + j) * rows + c * g["KC"] + 1) * 8,
-                 g["BGroupBytes"])
-    else:
-        a_img, rows = act_image(K, Bn, Tn)
-        for i in range(g["AGroups"]):
-            copy(slot, i * g["AGroupBytes"], a_img,
-                 ((c * g["KC"] // 8 + i) * rows + m0) * 8, g["AGroupBytes"])
+            copy(slot, abase + i * g["AGroupBytes"], a_img,
+                 ((c * kc // 8 + i) * rows + m0) * 8, g["AGroupBytes"])
         if mode == "conv":
-            w_img = conv_image(taps, K, N)
+            w_img = conv_image(taps, K, N, kc)
+            wt = term_image(w_img, u, terms)
             for k in range(taps):
-                copy(slot, g["ABytes"] + k * g["BTapBytes"], w_img,
+                copy(slot, bbase + k * g["BTapBytes"], wt,
                      (((k * w_img.shape[1] + c) * w_img.shape[2] + n0 // 8)
-                      * KC_CONV) * 8, g["BTapBytes"])
+                      * kc) * 8, g["BTapBytes"])
         else:
-            w_img = convt_image(taps, N, K)
+            w_img = convt_image(taps, N, K, kc)
+            wt = term_image(w_img, u, terms)
             for k in range(taps):
                 for cg in range(g["BGroups"]):
-                    copy(slot, g["ABytes"] + k * g["BTapBytes"]
-                         + cg * g["BGroupBytes"], w_img,
+                    copy(slot, bbase + k * g["BTapBytes"]
+                         + cg * g["BGroupBytes"], wt,
                          (((k * w_img.shape[1] + c) * g["BGroups"] + cg)
                           * w_img.shape[3] + n0) * 8, g["BGroupBytes"])
+    if terms == 3:
+        check_tensor_copies(slot, g, mode, Bn, Tn, K, N, m0, n0, c)
+    for u in range(terms):
+        check_reads(slot, g, mode, wm, kn, Bn, Tn, K, N, taps, m0, n0, c,
+                    sign, u, terms)
+
+
+def tensor_box(img, coords, box):
+    """The box of the f32 mode's 5-D tensor copy (dims {8, rows, channel
+    groups, terms, groups}, dimension 0 fastest) of the term images of
+    ``img`` (one group) at ``coords``, zero outside, flattened as the copy
+    writes it to shared memory."""
+    dense = np.stack([term_image(img, u, 3) for u in range(3)])[None]
+    out = np.full(tuple(reversed(box)), -1, np.int64)
+    lo = list(reversed(coords))
+    src = dense[tuple(slice(a, a + b) for a, b in zip(lo, reversed(box)))]
+    out[tuple(slice(0, n) for n in src.shape)] = src
+    return out.reshape(-1)
+
+
+def check_tensor_copies(slot, g, mode, Bn, Tn, K, N, m0, n0, c):
+    """The f32 mode copies A (and kDW's B) with one tensor copy each, at
+    the kernel's coordinates: it writes the slot the per-group, per-term
+    bulk copies of the model wrote."""
+    kc, na = g["KC"], 3 * g["ABytes"] // 2
+    if mode == "dW":
+        a_img, _ = act_image(K, Bn, Tn)
+        d_img, _ = act_image(N, Bn, Tn)
+        got = tensor_box(a_img, (0, c * kc, m0 // 8, 0, 0),
+                         (8, kc + 2, g["BM"] // 8, 3, 1))
+        assert (got == slot[:na]).all(), ("A", mode)
+        got = tensor_box(d_img, (0, c * kc + 1, n0 // 8, 0, 0),
+                         (8, kc, g["BN"] // 8, 3, 1))
+        assert (got == slot[na:na + 3 * g["BTermBytes"] // 2]).all(), "B"
+    else:
+        a_img, _ = act_image(K, Bn, Tn)
+        got = tensor_box(a_img, (0, m0, c * kc // 8, 0, 0),
+                         (8, g["BM"] + 2, kc // 8, 3, 1))
+        assert (got == slot[:na]).all(), ("A", mode)
+
+
+def check_reads(slot, g, mode, wm, kn, Bn, Tn, K, N, taps, m0, n0, c, sign,
+                u, terms):
+    """The elements both consumer warpgroups read through the descriptors
+    of term u (A at u image sizes on, B at terms A images and u B images
+    on) against the operand by direct indexing."""
     mn = np.arange(64)[:, None]
     kk16 = np.arange(16)[None, :]
     tb = mode != "convT"                      # B MN-major
+
+    def enc(want):                            # term u of a source index
+        return np.where(want >= 0, want * terms + u, -1)
+
     for wg in range(2):
         wmi, wni = (wg, 0) if wm == 2 else (0, wg)
         for k in range(taps):
             for kk in range(g["KC"] // 16):
+                a0 = u * g["ABytes"]
                 if mode == "dW":
                     rowoff = k if taps == 3 else 1
-                    a = read(slot, 8 * wmi * g["AGroupBytes"]
+                    a = read(slot, a0 + 8 * wmi * g["AGroupBytes"]
                              + (rowoff + 16 * kk) * 16, 128,
                              g["AGroupBytes"], mn, kk16, True)
                     j = m0 + 64 * wmi + mn
@@ -212,19 +289,20 @@ def check_tile(mode, wm, kn, Bn, Tn, K, N, taps, m_tile, n_tile, chunk):
                     ok = j < K                # rows past M: discarded
                 else:
                     shift = sign * (k - 1) if taps == 3 else 0
-                    a = read(slot, (64 * wmi + 1 + shift) * 16
+                    a = read(slot, a0 + (64 * wmi + 1 + shift) * 16
                              + kk * 2 * g["AGroupBytes"],
                              g["AGroupBytes"], 128, mn, kk16, False)
                     f = frame_of(m0 + 64 * wmi + mn + shift, Tn, Bn)
                     cc = c * g["KC"] + 16 * kk + kk16
                     want = np.where((f >= 0) & (cc < K), f * K + cc, -1)
                     ok = np.ones_like(want, bool)
+                want = enc(want)
                 assert (a == want)[np.broadcast_to(ok, want.shape)].all(), (
-                    mode, wg, k, kk)
+                    mode, wg, k, kk, u)
                 nn = np.arange(kn)[:, None]
                 n = n0 + wni * kn + nn
-                base = g["ABytes"] + (0 if mode == "dW"
-                                      else k * g["BTapBytes"])
+                base = terms * g["ABytes"] + u * g["BTermBytes"] + (
+                    0 if mode == "dW" else k * g["BTapBytes"])
                 if tb:
                     bv = read(slot, base + wni * (kn // 8) * g["BGroupBytes"]
                               + 16 * kk * 16, 128, g["BGroupBytes"], nn,
@@ -243,12 +321,14 @@ def check_tile(mode, wm, kn, Bn, Tn, K, N, taps, m_tile, n_tile, chunk):
                 else:
                     want = np.where((cc < K) & (n < N),
                                     (k * N + n) * K + cc, -1)
+                want = enc(want)
                 ok = np.broadcast_to(n < N, want.shape)  # columns past N
-                assert (bv == want)[ok].all(), (mode, wg, k, kk, "B")
+                assert (bv == want)[ok].all(), (mode, wg, k, kk, u, "B")
 
 
-@pytest.mark.parametrize("shape", K3_SHAPES, ids=str)
-def test_images_and_descriptors_read_the_operands(shape):
+def check_passes(shape, terms):
+    """check_tile for every GEMM pass of K3 at ``shape``, every tile the
+    plan may pick, and the first and last (tile, chunk) of each."""
     Bn, Tn, _, c0, c, f = shape
     rows = 1 + Bn * (Tn + 1)
     # (mode, K: reduced width or dW's row channels, N, taps) of every pass
@@ -256,8 +336,9 @@ def test_images_and_descriptors_read_the_operands(shape):
               ("convT", c, c0, 3), ("convT", c, c, 3), ("convT", f, c, 1),
               ("dW", c0, c, 3), ("dW", c, c, 3), ("dW", c, f, 1)]
     for mode, K, N, taps in passes:
-        for wm, kn in TILES:
-            g = geometry(mode, wm, kn)
+        tiles = TILES_ALL_TAPS if mode == "dW" and terms == 3 else TILES
+        for wm, kn in tiles:
+            g = geometry(mode, wm, kn, terms)
             if up(N, g["BN"]) > up(N, COL_ALIGN):   # the plan skips it
                 continue
             if mode == "dW":
@@ -268,7 +349,12 @@ def test_images_and_descriptors_read_the_operands(shape):
             for m_tile, n_tile, chunk in {(0, 0, 0), (mt - 1, nt - 1,
                                                       nchunks - 1)}:
                 check_tile(mode, wm, kn, Bn, Tn, K, N, taps, m_tile, n_tile,
-                           chunk)
+                           chunk, terms)
+
+
+@pytest.mark.parametrize("shape", K3_SHAPES, ids=str)
+def test_images_and_descriptors_read_the_operands(shape):
+    check_passes(shape, 1)
 
 
 # ---------------------------------------------------------------------------

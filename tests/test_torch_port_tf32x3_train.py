@@ -1,10 +1,13 @@
-"""K3's 3xTF32 arithmetic, emulated on the CPU, against JAX.
+"""K3's earlier 3xTF32 arithmetic, emulated on the CPU, against JAX.
 
-K3 (``mixstage_tpu_torch/ops/cuda/csrc/train_decoder.cu``) takes every
-GEMM product of the training decoder's forward and backward on the tensor
-cores in 3xTF32 (as K1 did before its f32 mode moved to wgmma): each f32
-operand v is split into hi = cvt.rna.tf32.f32(v) and
-lo = cvt.rna.tf32.f32(v - hi), a product is
+K3's f32 mode took every GEMM product of the training decoder's forward
+and backward on the tensor cores in 3xTF32 (``mma.sync``) before it moved
+onto ``wgmma`` with six bf16 products of three-term splits
+(``test_torch_port_k3_f32_wgmma.py``), as K1 did before it.  These tests
+pin the arithmetic of that route, which stays the yardstick
+(``tools/profile_k1.py --k3 --parent`` times its kernel against the
+current one): each f32 operand v is split into hi = cvt.rna.tf32.f32(v)
+and lo = cvt.rna.tf32.f32(v - hi), a product is
 a_lo*b_hi + a_hi*b_lo + a_hi*b_hi with f32 sums, while BatchNorm's
 statistics, its backward and the leaky units stay in f32.  Here every
 product of the chain goes through ``product`` (``_torch_port_helpers``),

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""K3's bf16 mode on one CUDA card: accuracy against its plain version at
+"""K3 on one CUDA card: its bf16 mode's accuracy against its plain version at
 every card-test shape, and a library yardstick for its GEMM shapes.
 
 For each shape of ``tests/test_torch_port_cuda.py::K3_SHAPES`` and the
@@ -13,11 +13,13 @@ or 768) @ (816 or 768 x 256), the logits 2048 x 256 @ 256 x 96, and the
 weight gradient (768 x 2048) @ (2048 x 256).  The yardstick is on no path
 of the port.
 
-``--trace`` instead traces K3-fwd-bf16 and K3-bwd-bf16 at bs32 x 64 and
-the ragged B=3 T=50 (torch.profiler): busy time, launches, and the time of
-each kernel per call.
+``--trace`` instead traces K3-fwd and K3-bwd in the mode of ``--dtype``
+(bfloat16 by default, or float32) at bs32 x 64 and the ragged B=3 T=50
+(torch.profiler): busy time, launches, and the time of each kernel per
+call.
 
-    python3 tools/k3_bf16_probe.py [--skip-shapes] [--trace]
+    python3 tools/k3_probe.py [--skip-shapes] [--trace]
+                              [--dtype bfloat16|float32]
 """
 
 from __future__ import annotations
@@ -74,25 +76,27 @@ def yardstick(device) -> None:
               flush=True)
 
 
-def kernels(device) -> None:
-    """K3-fwd-bf16 and K3-bwd-bf16 at bs32 x 64 and the ragged shape under
-    torch.profiler: device busy time and each kernel's time per call."""
+def kernels(device, dtype) -> None:
+    """K3-fwd and K3-bwd in the mode of ``dtype`` at bs32 x 64 and the
+    ragged shape under torch.profiler: device busy time and each kernel's
+    time per call."""
     gen = torch.Generator().manual_seed(0)
+    tag = "-bf16" if dtype == torch.bfloat16 else ""
     for shape, (b, t) in (("bs32", (B, T)), ("ragged", K3_RAGGED)):
-        a = tuple(v.bfloat16()
+        a = tuple(v.to(dtype)
                   for v in random_train(torch, gen, b, t, device))
         x, w0, wc, _, gamma, beta, wl, _ = a
         _, cs, mu, var = td.decoder_train_fwd(*a)
         dout = torch.randn(w0.shape[0], b, t, wl.shape[-1],
-                           generator=gen).to(device).bfloat16()
+                           generator=gen).to(device).to(dtype)
         bwd = (dout, x, cs, mu, var, w0, wc, gamma, beta, wl)
         for way, fn in (("fwd", lambda: td.decoder_train_fwd(*a)),
                         ("bwd", lambda: td.decoder_train_bwd(*bwd))):
             rec = trace(torch, fn, 10)
-            print(f"[probe] K3-{way}-bf16 {shape}: busy "
+            print(f"[probe] K3-{way}{tag} {shape}: busy "
                   f"{rec['device_busy_ms']:.4f} ms, wall {rec['wall_ms']:.4f}"
                   f" ms, {rec['launches_per_call']:g} launches", flush=True)
-            for k in rec["kernels"][:12]:
+            for k in rec["kernels"][:16]:
                 print(f"[probe]   {k['ms_per_call']:.4f} ms x"
                       f"{k['launches_per_call']:g}  {k['name'][:100]}",
                       flush=True)
@@ -103,7 +107,9 @@ def main(argv=None) -> int:
     ap.add_argument("--skip-shapes", action="store_true",
                     help="no accuracy shares")
     ap.add_argument("--trace", action="store_true",
-                    help="also trace K3's bf16 kernels, no yardstick")
+                    help="also trace K3's kernels, no yardstick")
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"),
+                    default="bfloat16", help="the mode --trace traces")
     args = ap.parse_args(argv)
     device = resolve_device()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -114,7 +120,7 @@ def main(argv=None) -> int:
         if not args.skip_shapes:
             accuracy(device)
         if args.trace:
-            kernels(device)
+            kernels(device, getattr(torch, args.dtype))
         else:
             yardstick(device)
     print(f"[probe] done ({smi})", flush=True)

@@ -18,8 +18,8 @@ classifier, then K4's bf16-feature mode).
 
 ``--sweep`` also times K1 (in the ``--dtype`` mode) and K4 (CUDA events)
 at every time tile that fits, at every shape ``chip_smoke.py`` launches
-them at, beside the tile their rule picks; at bf16 also K3's bf16 mode at
-bs32 x 64 and ragged B=3 T=50 with its GEMM passes forced onto each tile
+them at, beside the tile their rule picks, and K3 in the ``--dtype`` mode
+at bs32 x 64 and ragged B=3 T=50 with its GEMM passes forced onto each tile
 and its weight gradients onto 1, 2 and 4 splits, beside the plan.
 ``--parent DIR`` builds every kernel source of an earlier version found in
 DIR (``*.cu``, with the headers they include, e.g. written there by ``git
@@ -37,11 +37,13 @@ K1 also reports the widest C0 (at L = 3) and the deepest chain (at C0 =
 mode runs both against its plain version.  With the float32 ``--dtype``
 the bs32 serving calls (f32 and int8) are traced and timed with the
 parent's K1 in place of the current one, in turns.
-K3-fwd and K3-bwd at bs32 x 64 and at the ragged B=3 T=50: the f32 mode,
-checked against the parent bit for bit, and at bf16 also the bf16 mode
-(the parent's ``*_bf16`` entry points), with out's and cs's bf16 ULPs and
-differing shares; K4 in both modes (f32 and bf16 features) at every K4
-shape, checked against the parent bit for bit (a parent older than the
+K3-fwd and K3-bwd at bs32 x 64 and at the ragged B=3 T=50: the f32 mode
+(max |current - parent| / max |parent|: a parent on the 3xTF32
+``mma.sync`` route sums other products), and at bf16 also the bf16 mode
+(the parent's ``*_bf16`` entry points), checked against the parent bit for
+bit, with out's and cs's bf16 ULPs and differing shares; K4 in both
+modes (f32 and bf16 features) at every K4 shape, checked against the
+parent bit for bit (a parent older than the
 wgmma kernel gets its own operands, ``quant.pack_words``).
 ``--k1`` limits ``--parent`` and ``--sweep`` to K1, ``--k3`` to K3,
 ``--k4`` to K4 (the last two without the traces).
@@ -172,45 +174,48 @@ def sweep(k1_in, qfd, xs, device) -> dict:
     return out
 
 
-def k3_bf16_sweep(gen, device) -> dict:
-    """K3's bf16 mode at bs32 x 64 and the ragged shape with every GEMM
-    pass forced onto each tile of ``td.BF16_TILES`` and every dW pass onto
-    1, 2 and 4 splits of the frames (CUDA events), beside the plan's
-    choice; and the plan of each pass at bs32."""
+def k3_sweep(gen, device, dtype) -> dict:
+    """K3 in the mode of ``dtype`` at bs32 x 64 and the ragged shape with
+    every GEMM pass forced onto tile index 0-3 (``td.gemm_tiles``) and
+    every dW pass onto 1, 2 and 4 splits of the frames (CUDA events),
+    beside the plan's choice; and the plan of each pass at bs32."""
     lib = td.bind(build.load_library("train_decoder"))
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     G, F = MODEL["num_clusters"], MODEL["out_feats"]
+    terms, tag = (1, "K3-bf16") if dtype == torch.bfloat16 else (3, "K3")
     for mode, j, n, taps in (("conv", C0, C, 3), ("conv", C, C, 3),
                              ("conv", C, F, 1), ("convT", F, C, 1),
                              ("convT", C, C, 3), ("convT", C, C0, 3),
                              ("dW", C, F, 1), ("dW", C, C, 3),
                              ("dW", C0, C, 3)):
-        tile, splits = td.bf16_plan(lib, mode, B, T, j, n, taps, G, sms)
-        print(f"[sweep] K3-bf16 plan bs{B}: {mode} J={j} N={n} taps={taps}:"
-              f" tile {td.BF16_TILES[tile]}, {splits} split(s)", flush=True)
+        tile, splits = td.gemm_plan(lib, mode, B, T, j, n, taps, G, sms,
+                                    terms)
+        print(f"[sweep] {tag} plan bs{B}: {mode} J={j} N={n} taps={taps}:"
+              f" tile {td.gemm_tiles(mode, terms)[tile]}, {splits} "
+              f"split(s)", flush=True)
     out = {}
     for shape, (b, t) in (("bs32", (B, T)), ("ragged", K3_RAGGED)):
-        a = tuple(v.bfloat16()
+        a = tuple(v.to(dtype)
                   for v in random_train(torch, gen, b, t, device))
         x, w0, wc, _, gamma, beta, wl, _ = a
         _, cs, mu, var = td.decoder_train_fwd(*a)
         dout = torch.randn(w0.shape[0], b, t, wl.shape[-1],
-                           generator=gen).to(device).bfloat16()
+                           generator=gen).to(device).to(dtype)
         bwd = (dout, x, cs, mu, var, w0, wc, gamma, beta, wl)
         rec = {}
-        for tile in range(-1, len(td.BF16_TILES)):
-            name = "plan" if tile < 0 else td.BF16_TILES[tile]
+        for tile in range(-1, len(td.GEMM_TILES)):
+            name = "plan" if tile < 0 else f"tile {tile}"
             for splits in (0, 1, 2, 4):
-                lib.mixstage_train_decoder_bf16_force(tile, splits)
+                lib.mixstage_train_decoder_force(tile, splits)
                 key = f"{name}/{'plan' if splits == 0 else splits}"
                 rec[key] = dict(bwd=cuda_ms(
                     torch, lambda: td.decoder_train_bwd(*bwd), reps=10))
                 if splits == 0:
                     rec[key]["fwd"] = cuda_ms(
                         torch, lambda: td.decoder_train_fwd(*a), reps=10)
-        lib.mixstage_train_decoder_bf16_force(-1, 0)
+        lib.mixstage_train_decoder_force(-1, 0)
         out[shape] = rec
-        print(f"[sweep] K3-bf16 {shape} (tile/splits: fwd, bwd ms): "
+        print(f"[sweep] {tag} {shape} (tile/splits: fwd, bwd ms): "
               + ", ".join(f"{k}: " + "/".join(f"{v:.4f}" for v in r.values())
                           for k, r in rec.items()), flush=True)
     return out
@@ -319,6 +324,7 @@ def parent_k3_bwd(lib, dout, x, cs, mu, var, w0, wc, gamma, beta, wl):
              torch.empty(wc.shape, **new),
              *(torch.empty(g, 4, c, **new) for _ in range(3)),
              torch.empty(wl.shape, **new), torch.empty(g, 1, f, **new))
+    # a parent's backward takes a d(conv output) scratch after dh
     dh, dc = torch.empty(cs[0].shape, **new), torch.empty_like(cs[0])
     err = getattr(lib, f"mixstage_train_decoder_bwd_{_mode(x)}")(
         *(v.data_ptr() for v in (dout, x, cs, mu, var, w0, wc, gamma, beta,
@@ -447,7 +453,7 @@ def against_parent(libs, k1_in, qfd, xs, k3) -> dict:
     current kernel's Python wrapper and the parent's bare ``ctypes`` call
     add no host time to a short kernel's; also max |current - parent| /
     max |parent| (K3-bwd: the worst of its gradients; its dcb is float
-    noise around 0 in both), and whether K3's f32 mode, K4 (both modes) and
+    noise around 0 in both), and whether K3's bf16 mode, K4 (both modes) and
     K1's bf16 mode (against a parent on packed weights) equal the parent's
     bit for bit (``bitwise``)."""
     G = MODEL["num_clusters"]
@@ -473,7 +479,7 @@ def against_parent(libs, k1_in, qfd, xs, k3) -> dict:
     for name, (old, new) in calls.items():
         ref, got = old(), new()
         bitwise = None
-        if name.startswith("K3") and "bf16" not in name:
+        if name.startswith("K3") and "bf16" in name:
             bitwise = all(torch.equal(p, q) for p, q in zip(got, ref))
         if name.startswith("K4"):                # exact in both modes
             bitwise = torch.equal(got, ref)
@@ -609,7 +615,7 @@ def main(argv=None) -> int:
                     default="float32", help="the compute dtype of the "
                     "traced K1 calls and serving call")
     ap.add_argument("--sweep", action="store_true",
-                    help="time K1 and K4 at every tile that fits")
+                    help="time K1, K4 and K3 at every tile that fits")
     ap.add_argument("--parent", type=Path, default=None,
                     help="directory of an earlier version's kernel "
                          "sources (*.cu and the headers they include) to "
@@ -654,8 +660,8 @@ def main(argv=None) -> int:
             if args.sweep:
                 if not args.k3:
                     out["sweep"] = sweep(k1_in, qfd, xs, device)
-                if dtype == torch.bfloat16 and not (args.k1 or args.k4):
-                    out["sweep_k3_bf16"] = k3_bf16_sweep(gen, device)
+                if not (args.k1 or args.k4):
+                    out["sweep_k3"] = k3_sweep(gen, device, dtype)
             del k1_in, xs
             if args.k3 or args.k4:
                 return finish(out, args, smi)
