@@ -54,9 +54,11 @@ bf16 model (phases 18-19):
     the bs32 128-frame bucket) and at B=1 T=4096 and a ragged B=3 T=50,
     with weights quantized from seeded folded weights (no element differs:
     K4's integer MMA sums are exact and it rounds as its plain version
-    does); K2
-    against ``chain_plain`` at (32, 64, G=8, C=256, L=3), (4, 64, 4, 128,
-    3) and a ragged B=3 T=50 (max |err| / max |ref| ≤ 1e-4);
+    does); K2 (the chain mode of K1's ``wgmma`` kernel, six bf16 products
+    of three-term splits, on weights packed once by ``pack_chain_bf16``)
+    against ``chain_plain`` at every K2 shape (max |err| / max |ref| ≤
+    1e-4), and the registers, spills and ptxas advisories of its f32-mode
+    instances;
 11. int8 serving: ``build_serving_fn(model, quantize_int8=True, calib=...)``
     at bs32 launches K1 once and K4 once, its pose is finite, drifts from
     the f32 kernel route by (1e-4, 0.10), and is within K4's envelope of
@@ -70,7 +72,8 @@ bf16 model (phases 18-19):
     request on a full-width 64-mel generator against the direct call
     (max |diff| / mean |pose| ≤ 1e-5);
 14. timings (CUDA events): K4 and K2 beside their bounds and plain
-    versions; the bs32 int8 call against the f32 one in ABBA turns;
+    versions, K2 with weights packed once and packed per call; the bs32
+    int8 call against the f32 one in ABBA turns;
 15. bf16 kernels: K1's bf16 mode (bf16 features, f32 weights split in
     three bf16 terms, ``wgmma``) at every K1 shape, under the bf16 rule
     (below), within one bf16 ULP of max |plain| and with at most 20% of
@@ -95,9 +98,12 @@ bf16 model (phases 18-19):
     bf16-mode kernel beside its bound and plain version;
 18. K4's bf16-feature mode against ``decoder_int8_plain`` on the same bf16
     features at every K4 shape (no element differs: a bf16 feature widens
-    to f32 exactly), K2's bf16 mode against ``chain_plain``'s at every K2
-    shape under the bf16 rule (ULPs beside it); each timed beside its
-    bound and plain version, K4-bf16 against K4's f32 mode in ABBA turns;
+    to f32 exactly), K2's bf16 mode (three exact bf16 products on
+    ``wgmma``) against ``chain_plain``'s at every K2 shape under the bf16
+    rule, within one bf16 ULP of max |plain| and with at most 20% of its
+    elements differing; each timed beside its bound and plain version (K2
+    with weights packed once and per call), K4-bf16 against K4's f32 mode
+    in ABBA turns;
 19. the int8 tier on the bf16 model: one bs32 call of
     ``build_serving_fn(model16, quantize_int8=True, calib=...)`` launches
     K1's bf16 mode once and K4's bf16 mode once, drifts from the f32
@@ -116,17 +122,15 @@ drift = mean |O - R| / mean |R| (relative Frobenius error for gradients),
 and |drift(P) - drift(Q)| ≤ 0.10 drift(Q) + 1e-3.
 
 Each kernel's bound is the least time the card could take for its work,
-whatever route the kernel runs: K1 and K3 at the dense bf16 rate with 6
-MMAs per multiply-add (the 3xTF32 bound of their earlier routes, 3 MMAs at
-the TF32 rate, beside each as ``tf32x3_bound_ms``; K3's f32 FMA bound as
-``ffma_bound_ms``), K2 at the TF32 tensor-core rate (3 MMAs per
-multiply-add; ``ffma_bound_ms`` beside), K4 at the int8 tensor-core rate;
-in bf16 mode K1 at
-the dense bf16 rate with 3 MMAs per multiply-add (bf16 activations times
-f32 weights split in three bf16 terms; the 2xTF32 bound of its earlier
-route beside it as ``tf32x2_bound_ms``), K2 at the TF32 rate with 2 MMAs
-per multiply-add (``ffma_bound_ms`` beside), K3 at the dense bf16 rate,
-K4 at its f32 mode's rate with 2-byte features;
+whatever route the kernel runs: K1, K2 and K3 at the dense bf16 rate with
+6 MMAs per multiply-add (the 3xTF32 bound of their earlier routes, 3 MMAs
+at the TF32 rate, beside each as ``tf32x3_bound_ms``; K2's and K3's f32 FMA
+bound as ``ffma_bound_ms``), K4 at the int8 tensor-core rate; in bf16 mode
+K1 and K2 at the dense bf16 rate with 3 MMAs per multiply-add (bf16
+activations times f32 weights split in three bf16 terms; the 2xTF32 bound
+of K1's and K2's earlier routes beside it as ``tf32x2_bound_ms``, K2's FMA
+bound as ``ffma_bound_ms``), K3 at the dense bf16 rate, K4 at its f32
+mode's rate with 2-byte features;
 ``mma`` names the inner product, ``mode`` the dtype mode.
 
 It prints one JSON line of kernels, the ``nvidia-smi`` line, and last the
@@ -151,9 +155,9 @@ import numpy as np
 # published peaks of one H100 SXM (NVIDIA data sheet): f32 outside the
 # tensor cores, dense tensor-core rates, and HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
-PEAK_TF32_FLOPS = 495e12     # K2: 3 TF32 MMAs a multiply-add
-PEAK_BF16_FLOPS = 989e12     # K1, K3: 6 bf16 MMAs a multiply-add (bf16
-#                              modes: K1 3, K3 1)
+PEAK_TF32_FLOPS = 495e12     # the 3xTF32 (2xTF32) bounds of earlier routes
+PEAK_BF16_FLOPS = 989e12     # K1, K2, K3: 6 bf16 MMAs a multiply-add (bf16
+#                              modes: K1 and K2 3, K3 1)
 PEAK_INT8_OPS = 1979e12
 PEAK_HBM_BYTES = 3.35e12
 KERNEL_TOL = 1e-4            # max |kernel - plain| / max |plain|
@@ -181,11 +185,12 @@ BF16_REL, BF16_ABS = 0.10, 1e-3
 # K1's and K2's bf16 modes against their plain versions: both round the
 # same f32 sums at the same points, so they differ by at most one bf16 ULP
 # of max |out|, and only where two summation orders fall on either side of
-# a rounding boundary and the flip spreads through later layers (K2:
-# 1.3-3.0% of the elements at the three-layer shapes below, 6.1% at the
-# four-layer "deep", --seed 0 on an H100).  A kernel that skips one layer's
+# a rounding boundary and the flip spreads through later layers (K2's
+# wgmma chain mode: 1.21-2.58% of the elements at the three-layer shapes
+# below, 5.64% at the four-layer "deep", --seed 0 on an H100; its FFMA
+# kernel before it 1.3-3.0% and 6.1%).  A kernel that skips one layer's
 # rounding differs in 40-58% of them (tests/test_torch_port_cuda.py on
-# such a copy of K2).
+# such a copy of the FFMA K2).
 BF16_ULPS, BF16_SHARE = 1.0, 0.20
 # K1's classifier chain (L = 5) rounds seven layers, and there the flips
 # that two valid summation orders start saturate: K1-bf16's parent (2xTF32
@@ -237,7 +242,8 @@ K4_SHAPES = {   # name: (B, T); every shape the int8 path launches, and more
 K2_SHAPES = {   # name: (B, T, G, C, L)
     "main": (B, T, 8, 256, 3), "small": (4, 64, 4, 128, 3),
     "ragged": (3, 50, 8, 256, 3),
-    "deep": (2, 130, 1, 256, 4)}     # four layers: bf16 flips spread most
+    "deep": (2, 130, 1, 256, 4),     # four layers: bf16 flips spread most
+    "T128": (B, 128, 8, 256, 3)}     # 64-frame tiles of 72-row layers
 MEL_WAVE = 64                # audio/log_mel_400
 
 
@@ -309,6 +315,38 @@ def k2_work(b, t, g, c, layers, act_bytes=4):
             + 4 * (layers * g * 3 * c * c + layers * g * c))
 
 
+def k2_timings(torch, smi, tag, rec, a, packed, g, act_bytes):
+    """K2 at one shape (CUDA events): with the weights ``packed`` once and
+    packed per call, its plain version, and its bound on its route (six
+    bf16 products a multiply-add in the f32 mode, ``act_bytes`` 4; three in
+    the bf16 mode, 2), the bounds of its earlier routes (3xTF32 or 2xTF32,
+    f32 FMA) beside it; into ``rec``."""
+    from mixstage_tpu_torch.ops.cuda.fused_conv import (
+        chain_plain, fused_grouped_conv_chain)
+
+    rec["ms"] = cuda_ms(torch, lambda: fused_grouped_conv_chain(
+        *a, groups=g, packed=packed))
+    rec["ms_packing_per_call"] = cuda_ms(
+        torch, lambda: fused_grouped_conv_chain(*a, groups=g))
+    rec["plain_ms"] = cuda_ms(torch, lambda: chain_plain(*a, groups=g))
+    sh = rec["shape"]
+    flops, nbytes = k2_work(sh["B"], sh["T"], g, sh["C"], sh["L"], act_bytes)
+    mmas, tf32_mmas = (6, 3) if act_bytes == 4 else (3, 2)
+    rec["bound_ms"], rec["bound_by"] = bound_ms(mmas * flops, nbytes,
+                                                PEAK_BF16_FLOPS)
+    old = f"tf32x{tf32_mmas}_bound_ms"
+    rec[old] = bound_ms(tf32_mmas * flops, nbytes, PEAK_TF32_FLOPS)[0]
+    rec["ffma_bound_ms"] = bound_ms(flops, nbytes)[0]
+    log(f"[timing] {smi}: {tag}: {rec['ms']:.4f} ms "
+        f"({flops / (rec['ms'] / 1e3) / 1e12:.2f} TFLOP/s of f32 work) on "
+        f"weights packed once, {rec['ms_packing_per_call']:.4f} ms packing "
+        f"them per call; plain {rec['plain_ms']:.4f} ms; bound "
+        f"{rec['bound_ms']:.4f} ms by {rec['bound_by']} ({mmas} bf16 MMAs a "
+        f"multiply-add at the dense bf16 rate; {old[:6]} bound "
+        f"{rec[old]:.4f} ms, f32 FMA bound {rec['ffma_bound_ms']:.4f} ms; "
+        f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
+
+
 def bound_ms(flops, nbytes, peak=PEAK_F32_FLOPS):
     """(least ms on the card, what bounds it): ``flops`` at ``peak`` or
     ``nbytes`` at the HBM rate, whichever takes longer."""
@@ -328,7 +366,7 @@ def int8_errors(out, ref):
 def kernel_name(mangled: str) -> str:
     """``wgmma_gemm_kernel<2, 1, 96, float, 3>`` from an Itanium-mangled
     kernel name: the last part of its nested name and its template
-    arguments (integers, ``float`` and named types such as
+    arguments (integers, booleans, ``float`` and named types such as
     ``__nv_bfloat16``)."""
     i, parts = (3 if mangled.startswith("_ZN") else 2), []
     while i < len(mangled) and mangled[i].isdigit():
@@ -342,17 +380,20 @@ def kernel_name(mangled: str) -> str:
     if rest.startswith("I"):         # template arguments, up to their E
         j = 1
         while j < len(rest) and rest[j] != "E":
-            m = re.match(r"Li(-?\d+)E|f|(\d+)", rest[j:])
+            m = re.match(r"Li(-?\d+)E|Lb([01])E|f|(\d+)", rest[j:])
             if not m:
                 break
             if m.group(1) is not None:
                 args.append(m.group(1))
                 j += m.end()
+            elif m.group(2) is not None:
+                args.append("true" if m.group(2) == "1" else "false")
+                j += m.end()
             elif m.group(0) == "f":
                 args.append("float")
                 j += 1
             else:
-                n = int(m.group(2))
+                n = int(m.group(3))
                 args.append(rest[j + m.end():j + m.end() + n])
                 j += m.end() + n
         if args:
@@ -687,7 +728,8 @@ def int8_phases(torch, args, device, smi, model, audio, styles, pose32,
     from mixstage_tpu_torch.models.layers import reset_parameters_
     from mixstage_tpu_torch.ops.cuda import quant as q8
     from mixstage_tpu_torch.ops.cuda.fused_conv import (
-        chain_plain, fused_grouped_conv_chain, fused_mixstage_decoder)
+        chain_plain, chain_tile_frames, fused_grouped_conv_chain,
+        fused_mixstage_decoder, pack_chain_bf16)
     from mixstage_tpu_torch.serve import (build_serving_fn,
                                           build_waveform_serving_fn)
     from mixstage_tpu_torch.serving import (DynamicBatcher, PoseClient,
@@ -736,26 +778,36 @@ def int8_phases(torch, args, device, smi, model, audio, styles, pose32,
                                           F=F), tile=tile, max_abs_err=abs_err,
                                mean_rel_err=mean_rel, max_rel_err=max_rel,
                                differing=ndiff, args=x)
+    # K2: the chain mode's f32 instances (terms 3, chain true)
+    for kernel, regs, stores, loads in results["ptxas"][
+            "fused_decoder_wgmma"]["kernels"]:
+        if kernel.startswith("decoder_kernel") and \
+                kernel.endswith(", 3, true>"):
+            log(f"[kernel] K2 f32 mode {kernel}: {regs} registers, {stores} "
+                f"B spill stores, {loads} B spill loads")
     k2_shapes = {}
     for name, (b, t, g, c, layers) in K2_SHAPES.items():
         a = (torch.randn(b, t, g * c, generator=qgen).to(device),
              (torch.randn(layers, g, 3, c, c, generator=qgen)
               * (3 * c) ** -0.5).to(device),
              (torch.randn(layers, g * c, generator=qgen) * 0.1).to(device))
-        out = fused_grouped_conv_chain(*a, groups=g)
+        packed = pack_chain_bf16(a[1])
+        out = fused_grouped_conv_chain(*a, groups=g, packed=packed)
         ref = chain_plain(*a, groups=g)
         torch.cuda.synchronize()
         check(bool(torch.isfinite(out).all()), f"K2 {name}: non-finite")
         abs_err = float((out - ref).abs().max())
         rel_err = abs_err / float(ref.abs().max())
+        tile = chain_tile_frames(b, t, c, layers, g, device)
         log(f"[kernel] fused_grouped_conv_chain {name} B={b} T={t} G={g} "
-            f"C={c} L={layers}: max|err| {abs_err:.3e}, /max|ref| "
-            f"{rel_err:.3e} (tol {KERNEL_TOL:g})")
+            f"C={c} L={layers} (tile {tile} frames, {g * b * -(-t // tile)} "
+            f"CTAs): max|err| {abs_err:.3e}, /max|ref| {rel_err:.3e} (tol "
+            f"{KERNEL_TOL:g})")
         check(rel_err <= KERNEL_TOL, f"K2 {name} disagrees with its plain "
               f"version: {rel_err:.3e}")
         k2_shapes[name] = dict(shape=dict(B=b, T=t, G=g, C=c, L=layers),
-                               max_abs_err=abs_err, max_rel_err=rel_err,
-                               args=a)
+                               tile=tile, max_abs_err=abs_err,
+                               max_rel_err=rel_err, args=(a, packed))
 
     # 11. int8 serving through the entry points ----------------------------
     rng = np.random.default_rng(args.seed + 11)
@@ -878,21 +930,8 @@ def int8_phases(torch, args, device, smi, model, audio, styles, pose32,
             f"ms, bound {rec['bound_ms']:.4f} ms by {rec['bound_by']} "
             f"({ops / 1e9:.2f} G int8 ops, {nbytes / 1e6:.2f} MB)")
     for name, rec in k2_shapes.items():
-        a, g = rec.pop("args"), rec["shape"]["G"]
-        rec["ms"] = cuda_ms(torch, lambda: fused_grouped_conv_chain(
-            *a, groups=g))
-        rec["plain_ms"] = cuda_ms(torch, lambda: chain_plain(*a, groups=g))
-        sh = rec["shape"]
-        flops, nbytes = k2_work(sh["B"], sh["T"], g, sh["C"], sh["L"])
-        rec["bound_ms"], rec["bound_by"] = bound_ms(3 * flops, nbytes,
-                                                    PEAK_TF32_FLOPS)
-        rec["ffma_bound_ms"] = bound_ms(flops, nbytes)[0]
-        log(f"[timing] {smi}: K2 {name}: {rec['ms']:.4f} ms "
-            f"({flops / (rec['ms'] / 1e3) / 1e12:.2f} TFLOP/s f32), plain "
-            f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms by "
-            f"{rec['bound_by']} (3 TF32 MMAs a multiply-add; f32 FMA bound "
-            f"{rec['ffma_bound_ms']:.4f} ms; {flops / 1e9:.2f} GFLOP, "
-            f"{nbytes / 1e6:.1f} MB)")
+        (a, packed), g = rec.pop("args"), rec["shape"]["G"]
+        k2_timings(torch, smi, f"K2 {name}", rec, a, packed, g, act_bytes=4)
     audio_dev = torch.as_tensor(audio, device=device)
     styles_dev = torch.as_tensor(styles, device=device)
     serve32 = build_serving_fn(model)
@@ -923,14 +962,16 @@ def int8_phases(torch, args, device, smi, model, audio, styles, pose32,
           # no single PyTorch call computes the int8 conv chain
           "library_ms": None, "mma": "wgmma-s8"}
     k2 = {"name": "fused_grouped_conv_chain", "route": "cuda",
-          "source": "mixstage_tpu_torch/ops/cuda/csrc/conv_chain.cu",
+          "source": "mixstage_tpu_torch/ops/cuda/csrc/fused_decoder_wgmma.cu",
           "replaces": "mixstage_tpu/ops/pallas/fused_conv.py:75",
           # a public op: no path of the package calls it
           "launches": launches[2],
           "max_abs_err": max(r["max_abs_err"] for r in k2_shapes.values()),
           "ms": main2["ms"], "plain_ms": main2["plain_ms"],
           "bound_ms": main2["bound_ms"], "bound_by": main2["bound_by"],
-          "library_ms": None, "mma": "ffma",
+          "library_ms": None, "mma": "wgmma",
+          "ms_packing_per_call": main2["ms_packing_per_call"],
+          "tf32x3_bound_ms": main2["tf32x3_bound_ms"],
           "ffma_bound_ms": main2["ffma_bound_ms"]}
     return k4, k2
 
@@ -1344,7 +1385,8 @@ def int8_bf16_phases(torch, args, device, smi, model, audio, styles,
     from mixstage_tpu_torch.models import JointLateClusterSoftStyle4_G
     from mixstage_tpu_torch.ops.cuda import quant as q8
     from mixstage_tpu_torch.ops.cuda.fused_conv import (
-        chain_plain, fused_grouped_conv_chain, fused_mixstage_decoder)
+        chain_plain, fused_grouped_conv_chain, fused_mixstage_decoder,
+        pack_chain_bf16)
     from mixstage_tpu_torch.serve import build_serving_fn
 
     bf16 = torch.bfloat16
@@ -1382,7 +1424,8 @@ def int8_bf16_phases(torch, args, device, smi, model, audio, styles,
              (torch.randn(layers, g, 3, c, c, generator=gen)
               * (3 * c) ** -0.5).to(device),
              (torch.randn(layers, g * c, generator=gen) * 0.1).to(device))
-        out = k2(*a, groups=g)
+        packed = pack_chain_bf16(a[1])
+        out = k2(*a, groups=g, packed=packed)
         ref = chain_plain(*a, groups=g)
         truth = chain_plain(a[0].float(), *a[1:], groups=g)
         torch.cuda.synchronize()
@@ -1404,7 +1447,8 @@ def int8_bf16_phases(torch, args, device, smi, model, audio, styles,
               f"{BF16_SHARE:.0%}: a rounding skipped or added)")
         k2_16[name] = dict(shape=dict(B=b, T=t, G=g, C=c, L=layers),
                            drift=dp, plain_drift=dq, max_ulps=ulps,
-                           differing=share, max_abs_err=abs_err, args=a)
+                           differing=share, max_abs_err=abs_err,
+                           args=(a, packed))
     x16 = k4_16["bs32"]["args"]
     x32 = x16.float()
     modes = {"f32": lambda: k4(x32, qfd, groups=G),
@@ -1430,21 +1474,9 @@ def int8_bf16_phases(torch, args, device, smi, model, audio, styles,
         f"{np.mean(k4_turns['f32']):.4f} ms {k4_turns['f32']}, bf16 "
         f"features {np.mean(k4_turns['bf16']):.4f} ms {k4_turns['bf16']}")
     for name, rec in k2_16.items():
-        a, g = rec.pop("args"), rec["shape"]["G"]
-        rec["ms"] = cuda_ms(torch, lambda: k2(*a, groups=g))
-        rec["plain_ms"] = cuda_ms(torch, lambda: chain_plain(*a, groups=g))
-        sh = rec["shape"]
-        flops, nbytes = k2_work(sh["B"], sh["T"], g, sh["C"], sh["L"],
-                                act_bytes=2)
-        rec["bound_ms"], rec["bound_by"] = bound_ms(2 * flops, nbytes,
-                                                    PEAK_TF32_FLOPS)
-        rec["ffma_bound_ms"] = bound_ms(flops, nbytes)[0]
-        log(f"[timing] {smi}: K2-bf16 {name}: {rec['ms']:.4f} ms "
-            f"({flops / (rec['ms'] / 1e3) / 1e12:.2f} TFLOP/s), plain "
-            f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms by "
-            f"{rec['bound_by']} (2 TF32 MMAs a multiply-add; f32 FMA bound "
-            f"{rec['ffma_bound_ms']:.4f} ms; {flops / 1e9:.2f} GFLOP, "
-            f"{nbytes / 1e6:.1f} MB)")
+        (a, packed), g = rec.pop("args"), rec["shape"]["G"]
+        k2_timings(torch, smi, f"K2-bf16 {name}", rec, a, packed, g,
+                   act_bytes=2)
 
     # 19. the int8 tier on a bf16 model -------------------------------------
     model16 = JointLateClusterSoftStyle4_G(**MODEL, dtype=bf16)
@@ -1556,14 +1588,16 @@ def int8_bf16_phases(torch, args, device, smi, model, audio, styles,
          "library_ms": None, "mma": "wgmma-s8"},
         {"name": "fused_grouped_conv_chain_bf16", "mode": "bf16",
          "route": "cuda",
-         "source": "mixstage_tpu_torch/ops/cuda/csrc/conv_chain.cu",
+         "source": "mixstage_tpu_torch/ops/cuda/csrc/fused_decoder_wgmma.cu",
          "replaces": "mixstage_tpu/ops/pallas/fused_conv.py:75",
          # a public op: no path of the package calls it
          "launches": launches[5],
          "max_abs_err": max(r["max_abs_err"] for r in k2_16.values()),
          "ms": main2["ms"], "plain_ms": main2["plain_ms"],
          "bound_ms": main2["bound_ms"], "bound_by": main2["bound_by"],
-         "library_ms": None, "mma": "ffma",
+         "library_ms": None, "mma": "wgmma",
+         "ms_packing_per_call": main2["ms_packing_per_call"],
+         "tf32x2_bound_ms": main2["tf32x2_bound_ms"],
          "ffma_bound_ms": main2["ffma_bound_ms"],
          "max_ulps": max(r["max_ulps"] for r in k2_16.values())}]
 
@@ -1628,15 +1662,16 @@ def main(argv=None) -> int:
     # 3. kernels against their plain versions ------------------------------
     gen = torch.Generator().manual_seed(args.seed)
     per_shape = {}
-    # K1's instances (N, terms): the f32 mode's (terms 3) registers, spills
-    # and ptxas's advisories (a wgmma it serialises says so)
+    # K1's instances (N, terms, chain): the f32 decoder mode's (terms 3)
+    # registers, spills and ptxas's advisories (a wgmma it serialises says
+    # so); K2's chain instances in phase 10
     k1_ptxas = results["ptxas"]["fused_decoder_wgmma"]
     inst = [k for k in k1_ptxas["kernels"]
             if k[0].startswith("decoder_kernel")]
-    check(len(inst) == 10, f"{len(inst)} decoder_kernel instances built, "
-          f"expected 10 (5 widths x 2 modes)")
+    check(len(inst) == 20, f"{len(inst)} decoder_kernel instances built, "
+          f"expected 20 (5 widths x 2 modes x decoder and chain)")
     for kernel, regs, stores, loads in inst:
-        if kernel.endswith(", 3>"):
+        if kernel.endswith(", 3, false>"):
             log(f"[kernel] K1 f32 mode {kernel}: {regs} registers, {stores} "
                 f"B spill stores, {loads} B spill loads")
     log(f"[kernel] K1 ptxas advisories: {k1_ptxas['advisories'] or 'none'}")

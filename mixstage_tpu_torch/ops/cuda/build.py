@@ -23,7 +23,6 @@ from typing import Dict, Tuple
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 SOURCES = {"fused_decoder_wgmma": CSRC / "fused_decoder_wgmma.cu",
-           "conv_chain": CSRC / "conv_chain.cu",
            "train_decoder": CSRC / "train_decoder.cu",
            "decoder_int8": CSRC / "decoder_int8.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

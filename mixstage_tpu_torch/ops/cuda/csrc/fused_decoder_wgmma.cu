@@ -17,6 +17,23 @@
 // C0=266, C=256, L=3, F=96) and the cluster-classifier chain (G=1, L=5,
 // F=8).
 //
+// K2, the chain mode (decoder_kernel<N, KX, true>), replaces the TPU
+// kernel mixstage_tpu/ops/pallas/fused_conv.py::fused_grouped_conv_chain
+// (body _chain_kernel) in both of its modes: K1 without layer 0 and the
+// logits.  Per group g of x (B, T, G*C), for l < L:
+//
+//   h = act(leaky(conv3(h, w[l, g]) + biases[l, g*C:(g+1)*C]))      C -> C
+//
+// and out[:, :, g*C:(g+1)*C] = h in x's dtype.  It runs the decoder mode's
+// code with the chain's layers counted: group g reads its own C channels of
+// x at row stride G*C, the halo is L frames, the biases are indexed in
+// their (L, G*C) layout, and the last layer's epilogue (bias, leaky, the
+// mode's rounding) stores to out where the decoder's logits store.  A
+// chain of no layers copies x.  At (32, 64, G=8, C=256, L=3) it does 19.33
+// GFLOP: 6 x that at 989 TFLOP/s = 0.117 ms (f32 mode), 3 x = 0.059 ms
+// (bf16 mode), both bound by operations.  No path of the port calls it (a
+// public op, as in the JAX package).
+//
 // Exact products at the bf16 tensor-core rate.  Each f32 weight w is split
 // once, on the host, when the serving function is built (fused_conv.py::
 // pack_decoder_bf16), into three bf16 terms that sum to it exactly: w1 =
@@ -40,8 +57,9 @@
 //
 // The plan.  One CTA owns a (time tile, sequence, group) block and keeps
 // the tile's activations in shared memory across all L + 2 layers (a halo
-// of L + 1 frames on each side is recomputed by the neighbouring tile;
-// rows outside [0, T) stay zero: the per-sequence zero padding).  Each
+// of L + 1 frames on each side, one per k=3 layer, is recomputed by the
+// neighbouring tile; rows outside [0, T) stay zero: the per-sequence zero
+// padding).  Each
 // layer is a transposed GEMM per tap, D^T[c_out, rows] = W^T[c_out, c_in]
 // X^T[c_in, rows], on wgmma m64nNk16: A (M = 64 output channels per
 // consumer warpgroup) is a chunk of packed weight terms, B (N rows) the
@@ -236,7 +254,8 @@ __device__ __forceinline__ void mma_group_n(int nc, float (&d)[N / 2],
   }
 }
 
-// Layer l of the chain (0: C0 -> C, 1..L: C -> C, L + 1: the logits).
+// Layer l of the decoder (0: C0 -> C, 1..L: C -> C, L + 1: the logits);
+// the chain mode runs its layers 0..L-1 with C0 = C.
 struct Layer {
   int cin, cout, taps, nk;                  // nk: 16-channel chunks per tap
   __host__ __device__ Layer(int l, int C0, int C, int L, int F)
@@ -245,10 +264,22 @@ struct Layer {
   __host__ __device__ int chunks() const { return taps * nk; }
 };
 
+// The k=3 layers of a decoder (layer 0 and L chain layers) or a chain (L),
+// so the halo of frames a tile recomputes on each side.
+__host__ __device__ inline int k3_layers(bool chain, int L) {
+  return chain ? L : L + 1;
+}
+
+// The index of the last layer, the one that stores to out: the decoder's
+// logits, or the chain's last k=3 layer.
+__host__ __device__ inline int last_layer(bool chain, int L) {
+  return chain ? L - 1 : L + 1;
+}
+
 // Elements (bf16) of one group's packed weights: every layer's chunks.
-inline long long group_elems(int C0, int C, int L, int F) {
+inline long long group_elems(int C0, int C, int L, int F, bool chain) {
   long long n = 0;
-  for (int l = 0; l <= L + 1; ++l) {
+  for (int l = 0; l <= last_layer(chain, L); ++l) {
     const Layer ly(l, C0, C, L, F);
     n += (long long)ly.chunks() * chunk_bytes(ly.cout) / 2;
   }
@@ -256,15 +287,26 @@ inline long long group_elems(int C0, int C, int L, int F) {
 }
 
 // N: the rows (B's columns) of every wgmma, at least any layer's rows; KX:
-// the features' bf16 terms (1: the bf16 mode, 3: the f32 mode).  512
-// consumer threads (4 warpgroups) and a producer warpgroup.
-template <int N, int KX>
+// the features' bf16 terms (1: the bf16 mode, 3: the f32 mode); kChain:
+// K2's chain of L layers (C0 = F = C; biases (L, G*C); x and out (B, T,
+// G*C); bl unused) instead of K1's decoder.  512 consumer threads (4
+// warpgroups) and a producer warpgroup.
+template <int N, int KX, bool kChain>
 __global__ void __launch_bounds__(kThreads, 1) decoder_kernel(
     const typename Feature<KX>::T* __restrict__ x,
     const __nv_bfloat16* __restrict__ wp, const float* __restrict__ biases,
     const float* __restrict__ bl, typename Feature<KX>::T* __restrict__ out,
     int T, int C0, int C, int L, int F, int G, int tile_t, int nrows, int kp,
     int slot, int stages, int group, long long gstride, float slope) {
+  if (kChain && L == 0) {       // a chain of no layers: out = x
+    const int t0 = blockIdx.x * tile_t, n = min(tile_t, T - t0) * C;
+    for (int i = threadIdx.x; i < n; i += kThreads) {
+      const size_t at = ((size_t)blockIdx.y * T + t0 + i / C) * G * C +
+                        (size_t)blockIdx.z * C + i % C;
+      out[at] = x[at];
+    }
+    return;
+  }
   extern __shared__ __align__(128) unsigned char smem[];
   // the bf16 mode's ring is fixed at compile time, kStages stages and
   // groups of kGroupChunks (its plan fits only with them): about 2% faster
@@ -285,7 +327,8 @@ __global__ void __launch_bounds__(kThreads, 1) decoder_kernel(
   __nv_bfloat16* buf1 = buf0 + (buffers(KX) - 1) * KX * term;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int halo = L + 1, nr = tile_t + 2 * halo;
+  const int halo = k3_layers(kChain, L), nr = tile_t + 2 * halo;
+  const int last = last_layer(kChain, L);
   const int b = blockIdx.y, g = blockIdx.z;
   const int t_first = blockIdx.x * tile_t - halo;   // time of tile row 0
   // rows holding t in [0, T); the rest stay zero: the 'same' zero padding
@@ -308,7 +351,7 @@ __global__ void __launch_bounds__(kThreads, 1) decoder_kernel(
           reinterpret_cast<const unsigned char*>(wp + (size_t)g * gstride);
       int s = 0;
       uint32_t ph = 0;
-      for (int l = 0; l <= L + 1; ++l) {
+      for (int l = 0; l <= last; ++l) {
         const Layer ly(l, C0, C, L, F);
         const uint32_t bytes = chunk_bytes(ly.cout);
         for (int c = 0; c < ly.chunks(); ++c) {
@@ -331,11 +374,14 @@ __global__ void __launch_bounds__(kThreads, 1) decoder_kernel(
     for (int i = tid; i < nvec; i += kConsumerThreads)
       z[i] = make_uint4(0, 0, 0, 0);
     sm90::named_barrier(1, kConsumerThreads);
-    const typename Feature<KX>::T* xb = x + (size_t)b * T * C0;
+    // the chain's group g reads its own C0 = C channels of x (B, T, G*C)
+    const size_t xrow = kChain ? (size_t)G * C0 : C0;
+    const typename Feature<KX>::T* xb =
+        x + (size_t)b * T * xrow + (kChain ? (size_t)g * C0 : 0);
     for (int i = tid; i < (v_hi - v_lo) * C0; i += kConsumerThreads) {
       const int r = v_lo + i / C0, ch = i - (r - v_lo) * C0;
       put_terms(buf0 + ((size_t)(ch >> 3) * nrows + r) * 8 + (ch & 7), term,
-                xb[(size_t)(t_first + r) * C0 + ch]);
+                xb[(size_t)(t_first + r) * xrow + ch]);
     }
     sm90::fence_proxy_async();
     sm90::named_barrier(1, kConsumerThreads);
@@ -347,8 +393,8 @@ __global__ void __launch_bounds__(kThreads, 1) decoder_kernel(
     int s = 0;
     uint32_t ph = 0;
     float acc[N / 2], part[N / 2];
-    for (int l = 0; l <= L + 1; ++l) {
-      const bool logits = l == L + 1;
+    for (int l = 0; l <= last; ++l) {
+      const bool logits = !kChain && l == last;
       const Layer ly(l, C0, C, L, F);
       const int mp = round64(ly.cout);
       // rows [lo, hi) of this layer's output (layer l reads [l, nr - l)),
@@ -404,12 +450,15 @@ __global__ void __launch_bounds__(kThreads, 1) decoder_kernel(
       }
       // in place: every warpgroup's wgmmas have read the layer's input
       // before any epilogue overwrites it
-      if (buffers(KX) == 1 && !logits)
+      if (buffers(KX) == 1 && l != last)
         sm90::named_barrier(1, kConsumerThreads);
-      // epilogue: bias, leaky (hidden layers), the mode's feature
+      // epilogue: bias, leaky (k=3 layers), the mode's feature; the last
+      // layer to out (B, T, G*F), the chain's at F = C
       if (wg * 64 < ly.cout) {
-        const float* bias = logits ? bl + (size_t)g * F
-                                   : biases + ((size_t)g * (L + 1) + l) * C;
+        const float* bias =
+            logits   ? bl + (size_t)g * F
+            : kChain ? biases + ((size_t)l * G + g) * C
+                     : biases + ((size_t)g * (L + 1) + l) * C;
         const int m0 = wg * 64 + 16 * w4 + (lane >> 2);
         const int r0 = lo + 2 * (lane & 3);
 #pragma unroll
@@ -419,9 +468,9 @@ __global__ void __launch_bounds__(kThreads, 1) decoder_kernel(
             const int m = m0 + 8 * (e >> 1), r = r0 + 8 * j + (e & 1);
             if (m < ly.cout && r < hi) {
               const float v = acc[4 * j + e] + __ldg(bias + m);
-              if (logits) {
+              if (l == last) {
                 out[((size_t)b * T + (t_first + r)) * G * F + (size_t)g * F +
-                    m] = Feature<KX>::of(v);
+                    m] = Feature<KX>::of(kChain ? leaky(v, slope) : v);
               } else {
                 put_terms(nxt + ((size_t)(m >> 3) * nrows + r) * 8 + (m & 7),
                           term, Feature<KX>::of(leaky(v, slope)));
@@ -430,7 +479,7 @@ __global__ void __launch_bounds__(kThreads, 1) decoder_kernel(
           }
         }
       }
-      if (!logits) {
+      if (l != last) {
         sm90::fence_proxy_async();
         sm90::named_barrier(1, kConsumerThreads);
       }
@@ -442,40 +491,43 @@ __global__ void __launch_bounds__(kThreads, 1) decoder_kernel(
 constexpr int kWidths[] = {16, 32, 48, 64, kMaxN};
 constexpr int kInstances = sizeof(kWidths) / sizeof(kWidths[0]);
 
-template <int KX>
-using Kernel = decltype(&decoder_kernel<kMaxN, KX>);
+template <int KX, bool kChain>
+using Kernel = decltype(&decoder_kernel<kMaxN, KX, kChain>);
 
-template <int KX>
-Kernel<KX> instance(int i) {
-  constexpr Kernel<KX> kernels[kInstances] = {
-      decoder_kernel<16, KX>, decoder_kernel<32, KX>, decoder_kernel<48, KX>,
-      decoder_kernel<64, KX>, decoder_kernel<kMaxN, KX>};
+template <int KX, bool kChain>
+Kernel<KX, kChain> instance(int i) {
+  constexpr Kernel<KX, kChain> kernels[kInstances] = {
+      decoder_kernel<16, KX, kChain>, decoder_kernel<32, KX, kChain>,
+      decoder_kernel<48, KX, kChain>, decoder_kernel<64, KX, kChain>,
+      decoder_kernel<kMaxN, KX, kChain>};
   return kernels[i];
 }
 
 // A launch's instance and shared memory for tiles of tile_t frames, in the
-// mode whose features are `terms` bf16 terms, on a card with `smem_limit`
-// bytes a CTA.  Layer 0 computes the most rows, tile_t + 2L and never more
-// than T; the instance is the narrowest N that covers them (inst = -1:
-// none).  The shared memory holds the barriers, the activation buffers of
-// kp channels by nrows rows (the tile's tile_t + 2(L + 1) rows, or, if
-// more, the L + 2 + N that a layer's N rows from its first row, at most
-// row L + 1, read with their taps) and a weight ring of as many stages as
-// the rest holds, kStages at most; it fits with kMinStages or more (the
-// bf16 mode: kStages).  Each zeroed partial sums `group` chunks, two fewer
-// than the stages (1 at least).
+// mode whose features are `terms` bf16 terms, with a halo of `halo` frames
+// (k3_layers: L + 1 for the decoder, L for the chain), on a card with
+// `smem_limit` bytes a CTA.  Layer 0 computes the most rows, tile_t +
+// 2(halo - 1) and never more than T; the instance is the narrowest N that
+// covers them (inst = -1: none).  The shared memory holds the barriers, the
+// activation buffers of kp channels by nrows rows (the tile's tile_t +
+// 2 halo rows, or, if more, the halo + 1 + N that a layer's N rows from its
+// first row, at most row halo, read with their taps) and a weight ring of
+// as many stages as the rest holds, kStages at most; it fits with
+// kMinStages or more (the bf16 mode: kStages).  Each zeroed partial sums
+// `group` chunks, two fewer than the stages (1 at least).
 struct Plan {
   int inst = -1, nrows = 0, kp, slot, stages = 0, group = 0;
   size_t bytes = 0;
-  Plan(int terms, int T, int C0, int C, int L, int F, int tile_t,
+  Plan(int terms, int T, int C0, int C, int halo, int F, int tile_t,
        size_t smem_limit)
       : kp(round16(C0 > C ? C0 : C)), slot(chunk_bytes(C > F ? C : F)) {
-    const int rows = tile_t + 2 * L < T ? tile_t + 2 * L : T;
+    const int rows =
+        tile_t + 2 * (halo - 1) < T ? tile_t + 2 * (halo - 1) : T;
     for (int i = kInstances - 1; i >= 0 && tile_t > 0; --i)
       if (rows <= kWidths[i]) inst = i;
     if (inst < 0) return;
-    nrows = tile_t + 2 * (L + 1);
-    if (nrows < L + 2 + kWidths[inst]) nrows = L + 2 + kWidths[inst];
+    nrows = tile_t + 2 * halo;
+    if (nrows < halo + 1 + kWidths[inst]) nrows = halo + 1 + kWidths[inst];
     const size_t fixed = kBarBytes + (size_t)buffers(terms) * terms * kp *
                                          nrows * sizeof(__nv_bfloat16);
     const int least = terms == 1 ? kStages : kMinStages;
@@ -489,15 +541,17 @@ struct Plan {
   bool fits() const { return stages >= kMinStages; }
 };
 
-int pick_tile(int terms, int B, int T, int C0, int C, int L, int F, int G,
+int pick_tile(int terms, int B, int T, int C0, int C, int halo, int F, int G,
               int sm_count, size_t smem_limit) {
   return mixstage::cost_tile(
-      kMaxTile, B, T, G, L + 1, L + 1, 8, kWeightRows, sm_count, [&](int t) {
-        return Plan(terms, T, C0, C, L, F, t, smem_limit).fits();
+      kMaxTile, B, T, G, halo, halo, 8, kWeightRows, sm_count, [&](int t) {
+        return Plan(terms, T, C0, C, halo, F, t, smem_limit).fits();
       });
 }
 
-template <int KX>
+// K1 (kChain false) or K2 (true: C0 = F = C, L the chain's layers, bl
+// unused) in the mode of KX.
+template <int KX, bool kChain>
 int launch(const typename Feature<KX>::T* x, const __nv_bfloat16* wp,
            const float* biases, const float* bl,
            typename Feature<KX>::T* out, int B, int T, int C0, int C, int L,
@@ -505,16 +559,17 @@ int launch(const typename Feature<KX>::T* x, const __nv_bfloat16* wp,
            void* stream) {
   if (B <= 0 || T <= 0 || C0 <= 0 || C <= 0 || L < 0 || F <= 0 || G <= 0 ||
       B > 65535 || G > 65535 || C > kMaxCout || F > kMaxCout || tile_t < 0 ||
-      gstride != group_elems(C0, C, L, F))
+      gstride != group_elems(C0, C, L, F, kChain))
     return (int)cudaErrorInvalidValue;
   int sms, smem_limit;
   cudaError_t err = card(&sms, &smem_limit);
   if (err != cudaSuccess) return (int)err;
+  const int halo = k3_layers(kChain, L);
   if (tile_t == 0)
-    tile_t = pick_tile(KX, B, T, C0, C, L, F, G, sms, smem_limit);
-  const Plan plan(KX, T, C0, C, L, F, tile_t, smem_limit);
+    tile_t = pick_tile(KX, B, T, C0, C, halo, F, G, sms, smem_limit);
+  const Plan plan(KX, T, C0, C, halo, F, tile_t, smem_limit);
   if (!plan.fits()) return (int)cudaErrorInvalidValue;
-  const Kernel<KX> kernel = instance<KX>(plan.inst);
+  const Kernel<KX, kChain> kernel = instance<KX, kChain>(plan.inst);
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)plan.bytes);
@@ -536,13 +591,15 @@ extern "C" {
 int mixstage_fused_decoder_f32_tile(int B, int T, int C0, int C, int L,
                                     int F, int G, int sm_count,
                                     size_t smem_limit) {
-  return pick_tile(3, B, T, C0, C, L, F, G, sm_count, smem_limit);
+  return pick_tile(3, B, T, C0, C, k3_layers(false, L), F, G, sm_count,
+                   smem_limit);
 }
 
 int mixstage_fused_decoder_bf16_tile(int B, int T, int C0, int C, int L,
                                      int F, int G, int sm_count,
                                      size_t smem_limit) {
-  return pick_tile(1, B, T, C0, C, L, F, G, sm_count, smem_limit);
+  return pick_tile(1, B, T, C0, C, k3_layers(false, L), F, G, sm_count,
+                   smem_limit);
 }
 
 // Launch the f32 mode on `stream` on the current device with `tile_t`
@@ -559,8 +616,8 @@ int mixstage_fused_decoder_f32(const float* x, const __nv_bfloat16* wp,
                                float* out, int B, int T, int C0, int C,
                                int L, int F, int G, float slope, int tile_t,
                                long long gstride, void* stream) {
-  return launch<3>(x, wp, biases, bl, out, B, T, C0, C, L, F, G, slope,
-                   tile_t, gstride, stream);
+  return launch<3, false>(x, wp, biases, bl, out, B, T, C0, C, L, F, G,
+                          slope, tile_t, gstride, stream);
 }
 
 // The bf16 mode: as mixstage_fused_decoder_f32 with x (B, T, C0) and out
@@ -571,8 +628,45 @@ int mixstage_fused_decoder_bf16(const __nv_bfloat16* x,
                                 int T, int C0, int C, int L, int F, int G,
                                 float slope, int tile_t, long long gstride,
                                 void* stream) {
-  return launch<1>(x, wp, biases, bl, out, B, T, C0, C, L, F, G, slope,
-                   tile_t, gstride, stream);
+  return launch<1, false>(x, wp, biases, bl, out, B, T, C0, C, L, F, G,
+                          slope, tile_t, gstride, stream);
+}
+
+// K2's time tile in the f32 (bf16) mode: as mixstage_fused_decoder_f32_tile
+// for a chain of L layers of C channels in G groups.
+int mixstage_conv_chain_f32_tile(int B, int T, int C, int L, int G,
+                                 int sm_count, size_t smem_limit) {
+  return pick_tile(3, B, T, C, C, k3_layers(true, L), C, G, sm_count,
+                   smem_limit);
+}
+
+int mixstage_conv_chain_bf16_tile(int B, int T, int C, int L, int G,
+                                  int sm_count, size_t smem_limit) {
+  return pick_tile(1, B, T, C, C, k3_layers(true, L), C, G, sm_count,
+                   smem_limit);
+}
+
+// Launch K2's f32 mode, the grouped conv chain, as
+// mixstage_fused_decoder_f32 launches K1 (tile_t 0: the _tile query's
+// choice; the same error codes).  Device pointers to contiguous arrays: x
+// and out (B, T, G*C) f32; wp (G, gstride) bf16 in pack_chain_bf16's layout
+// (pack_decoder_bf16's chunks of the L chain layers), 16-byte aligned;
+// biases (L, G*C) f32.
+int mixstage_conv_chain_f32(const float* x, const __nv_bfloat16* wp,
+                            const float* biases, float* out, int B, int T,
+                            int C, int L, int G, float slope, int tile_t,
+                            long long gstride, void* stream) {
+  return launch<3, true>(x, wp, biases, nullptr, out, B, T, C, C, L, C, G,
+                         slope, tile_t, gstride, stream);
+}
+
+// K2's bf16 mode: as mixstage_conv_chain_f32 with x and out bf16.
+int mixstage_conv_chain_bf16(const __nv_bfloat16* x, const __nv_bfloat16* wp,
+                             const float* biases, __nv_bfloat16* out, int B,
+                             int T, int C, int L, int G, float slope,
+                             int tile_t, long long gstride, void* stream) {
+  return launch<1, true>(x, wp, biases, nullptr, out, B, T, C, C, L, C, G,
+                         slope, tile_t, gstride, stream);
 }
 
 const char* mixstage_fused_decoder_error_string(int code) {

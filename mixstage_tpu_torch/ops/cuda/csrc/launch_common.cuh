@@ -1,6 +1,6 @@
 // Launch helpers shared by the decoder kernels (fused_decoder_wgmma.cu,
-// conv_chain.cu, decoder_int8.cu): the card query and the time-tile
-// rules.  Host code only.
+// decoder_int8.cu, train_decoder.cu): the card query and the time-tile
+// rule.  Host code only.
 
 #pragma once
 
@@ -9,26 +9,7 @@
 
 namespace mixstage {
 
-inline int round4(int n) { return (n + 3) & ~3; }
-
-// The FFMA rule of K2 (mixstage_conv_chain_f32): output frames per CTA
-// from `max_tile`, halved (down to 8) while half the tile still covers T,
-// while the grid of G * B * ceil(T / tile) CTAs would leave over an eighth
-// of the card's `sm_count` SMs idle, or while `fits(tile)` is false; 0 when
-// not even the 8-frame tile fits.  A smaller tile recomputes more halo
-// frames per output frame.
-template <class Fits>
-int fill_tile(int max_tile, int B, int T, int G, int sm_count, Fits fits) {
-  int tile = max_tile;
-  while (tile > 8 && tile / 2 >= T) tile /= 2;
-  while (tile > 8 && ((long long)G * B * ((T + tile - 1) / tile) <
-                          sm_count * 7 / 8 ||
-                      !fits(tile)))
-    tile /= 2;
-  return fits(tile) ? tile : 0;
-}
-
-// The tensor-core rule of K1 (both modes).  Each CTA of K1 streams its
+// The tensor-core rule of K1 and K2 (both modes).  Each CTA of K1 streams its
 // group's whole weight set through shared memory once (a fixed cost per
 // CTA) and runs each layer's rows in passes of `quantum` rows (8: the
 // step of wgmma's N): a CTA of `tile` frames costs about

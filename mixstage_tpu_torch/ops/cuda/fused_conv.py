@@ -1,33 +1,31 @@
 """K1 and K2 on Hopper: the BN-folded Mix-StAGE mixture decoder and the
-grouped conv chain, each as one CUDA kernel.
+grouped conv chain, as two modes of one CUDA kernel.
 
 Counterpart of ``mixstage_tpu/ops/pallas/fused_conv.py``: the TPU kernels
 ``fused_mixstage_decoder`` (K1, ``:177-229``) and ``fused_grouped_conv_chain``
-(K2, ``:73-115``) become hand-written CUDA C++ kernels (design and bounds
-noted in each source), bound with ``ctypes``: K1 (``csrc/fused_decoder_wgmma.cu``)
-on the bf16 tensor cores with ``wgmma``, K2 (``csrc/conv_chain.cu``) on the
-CUDA cores in f32 FMA.  ``fused_mixstage_decoder_plain`` (the counterpart of
+(K2, ``:73-115``) become one hand-written CUDA C++ kernel on the bf16
+tensor cores with ``wgmma`` (``csrc/fused_decoder_wgmma.cu``, design and
+bounds noted there), bound with ``ctypes``: K1 is its decoder mode, K2 its
+chain mode (K1 without layer 0 and the logits).
+``fused_mixstage_decoder_plain`` (the counterpart of
 ``serve.py::folded_decoder_xla``) and ``chain_plain`` (of
 ``chain_reference``) are the same functions in plain PyTorch: the CPU tests
 use them, and ``chip_smoke.py`` holds the kernels against them on the card.
 
-K1 runs float32 weights in both of the TPU kernel's modes: float32
-features, and bfloat16 features with each layer's output and the logits
-rounded to bfloat16 (``fused_conv.py:141-176``, ``out_shape`` ``x.dtype``);
-products in float32, bias and leaky in float32.  Its kernel splits each
+Both run float32 weights in both of the TPU kernels' modes: float32
+features, and bfloat16 features with each layer's output (and K1's logits)
+rounded to bfloat16 (``fused_conv.py:141-176``, ``_chain_kernel``'s
+``astype(x_ref.dtype)``; ``out_shape`` ``x.dtype``); products in float32,
+bias and leaky in float32 (slope float32 0.2).  The kernel splits each
 float32 weight into three bfloat16 terms that sum to it exactly
 (``split_bf16x3``), so a bf16 feature times a weight is exact in three bf16
 products; in the float32 mode the kernel splits each feature the same way
 and takes a product as the six bf16 products of the two splits whose terms
 are largest (f32 accuracy).  The weights' split and the layout the kernel
-streams (``pack_decoder_bf16``) are done once by the serving function; the
-public ``fused_mixstage_decoder`` takes them as ``packed=`` or packs per
-call.  The plain version rounds at the same points, so it is the kernel's
-twin at either dtype.  K2 has the TPU kernel's bf16 mode as well (``_chain_kernel``
-casts each layer's output to ``x_ref.dtype``): bfloat16 activations,
-float32 weights and biases, float32 sums, bias and leaky (slope float32
-0.2), each layer's output rounded to bfloat16; ``chain_plain`` rounds at
-the same points.
+streams (``pack_decoder_bf16``, ``pack_chain_bf16``) are done once by the
+caller where it can (the serving function does for K1); the public
+wrappers take them as ``packed=`` or pack per call.  The plain versions
+round at the same points, so each is the kernel's twin at either dtype.
 
 Each wrapper validates its arguments, then on a CPU tensor computes the
 plain version; on a CUDA tensor it launches the kernel or raises — there is
@@ -115,22 +113,10 @@ def _check(x, w0, wc, biases, w_logits, b_logits, groups):
     return B, T, C0, C, L, F_, G
 
 
-def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare the C signatures of a loaded ``conv_chain`` library (K2;
-    pointers and the stream as ``c_void_p``, so none is cut to 32 bits)."""
-    if lib.mixstage_conv_chain_f32.argtypes is None:
-        lib.mixstage_cuda_error_string.argtypes = [_I]
-        lib.mixstage_cuda_error_string.restype = ctypes.c_char_p
-        for chain in (lib.mixstage_conv_chain_f32,
-                      lib.mixstage_conv_chain_bf16):
-            chain.argtypes = [_P] * 4 + [_I] * 5 + [ctypes.c_float, _P]
-            chain.restype = _I
-    return lib
-
-
 def bind_decoder(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C signatures of a loaded ``fused_decoder_wgmma`` library
-    (K1, both modes)."""
+    (K1 and K2, both modes; pointers and the stream as ``c_void_p``, so none
+    is cut to 32 bits)."""
     if lib.mixstage_fused_decoder_f32.argtypes is None:
         for mode in ("f32", "bf16"):
             fn = getattr(lib, f"mixstage_fused_decoder_{mode}")
@@ -139,6 +125,13 @@ def bind_decoder(lib: ctypes.CDLL) -> ctypes.CDLL:
             fn.restype = _I
             tile = getattr(lib, f"mixstage_fused_decoder_{mode}_tile")
             tile.argtypes = [_I] * 8 + [ctypes.c_size_t]
+            tile.restype = _I
+            chain = getattr(lib, f"mixstage_conv_chain_{mode}")
+            chain.argtypes = [_P] * 4 + [_I] * 5 + [ctypes.c_float, _I,
+                                                    ctypes.c_longlong, _P]
+            chain.restype = _I
+            tile = getattr(lib, f"mixstage_conv_chain_{mode}_tile")
+            tile.argtypes = [_I] * 6 + [ctypes.c_size_t]
             tile.restype = _I
         lib.mixstage_fused_decoder_error_string.argtypes = [_I]
         lib.mixstage_fused_decoder_error_string.restype = ctypes.c_char_p
@@ -205,24 +198,47 @@ def pack_decoder_bf16(fd):
         return torch.cat([_pack_layer(w) for w in layers], dim=1).contiguous()
 
 
+def pack_chain_bf16(weights):
+    """K2's weight operand (both modes) for chain kernels ``weights`` (L, G,
+    3, C, C): a (G, n) bfloat16 tensor holding, per group, the chunks of the
+    L layers in order (each by ``_pack_layer``), exactly the chain layers'
+    part of ``pack_decoder_bf16``'s image."""
+    with torch.no_grad():
+        empty = weights.new_empty(weights.shape[1], 0, dtype=torch.bfloat16)
+        return torch.cat([empty] + [_pack_layer(w) for w in weights],
+                         dim=1).contiguous()
+
+
+def _layer_elems(taps: int, cin: int, cout: int) -> int:
+    return taps * -(-cin // 16) * 48 * (-(-cout // 64) * 64)
+
+
 def packed_elems(C0: int, C: int, L: int, F: int) -> int:
     """bfloat16 elements of one group in ``pack_decoder_bf16``'s layout."""
-    def layer(taps, cin, cout):
-        return taps * -(-cin // 16) * 48 * (-(-cout // 64) * 64)
-    return layer(3, C0, C) + L * layer(3, C, C) + layer(1, C, F)
+    return (_layer_elems(3, C0, C) + L * _layer_elems(3, C, C)
+            + _layer_elems(1, C, F))
+
+
+def chain_packed_elems(C: int, L: int) -> int:
+    """bfloat16 elements of one group in ``pack_chain_bf16``'s layout."""
+    return L * _layer_elems(3, C, C)
+
+
+def _check_packed(packed, G: int, gstride: int, x, packer: str) -> None:
+    if (packed.dtype != torch.bfloat16 or tuple(packed.shape) != (G, gstride)
+            or packed.device != x.device or not packed.is_contiguous()
+            or packed.data_ptr() % 16):
+        raise ValueError(f"packed must be {packer}'s contiguous, 16-byte "
+                         f"aligned ({G}, {gstride}) bfloat16 tensor on "
+                         f"{x.device}, got {packed.dtype} "
+                         f"{tuple(packed.shape)} on {packed.device}")
 
 
 def _launch(x, packed, biases, b_logits, dims, negative_slope):
     """K1 in x's mode on the weights ``packed`` by ``pack_decoder_bf16``."""
     B, T, C0, C, L, F_, G = dims
     gstride = packed_elems(C0, C, L, F_)
-    if (packed.dtype != torch.bfloat16 or tuple(packed.shape) != (G, gstride)
-            or packed.device != x.device or not packed.is_contiguous()
-            or packed.data_ptr() % 16):
-        raise ValueError(f"packed must be pack_decoder_bf16's contiguous, "
-                         f"16-byte aligned ({G}, {gstride}) bfloat16 tensor "
-                         f"on {x.device}, got {packed.dtype} "
-                         f"{tuple(packed.shape)} on {packed.device}")
+    _check_packed(packed, G, gstride, x, "pack_decoder_bf16")
     lib = bind_decoder(build.load_library("fused_decoder_wgmma"))
     launch = (lib.mixstage_fused_decoder_bf16 if x.dtype == torch.bfloat16
               else lib.mixstage_fused_decoder_f32)
@@ -293,12 +309,28 @@ def chain_plain(x, weights, biases, groups: int, negative_slope: float = 0.2):
     return h.transpose(1, 2).to(dt).contiguous()
 
 
+def chain_tile_frames(B: int, T: int, C: int, L: int, G: int, device,
+                      act_bytes: int = 4) -> int:
+    """K2's output frames per CTA on the card ``device`` in the float32
+    (``act_bytes`` 4) or bf16 mode (2): the tile its launch uses, 0 if
+    none fits."""
+    props = torch.cuda.get_device_properties(device)
+    lib = bind_decoder(build.load_library("fused_decoder_wgmma"))
+    mode = "bf16" if act_bytes == 2 else "f32"
+    return getattr(lib, f"mixstage_conv_chain_{mode}_tile")(
+        B, T, C, L, G, props.multi_processor_count,
+        props.shared_memory_per_block_optin)
+
+
 def fused_grouped_conv_chain(x, weights, biases, groups: int,
-                             negative_slope: float = 0.2):
+                             negative_slope: float = 0.2, packed=None):
     """L layers of grouped k=3 'same' conv + bias + leaky as one kernel
     launch: x (B, T, G·C), weights (L, G, 3, C, C) (tap, in, out), biases
     (L, G·C); returns (B, T, G·C) in ``x.dtype``.  All contiguous; x float32
-    or bfloat16 (the bf16 mode), the weights and biases float32."""
+    or bfloat16 (the bf16 mode), the weights and biases float32; C at most
+    256.  On CUDA the kernel reads the weights as ``packed =
+    pack_chain_bf16(weights)``, packed once by the caller, or packed here
+    on each call when ``packed`` is None."""
     tensors = dict(x=x, weights=weights, biases=biases)
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
@@ -324,7 +356,11 @@ def fused_grouped_conv_chain(x, weights, biases, groups: int,
     if x.device.type != "cuda":
         raise ValueError(f"fused_grouped_conv_chain runs on CUDA (or the CPU "
                          f"plain version), got device {x.device}")
-    lib = bind(build.load_library("conv_chain"))
+    if packed is None:
+        packed = pack_chain_bf16(weights)
+    gstride = chain_packed_elems(C, L)
+    _check_packed(packed, G, gstride, x, "pack_chain_bf16")
+    lib = bind_decoder(build.load_library("fused_decoder_wgmma"))
     bf16 = x.dtype == torch.bfloat16
     launch = lib.mixstage_conv_chain_bf16 if bf16 else \
         lib.mixstage_conv_chain_f32
@@ -332,13 +368,16 @@ def fused_grouped_conv_chain(x, weights, biases, groups: int,
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = launch(
-            x.data_ptr(), weights.data_ptr(), biases.data_ptr(),
-            out.data_ptr(), B, T, C, L, G, float(negative_slope), stream)
+            x.data_ptr(), packed.data_ptr(), biases.data_ptr(),
+            out.data_ptr(), B, T, C, L, G, float(negative_slope), 0, gstride,
+            stream)
     if err != 0:
+        tile = chain_tile_frames(B, T, C, L, G, x.device, x.element_size())
         raise RuntimeError(
             f"fused_grouped_conv_chain ({x.dtype}) launch failed: "
-            f"{lib.mixstage_cuda_error_string(err).decode()} (error {err}; "
-            f"B={B} T={T} C={C} L={L} G={G})")
+            f"{lib.mixstage_fused_decoder_error_string(err).decode()} "
+            f"(error {err}; B={B} T={T} C={C} L={L} G={G}; time tile "
+            f"{tile}, 0 = none fits shared memory)")
     fused_grouped_conv_chain.launches += 1
     if bf16:
         fused_grouped_conv_chain.launches_bf16 += 1

@@ -136,6 +136,72 @@ def product(a, b, passes: int):
 
 
 # ---------------------------------------------------------------------------
+# K1's and K2's wgmma arithmetic (csrc/fused_decoder_wgmma.cu), emulated on
+# the CPU
+# ---------------------------------------------------------------------------
+
+GROUP_CHUNKS = 4          # kGroupChunks: 16-channel chunks per partial, most
+# the products x_i w_j of the f32 mode, small ones first (the bf16 mode's
+# features are one term: its products are those with i = 0)
+SIX = [(0, 2), (1, 1), (2, 0), (0, 1), (1, 0), (0, 0)]
+
+
+def terms(v):
+    """The three bf16 terms of ``v`` as float32 (exact)."""
+    from mixstage_tpu_torch.ops.cuda.fused_conv import split_bf16x3
+    return [t.float() for t in split_bf16x3(v)]
+
+
+def emulated_layer(h, w, bias, products, group_chunks):
+    """One layer as the kernel sums it: h (B, T, cin) float32, w (taps,
+    cin, cout) float32.  Both split in three bf16 terms; per 16-channel
+    chunk (tap by tap) the products x_i w_j of ``products`` (pairs (i, j),
+    small ones first), exact in float32, summed by float32 matmuls; each
+    group of ``group_chunks`` chunks into a zeroed partial added to the
+    accumulator."""
+    import torch.nn.functional as F
+
+    taps, cin, cout = w.shape
+    nk = -(-cin // 16)
+    hp = F.pad(h, (0, 16 * nk - cin))
+    if taps == 3:            # rows t-1, t, t+1 with zeros past each end
+        zero = hp.new_zeros(hp.shape[0], 1, hp.shape[2])
+        shifted = (torch.cat([zero, hp[:, :-1]], 1), hp,
+                   torch.cat([hp[:, 1:], zero], 1))
+    else:
+        shifted = (hp,)
+    xk = terms(torch.cat(shifted, dim=-1).reshape(-1, taps * 16 * nk))
+    wk = [F.pad(t, (0, 0, 0, 16 * nk - cin)).reshape(-1, cout)
+          for t in terms(w)]
+    acc = torch.zeros(xk[0].shape[0], cout)
+    for k0 in range(0, taps * nk, group_chunks):
+        part = torch.zeros_like(acc)
+        for c in range(k0, min(k0 + group_chunks, taps * nk)):
+            ks = slice(16 * c, 16 * c + 16)
+            for i, j in products:
+                part = part + xk[i][:, ks] @ wk[j][ks]
+        acc = acc + part
+    return (acc + bias).reshape(h.shape[0], h.shape[1], cout)
+
+
+def emulated_decoder(a, groups, products=SIX, group_chunks=GROUP_CHUNKS,
+                     negative_slope=0.2):
+    """K1's f32 mode on the folded decoder ``a`` (torch tensors: x, w0, wc,
+    biases, w_logits, b_logits)."""
+    outs = []
+    for g in range(groups):
+        h = a["x"]
+        for layer in range(a["wc"].shape[0] + 1):
+            w = a["w0"][g] if layer == 0 else a["wc"][layer - 1, g]
+            v = emulated_layer(h, w, a["biases"][g, layer], products,
+                               group_chunks)
+            h = torch.where(v >= 0, v, negative_slope * v)
+        outs.append(emulated_layer(h, a["w_logits"][g][None],
+                                   a["b_logits"][g], products, group_chunks))
+    return torch.cat(outs, dim=-1)
+
+
+# ---------------------------------------------------------------------------
 # the bf16 rule: how a bf16 output is held to a reference bf16 output
 # ---------------------------------------------------------------------------
 

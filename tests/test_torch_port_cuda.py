@@ -15,9 +15,13 @@ checks of ``DecoderTrain``, and one fused G step.  K4 (the
 int8 decoder) at the same edge shapes in both quantization schemes, equal
 to its plain version in every element, its refusal of unpacked weights,
 and the int8 serving tier (one K1 and one K4 launch per call); K2 (the
-grouped conv chain) at edge shapes, to 1e-4.  The built K1, K3 and K4 run
-on the tensor cores (their SASS holds HGMMA and IGMMA instructions), K2 on
-the CUDA cores.
+grouped conv chain, the chain mode of K1's kernel) at edge shapes and at
+``chip_smoke.py``'s K2 shapes, to 1e-4, on weights packed once equal bit
+for bit to weights packed per call, its tile rule and its refusals.  The
+built K1, K2, K3 and K4 run on the tensor cores (their SASS holds HGMMA and
+IGMMA instructions; K2's no FFMA).  K1's decoder mode equals, in both
+modes, the kernel of the version before the chain mode joined it bit for
+bit where that source lies in ``build/parent_wgmma/``.
 
 The bf16 modes of K1 and K3 against their plain versions, under the bf16
 rule (``bf16_rule`` below): no bf16 output is held element-wise to
@@ -129,7 +133,8 @@ def test_tile_frames_fills_the_card_and_fits_shared_memory(cuda):
 def test_kernels_run_on_tensor_cores(cuda):
     """Every instance of K1's ``decoder_kernel`` holds BF16 HGMMA
     instructions (wgmma) and no HMMA, in its f32 mode (terms 3) as in its
-    bf16 mode (terms 1); K2's library (FFMA) no HMMA or HGMMA; every
+    bf16 mode (terms 1), in the decoder mode as in K2's chain mode, whose
+    instances hold no FFMA either (the FFMA chain is gone); every
     instance of K4's ``decoder_int8_kernel`` s8 IGMMA ones (wgmma) and no
     IMMA (mma.sync) or ``__dp4a`` (IDP.4A), and K3's GEMM passes in both
     modes (every instance of ``wgmma_gemm_kernel``, terms 3 and 1) BF16
@@ -141,27 +146,30 @@ def test_kernels_run_on_tensor_cores(cuda):
     from mixstage_tpu_torch.ops.cuda import build
 
     tool = Path(build.nvcc_path()).with_name("cuobjdump")
+    assert set(build.SOURCES) == {"fused_decoder_wgmma", "decoder_int8",
+                                  "train_decoder"}
     sass = {}
-    for name in ("fused_decoder_wgmma", "conv_chain", "decoder_int8",
-                 "train_decoder"):
+    for name in build.SOURCES:
         build.load_library(name)
         sass[name] = subprocess.run(
             [tool, "-sass", str(build.library_path(name))], check=True,
             capture_output=True, text=True).stdout
     # one section per function, each opened by a "Function : <name>" line;
-    # decoder_kernel<N, terms> mangles its terms as "Li3EE" or "Li1EE"
+    # decoder_kernel<N, terms, chain> mangles its terms and its chain flag
+    # as "Li3ELb0EE" (f32 decoder), "Li1ELb1EE" (bf16 chain), ...
     k1 = [f for f in sass["fused_decoder_wgmma"].split("Function : ")[1:]
           if "decoder_kernel" in f.splitlines()[0]]
-    for terms in ("Li3EE", "Li1EE"):
-        mode = [f for f in k1 if terms in f.splitlines()[0]]
-        assert len(mode) == 5, (terms, len(mode))   # one per wgmma width
-        for body in mode:
-            hgmma = [ln for ln in body.splitlines() if "HGMMA" in ln]
-            assert hgmma and all("BF16" in ln for ln in hgmma), hgmma[:3]
+    assert len(k1) == 20, len(k1)
+    for terms in ("Li3E", "Li1E"):
+        for chain in ("Lb0E", "Lb1E"):
+            mode = [f for f in k1 if terms + chain + "E" in f.splitlines()[0]]
+            assert len(mode) == 5, (terms, chain, len(mode))  # one per width
+            for body in mode:
+                hgmma = [ln for ln in body.splitlines() if "HGMMA" in ln]
+                assert hgmma and all("BF16" in ln for ln in hgmma), hgmma[:3]
+                if chain == "Lb1E":
+                    assert "FFMA" not in body, body.splitlines()[0]
     assert " HMMA" not in sass["fused_decoder_wgmma"]
-    assert "HMMA" not in sass["conv_chain"]
-    assert "HGMMA" not in sass["conv_chain"]
-    assert "FFMA" in sass["conv_chain"]
     k4 = [f for f in sass["decoder_int8"].split("Function : ")[1:]
           if "decoder_int8_kernel" in f.splitlines()[0]]
     assert len(k4) == 7, len(k4)          # one per wgmma width N
@@ -539,9 +547,19 @@ def test_int8_kernel_needs_packed_weights(cuda):
         q8.fused_mixstage_decoder_int8(x, qfd, groups=2)
 
 
-# (B, T, G, C, L)
+# (B, T, G, C, L): edge shapes (T off every tile, C off a 16-channel
+# chunk, one frame, no layer) and chip_smoke.py's K2 shapes
 CHAIN_SHAPES = [(2, 64, 4, 32, 3), (3, 50, 3, 20, 2), (1, 1, 2, 8, 1),
-                (2, 130, 1, 256, 4), (2, 17, 2, 12, 0)]
+                (2, 130, 1, 256, 4), (2, 17, 2, 12, 0), (32, 64, 8, 256, 3),
+                (4, 64, 4, 128, 3), (3, 50, 8, 256, 3)]
+
+
+def _chain_args(B, T, G, C, L, device, dtype=torch.float32):
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn(B, T, G * C, generator=gen).to(device).to(dtype)
+    w = (torch.randn(L, G, 3, C, C, generator=gen) * (3 * C) ** -.5).to(device)
+    b = (torch.randn(L, G * C, generator=gen) * 0.1).to(device)
+    return x, w, b
 
 
 @pytest.mark.parametrize("shape", CHAIN_SHAPES, ids=str)
@@ -550,17 +568,55 @@ def test_chain_kernel_matches_plain_on_card(cuda, shape):
         chain_plain, fused_grouped_conv_chain)
 
     B, T, G, C, L = shape
-    gen = torch.Generator().manual_seed(3)
-    x = torch.randn(B, T, G * C, generator=gen).to(cuda)
-    w = (torch.randn(L, G, 3, C, C, generator=gen) * (3 * C) ** -.5).to(cuda)
-    b = (torch.randn(L, G * C, generator=gen) * 0.1).to(cuda)
+    x, w, b = _chain_args(B, T, G, C, L, cuda)
     before = fused_grouped_conv_chain.launches
     out = fused_grouped_conv_chain(x, w, b, groups=G)
     ref = chain_plain(x, w, b, groups=G)
     torch.cuda.synchronize()
     assert fused_grouped_conv_chain.launches == before + 1
+    if L == 0:                       # a chain of no layers copies x
+        assert torch.equal(out, x)
     err = float((out - ref).abs().max()) / float(ref.abs().max())
     assert err <= 1e-4, err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=str)
+def test_chain_kernel_packed_once_equals_packed_per_call(cuda, dtype):
+    from mixstage_tpu_torch.ops.cuda.fused_conv import (
+        fused_grouped_conv_chain, pack_chain_bf16)
+
+    for B, T, G, C, L in ((32, 64, 8, 256, 3), (3, 50, 3, 20, 2)):
+        x, w, b = _chain_args(B, T, G, C, L, cuda, dtype)
+        packed = pack_chain_bf16(w)
+        out = fused_grouped_conv_chain(x, w, b, groups=G, packed=packed)
+        assert torch.equal(out, fused_grouped_conv_chain(x, w, b, groups=G))
+
+
+def test_chain_tile_rule_and_refusals(cuda):
+    """K2's tile rule (``launch_common.cuh::cost_tile`` on the chain's
+    plan) on an H100 in both modes, and what the wrapper refuses: a packed
+    operand of another chain, C over 256 (one output channel a consumer
+    thread's row of four 64-channel warpgroups)."""
+    from mixstage_tpu_torch.ops.cuda import build
+    from mixstage_tpu_torch.ops.cuda import fused_conv as fc
+
+    lib = fc.bind_decoder(build.load_library("fused_decoder_wgmma"))
+    h100 = (132, 232448)
+    for mode in ("f32", "bf16"):
+        tile = getattr(lib, f"mixstage_conv_chain_{mode}_tile")
+        # 256 CTAs of 64 frames are two waves on 132 SMs
+        assert tile(32, 64, 256, 3, 8, *h100) == 64
+        # 16 sequences: 8-frame tiles fill 128 SMs in one wave
+        assert tile(4, 64, 128, 3, 4, *h100) == 8
+        assert tile(2, 130, 256, 4, 1, *h100) == 8
+    x, w, b = _chain_args(2, 16, 2, 32, 2, cuda)
+    with pytest.raises(ValueError, match="pack_chain_bf16"):
+        fc.fused_grouped_conv_chain(x, w, b, groups=2,
+                                    packed=fc.pack_chain_bf16(w[:1]))
+    wide = _chain_args(1, 8, 1, 264, 1, cuda)
+    with pytest.raises(RuntimeError, match="C=264"):
+        fc.fused_grouped_conv_chain(*wide, groups=1)
 
 
 def test_int8_serving_path_on_card(cuda):
@@ -977,10 +1033,7 @@ def test_chain_kernel_bf16_follows_plain_on_card(cuda, shape):
         chain_plain, fused_grouped_conv_chain)
 
     B, T, G, C, L = shape
-    gen = torch.Generator().manual_seed(3)
-    x = torch.randn(B, T, G * C, generator=gen).to(cuda).bfloat16()
-    w = (torch.randn(L, G, 3, C, C, generator=gen) * (3 * C) ** -.5).to(cuda)
-    b = (torch.randn(L, G * C, generator=gen) * 0.1).to(cuda)
+    x, w, b = _chain_args(B, T, G, C, L, cuda, torch.bfloat16)
     before = (fused_grouped_conv_chain.launches,
               fused_grouped_conv_chain.launches_bf16)
     out = fused_grouped_conv_chain(x, w, b, groups=G)
@@ -991,7 +1044,61 @@ def test_chain_kernel_bf16_follows_plain_on_card(cuda, shape):
             fused_grouped_conv_chain.launches_bf16) == (before[0] + 1,
                                                         before[1] + 1)
     assert out.dtype == torch.bfloat16 and out.shape == x.shape
+    if L == 0:                       # a chain of no layers copies x
+        assert torch.equal(out, x)
+        return
     dp, dq, ok = bf16_rule(out, ref, truth)
     assert ok, (dp, dq)
     ulps, share = bf16_ulps(out, ref)
     assert ulps <= BF16_ULPS and share <= BF16_SHARE, (ulps, share)
+
+
+_parents_wgmma = {}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=str)
+@pytest.mark.parametrize("shape", K1_SERVING_SHAPES + EDGE_SHAPES, ids=str)
+def test_decoder_mode_equals_its_parent_bit_for_bit(cuda, shape, dtype):
+    """K1's decoder mode, in both modes, equals the kernel of the version
+    before K2's chain mode joined it (its ``fused_decoder_wgmma.cu`` and
+    the headers it includes, written into ``build/parent_wgmma/`` with
+    ``git show <commit>:mixstage_tpu_torch/ops/cuda/csrc/<file>``) in every
+    element, on the same packed weights."""
+    import ctypes
+    import subprocess
+    from pathlib import Path
+
+    from mixstage_tpu_torch.ops.cuda import build
+    from mixstage_tpu_torch.ops.cuda import fused_conv as fc
+
+    src = Path(__file__).resolve().parents[1] / "build" / "parent_wgmma" / \
+        "fused_decoder_wgmma.cu"
+    if not src.exists():
+        pytest.skip(f"needs the parent's kernel source at {src}")
+    if src not in _parents_wgmma:
+        lib = src.with_name("libparent_fused_decoder_wgmma.so")
+        subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(lib),
+                        str(src)], check=True, capture_output=True)
+        _parents_wgmma[src] = ctypes.CDLL(str(lib))
+        for mode in ("f32", "bf16"):
+            fn = getattr(_parents_wgmma[src], f"mixstage_fused_decoder_{mode}")
+            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
+                ctypes.c_float, ctypes.c_int, ctypes.c_longlong,
+                ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+    B, T, G, C0, C, L, F = shape
+    x, w0, wc, biases, wl, bl = _folded(B, T, G, C0, C, L, F, cuda)
+    x = x.to(dtype)
+    packed = fc.pack_decoder_bf16(dict(w0=w0, wc=wc, w_logits=wl))
+    out = fc.fused_mixstage_decoder(x, w0, wc, biases, wl, bl, groups=G,
+                                    packed=packed)
+    ref = torch.empty_like(out)
+    mode = "bf16" if dtype == torch.bfloat16 else "f32"
+    assert getattr(_parents_wgmma[src], f"mixstage_fused_decoder_{mode}")(
+        x.data_ptr(), packed.data_ptr(), biases.data_ptr(), bl.data_ptr(),
+        ref.data_ptr(), B, T, C0, C, L, F, G, 0.2, 0,
+        fc.packed_elems(C0, C, L, F),
+        torch.cuda.current_stream().cuda_stream) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)

@@ -41,13 +41,13 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from _torch_port_helpers import GROUP_CHUNKS, emulated_decoder, terms
 from mixstage_tpu.serve import folded_decoder_xla
 from mixstage_tpu_torch.ops.cuda import fused_conv as fc
 from mixstage_tpu_torch.ops.cuda.fused_conv import split_bf16x3
 
 SOURCE = Path(fc.__file__).resolve().parent / "csrc" / "fused_decoder_wgmma.cu"
 NEG_SLOPE = 0.2
-GROUP_CHUNKS = 4          # kGroupChunks: 16-channel chunks per partial, most
 STAGES, MIN_STAGES = 6, 2                   # kStages, kMinStages
 WIDTHS = [16, 32, 48, 64, 72]               # kWidths: the wgmma N instances
 MAX_TILE, WEIGHT_ROWS, BAR_BYTES = 64, 64, 128
@@ -83,58 +83,6 @@ def test_constants_match_the_source():
 # ---------------------------------------------------------------------------
 # (a), (b): the six-product arithmetic against JAX
 # ---------------------------------------------------------------------------
-
-def terms(v):
-    """The three bf16 terms of ``v`` as float32 (exact)."""
-    return [t.float() for t in split_bf16x3(v)]
-
-
-def emulated_layer(h, w, bias, products, group_chunks):
-    """One layer as the kernel sums it: h (B, T, cin) float32, w (taps,
-    cin, cout) float32.  Both split in three bf16 terms; per 16-channel
-    chunk (tap by tap) the products x_i w_j of ``products`` (pairs (i, j),
-    small ones first), exact in float32, summed by float32 matmuls; each
-    group of ``group_chunks`` chunks into a zeroed partial added to the
-    accumulator."""
-    taps, cin, cout = w.shape
-    nk = -(-cin // 16)
-    hp = F.pad(h, (0, 16 * nk - cin))
-    if taps == 3:            # rows t-1, t, t+1 with zeros past each end
-        zero = hp.new_zeros(hp.shape[0], 1, hp.shape[2])
-        shifted = (torch.cat([zero, hp[:, :-1]], 1), hp,
-                   torch.cat([hp[:, 1:], zero], 1))
-    else:
-        shifted = (hp,)
-    xk = terms(torch.cat(shifted, dim=-1).reshape(-1, taps * 16 * nk))
-    wk = [F.pad(t, (0, 0, 0, 16 * nk - cin)).reshape(-1, cout)
-          for t in terms(w)]
-    acc = torch.zeros(xk[0].shape[0], cout)
-    for k0 in range(0, taps * nk, group_chunks):
-        part = torch.zeros_like(acc)
-        for c in range(k0, min(k0 + group_chunks, taps * nk)):
-            ks = slice(16 * c, 16 * c + 16)
-            for i, j in products:
-                part = part + xk[i][:, ks] @ wk[j][ks]
-        acc = acc + part
-    return (acc + bias).reshape(h.shape[0], h.shape[1], cout)
-
-
-SIX = [(0, 2), (1, 1), (2, 0), (0, 1), (1, 0), (0, 0)]
-
-
-def emulated_decoder(a, groups, products=SIX, group_chunks=GROUP_CHUNKS):
-    outs = []
-    for g in range(groups):
-        h = a["x"]
-        for layer in range(a["wc"].shape[0] + 1):
-            w = a["w0"][g] if layer == 0 else a["wc"][layer - 1, g]
-            v = emulated_layer(h, w, a["biases"][g, layer], products,
-                               group_chunks)
-            h = torch.where(v >= 0, v, NEG_SLOPE * v)
-        outs.append(emulated_layer(h, a["w_logits"][g][None],
-                                   a["b_logits"][g], products, group_chunks))
-    return torch.cat(outs, dim=-1)
-
 
 def folded(seed, G, C0, C, L, F_):
     rng = np.random.default_rng(seed)

@@ -44,7 +44,11 @@ before the one before it is waited for); ``rz-last`` (the last hidden
 layer rounded toward zero, not to nearest: a fault the differing-share
 check must catch).
 
-    python3 tools/k1_variants.py [--mode f32|bf16] [--seed 0]
+``--k2`` runs each variant's chain mode (K2: ``mixstage_conv_chain_*``
+on weights packed by ``pack_chain_bf16``) at every shape of
+``chip_smoke.K2_SHAPES`` instead, against ``chain_plain``.
+
+    python3 tools/k1_variants.py [--mode f32|bf16] [--seed 0] [--k2]
                                  [--only NAME ...]
 """
 
@@ -61,8 +65,9 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from chip_smoke import (C, C0, K1_SHAPES, KERNEL_TOL, bf16_rule,  # noqa: E402
-                        bf16_ulps, cuda_ms, ptxas_summary, random_folded)
+from chip_smoke import (C, C0, K1_SHAPES, K2_SHAPES, KERNEL_TOL,  # noqa: E402
+                        bf16_rule, bf16_ulps, cuda_ms, ptxas_summary,
+                        random_folded)
 from mixstage_tpu_torch import resolve_device  # noqa: E402
 from mixstage_tpu_torch.ops.cuda import build, fused_conv  # noqa: E402
 
@@ -285,10 +290,12 @@ def build_all(mode, names) -> None:
         if proc.returncode:
             raise RuntimeError(f"nvcc failed on variant {name}:\n{log}")
         terms = 3 if mode == "f32" else 1
-        regs = sorted({(r, st, ld) for k, r, st, ld in ptxas_summary(log)
-                       if k.endswith(f", {terms}>")})
-        print(f"[build] {name}: (registers, spill stores, spill loads) of "
-              f"its {mode} instances {regs}", flush=True)
+        for chain in ("false", "true"):
+            regs = sorted({(r, st, ld) for k, r, st, ld in ptxas_summary(log)
+                           if k.endswith(f", {terms}, {chain}>")})
+            print(f"[build] {name}: (registers, spill stores, spill loads) "
+                  f"of its {mode} {'chain' if chain == 'true' else 'decoder'}"
+                  f" instances {regs}", flush=True)
         for line in log.splitlines():
             if "Performance Loss" in line:
                 print(f"[build] {name}: {line.split(':', 1)[1].strip()[:150]}",
@@ -343,16 +350,65 @@ def run(mode: str, name: str, seed: int) -> None:
               f" ms", flush=True)
 
 
+def run_k2(mode: str, name: str, seed: int) -> None:
+    """Time and check one built variant's chain mode (in this process)."""
+    device = resolve_device("cuda")
+    lib = fused_conv.bind_decoder(ctypes.CDLL(str(OUT / f"lib{name}.so")))
+    launch_fn = getattr(lib, f"mixstage_conv_chain_{mode}")
+    gen = torch.Generator().manual_seed(seed)
+    for shape, (b, t, g, c, layers) in K2_SHAPES.items():
+        x = torch.randn(b, t, g * c, generator=gen).to(device)
+        w = (torch.randn(layers, g, 3, c, c, generator=gen)
+             * (3 * c) ** -0.5).to(device)
+        bias = (torch.randn(layers, g * c, generator=gen) * 0.1).to(device)
+        xm = x.bfloat16() if mode == "bf16" else x
+        packed = fused_conv.pack_chain_bf16(w)
+
+        def launch():
+            out = torch.empty_like(xm)
+            err = launch_fn(
+                xm.data_ptr(), packed.data_ptr(), bias.data_ptr(),
+                out.data_ptr(), b, t, c, layers, g, 0.2, 0,
+                fused_conv.chain_packed_elems(c, layers),
+                torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"variant {name} launch failed: {err}")
+            return out
+
+        out = launch()
+        torch.cuda.synchronize()
+        line = f"[variant] {mode} {name} K2 {shape}:"
+        ref = fused_conv.chain_plain(xm, w, bias, groups=g)
+        if name in COMPUTING[mode] and mode == "f32":
+            rel = float((out - ref).abs().max() / ref.abs().max())
+            line += (f" max|err|/max|ref| {rel:.3e} "
+                     f"({'within' if rel <= KERNEL_TOL else 'ABOVE'} "
+                     f"{KERNEL_TOL:g})")
+        elif name in COMPUTING[mode]:
+            truth = fused_conv.chain_plain(x, w, bias, groups=g)
+            dp, dq, ok = bf16_rule(out, ref, truth)
+            ulps, share = bf16_ulps(torch, out, ref)
+            line += (f" bf16 rule {'ok' if ok else 'FAILS'} ({dp:.4e} / "
+                     f"{dq:.4e}), {ulps:.2f} bf16 ULPs, {share:.2%} of "
+                     f"elements differ")
+        tile = fused_conv.chain_tile_frames(b, t, c, layers, g, device,
+                                            xm.element_size())
+        print(f"{line}; tile {tile}: {cuda_ms(torch, launch, queued=True):.4f}"
+              f" ms", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--mode", choices=("f32", "bf16"), default="f32")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--k2", action="store_true",
+                    help="run the chain mode at the K2 shapes")
     ap.add_argument("--only", nargs="+", default=None,
                     help="the variants to build and run (default: all)")
     ap.add_argument("--run", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.run:                     # the child process of one variant
-        run(args.mode, args.run, args.seed)
+        (run_k2 if args.k2 else run)(args.mode, args.run, args.seed)
         return 0
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -365,7 +421,8 @@ def main(argv=None) -> int:
         try:
             proc = subprocess.run(
                 [sys.executable, __file__, "--mode", args.mode, "--run",
-                 name, "--seed", str(args.seed)], timeout=240)
+                 name, "--seed", str(args.seed)]
+                + (["--k2"] if args.k2 else []), timeout=240)
             status = f"exit {proc.returncode}"
         except subprocess.TimeoutExpired:
             status = "did not finish in 240 s"

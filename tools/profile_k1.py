@@ -47,9 +47,18 @@ parent bit for bit (a parent older than the
 wgmma kernel gets its own operands, ``quant.pack_words``).
 ``--k1`` limits ``--parent`` and ``--sweep`` to K1, ``--k3`` to K3,
 ``--k4`` to K4 (the last two without the traces).
+``--k2`` runs K2 alone, in both modes, at every K2 shape of
+``chip_smoke.py``: on weights packed once (``pack_chain_bf16``) against
+the same op packing them on each call, in turns (once, per call, per
+call, once); and with ``--parent DIR`` the parent's K2 (its
+``conv_chain.cu``, the FFMA chain on unpacked float32 weights, with the
+headers it includes) against the current one on packed weights, in turns
+as above (f32: max |current - parent| / max |parent|; bf16: bf16 ULPs and
+the share of differing elements).
 
     python3 tools/profile_k1.py [--seed 0] [--dtype float32|bfloat16]
-                                [--sweep] [--parent DIR] [--k1 | --k3 | --k4]
+                                [--sweep] [--parent DIR]
+                                [--k1 | --k2 | --k3 | --k4]
                                 [--out profile.json]
 """
 
@@ -67,9 +76,9 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from chip_smoke import (C, C0, K1_SHAPES, K3_RAGGED, K4_SHAPES, MEL,  # noqa: E402
-                        MODEL, B, T, bf16_ulps, cuda_ms, k1_work,
-                        random_folded, random_train, trace)
+from chip_smoke import (C, C0, K1_SHAPES, K2_SHAPES, K3_RAGGED,  # noqa: E402
+                        K4_SHAPES, MEL, MODEL, B, T, bf16_ulps, cuda_ms,
+                        k1_work, random_folded, random_train, trace)
 from mixstage_tpu_torch import resolve_device  # noqa: E402
 from mixstage_tpu_torch.models import JointLateClusterSoftStyle4_G  # noqa: E402
 from mixstage_tpu_torch.models.layers import reset_parameters_  # noqa: E402
@@ -78,7 +87,8 @@ from mixstage_tpu_torch.ops.cuda import build, fused_conv  # noqa: E402
 from mixstage_tpu_torch.ops.cuda import quant as q8  # noqa: E402
 from mixstage_tpu_torch.ops.cuda import train_decoder as td  # noqa: E402
 from mixstage_tpu_torch.ops.cuda.fused_conv import (  # noqa: E402
-    device_tile_frames, fused_mixstage_decoder, fused_mixstage_decoder_plain)
+    device_tile_frames, fused_grouped_conv_chain, fused_mixstage_decoder,
+    fused_mixstage_decoder_plain, pack_chain_bf16)
 from mixstage_tpu_torch.serve import build_serving_fn  # noqa: E402
 
 SHAPES = {   # name: (B, T, G, L, F)
@@ -249,8 +259,13 @@ def build_parent(src: Path, names=None) -> dict:
     # mode alone on packed weights (fused_decoder_bf16.cu), or both on
     # unpacked float32 weights (fused_decoder.cu, older: mma.sync); K4's C
     # entry point is the current one (with a time tile)
-    if "fused_decoder_wgmma" in libs:
-        fused_conv.bind_decoder(libs["fused_decoder_wgmma"])
+    if "fused_decoder_wgmma" in libs:    # (a parent may have no K2)
+        for mode in ("f32", "bf16"):
+            fn = getattr(libs["fused_decoder_wgmma"],
+                         f"mixstage_fused_decoder_{mode}")
+            fn.argtypes = [_P] * 5 + [_I] * 7 + [ctypes.c_float, _I,
+                                                 ctypes.c_longlong, _P]
+            fn.restype = _I
     if "fused_decoder_bf16" in libs:
         fn = libs["fused_decoder_bf16"].mixstage_fused_decoder_bf16
         fn.argtypes = [_P] * 5 + [_I] * 7 + [ctypes.c_float, _I,
@@ -269,6 +284,11 @@ def build_parent(src: Path, names=None) -> dict:
         lib.mixstage_fused_decoder_tile.restype = _I
     if "decoder_int8" in libs:
         q8.bind(libs["decoder_int8"])
+    if "conv_chain" in libs:             # K2's FFMA chain, both modes
+        for mode in ("f32", "bf16"):
+            fn = getattr(libs["conv_chain"], f"mixstage_conv_chain_{mode}")
+            fn.argtypes = [_P] * 4 + [_I] * 5 + [ctypes.c_float, _P]
+            fn.restype = _I
     if "train_decoder" not in libs:
         return libs
     # K3's (both modes), without the scratch query the current library adds
@@ -361,6 +381,73 @@ def k3_calls(lib, gen, device, dtype) -> dict:
     return calls
 
 
+def k2_inputs(gen, device) -> dict:
+    """{name: (x in both dtypes, weights, biases, G, packed weights)} at
+    every K2 shape, seeded as chip_smoke.py draws them."""
+    out = {}
+    for name, (b, t, g, c, layers) in K2_SHAPES.items():
+        x = torch.randn(b, t, g * c, generator=gen).to(device)
+        w = (torch.randn(layers, g, 3, c, c, generator=gen)
+             * (3 * c) ** -0.5).to(device)
+        bias = (torch.randn(layers, g * c, generator=gen) * 0.1).to(device)
+        out[name] = ({"": x, "-bf16": x.bfloat16()}, w, bias, g,
+                     pack_chain_bf16(w))
+    return out
+
+
+def parent_k2(lib, x, w, bias, g):
+    """A parent's K2 (``conv_chain.cu``: float32 weights as they are) in
+    the mode of ``x``."""
+    (b, t, _), (layers, _, _, c, _) = x.shape, w.shape
+    out = torch.empty_like(x)
+    fn = (lib.mixstage_conv_chain_bf16 if x.dtype == torch.bfloat16
+          else lib.mixstage_conv_chain_f32)
+    err = fn(x.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(), b,
+             t, c, layers, g, 0.2, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"parent K2 launch failed: error {err}")
+    return out
+
+
+def k2_calls(lib, k2_in) -> dict:
+    """{name: (parent call, current call)} of K2 in both modes at every K2
+    shape, the current one on weights packed once."""
+    calls = {}
+    for name, (xs, w, bias, g, packed) in k2_in.items():
+        for tag, x in xs.items():
+            calls[f"K2{tag} {name}"] = (
+                lambda x=x, w=w, bias=bias, g=g: parent_k2(lib, x, w, bias,
+                                                           g),
+                lambda x=x, w=w, bias=bias, g=g, p=packed:
+                    fused_grouped_conv_chain(x, w, bias, groups=g, packed=p))
+    return calls
+
+
+def k2_packing(k2_in) -> dict:
+    """K2 on weights packed once against K2 packing them on each call
+    (CUDA events, not queued: what a caller waits, host time included), in
+    turns (once, per call, per call, once), both modes, every K2 shape."""
+    out = {}
+    for name, (xs, w, bias, g, packed) in k2_in.items():
+        for tag, x in xs.items():
+            calls = {"packed": lambda: fused_grouped_conv_chain(
+                         x, w, bias, groups=g, packed=packed),
+                     "per_call": lambda: fused_grouped_conv_chain(
+                         x, w, bias, groups=g)}
+            turns = dict(packed=[], per_call=[])
+            for who in ("packed", "per_call", "per_call", "packed"):
+                turns[who].append(cuda_ms(torch, calls[who]))
+            rec = {k: sum(v) / len(v) for k, v in turns.items()}
+            rec["turns"] = turns
+            out[f"K2{tag} {name}"] = rec
+            print(f"[k2-pack] K2{tag} {name}: packed once "
+                  f"{rec['packed']:.4f} ms, packed per call "
+                  f"{rec['per_call']:.4f} ms "
+                  f"(+{rec['per_call'] - rec['packed']:.4f}); turns {turns}",
+                  flush=True)
+    return out
+
+
 def rel_diff(got, ref) -> float:
     """max |got - ref| / max |ref|, the worst over paired outputs."""
     if isinstance(ref, torch.Tensor):
@@ -447,7 +534,7 @@ def launch_k4(lib, x, qfd, g, tile, parent=False):
     return out
 
 
-def against_parent(libs, k1_in, qfd, xs, k3) -> dict:
+def against_parent(libs, k1_in, qfd, xs, extra) -> dict:
     """Parent and current kernels in turns (P, C, C, P) at every shape,
     each turn queued behind a sleep (``cuda_ms(queued=True)``), so that the
     current kernel's Python wrapper and the parent's bare ``ctypes`` call
@@ -455,7 +542,8 @@ def against_parent(libs, k1_in, qfd, xs, k3) -> dict:
     max |parent| (K3-bwd: the worst of its gradients; its dcb is float
     noise around 0 in both), and whether K3's bf16 mode, K4 (both modes) and
     K1's bf16 mode (against a parent on packed weights) equal the parent's
-    bit for bit (``bitwise``)."""
+    bit for bit (``bitwise``).  ``extra`` holds more (parent, current)
+    pairs by name (K3's or K2's)."""
     G = MODEL["num_clusters"]
 
     calls = {f"K1 {name}": (
@@ -474,7 +562,7 @@ def against_parent(libs, k1_in, qfd, xs, k3) -> dict:
                                         parent=words),
                 lambda xm=xm: q8.fused_mixstage_decoder_int8(xm, qfd,
                                                              groups=G))
-    calls.update(k3)
+    calls.update(extra)
     out = {}
     for name, (old, new) in calls.items():
         ref, got = old(), new()
@@ -483,9 +571,8 @@ def against_parent(libs, k1_in, qfd, xs, k3) -> dict:
             bitwise = all(torch.equal(p, q) for p, q in zip(got, ref))
         if name.startswith("K4"):                # exact in both modes
             bitwise = torch.equal(got, ref)
-        if name.startswith("K1") and got.dtype == torch.bfloat16 and \
-                k1_packed(libs, torch.bfloat16) is not None:
-            bitwise = torch.equal(got, ref)      # the same bf16 mode
+        if name.startswith("K1") and k1_packed(libs, got.dtype) is not None:
+            bitwise = torch.equal(got, ref)      # the same mode's kernel
         if name.startswith("K3-bwd"):          # dcb: noise around 0
             ref, got = ref[:3] + ref[4:], got[:3] + got[4:]
         if name.startswith("K3-fwd-bf16"):     # out, cs in bf16 ULPs
@@ -627,6 +714,10 @@ def main(argv=None) -> int:
     only.add_argument("--k3", action="store_true",
                       help="with --parent or --sweep: K3 only (no K1, K4 "
                            "or serving traces)")
+    only.add_argument("--k2", action="store_true",
+                      help="K2 only, both modes: packed once against per "
+                           "call, and with --parent against the parent's "
+                           "K2 (no K1, K3, K4 or serving traces)")
     only.add_argument("--k4", action="store_true",
                       help="with --parent or --sweep: K4 only (both "
                            "modes; no K1, K3 or serving traces)")
@@ -643,6 +734,14 @@ def main(argv=None) -> int:
     out = {"card": smi, "dtype": args.dtype}
     libs = None
     with torch.inference_mode():
+        if args.k2:
+            k2_in = k2_inputs(gen, device)
+            if args.parent:
+                libs = build_parent(args.parent, ("conv_chain",))
+                out["parent"] = against_parent(
+                    libs, {}, None, {}, k2_calls(libs["conv_chain"], k2_in))
+            out["k2_packing"] = k2_packing(k2_in)
+            return finish(out, args, smi)
         if args.sweep or args.parent:
             k1_in = {} if args.k3 or args.k4 else k1_inputs(gen, device,
                                                             dtype)
