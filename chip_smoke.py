@@ -7,8 +7,9 @@ speakers, 256 channels, style_dim 10 and 96 pose features, on 64-frame
 clips of 128 mel bins at batch 32 — with random weights drawn from
 ``--seed``: serving (phases 1-6), GAN training (phases 7-9) and the int8
 serving tier with the streaming and waveform endpoints (phases 10-14), the
-bf16 tier, serving and GAN training (phases 15-17), and the int8 tier on the
-bf16 model (phases 18-19):
+bf16 tier, serving and GAN training (phases 15-17), the int8 tier on the
+bf16 model (phases 18-19), and the host lifecycle through the CLIs
+(phase 20):
 
 1. device: the card's name and power limit from ``nvidia-smi``;
 2. build: every CUDA kernel from the checkout's sources, one ``nvcc`` per
@@ -112,7 +113,21 @@ bf16 model (phases 18-19):
     through a server over it equal the direct calls at the server's batch
     size; the call timed against the int8 call on the f32 model in ABBA
     turns, with its device busy time, launches and idle share
-    (``torch.profiler``).
+    (``torch.profiler``);
+20. the lifecycle, in f32 and then bf16: synthetic PATS data (8 speakers,
+    3 intervals of 25 s each), ``cli.train``'s ``main(argv)`` (the flagship
+    at full width, ``-gan 1 -loss L1Loss -batch_size 32 -fused_decoder 1``,
+    two short epochs, ``-profile_dir``) then ``cli.sample`` from its
+    checkpoint with style transfer; K3 launched once each way per G step
+    and nowhere else, in the run's mode, its ``wgmma_gemm_kernel`` and
+    ``pack_kernel`` in the first epoch's ``torch.profiler`` trace; finite
+    losses in ``PREFIX_res.json``, every ``PREFIX_*`` file, a
+    ``keypoints_style`` file per interval, the weights ``cli.sample``
+    restored equal to the trained ones bit for bit, one sampled interval's
+    keypoints equal to a direct eval step on its batch; the trainer's
+    steps per second and the train and sample wall times.  Where the
+    machine has no ``h5py`` the phase says so and its h5 files go through a
+    stand-in (numpy archives behind h5py's ``File`` API).
 
 The bf16 rule: no bf16 output is held element-wise to another bf16 output
 (two valid roundings differ about as much as either differs from the
@@ -145,6 +160,7 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import json
+import os
 import re
 import subprocess
 import sys
@@ -254,6 +270,13 @@ TRAIN_CFG = dict(model="JointLateClusterSoftStyle4_G", gan=True,
 F_POSE, LAYERS = MODEL["out_feats"], 4
 SCAN_K = 8
 K3_RAGGED = (3, 50)          # K3 alone at a ragged shape: the sequence ends
+# phase 20: the lifecycle's data (25 s intervals) and its -debug per dtype
+# (2 epochs of debug + 1 train steps each)
+LIFE_INTERVALS = 3
+LIFE_STEPS = {"float32": 8, "bfloat16": 4}
+LIFE_FILES = {"args.args", "res.json", "weights.p", "log.log", "name.name",
+              "metrics.json", "cummMetrics.json", "histogram.json",
+              "style.pkl"}
 TIMING_TURNS = 4             # timed turns of each decoder, in ABBA order
 
 
@@ -1375,6 +1398,256 @@ def bf16_phases(torch, args, device, smi, model, audio, styles, pose32,
     return entries
 
 
+def install_h5py_stand_in() -> None:
+    """Make ``import h5py`` give a stand-in holding each "h5" file as a
+    numpy archive (``np.savez``) behind the part of h5py's ``File`` API the
+    port's data layer calls: open in "r" / "a", ``key in``, ``[key][()]``,
+    ``create_dataset``, ``del``, ``close`` and the context manager; a key
+    names its groups too.  For a machine without h5py only: the lifecycle
+    then runs, but no real HDF5 file is read or written."""
+    import types
+
+    class Dataset:
+        def __init__(self, arr):
+            self._arr = arr
+            self.shape, self.dtype = arr.shape, arr.dtype
+
+        def __getitem__(self, index):
+            return self._arr[index]
+
+    class File:
+        def __init__(self, name, mode="r"):
+            self.name, self.mode, self._dirty = str(name), mode, False
+            self._data = {}
+            if os.path.exists(self.name):
+                with np.load(self.name, allow_pickle=False) as z:
+                    self._data = {k: z[k] for k in z.files}
+            elif mode == "r":
+                raise FileNotFoundError(self.name)
+            else:
+                self._dirty = True
+
+        def __contains__(self, key):
+            key = key.strip("/")
+            return key in self._data or any(k.startswith(key + "/")
+                                            for k in self._data)
+
+        def __getitem__(self, key):
+            return Dataset(self._data[key.strip("/")])
+
+        def __delitem__(self, key):
+            key = key.strip("/")
+            for k in [k for k in self._data
+                      if k == key or k.startswith(key + "/")]:
+                del self._data[k]
+            self._dirty = True
+
+        def create_dataset(self, key, data):
+            arr = np.asarray(data)
+            self._data[key.strip("/")] = (arr.astype(str)
+                                          if arr.dtype == object else arr)
+            self._dirty = True
+
+        def close(self):
+            if self._dirty and self.mode != "r":
+                with open(self.name, "wb") as f:
+                    np.savez(f, **self._data)
+            self._dirty = False
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            self.close()
+
+    mod = types.ModuleType("h5py")
+    mod.File, mod.Dataset = File, Dataset
+    mod.special_dtype = lambda vlen=None: object
+    sys.modules["h5py"] = mod
+
+
+def lifecycle_phase(torch, args, smi, results) -> dict:
+    """Phase 20: ``cli.train`` → checkpoint → ``cli.sample`` (style
+    transfer) at full width, with the training decoder on K3, in f32 and
+    bf16.  Returns K3's launches on this path per mode, (fwd, bwd)."""
+    import importlib.util
+    import shutil
+    from pathlib import Path
+
+    if importlib.util.find_spec("h5py") is None:
+        log("[lifecycle] h5py: not installed on this machine; the PATS h5 "
+            "files of this phase go through chip_smoke's stand-in (numpy "
+            "archives behind h5py's File API): the lifecycle runs, real "
+            "HDF5 I/O is not exercised here")
+        install_h5py_stand_in()
+        results["lifecycle_h5py"] = "stand-in"
+    from mixstage_tpu_torch.bookkeeping import weights_of
+    from mixstage_tpu_torch.cli import sample as cli_sample
+    from mixstage_tpu_torch.cli import train as cli_train
+    from mixstage_tpu_torch.data.common import SPEAKERS
+    from mixstage_tpu_torch.data.dataset import DataLoader
+    from mixstage_tpu_torch.data.hdf5 import HDF5
+    from mixstage_tpu_torch.data.synthetic import make_synthetic_dataset
+    from mixstage_tpu_torch.ops.bucketing import next_pow2, pad_repeat_last
+    from mixstage_tpu_torch.ops.cuda import train_decoder as td
+    from mixstage_tpu_torch.train.trainer import Trainer
+
+    root = Path(__file__).resolve().parent / "build" / "lifecycle"
+    shutil.rmtree(root, ignore_errors=True)
+    data = str(root / "data")
+    speakers = SPEAKERS[:MODEL["num_speakers"]]
+    t0 = time.perf_counter()
+    make_synthetic_dataset(data, speakers, LIFE_INTERVALS,
+                           seed=11212 + args.seed)
+    log(f"[lifecycle] synthetic PATS data: {len(speakers)} speakers x "
+        f"{LIFE_INTERVALS} intervals of 25 s in "
+        f"{time.perf_counter() - t0:.1f} s")
+    # the trainers cli.train and cli.sample build, and their wall times
+    seen = {"train": [], "sample": []}
+    orig = {name: getattr(Trainer, name) for name in seen}
+
+    def keep(name):
+        def run(self, exp_num):
+            t = time.perf_counter()
+            orig[name](self, exp_num)
+            seen[name].append((self, time.perf_counter() - t))
+        return run
+
+    out, launches = {}, {}
+    for dtype, steps in LIFE_STEPS.items():
+        save = str(root / f"save_{dtype}")
+        prof = root / f"profile_{dtype}"
+        argv = ["-path2data", data, "-speaker", json.dumps(speakers),
+                "-model", "JointLateClusterSoftStyle4_G", "-gan", "1",
+                "-loss", "L1Loss", "-num_clusters",
+                str(MODEL["num_clusters"]), "-batch_size", str(B),
+                "-fused_decoder", "1", "-num_epochs", "2", "-window_hop",
+                "5", "-debug", str(steps), "-num_iters", "2", "-save_dir",
+                save, "-exp", "1", "-seed", str(11212 + args.seed),
+                "-dtype", dtype, "-profile_dir", str(prof)]
+        for name in seen:
+            seen[name].clear()
+            setattr(Trainer, name, keep(name))
+        try:
+            td.decoder_train_fwd.launches = 0     # lifecycle path starts
+            td.decoder_train_bwd.launches = 0
+            td.decoder_train_fwd.launches_bf16 = 0
+            td.decoder_train_bwd.launches_bf16 = 0
+            t = time.perf_counter()
+            cli_train.main(argv)
+            torch.cuda.synchronize()
+            cli_wall = time.perf_counter() - t
+            k3 = (td.decoder_train_fwd.launches,    # lifecycle path ends
+                  td.decoder_train_bwd.launches)
+            k3_bf16 = (td.decoder_train_fwd.launches_bf16,
+                       td.decoder_train_bwd.launches_bf16)
+            trainer, train_s = seen["train"][0]
+            _, final_sample_s = seen["sample"][0]
+            weights = trainer.book.name("weights", "p", save)
+            t = time.perf_counter()
+            cli_sample.main(["-load", weights, "-path2data", data])
+            torch.cuda.synchronize()
+            sample_wall = time.perf_counter() - t
+            sampler, sample_s = seen["sample"][1]
+        finally:
+            for name, fn in orig.items():
+                setattr(Trainer, name, fn)
+        g_steps = trainer.state.g_step
+        check(g_steps > 0, f"[{dtype}] the lifecycle ran no G step")
+        check(k3 == (g_steps, g_steps) and k3_bf16 == (
+            k3 if dtype == "bfloat16" else (0, 0)),
+            f"[{dtype}] K3 launches (all, bf16 mode) {k3}, {k3_bf16} over "
+            f"the lifecycle, expected one each way per G step ({g_steps}) "
+            f"in the {dtype} mode")
+        check(trainer.step_cfg.fused_decoder and
+              trainer.device.type == "cuda" and
+              trainer.step_cfg.dtype == getattr(torch, dtype),
+              f"[{dtype}] trainer config")
+        # K3's kernels under torch.profiler (-profile_dir, first epoch)
+        traces = sorted(prof.glob("*.json"))
+        check(len(traces) == 1, f"[{dtype}] {len(traces)} profiler traces")
+        with open(traces[0]) as f:
+            events = json.load(f)["traceEvents"]
+        names = [e["name"] for e in events if e.get("cat") == "kernel"]
+        prof_k3 = {k: sum(k in n for n in names)
+                   for k in ("wgmma_gemm_kernel", "pack_kernel")}
+        check(all(v > 0 for v in prof_k3.values()),
+              f"[{dtype}] K3 kernels under torch.profiler: {prof_k3}")
+        # the experiment's files, its losses
+        prefix = trainer.book.name.prefix
+        files = {f[len(prefix) + 1:] for f in os.listdir(save)
+                 if f.startswith(prefix + "_")}
+        check(LIFE_FILES <= files, f"[{dtype}] PREFIX files {sorted(files)}")
+        with open(trainer.book.name("res", "json", save)) as f:
+            res = json.load(f)
+        for key in ("train", "dev", "test"):
+            check(bool(np.isfinite(res[key]).all()),
+                  f"[{dtype}] {key} losses {res[key]}")
+        kp_style = sorted((Path(sampler.dir_name) / "keypoints_style")
+                          .rglob("*.h5"))
+        check(len(kp_style) == len(speakers) * LIFE_INTERVALS,
+              f"[{dtype}] {len(kp_style)} style-transfer keypoint files")
+        # cli.sample restored the trained weights, bit for bit
+        w_train, w_sample = weights_of(trainer.state), weights_of(
+            sampler.state)
+        check(all(torch.equal(v, w_sample[m][k])
+                  for m in w_train for k, v in w_train[m].items()),
+              f"[{dtype}] cli.sample's weights differ from the trained ones")
+        # one sampled interval against a direct eval step on its batch
+        md = sampler.data.datasets["test"].datasets[0]
+        batch = next(iter(DataLoader(md, batch_size=len(md))))
+        sb, y_, ins = sampler.get_processed_batch(batch)
+        pad = next_pow2(len(md))
+
+        def flat(v):
+            v = pad_repeat_last(np.asarray(v), pad)
+            return v.reshape(1, -1, *v.shape[2:])
+        fb = {k: tuple(flat(a) for a in v) if k == "x" else flat(v)
+              for k, v in sb.items()}
+        _, pose, _ = sampler.steps["eval"](sampler.state, fb,
+                                           sample_flag=True)
+        y_cap = pose.float().cpu().numpy().astype(np.float64).reshape(
+            pad, y_.shape[1], -1)[:len(md)]
+        want = sampler.calculate_metrics(y_cap, y_, "same", insert=ins,
+                                         style=sb["style"])
+        iid = batch["meta"]["interval_id"][0]
+        got = HDF5.load_array(
+            str(Path(sampler.dir_name) / "keypoints" / "test"
+                / sampler.data.getSpeaker(iid) / f"{iid}.h5"), "pose/data")
+        check(got.shape == want.shape and bool(np.array_equal(got, want)),
+              f"[{dtype}] interval {iid}'s sampled keypoints differ from a "
+              f"direct eval step: max |diff| "
+              f"{float(np.abs(got - want).max()):.3e}")
+        sps = res["train_steps_per_sec"]
+        log(f"[lifecycle] {dtype}: cli.train (fused decoder, {B}-window "
+            f"batches, 2 epochs of {steps + 1} steps, -debug {steps}) + "
+            f"cli.sample: K3 launches (fwd, bwd) {k3} = {g_steps} G steps "
+            f"(bf16 mode {k3_bf16}); under torch.profiler in epoch 0 "
+            f"{prof_k3}; losses finite; PREFIX files "
+            f"{sorted(LIFE_FILES)} present; {len(kp_style)} style-transfer"
+            f" keypoint files; cli.sample's weights equal the trained ones "
+            f"bit for bit; interval {iid}'s keypoints equal a direct eval "
+            f"step")
+        log(f"[lifecycle] {smi}: {dtype}: train_steps_per_sec "
+            f"{sps[0]:.3f} (epoch 0, profiled), {sps[1]:.3f} (epoch 1); "
+            f"Trainer.train {train_s:.2f} s, its final Trainer.sample "
+            f"{final_sample_s:.2f} s, cli.train {cli_wall:.2f} s in all "
+            f"(the k-means fit, ZNorm and model set-up included); "
+            f"cli.sample {sample_wall:.2f} s (Trainer.sample "
+            f"{sample_s:.2f} s: {len(speakers) * LIFE_INTERVALS} intervals"
+            f" x 2 styles)")
+        launches[dtype] = k3
+        out[dtype] = dict(k3_launches=k3, g_steps=g_steps,
+                          profiled_k3=prof_k3, steps_per_sec=sps,
+                          train_s=train_s, final_sample_s=final_sample_s,
+                          cli_train_s=cli_wall, cli_sample_s=sample_wall,
+                          sample_s=sample_s,
+                          res={k: res[k] for k in ("train", "dev", "test")})
+    results["lifecycle"] = out
+    shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
 def int8_bf16_phases(torch, args, device, smi, model, audio, styles,
                      pose32, results):
     """Phases 18-19: the bf16 modes of K4 (bf16 features) and K2 against
@@ -2039,6 +2312,13 @@ def main(argv=None) -> int:
                       serve, results)
     k8_16 = int8_bf16_phases(torch, args, device, smi, model, audio, styles,
                              pose, results)
+    life = lifecycle_phase(torch, args, smi, results)
+    for kern in k3 + k16:
+        for i, which in enumerate(("fwd", "bwd")):
+            if kern["name"].startswith(f"decoder_train_{which}"):
+                mode = "bfloat16" if kern["name"].endswith("_bf16") \
+                    else "float32"
+                kern["lifecycle_launches"] = life[mode][i]
     for kern in [k1] + k3 + [k4]:
         kern["mode"] = "f32" if kern is not k4 else "int8"
     k2["mode"] = "f32"

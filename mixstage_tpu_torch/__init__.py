@@ -9,7 +9,10 @@ Ported so far: the BN-folded serving path of ``JointLateClusterSoftStyle4_G``
 CUDA kernel (``ops/cuda``), the flax weight bridge (``interop/weights.py``),
 the HTTP micro-batcher (``serving/``), and the GAN train steps against
 ``Speech2Gesture_D`` (``train/``) with the training decoder's forward and
-backward as hand-written CUDA kernels.
+backward as hand-written CUDA kernels, and the host lifecycle around them:
+``config``, the PATS data pipeline (``data/``), the metrics
+(``evaluation/``), ``bookkeeping`` and the ``Trainer``, driven by
+``python -m mixstage_tpu_torch.cli.train`` and ``cli.sample``.
 """
 
 from mixstage_tpu_torch.device import resolve_device

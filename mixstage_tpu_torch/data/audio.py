@@ -7,12 +7,19 @@ uses it, and ``log_mel_spectrogram``, the counterpart of
 audio becomes log-mel frames on the card (``torch.fft.rfft``).  Both take
 audio at 16 kHz: n_fft 512, hop 160, a 400-sample Hann window, no
 centring, 64 mel bins from 125 Hz to 7.5 kHz, no filterbank norm.
+
+``Audio`` is the audio modality of the data pipeline
+(``mixstage_tpu/data/audio.py:208-276``): the rows per second of each
+stored representation and its h5 key.  Its offline preprocessing belongs to
+``cli/preprocess``, not ported yet (ROADMAP queue 1 item 7).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from mixstage_tpu_torch.data.common import MissingData, Modality
 
 SR, N_FFT, HOP, WIN, N_MELS, FMIN, FMAX, EPS = (16000, 512, 160, 400, 64,
                                                 125.0, 7500.0, 1e-6)
@@ -89,3 +96,31 @@ def log_mel_spectrogram(y: torch.Tensor) -> torch.Tensor:
     spec = torch.fft.rfft(y.unfold(-1, N_FFT, HOP) * window, n=N_FFT,
                           dim=-1).abs()
     return torch.log(torch.clamp_min(spec @ fb, EPS))
+
+
+class Audio(Modality):
+    def __init__(self, path2data="../dataset/groot/data",
+                 path2outdata="../dataset/groot/data", speaker="all",
+                 preprocess_methods=("log_mel_512",)):
+        super().__init__(path2data=path2data, path2outdata=path2outdata,
+                         speaker=speaker, preprocess_methods=preprocess_methods)
+        self.missing = MissingData(self.path2data)
+
+    @property
+    def fs_map(self):
+        # rows per second of each representation (reference audio.py:173-179)
+        return {"log_mel_512": int(45.6 * 1000 / 512),   # 89
+                "log_mel_400": int(16.52 * 1000 / 160),  # 103
+                "silence": 15}
+
+    def fs(self, modality):
+        return self.fs_map[modality.split("/")[-1]]
+
+    @property
+    def h5_key(self):
+        return "audio"
+
+    def preprocess(self):
+        raise NotImplementedError(
+            "audio preprocessing comes with cli/preprocess (ROADMAP queue 1 "
+            "item 7)")

@@ -21,6 +21,10 @@ like ``params`` (Adam's ``mu`` / ``nu``): ``flax_params_to_torch`` and
 name.  Any module whose names follow the flax tree goes through the bridge:
 the generator, the pose-style encoder and the discriminator.
 
+``load_jax_train_state`` carries a whole JAX ``TrainState`` (params, batch
+statistics, both Adam states, the counters) into the port's trainer state,
+and ``jax_train_state_of`` carries it back.
+
 ``quantized_decoder_from_jax`` carries the int8 serving tier's quantized
 decoder (``mixstage_tpu/ops/pallas/quant.py::quantize_folded_decoder``)
 into the port's layout, so both packages' int8 decoders can run on the same
@@ -233,6 +237,39 @@ def to_flax_opt_state(opt, modules: Dict[Any, nn.Module]) -> Dict[str, Any]:
             else:
                 tree[key] = sub
         out[field] = tree
+    return out
+
+
+COUNTERS = ("step", "g_step", "lambda_step", "curriculum_step")
+
+
+def load_jax_train_state(factory, jstate):
+    """A JAX ``TrainState`` (``mixstage_tpu/train/state.py``; any object with
+    its field names, leaves numpy-convertible) → the port's ``TrainState``
+    built by ``factory`` (a ``StepFactory``) on its device: the params and
+    BatchNorm statistics of gen, psenc and D, both optimizers' Adam moments
+    and counts, and the four counters."""
+    return factory.init_from_flax(
+        jstate.g_params, jstate.g_state, jstate.d_params, jstate.d_state,
+        jstate.g_opt_state, jstate.d_opt_state,
+        counters={k: int(np.asarray(getattr(jstate, k))) for k in COUNTERS})
+
+
+def jax_train_state_of(state) -> Dict[str, Any]:
+    """The inverse of ``load_jax_train_state``: the port's ``TrainState``
+    as a dict of numpy trees under the JAX ``TrainState``'s field names,
+    each optimizer state as ``{"count", "mu", "nu"}`` (the Adam node of
+    optax's state)."""
+    gen_p, gen_s = to_flax_state(state.gen)
+    ps_p, ps_s = to_flax_state(state.psenc)
+    d_p, d_s = to_flax_state(state.disc)
+    out = {"g_params": {"gen": gen_p, "psenc": ps_p},
+           "g_state": {"gen": gen_s, "psenc": ps_s},
+           "d_params": d_p, "d_state": d_s,
+           "g_opt_state": to_flax_opt_state(
+               state.g_opt, {"gen": state.gen, "psenc": state.psenc}),
+           "d_opt_state": to_flax_opt_state(state.d_opt, {None: state.disc})}
+    out.update({k: np.int32(getattr(state, k)) for k in COUNTERS})
     return out
 
 

@@ -1,0 +1,833 @@
+"""Experiment lifecycle (host side): the port's counterpart of
+``mixstage_tpu/train/trainer.py``.
+
+One trainer owns the data, the transforms, the metrics, the bookkeeping,
+the GAN and curriculum host coins, sampling and style transfer; the
+per-batch compute is the port's ``StepFactory`` steps, which move each
+numpy batch to the device.  ``Trainer(args, subset, update, device=None)``
+runs on the card (``device="cpu"`` runs the plain versions on the CPU, as
+the tests do); there is no mesh: one card.
+
+The host coins follow the JAX trainer draw for draw, so the two trainers
+take the same D/G and curriculum decisions from the same ``-seed``: before
+every step (train, dev or test) the JAX trainer draws a step key from the
+coin generator (``trainer.py:465, 886, 971``); the port's steps take no
+key (dropout and noise are refused), but the port makes the same draw.
+
+Flags the port cannot run yet raise ``NotImplementedError`` naming their
+ROADMAP item; none is ignored silently.
+"""
+
+from __future__ import annotations
+
+import itertools
+import json
+import pickle as pkl
+import sys
+import time
+from functools import partial
+from pathlib import Path
+from typing import Dict, List
+
+import numpy as np
+import torch
+
+from mixstage_tpu_torch import evaluation
+from mixstage_tpu_torch.bookkeeping import BookKeeper
+from mixstage_tpu_torch.config import Config
+from mixstage_tpu_torch.data.dataset import Data
+from mixstage_tpu_torch.data.transforms import (Compose, KMeansTransform,
+                                                Relative2Parent, RemoveJoints,
+                                                ZNorm)
+from mixstage_tpu_torch.train.sampling import to_numpy
+from mixstage_tpu_torch.train.state import make_schedule
+from mixstage_tpu_torch.train.steps import StepConfig, StepFactory
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "float64": torch.float64}
+# the batch arrays' numpy dtype per compute dtype (bf16 batches travel as
+# float32 and are cast on the device, as the steps cast them)
+NP_DTYPES = {"float32": np.float32, "bfloat16": np.float32,
+             "float64": np.float64}
+
+
+def _expand_mask(mask) -> List[int]:
+    """'range(x, y)' strings + ints → flat joint list (trainer.py:69)."""
+    out = []
+    for m in mask:
+        if isinstance(m, int):
+            out.append(m)
+        else:
+            out.extend(list(eval(m, {"range": range})))  # noqa: S307 - reference contract
+    return out
+
+
+def refuse_unported(args: Config) -> None:
+    """Raise ``NotImplementedError`` for a flag whose path the port does
+    not have yet (the step configuration's own refusals come from
+    ``StepFactory``)."""
+    later = "(ROADMAP queue 1 item {})"
+    if args.num_devices and args.num_devices > 1:
+        raise NotImplementedError(
+            f"-num_devices {args.num_devices}: the data-parallel layouts "
+            f"come later {later.format(6)}; the port trains on one card")
+    if args.render:
+        raise NotImplementedError(
+            f"-render {args.render}: rendering comes later {later.format(7)}")
+    if args.pos:
+        raise NotImplementedError(
+            f"-pos: POS-tag cluster labels need the text modalities, which "
+            f"come later {later.format(4)}")
+    path = args.pretrained_model_weights
+    if path and not args.pretrained_model and Path(path).exists():
+        raise NotImplementedError(
+            f"-pretrained_model_weights {path}: the IS metric's "
+            f"StyleClassifier_G comes later {later.format(7)}")
+
+
+class TrainingPreempted(RuntimeError):
+    """A preemption signal (SIGTERM) arrived mid-training; the live state has
+    already been checkpointed (``BookKeeper.save_preempt``) when this is
+    raised.  ``cli.train`` turns it into exit code 75 (EX_TEMPFAIL) so
+    cluster schedulers retry the same command, which auto-resumes."""
+
+
+class Trainer:
+    """The Mix-StAGE GAN trainer's lifecycle: data, steps, metrics, files."""
+
+    def __init__(self, args: Config, args_subset=None, args_dict_update=None,
+                 device=None):
+        self.book = BookKeeper(args, args_subset,
+                               args_dict_update=args_dict_update or {},
+                               tensorboard=args.tb)
+        self.args = args = self.book.args
+        refuse_unported(args)
+
+        self.path2data = args.path2data
+        self.speaker = args.speaker if isinstance(args.speaker, list) \
+            else [args.speaker]
+        self.modalities = args.modalities
+        self.input_modalities = args.input_modalities or self.modalities[1:]
+        self.output_modalities = args.output_modalities or self.modalities[:1]
+        self.output_modality = self.output_modalities[0]
+        self.mask = _expand_mask(args.mask)
+        self.batch_size = args.batch_size
+        self.time = args.time
+        self.fs_new = args.fs_new if isinstance(args.fs_new, list) \
+            else [args.fs_new] * len(self.modalities)
+        self.window_hop = args.window_hop
+        self.num_epochs = args.num_epochs
+        self.num_clusters = args.num_clusters
+        self.feats = args.feats
+        self.style_iters = args.style_iters
+        self.sample_all_styles = args.sample_all_styles
+        self.fp = DTYPES[args.dtype]
+        self.np_fp = NP_DTYPES[args.dtype]
+
+        # ------------------------------------------------------------- data
+        self.data = Data(self.path2data, self.speaker, self.modalities,
+                         self.fs_new, time=self.time, split=args.split,
+                         batch_size=self.batch_size,
+                         shuffle=bool(args.shuffle),
+                         window_hop=self.window_hop,
+                         style_iters=self.style_iters,
+                         num_training_sample=args.num_training_sample,
+                         load_data=bool(args.load_data),
+                         sample_all_styles=self.sample_all_styles,
+                         quantile_sample=args.quantile_sample,
+                         quantile_num_training_sample=args.quantile_num_training_sample,
+                         weighted=args.weighted, filler=args.filler,
+                         num_training_iters=args.num_training_iters)
+        self.data_train = self.data.train
+        self.data_dev = self.data.dev
+        self.data_test = self.data.test
+        self.style_dict = self.data.style_dict
+        self.data_shape = self.data.shape
+        self.parents = self.data.modality_classes[self.output_modality].parents
+        print("Data Loaded")
+
+        # --------------------------------------------------------- transforms
+        pre_dir = (Path(self.path2data) / "preprocessing").as_posix()
+        self.cluster = None
+        if self.num_clusters is not None:
+            self.cluster = KMeansTransform(
+                [self.output_modality], savepath=f"{pre_dir}/kmeans",
+                key=self.speaker, data=self.data_train,
+                num_clusters=self.num_clusters, mask=self.mask,
+                feats=self.feats, seed=args.seed)
+        pre_transforms = []
+        pre_op = None
+        if args.relative2parent:
+            pre_transforms.append(Relative2Parent())
+            pre_op = Compose(list(pre_transforms))
+        hidden = ["text/tokens", "text/filler", "audio/silence"]
+        znorm_modalities = [m for m in self.modalities if m not in hidden]
+        pre_transforms.append(ZNorm(znorm_modalities, savepath=f"{pre_dir}/muvar",
+                                    key=self.speaker, data=self.data_train,
+                                    relative2parent=args.relative2parent,
+                                    pre=pre_op))
+        self.pre = Compose(pre_transforms)
+        self.transform = Compose([RemoveJoints(self.mask, self.parents)])
+
+        if args.preprocess_only:
+            # reference exits after data preprocessing (trainer.py:131-133)
+            print("Data Preprocessing done")
+            raise SystemExit(1)
+
+        # ------------------------------------------------------------- steps
+        out_feats = self.data_shape[self.output_modality][-1] - 2 * len(self.mask)
+        text_channels = None
+        for key in ("text/w2v", "text/bert"):
+            if key in self.data_shape:
+                text_channels = self.data_shape[key][-1]
+        mk = dict(args.modelKwargs or {})
+        steps_per_epoch = max(len(self.data_train), 1)
+        total_steps = steps_per_epoch * self.num_epochs
+        schedule = make_schedule(args.scheduler, args.lr, args.gamma,
+                                 args.scheduler_warmup_steps, total_steps,
+                                 steps_per_epoch)
+        lowering = args.audio_lowering
+        self.step_cfg = StepConfig(
+            model=args.model, gan=bool(args.gan), criterion=args.loss,
+            input_modalities=tuple(self.input_modalities),
+            time_steps=self.data_shape[self.input_modalities[0]][0],
+            out_feats=out_feats, num_clusters=self.num_clusters,
+            num_speakers=len(self.style_dict), style_dim=args.style_dim,
+            text_channels=text_channels, lambda_id=mk.pop("lambda_id", 1.0),
+            train_only=bool(mk.pop("train_only", 0)),
+            softmax=bool(mk.pop("softmax", 1)),
+            argmax=bool(mk.pop("argmax", 0)),
+            some_grad_flag=bool(mk.pop("some_grad_flag", False)),
+            style_losses=(tuple(sorted((args.style_losses or {}).items()))
+                          if "Disentangle" in args.model else ()),
+            discriminator=args.discriminator,
+            dg_iter_ratio=args.dg_iter_ratio, lambda_gan=args.lambda_gan,
+            lambda_D=args.lambda_D, joint=bool(args.joint),
+            no_grad=bool(args.no_grad), weighted=bool(args.weighted),
+            lr=args.lr, optim=args.optim, noise=args.noise,
+            loss_kwargs=tuple(sorted((args.lossKwargs or {}).items())),
+            optim_kwargs=tuple(sorted((args.optimKwargs or {}).items())),
+            optim_separate=args.optim_separate,
+            optim_mu_dtype=args.optim_mu_dtype,
+            fused_decoder=bool(args.fused_decoder),
+            # 'native' is the plain convolutions the port runs
+            audio_lowering=None if lowering in (None, "native") else lowering,
+            p_dropout=float(mk.pop("p", 0.0)), dtype=self.fp,
+            model_kwargs=tuple(mk.items()))
+        self.factory = StepFactory(self.step_cfg, g_schedule=schedule,
+                                   d_schedule=schedule, device=device)
+        self.device = self.factory.device
+        self.steps = self.factory.make_steps()
+        self._scan_k = int(args.scan_steps or 0)
+        self._scan_step = (self.factory.make_scan_train_step(self._scan_k)
+                           if self._scan_k > 1 else None)
+        self._schedule = schedule
+
+        # --------------------------------------------------------- state/init
+        self._coin = np.random.default_rng(args.seed or 0)
+        self._preempted = False  # set by the SIGTERM handler, polled in loops
+        self._d_prob = self.step_cfg.d_prob
+        self._peek_batch()       # the JAX trainer's init batch: data exist
+        self.state = self.factory.init(seed=args.seed or 0)
+        print("Model Created")
+        if args.load:
+            print("Loading Model")
+            self.state = self.book._load_model(self.state)
+            if args.save_optim:
+                self.state = self.book._load_train_state(self.state)
+
+        # ------------------------------------------------------------ metrics
+        self.num_styles = len(self.style_dict)
+        self._init_label_hist()
+        self._init_metrics()
+        self.weight_counter: Dict[int, int] = {}
+
+    # ------------------------------------------------------------------ data
+    def _peek_batch(self):
+        """The first processed step batch of two windows (the JAX trainer
+        initialises its model on it): raises when there is no data."""
+        for loader in (self.data_train, self.data_dev, self.data_test):
+            for batch in loader.iter_all(batch_size=2):
+                return self.get_processed_batch(batch)[0]
+        raise RuntimeError("dataset is empty")
+
+    def get_processed_batch(self, batch):
+        """Numpy batch → step batch (trainer.py:851-863 + cluster/style
+        variants :1221-1239, :1360-1365), all numpy: the steps move it to
+        the device.
+
+        Returns ``(step_batch, y_unnormed, insert)``; ``insert`` is THIS
+        batch's removed joint slices, handed back to ``calculate_metrics``.
+        It travels with the batch rather than through shared
+        ``RemoveJoints`` state, because prefetch workers, the k-step chunk
+        and the sampling metric worker all run forward passes ahead of the
+        matching inverse."""
+        labels = None
+        if self.cluster is not None:
+            transform_cluster = Compose([RemoveJoints(self.mask)])
+            labels = self.cluster(
+                transform_cluster(np.asarray(batch[self.output_modality])))
+        pre_batch = self.pre({k: v for k, v in batch.items()
+                              if isinstance(v, np.ndarray)})
+        x = [np.asarray(pre_batch[mod], np.float64)
+             for mod in self.input_modalities]
+        y_ = np.asarray(pre_batch[self.output_modality])
+        rm = RemoveJoints(self.mask, self.parents)  # per-call: no shared state
+        y = rm(y_)
+        insert = rm.insert
+
+        step_batch = {"x": tuple(np.asarray(x_, self.np_fp) for x_ in x),
+                      "y": np.asarray(y, self.np_fp)}
+        if "pose/confidence" in batch:
+            conf = Compose([RemoveJoints(self.mask)])(
+                np.asarray(batch["pose/confidence"]))
+            step_batch["confidence"] = np.asarray(conf, self.np_fp)
+        if labels is not None:
+            step_batch["labels"] = np.asarray(labels, np.int32)
+        if self.step_cfg.has_style or self.step_cfg.is_classifier:
+            step_batch["style"] = np.asarray(batch["style"], np.int32)
+        return step_batch, y_, insert
+
+    # ----------------------------------------------------------------- coins
+    def _curriculum_coin(self) -> bool:
+        """Pose-input curriculum coin (jlcss4.py:127-129): P(pose input)
+        decays 1→0 over curriculum_iters G-steps."""
+        if not self.step_cfg.has_style:
+            return False
+        thresh = min(int(self.state.curriculum_step)
+                     / max(self.step_cfg.curriculum_iters, 1), 1.0)
+        return bool(self._coin.random() > thresh)
+
+    def _gan_coin(self) -> bool:
+        return bool(self._coin.random() < self._d_prob)
+
+    def _step_key(self) -> None:
+        """The JAX trainer's per-step key draw, kept so that the coins
+        that follow it are the JAX trainer's (the port's steps need no
+        key)."""
+        self._coin.integers(1 << 31)
+
+    # ------------------------------------------------- preemption survival
+    def request_preempt(self, signum=None, frame=None):
+        """Signal-handler entry: flag only (async-signal-safe); the training
+        loop checkpoints + raises at its next host-side step boundary."""
+        self._preempted = True
+
+    def _install_preempt_handler(self):
+        if not self.args.preempt_save:
+            return None
+        import signal
+
+        try:
+            prev = signal.signal(signal.SIGTERM,
+                                 lambda s, f: self.request_preempt(s, f))
+            return (signal.SIGTERM, prev)
+        except ValueError:  # not the main thread (embedded / test harness)
+            return None
+
+    def _check_preempt(self, epoch: int, where: str):
+        """Poll the preemption flag at a host-side step boundary; on a hit,
+        snapshot the LIVE state (weights + optimizer + counters) and unwind.
+
+        Within-epoch progress is IN the snapshot; the resume re-enters the
+        current epoch, so the only cost is that epoch's partial metrics."""
+        if not (self._preempted and self.args.preempt_save):
+            return
+        meta = {"epoch_next": int(epoch), "step": int(self.state.step),
+                "reason": "SIGTERM", "time": time.asctime(),
+                "best_dev_score": float(self.book.best_dev_score),
+                "stop_count": int(self.book.stop_count)}
+        self.book.log(f"preempted at {where}: checkpointing live state "
+                      f"(epoch {epoch}, step {meta['step']})")
+        self.book.save_preempt(self.state, meta)
+        self.book._save_res()
+        raise TrainingPreempted(where)
+
+    def _maybe_resume_preempt(self) -> int:
+        """Consume a preemption snapshot for this PREFIX, if any; returns the
+        epoch to start from (0 on a fresh run)."""
+        if not self.args.preempt_save:
+            return 0
+        out = self.book.load_preempt(self.state)
+        if out is None:
+            return 0
+        self.state, meta = out
+        self.book.best_dev_score = float(
+            meta.get("best_dev_score", self.book.best_dev_score))
+        self.book.stop_count = int(meta.get("stop_count", 0))
+        epoch = int(meta.get("epoch_next", 0))
+        self.book.log(f"resuming from preemption checkpoint "
+                      f"(epoch {epoch}, step {meta.get('step', '?')})")
+        self.book.clear_preempt()  # one-shot: a new signal writes a fresh one
+        return epoch
+
+    # ------------------------------------------------------------------ train
+    def train(self, exp_num):
+        start_epoch = self._maybe_resume_preempt()
+        handler = self._install_preempt_handler()
+        try:
+            self._train_epochs(exp_num, start_epoch)
+        finally:
+            if handler is not None:
+                import signal
+
+                signal.signal(*handler)
+
+    def _train_epochs(self, exp_num, start_epoch=0):
+        for epoch in range(start_epoch, self.num_epochs):
+            self._check_preempt(epoch, f"epoch {epoch} start")
+            train_loss, train_metrics, _ = self.train_loop(
+                self.data_train, "train", epoch, num_iters=self.args.num_iters)
+            dev_loss, dev_metrics, _ = self.train_loop(
+                self.data_dev, "dev", num_iters=self.args.num_iters)
+            test_loss, test_metrics, _ = self.train_loop(
+                self.data_test, "test", num_iters=self.args.num_iters)
+
+            self.book.update_res({"train": train_loss, "dev": dev_loss,
+                                  "test": test_loss})
+            self.book.update_res(train_metrics)
+            self.book.update_res(dev_metrics)
+            self.book.update_res(test_metrics)
+            self.book._save_res()
+            if self.args.tb:
+                # per-epoch loss/pck/spatialNorm scalars per split
+                # (reference trainer.py:533-551)
+                cpk = self.args.cpk
+                scalars = [[f"{cpk}/train", train_loss, epoch],
+                           [f"{cpk}/dev", dev_loss, epoch],
+                           [f"{cpk}/test", test_loss, epoch]]
+                for split, metrics in (("train", train_metrics),
+                                       ("dev", dev_metrics),
+                                       ("test", test_metrics)):
+                    # tag order mirrors upstream exactly: pck_<split> but
+                    # <split>_spatialNorm (trainer.py:537-551)
+                    for tag, key in ((f"pck_{split}", f"{split}_pck"),
+                                     (f"{split}_spatialNorm",
+                                      f"{split}_spatialNorm")):
+                        if key in metrics:
+                            scalars.append([f"{cpk}/{tag}",
+                                            metrics[key], epoch])
+                self.book.update_tb({"scalar": scalars})
+            self.book.print_res(
+                epoch, key_order=["train", "dev", "test"],
+                metric_order=self.metric_order, exp=exp_num,
+                lr=float(self._schedule(int(self.state.step))))
+            if self.book.stop_training(self.state, epoch):
+                break
+
+        if self.args.num_iters > 0:
+            self.state = self.book._load_model(self.state)
+            test_loss, test_metrics, _ = self.train_loop(self.data_test,
+                                                         "test", 0)
+            self.book.update_res({"test": test_loss})
+            self.book.update_res(test_metrics)
+            self.book._save_res()
+        self.book.clear_preempt()  # clean completion: no stale snapshot
+
+    def _count_weights(self, batch):
+        if "idx" in batch:
+            for i in np.asarray(batch["idx"]).tolist():
+                self.weight_counter[i] = self.weight_counter.get(i, 0) + 1
+
+    def _accumulate(self, running, losses, B):
+        for k, v in losses.items():
+            if v.dim() == 0:
+                running[k] = running.get(k, 0.0) + float(v) * B
+
+    def _metrics_of_step(self, step_batch, y_cap, y_, insert):
+        kwargs = {}
+        if "style" in step_batch:
+            kwargs["style"] = np.asarray(step_batch["style"])
+        self.calculate_metrics(to_numpy(y_cap), y_, "same", insert=insert,
+                               **kwargs)
+
+    def _train_step(self, step_batch):
+        """One GAN step, D or G by the coin (after the JAX trainer's key
+        draw): ``(losses, pose)``."""
+        self._step_key()
+        fn = self.steps["d"] if self._gan_coin() else self.steps["g"]
+        self.state, losses, y_cap = fn(self.state, step_batch,
+                                       use_pose_input=self._curriculum_coin())
+        return losses, y_cap
+
+    def train_loop(self, data, desc, epoch=0, num_iters=0):
+        from mixstage_tpu_torch.data.prefetch import prefetch
+        from mixstage_tpu_torch.train.profiling import StepTimer, trace
+
+        self.metrics_reset()
+        running = {"total": 0.0}
+        running_count = 1e-10
+        t0 = time.time()
+        timer = StepTimer(desc)
+        # host batch prep runs ahead of the steps on the card
+        prepared = prefetch(data,
+                            lambda b: (b, self.get_processed_batch(b)),
+                            depth=2 if not self._scan_k else self._scan_k + 2,
+                            workers=max(1, int(self.args.num_workers)))
+        with trace(self.args.profile_dir
+                   if desc == "train" and epoch == 0 else None):
+            if desc == "train" and self._scan_step is not None:
+                return self._train_loop_scan(prepared, desc, epoch, timer,
+                                             running, running_count, t0)
+            count = -1
+            for count, (batch, (step_batch, y_, insert)) in enumerate(prepared):
+                if desc == "train":
+                    self._check_preempt(epoch, f"train step {count}")
+                timer.start()
+                self._count_weights(batch)
+                B = step_batch["y"].shape[0]
+                if desc == "train":
+                    losses, y_cap = self._train_step(step_batch)
+                else:
+                    self._step_key()
+                    losses, y_cap, _ = self.steps["eval"](self.state,
+                                                          step_batch)
+                self._accumulate(running, losses, B)
+                running_count += B
+                self._nan_guard(float(losses["total"]), f"{desc} step {count}")
+                self._metrics_of_step(step_batch, y_cap, y_, insert)
+                timer.stop()
+                if self.args.debug and count >= self.args.debug:
+                    break
+                if desc != "train" and num_iters > 0 and count >= num_iters:
+                    break
+
+        loss_avg = running.get("pose", running["total"]) / running_count
+        if self.args.metrics:
+            metrics, metrics_split = self.get_metrics(desc)
+        else:
+            metrics, metrics_split = {}, {}
+        if desc == "train":
+            dt = time.time() - t0
+            metrics[f"{desc}_steps_per_sec"] = (count + 1) / max(dt, 1e-9)
+            metrics.update(timer.summary(prefix=""))
+        return loss_avg, metrics, metrics_split
+
+    # ---------------------------------------------------------------- metrics
+    def _stack_factory(self):
+        args = self.args
+        speakers = list(self.style_dict.keys())
+        if args.mix and args.load:
+            return partial(evaluation.Stack, n=len(speakers),
+                           speakers=speakers, sample_styles=["mix"])
+        if args.sample_all_styles != 0 and args.load:
+            styles = ["same"] + ["_".join(p) for p in
+                                 itertools.permutations(self.speaker, 2)]
+            return partial(evaluation.Stack, n=len(speakers),
+                           speakers=speakers, sample_styles=styles)
+        if args.load:
+            return partial(evaluation.Stack, n=len(speakers),
+                           speakers=speakers, sample_styles=["same", "style"])
+        return partial(evaluation.Stack, n=0, speakers=[],
+                       sample_styles=["same"])
+
+    def _init_metrics(self):
+        Stack = self._stack_factory()
+        feats_count = self.data_shape[self.output_modality][-1] // 2
+        mean = self.pre.transforms[-1].variable_dict[self.output_modality][0]
+        mean_masked = RemoveJoints(self.mask)(
+            np.asarray(mean).reshape(1, 1, -1))[0, 0]
+        self.pck = Stack(evaluation.PCK(num_joints=feats_count))
+        self.l1 = Stack(evaluation.L1())
+        self.vel_l1 = Stack(evaluation.VelL1())
+        self.diversity = Stack(evaluation.Diversity(mean_masked))
+        self.expressiveness = Stack(evaluation.Expressiveness(mean_masked))
+        self.f1_cluster = KMeansTransform(
+            [self.output_modality],
+            savepath=(Path(self.path2data) / "preprocessing" / "kmeans").as_posix(),
+            key=self.speaker, data=self.data_train, num_clusters=8,
+            mask=self.mask, feats=self.feats, verbose=False,
+            seed=self.args.seed)
+        self.f1 = Stack(evaluation.F1(num_clusters=8))
+        self.fid = Stack(evaluation.FID())
+        self.w1 = Stack(evaluation.W1())
+        self.metrics_objects = [self.pck, self.l1, self.vel_l1, self.diversity,
+                                self.expressiveness, self.f1, self.fid, self.w1]
+        # the IS metric needs a StyleClassifier_G checkpoint
+        # (refuse_unported raises when one is named and exists)
+        self.IS = None
+
+    def metrics_reset(self):
+        for obj in self.metrics_objects:
+            obj.reset()
+
+    @property
+    def metric_order(self):
+        return ["pck", "F1", "style_IS"] if self.args.metrics else []
+
+    def get_metrics(self, desc):
+        metrics, metrics_split = {}, {}
+        for metric in self.metrics_objects:
+            avgs = metric.get_averages(desc)
+            if isinstance(avgs, tuple):
+                metrics.update(avgs[0])
+                if not metrics_split:
+                    metrics_split = {kn: {sp: {} for sp in avgs[1][kn]}
+                                     for kn in avgs[1]}
+                for kn in avgs[1]:
+                    for sp in avgs[1][kn]:
+                        metrics_split[kn][sp].update(avgs[1][kn][sp])
+            else:
+                metrics.update(avgs)
+        return metrics, metrics_split
+
+    def calculate_metrics(self, y_cap, y_, kwargs_name, insert=None,
+                          **kwargs):
+        """Metric cascade in znormed + raw spaces (trainer.py:865-915).
+
+        ``insert``: the SAME batch's removed joint slices from
+        ``get_processed_batch``."""
+        if kwargs_name is None:
+            kwargs_name = "same"
+        if kwargs.get("style") is not None:
+            idx = int(np.asarray(kwargs["style"]).reshape(-1)[0])
+        else:
+            idx = 0
+
+        y_cap_full = self.transform(y_cap, inv=True, batch_gt=y_,
+                                    insert=insert)
+        self.l1(y_cap_full, y_, self.mask, idx=idx, kwargs_name=kwargs_name)
+        self.vel_l1(y_cap_full, y_, self.mask, idx=idx, kwargs_name=kwargs_name)
+        self.fid(y_cap_full, y_, self.mask, idx=idx, kwargs_name=kwargs_name)
+
+        y_cap_raw = self.pre({self.output_modality: y_cap_full},
+                             inv=True)[self.output_modality]
+        y_raw = self.pre({self.output_modality: np.asarray(y_)},
+                         inv=True)[self.output_modality]
+        B, T = y_cap_raw.shape[0], y_cap_raw.shape[1]
+        y_cap_j = y_cap_raw.reshape(B, T, 2, -1)
+        y_j = y_raw.reshape(B, T, 2, -1)
+        self.w1(y_cap_j, y_j, self.mask, idx=idx, kwargs_name=kwargs_name)
+
+        y_cap_f = y_cap_j.reshape(-1, 2, y_cap_j.shape[-1]).copy()
+        y_f = y_j.reshape(-1, 2, y_j.shape[-1]).copy()
+        y_cap_f[..., 0] = 0
+        y_f[..., 0] = 0
+        self.pck(y_cap_f, y_f, self.mask, idx=idx, kwargs_name=kwargs_name)
+
+        rm = RemoveJoints(self.mask)
+        y_cap_m = rm(y_cap_f.reshape(1, y_cap_f.shape[0], -1),
+                     save_insert=False)[0]
+        y_m = rm(y_f.reshape(1, y_f.shape[0], -1), save_insert=False)[0]
+        self.diversity(y_cap_m, y_m, idx=idx, kwargs_name=kwargs_name)
+        self.expressiveness(y_cap_m, y_m, idx=idx, kwargs_name=kwargs_name)
+        self.f1(self.f1_cluster(y_cap_m[None]), self.f1_cluster(y_m[None]),
+                idx=idx, kwargs_name=kwargs_name)
+        # the raw root-zeroed (B*T, 2, joints) pose, the array dumped to the
+        # keypoints h5 tree (trainer.py:899-915)
+        return y_cap_f
+
+    # ---------------------------------------------------------- label history
+    def _init_label_hist(self):
+        if self.num_clusters is None:
+            return
+        if self.sample_all_styles:
+            kwargs_names = [f"{s1}_{s2}" for s2 in self.speaker
+                            for s1 in self.speaker if s1 != s2]
+        else:
+            kwargs_names = ["style", "same"]
+        descs = ["test", "train", "dev"]
+        self.labels_hist = {kn: {d: {i: np.zeros(self.num_clusters)
+                                     for i in range(self.num_styles)}
+                                 for d in descs} for kn in kwargs_names}
+        # chunk lists, concatenated once at save time
+        self.labels_hist_tensor = {
+            kn: {d: {i: [np.zeros((1, self.num_clusters))]
+                     for i in range(self.num_styles)}
+                 for d in descs} for kn in kwargs_names}
+
+    def _update_labels(self, labels_cap_soft, desc, style, kwargs_name):
+        if self.num_clusters is None or labels_cap_soft is None:
+            return
+        if kwargs_name is None:
+            kwargs_name = "same"
+        if kwargs_name not in self.labels_hist:
+            return
+        soft = np.asarray(labels_cap_soft).reshape(-1, self.num_clusters)
+        if desc == "test":
+            self.labels_hist_tensor[kwargs_name][desc][style].append(soft)
+        self.labels_hist[kwargs_name][desc][style] += np.bincount(
+            soft.argmax(-1), minlength=self.num_clusters).astype(np.float64)
+
+    def _save_labels(self):
+        if self.num_clusters is None:
+            return
+        speakers = self.speaker
+        hist = {kn: {d: {speakers[i]: self.labels_hist[kn][d][i].tolist()
+                         for i in self.labels_hist[kn][d]}
+                     for d in ["test", "train", "dev"]}
+                for kn in self.labels_hist}
+        with open(self.book.name("histogram", "json",
+                                 self.book.save_dir), "w") as f:
+            json.dump(hist, f)
+        tensors = {kn: {d: {speakers[i]:
+                            np.concatenate(self.labels_hist_tensor[kn][d][i], 0)
+                            for i in self.labels_hist_tensor[kn][d]}
+                        for d in ["test", "train", "dev"]}
+                   for kn in self.labels_hist_tensor}
+        with open(self.book.name("style", "pkl", self.book.save_dir),
+                  "wb") as f:
+            pkl.dump(tensors, f)
+
+    # ------------------------------------------------------------- experiment
+    def start_exp(self):
+        self.book._start_log()
+
+    def finish_exp(self):
+        self.book._stop_log()
+
+    # -------------------------------------------------------------- sampling
+    def update_kwargs_styles(self, style):
+        """Yield (style_array, kwargs_name) per style-transfer target
+        (trainer.py:1367-1386)."""
+        if not self.step_cfg.has_style:
+            yield style, None
+            return
+        style_id = int(np.asarray(style).reshape(-1)[0])
+        if self.args.mix:
+            # uniform mixture over all learned styles (reference -mix flag)
+            yield style, None
+            yield ("__mix__", "mix")
+            return
+        if self.sample_all_styles:
+            yield style, None
+            for shift in range(1, self.num_styles):
+                target = (style + shift) % self.num_styles
+                name = "{}_{}".format(self.speaker[style_id],
+                                      self.speaker[(style_id + shift)
+                                                   % self.num_styles])
+                yield target, name
+        else:
+            yield style, None
+            yield (style + 1) % self.num_styles, "style"
+
+    def sample(self, exp_num):
+        from mixstage_tpu_torch.train.sampling import sample_loop
+
+        self.dir_name = self.book.name.dir(self.args.save_dir)
+        self.state = self.book._load_model(self.state)
+        test_loss, test_metrics, test_split = sample_loop(self, "test")
+        train_loss, train_metrics, _ = sample_loop(self, "train")
+        dev_loss, dev_metrics, _ = sample_loop(self, "dev")
+        if self.sample_all_styles == 0:
+            self._save_labels()
+            with open(self.book.name("metrics", "json",
+                                     self.book.save_dir), "w") as f:
+                json.dump(test_split, f)
+            with open(self.book.name("cummMetrics", "json",
+                                     self.book.save_dir), "w") as f:
+                json.dump(test_metrics, f)
+        print("Sampled- Train:{:.4f}/{:.4f}, Dev:{:.4f}/{:.4f}, "
+              "Test:{:.4f}/{:.4f}".format(
+                  train_loss, train_metrics.get("train_pck", 0.0),
+                  dev_loss, dev_metrics.get("dev_pck", 0.0),
+                  test_loss, test_metrics.get("test_pck", 0.0)))
+        self.book.update_res({"train": train_loss, "dev": dev_loss,
+                              "test": test_loss})
+        self.book.update_res(train_metrics)
+        self.book.update_res(dev_metrics)
+        self.book.update_res(test_metrics)
+        self.book.print_res(epoch=0, key_order=["train", "dev", "test"],
+                            metric_order=self.metric_order, exp=exp_num, lr=0)
+
+    def _train_loop_scan(self, prepared, desc, epoch, timer, running,
+                         running_count, t0):
+        """k-step training loop: one call of the k-step driver per k
+        batches (``StepFactory.make_scan_train_step``).  Used after the
+        curriculum phase; curriculum batches take the per-step path."""
+        k = self._scan_k
+        pend = []
+        count = 0
+
+        def flush():
+            nonlocal running_count, count
+            if not pend:
+                return
+            if len(pend) < k or any(
+                    p[1]["y"].shape != pend[0][1]["y"].shape for p in pend):
+                # ragged tail or shape change: per-step path
+                for batch, sb, y_, ins in pend:
+                    self._one_train_step(sb, y_, ins, running)
+                    running_count += sb["y"].shape[0]
+                    count += 1
+                pend.clear()
+                return
+            batches = [p[1] for p in pend]
+            stacked = {key: (tuple(np.stack([b["x"][j] for b in batches])
+                                   for j in range(len(batches[0]["x"])))
+                             if key == "x" else
+                             np.stack([b[key] for b in batches]))
+                       for key in batches[0]}
+            coins = np.array([self._gan_coin() for _ in range(k)])
+            for _ in range(k):
+                self._step_key()
+            timer.start()
+            self.state, losses, poses = self._scan_step(self.state, stacked,
+                                                        coins)
+            timer.stop()
+            B = batches[0]["y"].shape[0]
+            losses = {key: v.float().cpu().numpy()
+                      for key, v in losses.items()}
+            self._nan_guard(losses["total"], f"train scan chunk (k={k})")
+            for i, (batch, sb, y_, ins) in enumerate(pend):
+                for key in losses:
+                    running[key] = running.get(key, 0.0) + \
+                        float(losses[key][i]) * B
+                running_count += B
+                self._metrics_of_step(sb, poses[i], y_, ins)
+                count += 1
+            pend.clear()
+
+        in_curriculum = (self.step_cfg.has_style and
+                         int(self.state.curriculum_step)
+                         < self.step_cfg.curriculum_iters)
+        for batch, (step_batch, y_, insert) in prepared:
+            self._check_preempt(epoch, f"train scan batch {count}")
+            self._count_weights(batch)
+            if in_curriculum:
+                self._one_train_step(step_batch, y_, insert, running)
+                running_count += step_batch["y"].shape[0]
+                count += 1
+                in_curriculum = (int(self.state.curriculum_step)
+                                 < self.step_cfg.curriculum_iters)
+            else:
+                pend.append((batch, step_batch, y_, insert))
+                if len(pend) == k:
+                    flush()
+            if self.args.debug and count >= self.args.debug:
+                break
+        flush()
+        loss_avg = running.get("pose", running.get("total", 0.0)) / running_count
+        if self.args.metrics:
+            metrics, metrics_split = self.get_metrics(desc)
+        else:
+            metrics, metrics_split = {}, {}
+        dt = time.time() - t0
+        metrics[f"{desc}_steps_per_sec"] = count / max(dt, 1e-9)
+        metrics.update(timer.summary(prefix=""))
+        return loss_avg, metrics, metrics_split
+
+    def _nan_guard(self, total, where: str):
+        """NaN-loss tripwire (reference trainer.py:642-643 drops into pdb):
+        interactive pdb only under a tty and ``-debug``; otherwise a
+        ``FloatingPointError`` that names the step."""
+        if not np.isnan(total).any():
+            return
+        msg = (f"NaN train loss at {where} (step counter "
+               f"{int(self.state.step)}).  Re-run under "
+               "torch.autograd.set_detect_anomaly(True) to trap the "
+               "originating op.")
+        self.book.log(msg)
+        if self.args.debug and sys.stdin.isatty():
+            import pdb
+            pdb.set_trace()
+        else:
+            raise FloatingPointError(msg)
+
+    def _one_train_step(self, step_batch, y_, insert, running):
+        """Single per-step call (the k-step loop's fallbacks)."""
+        B = step_batch["y"].shape[0]
+        losses, y_cap = self._train_step(step_batch)
+        self._accumulate(running, losses, B)
+        self._nan_guard(float(losses["total"]), "train step (scan fallback)")
+        self._metrics_of_step(step_batch, y_cap, y_, insert)

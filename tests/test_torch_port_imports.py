@@ -1,6 +1,7 @@
 """The port stands alone: no file of ``mixstage_tpu_torch``, ``tools/`` nor
-``chip_smoke.py`` imports jax, flax, optax or the JAX package, and importing
-the port loads no JAX."""
+``chip_smoke.py`` imports jax, flax, optax or the JAX package, nor the host
+libraries the card's machine lacks or the port replaced (pandas,
+scikit-learn, joblib, PyYAML); and importing the port loads no JAX."""
 
 import ast
 import os
@@ -12,6 +13,10 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "mixstage_tpu"}
+# the JAX package's host libraries the port does without: the master CSV
+# is read with ``csv``, the k-means fit is its own, the thread map runs on
+# ``concurrent.futures``, the OpenPose YAML reader is not ported
+HOST_FORBIDDEN = {"pandas", "sklearn", "joblib", "yaml"}
 FILES = sorted((ROOT / "mixstage_tpu_torch").rglob("*.py")) + \
     sorted((ROOT / "tools").glob("*.py")) + [ROOT / "chip_smoke.py"]
 
@@ -32,6 +37,12 @@ def test_no_jax_imports(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_replaced_host_library_imports(path):
+    bad = sorted(set(_imported_roots(path)) & HOST_FORBIDDEN)
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, mixstage_tpu_torch, mixstage_tpu_torch.serve, "
             "mixstage_tpu_torch.serving, mixstage_tpu_torch.interop, "
@@ -39,9 +50,23 @@ def test_importing_the_port_loads_no_jax():
             "mixstage_tpu_torch.ops.cuda.train_decoder, "
             "mixstage_tpu_torch.ops.cuda.quant, "
             "mixstage_tpu_torch.streaming, mixstage_tpu_torch.data.audio, "
-            "mixstage_tpu_torch.models.speech2gesture; "
+            "mixstage_tpu_torch.models.speech2gesture, "
+            "mixstage_tpu_torch.config, mixstage_tpu_torch.bookkeeping, "
+            "mixstage_tpu_torch.data.common, mixstage_tpu_torch.data.hdf5, "
+            "mixstage_tpu_torch.data.skeleton, "
+            "mixstage_tpu_torch.data.synthetic, "
+            "mixstage_tpu_torch.data.dataset, "
+            "mixstage_tpu_torch.data.transforms, "
+            "mixstage_tpu_torch.data.prefetch, "
+            "mixstage_tpu_torch.evaluation, "
+            "mixstage_tpu_torch.parallel, "
+            "mixstage_tpu_torch.train.profiling, "
+            "mixstage_tpu_torch.train.sampling, "
+            "mixstage_tpu_torch.train.trainer, "
+            "mixstage_tpu_torch.cli.train, mixstage_tpu_torch.cli.sample; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            f"{sorted(FORBIDDEN)!r}); print(bad); sys.exit(1 if bad else 0)")
+            f"{sorted(FORBIDDEN | HOST_FORBIDDEN)!r}); print(bad); "
+            "sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)

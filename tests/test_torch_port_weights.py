@@ -63,3 +63,67 @@ def test_bridge_rejects_missing_and_unknown_leaves(generators):
                                                           np.float32)})
     with pytest.raises(ValueError, match="style_emb"):
         load_flax_state(fresh, wrong, stats)
+
+
+def test_train_state_round_trips_bitwise():
+    """A whole JAX ``TrainState`` (params, batch statistics, both Adam
+    states with random moments and counts, the counters) → the port's
+    trainer state → back, bit for bit."""
+    import jax
+    import jax.numpy as jnp
+
+    from _torch_port_helpers import flax_variables
+    from mixstage_tpu.train.state import TrainState as JaxTrainState
+    from mixstage_tpu.train.steps import StepConfig as JaxStepConfig
+    from mixstage_tpu.train.steps import StepFactory as JaxStepFactory
+    from mixstage_tpu_torch.interop import (jax_train_state_of,
+                                            load_jax_train_state)
+    from mixstage_tpu_torch.train import StepConfig, StepFactory
+
+    cfg = dict(model="JointLateClusterSoftStyle4_G", gan=True,
+               criterion="L1Loss", num_clusters=2, num_speakers=2,
+               model_kwargs=(("in_channels", 64),))
+    jf = JaxStepFactory(JaxStepConfig(**cfg), donate=False)
+    B, T = 2, 64
+    x, y = jnp.zeros((B, T, 128)), jnp.zeros((B, T, 96))
+    gp, gs = flax_variables(jf.gen, [x], y, jnp.zeros((B, T, 2)),
+                            input_modalities=["audio/log_mel_512"],
+                            use_pose_input=False, train=False, seed=1)
+    pp, ps = flax_variables(jf.psenc, y, train=False, seed=2)
+    dp, ds = flax_variables(jf.disc, y, train=False, seed=3)
+    g_params = {"gen": gp, "psenc": pp}
+    rng = np.random.default_rng(4)
+
+    def moments(opt_state, count):
+        adam = opt_state[1][0]
+        rand = lambda t: jax.tree.map(  # noqa: E731
+            lambda v: rng.normal(size=v.shape).astype(np.float32), t)
+        return (opt_state[0], (adam._replace(
+            count=jnp.int32(count), mu=rand(adam.mu),
+            nu=jax.tree.map(np.abs, rand(adam.nu))),) + opt_state[1][1:])
+
+    jstate = JaxTrainState(
+        g_params=g_params, g_state={"gen": gs, "psenc": ps},
+        g_opt_state=moments(jf.g_tx.init(g_params), 7), d_params=dp,
+        d_state=ds, d_opt_state=moments(jf.d_tx.init(dp), 5),
+        step=jnp.int32(12), g_step=jnp.int32(7), lambda_step=jnp.int32(12),
+        curriculum_step=jnp.int32(6))
+    port = load_jax_train_state(StepFactory(StepConfig(**cfg),
+                                            device="cpu"), jstate)
+    back = jax_train_state_of(port)
+    for field in ("g_params", "g_state", "d_params", "d_state"):
+        a, b = _flat(getattr(jstate, field)), _flat(back[field])
+        assert sorted(a) == sorted(b), field
+        for key in a:
+            assert np.array_equal(np.asarray(a[key]), b[key]), (field, key)
+    for field in ("g_opt_state", "d_opt_state"):
+        adam = getattr(jstate, field)[1][0]
+        assert int(back[field]["count"]) == int(adam.count) > 0
+        for m in ("mu", "nu"):
+            a, b = _flat(getattr(adam, m)), _flat(back[field][m])
+            assert sorted(a) == sorted(b), (field, m)
+            for key in a:
+                assert np.array_equal(np.asarray(a[key]), b[key]), \
+                    (field, m, key)
+    for k in ("step", "g_step", "lambda_step", "curriculum_step"):
+        assert int(back[k]) == int(getattr(jstate, k)) == getattr(port, k)
