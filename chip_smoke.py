@@ -8,8 +8,8 @@ clips of 128 mel bins at batch 32 — with random weights drawn from
 ``--seed``: serving (phases 1-6), GAN training (phases 7-9) and the int8
 serving tier with the streaming and waveform endpoints (phases 10-14), the
 bf16 tier, serving and GAN training (phases 15-17), the int8 tier on the
-bf16 model (phases 18-19), and the host lifecycle through the CLIs
-(phase 20):
+bf16 model (phases 18-19), the host lifecycle through the CLIs
+(phase 20), and the serving entry points on its checkpoints (phase 21):
 
 1. device: the card's name and power limit from ``nvidia-smi``;
 2. build: every CUDA kernel from the checkout's sources, one ``nvcc`` per
@@ -127,7 +127,28 @@ bf16 model (phases 18-19), and the host lifecycle through the CLIs
     keypoints equal to a direct eval step on its batch; the trainer's
     steps per second and the train and sample wall times.  Where the
     machine has no ``h5py`` the phase says so and its h5 files go through a
-    stand-in (numpy archives behind h5py's ``File`` API).
+    stand-in (numpy archives behind h5py's ``File`` API);
+21. the serving entry points on phase 20's f32 and bf16 checkpoints and
+    data (the same stand-in h5py): ``cli.serve``'s ``build`` on ``-load``
+    of each, plain and with ``-serve_int8 1`` (8 pooled calibration
+    windows), each answering a JSON and an npz ``/v1/pose`` request and a
+    150-frame stream over HTTP equal to ``build_serving_fn`` on the
+    restored model called at the server's batch (within 1e-6 of max
+    |pose|; int8 bit for bit), with the kernels' counters set to 0 just
+    before the requests and read just after: K1 twice a batch (f32), K1's
+    bf16 mode twice (bf16), K1 once and K4 once (int8), K1-bf16 once and
+    K4-bf16 once (int8 on the bf16 model); the int8 tiers' drift from f32
+    serving within ``INT8_DRIFT``; the f32 checkpoint read as a
+    ``log_mel_400`` model (a 64-mel stream appended to the data) for one
+    ``/v1/pose_from_waveform`` request against the direct waveform call;
+    ``cli.export`` of the f32 checkpoint with both variants, whose
+    ``kernel`` program ``load_serving`` picks on the card (within 1e-5
+    relative Frobenius of the direct K1 call, K1 twice) and whose ``plain``
+    program, moved to the card, stays within 1e-6 of the plain route (K1
+    not launched); ``cli.serve -export_dir`` with no checkpoint and ``h5py``
+    blocked, its responses equal to the kernel program's; timings: the p50
+    of a 64-frame clip over HTTP in each mode and the bs32 calls of both
+    programs against the direct functions in ABBA turns.
 
 The bf16 rule: no bf16 output is held element-wise to another bf16 output
 (two valid roundings differ about as much as either differs from the
@@ -162,6 +183,7 @@ import concurrent.futures
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -1466,10 +1488,12 @@ def install_h5py_stand_in() -> None:
     sys.modules["h5py"] = mod
 
 
-def lifecycle_phase(torch, args, smi, results) -> dict:
+def lifecycle_phase(torch, args, smi, results):
     """Phase 20: ``cli.train`` → checkpoint → ``cli.sample`` (style
     transfer) at full width, with the training decoder on K3, in f32 and
-    bf16.  Returns K3's launches on this path per mode, (fwd, bwd)."""
+    bf16.  Returns K3's launches on this path per mode, (fwd, bwd), and
+    the experiments phase 21 serves: each mode's weights file, the data
+    and the phase's directory (the caller removes it)."""
     import importlib.util
     import shutil
     from pathlib import Path
@@ -1513,7 +1537,7 @@ def lifecycle_phase(torch, args, smi, results) -> dict:
             seen[name].append((self, time.perf_counter() - t))
         return run
 
-    out, launches = {}, {}
+    out, launches, ckpts = {}, {}, {}
     for dtype, steps in LIFE_STEPS.items():
         save = str(root / f"save_{dtype}")
         prof = root / f"profile_{dtype}"
@@ -1544,6 +1568,7 @@ def lifecycle_phase(torch, args, smi, results) -> dict:
             trainer, train_s = seen["train"][0]
             _, final_sample_s = seen["sample"][0]
             weights = trainer.book.name("weights", "p", save)
+            ckpts[dtype] = weights
             t = time.perf_counter()
             cli_sample.main(["-load", weights, "-path2data", data])
             torch.cuda.synchronize()
@@ -1644,8 +1669,314 @@ def lifecycle_phase(torch, args, smi, results) -> dict:
                           sample_s=sample_s,
                           res={k: res[k] for k in ("train", "dev", "test")})
     results["lifecycle"] = out
-    shutil.rmtree(root, ignore_errors=True)
-    return launches
+    return launches, dict(ckpts, data=data, root=root)
+
+
+def serving_cli_phase(torch, args, smi, results, exps) -> dict:
+    """Phase 21: the serving entry points on phase 20's experiments (the
+    flagship at full width, f32 and bf16 checkpoints, the same data through
+    the same stand-in h5py where the machine has none): ``cli.serve``'s
+    ``build`` on ``-load`` (f32, bf16, ``-serve_int8 1`` on both, a
+    ``log_mel_400`` view of the f32 checkpoint for the waveform endpoint),
+    ``cli.export`` with both variants and ``cli.serve -export_dir``.
+    Returns the launches of K1, K1-bf16, K4 and K4-bf16 over the phase's
+    servers and the artifact, by kernel name."""
+    from mixstage_tpu_torch.cli import export as cli_export
+    from mixstage_tpu_torch.cli import serve as cli_serve
+    from mixstage_tpu_torch.config import (_typed_flag_names,
+                                           config_from_dict, get_args_perm)
+    from mixstage_tpu_torch.data.synthetic import append_log_mel_400
+    from mixstage_tpu_torch.export import load_serving
+    from mixstage_tpu_torch.models import JointLateClusterSoftStyle4_G
+    from mixstage_tpu_torch.ops.cuda.fused_conv import \
+        fused_mixstage_decoder as k1
+    from mixstage_tpu_torch.ops.cuda.quant import \
+        fused_mixstage_decoder_int8 as k4
+    from mixstage_tpu_torch.serve import (build_serving_fn,
+                                          build_waveform_serving_fn)
+    from mixstage_tpu_torch.serving import PoseClient
+    from mixstage_tpu_torch.streaming import session_over_serving_fn
+    from mixstage_tpu_torch.train.trainer import Trainer
+
+    data, root = exps["data"], exps["root"]
+    S = MODEL["num_speakers"]
+    onehot = np.eye(S, dtype=np.float32)
+    rng = np.random.default_rng(args.seed + 21)
+    soft = rng.dirichlet(np.ones(S)).astype(np.float32)
+    modal400 = ["-modalities", '["pose/data", "audio/log_mel_400"]']
+
+    def cli_args(argv):
+        """A ``Config`` as ``argparse_n_loop`` hands it to a CLI's loop."""
+        _, perms = get_args_perm(argv)
+        cfg = config_from_dict(perms[0])
+        cfg.typed_flags = _typed_flag_names(argv)
+        return cfg
+
+    def restored(weights, *extra):
+        return Trainer(cli_args(["-load", weights, "-path2data", data,
+                                 *extra]),
+                       ["exp", "cpk", "speaker", "model", "note"],
+                       {"window_hop": 0, "render": 0})
+
+    def tiled(fn, a, rows):
+        """``fn`` on one request, run as the batcher runs it: tiled to the
+        server's batch."""
+        out = fn(np.repeat(a[None], B, axis=0),
+                 np.repeat(rows[None], B, axis=0))
+        return out[0].float().cpu().numpy()
+
+    def drive(tag, argv, mel=MEL, frames=(64, 100), wave_n=0, p50=True):
+        """A server from ``cli.serve``'s ``build`` on port 0, its kernel
+        counters set to 0 just before its requests and read just after:
+        a JSON request (id), an npz one (soft row), a 150-frame stream
+        (hop 32), a waveform request of ``wave_n`` samples, and the p50 of
+        50 npz 64-frame clips after 10 warm-up ones."""
+        server, batchers = cli_serve.build(cli_args(
+            [*argv, "-serve_port", "0"]))
+        reqs = [("json", rng.normal(size=(frames[0], mel)), 3),
+                ("npz", rng.normal(size=(frames[-1], mel)), soft)]
+        stream_x = rng.normal(size=(150, mel)).astype(np.float32)
+        wav = (0.1 * rng.normal(size=wave_n)).astype(np.float32)
+        try:
+            client = PoseClient(
+                f"http://127.0.0.1:{server.server_address[1]}",
+                timeout_s=600)
+            for b in batchers:
+                b.batches = 0
+            k1.launches = k1.launches_bf16 = 0          # this path starts
+            k4.launches = k4.launches_bf16 = 0
+            got = [(client.pose if kind == "npz" else client.pose_json)(
+                a.astype(np.float32), style=sty) for kind, a, sty in reqs]
+            stream = client.stream(style=5, hop=32)
+            parts = [stream.feed(stream_x[i:i + 40])
+                     for i in range(0, 150, 40)]
+            parts.append(stream.finish())
+            got_stream = np.concatenate([q for q in parts if q.size])
+            got_wav = (client.pose_from_waveform(wav, style=2)
+                       if wave_n else None)
+            lat = []
+            clip = rng.normal(size=(64, mel)).astype(np.float32)
+            for i in range(60 if p50 else 0):
+                t0 = time.perf_counter()
+                client.pose(clip, style=1)
+                if i >= 10:
+                    lat.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            n = (k1.launches, k1.launches_bf16, k4.launches,
+                 k4.launches_bf16)                         # this path ends
+            batches = [b.batches for b in batchers]
+            health = client.health()
+        finally:
+            server.shutdown()
+            server.server_close()
+            for b in batchers:
+                b.close()
+        check(health["backend"] == "cuda" and health["batch_size"] == B,
+              f"[{tag}] healthz {health}")
+        return dict(reqs=reqs, got=got, stream_x=stream_x,
+                    got_stream=got_stream, wav=wav, got_wav=got_wav,
+                    counts=n, batches=batches,
+                    p50=float(np.percentile(lat, 50)) if lat else None)
+
+    def served_errors(tag, run, fn, tol):
+        """max |served - direct| / max |direct| over the JSON, npz and
+        stream responses, ``fn`` called directly at the server's batch;
+        held to ``tol`` (0: bit for bit)."""
+        errs = []
+        for (kind, a, sty), got in zip(run["reqs"], run["got"]):
+            n = a.shape[0]
+            bucket = 64 if n <= 64 else 128
+            a = a.astype(np.float32)
+            padded = np.concatenate([a, np.repeat(a[-1:], bucket - n, 0)])
+            rows = onehot[sty] if np.ndim(sty) == 0 else sty
+            want = tiled(fn, padded, rows)[:n]
+            check(got.shape == want.shape, f"[{tag}] {kind} {got.shape}")
+            errs.append(float(np.abs(got - want).max())
+                        / float(np.abs(want).max()))
+        sess = session_over_serving_fn(
+            lambda w, s: tiled(fn, w[0], s[0])[None], onehot[5], hop=32)
+        want = np.concatenate([q for q in (sess.feed(run["stream_x"]),
+                                           sess.finish()) if q.size])
+        check(run["got_stream"].shape == want.shape,
+              f"[{tag}] stream {run['got_stream'].shape}")
+        errs.append(float(np.abs(run["got_stream"] - want).max())
+                    / float(np.abs(want).max()))
+        check(max(errs) <= tol, f"[{tag}] served poses differ from the "
+              f"direct call: {errs} (tol {tol:g})")
+        return errs
+
+    out, served = {}, {}
+    w32, w16 = exps["float32"], exps["bfloat16"]
+    tr32, tr16 = restored(w32), restored(w16)
+    model32, model16 = tr32.state.gen, tr16.state.gen
+    check(model16.dtype == torch.bfloat16, "bf16 checkpoint's dtype")
+    direct = {"f32": build_serving_fn(model32),
+              "bf16": build_serving_fn(model16),
+              "int8": build_serving_fn(
+                  model32, quantize_int8=True,
+                  calib=cli_serve._calib_windows(tr32, 8)),
+              "int8_bf16": build_serving_fn(
+                  model16, quantize_int8=True,
+                  calib=cli_serve._calib_windows(tr16, 8))}
+    # the f32 truth of the bf16 checkpoint's weights, for the int8-bf16 drift
+    model16_f32 = JointLateClusterSoftStyle4_G(**MODEL)
+    model16_f32.load_state_dict(model16.state_dict())
+    truth = {"int8": direct["f32"], "int8_bf16": build_serving_fn(
+        model16_f32)}
+    modes = {  # mode: (argv, expected (K1, K1-bf16, K4, K4-bf16) per batch)
+        "f32": (["-load", w32, "-path2data", data], (2, 0, 0, 0)),
+        "bf16": (["-load", w16, "-path2data", data], (2, 2, 0, 0)),
+        "int8": (["-load", w32, "-path2data", data, "-serve_int8", "1"],
+                 (1, 0, 1, 0)),
+        "int8_bf16": (["-load", w16, "-path2data", data, "-serve_int8", "1"],
+                      (1, 1, 1, 1))}
+    t_phase = time.perf_counter()
+    for mode, (argv, per_batch) in modes.items():
+        run = drive(mode, argv)
+        nb = run["batches"][0]
+        want_n = tuple(k * nb for k in per_batch)
+        check(run["counts"] == want_n, f"[{mode}] launches (K1, K1-bf16, "
+              f"K4, K4-bf16) {run['counts']} over {nb} batches, expected "
+              f"{want_n}")
+        tol = 0.0 if mode.startswith("int8") else 1e-6
+        errs = served_errors(mode, run, direct[mode], tol)
+        rec = dict(counts=run["counts"], batches=nb, served_errs=errs,
+                   clip_p50_ms=run["p50"])
+        msg = ""
+        if mode in truth:
+            a = rng.normal(size=(B, T, MEL)).astype(np.float32)
+            ids = rng.integers(0, S, size=B)
+            d = drift(direct[mode](a, ids), truth[mode](a, ids))
+            check(INT8_DRIFT[0] < d < INT8_DRIFT[1],
+                  f"[{mode}] drift from f32 {d:.3e} outside {INT8_DRIFT}")
+            rec["drift_vs_f32"] = d
+            msg = f"; drift from f32 serving {d:.4e} (in {INT8_DRIFT})"
+        log(f"[serve-cli] {mode}: cli.serve -load ({B}-clip batches): "
+            f"JSON + npz + 150-frame stream equal the direct call at bs{B}: "
+            f"max|diff|/max|pose| {max(errs):.3e} (tol {tol:g}); launches "
+            f"(K1, K1-bf16, K4, K4-bf16) {run['counts']} over {nb} "
+            f"batches{msg}")
+        out[mode] = rec
+
+    # the waveform endpoint: the f32 checkpoint read as a log_mel_400 model
+    # (its generator is mel-agnostic), on a 64-mel view of the same data
+    append_log_mel_400(data, seed=args.seed + 21)
+    wave_fn = build_waveform_serving_fn(model32)
+    run = drive("waveform", ["-load", w32, "-path2data", data, *modal400],
+                mel=MEL_WAVE, frames=(64,), wave_n=wave_fn.n_samples + 800,
+                p50=False)
+    nb = sum(run["batches"])
+    check(len(run["batches"]) == 2 and run["counts"] == (2 * nb, 0, 0, 0),
+          f"[waveform] batches {run['batches']}, launches {run['counts']}")
+    errs = served_errors("waveform", dict(run, reqs=run["reqs"][:1],
+                                          got=run["got"][:1]),
+                         direct["f32"], 1e-6)
+    want = tiled(wave_fn, run["wav"], onehot[2])
+    wave_err = float(np.abs(run["got_wav"] - want).max()) \
+        / float(np.abs(want).max())
+    check(wave_err <= 1e-6, f"[waveform] served {wave_err:.3e}")
+    log(f"[serve-cli] waveform: cli.serve -load on audio/log_mel_400: "
+        f"/v1/pose_from_waveform ({run['wav'].shape[0]} samples) equals the "
+        f"direct call: max|diff|/max|pose| {wave_err:.3e}; mel requests "
+        f"{max(errs):.3e}; K1 launches {run['counts'][0]} over {nb} batches")
+    out["waveform"] = dict(counts=run["counts"], batches=nb,
+                           served_err=wave_err)
+
+    # cli.export (both variants, on the card) → load_serving → -export_dir
+    art = str(root / "artifact")
+    t0 = time.perf_counter()
+    cli_export.loop(cli_args(["-load", w32, "-path2data", data,
+                              "-export_dir", art, "-export_variants",
+                              "plain,kernel"]), 0)
+    export_s = time.perf_counter() - t0
+    h5py_mod = sys.modules.get("h5py")
+    sys.modules["h5py"] = None          # the artifact needs no data
+    try:
+        fk, fp = load_serving(art), load_serving(art, prefer="plain")
+        check(fk.variant == "kernel" and fp.variant == "plain" and
+              fk.device.type == fp.device.type == "cuda", "artifact variants")
+        a = rng.normal(size=(B, T, MEL)).astype(np.float32)
+        ids = rng.integers(0, S, size=B)
+        k1.launches = 0                               # kernel variant starts
+        pose_k = fk(a, ids)
+        torch.cuda.synchronize()
+        n_kernel = k1.launches                        # kernel variant ends
+        k1.launches = 0                               # plain variant starts
+        pose_p = fp(a, ids)
+        torch.cuda.synchronize()
+        n_plain = k1.launches                         # plain variant ends
+        check(n_kernel == 2 and n_plain == 0, f"K1 launches under the "
+              f"kernel / plain programs {n_kernel} / {n_plain}, expected "
+              f"2 / 0")
+        plain32 = build_serving_fn(model32, use_kernel=False)
+        err_k = rel_fro(pose_k, direct["f32"](a, ids))
+        ref_p = plain32(a, ids)
+        err_p = float((pose_p - ref_p).abs().max() / ref_p.abs().max())
+        check(err_k <= 1e-5 and err_p <= 1e-6, f"artifact against the "
+              f"direct calls: kernel {err_k:.3e} (tol 1e-5, relative "
+              f"Frobenius), plain {err_p:.3e} (tol 1e-6 of max |pose|)")
+        log(f"[serve-cli] cli.export (plain, kernel) in {export_s:.1f} s; "
+            f"load_serving picks {fk.variant} on the card; bs{B}: kernel "
+            f"program vs the direct K1 call {err_k:.3e} relative Frobenius "
+            f"(K1 launches {n_kernel}), plain program (moved to the card) "
+            f"vs the plain route {err_p:.3e} of max |pose| (K1 launches "
+            f"{n_plain})")
+        run = drive("export_dir", ["-export_dir", art], frames=(64,))
+        nb = run["batches"][0]
+        check(run["counts"] == (2 * nb, 0, 0, 0),
+              f"[export_dir] launches {run['counts']} over {nb} batches")
+        errs = served_errors("export_dir", run, fk, 1e-6)
+        log(f"[serve-cli] export_dir: cli.serve -export_dir (no checkpoint, "
+            f"no data, h5py blocked): JSON + npz + stream equal the kernel "
+            f"program at bs{B}: {max(errs):.3e}; K1 launches "
+            f"{run['counts'][0]} over {nb} batches")
+        out["export_dir"] = dict(counts=run["counts"], batches=nb,
+                                 served_errs=errs, clip_p50_ms=run["p50"])
+        n_artifact = n_kernel + run["counts"][0]
+        # bs32 calls in turns (ABBA): the artifact's programs against the
+        # direct functions
+        a_dev = torch.as_tensor(a, device="cuda")
+        i_dev = torch.as_tensor(ids, device="cuda")
+        pairs = {"kernel": (lambda: fk(a_dev, i_dev),
+                            lambda: direct["f32"](a_dev, i_dev)),
+                 "plain": (lambda: fp(a_dev, i_dev),
+                           lambda: plain32(a_dev, i_dev))}
+        call_ms = {}
+        for name, (fa, fb) in pairs.items():
+            ta, tb = [], []
+            for turn in range(TIMING_TURNS):
+                order = (fa, fb) if turn % 2 == 0 else (fb, fa)
+                for f in order:
+                    (ta if f is fa else tb).append(cuda_ms(torch, f,
+                                                           reps=10))
+            call_ms[name] = (float(np.mean(ta)), float(np.mean(tb)))
+    finally:
+        sys.modules["h5py"] = h5py_mod
+    out["artifact"] = dict(export_s=export_s, kernel_err=err_k,
+                           plain_err=err_p, k1_kernel=n_kernel,
+                           k1_plain=n_plain, call_ms=call_ms)
+    p50s = {m: out[m]["clip_p50_ms"] for m in (*modes, "export_dir")}
+    log(f"[serve-cli] {smi}: p50 of one 64-frame clip over HTTP (npz, "
+        f"cli.serve, 5 ms gather window) "
+        + ", ".join(f"{m} {v:.3f} ms" for m, v in p50s.items()))
+    log(f"[serve-cli] {smi}: bs{B} call, in turns (CUDA events, "
+        f"{TIMING_TURNS} ABBA turns of 10): kernel program "
+        f"{call_ms['kernel'][0]:.4f} ms against the direct K1 call "
+        f"{call_ms['kernel'][1]:.4f} ms; plain program "
+        f"{call_ms['plain'][0]:.4f} ms against the plain route "
+        f"{call_ms['plain'][1]:.4f} ms; phase 21 in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    results["serving_cli"] = out
+    served["fused_mixstage_decoder"] = sum(
+        out[m]["counts"][0] - out[m]["counts"][1]
+        for m in ("f32", "int8", "waveform")) + n_artifact
+    served["fused_mixstage_decoder_bf16"] = sum(
+        out[m]["counts"][1] for m in ("bf16", "int8_bf16"))
+    served["fused_mixstage_decoder_int8"] = out["int8"]["counts"][2]
+    served["fused_mixstage_decoder_int8_bf16"] = out["int8_bf16"]["counts"][3]
+    log(f"[serve-cli] launches over phase 21 (servers and the artifact): "
+        f"{served}")
+    return served
 
 
 def int8_bf16_phases(torch, args, device, smi, model, audio, styles,
@@ -2312,7 +2643,14 @@ def main(argv=None) -> int:
                       serve, results)
     k8_16 = int8_bf16_phases(torch, args, device, smi, model, audio, styles,
                              pose, results)
-    life = lifecycle_phase(torch, args, smi, results)
+    life, exps = lifecycle_phase(torch, args, smi, results)
+    try:
+        served = serving_cli_phase(torch, args, smi, results, exps)
+    finally:
+        shutil.rmtree(exps["root"], ignore_errors=True)
+    for kern in [k1] + k16 + [k4] + k8_16:
+        if kern["name"] in served:
+            kern["serving_cli_launches"] = served[kern["name"]]
     for kern in k3 + k16:
         for i, which in enumerate(("fwd", "bwd")):
             if kern["name"].startswith(f"decoder_train_{which}"):

@@ -12,7 +12,10 @@ the HTTP micro-batcher (``serving/``), and the GAN train steps against
 backward as hand-written CUDA kernels, and the host lifecycle around them:
 ``config``, the PATS data pipeline (``data/``), the metrics
 (``evaluation/``), ``bookkeeping`` and the ``Trainer``, driven by
-``python -m mixstage_tpu_torch.cli.train`` and ``cli.sample``.
+``python -m mixstage_tpu_torch.cli.train`` and ``cli.sample``, and the
+serving entry points: ``cli.serve`` (a checkpoint, or an artifact written
+by ``cli.export``, ``export.py``) and the import of reference checkpoints
+(``interop/torch_import.py``, ``cli.import_torch``).
 """
 
 from mixstage_tpu_torch.device import resolve_device

@@ -17,6 +17,9 @@ The checkpoints are ``torch.save`` files and load with
   moments and counts, and the state's four counters;
 * ``PREFIX_preempt.p``: both of these together, the live state that a
   SIGTERM snapshots (with ``PREFIX_preempt.json``, the loop's metadata).
+
+``-load`` also takes a reference (chahuja/mix-stage) ``PREFIX_weights.p``,
+converted on the way (``_load_model``).
 """
 
 from __future__ import annotations
@@ -275,18 +278,58 @@ class BookKeeper:
 
     def _load_model(self, state):
         """Return ``state`` with weights restored from ``args.load`` (or the
-        experiment's own weights file)."""
+        experiment's own weights file).
+
+        Both the port's checkpoints and the reference's (chahuja/mix-stage,
+        pycasper ``PREFIX_weights.p``) are torch files: a dict keyed exactly
+        by ``MODULES`` is the port's own; a flat state dict (keys with or
+        without ``G.`` / ``D.``) is the reference's, converted into the
+        modules on the way (``interop/torch_import.py``, as the JAX
+        package's ``-load`` does, ``bookkeeping.py:385-403``).  Anything
+        else, a JAX checkpoint among them, raises."""
+        from mixstage_tpu_torch.interop.torch_import import (
+            is_reference_state_dict, load_reference_state,
+            state_dict_to_numpy)
+
         path = self.args.load or self.name(*self.weights_ext, self.save_dir)
         try:
             ckpt = _torch_load(path)
-        except (pickle.UnpicklingError, RuntimeError):  # not a torch file
+        except (pickle.UnpicklingError, RuntimeError,
+                IsADirectoryError):                 # not a torch file
             ckpt = None
-        if not (isinstance(ckpt, dict) and set(ckpt) == set(MODULES)):
-            raise NotImplementedError(
-                f"{path} is not a checkpoint of the port (a reference torch "
-                f"checkpoint or a JAX one): importing those comes later "
-                f"(ROADMAP queue 1 item 7)")
-        return load_weights(state, ckpt)
+        if isinstance(ckpt, dict) and set(ckpt) == set(MODULES):
+            return load_weights(state, ckpt)
+        if is_reference_state_dict(ckpt):
+            state, report = load_reference_state(state,
+                                                 state_dict_to_numpy(ckpt))
+            print(f"[import] converted {report['n_converted']} tensors from "
+                  f"reference torch checkpoint {path} "
+                  f"({report['n_skipped']} reference-only keys skipped)")
+            if report["surprising_skipped"]:
+                print("[import] NOTE unrecognized reference keys skipped: "
+                      + ", ".join(report["surprising_skipped"][:8]))
+            return state
+        raise NotImplementedError(
+            f"{path} is neither a checkpoint of the port nor a reference "
+            f"(chahuja/mix-stage) state dict; importing a JAX checkpoint "
+            f"(flax msgpack or orbax) comes later (ROADMAP queue 1 item 7)")
+
+    def export_experiment(self, state, out_dir: str) -> str:
+        """Write this experiment (args + weights) in the port's format into
+        ``out_dir``: ``cli.import_torch`` calls it after ``_load_model``
+        converted a reference checkpoint.  The written args drop ``load``,
+        so the new experiment stands alone.  Returns the weights path."""
+        import copy
+
+        args = copy.deepcopy(self.args)
+        args.load = None
+        args.save_dir = out_dir
+        args.save(self.name("args", "args", out_dir))
+        with open(self.name("name", "name", out_dir), "w") as f:
+            f.write(self.name.prefix)
+        path = self.name(*self.weights_ext, out_dir)
+        _atomic_save(weights_of(state), path)
+        return path
 
     # ---------------------------------------------------------------- results
     def update_res(self, res_dict: Dict[str, float]):

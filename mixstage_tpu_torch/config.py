@@ -171,8 +171,11 @@ _FLAGS: List[Tuple[str, Any, Any, str]] = [
      "AOT serving artifact directory (cli.export writes one from -load; "
      "cli.serve can serve straight from it, no model code needed)"),
     ("export_variants", str, "xla,pallas",
-     "serving variants to export: 'xla' (portable cpu+tpu folded graph) "
-     "and/or 'pallas' (TPU fused fast path), comma-separated"),
+     "serving variants to export, comma-separated: 'plain' (portable "
+     "cpu+cuda program: cuDNN convolutions and the plain folded decoder) "
+     "and/or 'kernel' (the card's fast path through K1); the JAX package's "
+     "names 'xla' and 'pallas', the shared default, mean 'plain' and "
+     "'kernel'"),
     ("serve_port", int, 8008, "HTTP port for cli.serve (0 = ephemeral)"),
     ("serve_int8", int, 0,
      "serve the int8-quantized mixture decoder (ops/pallas/quant.py): "

@@ -197,3 +197,23 @@ def make_synthetic_dataset(path2data: str, speakers: Optional[List[str]] = None,
                                 f"data: {vals}\n")
     _write_csv(Path(path2data) / "cmu_intervals_df.csv", rows)
     return path2data
+
+
+WAVE_MEL_FS = 103      # log_mel_400 rows/sec (audio.py fs_map)
+WAVE_MEL_FEATS = 64
+
+
+def append_log_mel_400(path2data: str, seed: int = 0) -> str:
+    """Add an ``audio/log_mel_400`` stream (103 rows/s, 64 mels, the
+    waveform frontend's features) to every interval of a dataset written by
+    ``make_synthetic_dataset``: its ``log_mel_512`` rows scaled to 103 per
+    second, drawn from ``seed``.  A generator configured with
+    ``-modalities '["pose/data", "audio/log_mel_400"]'`` then trains and
+    serves from it, the waveform endpoint included."""
+    rng = np.random.default_rng(seed)
+    for h5path in sorted((Path(path2data) / "processed").glob("*/*.h5")):
+        n = HDF5.load_array(str(h5path), "audio/log_mel_512").shape[0]
+        rows = int(n / AUDIO_FS * WAVE_MEL_FS)
+        HDF5.append(h5path, "audio/log_mel_400",
+                    rng.normal(size=(rows, WAVE_MEL_FEATS)))
+    return path2data

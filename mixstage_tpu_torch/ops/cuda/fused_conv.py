@@ -33,12 +33,14 @@ no fall-back.  ``fused_mixstage_decoder.launches`` (both modes),
 ``fused_mixstage_decoder.launches_bf16`` (bf16 mode),
 ``fused_grouped_conv_chain.launches`` (both modes) and
 ``fused_grouped_conv_chain.launches_bf16`` (bf16 mode) count kernel
-launches.
+launches.  ``fused_mixstage_decoder_op`` is K1 as a registered operator, for
+the exported serving program (``export.py``).
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -292,6 +294,36 @@ def fused_mixstage_decoder(x, w0, wc, biases, w_logits, b_logits,
 
 fused_mixstage_decoder.launches = 0
 fused_mixstage_decoder.launches_bf16 = 0
+
+
+@torch.library.custom_op("mixstage_tpu_torch::fused_mixstage_decoder",
+                         mutates_args=())
+def _decoder_op(x: torch.Tensor, w0: torch.Tensor, wc: torch.Tensor,
+                biases: torch.Tensor, w_logits: torch.Tensor,
+                b_logits: torch.Tensor, packed: Optional[torch.Tensor],
+                groups: int, negative_slope: float) -> torch.Tensor:
+    return fused_mixstage_decoder(x, w0, wc, biases, w_logits, b_logits,
+                                  groups, negative_slope, packed=packed)
+
+
+@_decoder_op.register_fake
+def _(x, w0, wc, biases, w_logits, b_logits, packed, groups,
+      negative_slope):
+    return x.new_empty((x.shape[0], x.shape[1], groups * w_logits.shape[-1]))
+
+
+def fused_mixstage_decoder_op(x, w0, wc, biases, w_logits, b_logits,
+                              groups: int, negative_slope: float = 0.2,
+                              packed=None):
+    """``fused_mixstage_decoder`` as the registered operator
+    ``torch.ops.mixstage_tpu_torch.fused_mixstage_decoder``, which
+    ``torch.export`` records in a graph (a ``ctypes`` call cannot be
+    traced); its body is the wrapper, launches and counter included, and
+    its fake version gives the output's shape and dtype.  Same arguments
+    and results as the wrapper."""
+    return torch.ops.mixstage_tpu_torch.fused_mixstage_decoder(
+        x, w0, wc, biases, w_logits, b_logits, packed, groups,
+        float(negative_slope))
 
 
 def chain_plain(x, weights, biases, groups: int, negative_slope: float = 0.2):

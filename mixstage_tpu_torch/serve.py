@@ -18,8 +18,11 @@ batch layout).  Compared with the eval forward:
 
 The folded weights keep the JAX layout (tap, in, out) but not its 128-lane
 padding of C0, which was TPU layout; the kernels mask ragged widths
-themselves.  ``build_waveform_serving_fn`` puts the log-mel frontend
-(``data/audio.py::log_mel_spectrogram``) in front, for raw 16 kHz audio.
+themselves.  ``ServingProgram`` is the same call as a pure function of
+the weights (JAX's ``fn.jitted`` of ``fn.bound_args``), which the exported
+artifact (``export.py``) traces.  ``build_waveform_serving_fn`` puts the
+log-mel frontend (``data/audio.py::log_mel_spectrogram``) in front, for
+raw 16 kHz audio.
 
 A model built with ``dtype=torch.bfloat16`` serves at that compute dtype,
 as the JAX package's bf16 tier does: audio and style rows are cast to it,
@@ -44,8 +47,8 @@ from mixstage_tpu_torch.data.audio import log_mel_spectrogram
 from mixstage_tpu_torch.device import resolve_device
 from mixstage_tpu_torch.models.layers import softmax
 from mixstage_tpu_torch.ops.cuda.fused_conv import (
-    fold_bn_into_conv, fused_mixstage_decoder, fused_mixstage_decoder_plain,
-    pack_decoder_bf16)
+    fold_bn_into_conv, fused_mixstage_decoder, fused_mixstage_decoder_op,
+    fused_mixstage_decoder_plain, pack_decoder_bf16)
 from mixstage_tpu_torch.ops.cuda.quant import (decoder_int8_plain,
                                                fused_mixstage_decoder_int8,
                                                pack_decoder_int8,
@@ -120,6 +123,72 @@ def style_weights(style, num_speakers: int, device,
     return style.to(dtype)
 
 
+def _pose(model: nn.Module, audio, sw, fd, fc, packed, use_kernel: bool,
+          qfd=None, k1=fused_mixstage_decoder):
+    """The serving body: audio and (B, T, S) style rows in the compute dtype
+    → float32 pose.  On the kernel route both chains run through ``k1``
+    (K1's wrapper, or its registered operator in an exported program) on
+    the weights ``packed`` by ``pack_decoder_bf16``; ``qfd`` (the int8
+    tier) runs the decoder through K4 or ``decoder_int8_plain``."""
+    G, dtype = model.num_clusters, model.dtype
+    if use_kernel:
+        x = model.features([audio], None, sw)
+        scores = k1(x, *(fc[k] for k in _FOLDED_KEYS), groups=1,
+                    packed=packed.get("classifier"))
+        soft = softmax(scores, dim=-1)
+        if qfd is not None:            # f32 logits, in the compute dtype
+            logits = fused_mixstage_decoder_int8(x, qfd, groups=G).to(dtype)
+        else:
+            logits = k1(x, *(fd[k] for k in _FOLDED_KEYS), groups=G,
+                        packed=packed.get("decoder"))
+    else:
+        x, _, soft = model.backbone([audio], None, sw)
+        if qfd is not None:
+            logits = decoder_int8_plain(x, qfd, groups=G).to(dtype)
+        else:
+            logits = fused_mixstage_decoder_plain(
+                x, *(fd[k] for k in _FOLDED_KEYS), groups=G)
+    return index_select_outputs(logits, soft, G).float()
+
+
+class _Body(nn.Module):
+    def __init__(self, model: nn.Module, use_kernel: bool):
+        super().__init__()
+        self.model, self.use_kernel = model, use_kernel
+
+    def forward(self, audio, sw, fd, fc, packed):
+        return _pose(self.model, audio, sw, fd, fc, packed, self.use_kernel,
+                     k1=fused_mixstage_decoder_op)
+
+
+class ServingProgram(nn.Module):
+    """The serving call as a pure function of its weights, for
+    ``torch.export`` (the counterpart of JAX's ``fn.jitted``):
+    ``program(gen, fd, fc, packed, audio (B, T, mel), style_rows (B, S))
+    → pose (B, T, F)`` float32, where ``gen`` is the generator's state
+    dict, ``fd`` / ``fc`` the folded decoder and classifier, ``packed``
+    K1's packed images (``{}`` on the plain route).  The module holds no
+    parameter: the model's are swapped for ``gen`` on every call
+    (``torch.func.functional_call``), so an exported program takes the
+    weights as arguments, as JAX's artifact does.  K1 runs as its
+    registered operator (``fused_mixstage_decoder_op``)."""
+
+    def __init__(self, model: nn.Module, use_kernel: bool):
+        super().__init__()
+        # not a submodule: its weights must not become program constants
+        object.__setattr__(self, "_body", _Body(model, use_kernel))
+
+    def forward(self, gen, fd, fc, packed, audio, style_rows):
+        dtype = self._body.model.dtype
+        audio = audio.to(dtype)
+        B, T = audio.shape[:2]
+        sw = style_rows.to(dtype)[:, None, :].expand(B, T,
+                                                     style_rows.shape[-1])
+        return torch.func.functional_call(
+            self._body, {f"model.{k}": v for k, v in gen.items()},
+            (audio, sw, fd, fc, packed))
+
+
 def build_serving_fn(model: nn.Module, device=None,
                      use_kernel: Optional[bool] = None,
                      quantize_int8: bool = False, calib=None):
@@ -141,6 +210,11 @@ def build_serving_fn(model: nn.Module, device=None,
 
     The call runs at the model's compute dtype (``model.dtype``), the int8
     tier included; the pose is returned as float32 either way.
+
+    Outside the int8 tier, ``fn.program`` (a ``ServingProgram``) and
+    ``fn.bound_args`` (``gen, fd, fc, packed``) are the same call as a pure
+    function of its weights, which ``export.export_serving`` traces; the
+    call itself runs the kernels' wrappers directly.
     """
     dtype = model.dtype
     if quantize_int8 and calib is None:
@@ -153,7 +227,7 @@ def build_serving_fn(model: nn.Module, device=None,
     model = model.to(device).eval()
     fd = extract_folded_decoder(model)
     fc = extract_folded_classify(model)
-    G, S = model.num_clusters, model.num_speakers
+    S = model.num_speakers
 
     def inputs(audio, style):
         """The audio on ``device`` and its (B, T, S) style rows, in the
@@ -184,32 +258,17 @@ def build_serving_fn(model: nn.Module, device=None,
     @torch.inference_mode()
     def fn(audio, style):
         audio, sw = inputs(audio, style)
-        if use_kernel:
-            x = model.features([audio], None, sw)
-            scores = fused_mixstage_decoder(
-                x, *(fc[k] for k in _FOLDED_KEYS), groups=1,
-                packed=packed.get("classifier"))
-            soft = softmax(scores, dim=-1)
-            if quantize_int8:          # f32 logits, in the compute dtype
-                logits = fused_mixstage_decoder_int8(x, qfd, groups=G) \
-                    .to(dtype)
-            else:
-                logits = fused_mixstage_decoder(
-                    x, *(fd[k] for k in _FOLDED_KEYS), groups=G,
-                    packed=packed.get("decoder"))
-        else:
-            x, _, soft = model.backbone([audio], None, sw)
-            if quantize_int8:
-                logits = decoder_int8_plain(x, qfd, groups=G).to(dtype)
-            else:
-                logits = fused_mixstage_decoder_plain(
-                    x, *(fd[k] for k in _FOLDED_KEYS), groups=G)
-        return index_select_outputs(logits, soft, G).float()
+        return _pose(model, audio, sw, fd, fc, packed, use_kernel, qfd)
 
     fn.device = device
     fn.dtype = dtype
     fn.use_kernel = use_kernel
     fn.quantize_int8 = quantize_int8
+    fn.program = fn.bound_args = None
+    if not quantize_int8:
+        fn.program = ServingProgram(model, use_kernel)
+        fn.bound_args = ({k: v.detach() for k, v in
+                          model.state_dict().items()}, fd, fc, packed)
     return fn
 
 

@@ -1,7 +1,8 @@
 """Serving endpoint: dynamic micro-batching + a stdlib HTTP front door.
 
 Counterpart of ``mixstage_tpu/serving/server.py`` (``DynamicBatcher``
-``:74-253``, ``PoseService`` ``:255-478``, the handler ``:481-602``,
+``:74-253``, ``PoseService`` ``:255-478`` with ``static_frames``
+``:263-276, 345-349, 363``, the handler ``:481-602``,
 ``start_http_server`` ``:615``).
 Requests queue up; one worker drains up to ``batch_size`` of them (or what
 arrived within ``max_wait_ms``), pads to the batch size, runs ONE serving
@@ -11,7 +12,9 @@ call and scatters the results.
   [weights]}`` → ``{"pose": [[...]]}``; or ``application/octet-stream``
   carrying an ``.npz`` with ``audio``/``style`` → raw ``.npy`` pose bytes.
   Any length up to ``max_frames`` pads to a power-of-two bucket of at least
-  ``frames`` frames and is trimmed back.
+  ``frames`` frames and is trimmed back; a server over a static-shape
+  graph (``static_frames``, the exported artifact's T) takes exactly that
+  many frames instead.
 * ``POST /v1/pose_from_waveform`` — the same with raw 16 kHz samples (a
   1-D ``audio``), served by ``waveform_batcher`` over
   ``serve.build_waveform_serving_fn``; 404 when none is configured.
@@ -39,7 +42,7 @@ import uuid
 from concurrent.futures import Future
 from concurrent.futures import TimeoutError as FuturesTimeout
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -74,16 +77,23 @@ class DynamicBatcher:
 
     ``serve_fn``: ``(audio (B, T, mel), style (B,) int32 or (B, S) float32)
     -> pose (B, T, F)`` (a numpy array or a tensor on any device).
+    ``input_shape`` is an optional per-request shape contract, e.g.
+    ``(None, 64)`` for 64-mel windows of any length or ``(64, 128)`` for a
+    static-T graph (``None`` matches any extent); a request that breaks it
+    raises ``ValueError`` in the caller's thread at submit time.
     ``max_queue`` (default ``4 * batch_size``) bounds the backlog; beyond it
     ``submit`` sheds with :class:`Overloaded`.  Requests whose audio shape
     or style form differ go to separate batches.
     """
 
     def __init__(self, serve_fn: Callable, batch_size: int,
-                 max_wait_ms: float = 5.0, max_queue: Optional[int] = None):
+                 max_wait_ms: float = 5.0,
+                 input_shape: Optional[Sequence[Optional[int]]] = None,
+                 max_queue: Optional[int] = None):
         self.serve_fn = serve_fn
         self.batch_size = int(batch_size)
         self.max_wait_s = max_wait_ms / 1e3
+        self.input_shape = None if input_shape is None else tuple(input_shape)
         self.max_queue = int(max_queue or 4 * self.batch_size)
         self._queue: "queue.Queue" = queue.Queue(maxsize=self.max_queue)
         self._pending: "collections.deque" = collections.deque()
@@ -102,6 +112,13 @@ class DynamicBatcher:
         """Enqueue one (T, mel) window; resolves to a (T, feats) pose."""
         fut: Future = Future()
         audio = np.asarray(audio, np.float32)
+        if self.input_shape is not None and not (
+                audio.ndim == len(self.input_shape) and all(
+                    want is None or have == want
+                    for have, want in zip(audio.shape, self.input_shape))):
+            raise ValueError(
+                f"audio shape {audio.shape} does not match the serving "
+                f"graph's expected {self.input_shape} (None = any)")
         style = _style_form(style)
         # backpressure covers the queue and the stragglers in _pending
         if self._queue.qsize() + len(self._pending) >= self.max_queue:
@@ -227,7 +244,8 @@ class PoseService:
                  timeout_s: float = 30.0, num_styles: Optional[int] = None,
                  waveform_batcher: Optional[DynamicBatcher] = None,
                  frames: int = 64, stream_idle_s: float = 300.0,
-                 mel_bins: Optional[int] = None, max_streams: int = 64,
+                 mel_bins: Optional[int] = None,
+                 static_frames: Optional[int] = None, max_streams: int = 64,
                  max_frames: int = 4096,
                  max_body_bytes: int = 64 * 2 ** 20):
         self.batcher = batcher
@@ -237,6 +255,8 @@ class PoseService:
         # weights share one server (uniform batch shapes)
         self.num_styles = num_styles
         self.mel_bins = mel_bins
+        # a static-shape graph (the exported artifact) takes exactly this T
+        self.static_frames = static_frames
         self.waveform_batcher = waveform_batcher
         # the streaming window, and the smallest pow-2 bucket of /v1/pose
         self.frames = int(frames)
@@ -304,15 +324,20 @@ class PoseService:
                 f"audio has {arr.shape[0]} frames, over this server's cap "
                 f"of {self.max_frames}; split the request or use the "
                 f"streaming endpoint")
+        if self.static_frames is not None and \
+                arr.shape[0] != self.static_frames:
+            raise ValueError(f"this server's graph is compiled for exactly "
+                             f"{self.static_frames} frames, got "
+                             f"{arr.shape[0]}")
         return arr
 
     def _infer(self, audio, style, waveform: bool = False) -> np.ndarray:
         """Bucket mel windows to a pow-2 frame count (repeat-last padding),
-        serve, and trim back to the true length; waveforms go as they
-        are."""
+        serve, and trim back to the true length; waveforms, and the windows
+        of a static-frame server (validated instead), go as they are."""
         audio, true_len = self._audio(audio, waveform), None
         batcher = self._pick(waveform)
-        if not waveform:
+        if not waveform and self.static_frames is None:
             audio, true_len = pow2_pad(audio, floor=self.frames)
         pose = batcher.submit(audio, self._style(style)).result(
             self.timeout_s)

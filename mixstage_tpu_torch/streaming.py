@@ -169,17 +169,22 @@ class StreamingSession:
 
 
 def session_over_serving_fn(serve_fn, style, hop: Optional[int] = None):
-    """StreamingSession over a ``serve.build_serving_fn`` fn.
+    """StreamingSession over a ``serve.build_serving_fn`` or artifact fn.
 
     Wraps the batched fn as a single-example ``infer`` (batch 1); the pose
-    comes back to the host as numpy.  ``serve_fn.frames`` or 64 (the
-    training window) sets the window length.
+    comes back to the host as numpy.  ``serve_fn.frames`` (the artifact
+    loader's) or 64 (the training window) sets the window length.  An
+    artifact (``export.load_serving``) has a static batch: the window is
+    tiled to ``serve_fn.static_batch`` rows and row 0 kept, as a batch of
+    one would fail the loader's static-shape guard.
     """
     window = int(getattr(serve_fn, "frames", 64))
+    B = int(getattr(serve_fn, "static_batch", 1) or 1)
 
     def infer(window_mel, sty):
         sty = np.asarray(sty)
-        pose = serve_fn(window_mel[None], sty[None])
+        pose = serve_fn(np.repeat(window_mel[None], B, axis=0),
+                        np.repeat(sty[None], B, axis=0))
         if isinstance(pose, torch.Tensor):
             pose = pose.detach().cpu().numpy()
         return np.asarray(pose)[0]

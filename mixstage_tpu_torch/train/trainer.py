@@ -65,8 +65,18 @@ def _expand_mask(mask) -> List[int]:
 def refuse_unported(args: Config) -> None:
     """Raise ``NotImplementedError`` for a flag whose path the port does
     not have yet (the step configuration's own refusals come from
-    ``StepFactory``)."""
+    ``StepFactory``), and ``ValueError`` for an ``-export_variants`` name
+    that is not one of the port's variants (``plain`` and ``kernel``, or
+    the JAX package's ``xla`` and ``pallas`` for them; ``export.py``).
+    ``-serve_partition`` over more than one device is refused by
+    ``cli.serve``."""
     later = "(ROADMAP queue 1 item {})"
+    if args.export_dir:
+        from mixstage_tpu_torch.export import resolve_variants
+
+        resolve_variants([v.strip() for v in
+                          (args.export_variants or "").split(",")
+                          if v.strip()])
     if args.num_devices and args.num_devices > 1:
         raise NotImplementedError(
             f"-num_devices {args.num_devices}: the data-parallel layouts "
@@ -243,13 +253,26 @@ class Trainer:
         self.weight_counter: Dict[int, int] = {}
 
     # ------------------------------------------------------------------ data
+    def peek_batches(self, n_batches: int = 1, batch_size: int = 2):
+        """The first ``n_batches`` processed step batches drawn across the
+        train/dev/test loaders (``trainer.py:219-235``): the one copy of
+        the "peek real data" iteration, used by the data check at set-up
+        (``_peek_batch``) and the ``-serve_int8`` activation calibration
+        (``cli/serve.py``).  Raises when there is no data."""
+        out = []
+        for loader in (self.data_train, self.data_dev, self.data_test):
+            for batch in loader.iter_all(batch_size=batch_size):
+                out.append(self.get_processed_batch(batch)[0])
+                if len(out) >= n_batches:
+                    return out
+        if not out:
+            raise RuntimeError("dataset is empty")
+        return out
+
     def _peek_batch(self):
         """The first processed step batch of two windows (the JAX trainer
-        initialises its model on it): raises when there is no data."""
-        for loader in (self.data_train, self.data_dev, self.data_test):
-            for batch in loader.iter_all(batch_size=2):
-                return self.get_processed_batch(batch)[0]
-        raise RuntimeError("dataset is empty")
+        initialises its model on it)."""
+        return self.peek_batches(1, batch_size=2)[0]
 
     def get_processed_batch(self, batch):
         """Numpy batch → step batch (trainer.py:851-863 + cluster/style

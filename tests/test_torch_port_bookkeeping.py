@@ -155,7 +155,7 @@ def test_preempt_snapshot_round_trip(tmp_path, trained_state):
 def test_foreign_checkpoint_is_refused(tmp_path, trained_state):
     f, _ = trained_state
     path = tmp_path / "ref_weights.p"
-    torch.save({"G": {"w": torch.zeros(1)}}, path)      # a reference one
+    torch.save({"G": {"w": torch.zeros(1)}}, path)      # neither kind
     msgpack = tmp_path / "jax_weights.p"
     msgpack.write_bytes(b"\x84\xa8g_params\x80")         # flax msgpack
     for p in (path, msgpack):

@@ -63,7 +63,10 @@ def test_importing_the_port_loads_no_jax():
             "mixstage_tpu_torch.train.profiling, "
             "mixstage_tpu_torch.train.sampling, "
             "mixstage_tpu_torch.train.trainer, "
-            "mixstage_tpu_torch.cli.train, mixstage_tpu_torch.cli.sample; "
+            "mixstage_tpu_torch.cli.train, mixstage_tpu_torch.cli.sample, "
+            "mixstage_tpu_torch.cli.serve, mixstage_tpu_torch.cli.export, "
+            "mixstage_tpu_torch.cli.import_torch, mixstage_tpu_torch.export, "
+            "mixstage_tpu_torch.interop.torch_import; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN | HOST_FORBIDDEN)!r}); print(bad); "
             "sys.exit(1 if bad else 0)")
