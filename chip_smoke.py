@@ -9,7 +9,8 @@ clips of 128 mel bins at batch 32 — with random weights drawn from
 serving tier with the streaming and waveform endpoints (phases 10-14), the
 bf16 tier, serving and GAN training (phases 15-17), the int8 tier on the
 bf16 model (phases 18-19), the host lifecycle through the CLIs
-(phase 20), and the serving entry points on its checkpoints (phase 21):
+(phase 20), the serving entry points on its checkpoints (phase 21), and
+the rest of the train steps (phase 22):
 
 1. device: the card's name and power limit from ``nvidia-smi``;
 2. build: every CUDA kernel from the checkout's sources, one ``nvcc`` per
@@ -148,7 +149,35 @@ bf16 model (phases 18-19), the host lifecycle through the CLIs
     not launched); ``cli.serve -export_dir`` with no checkpoint and ``h5py``
     blocked, its responses equal to the kernel program's; timings: the p50
     of a 64-frame clip over HTTP in each mode and the bs32 calls of both
-    programs against the direct functions in ABBA turns.
+    programs against the direct functions in ABBA turns;
+22. the rest of the train steps, through ``StepFactory`` at full width
+    with seeded ``rng``s: (a) the weighted GAN with the joint D (2-class
+    D on velocity ⊕ the 128 mels), f32: a fused G step (K3 once each way)
+    against the unfused one from one state by phase 9's contract, ``W``
+    of shape (32,) in [0.1, 10] and equal in both, a D step (no K3);
+    (b) the same in bf16, fused against unfused by the bf16 rule, each
+    against (a)'s f32 step; (c) the non-GAN Mix-StAGE step, fused against
+    unfused by phase 9's contract, and ``make_scan_train_step(8)``
+    without a GAN against 8 per-step calls at lr 1e-6 (totals within
+    1e-3, params within 8 × 2·lr); (d) one fused G step each under AdamW, SGD
+    (momentum 0.9), RMSprop and Adam with a bf16 ``mu``, and each
+    optimizer's update on given gradients (global norm below the clip's
+    1) on the card against the same update on the CPU (max |diff| / max
+    |ref| ≤ 1e-6; the bf16 ``mu`` bit for bit); (e) pose noise 0.01 and dropout 0.1, unfused: a mask's
+    kept share within 5 binomial sigma of 0.9 and its kept elements x /
+    (1 - p) exactly, one seed twice within 1e-6 and another seed apart,
+    ``-fused_decoder`` refused with p > 0 and at float64; (f)
+    ``Speech2Gesture_G`` G and D steps finite, ``StyleClassifier_G``'s
+    loss falling over 20 steps on one batch; timings (CUDA events, ABBA):
+    the weighted + joint fused G step against the plain fused G step,
+    the non-GAN step, each optimizer's G step; (g) the lifecycle on
+    synthetic data through the same stand-in h5py: ``cli.train -model
+    StyleClassifier_G -speaker ["all"]``, then ``-gan 1 -weighted 3 -joint
+    1 -noise 0.01 -optim AdamW -fused_decoder 1 -pretrained_model_weights
+    <its checkpoint>`` (the style IS in ``PREFIX_res.json``), ``-gan 0
+    -fused_decoder 1`` and ``cli.sample`` on it.  K3 launched once each
+    way per fused G or non-GAN step, counted over the phase
+    (``steps_rest_launches``).
 
 The bf16 rule: no bf16 output is held element-wise to another bf16 output
 (two valid roundings differ about as much as either differs from the
@@ -300,6 +329,10 @@ LIFE_FILES = {"args.args", "res.json", "weights.p", "log.log", "name.name",
               "metrics.json", "cummMetrics.json", "histogram.json",
               "style.pkl"}
 TIMING_TURNS = 4             # timed turns of each decoder, in ABBA order
+# phase 22: pose noise, dropout and the classifier's steps
+NOISE, P_DROP = 0.01, 0.1
+CLF_STEPS = 20
+SCAN_LR = 1e-6               # the k-step driver against per-step calls
 
 
 def log(msg: str) -> None:
@@ -680,6 +713,8 @@ def compare_states(torch, s0, s1, lr):
     p_err = s_err = 0.0
     for m0, m1 in ((s0.gen, s1.gen), (s0.psenc, s1.psenc),
                    (s0.disc, s1.disc)):
+        if m0 is None:                   # a model family without the module
+            continue
         a, b = leaves(m0), leaves(m1)
         for k in a:
             d = float((a[k] - b[k]).detach().abs().max())
@@ -2206,6 +2241,458 @@ def int8_bf16_phases(torch, args, device, smi, model, audio, styles,
          "max_ulps": max(r["max_ulps"] for r in k2_16.values())}]
 
 
+def steps_rest_phase(torch, args, device, smi, results) -> dict:
+    """Phase 22: the rest of the train steps at full width, through
+    ``StepFactory`` and the CLIs.  Returns K3's launches over the phase per
+    mode, {"float32": (fwd, bwd), "bfloat16": (fwd, bwd)}."""
+    import shutil
+    from pathlib import Path
+
+    from mixstage_tpu_torch.cli import sample as cli_sample
+    from mixstage_tpu_torch.cli import train as cli_train
+    from mixstage_tpu_torch.data.common import SPEAKERS
+    from mixstage_tpu_torch.data.synthetic import make_synthetic_dataset
+    from mixstage_tpu_torch.models.layers import dropout, dropout_rng
+    from mixstage_tpu_torch.ops.cuda import train_decoder as td
+    from mixstage_tpu_torch.train import StepConfig, StepFactory
+    from mixstage_tpu_torch.train.trainer import Trainer
+
+    bf16 = torch.bfloat16
+    out: dict = {}
+    counters = (td.decoder_train_fwd, td.decoder_train_bwd)
+    for c in counters:                               # phase 22 starts
+        c.launches = c.launches_bf16 = 0
+    fused_g = {"float32": 0, "bfloat16": 0}          # fused G-type steps
+
+    def k3():
+        return (tuple(c.launches - c.launches_bf16 for c in counters),
+                tuple(c.launches_bf16 for c in counters))
+
+    def expect(what):
+        got = k3()
+        want = ((fused_g["float32"],) * 2, (fused_g["bfloat16"],) * 2)
+        check(got == want, f"{what}: K3 launches (f32, bf16 mode) {got}, "
+              f"expected {want}")
+
+    def finite(losses, what):
+        check(all(bool(torch.isfinite(v).all()) for v in losses.values()),
+              f"{what}: losses not finite")
+
+    def on_device(tree):
+        return {k: (tuple(torch.as_tensor(a, device=device) for a in v)
+                    if k == "x" else torch.as_tensor(v, device=device))
+                for k, v in tree.items()}
+
+    trng = np.random.default_rng(args.seed + 40)
+    batch = train_batch(trng, B, T)
+    seed = args.seed + 41
+    WJ = dict(TRAIN_CFG, weighted=True, joint=True)
+
+    # (a) weighted + joint GAN, f32: fused against unfused from one state -
+    fused = StepFactory(StepConfig(**WJ, fused_decoder=True))
+    unfused = StepFactory(StepConfig(**WJ))
+    lr = fused.cfg.lr
+    s_f, l_f, pose_f = fused.make_steps()["g"](fused.init(seed=seed), batch,
+                                               seed)
+    torch.cuda.synchronize()
+    fused_g["float32"] += 1
+    expect("weighted + joint fused G step")
+    s_u, l_u, pose_u = unfused.make_steps()["g"](unfused.init(seed=seed),
+                                                 batch, seed)
+    torch.cuda.synchronize()
+    expect("weighted + joint unfused G step")
+    finite(l_f, "weighted + joint G step")
+    W = l_f["W"]
+    check(tuple(W.shape) == (B,) and bool((W >= 0.1).all())
+          and bool((W <= 10).all()), f"W {W.tolist()}")
+    check(bool(torch.allclose(W, l_u["W"], rtol=1e-6)),
+          "W of the fused and unfused G steps differ")
+    tot_f, tot_u = float(l_f["total"]), float(l_u["total"])
+    check(abs(tot_f - tot_u) <= KERNEL_TOL * abs(tot_u),
+          f"weighted + joint G step total fused {tot_f} vs unfused {tot_u}")
+    p_err, s_err, gaps, bias = compare_states(torch, s_u, s_f, lr)
+    s_f, l_d, _ = fused.make_steps()["d"](s_f, batch, seed + 1)
+    torch.cuda.synchronize()
+    finite(l_d, "weighted + joint D step")
+    expect("weighted + joint D step")
+    log(f"[steps-rest] weighted + joint GAN (D on velocity ⊕ 128 mels, 2 "
+        f"classes) bs{B} T{T}: W in [{float(W.min()):.4f}, "
+        f"{float(W.max()):.4f}]; total fused {tot_f:.6f} vs unfused "
+        f"{tot_u:.6f}; params max|diff| {p_err:.3e} (tol {2 * lr:g}); BN "
+        f"stats {s_err:.3e}; Adam mu max module gap "
+        f"{max(gaps.values()):.3e} (tol {MOMENT_TOL:g}); D step finite; "
+        f"K3 {k3()}")
+    out["weighted_joint"] = dict(total_fused=tot_f, total_unfused=tot_u,
+                                 param_diff=p_err, stat_diff=s_err,
+                                 mu_gap=max(gaps.values()),
+                                 W=W.tolist())
+
+    # (b) the same at bf16, each against the f32 unfused G step -------------
+    facs16 = {"unfused": StepFactory(StepConfig(**WJ, dtype=bf16)),
+              "fused": StepFactory(StepConfig(**WJ, dtype=bf16,
+                                              fused_decoder=True))}
+    rep16 = {}
+    for name, fac in facs16.items():
+        st, ls, ps = fac.make_steps()["g"](fac.init(seed=seed), batch, seed)
+        torch.cuda.synchronize()
+        fused_g["bfloat16"] += name == "fused"
+        expect(f"weighted + joint {name} bf16 G step")
+        finite(ls, f"weighted + joint {name} bf16 G step")
+        check(ps.dtype == bf16, "bf16 pose dtype")
+        rep = {"pose": drift(ps, pose_u),
+               "total": drift(ls["total"], l_u["total"])}
+        mu, _ = g_moment_gaps(s_u, st)
+        rep.update({f"mu {m}": v for m, v in mu.items()})
+        rep16[name] = rep
+    fails = [k for k, dq in rep16["unfused"].items()
+             if abs(rep16["fused"][k] - dq) > BF16_REL * dq + BF16_ABS]
+    log(f"[steps-rest] weighted + joint bf16 G step, drift from the f32 G "
+        f"step, fused (K3 bf16) / unfused: "
+        + ", ".join(f"{k} {rep16['fused'][k]:.4e}/{v:.4e}"
+                    for k, v in rep16["unfused"].items()) + f"; K3 {k3()}")
+    check(not fails, f"weighted + joint fused bf16 G step breaks the bf16 "
+          f"rule on {fails}")
+    out["weighted_joint_bf16"] = rep16
+
+    # (c) the non-GAN Mix-StAGE step, fused against unfused; the k-step
+    # driver against per-step calls -------------------------------------------
+    NG = dict(TRAIN_CFG, gan=False)
+    ng_f = StepFactory(StepConfig(**NG, fused_decoder=True))
+    ng_u = StepFactory(StepConfig(**NG))
+    check(sorted(ng_f.make_steps()) == ["eval", "train"], "non-GAN steps")
+    n_f, ln_f, _ = ng_f.make_steps()["train"](ng_f.init(seed=seed), batch,
+                                              seed)
+    torch.cuda.synchronize()
+    fused_g["float32"] += 1
+    expect("non-GAN fused step")
+    n_u, ln_u, _ = ng_u.make_steps()["train"](ng_u.init(seed=seed), batch,
+                                              seed)
+    torch.cuda.synchronize()
+    expect("non-GAN unfused step")
+    finite(ln_f, "non-GAN step")
+    check(n_f.disc is None and "G_gan" not in ln_f, "non-GAN state")
+    t_f, t_u = float(ln_f["total"]), float(ln_u["total"])
+    check(abs(t_f - t_u) <= KERNEL_TOL * abs(t_u),
+          f"non-GAN step total fused {t_f} vs unfused {t_u}")
+    np_err, ns_err, n_gaps, _ = compare_states(torch, n_u, n_f, lr)
+    # the k-step driver against per-step calls at lr 1e-6, as the CPU tests
+    # run their drivers: the card's weight-gradient reductions are not
+    # bitwise reproducible, and at 1e-4 the flips they seed move the later
+    # losses by up to 4.7e-3 (--seed 0, NVIDIA H100 80GB HBM3, 700 W;
+    # PERF.md)
+    ng_k = StepFactory(StepConfig(**NG, fused_decoder=True, lr=SCAN_LR))
+    stacked = train_batch(trng, B, T, k=SCAN_K)
+    rngs = list(range(SCAN_K))
+    s_scan, l_scan, poses = ng_k.make_scan_train_step(SCAN_K)(
+        ng_k.init(seed=seed), stacked, np.zeros(SCAN_K, bool), rngs)
+    torch.cuda.synchronize()
+    fused_g["float32"] += SCAN_K
+    expect(f"non-GAN make_scan_train_step({SCAN_K})")
+    s_seq, loss_gaps = ng_k.init(seed=seed), []
+    for i in range(SCAN_K):
+        s_seq, l_i, _ = ng_k.make_steps()["train"](
+            s_seq, {k: (tuple(a[i] for a in v) if k == "x" else v[i])
+                    for k, v in stacked.items()}, rngs[i])
+        loss_gaps.append(abs(float(l_i["total"]) - float(
+            l_scan["total"][i])) / abs(float(l_i["total"])))
+    torch.cuda.synchronize()
+    fused_g["float32"] += SCAN_K
+    expect("non-GAN per-step calls")
+    worst_loss = max(loss_gaps)
+    worst_param = max(float((a - b).abs().max()) for a, b in zip(
+        s_scan.g_opt.params, s_seq.g_opt.params))
+    log(f"[steps-rest] non-GAN Mix-StAGE step bs{B} T{T}: total fused "
+        f"{t_f:.6f} vs unfused {t_u:.6f}; params {np_err:.3e}, BN stats "
+        f"{ns_err:.3e}, Adam mu max module gap {max(n_gaps.values()):.3e}; "
+        f"make_scan_train_step({SCAN_K}) against {SCAN_K} per-step calls "
+        f"at lr {SCAN_LR:g}: totals within "
+        + ", ".join(f"{g:.2e}" for g in loss_gaps) + " (relative), params "
+        f"within {worst_param:.3e} (tol {SCAN_K * 2 * SCAN_LR:g}); K3 "
+        f"{k3()}")
+    check(worst_loss <= 1e-3 and
+          worst_param <= SCAN_K * 2 * SCAN_LR + 1e-6,
+          "the non-GAN k-step driver departs from its per-step calls")
+    out["non_gan"] = dict(total_fused=t_f, total_unfused=t_u,
+                          param_diff=np_err, stat_diff=ns_err,
+                          mu_gap=max(n_gaps.values()),
+                          scan_vs_steps_loss=worst_loss,
+                          scan_vs_steps_param=worst_param)
+
+    # (d) the other optimizers: a fused G step each, and the card's update
+    # on given gradients against the CPU's -----------------------------------
+    optims = {"AdamW": dict(optim="AdamW"),
+              "SGD_momentum": dict(optim="SGD",
+                                   optim_kwargs=(("momentum", 0.9),)),
+              "RMSprop": dict(optim="RMSprop"),
+              "Adam_mu_bf16": dict(optim_mu_dtype="bfloat16")}
+    opt_rep = {}
+    ggen = torch.Generator().manual_seed(seed + 2)
+    for name, kw in optims.items():
+        fac = StepFactory(StepConfig(**TRAIN_CFG, fused_decoder=True, **kw))
+        st, ls, _ = fac.make_steps()["g"](fac.init(seed=seed), batch, seed)
+        torch.cuda.synchronize()
+        fused_g["float32"] += 1
+        expect(f"{name} fused G step")
+        finite(ls, f"{name} G step")
+        opt = st.g_opt
+        cpu = fac.g_tx([(n, p.detach().cpu().clone())
+                        for n, p in zip(opt.names, opt.params)])
+        for slot, tensors in opt.slots().items():
+            for dst, src in zip(getattr(cpu, slot), tensors):
+                dst.copy_(src.cpu())
+        cpu.count = opt.count
+        # gradients whose global norm is below the clip's 1, which keeps
+        # them as they are: the update rule alone, not the two devices'
+        # float32 sums over the ~3e7 elements of the norm (AdamW's mu
+        # 1.5e-5 apart at a norm of ~50, where the clip scales by 1 /
+        # norm; --seed 0, NVIDIA H100 80GB HBM3, 700 W; PERF.md)
+        grads = [torch.randn(p.shape, generator=ggen) * 1e-5
+                 for p in cpu.params]
+        norm = float(torch.stack([g.double().norm() for g in grads]).norm())
+        check(norm < cpu.MAX_NORM, f"{name}: gradient norm {norm}")
+        opt.step([g.to(device) for g in grads])
+        cpu.step(grads)
+        torch.cuda.synchronize()
+        err = {"params": max(
+            float((a.cpu() - b).abs().max()) / max(float(b.abs().max()),
+                                                   1e-30)
+            for a, b in zip(opt.params, cpu.params))}
+        for slot, tensors in opt.slots().items():
+            if slot == "mu" and opt.mu_dtype is not None:
+                err["mu_bf16_equal"] = all(
+                    torch.equal(a.cpu(), b) for a, b in zip(tensors, cpu.mu))
+                check(tensors[0].dtype == bf16 and err["mu_bf16_equal"],
+                      f"{name}: the card's bf16 mu differs from the CPU's")
+                continue
+            err[slot] = max(
+                float((a.cpu() - b).abs().max()) / max(float(b.abs().max()),
+                                                       1e-30)
+                for a, b in zip(tensors, getattr(cpu, slot)))
+        worst = max(v for k, v in err.items() if k != "mu_bf16_equal")
+        check(worst <= 1e-6, f"{name}: the card's update differs from the "
+              f"CPU's by {err}")
+        opt_rep[name] = dict(update_err=err, factory=fac, state=st)
+        log(f"[steps-rest] {name}: fused G step finite; the card's update on "
+            f"given gradients (global norm {norm:.4f}) against the CPU's "
+            f"(max |diff| / max |ref|): "
+            + ", ".join(f"{k} {v}" for k, v in err.items()))
+    expect("the optimizers' steps and timings")
+    out["optimizers"] = opt_rep
+
+    # (e) pose noise and dropout, unfused ----------------------------------
+    x = torch.randn(B * T * C * 8, device=device,
+                    generator=torch.Generator(device=device).manual_seed(seed))
+    with dropout_rng(torch.Generator(device=device).manual_seed(seed + 3)):
+        dropped = dropout(x, P_DROP, training=True)
+    kept = dropped != 0
+    share = float(kept.float().mean())
+    sigma = (P_DROP * (1 - P_DROP) / x.numel()) ** 0.5
+    check(abs(share - (1 - P_DROP)) <= 5 * sigma,
+          f"dropout kept share {share} (5 sigma {5 * sigma:.2e})")
+    keep_prob = float(torch.tensor(1 - P_DROP, dtype=torch.float32))
+    check(torch.equal(dropped[kept], x[kept] / keep_prob),
+          "dropout's kept elements are not x / (1 - p)")
+    nd = StepFactory(StepConfig(**TRAIN_CFG, noise=NOISE, p_dropout=P_DROP))
+    totals = []
+    for rng in (5, 5, 6):
+        _, ls, _ = nd.make_steps()["g"](nd.init(seed=seed), batch, rng)
+        finite(ls, "noise + dropout G step")
+        totals.append(float(ls["total"]))
+    _, ls, _ = nd.make_steps()["d"](nd.init(seed=seed), batch, 7)
+    finite(ls, "noise + dropout D step")
+    torch.cuda.synchronize()
+    expect("noise + dropout steps")
+    same, other = (abs(totals[1] - totals[0]) / abs(totals[0]),
+                   abs(totals[2] - totals[0]) / abs(totals[0]))
+    check(same <= 1e-6 and other > 1e-4,
+          f"noise + dropout G steps: one seed twice {totals[:2]}, another "
+          f"{totals[2]}")
+    for bad, why in ((dict(fused_decoder=True, p_dropout=P_DROP), "p > 0"),
+                     (dict(fused_decoder=True, dtype=torch.float64),
+                      "float64")):
+        try:
+            StepFactory(StepConfig(**TRAIN_CFG, **bad))
+        except NotImplementedError as e:
+            log(f"[steps-rest] -fused_decoder with {why} refused on the "
+                f"card: {e}")
+        else:
+            check(False, f"-fused_decoder with {why} was not refused")
+    log(f"[steps-rest] dropout {P_DROP} on {x.numel()} elements: kept share "
+        f"{share:.6f} ({abs(share - 1 + P_DROP) / sigma:.2f} binomial "
+        f"sigma from {1 - P_DROP}), kept values x / (1 - p) exactly; noise "
+        f"{NOISE} + dropout G step totals: seed 5 twice {totals[0]:.7f}, "
+        f"{totals[1]:.7f} (relative diff {same:.2e}), seed 6 "
+        f"{totals[2]:.7f} ({other:.2e})")
+    out["noise_dropout"] = dict(kept_share=share, sigma=sigma, totals=totals)
+
+    # (f) Speech2Gesture_G and StyleClassifier_G -----------------------------
+    s2g = StepFactory(StepConfig(model="Speech2Gesture_G", gan=True,
+                                 criterion="L1Loss", out_feats=F_POSE))
+    st = s2g.init(seed=seed)
+    st, lg, pg = s2g.make_steps()["g"](st, batch, seed)
+    st, ld, _ = s2g.make_steps()["d"](st, batch, seed + 1)
+    torch.cuda.synchronize()
+    finite(lg, "Speech2Gesture_G G step")
+    finite(ld, "Speech2Gesture_G D step")
+    check(tuple(pg.shape) == (B, T, F_POSE), "Speech2Gesture_G pose shape")
+    clf = StepFactory(StepConfig(model="StyleClassifier_G", gan=False,
+                                 out_feats=F_POSE,
+                                 num_speakers=MODEL["num_speakers"]))
+    st = clf.init(seed=seed)
+    clf_losses = []
+    for i in range(CLF_STEPS):
+        st, lc, logits = clf.make_steps()["train"](st, batch, i)
+        clf_losses.append(float(lc["total"]))
+    expect("Speech2Gesture_G and StyleClassifier_G steps")
+    check(clf_losses[-1] < clf_losses[0] and all(np.isfinite(clf_losses)),
+          f"StyleClassifier_G loss over {CLF_STEPS} steps: {clf_losses}")
+    log(f"[steps-rest] Speech2Gesture_G GAN: G total "
+        f"{float(lg['total']):.5f}, D total {float(ld['total']):.5f}; "
+        f"StyleClassifier_G over {CLF_STEPS} steps on one batch: loss "
+        f"{clf_losses[0]:.5f} → {clf_losses[-1]:.5f}, accuracy "
+        f"{float(lc['acc']):.4f}")
+    out["speech2gesture"] = dict(g_total=float(lg["total"]),
+                                 d_total=float(ld["total"]))
+    out["classifier_losses"] = clf_losses
+
+    # timings (CUDA events): the weighted + joint fused G step against the
+    # plain fused G step (its extra cost: D's eval forward for W), the
+    # non-GAN step --------------------------------------------------------------
+    plain_f = StepFactory(StepConfig(**TRAIN_CFG, fused_decoder=True))
+    dbatch = on_device(batch)
+    timed = {"weighted_joint": (fused, fused.init(seed=seed), "g"),
+             "plain": (plain_f, plain_f.init(seed=seed), "g"),
+             "non_gan": (ng_f, ng_f.init(seed=seed), "train")}
+    timed.update({name: (rec.pop("factory"), rec.pop("state"), "g")
+                  for name, rec in opt_rep.items()})
+    order = list(timed)
+    turns = {name: [] for name in timed}
+    for name in order + order[::-1]:             # ABBA over all of them
+        fac, st, kind = timed[name]
+        steps = fac.make_steps()
+        turns[name].append(cuda_ms(torch, lambda: steps[kind](st, dbatch),
+                                   reps=10))
+        fused_g["float32"] += 10 + 3
+    expect("the timed steps")
+    mean = {k: float(np.mean(v)) for k, v in turns.items()}
+    for name, rec in opt_rep.items():
+        rec["g_step_ms"] = mean[name]
+    log(f"[timing] {smi}: phase 22 fused steps bs{B} T{T}, mean of 2 ABBA "
+        f"turns (all seven steps in one ABBA order): weighted + joint G step {mean['weighted_joint']:.3f} ms "
+        f"(turns {turns['weighted_joint']}), plain G step "
+        f"{mean['plain']:.3f} ms (turns {turns['plain']}), extra "
+        f"{mean['weighted_joint'] - mean['plain']:+.3f} ms; non-GAN step "
+        f"{mean['non_gan']:.3f} ms (turns {turns['non_gan']})")
+    log(f"[timing] {smi}: phase 22 fused G step per optimizer, mean of 2 "
+        f"ABBA turns (the plain G step is Adam's): "
+        + ", ".join(f"{k} {mean[k]:.3f} ms (turns {turns[k]})"
+                    for k in opt_rep))
+    out["timing"] = dict(mean, turns=turns)
+
+    # (g) the lifecycle: a classifier, then a weighted joint run with its IS
+    # metric, a non-GAN run, and cli.sample -----------------------------------
+    import importlib.util
+
+    if "h5py" not in sys.modules and importlib.util.find_spec("h5py") is None:
+        log("[steps-rest] h5py: not installed on this machine; this phase's "
+            "PATS h5 files go through chip_smoke's stand-in")
+        install_h5py_stand_in()
+    root = Path(__file__).resolve().parent / "build" / "steps_rest"
+    shutil.rmtree(root, ignore_errors=True)
+    data = str(root / "data")
+    speakers = SPEAKERS[:MODEL["num_speakers"]]
+    make_synthetic_dataset(data, speakers, LIFE_INTERVALS,
+                           seed=11212 + args.seed)
+    seen = []
+    orig_train = Trainer.train
+
+    def keep(self, exp_num):
+        orig_train(self, exp_num)
+        seen.append(self)
+
+    common = ["-path2data", data, "-loss", "L1Loss", "-batch_size", str(B),
+              "-window_hop", "5", "-num_iters", "1", "-exp", "1", "-seed",
+              str(11212 + args.seed)]
+    runs = {
+        "classifier": ["-speaker", json.dumps(["all"]), "-model",
+                       "StyleClassifier_G", "-gan", "0", "-num_epochs", "1",
+                       "-debug", "2"],
+        "weighted_joint": ["-speaker", json.dumps(speakers), "-model",
+                           "JointLateClusterSoftStyle4_G", "-gan", "1",
+                           "-weighted", "3", "-joint", "1", "-noise",
+                           str(NOISE), "-optim", "AdamW", "-fused_decoder",
+                           "1", "-num_clusters", str(MODEL["num_clusters"]),
+                           "-num_epochs", "2", "-debug", "2"],
+        "non_gan": ["-speaker", json.dumps(speakers), "-model",
+                    "JointLateClusterSoftStyle4_G", "-gan", "0",
+                    "-fused_decoder", "1", "-num_clusters",
+                    str(MODEL["num_clusters"]), "-num_epochs", "1",
+                    "-debug", "2"]}
+    life = {}
+    Trainer.train = keep
+    try:
+        for name, argv in runs.items():
+            save = str(root / f"save_{name}")
+            if name == "weighted_joint":
+                argv = argv + ["-pretrained_model_weights",
+                               life["classifier"]["weights"]]
+            t = time.perf_counter()
+            cli_train.main(common + argv + ["-save_dir", save])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            tr = seen[-1]
+            if tr.step_cfg.fused_decoder:
+                fused_g["float32"] += tr.state.g_step
+            expect(f"cli.train {name}")
+            weights = tr.book.name("weights", "p", save)
+            with open(tr.book.name("res", "json", save)) as f:
+                res = json.load(f)
+            for key in ("train", "dev", "test"):
+                check(bool(np.isfinite(res[key]).all()),
+                      f"cli.train {name}: {key} losses {res[key]}")
+            life[name] = dict(weights=weights, wall_s=wall,
+                              g_steps=tr.state.g_step,
+                              res_keys=sorted(res))
+            if name == "classifier":
+                check({"train_acc", "dev_acc", "test_acc"} <= set(res) and
+                      sorted(torch.load(weights, weights_only=True)) ==
+                      ["gen"], "cli.train StyleClassifier_G: accuracy and "
+                      "a gen-only checkpoint")
+            if name == "weighted_joint":
+                check(tr.IS is not None and all(
+                    np.isfinite(res[f"{k}_style_IS"]).all()
+                    for k in ("train", "dev", "test")),
+                      "the weighted joint run reports no IS metric")
+                check(tr.step_cfg.weighted and tr.step_cfg.joint and
+                      tr.step_cfg.noise == NOISE and
+                      tr.step_cfg.optim == "AdamW", "weighted run config")
+                life[name]["style_IS"] = res["train_style_IS"]
+            log(f"[steps-rest] cli.train {name}: {wall:.2f} s, "
+                f"{tr.state.g_step} G-type steps, losses finite; K3 "
+                f"{k3()}")
+        t = time.perf_counter()
+        cli_sample.main(["-load", life["non_gan"]["weights"], "-path2data",
+                         data])
+        torch.cuda.synchronize()
+        life["sample_wall_s"] = time.perf_counter() - t
+        expect("cli.sample")
+    finally:
+        Trainer.train = orig_train
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"[steps-rest] lifecycle: cli.train -model StyleClassifier_G, then "
+        f"-gan 1 -weighted 3 -joint 1 -noise {NOISE} -optim AdamW "
+        f"-fused_decoder 1 -pretrained_model_weights <it> (train_style_IS "
+        f"{life['weighted_joint']['style_IS']}), -gan 0 -fused_decoder 1, "
+        f"cli.sample of the last ({life['sample_wall_s']:.2f} s)")
+    out["lifecycle"] = life
+    launches = dict(zip(("float32", "bfloat16"), k3()))   # phase 22 ends
+    log(f"[steps-rest] K3 launches over phase 22 (fwd, bwd): f32 mode "
+        f"{launches['float32']}, bf16 mode {launches['bfloat16']}")
+    out["k3_launches"] = launches
+    results["steps_rest"] = out
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2648,6 +3135,7 @@ def main(argv=None) -> int:
         served = serving_cli_phase(torch, args, smi, results, exps)
     finally:
         shutil.rmtree(exps["root"], ignore_errors=True)
+    rest = steps_rest_phase(torch, args, device, smi, results)
     for kern in [k1] + k16 + [k4] + k8_16:
         if kern["name"] in served:
             kern["serving_cli_launches"] = served[kern["name"]]
@@ -2657,6 +3145,7 @@ def main(argv=None) -> int:
                 mode = "bfloat16" if kern["name"].endswith("_bf16") \
                     else "float32"
                 kern["lifecycle_launches"] = life[mode][i]
+                kern["steps_rest_launches"] = rest[mode][i]
     for kern in [k1] + k3 + [k4]:
         kern["mode"] = "f32" if kern is not k4 else "int8"
     k2["mode"] = "f32"

@@ -12,9 +12,12 @@ The checkpoints are ``torch.save`` files and load with
 (or an orbax directory):
 
 * ``PREFIX_weights.p``: ``{"gen", "psenc", "disc"}``, each module's state
-  dict (parameters and BatchNorm statistics);
-* ``PREFIX_trainstate.p`` (``-save_optim 1``): both optimizers' Adam
-  moments and counts, and the state's four counters;
+  dict (parameters and BatchNorm statistics), for the modules the
+  configuration has (a non-GAN model has no ``disc``; ``StyleClassifier_G``
+  and ``Speech2Gesture_G`` have no ``psenc``);
+* ``PREFIX_trainstate.p`` (``-save_optim 1``): the optimizers' states
+  (Adam's ``mu`` / ``nu``, SGD's ``trace``, RMSprop's ``nu``) and counts,
+  and the state's four counters;
 * ``PREFIX_preempt.p``: both of these together, the live state that a
   SIGTERM snapshots (with ``PREFIX_preempt.json``, the loop's metadata).
 
@@ -42,43 +45,71 @@ MODULES = ("gen", "psenc", "disc")
 COUNTERS = ("step", "g_step", "lambda_step", "curriculum_step")
 
 
+def modules_of(state) -> List[str]:
+    """The names of ``MODULES`` that ``state`` has."""
+    return [m for m in MODULES if getattr(state, m) is not None]
+
+
+def is_port_checkpoint(ckpt) -> bool:
+    """Whether a loaded torch file is ``weights_of``'s dict: state dicts
+    keyed by some of ``MODULES``, ``gen`` among them."""
+    return isinstance(ckpt, dict) and "gen" in ckpt and \
+        set(ckpt) <= set(MODULES) and \
+        all(isinstance(v, dict) for v in ckpt.values())
+
+
 def weights_of(state) -> Dict[str, Dict[str, torch.Tensor]]:
     """The modules' state dicts (parameters and BN statistics), copied to
     the CPU."""
     return {m: {k: v.detach().cpu().clone()
                 for k, v in getattr(state, m).state_dict().items()}
-            for m in MODULES}
+            for m in modules_of(state)}
+
+
+def _optimizers(state):
+    return [(name, getattr(state, name)) for name in ("g_opt", "d_opt")
+            if getattr(state, name) is not None]
 
 
 def optim_of(state) -> Dict[str, Any]:
-    """Both optimizers' Adam moments and counts, and the counters."""
+    """The optimizers' state tensors (``opt.slots()``) and counts, and the
+    counters."""
     out: Dict[str, Any] = {
         name: {"names": list(opt.names), "count": int(opt.count),
-               "mu": [t.detach().cpu().clone() for t in opt.mu],
-               "nu": [t.detach().cpu().clone() for t in opt.nu]}
-        for name, opt in (("g_opt", state.g_opt), ("d_opt", state.d_opt))}
+               **{slot: [t.detach().cpu().clone() for t in tensors]
+                  for slot, tensors in opt.slots().items()}}
+        for name, opt in _optimizers(state)}
     out["counters"] = {k: int(getattr(state, k)) for k in COUNTERS}
     return out
 
 
 @torch.no_grad()
 def load_weights(state, weights: Dict[str, Dict[str, torch.Tensor]]):
-    """Copy ``weights_of``'s dicts into ``state``'s modules, in place."""
-    for m in MODULES:
+    """Copy ``weights_of``'s dicts into ``state``'s modules, in place; the
+    checkpoint must hold exactly the state's modules."""
+    if sorted(weights) != sorted(modules_of(state)):
+        raise ValueError(f"the checkpoint holds {sorted(weights)}, the "
+                         f"model {sorted(modules_of(state))}")
+    for m in modules_of(state):
         getattr(state, m).load_state_dict(weights[m])
     return state
 
 
 @torch.no_grad()
 def load_optim(state, full: Dict[str, Any]):
-    """Copy ``optim_of``'s moments, counts and counters into ``state``."""
-    for name in ("g_opt", "d_opt"):
-        opt, saved = getattr(state, name), full[name]
+    """Copy ``optim_of``'s state tensors, counts and counters into
+    ``state``."""
+    for name, opt in _optimizers(state):
+        saved = full[name]
         if list(saved["names"]) != list(opt.names):
             raise ValueError(f"{name}: the checkpoint's parameters differ "
                              f"from the model's")
-        for dst, src in zip(opt.mu + opt.nu, saved["mu"] + saved["nu"]):
-            dst.copy_(src)
+        for slot, tensors in opt.slots().items():
+            if slot not in saved:
+                raise ValueError(f"{name}: the checkpoint has no {slot} "
+                                 f"(another optimizer's state)")
+            for dst, src in zip(tensors, saved[slot]):
+                dst.copy_(src)
         opt.count = int(saved["count"])
     for k in COUNTERS:
         setattr(state, k, int(full["counters"][k]))
@@ -87,6 +118,21 @@ def load_optim(state, full: Dict[str, Any]):
 
 def _torch_load(path: str):
     return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def load_port_checkpoint(path: str) -> Dict[str, Dict[str, torch.Tensor]]:
+    """``weights_of``'s dict from a weights file of the port; anything else
+    (a JAX checkpoint, flax msgpack or orbax) raises."""
+    try:
+        ckpt = _torch_load(path)
+    except (pickle.UnpicklingError, RuntimeError, IsADirectoryError):
+        ckpt = None                   # not a torch file (msgpack, orbax)
+    if not is_port_checkpoint(ckpt):
+        raise NotImplementedError(
+            f"{path} is not a checkpoint of the port; importing a JAX "
+            f"checkpoint (flax msgpack or orbax) comes later (ROADMAP queue "
+            f"1 item 7)")
+    return ckpt
 
 
 class Name:
@@ -282,7 +328,7 @@ class BookKeeper:
 
         Both the port's checkpoints and the reference's (chahuja/mix-stage,
         pycasper ``PREFIX_weights.p``) are torch files: a dict keyed exactly
-        by ``MODULES`` is the port's own; a flat state dict (keys with or
+        by some of ``MODULES`` is the port's own; a flat state dict (keys with or
         without ``G.`` / ``D.``) is the reference's, converted into the
         modules on the way (``interop/torch_import.py``, as the JAX
         package's ``-load`` does, ``bookkeeping.py:385-403``).  Anything
@@ -297,7 +343,7 @@ class BookKeeper:
         except (pickle.UnpicklingError, RuntimeError,
                 IsADirectoryError):                 # not a torch file
             ckpt = None
-        if isinstance(ckpt, dict) and set(ckpt) == set(MODULES):
+        if is_port_checkpoint(ckpt):
             return load_weights(state, ckpt)
         if is_reference_state_dict(ckpt):
             state, report = load_reference_state(state,

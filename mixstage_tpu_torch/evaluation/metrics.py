@@ -308,9 +308,10 @@ class InceptionScoreStyle:
     (metrics.py:305-371).
 
     ``classifier_fn``: callable mapping a (B, 64, feats) pose window to
-    (B, num_all_speakers) logits, a frozen StyleClassifier's forward (the
-    port's trainer has none yet: ``StyleClassifier_G`` is ROADMAP queue 1
-    item 7).
+    (B, num_all_speakers) logits, a frozen ``StyleClassifier_G``'s forward:
+    the trainer loads it from a ``-pretrained_model_weights`` checkpoint of
+    the port (``Trainer._load_is_classifier``), one that ``cli.train
+    -model StyleClassifier_G -speaker '["all"]'`` writes.
     """
 
     def __init__(self, num_clusters: int, weight: np.ndarray,

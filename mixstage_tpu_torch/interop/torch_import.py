@@ -228,6 +228,11 @@ def reference_template(state) -> Dict[str, Any]:
     trees."""
     from mixstage_tpu_torch.interop.weights import to_flax_state
 
+    if state.psenc is None or state.disc is None:
+        raise NotImplementedError(
+            "a reference checkpoint converts into the Mix-StAGE GAN's "
+            "modules (gen, psenc, disc); the other model families come "
+            "later (ROADMAP queue 1 item 7)")
     gen_p, gen_s = to_flax_state(state.gen)
     ps_p, ps_s = to_flax_state(state.psenc)
     d_p, d_s = to_flax_state(state.disc)

@@ -15,15 +15,18 @@ These are the inverse of ``mixstage_tpu/interop/torch_import.py::_to_flax``
 (``:129-150``).  Both directions are total: a flax leaf with no torch
 counterpart, or a torch tensor no flax leaf fills, raises.
 
-The same per-leaf rule carries optimizer moments, which are trees shaped
-like ``params`` (Adam's ``mu`` / ``nu``): ``flax_params_to_torch`` and
+The same per-leaf rule carries optimizer states, which are trees shaped
+like ``params`` (Adam's ``mu`` / ``nu``, SGD's ``trace``): ``flax_params_to_torch`` and
 ``torch_params_to_flax`` convert any such tree, keyed by torch parameter
 name.  Any module whose names follow the flax tree goes through the bridge:
 the generator, the pose-style encoder and the discriminator.
 
 ``load_jax_train_state`` carries a whole JAX ``TrainState`` (params, batch
-statistics, both Adam states, the counters) into the port's trainer state,
-and ``jax_train_state_of`` carries it back.
+statistics, both optimizer states, the counters) into the port's trainer
+state, and ``jax_train_state_of`` carries it back.  The optimizer states
+are optax's: Adam's and AdamW's ``mu`` / ``nu`` (a bfloat16 ``mu`` under
+``optim_mu_dtype``), SGD's momentum ``trace``, RMSprop's ``nu``
+(``load_flax_opt_state``).
 
 ``quantized_decoder_from_jax`` carries the int8 serving tier's quantized
 decoder (``mixstage_tpu/ops/pallas/quant.py::quantize_folded_decoder``)
@@ -94,6 +97,8 @@ def flax_params_to_torch(model: nn.Module, tree: Dict[str, Any]
             raise KeyError(f"flax params leaf {'/'.join(path)} has no "
                            f"counterpart in {type(model).__name__}")
         arr = np.asarray(value)
+        if arr.dtype.name == "bfloat16":        # JAX's bf16 (ml_dtypes)
+            arr = arr.astype(np.float32)
         if path[-1] == "kernel":
             arr = _kernel_to_torch(arr)
         if shapes[name] != arr.shape:
@@ -121,7 +126,8 @@ def torch_params_to_flax(model: nn.Module, tensors: Dict[str, torch.Tensor]
     for name in names:
         *path, leaf = name.split(".")
         owner = model.get_submodule(".".join(path))
-        arr = tensors[name].detach().cpu().numpy()
+        arr = tensors[name].detach().cpu()
+        arr = (arr.float() if arr.dtype == torch.bfloat16 else arr).numpy()
         if leaf == "weight":
             if isinstance(owner, BatchNorm):
                 leaf = "scale"
@@ -177,56 +183,76 @@ def to_flax_state(model: nn.Module
     return params, stats
 
 
-def _adam_state(opt_state):
-    """The node of an optax state (nested tuples) that holds Adam's
-    ``count`` / ``mu`` / ``nu`` (found by duck typing: the port imports
-    no optax)."""
-    if all(hasattr(opt_state, a) for a in ("count", "mu", "nu")):
-        return opt_state
-    if isinstance(opt_state, (tuple, list)):
-        for node in opt_state:
-            found = _adam_state(node)
-            if found is not None:
-                return found
-    return None
+def _opt_nodes(opt_state) -> Dict[str, Any]:
+    """The fields of an optax state (nested tuples of named tuples) that
+    hold trees or the count: ``count`` (Adam's or a schedule's, the first
+    found) and each moment or trace (``mu``, ``nu``, ``trace``), found by
+    duck typing: the port imports no optax."""
+    out: Dict[str, Any] = {}
+
+    def walk(node):
+        if hasattr(node, "_fields"):
+            for field in node._fields:
+                value = getattr(node, field)
+                if field == "count":
+                    out.setdefault("count", value)
+                elif hasattr(value, "items"):
+                    if field in out:
+                        raise KeyError(f"two optax state nodes hold {field}")
+                    out[field] = value
+        elif isinstance(node, (tuple, list)):
+            for child in node:
+                walk(child)
+    walk(opt_state)
+    return out
 
 
 @torch.no_grad()
 def load_flax_opt_state(opt, modules: Dict[Any, nn.Module], opt_state
                         ) -> None:
-    """Fill an optimizer's Adam moments and count from an optax state.
+    """Fill an optimizer's state tensors (``opt.slots()``: Adam's and
+    AdamW's ``mu`` / ``nu``, SGD's momentum ``trace``, RMSprop's ``nu``)
+    and its count from an optax state.
 
     ``modules`` maps each top-level key of the params tree to its module
     (``{"gen": gen, "psenc": psenc}`` for G; ``{None: disc}`` when the tree
     is the module's own, as D's is).  Kernels go through the same layout
-    rule as the parameters; every moment of ``opt`` must be filled."""
-    adam = _adam_state(opt_state)
-    if adam is None:
-        raise KeyError("no Adam state (count, mu, nu) in the optax state")
+    rule as the parameters; every slot of ``opt`` must be filled, and the
+    optax state may hold no other.  The count is read where the state
+    keeps one (Adam's, a schedule's); SGD and RMSprop at a constant rate
+    keep none and leave the port's count as it is."""
+    nodes = _opt_nodes(opt_state)
+    slots = opt.slots()
+    fields = sorted(k for k in nodes if k != "count")
+    if fields != sorted(slots):
+        raise KeyError(f"the optax state holds {fields}; "
+                       f"{type(opt).__name__} keeps {sorted(slots)}")
     index = {n: i for i, n in enumerate(opt.names)}
-    filled = set()
-    for moments, tree in ((opt.mu, adam.mu), (opt.nu, adam.nu)):
+    for field, tensors in slots.items():
+        filled = set()
         for key, module in modules.items():
-            sub = tree if key is None else tree[key]
+            sub = nodes[field] if key is None else nodes[field][key]
             for name, arr in flax_params_to_torch(module, sub).items():
                 full = name if key is None else f"{key}.{name}"
                 if full not in index:
-                    raise KeyError(f"moment {full} has no optimizer leaf")
-                dst = moments[index[full]]
+                    raise KeyError(f"{field} {full} has no optimizer leaf")
+                dst = tensors[index[full]]
                 dst.copy_(torch.from_numpy(arr).to(dst.device))
                 filled.add(full)
-    unfilled = sorted(set(opt.names) - filled)
-    if unfilled:
-        raise KeyError(f"no optax moment fills {unfilled[:5]}")
-    opt.count = int(np.asarray(adam.count))
+        unfilled = sorted(set(opt.names) - filled)
+        if unfilled:
+            raise KeyError(f"no optax {field} fills {unfilled[:5]}")
+    if "count" in nodes:
+        opt.count = int(np.asarray(nodes["count"]))
 
 
 def to_flax_opt_state(opt, modules: Dict[Any, nn.Module]) -> Dict[str, Any]:
-    """The inverse of ``load_flax_opt_state``: ``{"count", "mu", "nu"}``
-    with ``mu`` / ``nu`` as flax params trees of numpy arrays."""
+    """The inverse of ``load_flax_opt_state``: ``{"count", <slot>: tree}``
+    for each of ``opt.slots()``, each a flax params tree of numpy arrays
+    (a bfloat16 ``mu`` as float32 arrays of the same values)."""
     out: Dict[str, Any] = {"count": np.int32(opt.count)}
-    for field, moments in (("mu", opt.mu), ("nu", opt.nu)):
-        by_name = dict(zip(opt.names, moments))
+    for field, tensors in opt.slots().items():
+        by_name = dict(zip(opt.names, tensors))
         tree: Dict[str, Any] = {}
         for key, module in modules.items():
             prefix = "" if key is None else f"{key}."
@@ -247,28 +273,37 @@ def load_jax_train_state(factory, jstate):
     """A JAX ``TrainState`` (``mixstage_tpu/train/state.py``; any object with
     its field names, leaves numpy-convertible) → the port's ``TrainState``
     built by ``factory`` (a ``StepFactory``) on its device: the params and
-    BatchNorm statistics of gen, psenc and D, both optimizers' Adam moments
-    and counts, and the four counters."""
+    BatchNorm statistics of gen, psenc and D (those the configuration
+    has), both optimizers' states and counts, and the four counters."""
     return factory.init_from_flax(
         jstate.g_params, jstate.g_state, jstate.d_params, jstate.d_state,
         jstate.g_opt_state, jstate.d_opt_state,
         counters={k: int(np.asarray(getattr(jstate, k))) for k in COUNTERS})
 
 
+def _g_modules(state) -> Dict[str, nn.Module]:
+    """The G side's modules under their params-tree keys."""
+    out = {"gen": state.gen}
+    if state.psenc is not None:
+        out["psenc"] = state.psenc
+    return out
+
+
 def jax_train_state_of(state) -> Dict[str, Any]:
     """The inverse of ``load_jax_train_state``: the port's ``TrainState``
     as a dict of numpy trees under the JAX ``TrainState``'s field names,
-    each optimizer state as ``{"count", "mu", "nu"}`` (the Adam node of
-    optax's state)."""
-    gen_p, gen_s = to_flax_state(state.gen)
-    ps_p, ps_s = to_flax_state(state.psenc)
-    d_p, d_s = to_flax_state(state.disc)
-    out = {"g_params": {"gen": gen_p, "psenc": ps_p},
-           "g_state": {"gen": gen_s, "psenc": ps_s},
-           "d_params": d_p, "d_state": d_s,
-           "g_opt_state": to_flax_opt_state(
-               state.g_opt, {"gen": state.gen, "psenc": state.psenc}),
-           "d_opt_state": to_flax_opt_state(state.d_opt, {None: state.disc})}
+    each optimizer state as ``to_flax_opt_state``'s ``{"count", <slot>:
+    tree}``; the D side's fields are None without a discriminator."""
+    g_mods = _g_modules(state)
+    flax = {k: to_flax_state(m) for k, m in g_mods.items()}
+    out = {"g_params": {k: v[0] for k, v in flax.items()},
+           "g_state": {k: v[1] for k, v in flax.items()},
+           "g_opt_state": to_flax_opt_state(state.g_opt, g_mods),
+           "d_params": None, "d_state": None, "d_opt_state": None}
+    if state.disc is not None:
+        out["d_params"], out["d_state"] = to_flax_state(state.disc)
+        out["d_opt_state"] = to_flax_opt_state(state.d_opt,
+                                               {None: state.disc})
     out.update({k: np.int32(getattr(state, k)) for k in COUNTERS})
     return out
 

@@ -9,8 +9,11 @@ Submodule and parameter names follow the flax tree (``conv``/``norm``,
 ``stack.conv{i}``, ``unet.pre0`` ...), so ``interop/weights.py`` maps every
 leaf with one layout rule.  ``module.train()`` / ``.eval()`` is the mode:
 BatchNorm normalises with batch statistics and updates its running ones in
-training mode, as flax does (see ``BatchNorm``).  Dropout is not ported: the
-flagship configuration trains with ``p = 0``.
+training mode, as flax does (see ``BatchNorm``).  Every ``ConvNormRelu``
+takes the dropout probability ``p`` (plumbed through the stacks, encoders
+and models as the JAX package plumbs it) and applies flax's ``Dropout``
+between its conv and its norm in training mode; the masks come from the
+generator that ``dropout_rng`` installs (see ``dropout``).
 
 Channel counts are the ACTUAL input widths of each conv (flax infers them
 from the data), with ``ConvNormRelu``'s per-group semantics kept: it
@@ -23,10 +26,16 @@ input and kernel to ``dtype``, convolves (float32 accumulation), rounds,
 then adds the bias in ``dtype``; BatchNorm reduces its batch statistics in
 float32, normalises in float32 and rounds its output to ``dtype``.  At
 float32 the layers compute exactly what they did before ``dtype`` existed.
+A module moved to float64 (``module.double()``, the parity mode: the JAX
+package's float64 modules keep float64 parameters and statistics) with
+``dtype=torch.float64`` computes everything in float64.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+import math
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -34,6 +43,40 @@ import torch.nn.functional as F
 from torch import nn
 
 LOWERINGS = ("conv", "einsum", "s2d", "im2col")
+
+# the generator the dropout masks are drawn from (``dropout_rng``)
+_DROPOUT_GENERATOR = contextvars.ContextVar("dropout_generator",
+                                            default=None)
+
+
+@contextlib.contextmanager
+def dropout_rng(generator: Optional[torch.Generator]):
+    """Draw every dropout mask of the forwards run inside from
+    ``generator`` (a ``torch.Generator`` on the modules' device), in the
+    modules' call order: the steps split one generator per step from
+    their ``rng``, as the JAX package splits ``drop_rng``."""
+    token = _DROPOUT_GENERATOR.set(generator)
+    try:
+        yield
+    finally:
+        _DROPOUT_GENERATOR.reset(token)
+
+
+def dropout(x, p: float, training: bool):
+    """``flax.linen.Dropout(rate=p)``: in training mode each element is
+    kept with probability ``1 - p`` and a kept one is divided by ``1 - p``
+    (rounded to ``x.dtype``, as JAX casts its weak-typed scalar); in eval
+    mode, or at ``p = 0``, ``x`` itself.  The mask is drawn with
+    ``torch.rand`` from the generator of ``dropout_rng`` (the default
+    generator outside it); ``F.dropout`` takes no generator."""
+    if not training or p == 0.0:
+        return x
+    if p >= 1.0:
+        return torch.zeros_like(x)
+    keep_prob = float(torch.tensor(1.0 - p, dtype=x.dtype))
+    u = torch.rand(x.shape, generator=_DROPOUT_GENERATOR.get(),
+                   device=x.device, dtype=torch.float32)
+    return torch.where(u < 1.0 - p, x / keep_prob, torch.zeros_like(x))
 
 
 def _pair(v):
@@ -81,12 +124,12 @@ class BatchNorm(nn.Module):
             mean, var = self.running_mean, self.running_var
         else:
             axes = tuple(range(x.ndim - 1))
-            xf = x.float()
+            xf = x if x.dtype == torch.float64 else x.float()
             mean = xf.mean(axes)
             var = ((xf * xf).mean(axes) - mean * mean).clamp_min(0.0)
             self.update_running_stats(mean, var)
         mul = torch.rsqrt(var + self.eps) * self.weight
-        if self.dtype == torch.float32:
+        if self.dtype in (torch.float32, torch.float64):
             return (x - mean) * mul + self.bias
         return ((x.float() - mean) * mul + self.bias).to(self.dtype)
 
@@ -100,8 +143,7 @@ class BatchNorm(nn.Module):
 
 
 def _cast(t, dtype: torch.dtype):
-    """``t`` in the compute ``dtype``; at float32 ``t`` as it is (so a
-    module moved to float64 computes as before)."""
+    """``t`` in the compute ``dtype``; at float32 ``t`` as it is."""
     return t if dtype == torch.float32 else t.to(dtype)
 
 
@@ -143,7 +185,8 @@ def _conv_channels_last(conv: nn.Module, x,
 
 
 class ConvNormRelu(nn.Module):
-    """Conv → BatchNorm → (Leaky)ReLU (``layers.py:69-143``).
+    """Conv → Dropout(p) → BatchNorm → (Leaky)ReLU (``layers.py:69-143``,
+    the reference's order).
 
     ``lowering`` accepts the JAX package's exact-math relowerings
     (``einsum``, ``s2d``, ``im2col``): they compute the same function from
@@ -153,7 +196,8 @@ class ConvNormRelu(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, type: str = "1d",
                  leaky: bool = False, downsample: bool = False,
                  kernel_size=None, stride=None, groups: int = 1,
-                 lowering: str = "conv", dtype: torch.dtype = torch.float32):
+                 lowering: str = "conv", dtype: torch.dtype = torch.float32,
+                 p: float = 0.0):
         super().__init__()
         if lowering not in LOWERINGS:
             raise ValueError(f"unknown lowering {lowering!r}; expected one "
@@ -169,9 +213,12 @@ class ConvNormRelu(nn.Module):
         self.norm = BatchNorm(out_channels * groups, dtype=dtype)
         self.leaky = leaky
         self.dtype = dtype
+        self.p = p
 
     def forward(self, x):
-        x = self.norm(_conv_channels_last(self.conv, x, self.dtype))
+        x = dropout(_conv_channels_last(self.conv, x, self.dtype), self.p,
+                    self.training)
+        x = self.norm(x)
         return leaky_relu(x, 0.2) if self.leaky else F.relu(x)
 
 
@@ -181,10 +228,11 @@ class UNet1D(nn.Module):
     conv] stages.  T must be divisible by 2^max_depth."""
 
     def __init__(self, input_channels: int, output_channels: int,
-                 max_depth: int = 5, dtype: torch.dtype = torch.float32):
+                 max_depth: int = 5, dtype: torch.dtype = torch.float32,
+                 p: float = 0.0):
         super().__init__()
         self.max_depth = max_depth
-        common = dict(type="1d", leaky=True, dtype=dtype)
+        common = dict(type="1d", leaky=True, dtype=dtype, p=p)
         self.pre0 = ConvNormRelu(input_channels, output_channels, **common)
         self.pre1 = ConvNormRelu(output_channels, output_channels, **common)
         for i in range(max_depth):
@@ -218,7 +266,8 @@ def _bilinear_axis(x, out_size: int, axis: int):
     in_size = x.shape[axis]
     if in_size == out_size:
         return x
-    src = (torch.arange(out_size, dtype=torch.float32, device=x.device)
+    pos = torch.float64 if x.dtype == torch.float64 else torch.float32
+    src = (torch.arange(out_size, dtype=pos, device=x.device)
            + 0.5) * (in_size / out_size) - 0.5
     src = src.clamp(0.0, in_size - 1)
     lo = src.floor().long()
@@ -251,14 +300,14 @@ class AudioEncoder(nn.Module):
                 (256, False), (256, True), (256, False))
 
     def __init__(self, lowerings: Optional[Tuple[str, ...]] = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, p: float = 0.0):
         super().__init__()
         if lowerings is not None and (
                 len(lowerings) != 8
                 or any(lo not in ("conv", "s2d", "im2col") for lo in lowerings)):
             raise ValueError(f"lowerings must be 8 entries from "
                              f"conv|s2d|im2col, got {lowerings!r}")
-        common = dict(type="2d", leaky=True, dtype=dtype)
+        common = dict(type="2d", leaky=True, dtype=dtype, p=p)
         cin = 1                                   # one log-mel channel
         for i, (cout, down) in enumerate(self.CHANNELS):
             self.add_module(f"conv{i}", ConvNormRelu(cin, cout,
@@ -282,13 +331,13 @@ class _Conv1DStack(nn.Module):
     plan (``layers.py:311-326``)."""
 
     def __init__(self, plan: Sequence[Tuple[int, int, bool]],
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, p: float = 0.0):
         super().__init__()
         self.depth = len(plan)
         for i, (cin, cout, down) in enumerate(plan):
             self.add_module(f"conv{i}", ConvNormRelu(
                 cin, cout, type="1d", leaky=True, downsample=down,
-                dtype=dtype))
+                dtype=dtype, p=p))
 
     def forward(self, x):
         for i in range(self.depth):
@@ -305,9 +354,9 @@ class PoseEncoder(nn.Module):
     """(B, T, pose_feats) → (B, T, 256) (``layers.py:329-345``)."""
 
     def __init__(self, input_channels: int = 96,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, p: float = 0.0):
         super().__init__()
-        self.stack = _Conv1DStack(_encoder_plan(input_channels), dtype)
+        self.stack = _Conv1DStack(_encoder_plan(input_channels), dtype, p)
 
     def forward(self, x):
         return self.stack(x)
@@ -319,12 +368,12 @@ class PoseStyleEncoder(nn.Module):
     (B, num_speakers)."""
 
     def __init__(self, input_channels: int = 96, num_speakers: int = 4,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, p: float = 0.0):
         super().__init__()
         self.stack = _Conv1DStack([
             (input_channels, 64, False), (64, 64, True), (64, 128, True),
             (128, 128, True), (128, 256, True), (256, 256, True),
-            (256, num_speakers, True)], dtype)
+            (256, num_speakers, True)], dtype, p)
 
     def forward(self, x):
         return self.stack(x).mean(dim=1)
@@ -334,9 +383,9 @@ class TextEncoder1D(nn.Module):
     """(B, T, emb) → (B, T, 256) (``layers.py:373-389``)."""
 
     def __init__(self, input_channels: int = 300,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, p: float = 0.0):
         super().__init__()
-        self.stack = _Conv1DStack(_encoder_plan(input_channels), dtype)
+        self.stack = _Conv1DStack(_encoder_plan(input_channels), dtype, p)
 
     def forward(self, x):
         return self.stack(x)
@@ -347,10 +396,10 @@ class ClusterClassify(nn.Module):
     ConvNormRelu + 1×1 conv (``layers.py:431-452``)."""
 
     def __init__(self, num_clusters: int = 8, input_channels: int = 256,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, p: float = 0.0):
         super().__init__()
         plan = [(input_channels, 256, False)] + [(256, 256, False)] * 5
-        self.stack = _Conv1DStack(plan, dtype)
+        self.stack = _Conv1DStack(plan, dtype, p)
         self.logits = nn.Conv1d(256, num_clusters, 1)
         self.dtype = dtype
 
@@ -400,6 +449,23 @@ class EmbLin(nn.Module):
     def forward(self, x):
         emb = _cast(self.embedding, self.dtype)
         return x.to(emb.dtype) @ emb
+
+
+def confidence_entropy_loss(y, y_cap, confidence, beta: float = 1.0,
+                            epsilon: float = 0.5):
+    """Gaussian-entropy confidence-weighted loss (``layers.py:664-678``,
+    the reference's ``Confidence``), element-wise: each keypoint's
+    confidence sets a Gaussian's width, the prediction's probability under
+    it a second width, whose entropy is the loss."""
+    def get_sigma(c):
+        c = torch.where(c < epsilon, epsilon, c)
+        return 1.0 / (2.0 * math.pi * c)
+
+    sigma = get_sigma(confidence)
+    diff = -((y - y_cap) ** 2)
+    prob = torch.exp(diff / (2.0 * sigma ** 2)) / (2.0 * math.pi * sigma)
+    sigma_ycap = get_sigma(prob)
+    return 0.5 * torch.log(2.0 * math.pi * math.e * (sigma_ycap ** 2)) * beta
 
 
 @torch.no_grad()

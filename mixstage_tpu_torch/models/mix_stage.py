@@ -8,7 +8,7 @@ selection.  Submodule names follow the flax tree, including the
 configs, so the weight bridge round-trips the whole tree.  The mode is
 ``module.train()`` / ``.eval()`` (BatchNorm on batch or running statistics).
 ``dtype`` is the compute dtype (float32 or bfloat16, flax's semantics, see
-``layers.py``): parameters and BatchNorm statistics stay float32, the
+``layers.py``; float64 on a module moved to float64): parameters and BatchNorm statistics stay float32, the
 features, the cluster scores and softmax, and the pose are in ``dtype``, as
 in the JAX package's ``dtype=bfloat16`` model.
 
@@ -41,32 +41,33 @@ class JointLateClusterSoftStyle4_G(nn.Module):
                  num_clusters: int = 8, num_speakers: int = 2,
                  style_dim: int = 10, decoder_lowering: str = "conv",
                  audio_lowerings: Optional[Tuple[str, ...]] = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, p: float = 0.0):
         super().__init__()
         self.num_clusters = num_clusters
         self.num_speakers = num_speakers
         self.dtype = dtype
         M = num_clusters
+        common = dict(dtype=dtype, p=p)      # every ConvNormRelu drops p
         self.audio_encoder = AudioEncoder(lowerings=audio_lowerings,
-                                          dtype=dtype)
-        self.pose_encoder = PoseEncoder(input_channels=out_feats, dtype=dtype)
-        self.unet = UNet1D(CONTENT_FEATS, in_channels, dtype=dtype)
+                                          **common)
+        self.pose_encoder = PoseEncoder(input_channels=out_feats, **common)
+        self.unet = UNet1D(CONTENT_FEATS, in_channels, **common)
         self.style_emb = EmbLin(num_speakers, style_dim, dtype=dtype)
         # content mixture decoder: 4 grouped ConvNormRelu (jlcss4.py:69-83)
         self.decoder0 = ConvNormRelu(style_dim + in_channels, in_channels,
                                      type="1d", leaky=True, groups=M,
-                                     lowering=decoder_lowering, dtype=dtype)
+                                     lowering=decoder_lowering, **common)
         for i in range(1, 4):
             self.add_module(f"decoder{i}", ConvNormRelu(
                 in_channels, in_channels, type="1d", leaky=True, groups=M,
-                lowering=decoder_lowering, dtype=dtype))
+                lowering=decoder_lowering, **common))
         self.logits = GroupedPointwiseConv(in_channels * M, out_feats * M,
                                            groups=M, dtype=dtype)
         self.concat_encoder = ConvNormRelu(2 * CONTENT_FEATS, CONTENT_FEATS,
-                                           type="1d", leaky=True, dtype=dtype)
+                                           type="1d", leaky=True, **common)
         self.classify_cluster = ClusterClassify(
             num_clusters=M, input_channels=style_dim + in_channels,
-            dtype=dtype)
+            **common)
 
     def decoder_layers(self):
         return [getattr(self, f"decoder{i}") for i in range(4)]

@@ -36,6 +36,10 @@ statistics and the leaky unit run in float32 and the activation is rounded
 rounds dc to bf16 before the dW and d(input) products (``:227``), and
 returns every gradient in float32 (``:332-341``).  mu and var are float32
 in both modes.
+
+K3 has no float64 mode.  The plain versions also take float64 tensors on
+the CPU (the JAX package's float64 parity mode, where they compute
+everything in float64); on CUDA a float64 call raises.
 """
 
 from __future__ import annotations
@@ -68,12 +72,18 @@ def _bn_leaky(cf, mu, var, gamma, beta):
     return xhat, pre, torch.where(pre >= 0, pre, SLOPE * pre)
 
 
+def _acc(dt):
+    """The plain versions' accumulation dtype: float64 for float64
+    inputs, else float32."""
+    return torch.float64 if dt == torch.float64 else torch.float32
+
+
 def _conv_bias(h, w, cb):
-    """K3's conv + bias: at float32 one conv with its bias; below it the
-    float32 sum rounded to ``h.dtype`` before the bias add, and the sum
-    rounded again (flax's ``nn.Conv``, ``train_decoder.py:93-95``)."""
+    """K3's conv + bias: at float32 (float64) one conv with its bias; below
+    it the float32 sum rounded to ``h.dtype`` before the bias add, and the
+    sum rounded again (flax's ``nn.Conv``, ``train_decoder.py:93-95``)."""
     dt = h.dtype
-    if dt == torch.float32:
+    if dt in (torch.float32, torch.float64):
         return F.conv1d(h, w, cb, padding=1)
     acc = F.conv1d(h.float(), w.float(), None, padding=1)
     return (acc.to(dt).float() + cb.float()[:, None]).to(dt)
@@ -86,6 +96,7 @@ def decoder_train_fwd_plain(x, w0, wc, cb, gamma, beta, wl, bl):
     B, T, _ = x.shape
     G, C, Fo = w0.shape[0], w0.shape[-1], wl.shape[-1]
     dt = x.dtype
+    acc = _acc(dt)
     outs, cs, mus, vrs = [], [], [], []
     for g in range(G):
         h = x.transpose(1, 2)                               # (B, cin, T)
@@ -94,17 +105,17 @@ def decoder_train_fwd_plain(x, w0, wc, cb, gamma, beta, wl, bl):
             w = w0[g] if layer == 0 else wc[layer - 1, g]   # (3, cin, C)
             c = _conv_bias(h, w.permute(2, 1, 0), cb[g, layer])
             c = c.transpose(1, 2).reshape(B * T, C)
-            cf = c.float()
+            cf = c.to(acc)
             mu = cf.mean(0)
             var = (cf * cf).mean(0) - mu * mu
-            _, _, act = _bn_leaky(cf, mu, var, gamma[g, layer].float(),
-                                  beta[g, layer].float())
+            _, _, act = _bn_leaky(cf, mu, var, gamma[g, layer].to(acc),
+                                  beta[g, layer].to(acc))
             cs_g.append(c.reshape(B, T, C))
             mu_g.append(mu)
             var_g.append(var)
             h = act.to(dt).reshape(B, T, C).transpose(1, 2)
-        outs.append((h.transpose(1, 2).float() @ wl[g].float()
-                     + bl[g].float()).to(dt))
+        outs.append((h.transpose(1, 2).to(acc) @ wl[g].to(acc)
+                     + bl[g].to(acc)).to(dt))
         cs.append(torch.stack(cs_g))
         mus.append(torch.stack(mu_g))
         vrs.append(torch.stack(var_g))
@@ -126,23 +137,24 @@ def decoder_train_bwd_plain(dout, x, cs, mu, var, w0, wc, gamma, beta, wl):
     layer walking back: leaky', dγ, dβ, the train-mode BN backward
     ``inv·(dxhat − mean(dxhat) − xhat·mean(dxhat·xhat))``, dcb, the per-tap
     dW and d(input) with the taps shifted back; dx is summed over groups.
-    Returns (dx, dw0, dwc, dcb, dgamma, dbeta, dwl, dbl), all float32.
-    With bfloat16 inputs the recomputed activations and dc are rounded to
+    Returns (dx, dw0, dwc, dcb, dgamma, dbeta, dwl, dbl), all float32
+    (float64 for float64 inputs).  With bfloat16 inputs the recomputed activations and dc are rounded to
     bfloat16 where they feed a product, as K3 rounds them."""
     B, T, C0 = x.shape
     G, C, N = w0.shape[0], w0.shape[-1], B * T
     dt = x.dtype
+    acc = _acc(dt)
 
-    def rounded(v):              # at float32 both casts are no-ops
-        return v.to(dt).float()
+    def rounded(v):              # at float32 (float64) both casts are no-ops
+        return v.to(dt).to(acc)
 
-    f32 = dict(dtype=torch.float32, device=x.device)
+    f32 = dict(dtype=acc, device=x.device)
     dx = torch.zeros(x.shape, **f32)
     dw0, dwc = torch.empty(w0.shape, **f32), torch.empty(wc.shape, **f32)
     dcb, dg, db = (torch.empty(gamma.shape, **f32) for _ in range(3))
     dwl = torch.empty(wl.shape, **f32)
     dbl = torch.empty((G, 1, wl.shape[-1]), **f32)
-    x, cs, w0, wc, gamma, beta, wl = (t.float() for t in (x, cs, w0, wc,
+    x, cs, w0, wc, gamma, beta, wl = (t.to(acc) for t in (x, cs, w0, wc,
                                                           gamma, beta, wl))
 
     def act(g, layer):
@@ -150,7 +162,7 @@ def decoder_train_bwd_plain(dout, x, cs, mu, var, w0, wc, gamma, beta, wl):
                          var[g, layer], gamma[g, layer], beta[g, layer])
 
     for g in range(G):
-        do = dout[g].reshape(N, -1).float()
+        do = dout[g].reshape(N, -1).to(acc)
         h3 = rounded(act(g, L - 1)[2])
         dwl[g] = h3.T @ do
         dbl[g, 0] = do.sum(0)
@@ -197,13 +209,18 @@ _STATS = ("mu", "var")           # float32 in both modes
 
 def _check(**tensors):
     """The device of ``tensors`` and their mode's dtype (float32, or
-    bfloat16 for all but mu / var); raises on anything else."""
+    bfloat16 for all but mu / var; float64 throughout for the CPU plain
+    versions); raises on anything else."""
     first = next(iter(tensors.values()))
     dev, dt = first.device, first.dtype
-    if dt not in (torch.float32, torch.bfloat16):
+    if dt == torch.float64 and dev.type != "cpu":
+        raise NotImplementedError(
+            "K3 has no float64 mode: the float64 parity mode runs its plain "
+            "versions on the CPU (ROADMAP queue 3)")
+    if dt not in (torch.float32, torch.bfloat16, torch.float64):
         raise TypeError(f"K3 takes float32 or bfloat16 tensors, got {dt}")
     for name, t in tensors.items():
-        want = torch.float32 if name in _STATS else dt
+        want = _acc(dt) if name in _STATS else dt
         if t.dtype != want:
             raise TypeError(f"{name} must be {want} (the {dt} mode), got "
                             f"{t.dtype}")

@@ -2,8 +2,9 @@
 
 Counterpart of ``mixstage_tpu/train/losses.py``: the four criteria with
 their construction kwargs, the per-sample weighted mean, cross-entropy,
-pose velocity and the GAN λ ramp.  Criteria return elementwise losses;
-reduction is structural in the step functions.
+pose velocity, the GAN λ ramp and the weighted GAN's adaptive D/G coin.
+Criteria return elementwise losses; reduction is structural in the step
+functions.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ from __future__ import annotations
 from functools import partial
 from typing import Callable, Dict
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -84,11 +86,30 @@ def velocity(x):
 
 
 def lambda_schedule(step: int, init_lambda: float, max_lambda: float = 2.0,
-                    max_interval: int = 300) -> float:
+                    max_interval: int = 300,
+                    dtype: torch.dtype = torch.float32) -> float:
     """GAN loss-weight ramp: linear from ``init_lambda`` to ``max_lambda``
     over ``max_interval`` steps, then held.  ``step`` is a host counter, so
-    the ramp is a host float (evaluated in float32, as the JAX package
-    does on device)."""
-    frac = torch.tensor(step, dtype=torch.float32) / max_interval
+    the ramp is a host float, evaluated in float32 as the JAX package does
+    on device (in ``dtype=torch.float64`` for its x64 mode, where JAX's
+    ``step / max_interval`` is float64)."""
+    frac = torch.tensor(step, dtype=dtype) / max_interval
     frac = frac.clamp(0.0, 1.0)
     return float(init_lambda + (max_lambda - init_lambda) * frac)
+
+
+def adaptive_d_prob(d_prob: float, W, dg_iter_ratio: float = 1.0,
+                    ema: float = 0.9, lo: float = 0.05,
+                    hi: float = 0.95) -> float:
+    """The D/G coin probability adapted from the weighted GAN's sample
+    weights (``-update_D_prob_flag``, ``losses.py:96-118``): W = 1/p_real,
+    so a high mean W says the discriminator is unconvinced by real samples
+    and should train more often.  The effective iteration ratio becomes
+    ``r·mean(W)``, the target probability ``r'/(r'+1)``, blended into the
+    old one by an EMA and clipped to [lo, hi].  Host float math."""
+    w_mean = float(np.mean(np.asarray(W, np.float64)))
+    if not np.isfinite(w_mean) or w_mean <= 0:
+        return d_prob
+    r_eff = dg_iter_ratio * w_mean
+    target = r_eff / (r_eff + 1.0)
+    return float(np.clip(ema * d_prob + (1.0 - ema) * target, lo, hi))

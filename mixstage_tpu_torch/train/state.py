@@ -1,21 +1,35 @@
-"""Train state, optimizer and learning-rate schedules.
+"""Train state, optimizers and learning-rate schedules.
 
 Counterpart of ``mixstage_tpu/train/state.py``.  The JAX package threads a
 pytree of parameters through pure step functions; here the state holds the
-modules themselves (the G side: ``gen`` + ``psenc``; the D side: ``disc``),
-their optimizers and the four host counters, and the steps update it in
-place.
+modules themselves (the G side: ``gen`` and, for the style models,
+``psenc``; the D side: ``disc`` when the config trains a GAN), their
+optimizers and the four host counters, and the steps update it in place.
 
-The optimizer is optax's ``chain(clip_by_global_norm(1.0), adam(lr))``
-ported rule for rule, on PyTorch's multi-tensor (``_foreach``) ops:
+Each optimizer is optax's ``chain(clip_by_global_norm(1.0), <optimizer>)``
+ported rule for rule, on PyTorch's multi-tensor (``_foreach``) ops (optax
+semantics, not ``torch.optim``'s):
 
 * the clip (max norm 1) sees the global norm over ALL of the optimizer's
   leaves and scales by ``1 / norm`` only when ``norm ≥ 1``, with no
   ``+1e-6`` (so ``torch.nn.utils.clip_grad_norm_`` is not used);
-* Adam keeps optax's defaults (b1 0.9, b2 0.999, eps 1e-8, eps_root 0) and
-  its order of operations: ``mu = (1-b1)·g + b1·mu``, ``nu = (1-b2)·g² +
-  b2·nu``, ``u = mu_hat / (sqrt(nu_hat) + eps)``, bias
-  corrections ``1 - b^count`` in float32;
+* ``Adam`` (``optax.adam``): b1 0.9, b2 0.999, eps 1e-8, eps_root 0, in
+  optax's order: ``mu = (1-b1)·g + b1·mu``, ``nu = (1-b2)·g² + b2·nu``,
+  ``u = mu_hat / (sqrt(nu_hat) + eps)``, bias corrections ``1 - b^count``
+  (float32; float64 for float64 parameters).  ``mu_dtype`` (the
+  ``optim_mu_dtype`` flag) stores ``mu`` in that dtype: the update is
+  computed from the float32 ``mu``, which is then cast, as
+  ``scale_by_adam(mu_dtype=...)`` does;
+* ``AdamW`` (``optax.adamw``): Adam's update plus ``weight_decay · param``
+  (default 1e-4, no mask), then scaled by ``-lr``;
+* ``SGD`` (``optax.sgd``): no state without ``momentum`` (the default);
+  with it the trace ``t = g + momentum·t`` (``nesterov``: ``g +
+  momentum·t``) is the update;
+* ``RMSprop`` (``optax.rmsprop``): ``nu = (1-decay)·g² + decay·nu`` from
+  ``initial_scale`` 0, decay 0.9, the update ``g · rsqrt(nu + eps)`` (eps
+  1e-8 inside the root; ``torch.optim.RMSprop``'s α 0.99 and ``g /
+  (sqrt(v) + eps)`` compute something else), scaled by ``-lr``, then the
+  optional momentum trace;
 * the learning rate is the schedule at the count BEFORE the update.
 """
 
@@ -23,7 +37,7 @@ from __future__ import annotations
 
 import dataclasses
 from functools import partial
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -37,29 +51,52 @@ def _f32(v) -> float:
     return float(torch.tensor(v, dtype=torch.float32))
 
 
-class ClippedAdam:
-    """Global-norm clip at ``MAX_NORM`` then Adam, over a fixed list of named
-    parameters.
+def _dtype(name) -> Optional[torch.dtype]:
+    """``None``, a torch dtype or its name ("bfloat16") → a torch dtype."""
+    if name is None or isinstance(name, torch.dtype):
+        return name
+    return getattr(torch, str(name))
 
-    ``step(grads)`` updates the parameters, ``mu``, ``nu`` and ``count`` in
-    place.  ``mu`` / ``nu`` are lists aligned with ``names``."""
+
+def _scalar_in(v: float, dtype: torch.dtype) -> float:
+    """``v`` rounded to ``dtype``."""
+    return float(torch.tensor(v, dtype=dtype))
+
+
+class ClippedOptimizer:
+    """Global-norm clip at ``MAX_NORM``, then one optax update rule, over a
+    fixed list of named parameters.
+
+    ``step(grads)`` updates the parameters, the rule's state tensors (the
+    lists named by ``SLOTS``, aligned with ``names``) and ``count`` in
+    place.  A subclass gives ``SLOTS`` and ``_direction(grads)``: the
+    update before the learning rate scales it."""
 
     MAX_NORM = 1.0          # the reference clips G and D to 1 (both steps)
+    SLOTS: Tuple[str, ...] = ()
 
     def __init__(self, named_params: Sequence[Tuple[str, torch.Tensor]],
-                 lr: float = 1e-4, schedule: Optional[Schedule] = None,
-                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+                 lr: float = 1e-4, schedule: Optional[Schedule] = None):
         self.names = [n for n, _ in named_params]
         self.params = [p for _, p in named_params]
         self.lr, self.schedule = lr, schedule
-        self.b1, self.b2, self.eps = b1, b2, eps
-        self.mu = [torch.zeros_like(p) for p in self.params]
-        self.nu = [torch.zeros_like(p) for p in self.params]
         self.count = 0
+        # float64 parameters (the parity mode) take float64 scalars, as
+        # optax does under x64; otherwise the float32 ones of the JAX
+        # package's device computation
+        self.f64 = any(p.dtype == torch.float64 for p in self.params)
+
+    def slots(self) -> Dict[str, List[torch.Tensor]]:
+        """The rule's state tensors by optax field name (``mu``, ``nu``,
+        ``trace``)."""
+        return {s: getattr(self, s) for s in self.SLOTS}
 
     def learning_rate(self) -> float:
         """The rate of the next update (schedule at the current count)."""
         return self.schedule(self.count) if self.schedule else self.lr
+
+    def _scalar(self, v) -> float:
+        return float(v) if self.f64 else _f32(v)
 
     @torch.no_grad()
     def clip(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
@@ -70,6 +107,9 @@ class ClippedAdam:
         norm = torch.stack(torch._foreach_norm(grads)).square().sum().sqrt()
         return torch._foreach_div(grads, norm.clamp_min(self.MAX_NORM))
 
+    def _direction(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
+        raise NotImplementedError
+
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor]) -> None:
         grads = list(grads)
@@ -78,23 +118,152 @@ class ClippedAdam:
                              f"{len(self.params)} parameters")
         grads = self.clip(grads)
         rate = self.learning_rate()
+        self.count += 1
+        upd = self._direction(grads)
+        torch._foreach_mul_(upd, -self._scalar(rate))
+        self._after_rate(upd)
+        torch._foreach_add_(self.params, upd)
+
+    def _after_rate(self, upd: List[torch.Tensor]) -> None:
+        """A transformation after the learning rate (RMSprop's momentum)."""
+
+
+class ClippedAdam(ClippedOptimizer):
+    """``optax.adam`` (``mu_dtype``: the first moment's storage dtype)."""
+
+    SLOTS = ("mu", "nu")
+
+    def __init__(self, named_params, lr: float = 1e-4,
+                 schedule: Optional[Schedule] = None, b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-8, mu_dtype=None):
+        super().__init__(named_params, lr, schedule)
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.mu_dtype = _dtype(mu_dtype)
+        self.mu = [torch.zeros_like(p, dtype=self.mu_dtype or p.dtype)
+                   for p in self.params]
+        self.nu = [torch.zeros_like(p) for p in self.params]
+
+    def _bias_correction(self, b: float) -> float:
+        if self.f64:
+            return 1.0 - b ** self.count
+        c = torch.tensor(float(self.count), dtype=torch.float32)
+        return float(1.0 - torch.tensor(b, dtype=torch.float32) ** c)
+
+    def _direction(self, grads):
         b1, b2 = self.b1, self.b2
-        torch._foreach_mul_(self.mu, b1)
-        torch._foreach_add_(self.mu, torch._foreach_mul(grads, 1.0 - b1))
+        if self.mu_dtype is None:
+            torch._foreach_mul_(self.mu, b1)
+            torch._foreach_add_(self.mu, torch._foreach_mul(grads, 1.0 - b1))
+            mu = self.mu
+        else:
+            # optax's update_moment on a bf16 mu: b1 (a weak-typed scalar)
+            # becomes a bf16 constant, b1·mu rounds to bf16, the sum takes
+            # the gradients' dtype; the update uses that sum, mu stores it
+            # cast
+            b1_mu = _scalar_in(b1, self.mu_dtype)
+            mu = torch._foreach_mul(grads, 1.0 - b1)
+            torch._foreach_add_(mu, torch._foreach_mul(self.mu, b1_mu))
+            torch._foreach_copy_(self.mu, mu)
         torch._foreach_mul_(self.nu, b2)
         torch._foreach_add_(self.nu, torch._foreach_mul(
             torch._foreach_mul(grads, grads), 1.0 - b2))
-        self.count += 1
-        c = torch.tensor(float(self.count), dtype=torch.float32)
-        bc1 = float(1.0 - torch.tensor(b1, dtype=torch.float32) ** c)
-        bc2 = float(1.0 - torch.tensor(b2, dtype=torch.float32) ** c)
+        bc1, bc2 = self._bias_correction(b1), self._bias_correction(b2)
         nu_hat = torch._foreach_div(self.nu, bc2)
         torch._foreach_sqrt_(nu_hat)
         torch._foreach_add_(nu_hat, self.eps)
-        upd = torch._foreach_div(self.mu, bc1)
+        upd = torch._foreach_div(mu, bc1)
         torch._foreach_div_(upd, nu_hat)
-        torch._foreach_mul_(upd, -_f32(rate))
-        torch._foreach_add_(self.params, upd)
+        return upd
+
+
+class ClippedAdamW(ClippedAdam):
+    """``optax.adamw``: Adam's update plus ``weight_decay · param``."""
+
+    def __init__(self, named_params, lr: float = 1e-4,
+                 schedule: Optional[Schedule] = None,
+                 weight_decay: float = 1e-4, **adam):
+        super().__init__(named_params, lr, schedule, **adam)
+        self.weight_decay = weight_decay
+
+    def _direction(self, grads):
+        upd = super()._direction(grads)
+        torch._foreach_add_(upd, torch._foreach_mul(self.params,
+                                                    self.weight_decay))
+        return upd
+
+
+def _trace(trace: List[torch.Tensor], upd: List[torch.Tensor],
+           momentum: float, nesterov: bool) -> List[torch.Tensor]:
+    """optax ``trace``: ``t ← g + momentum·t`` in place; the update is
+    ``t`` (``nesterov``: ``g + momentum·t``)."""
+    torch._foreach_mul_(trace, momentum)
+    torch._foreach_add_(trace, upd)
+    if nesterov:
+        return torch._foreach_add(upd, torch._foreach_mul(trace, momentum))
+    return [t.clone() for t in trace]
+
+
+class ClippedSGD(ClippedOptimizer):
+    """``optax.sgd``: the gradient, or its momentum trace."""
+
+    def __init__(self, named_params, lr: float = 1e-4,
+                 schedule: Optional[Schedule] = None,
+                 momentum: Optional[float] = None, nesterov: bool = False):
+        super().__init__(named_params, lr, schedule)
+        self.momentum, self.nesterov = momentum, nesterov
+        if momentum is not None:
+            self.SLOTS = ("trace",)
+            self.trace = [torch.zeros_like(p) for p in self.params]
+
+    def _direction(self, grads):
+        if self.momentum is None:
+            return grads
+        return _trace(self.trace, grads, self.momentum, self.nesterov)
+
+
+class ClippedRMSprop(ClippedOptimizer):
+    """``optax.rmsprop`` (not centered, no bias correction)."""
+
+    def __init__(self, named_params, lr: float = 1e-4,
+                 schedule: Optional[Schedule] = None, decay: float = 0.9,
+                 eps: float = 1e-8, initial_scale: float = 0.0,
+                 eps_in_sqrt: bool = True, centered: bool = False,
+                 momentum: Optional[float] = None, nesterov: bool = False,
+                 bias_correction: bool = False):
+        if centered or bias_correction:
+            raise NotImplementedError(
+                "RMSprop with centered or bias_correction: the port has "
+                "optax's default rmsprop (ROADMAP queue 1 item 7)")
+        super().__init__(named_params, lr, schedule)
+        self.decay, self.eps, self.eps_in_sqrt = decay, eps, eps_in_sqrt
+        self.momentum, self.nesterov = momentum, nesterov
+        self.SLOTS = ("nu",) + (("trace",) if momentum is not None else ())
+        self.nu = [torch.full_like(p, initial_scale) for p in self.params]
+        if momentum is not None:
+            self.trace = [torch.zeros_like(p) for p in self.params]
+
+    def _direction(self, grads):
+        torch._foreach_mul_(self.nu, self.decay)
+        torch._foreach_add_(self.nu, torch._foreach_mul(
+            torch._foreach_mul(grads, grads), 1.0 - self.decay))
+        if self.eps_in_sqrt:
+            scale = torch._foreach_add(self.nu, self.eps)
+            torch._foreach_rsqrt_(scale)
+        else:
+            scale = torch._foreach_sqrt(self.nu)
+            torch._foreach_add_(scale, self.eps)
+            torch._foreach_reciprocal_(scale)
+        return torch._foreach_mul(scale, grads)
+
+    def _after_rate(self, upd):
+        if self.momentum is not None:
+            new = _trace(self.trace, upd, self.momentum, self.nesterov)
+            for dst, src in zip(upd, new):
+                dst.copy_(src)
+
+
+OPTIMIZERS = {"Adam": ClippedAdam, "AdamW": ClippedAdamW,
+              "SGD": ClippedSGD, "RMSprop": ClippedRMSprop}
 
 
 def translate_optim_kwargs(kwargs: dict) -> dict:
@@ -107,16 +276,21 @@ def translate_optim_kwargs(kwargs: dict) -> dict:
 
 
 def make_optimizer(name: str, lr: float, schedule: Optional[Schedule] = None,
-                   **kwargs) -> Callable[[Sequence[Tuple[str, torch.Tensor]]],
-                                         ClippedAdam]:
+                   text_lr: Optional[float] = None, **kwargs
+                   ) -> Callable[[Sequence[Tuple[str, torch.Tensor]]],
+                                 ClippedOptimizer]:
     """A constructor ``named_params → optimizer`` (``state.py:57-87``) with
-    the clip every caller of the JAX package asks for.  Adam only: the other
-    optimizers of the JAX package are not ported."""
-    if name != "Adam":
+    the clip every caller of the JAX package asks for.  ``kwargs`` are the
+    optax optimizer's (``translate_optim_kwargs``); an unknown one raises
+    ``TypeError`` when the optimizer is built, as optax raises."""
+    if name not in OPTIMIZERS:
+        raise KeyError(f"optimizer {name!r} unknown; known: "
+                       f"{sorted(OPTIMIZERS)}")
+    if text_lr is not None:
         raise NotImplementedError(
-            f"optimizer {name!r}: the port has Adam only (the others wait "
-            f"for a later slice, ROADMAP queue 1)")
-    return partial(ClippedAdam, lr=lr, schedule=schedule, **kwargs)
+            "-optim_separate: the text encoder's own learning rate needs "
+            "the text modalities, which come later (ROADMAP queue 1 item 4)")
+    return partial(OPTIMIZERS[name], lr=lr, schedule=schedule, **kwargs)
 
 
 def make_schedule(kind: Optional[str], lr: float, gamma: float,
@@ -144,23 +318,26 @@ def make_schedule(kind: Optional[str], lr: float, gamma: float,
 
 @dataclasses.dataclass
 class TrainState:
-    """The G side (``gen`` and the pose-style encoder ``psenc``), the D side
-    (``disc``), their optimizers and the counters."""
+    """The G side (``gen`` and, for the style models, the pose-style
+    encoder ``psenc``), the D side (``disc``, None without a GAN), their
+    optimizers and the counters."""
 
     gen: nn.Module
-    psenc: nn.Module
-    disc: nn.Module
-    g_opt: ClippedAdam
-    d_opt: ClippedAdam
+    psenc: Optional[nn.Module]
+    disc: Optional[nn.Module]
+    g_opt: ClippedOptimizer
+    d_opt: Optional[ClippedOptimizer]
     step: int = 0
     g_step: int = 0
     lambda_step: int = 0
     curriculum_step: int = 0
 
 
-def g_named_parameters(gen: nn.Module, psenc: nn.Module
+def g_named_parameters(gen: nn.Module, psenc: Optional[nn.Module]
                        ) -> List[Tuple[str, torch.Tensor]]:
     """G's leaves as the G optimizer sees them: ``gen.*`` then ``psenc.*``
     (one global norm over both, as ``g_tx`` clips)."""
-    return [("gen." + n, p) for n, p in gen.named_parameters()] + \
-        [("psenc." + n, p) for n, p in psenc.named_parameters()]
+    out = [("gen." + n, p) for n, p in gen.named_parameters()]
+    if psenc is not None:
+        out += [("psenc." + n, p) for n, p in psenc.named_parameters()]
+    return out

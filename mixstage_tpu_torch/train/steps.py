@@ -1,36 +1,63 @@
-"""GAN train and eval steps of the Mix-StAGE generator.
+"""Train and eval steps: the GAN, the non-GAN and the classifier trainers.
 
-Counterpart of ``mixstage_tpu/train/steps.py`` for the flagship
-configuration (``JointLateClusterSoftStyle4_G`` against
-``Speech2Gesture_D``, audio input, float32 or bfloat16 compute).  The JAX
-package jits pure functions of a state pytree; here the modules live in
-``TrainState`` and a step updates it in place, with ``module.train()`` /
-``.eval()`` as the mode:
+Counterpart of ``mixstage_tpu/train/steps.py``: every configuration its
+``StepFactory`` builds but those that need text or a Disentangle model.
+The JAX package jits pure functions of a state pytree; here the modules
+live in ``TrainState`` and a step updates it in place, with
+``module.train()`` / ``.eval()`` as the mode:
 
 * G step: G and D in TRAIN mode.  D's running statistics update from the
   fakes; its parameters get no update (gradients w.r.t. G's leaves only).
 * D step: G in EVAL mode under ``no_grad`` (running statistics, no update).
   D runs on the fakes, then on the reals; the second call starts from the
   statistics the first one left.
+* non-GAN step (``gan=False``, ``steps.py:477-505``): G alone, the pose
+  loss and the internal losses; the classifier step (``StyleClassifier_G``,
+  ``:619-651``): cross-entropy on the speaker id, with its accuracy.
+* ``make_steps()`` gives ``{"g", "d", "eval"}`` for a GAN, else
+  ``{"train", "eval"}``.
+* the model family follows the name: a Mix-StAGE style generator with its
+  pose-style encoder, ``StyleClassifier_G``, or a simple generator
+  (``Speech2Gesture_G``) on the early-fused inputs.
+* ``weighted``: D has two classes; before each step D in eval mode scores
+  the real poses and ``W = clip(1 / p_real, 0.1, 10)`` per sample weighs
+  G's losses by ``1 / W`` (``:257-271``); ``joint``: D sees the velocity
+  concatenated with the input streams (``:245-255``).
+* ``noise`` adds ``noise · N(0, 1)`` to the target pose, drawn by
+  ``pose_noise``; ``p_dropout`` drops in every ``ConvNormRelu`` of the
+  modules run in training mode.  Each step takes an ``rng`` (a seed or a
+  ``torch.Generator``; None is seed 0) and splits a noise and a dropout
+  generator from it (``split_rng``), as JAX splits ``noise_rng`` and
+  ``drop_rng``.  The draws are torch's, not JAX's.
+* a batch with ``confidence`` adds the confidence entropy loss to G's
+  total (``:273-281``).
 * ``some_grad_flag`` freezes psenc's parameters for the id_out loss only.
-* The λ ramp reads ``lambda_step``; both steps advance it.  The curriculum
-  ``use_pose_input`` coin is a Python argument.
+* The λ ramp reads ``lambda_step``; both GAN steps advance it.  The
+  curriculum ``use_pose_input`` coin is a Python argument.
 * ``fused_decoder``: the backbone runs through autograd and the mixture
   decoder through kernel K3 (``ops/cuda/train_decoder.py``); the decoder's
   running statistics take the flax rule from K3's batch mean / variance.
+  It needs ``p_dropout == 0`` (``:338-339``) and a Mix-StAGE generator.
 * ``dtype=torch.bfloat16`` (``steps.py:136-137``): the modules compute in
-  bf16 with float32 parameters, BatchNorm statistics and Adam state; the
-  batch's float leaves are cast to bf16 (``bench.py:227-229``), the losses
-  are computed in bf16 as flax computes them and returned as float32
-  scalars (``steps.py:689-695``), the pose in bf16.  K3 runs its bf16 mode.
+  bf16 with float32 parameters, BatchNorm statistics and optimizer state;
+  the batch's float leaves are cast to bf16 (``bench.py:227-229``), the
+  losses are computed in bf16 as flax computes them and returned as
+  float32 scalars (``steps.py:689-695``), the pose in bf16.  K3 runs its
+  bf16 mode.
+* ``dtype=torch.float64`` (the parity mode): float64 parameters,
+  statistics, optimizer state and losses.  K3 has no float64 mode, so
+  ``fused_decoder`` at float64 is refused on the card (its plain versions
+  run it on the CPU).
 
-Configurations the port does not cover yet raise ``NotImplementedError``.
+Configurations the port does not cover yet raise ``NotImplementedError``
+naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Sequence, Tuple
+from functools import partial
+from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -38,7 +65,9 @@ import torch.nn.functional as F
 
 from mixstage_tpu_torch.device import resolve_device
 from mixstage_tpu_torch.models.layers import (PoseStyleEncoder,
-                                              reset_parameters_, softmax)
+                                              confidence_entropy_loss,
+                                              dropout_rng, reset_parameters_,
+                                              softmax)
 from mixstage_tpu_torch.models.registry import (get_model_def,
                                                 infer_discriminator_name)
 from mixstage_tpu_torch.ops.mixture import index_select_outputs
@@ -48,6 +77,11 @@ from mixstage_tpu_torch.train.state import (TrainState, g_named_parameters,
                                             translate_optim_kwargs)
 
 Batch = Dict[str, Any]
+Rng = Union[None, int, torch.Generator]
+
+# the joint D's extra input channels per stream (steps.py:178-183)
+JOINT_CHANNELS = {"audio/log_mel_512": 128, "audio/log_mel_400": 64,
+                  "text/w2v": 300, "text/bert": 768}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,56 +144,82 @@ class StepConfig:
 
 
 def _unsupported(cfg: StepConfig) -> Optional[str]:
-    """Why the port cannot run ``cfg`` yet (None when it can)."""
-    later = "(ROADMAP queue 1)"
-    if not cfg.has_style or cfg.is_classifier:
-        return (f"model {cfg.model!r}: the port trains the Mix-StAGE style "
-                f"generators; the classifier and the simple models come "
-                f"later {later}")
+    """Why the port cannot run ``cfg`` (None when it can)."""
+    item = "(ROADMAP queue 1 item {})"
     if any(not m.startswith("audio/") for m in cfg.input_modalities) or \
             len(cfg.input_modalities) != 1 or cfg.text_channels:
-        return f"text modalities and fused streams come later {later}"
-    if not cfg.gan:
-        return f"the non-GAN trainer comes later {later}"
-    if cfg.weighted:
-        return f"the weighted GAN comes later {later}"
-    if cfg.joint:
-        return f"the joint discriminator comes later {later}"
-    if cfg.dtype not in (torch.float32, torch.bfloat16):
-        return (f"dtype {cfg.dtype}: the port trains in float32 or "
-                f"bfloat16; the float64 parity mode comes later {later}")
-    if cfg.noise > 0:
-        return f"pose noise comes later {later}"
-    if cfg.p_dropout > 0:
-        return f"dropout comes later {later}"
-    if cfg.optim_separate is not None or cfg.optim_mu_dtype:
-        return f"optim_separate / optim_mu_dtype come later {later}"
+        return f"text modalities and fused streams come later {item.format(4)}"
+    if cfg.optim_separate is not None:
+        return (f"-optim_separate: the text encoder's own learning rate "
+                f"comes with the text modalities {item.format(4)}")
     if cfg.style_losses or "Disentangle" in cfg.model:
-        return f"the Disentangle losses come later {later}"
+        return f"the Disentangle losses come later {item.format(4)}"
     if cfg.audio_lowering:
         return ("audio_lowering is a TPU relowering plan of the same math; "
-                f"the port runs native convs {later}")
+                f"the port runs native convs {item.format(4)}: not to port")
+    if cfg.fused_decoder and cfg.p_dropout > 0:
+        return (f"-fused_decoder requires p_dropout == 0 (steps.py:338-339):"
+                f" K3 has no dropout (ROADMAP queue 3)")
+    if cfg.fused_decoder and not cfg.has_style:
+        return (f"-fused_decoder runs the Mix-StAGE mixture decoder on K3; "
+                f"{cfg.model} has none (ROADMAP queue 3)")
     return None
 
 
+def _float_to(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A float leaf in the compute ``dtype``: through float32 (the batch's
+    dtype, ``bench.py:227-229``), or straight to float64."""
+    return t.to(dtype) if dtype == torch.float64 else t.float().to(dtype)
+
+
 def _to_device(batch: Batch, device, dtype=torch.float32) -> Batch:
-    """The batch on ``device``, its float leaves in the compute ``dtype``
-    (``bench.py:227-229``)."""
-    if batch.get("confidence") is not None:
-        raise NotImplementedError("the confidence loss comes later "
-                                  "(ROADMAP queue 1)")
+    """The batch on ``device``, its float leaves in the compute ``dtype``."""
     out = {}
     for k, v in batch.items():
         if v is None:
             out[k] = None
         elif k == "x":
-            out[k] = [torch.as_tensor(a, dtype=torch.float32,
-                                      device=device).to(dtype) for a in v]
+            out[k] = [_float_to(torch.as_tensor(a, device=device), dtype)
+                      for a in v]
         else:
             t = torch.as_tensor(np.asarray(v) if not torch.is_tensor(v)
                                 else v, device=device)
-            out[k] = t.float().to(dtype) if t.is_floating_point() else t
+            out[k] = _float_to(t, dtype) if t.is_floating_point() else t
     return out
+
+
+def split_rng(rng: Rng, device) -> Tuple[torch.Generator, torch.Generator]:
+    """(noise, dropout) generators on ``device`` from a step's ``rng``: a
+    seed (two seeds spawned from it by numpy's ``SeedSequence``), a
+    ``torch.Generator`` (two seeds drawn from it) or None (seed 0)."""
+    if isinstance(rng, torch.Generator):
+        seeds = torch.randint(0, 2 ** 62, (2,), generator=rng,
+                              device=rng.device).tolist()
+    else:
+        seq = np.random.SeedSequence(0 if rng is None else int(rng))
+        seeds = [int(child.generate_state(1, np.uint64)[0] >> np.uint64(1))
+                 for child in seq.spawn(2)]
+    return tuple(torch.Generator(device=device).manual_seed(s)
+                 for s in seeds)
+
+
+def pose_noise(shape, dtype, device, generator) -> torch.Tensor:
+    """N(0, 1) noise of ``shape`` for the target pose (``steps.py:480-484``):
+    every draw of the steps' noise stream goes through this function."""
+    return torch.randn(shape, generator=generator, dtype=dtype, device=device)
+
+
+def resize_nearest_time(x, length: int):
+    """(B, T, C) → (B, length, C) as ``jax.image.resize(..., "nearest")``
+    takes it: source frame ``floor((i + 0.5) · T / length)`` in float32
+    (half-pixel centres: torch's ``mode="nearest"`` takes ``floor(i · T /
+    length)``, ``"nearest-exact"`` this rule)."""
+    T = x.shape[1]
+    if T == length:
+        return x
+    src = (torch.arange(length, dtype=torch.float32, device=x.device)
+           + 0.5) * T / length
+    return x.index_select(1, src.floor().long().clamp_max(T - 1))
 
 
 class StepFactory:
@@ -175,76 +235,130 @@ class StepFactory:
             raise NotImplementedError(why)
         self.cfg = cfg
         self.device = resolve_device(device)
+        if cfg.fused_decoder and cfg.dtype == torch.float64 and \
+                self.device.type == "cuda":
+            raise NotImplementedError(
+                "-fused_decoder at float64: K3 has float32 and bfloat16 "
+                "modes only; the float64 parity mode runs the unfused "
+                "decoder on the card (ROADMAP queue 3)")
         self.gen_cls = get_model_def(cfg.model)
-        d_name = cfg.discriminator or infer_discriminator_name(cfg.model)
-        try:
-            self.disc_cls = get_model_def(d_name)
-        except KeyError:
-            # the JAX package (and the reference) fall back to the shared D
-            self.disc_cls = get_model_def("Speech2Gesture_D")
+        self.disc_cls = None
+        if cfg.gan:
+            d_name = cfg.discriminator or infer_discriminator_name(cfg.model)
+            try:
+                self.disc_cls = get_model_def(d_name)
+            except (KeyError, NotImplementedError):
+                # the JAX package (and the reference) fall back to the
+                # shared D (steps.py:170-177)
+                self.disc_cls = get_model_def("Speech2Gesture_D")
         self.criterion = L.get_criterion(cfg.criterion,
                                          **dict(cfg.loss_kwargs))
         opt_kw = translate_optim_kwargs(dict(cfg.optim_kwargs))
+        if cfg.optim_mu_dtype and cfg.optim in ("Adam", "AdamW"):
+            opt_kw["mu_dtype"] = cfg.optim_mu_dtype
         self.g_tx = make_optimizer(cfg.optim, cfg.lr, schedule=g_schedule,
                                    **opt_kw)
         self.d_tx = make_optimizer(cfg.optim, cfg.lr, schedule=d_schedule,
-                                   **opt_kw)
+                                   **opt_kw) if cfg.gan else None
 
     # ------------------------------------------------------------------ init
+    def d_in_channels(self) -> int:
+        """D's input width: the pose velocity, and the input streams when
+        ``joint`` (``steps.py:178-183``)."""
+        cfg = self.cfg
+        extra = sum(JOINT_CHANNELS.get(m, 0) for m in cfg.input_modalities)
+        return cfg.out_feats + (extra if cfg.joint else 0)
+
     def build_modules(self):
+        """(gen, psenc or None, disc or None) of the model family
+        (``steps.py:130-199``); at float64 moved to float64."""
         cfg = self.cfg
         mk = dict(cfg.model_kwargs)
-        gen = self.gen_cls(out_feats=cfg.out_feats,
-                           num_clusters=cfg.num_clusters or 1,
-                           num_speakers=cfg.num_speakers,
-                           style_dim=cfg.style_dim, dtype=cfg.dtype, **mk)
-        psenc = PoseStyleEncoder(input_channels=cfg.out_feats,
-                                 num_speakers=cfg.num_speakers,
-                                 dtype=cfg.dtype)
-        disc = self.disc_cls(in_channels=cfg.out_feats, out_shape=1,
-                             dtype=cfg.dtype)
-        return gen, psenc, disc
+        common = dict(dtype=cfg.dtype, p=cfg.p_dropout)
+        psenc = disc = None
+        if cfg.has_style:
+            gen = self.gen_cls(out_feats=cfg.out_feats,
+                               num_clusters=cfg.num_clusters or 1,
+                               num_speakers=cfg.num_speakers,
+                               style_dim=cfg.style_dim, **common, **mk)
+            psenc = PoseStyleEncoder(input_channels=cfg.out_feats,
+                                     num_speakers=cfg.num_speakers, **common)
+        elif cfg.is_classifier:
+            gen = self.gen_cls(in_channels=cfg.out_feats,
+                               num_speakers=cfg.num_speakers, **common, **mk)
+        else:
+            gen = self.gen_cls(out_feats=cfg.out_feats, **common, **mk)
+        if cfg.gan:
+            disc = self.disc_cls(in_channels=self.d_in_channels(),
+                                 out_shape=2 if cfg.weighted else 1,
+                                 **common)
+        modules = (gen, psenc, disc)
+        if cfg.dtype == torch.float64:
+            for m in modules:
+                if m is not None:
+                    m.double()
+        return modules
 
     def _state(self, gen, psenc, disc) -> TrainState:
-        gen, psenc, disc = (m.to(self.device) for m in (gen, psenc, disc))
+        gen, psenc, disc = (None if m is None else m.to(self.device)
+                            for m in (gen, psenc, disc))
         return TrainState(
             gen=gen, psenc=psenc, disc=disc,
             g_opt=self.g_tx(g_named_parameters(gen, psenc)),
-            d_opt=self.d_tx(list(disc.named_parameters())))
+            d_opt=None if disc is None else
+            self.d_tx(list(disc.named_parameters())))
 
     def init(self, seed: int = 0) -> TrainState:
         """Fresh modules with weights drawn from ``seed`` (on the CPU, then
-        moved), zero optimizer moments and counters."""
+        moved), zero optimizer state and counters."""
         gen = torch.Generator().manual_seed(seed)
         modules = self.build_modules()
         for m in modules:
-            reset_parameters_(m, gen)
+            if m is not None:
+                reset_parameters_(m, gen)
         return self._state(*modules)
 
-    def init_from_flax(self, g_params, g_state, d_params, d_state,
+    def init_from_flax(self, g_params, g_state, d_params=None, d_state=None,
                        g_opt_state=None, d_opt_state=None,
                        counters: Optional[Dict[str, int]] = None
                        ) -> TrainState:
         """A state carrying a JAX ``TrainState``'s trees (numpy-convertible):
-        params, batch stats and, when given, the Adam moments and counts of
-        the optimizer states, and the counters."""
-        from mixstage_tpu_torch.interop.weights import (load_flax_state,
-                                                        load_flax_opt_state)
+        params, batch stats and, when given, the optimizer states and the
+        counters."""
+        from mixstage_tpu_torch.interop.weights import (load_flax_opt_state,
+                                                        load_flax_state)
         gen, psenc, disc = self.build_modules()
         load_flax_state(gen, g_params["gen"], g_state["gen"])
-        load_flax_state(psenc, g_params["psenc"], g_state["psenc"])
-        load_flax_state(disc, d_params, d_state)
+        g_mods = {"gen": gen}
+        if psenc is not None:
+            load_flax_state(psenc, g_params["psenc"], g_state["psenc"])
+            g_mods["psenc"] = psenc
+        if disc is not None:
+            load_flax_state(disc, d_params, d_state)
         state = self._state(gen, psenc, disc)
         if g_opt_state is not None:
-            load_flax_opt_state(state.g_opt, {"gen": gen, "psenc": psenc},
-                                g_opt_state)
-        if d_opt_state is not None:
+            load_flax_opt_state(state.g_opt, g_mods, g_opt_state)
+        if d_opt_state is not None and disc is not None:
             load_flax_opt_state(state.d_opt, {None: disc}, d_opt_state)
         for k, v in (counters or {}).items():
             setattr(state, k, int(v))
         return state
 
     # --------------------------------------------------------------- helpers
+    def _prepare(self, batch: Batch, rng: Rng):
+        """The batch on the device (with the pose noise added to ``y``) and
+        the step's dropout generator (None when nothing draws)."""
+        cfg = self.cfg
+        batch = _to_device(batch, self.device, cfg.dtype)
+        if cfg.noise <= 0 and cfg.p_dropout <= 0:
+            return batch, None
+        noise_gen, drop_gen = split_rng(rng, self.device)
+        if cfg.noise > 0:
+            y = batch["y"]
+            batch = {**batch, "y": y + cfg.noise * pose_noise(
+                tuple(y.shape), y.dtype, y.device, noise_gen)}
+        return batch, drop_gen
+
     def _style_weights_train(self, psenc_score, T):
         """Per-window speaker scores broadcast over time, soft / hard
         selected (``steps.py:284-295``)."""
@@ -296,9 +410,51 @@ class StepFactory:
     def _apply_disc(self, state, x):
         return state.disc(x)[0]
 
-    def _d_input(self, pose):
-        """Velocity fed to D (``steps.py:245-255``, not joint)."""
-        return L.velocity(pose)
+    @staticmethod
+    def _fuse_inputs(x_list):
+        """Early fusion for the single-stream models (``steps.py:239-243``)."""
+        x_list = list(x_list)
+        return x_list[0] if len(x_list) == 1 else torch.cat(x_list, dim=-1)
+
+    def _d_input(self, pose, x_list):
+        """Velocity fed to D, ⊕ the input streams when ``joint``
+        (``steps.py:245-255``); a stream whose length differs from the
+        pose's is resized to it (``resize_nearest_time``)."""
+        v = L.velocity(pose)
+        if not self.cfg.joint:
+            return v
+        xs = [resize_nearest_time(x, v.shape[1])
+              for x in list(x_list)[:len(self.cfg.input_modalities)]]
+        return torch.cat([v] + xs, dim=-1)
+
+    @torch.no_grad()
+    def _estimate_weights(self, state, real_v):
+        """Per-sample weights from the 2-class D in eval mode
+        (``steps.py:257-271``): ``clip(1 / clip(p_real, 1e-3, 1), 0.1,
+        10)``, p_real the softmax's class 1 averaged over time."""
+        training = state.disc.training
+        state.disc.eval()
+        score = state.disc(real_v)[0]
+        state.disc.train(training)
+        p_real = softmax(score, dim=-1)[..., 1].mean(dim=1)
+        return (1.0 / p_real.clamp(1e-3, 1.0)).clamp(0.1, 10.0)
+
+    def _weights(self, state, batch):
+        """W (B,): estimated when ``weighted``, else ones."""
+        if self.cfg.weighted:
+            return self._estimate_weights(
+                state, self._d_input(batch["y"], batch["x"]))
+        return torch.ones((batch["y"].shape[0],), device=self.device,
+                          dtype=self.cfg.dtype)
+
+    def _with_confidence(self, total, batch, y, pose):
+        """``total`` plus the confidence entropy loss when the batch carries
+        ``confidence`` (``steps.py:273-281``; JAX adds a 0 otherwise)."""
+        if batch.get("confidence") is None:
+            return total
+        conf = batch["confidence"].reshape(y.shape)
+        return total + confidence_entropy_loss(y, pose, conf, beta=1.0,
+                                               epsilon=0.5).mean()
 
     # ------------------------------------------------- generator forward core
     def _style_forward(self, state, batch, use_pose_input, train,
@@ -339,82 +495,128 @@ class StepFactory:
         return pose, losses, {"labels_cap_soft": out.get("labels_cap_soft")}
 
     def _forward(self, state, batch, use_pose_input, train, sample_flag):
-        return self._style_forward(state, batch, use_pose_input, train,
-                                   sample_flag)
+        """The model family's forward: (pose, internal losses, aux)."""
+        if self.cfg.has_style:
+            return self._style_forward(state, batch, use_pose_input, train,
+                                       sample_flag)
+        # a simple generator on the early-fused inputs (steps.py:358-367,
+        # :446-449)
+        pose, internal = state.gen(self._fuse_inputs(batch["x"]),
+                                   batch["y"])
+        return pose, {f"internal_{i}": v for i, v in enumerate(internal)}, {}
 
-    def _lambda(self, value: float):
-        """The λ ramp's weight: a host float at float32; below it a float32
-        scalar, so the weighted GAN loss (and the total) stay float32, as
-        JAX's device-computed λ keeps them (``losses.py:81-93``)."""
-        if self.cfg.dtype == torch.float32:
+    def _lambda(self, step: int, init: float):
+        """The λ ramp's weight: a host float at float32 (and at float64,
+        where JAX's ramp is float64); at bfloat16 a float32 scalar, so the
+        weighted GAN loss (and the total) stay float32, as JAX's
+        device-computed λ keeps them (``losses.py:81-93``)."""
+        dt = self.cfg.dtype
+        if dt == torch.float64:
+            return L.lambda_schedule(step, init, dtype=torch.float64)
+        value = L.lambda_schedule(step, init)
+        if dt == torch.float32:
             return value
         return torch.full((), value, device=self.device, dtype=torch.float32)
 
-    @staticmethod
-    def _f32(losses):
-        """Loss scalars as float32, whatever the compute dtype
-        (``steps.py:689-695``); at float32 the tensors themselves."""
-        return {k: v.detach().float() for k, v in losses.items()}
+    def _out(self, losses):
+        """Loss values as float32, whatever the compute dtype
+        (``steps.py:689-695``; at float32 the tensors themselves), float64
+        at float64 (the JAX package's per-step values in its x64 mode)."""
+        dt = torch.float64 if self.cfg.dtype == torch.float64 \
+            else torch.float32
+        return {k: v.detach().to(dt) for k, v in losses.items()}
 
     @staticmethod
     def _modes(state, g_train: bool, d_train: bool):
         state.gen.train(g_train)
-        state.psenc.train(g_train)
-        state.disc.train(d_train)
+        if state.psenc is not None:
+            state.psenc.train(g_train)
+        if state.disc is not None:
+            state.disc.train(d_train)
+
+    def _step_g_opt(self, state, total):
+        grads = torch.autograd.grad(total, state.g_opt.params,
+                                    allow_unused=True)
+        state.g_opt.step([torch.zeros_like(p) if g is None else g
+                          for g, p in zip(grads, state.g_opt.params)])
 
     # ----------------------------------------------------------------- steps
     def make_steps(self):
-        """{"g", "d", "eval"} step callables of this config."""
+        """The step callables of this config: {"g", "d", "eval"} for a GAN,
+        {"train", "eval"} otherwise (``steps.py:452-474``)."""
+        cfg = self.cfg
+        if cfg.is_classifier:
+            return {"train": self._classifier_step,
+                    "eval": partial(self._classifier_step, train=False)}
+        if not cfg.gan:
+            return {"train": self._simple_train_step,
+                    "eval": self._eval_step}
         return {"g": self._g_step, "d": self._d_step, "eval": self._eval_step}
 
-    def _g_step(self, state: TrainState, batch: Batch, rng=None,
+    def _simple_train_step(self, state: TrainState, batch: Batch,
+                           rng: Rng = None, use_pose_input: bool = False):
+        """Non-GAN step (``steps.py:477-505``): (state, losses, pose)."""
+        batch, drop_gen = self._prepare(batch, rng)
+        y = batch["y"]
+        self._modes(state, True, False)
+        with torch.enable_grad(), dropout_rng(drop_gen):
+            pose, internal, _ = self._forward(state, batch, use_pose_input,
+                                              True, False)
+            pose_loss = self.criterion(pose, y).mean()
+            total = self._with_confidence(pose_loss, batch, y, pose) + \
+                sum(internal.values())
+            self._step_g_opt(state, total)
+        state.step += 1
+        state.g_step += 1
+        state.curriculum_step += 1
+        losses = {"pose": pose_loss, "total": total, **internal}
+        return state, self._out(losses), pose.detach()
+
+    def _g_step(self, state: TrainState, batch: Batch, rng: Rng = None,
                 use_pose_input: bool = False):
         """GAN G step (``steps.py:508-554``): (state, losses, pose)."""
         cfg = self.cfg
-        batch = _to_device(batch, self.device, cfg.dtype)
+        batch, drop_gen = self._prepare(batch, rng)
         y = batch["y"]
-        lambda_gan = self._lambda(L.lambda_schedule(state.lambda_step,
-                                                    cfg.lambda_gan))
-        W = torch.ones((y.shape[0],), device=self.device, dtype=cfg.dtype)
+        lambda_gan = self._lambda(state.lambda_step, cfg.lambda_gan)
+        W = self._weights(state, batch)
         self._modes(state, True, True)
-        with torch.enable_grad():
+        with torch.enable_grad(), dropout_rng(drop_gen):
             pose, internal, _ = self._forward(state, batch, use_pose_input,
                                               True, False)
-            d_score = self._apply_disc(state, self._d_input(pose))
+            d_score = self._apply_disc(state, self._d_input(pose, batch["x"]))
             if cfg.no_grad:
                 d_score = d_score.detach()
             G_gan = lambda_gan * L.sample_wise_weight_mean(
                 self.criterion(d_score, torch.ones_like(d_score)), 1.0 / W)
             pose_loss = L.sample_wise_weight_mean(self.criterion(pose, y),
                                                   1.0 / W)
-            total = pose_loss + G_gan + sum(internal.values())
-            grads = torch.autograd.grad(total, state.g_opt.params,
-                                        allow_unused=True)
-        state.g_opt.step([torch.zeros_like(p) if g is None else g
-                          for g, p in zip(grads, state.g_opt.params)])
+            total = self._with_confidence(pose_loss + G_gan, batch, y,
+                                          pose) + sum(internal.values())
+            self._step_g_opt(state, total)
         state.step += 1
         state.g_step += 1
         state.lambda_step += 1
         state.curriculum_step += 1
         losses = {"pose": pose_loss, "G_gan": G_gan, "total": total, "W": W,
                   **internal}
-        return state, self._f32(losses), pose.detach()
+        return state, self._out(losses), pose.detach()
 
-    def _d_step(self, state: TrainState, batch: Batch, rng=None,
+    def _d_step(self, state: TrainState, batch: Batch, rng: Rng = None,
                 use_pose_input: bool = False):
         """GAN D step (``steps.py:557-605``): (state, losses, pose)."""
         cfg = self.cfg
-        batch = _to_device(batch, self.device, cfg.dtype)
+        batch, drop_gen = self._prepare(batch, rng)
         y = batch["y"]
-        lambda_D = self._lambda(L.lambda_schedule(state.lambda_step,
-                                                  cfg.lambda_D))
-        W = torch.ones((y.shape[0],), device=self.device, dtype=cfg.dtype)
+        lambda_D = self._lambda(state.lambda_step, cfg.lambda_D)
+        W = self._weights(state, batch)
         self._modes(state, False, True)
         with torch.no_grad():
             pose, internal, _ = self._forward(state, batch, use_pose_input,
                                               False, False)
-        fake_v, real_v = self._d_input(pose), self._d_input(y)
-        with torch.enable_grad():
+        fake_v, real_v = self._d_input(pose, batch["x"]), \
+            self._d_input(y, batch["x"])
+        with torch.enable_grad(), dropout_rng(drop_gen):
             fake_score = self._apply_disc(state, fake_v)
             real_score = self._apply_disc(state, real_v)
             fake_D = lambda_D * L.sample_wise_weight_mean(
@@ -430,7 +632,7 @@ class StepFactory:
         state.lambda_step += 1
         losses = {"real_D": real_D, "fake_D": fake_D, "total": total,
                   "W": W, **internal}
-        return state, self._f32(losses), pose
+        return state, self._out(losses), pose
 
     @torch.no_grad()
     def _eval_step(self, state: TrainState, batch: Batch,
@@ -444,23 +646,57 @@ class StepFactory:
         pose_loss = self.criterion(pose, batch["y"]).mean()
         losses = {"pose": pose_loss,
                   "total": pose_loss + sum(internal.values()), **internal}
-        return self._f32(losses), pose, aux
+        return self._out(losses), pose, aux
+
+    def _classifier_step(self, state: TrainState, batch: Batch,
+                         rng: Rng = None, train: bool = True):
+        """The style classifier's step (``steps.py:619-651``): on the pose
+        ``y``, cross-entropy against the window's speaker, and the
+        accuracy.  Training: (state, {"pose", "total", "acc"}, logits);
+        ``train=False``: (losses, logits, {}), the model in eval mode."""
+        batch = _to_device(batch, self.device, self.cfg.dtype)
+        y_true = batch["style"][:, 0].long()
+        self._modes(state, train, False)
+        if not train:
+            with torch.no_grad():
+                logits, _ = state.gen(batch["y"])
+                loss = L.cross_entropy(logits, y_true)
+            acc = (logits.argmax(-1) == y_true).float().mean()
+            return self._out({"pose": loss, "total": loss, "acc": acc}), \
+                logits, {}
+        drop_gen = split_rng(rng, self.device)[1] \
+            if self.cfg.p_dropout > 0 else None
+        with torch.enable_grad(), dropout_rng(drop_gen):
+            logits, _ = state.gen(batch["y"])
+            loss = L.cross_entropy(logits, y_true)
+            self._step_g_opt(state, loss)
+        acc = (logits.argmax(-1) == y_true).float().mean()
+        state.step += 1
+        state.g_step += 1
+        return state, self._out({"pose": loss, "total": loss, "acc": acc}), \
+            logits.detach()
 
     # -- multi-step training driver -------------------------------------------
     def union_keys(self) -> Sequence[str]:
-        """The loss keys of both branches (``steps.py:674-684``)."""
+        """The loss keys of both branches (``steps.py:674-684``); ``W`` is a
+        (B,) entry."""
         keys = {"pose", "G_gan", "real_D", "fake_D", "total"}
         if self.cfg.has_style:
             keys |= {"label", "id_in", "id_out"}
+        if self.cfg.gan and self.cfg.weighted:
+            keys |= {"W"}
         return sorted(keys)
 
     def make_scan_train_step(self, k: int):
         """k sequential train steps per call (``steps.py:656-723``):
-        ``fn(state, stacked_batches, coins (k,) host bools: True = D step,
-        rngs=None) → (state, {key: (k,) float32}, poses (k, B, T, F) in
-        the compute dtype)``.
-        The audio-input branch only, as in the JAX package; the losses stay
-        on the device (no host sync per step)."""
+        ``fn(state, stacked_batches, coins (k,) host bools: True = D step
+        (ignored without a GAN), rngs=None (k seeds or generators)) →
+        (state, {key: (k,) float32, W (k, B)}, poses (k, B, T, F) in the
+        compute dtype)``.  The audio-input branch only, as in the JAX
+        package; the losses stay on the device (no host sync per step)."""
+        if self.cfg.is_classifier:
+            raise ValueError("the k-step driver runs the generator's steps; "
+                             "the classifier trains one step at a time")
         keys = self.union_keys()
 
         def scan_step(state, batches: Batch, coins, rngs=None):
@@ -468,19 +704,25 @@ class StepFactory:
             if coins.shape != (k,):
                 raise ValueError(f"coins must have shape ({k},), got "
                                  f"{coins.shape}")
-            rows, poses = [], []
+            rows = {key: [] for key in keys}
+            poses = []
+            zero = torch.zeros((), device=self.device)
             for i in range(k):
                 batch = {key: None if v is None else
                          (type(v)(a[i] for a in v) if key == "x" else v[i])
                          for key, v in batches.items()}
-                step = self._d_step if coins[i] else self._g_step
-                state, losses, pose = step(state, batch,
-                                           use_pose_input=False)
-                zero = torch.zeros((), device=self.device)
-                rows.append([losses.get(key, zero) for key in keys])
+                if not self.cfg.gan:
+                    step = self._simple_train_step
+                else:
+                    step = self._d_step if coins[i] else self._g_step
+                state, losses, pose = step(
+                    state, batch, None if rngs is None else rngs[i],
+                    use_pose_input=False)
+                for key in keys:
+                    rows[key].append(losses[key].float() if key in losses
+                                     else zero)
                 poses.append(pose)
-            stacked = torch.stack([torch.stack(r) for r in rows])
-            return state, {key: stacked[:, j] for j, key in enumerate(keys)}, \
+            return state, {key: torch.stack(v) for key, v in rows.items()}, \
                 torch.stack(poses)
 
         return scan_step

@@ -11,8 +11,17 @@ the tests do); there is no mesh: one card.
 The host coins follow the JAX trainer draw for draw, so the two trainers
 take the same D/G and curriculum decisions from the same ``-seed``: before
 every step (train, dev or test) the JAX trainer draws a step key from the
-coin generator (``trainer.py:465, 886, 971``); the port's steps take no
-key (dropout and noise are refused), but the port makes the same draw.
+coin generator (``trainer.py:465, 886, 971``); the port draws the same
+number and seeds the step's noise and dropout generators with it
+(``steps.split_rng``), so one ``-seed`` reproduces a run.
+
+The model family sets the loop: the GAN's D/G coin, the non-GAN step
+(``-gan 0``) and the style classifier (``-model StyleClassifier_G``, whose
+metric is its accuracy, ``{split}_acc``).  The weighted GAN feeds its
+sample weights back to the weighted sampler and, with
+``-update_D_prob_flag``, to the D/G coin (``trainer.py:295-312``).  A
+``-pretrained_model_weights`` checkpoint of the port's
+``StyleClassifier_G`` turns on the style Inception Score.
 
 Flags the port cannot run yet raise ``NotImplementedError`` naming their
 ROADMAP item; none is ignored silently.
@@ -90,9 +99,9 @@ def refuse_unported(args: Config) -> None:
             f"come later {later.format(4)}")
     path = args.pretrained_model_weights
     if path and not args.pretrained_model and Path(path).exists():
-        raise NotImplementedError(
-            f"-pretrained_model_weights {path}: the IS metric's "
-            f"StyleClassifier_G comes later {later.format(7)}")
+        from mixstage_tpu_torch.bookkeeping import load_port_checkpoint
+
+        load_port_checkpoint(path)            # a JAX checkpoint raises
 
 
 class TrainingPreempted(RuntimeError):
@@ -229,8 +238,16 @@ class Trainer:
         self.device = self.factory.device
         self.steps = self.factory.make_steps()
         self._scan_k = int(args.scan_steps or 0)
+        if args.weighted and args.update_D_prob_flag:
+            # the chunk's D/G coins are flipped at its start, so the
+            # adaptive D-prob lags by up to k steps: at most 8
+            # (trainer.py:771-781)
+            self._scan_k = min(self._scan_k, 8)
+        # the classifier trains one step at a time (the JAX package's
+        # k-step driver runs the generator's steps)
         self._scan_step = (self.factory.make_scan_train_step(self._scan_k)
-                           if self._scan_k > 1 else None)
+                           if self._scan_k > 1 and
+                           not self.step_cfg.is_classifier else None)
         self._schedule = schedule
 
         # --------------------------------------------------------- state/init
@@ -324,11 +341,45 @@ class Trainer:
     def _gan_coin(self) -> bool:
         return bool(self._coin.random() < self._d_prob)
 
-    def _step_key(self) -> None:
-        """The JAX trainer's per-step key draw, kept so that the coins
-        that follow it are the JAX trainer's (the port's steps need no
-        key)."""
-        self._coin.integers(1 << 31)
+    def _step_key(self) -> int:
+        """The JAX trainer's per-step key draw (``trainer.py:465``): the
+        seed of the step's noise and dropout generators, drawn where JAX
+        draws its key, so the coins that follow are the JAX trainer's."""
+        return int(self._coin.integers(1 << 31))
+
+    def _maybe_update_d_prob(self, W):
+        """``-update_D_prob_flag``: adapt the D/G coin from the sample
+        weights (``losses.adaptive_d_prob``)."""
+        if self.args.update_D_prob_flag:
+            from mixstage_tpu_torch.train.losses import adaptive_d_prob
+
+            self._d_prob = adaptive_d_prob(self._d_prob, W,
+                                           self.step_cfg.dg_iter_ratio)
+
+    def _weighted_feedback(self, batch, W):
+        """Per-sample weights → the weighted sampler (``trainer.py:
+        303-312``) and the optional D-prob adaptation."""
+        W = torch.as_tensor(W).double().cpu().numpy()
+        if hasattr(self.data_train.sampler, "weights"):
+            idx = np.asarray(batch.get("idx", []))
+            if idx.size:
+                Wc = np.clip(W, 0.1, None)
+                self.data_train.sampler.weights[idx[:len(Wc)]] = \
+                    Wc[:len(idx)]
+        self._maybe_update_d_prob(W)
+
+    def _renormalize_sampler_weights(self):
+        """The weighted sampler's weights standardised to mean 1, clipped
+        to [0.1, 10], after each epoch (``trainer.py:502-514``)."""
+        sampler = self.data_train.sampler
+        if not hasattr(sampler, "weights"):
+            return
+        w = np.asarray(sampler.weights, np.float64)
+        w = (w - w.mean()) / (w.std() + 1e-12) + 1
+        w = np.clip(w, 0.1, 10.0)
+        if np.isnan(w).any():
+            w = np.ones_like(w)
+        sampler.weights = w
 
     # ------------------------------------------------- preemption survival
     def request_preempt(self, signum=None, frame=None):
@@ -406,6 +457,9 @@ class Trainer:
             test_loss, test_metrics, _ = self.train_loop(
                 self.data_test, "test", num_iters=self.args.num_iters)
 
+            if self.args.weighted:
+                self._renormalize_sampler_weights()
+
             self.book.update_res({"train": train_loss, "dev": dev_loss,
                                   "test": test_loss})
             self.book.update_res(train_metrics)
@@ -458,25 +512,39 @@ class Trainer:
                 running[k] = running.get(k, 0.0) + float(v) * B
 
     def _metrics_of_step(self, step_batch, y_cap, y_, insert):
+        if self.step_cfg.is_classifier:      # y_cap are logits
+            return
         kwargs = {}
         if "style" in step_batch:
             kwargs["style"] = np.asarray(step_batch["style"])
         self.calculate_metrics(to_numpy(y_cap), y_, "same", insert=insert,
                                **kwargs)
 
-    def _train_step(self, step_batch):
-        """One GAN step, D or G by the coin (after the JAX trainer's key
-        draw): ``(losses, pose)``."""
-        self._step_key()
-        fn = self.steps["d"] if self._gan_coin() else self.steps["g"]
-        self.state, losses, y_cap = fn(self.state, step_batch,
-                                       use_pose_input=self._curriculum_coin())
+    def _train_step(self, batch, step_batch):
+        """One train step (``trainer.py:465-479``): a GAN's D or G step by
+        the coin, else the model's own step, seeded by the JAX trainer's
+        key draw; the weighted GAN's feedback.  ``(losses, pose)``."""
+        rng = self._step_key()
+        if self.step_cfg.gan:
+            fn = self.steps["d"] if self._gan_coin() else self.steps["g"]
+            self.state, losses, y_cap = fn(
+                self.state, step_batch, rng,
+                use_pose_input=self._curriculum_coin())
+        else:
+            self.state, losses, y_cap = self.steps["train"](
+                self.state, step_batch, rng)
+        if self.args.weighted and "W" in losses:
+            self._weighted_feedback(batch, losses["W"])
         return losses, y_cap
 
-    def train_loop(self, data, desc, epoch=0, num_iters=0):
+    def train_loop(self, data, desc, epoch=0, num_iters=0, train=True):
+        """One pass over ``data``: train steps when ``desc`` is "train"
+        (and ``train``), else eval steps.  Returns (mean pose loss,
+        metrics, per-style metrics)."""
         from mixstage_tpu_torch.data.prefetch import prefetch
         from mixstage_tpu_torch.train.profiling import StepTimer, trace
 
+        training = desc == "train" and train
         self.metrics_reset()
         running = {"total": 0.0}
         running_count = 1e-10
@@ -488,19 +556,19 @@ class Trainer:
                             depth=2 if not self._scan_k else self._scan_k + 2,
                             workers=max(1, int(self.args.num_workers)))
         with trace(self.args.profile_dir
-                   if desc == "train" and epoch == 0 else None):
-            if desc == "train" and self._scan_step is not None:
+                   if training and epoch == 0 else None):
+            if training and self._scan_step is not None:
                 return self._train_loop_scan(prepared, desc, epoch, timer,
                                              running, running_count, t0)
             count = -1
             for count, (batch, (step_batch, y_, insert)) in enumerate(prepared):
-                if desc == "train":
+                if training:
                     self._check_preempt(epoch, f"train step {count}")
                 timer.start()
                 self._count_weights(batch)
                 B = step_batch["y"].shape[0]
-                if desc == "train":
-                    losses, y_cap = self._train_step(step_batch)
+                if training:
+                    losses, y_cap = self._train_step(batch, step_batch)
                 else:
                     self._step_key()
                     losses, y_cap, _ = self.steps["eval"](self.state,
@@ -512,19 +580,27 @@ class Trainer:
                 timer.stop()
                 if self.args.debug and count >= self.args.debug:
                     break
-                if desc != "train" and num_iters > 0 and count >= num_iters:
+                if not training and num_iters > 0 and count >= num_iters:
                     break
 
         loss_avg = running.get("pose", running["total"]) / running_count
-        if self.args.metrics:
-            metrics, metrics_split = self.get_metrics(desc)
-        else:
-            metrics, metrics_split = {}, {}
-        if desc == "train":
+        metrics, metrics_split = self._split_metrics(desc, running,
+                                                     running_count)
+        if training:
             dt = time.time() - t0
             metrics[f"{desc}_steps_per_sec"] = (count + 1) / max(dt, 1e-9)
             metrics.update(timer.summary(prefix=""))
         return loss_avg, metrics, metrics_split
+
+    def _split_metrics(self, desc, running, running_count):
+        """(metrics, per-style metrics) of a loop: the classifier's
+        accuracy, or the pose metrics under ``-metrics``
+        (``trainer.py:505-513``)."""
+        if self.step_cfg.is_classifier:
+            return {f"{desc}_acc": running.get("acc", 0.0) / running_count}, {}
+        if self.args.metrics:
+            return self.get_metrics(desc)
+        return {}, {}
 
     # ---------------------------------------------------------------- metrics
     def _stack_factory(self):
@@ -566,9 +642,46 @@ class Trainer:
         self.w1 = Stack(evaluation.W1())
         self.metrics_objects = [self.pck, self.l1, self.vel_l1, self.diversity,
                                 self.expressiveness, self.f1, self.fid, self.w1]
-        # the IS metric needs a StyleClassifier_G checkpoint
-        # (refuse_unported raises when one is named and exists)
         self.IS = None
+        if not self.args.pretrained_model:
+            clf_fn = self._load_is_classifier()
+            if clf_fn is not None:
+                speakers_rev = {sp: i for i, sp in
+                                enumerate(self.data.speakers)}
+                weight = np.array([[speakers_rev[sp.split("|")[0]]]
+                                   for sp in self.speaker])
+                self.IS = Stack(evaluation.InceptionScoreStyle(
+                    len(self.data.speakers), weight, clf_fn))
+                self.metrics_objects.append(self.IS)
+
+    def _load_is_classifier(self):
+        """The frozen ``StyleClassifier_G`` forward of the IS metric
+        (``trainer.py:584-614``): from ``-pretrained_model_weights``, a
+        checkpoint of the port (what ``cli.train -model StyleClassifier_G``
+        writes; a JAX checkpoint raises), over every speaker of the data.
+        None when no file is named or it does not exist."""
+        path = self.args.pretrained_model_weights
+        if not path or not Path(path).exists():
+            return None
+        from mixstage_tpu_torch.bookkeeping import load_port_checkpoint
+        from mixstage_tpu_torch.models.style_classifier import \
+            StyleClassifier_G
+
+        clf = StyleClassifier_G(in_channels=self.step_cfg.out_feats,
+                                num_speakers=len(self.data.speakers),
+                                dtype=self.fp)
+        if self.fp == torch.float64:
+            clf.double()
+        clf.load_state_dict(load_port_checkpoint(path)["gen"])
+        clf = clf.to(self.device).eval()
+        out = torch.float64 if self.fp == torch.float64 else torch.float32
+
+        @torch.no_grad()
+        def clf_fn(y):
+            y = torch.as_tensor(np.asarray(y), device=self.device)
+            return clf(y.to(self.fp))[0].to(out).cpu().numpy()
+
+        return clf_fn
 
     def metrics_reset(self):
         for obj in self.metrics_objects:
@@ -604,8 +717,22 @@ class Trainer:
             kwargs_name = "same"
         if kwargs.get("style") is not None:
             idx = int(np.asarray(kwargs["style"]).reshape(-1)[0])
+            style_vector = np.asarray(kwargs["style"])
         else:
             idx = 0
+            style_vector = np.zeros((y_cap.shape[0], y_cap.shape[1]),
+                                    np.int64)
+        if self.IS is not None:
+            try:
+                self.IS(y_cap, style_vector, self.mask, idx=idx,
+                        kwargs_name=kwargs_name)
+            except (ValueError, IndexError):
+                # the metric takes 64-frame windows with a style row each;
+                # a sampled interval (its windows flattened to one row, or
+                # of another length) fails before any meter updates, and
+                # the JAX trainer skips those calls too (trainer.py:
+                # 663-668)
+                pass
 
         y_cap_full = self.transform(y_cap, inv=True, batch_gt=y_,
                                     insert=insert)
@@ -729,6 +856,8 @@ class Trainer:
 
         self.dir_name = self.book.name.dir(self.args.save_dir)
         self.state = self.book._load_model(self.state)
+        if self.step_cfg.is_classifier:
+            return self._sample_classifier(exp_num)
         test_loss, test_metrics, test_split = sample_loop(self, "test")
         train_loss, train_metrics, _ = sample_loop(self, "train")
         dev_loss, dev_metrics, _ = sample_loop(self, "dev")
@@ -753,6 +882,23 @@ class Trainer:
         self.book.print_res(epoch=0, key_order=["train", "dev", "test"],
                             metric_order=self.metric_order, exp=exp_num, lr=0)
 
+    def _sample_classifier(self, exp_num):
+        """The classifier has no pose to sample: its loss and accuracy on
+        each split's windows, in eval mode, into ``PREFIX_res.json``.  (The
+        JAX package's sampling pass calls the classifier's eval step with
+        the pose models' arguments and stops there.)"""
+        res = {}
+        for desc in ("test", "train", "dev"):
+            loss, metrics, _ = self.train_loop(getattr(self, f"data_{desc}"),
+                                               desc, train=False)
+            res[desc] = loss
+            self.book.update_res(metrics)
+        print("Sampled- Train:{train:.4f}, Dev:{dev:.4f}, "
+              "Test:{test:.4f}".format(**res))
+        self.book.update_res(res)
+        self.book.print_res(epoch=0, key_order=["train", "dev", "test"],
+                            metric_order=[], exp=exp_num, lr=0)
+
     def _train_loop_scan(self, prepared, desc, epoch, timer, running,
                          running_count, t0):
         """k-step training loop: one call of the k-step driver per k
@@ -770,7 +916,7 @@ class Trainer:
                     p[1]["y"].shape != pend[0][1]["y"].shape for p in pend):
                 # ragged tail or shape change: per-step path
                 for batch, sb, y_, ins in pend:
-                    self._one_train_step(sb, y_, ins, running)
+                    self._one_train_step(batch, sb, y_, ins, running)
                     running_count += sb["y"].shape[0]
                     count += 1
                 pend.clear()
@@ -781,12 +927,12 @@ class Trainer:
                              if key == "x" else
                              np.stack([b[key] for b in batches]))
                        for key in batches[0]}
-            coins = np.array([self._gan_coin() for _ in range(k)])
-            for _ in range(k):
-                self._step_key()
+            coins = np.array([self._gan_coin() if self.step_cfg.gan
+                              else False for _ in range(k)])
+            rngs = [self._step_key() for _ in range(k)]
             timer.start()
             self.state, losses, poses = self._scan_step(self.state, stacked,
-                                                        coins)
+                                                        coins, rngs)
             timer.stop()
             B = batches[0]["y"].shape[0]
             losses = {key: v.float().cpu().numpy()
@@ -794,9 +940,12 @@ class Trainer:
             self._nan_guard(losses["total"], f"train scan chunk (k={k})")
             for i, (batch, sb, y_, ins) in enumerate(pend):
                 for key in losses:
-                    running[key] = running.get(key, 0.0) + \
-                        float(losses[key][i]) * B
+                    if losses[key][i].ndim == 0:
+                        running[key] = running.get(key, 0.0) + \
+                            float(losses[key][i]) * B
                 running_count += B
+                if self.args.weighted and "W" in losses:
+                    self._weighted_feedback(batch, losses["W"][i])
                 self._metrics_of_step(sb, poses[i], y_, ins)
                 count += 1
             pend.clear()
@@ -808,7 +957,7 @@ class Trainer:
             self._check_preempt(epoch, f"train scan batch {count}")
             self._count_weights(batch)
             if in_curriculum:
-                self._one_train_step(step_batch, y_, insert, running)
+                self._one_train_step(batch, step_batch, y_, insert, running)
                 running_count += step_batch["y"].shape[0]
                 count += 1
                 in_curriculum = (int(self.state.curriculum_step)
@@ -821,10 +970,8 @@ class Trainer:
                 break
         flush()
         loss_avg = running.get("pose", running.get("total", 0.0)) / running_count
-        if self.args.metrics:
-            metrics, metrics_split = self.get_metrics(desc)
-        else:
-            metrics, metrics_split = {}, {}
+        metrics, metrics_split = self._split_metrics(desc, running,
+                                                     running_count)
         dt = time.time() - t0
         metrics[f"{desc}_steps_per_sec"] = count / max(dt, 1e-9)
         metrics.update(timer.summary(prefix=""))
@@ -847,10 +994,10 @@ class Trainer:
         else:
             raise FloatingPointError(msg)
 
-    def _one_train_step(self, step_batch, y_, insert, running):
+    def _one_train_step(self, batch, step_batch, y_, insert, running):
         """Single per-step call (the k-step loop's fallbacks)."""
         B = step_batch["y"].shape[0]
-        losses, y_cap = self._train_step(step_batch)
+        losses, y_cap = self._train_step(batch, step_batch)
         self._accumulate(running, losses, B)
         self._nan_guard(float(losses["total"]), "train step (scan fallback)")
         self._metrics_of_step(step_batch, y_cap, y_, insert)

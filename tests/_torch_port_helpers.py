@@ -39,20 +39,80 @@ def _draw(rng, leaf: str, shape):
     return rng.normal(0.0, 0.1, size=shape)       # biases
 
 
-def random_tree(shapes, rng):
-    return {k: random_tree(v, rng) if hasattr(v, "items")
-            else _draw(rng, k, v.shape).astype(np.float32)
+def random_tree(shapes, rng, dtype=np.float32):
+    return {k: random_tree(v, rng, dtype) if hasattr(v, "items")
+            else _draw(rng, k, v.shape).astype(dtype)
             for k, v in shapes.items()}
 
 
-def flax_variables(module, *args, seed: int = 0, **kwargs):
-    """(params, batch_stats) numpy trees for ``module.init(*args)``."""
+def flax_variables(module, *args, seed: int = 0, dtype=np.float32,
+                   **kwargs):
+    """(params, batch_stats) numpy trees for ``module.init(*args)``, in
+    ``dtype`` (np.float64 for the JAX package's float64 modules: the same
+    draws, not rounded to float32)."""
     shapes = jax.eval_shape(lambda: module.init(
         {"params": jax.random.key(0), "dropout": jax.random.key(1)},
         *args, **kwargs))
     rng = np.random.default_rng(seed)
-    return (random_tree(shapes["params"], rng),
-            random_tree(shapes.get("batch_stats", {}), rng))
+    return (random_tree(shapes["params"], rng, dtype),
+            random_tree(shapes.get("batch_stats", {}), rng, dtype))
+
+
+def jax_train_state(f, batch, seed: int = 1, dtype=np.float32):
+    """A JAX ``TrainState`` for the JAX ``StepFactory`` ``f`` of any model
+    family (style generator + psenc, classifier, simple generator; D when
+    it has one), its trees drawn by ``flax_variables`` from ``seed`` and
+    the optimizer states initialised by ``f``'s transformations."""
+    from mixstage_tpu.train.state import TrainState
+
+    cfg = f.cfg
+    x, y = list(batch["x"]), batch["y"]
+    Bn, Tn = y.shape[:2]
+    if cfg.has_style:
+        gp, gs = flax_variables(
+            f.gen, x, y, jnp.zeros((Bn, Tn, cfg.num_speakers)),
+            input_modalities=list(cfg.input_modalities),
+            use_pose_input=False, train=False, seed=seed, dtype=dtype)
+        pp, ps = flax_variables(f.psenc, y, train=False, seed=seed + 1,
+                                dtype=dtype)
+        g_params, g_state = {"gen": gp, "psenc": pp}, {"gen": gs,
+                                                       "psenc": ps}
+    elif cfg.is_classifier:
+        gp, gs = flax_variables(f.gen, y, None, train=False, seed=seed,
+                                dtype=dtype)
+        g_params, g_state = {"gen": gp}, {"gen": gs}
+    else:
+        gp, gs = flax_variables(f.gen, f._fuse_inputs(x), y, train=False,
+                                seed=seed, dtype=dtype)
+        g_params, g_state = {"gen": gp}, {"gen": gs}
+    kw = {}
+    if f.disc is not None:
+        dp, ds = flax_variables(f.disc, f._d_input(y, x), train=False,
+                                seed=seed + 2, dtype=dtype)
+        kw = dict(d_params=dp, d_state=ds, d_opt_state=f.d_tx.init(dp))
+    return TrainState(g_params=g_params, g_state=g_state,
+                      g_opt_state=f.g_tx.init(g_params), **kw)
+
+
+def port_state(factory, jstate):
+    """The port's state carrying a JAX ``TrainState`` (the weight bridge's
+    ``load_jax_train_state``)."""
+    from mixstage_tpu_torch.interop.weights import load_jax_train_state
+
+    return load_jax_train_state(factory, jstate)
+
+
+def flat_tree(tree, prefix=""):
+    """A nested tree as {"a/b/leaf": float64 array}."""
+    out = {}
+    for k, v in tree.items():
+        if hasattr(v, "items"):
+            out.update(flat_tree(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = np.asarray(jnp.asarray(v).astype(jnp.float32)
+                                         if str(getattr(v, "dtype", "")) ==
+                                         "bfloat16" else v, np.float64)
+    return out
 
 
 def jax_apply(module, params, stats, *args, **kwargs):

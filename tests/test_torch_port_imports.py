@@ -51,6 +51,10 @@ def test_importing_the_port_loads_no_jax():
             "mixstage_tpu_torch.ops.cuda.quant, "
             "mixstage_tpu_torch.streaming, mixstage_tpu_torch.data.audio, "
             "mixstage_tpu_torch.models.speech2gesture, "
+            "mixstage_tpu_torch.models.style_classifier, "
+            "mixstage_tpu_torch.models.registry, "
+            "mixstage_tpu_torch.train.state, mixstage_tpu_torch.train.steps, "
+            "mixstage_tpu_torch.interop.weights, "
             "mixstage_tpu_torch.config, mixstage_tpu_torch.bookkeeping, "
             "mixstage_tpu_torch.data.common, mixstage_tpu_torch.data.hdf5, "
             "mixstage_tpu_torch.data.skeleton, "

@@ -2,7 +2,9 @@
 CLIs, on the CPU: the files an experiment writes, the checkpoint the
 sampler restores, a sampled interval against a direct eval step,
 ``-fused_decoder 1`` against 0, the k-step loop, ``-dtype bfloat16``,
-SIGTERM → exit 75 → resume, and every flag the port refuses.
+SIGTERM → exit 75 → resume, every flag the port refuses, and the flags
+ported since (``Speech2Gesture_G``, float64, noise and dropout, SGD with
+momentum and the joint D, a bf16 Adam ``mu``) run end to end.
 
 The CLIs run on the card; here ``cli.train.loop`` / ``cli.sample.loop``
 get ``device="cpu"`` from Python.  Sizes as in
@@ -273,19 +275,19 @@ def test_sigterm_exits_75_and_resumes(data, tmp_path, monkeypatch):
         assert len(json.load(f)["train"]) >= 1
 
 
+# The flags the port still refuses.  float64, the other optimizers,
+# dropout, noise, the weighted GAN, the joint D, the non-GAN trainer and
+# Speech2Gesture_G, refused here before, run in
+# test_torch_port_lifecycle_rest.py and test_torch_port_simple_models.py.
 REFUSED = {
     "num_devices": dict(num_devices=2),
     "render": dict(render=1),
     "pos": dict(pos=1),
-    "float64": dict(dtype="float64"),
-    "optimizer": dict(optim="SGD"),
-    "dropout": dict(modelKwargs={"in_channels": 64, "p": 0.1}),
-    "noise": dict(noise=0.1),
-    "weighted": dict(weighted=1),
-    "joint": dict(joint=1),
-    "non_gan": dict(gan=0),
-    "model": dict(model="Speech2Gesture_G"),
+    "disentangle": dict(model="JointLateClusterSoftStyleDisentangle_G"),
+    "rmsprop_centered": dict(optim="RMSprop",
+                             optimKwargs={"centered": True}),
     "text": dict(modalities=["pose/data", "audio/log_mel_512", "text/w2v"]),
+    "text_only": dict(modalities=["pose/data", "text/bert"]),
     "filler": dict(filler=1),
     "audio_lowering": dict(audio_lowering="tpu"),
     "optim_separate": dict(optim_separate=1e-5),
@@ -302,9 +304,10 @@ def test_unported_flags_raise(data, tmp_path, name):
 
 
 def test_pretrained_classifier_weights_raise(data, tmp_path):
-    """``-pretrained_model_weights`` naming a file that exists needs the IS
-    metric's ``StyleClassifier_G``; a path that does not exist is ignored,
-    as the JAX package ignores it."""
+    """``-pretrained_model_weights`` naming a file that exists must be a
+    port checkpoint of the IS metric's ``StyleClassifier_G`` (anything
+    else, a JAX checkpoint among them, raises); a path that does not exist
+    is ignored, as the JAX package ignores it."""
     missing = tmp_path / "absent.p"
     tr = Trainer(cfg(data, tmp_path / "a", pretrained_model_weights=str(
         missing)), SUB, {}, device="cpu")
@@ -323,3 +326,53 @@ def test_entry_points_run_on_the_card_by_default(data, tmp_path):
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Trainer(cfg(data, tmp_path), SUB, {})
+
+
+# The model families and flags beyond the flagship GAN, each through
+# ``cli.train``'s loop (train, then the sampling pass from the best
+# weights): the config the trainer builds, the model family's modules in
+# the checkpoint, finite losses in every split.
+NEW_FLAGS = {
+    "speech2gesture": (dict(model="Speech2Gesture_G", num_clusters=None,
+                            modelKwargs={"in_channels": 32}),
+                       dict(model="Speech2Gesture_G"), ["disc", "gen"]),
+    "float64": (dict(dtype="float64", gan=0),
+                dict(dtype=torch.float64, gan=False), ["gen", "psenc"]),
+    "noise_dropout": (dict(noise=0.01, modelKwargs={"in_channels": 64,
+                                                    "p": 0.1}),
+                      dict(noise=0.01, p_dropout=0.1),
+                      ["disc", "gen", "psenc"]),
+    "sgd_momentum": (dict(optim="SGD", optimKwargs={"momentum": 0.9},
+                          joint=1),
+                     dict(optim="SGD", joint=True), ["disc", "gen", "psenc"]),
+    "adam_mu_bf16": (dict(optim_mu_dtype="bfloat16", fused_decoder=1),
+                     dict(optim_mu_dtype="bfloat16", fused_decoder=True),
+                     ["disc", "gen", "psenc"]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(NEW_FLAGS))
+def test_new_flags_run_end_to_end(data, tmp_path, name):
+    flags, want, modules = NEW_FLAGS[name]
+    seen = []
+    orig = Trainer.train
+
+    def keep(self, exp_num):
+        orig(self, exp_num)
+        seen.append(self)
+    Trainer.train = keep
+    try:
+        cli_train.loop(cfg(data, tmp_path, **flags), 0, device="cpu")
+    finally:
+        Trainer.train = orig
+    tr = seen[0]
+    for k, v in want.items():
+        assert getattr(tr.step_cfg, k) == v, k
+    weights = torch.load(tr.book.name("weights", "p", str(tmp_path)),
+                         weights_only=True)
+    assert sorted(weights) == modules
+    with open(tr.book.name("res", "json", str(tmp_path))) as f:
+        res = json.load(f)
+    for key in ("train", "dev", "test"):
+        assert np.isfinite(res[key]).all(), (key, res[key])
+    assert tr.state.step > 0

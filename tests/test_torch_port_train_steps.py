@@ -326,11 +326,18 @@ def test_factory_runs_on_the_card_by_default():
             StepFactory(cfg)
 
 
+# What the port still refuses.  The weighted GAN, the joint D, float64,
+# noise, dropout, the non-GAN trainer and StyleClassifier_G, refused here
+# before, are held against the JAX package in test_torch_port_f64_steps.py,
+# _gan_variants.py, _dropout.py and _simple_models.py.
 @pytest.mark.parametrize("change", [
-    dict(weighted=True), dict(joint=True), dict(dtype=torch.float64),
-    dict(noise=0.1), dict(p_dropout=0.1), dict(gan=False),
     dict(input_modalities=("audio/log_mel_512", "text/w2v")),
-    dict(model="StyleClassifier_G")], ids=str)
+    dict(input_modalities=("text/bert",)), dict(text_channels=300),
+    dict(optim_separate=1e-5),
+    dict(model="JointLateClusterSoftStyleDisentangle_G"),
+    dict(style_losses=(("id_a", 1.0),)), dict(audio_lowering="tpu"),
+    dict(fused_decoder=True, p_dropout=0.1),
+    dict(fused_decoder=True, model="Speech2Gesture_G")], ids=str)
 def test_unported_configs_raise(change):
     cfg = StepConfig(**{**CFG, **change})
     assert _unsupported(cfg)
