@@ -9,8 +9,9 @@ clips of 128 mel bins at batch 32 — with random weights drawn from
 serving tier with the streaming and waveform endpoints (phases 10-14), the
 bf16 tier, serving and GAN training (phases 15-17), the int8 tier on the
 bf16 model (phases 18-19), the host lifecycle through the CLIs
-(phase 20), the serving entry points on its checkpoints (phase 21), and
-the rest of the train steps (phase 22):
+(phase 20), the serving entry points on its checkpoints (phase 21), the
+rest of the train steps (phase 22), and text input, ``-optim_separate``
+and the Disentangle losses (phase 23):
 
 1. device: the card's name and power limit from ``nvidia-smi``;
 2. build: every CUDA kernel from the checkout's sources, one ``nvcc`` per
@@ -177,7 +178,33 @@ the rest of the train steps (phase 22):
     <its checkpoint>`` (the style IS in ``PREFIX_res.json``), ``-gan 0
     -fused_decoder 1`` and ``cli.sample`` on it.  K3 launched once each
     way per fused G or non-GAN step, counted over the phase
-    (``steps_rest_launches``).
+    (``steps_rest_launches``);
+23. text and the rest of ROADMAP item 4, through ``StepFactory`` and the
+    CLIs at full width: (a) audio + ``text/w2v`` (300 channels through
+    the text encoder, fused with the audio by ``concat_encoder``): a fused
+    G step against the unfused one from one state by phase 9's contract,
+    the bf16 fused and unfused G steps by the bf16 rule against the f32
+    step, a D step of the joint D on 96 + 128 + 300 = 524 channels; (b) a
+    ``text/bert``-width stream (768): a fused G step, finite; (c)
+    ``-optim_separate`` 1e-5 at lr 1e-4: after one fused G step the text
+    encoder moved by at most 1e-5 and the rest by at most 1e-4 (each more
+    than half of it), and the card's update on given gradients (global
+    norm below the clip's 1) against the CPU's within 1e-6, each group
+    with its own count; (d) a Disentangle generator registered here (the
+    Mix-StAGE generator emitting the 11 internal losses, weighted by the
+    ``style_losses`` it gets): fused and unfused G steps and a D step,
+    each total equal to the sum of its named losses (the fused step runs
+    the backbone, which emits none, as in the JAX package), the D step
+    leaving G as it was, ``make_scan_train_step(4)`` carrying the 11 extra
+    keys; timings (CUDA events, ABBA): the text fused G step against the
+    audio-only one, and each one's device busy time, launches and idle
+    share (``torch.profiler``); (e) the lifecycle on synthetic PATS with ``text/w2v``,
+    a ``text/meta`` word table and a seeded ``text/pos`` stream (the same
+    stand-in h5py): ``cli.train -modalities [pose, audio, text/w2v]
+    -optim_separate 1e-5 -fused_decoder 1``, a ``-pos 1`` run whose labels
+    are the ``text/pos`` classes, and ``cli.sample`` on the first.  K3
+    launched once each way per fused G step, counted over the phase
+    (``text_launches``).
 
 The bf16 rule: no bf16 output is held element-wise to another bf16 output
 (two valid roundings differ about as much as either differs from the
@@ -216,6 +243,7 @@ import shutil
 import subprocess
 import sys
 import time
+from functools import partial
 
 import numpy as np
 
@@ -333,6 +361,7 @@ TIMING_TURNS = 4             # timed turns of each decoder, in ABBA order
 NOISE, P_DROP = 0.01, 0.1
 CLF_STEPS = 20
 SCAN_LR = 1e-6               # the k-step driver against per-step calls
+TEXT_LR = 1e-5               # phase 23's -optim_separate
 
 
 def log(msg: str) -> None:
@@ -691,7 +720,8 @@ def g_moment_gaps(s0, s1):
     before a train BN, 0 analytically, apart: their largest |diff| over the
     largest |mu| of the tree.  Returns ({module: gap}, bias gap)."""
     num, den, bias, scale = {}, {}, 0.0, 0.0
-    for name, a, b in zip(s0.g_opt.names, s0.g_opt.mu, s1.g_opt.mu):
+    for name, a, b in zip(s0.g_opt.names, s0.g_opt.slots()["mu"],
+                          s1.g_opt.slots()["mu"]):
         d = (b - a).double()
         scale = max(scale, float(a.abs().max()))
         if name.endswith("conv.bias"):
@@ -2693,6 +2723,442 @@ def steps_rest_phase(torch, args, device, smi, results) -> dict:
     return launches
 
 
+def text_batch(rng, b, t, width, k=None):
+    """``train_batch`` with a text stream of ``width`` channels after the
+    audio (the 15-fps text windows align with the pose frames)."""
+    batch = train_batch(rng, b, t, k)
+    lead = () if k is None else (k,)
+    text = rng.normal(size=lead + (b, t, width)).astype(np.float32)
+    return dict(batch, x=batch["x"] + (text,))
+
+
+def disentangle_generator():
+    """A Disentangle generator for the plumbing (a port of
+    ``tests/test_disentangle.py:36-59``): the Mix-StAGE generator emitting
+    the Disentangle trainer's internal losses, each weighted by the
+    ``style_losses`` keyword the steps forward."""
+    import torch
+
+    from mixstage_tpu_torch.models import JointLateClusterSoftStyle4_G
+    from mixstage_tpu_torch.models.registry import \
+        DISENTANGLE_INTERNAL_LOSSES
+
+    class JointLateClusterSoftStyleDisentangle9_G(
+            JointLateClusterSoftStyle4_G):
+        def __init__(self, style_losses=(), **kw):
+            super().__init__(**kw)
+            self.style_losses = dict(style_losses)
+
+        def forward(self, x_list, y, style_weights, input_modalities=(
+                "audio/log_mel_512",), use_pose_input=False,
+                time_steps=None):
+            out = super().forward(x_list, y, style_weights,
+                                  input_modalities, use_pose_input,
+                                  time_steps)
+            pose, score = out["pose"], out["labels_score"]
+            losses = {}
+            for i, name in enumerate(DISENTANGLE_INTERNAL_LOSSES):
+                if name == "H":
+                    p = torch.softmax(score, dim=-1)
+                    losses["H"] = -(p * torch.log(p + 1e-8)).sum(-1).mean()
+                else:
+                    losses[name] = (self.style_losses.get(name, 1.0)
+                                    * pose.abs().mean() * (i + 1) / 100.0)
+            out["internal_losses"] = losses
+            return out
+
+    return JointLateClusterSoftStyleDisentangle9_G
+
+
+def text_phase(torch, args, device, smi, results) -> dict:
+    """Phase 23: text input streams, ``-optim_separate`` and the
+    Disentangle losses at full width, through ``StepFactory`` and the
+    CLIs.  Returns K3's launches over the phase per mode,
+    {"float32": (fwd, bwd), "bfloat16": (fwd, bwd)}."""
+    import importlib.util
+    import shutil
+    from pathlib import Path
+
+    from mixstage_tpu_torch.cli import sample as cli_sample
+    from mixstage_tpu_torch.cli import train as cli_train
+    from mixstage_tpu_torch.data.common import SPEAKERS
+    from mixstage_tpu_torch.data.hdf5 import HDF5
+    from mixstage_tpu_torch.data.synthetic import make_synthetic_dataset
+    from mixstage_tpu_torch.data.text import write_text_meta
+    from mixstage_tpu_torch.models.registry import (
+        DISENTANGLE_INTERNAL_LOSSES, MODEL_REGISTRY, register_model)
+    from mixstage_tpu_torch.models.speech2gesture import Speech2Gesture_D
+    from mixstage_tpu_torch.ops.cuda import train_decoder as td
+    from mixstage_tpu_torch.train import StepConfig, StepFactory
+    from mixstage_tpu_torch.train.state import SeparateTextOptimizer
+    from mixstage_tpu_torch.train.trainer import Trainer
+
+    bf16 = torch.bfloat16
+    out: dict = {}
+    counters = (td.decoder_train_fwd, td.decoder_train_bwd)
+    for c in counters:                               # phase 23 starts
+        c.launches = c.launches_bf16 = 0
+    fused_g = {"float32": 0, "bfloat16": 0}          # fused G-type steps
+
+    def k3():
+        return (tuple(c.launches - c.launches_bf16 for c in counters),
+                tuple(c.launches_bf16 for c in counters))
+
+    def expect(what):
+        got = k3()
+        want = ((fused_g["float32"],) * 2, (fused_g["bfloat16"],) * 2)
+        check(got == want, f"{what}: K3 launches (f32, bf16 mode) {got}, "
+              f"expected {want}")
+
+    def finite(losses, what):
+        check(all(bool(torch.isfinite(v).all()) for v in losses.values()),
+              f"{what}: losses not finite")
+
+    def g_step(fac, batch, seed, what, st=None):
+        st, ls, pose = fac.make_steps()["g"](
+            fac.init(seed=seed) if st is None else st, batch, seed)
+        torch.cuda.synchronize()
+        fused_g["bfloat16" if fac.cfg.dtype == bf16 else "float32"] += \
+            bool(fac.cfg.fused_decoder)
+        expect(what)
+        finite(ls, what)
+        return st, ls, pose
+
+    trng = np.random.default_rng(args.seed + 50)
+    seed = args.seed + 51
+    W2V = ("audio/log_mel_512", "text/w2v")
+    TXT = dict(TRAIN_CFG, input_modalities=W2V, text_channels=300)
+    batch = text_batch(trng, B, T, 300)
+
+    # (a) audio + text/w2v: fused against unfused from one state (f32),
+    # bf16 by the bf16 rule, the joint D on 96 + 128 + 300 channels ---------
+    fused = StepFactory(StepConfig(**TXT, fused_decoder=True))
+    unfused = StepFactory(StepConfig(**TXT))
+    lr = fused.cfg.lr
+    s_f, l_f, pose_f = g_step(fused, batch, seed, "text fused G step")
+    s_u, l_u, pose_u = g_step(unfused, batch, seed, "text unfused G step")
+    width = s_f.gen.text_encoder.stack.conv0.conv.weight.shape[1]
+    check(width == 300, f"text encoder width {width}")
+    tot_f, tot_u = float(l_f["total"]), float(l_u["total"])
+    check(abs(tot_f - tot_u) <= KERNEL_TOL * abs(tot_u),
+          f"text G step total fused {tot_f} vs unfused {tot_u}")
+    p_err, s_err, gaps, _ = compare_states(torch, s_u, s_f, lr)
+    rep16 = {}
+    for name, fused16 in (("unfused", False), ("fused", True)):
+        fac = StepFactory(StepConfig(**TXT, dtype=bf16,
+                                     fused_decoder=fused16))
+        st, ls, ps = g_step(fac, batch, seed, f"text {name} bf16 G step")
+        check(ps.dtype == bf16, "bf16 pose dtype")
+        rep = {"pose": drift(ps, pose_u),
+               "total": drift(ls["total"], l_u["total"])}
+        mu, _ = g_moment_gaps(s_u, st)
+        rep.update({f"mu {m}": v for m, v in mu.items()})
+        rep16[name] = rep
+    fails = [k for k, dq in rep16["unfused"].items()
+             if abs(rep16["fused"][k] - dq) > BF16_REL * dq + BF16_ABS]
+    check(not fails, f"text fused bf16 G step breaks the bf16 rule on "
+          f"{fails}")
+    joint = StepFactory(StepConfig(**TXT, joint=True, fused_decoder=True))
+    check(joint.d_in_channels() == F_POSE + MEL + 300,
+          f"joint D width {joint.d_in_channels()}")
+    s_j, l_jd, _ = joint.make_steps()["d"](joint.init(seed=seed), batch,
+                                           seed + 1)
+    torch.cuda.synchronize()
+    finite(l_jd, "text joint D step")
+    expect("text joint D step")
+    d_width = s_j.disc.conv1.weight.shape[1]
+    check(d_width == F_POSE + MEL + 300, f"joint D conv1 width {d_width}")
+    log(f"[text] audio + text/w2v (300) bs{B} T{T}: G total fused "
+        f"{tot_f:.6f} vs unfused {tot_u:.6f}; params max|diff| {p_err:.3e} "
+        f"(tol {2 * lr:g}); BN stats {s_err:.3e}; Adam mu max module gap "
+        f"{max(gaps.values()):.3e} (gen.text_encoder "
+        f"{gaps['gen.text_encoder']:.3e}; tol {MOMENT_TOL:g}); bf16 drift "
+        f"from the f32 step fused/unfused: "
+        + ", ".join(f"{k} {rep16['fused'][k]:.4e}/{v:.4e}"
+                    for k, v in rep16["unfused"].items()
+                    if not k.startswith("mu ") or "text" in k)
+        + f"; joint D ({d_width} channels) step total "
+        f"{float(l_jd['total']):.5f}; K3 {k3()}")
+    out["w2v"] = dict(total_fused=tot_f, total_unfused=tot_u,
+                      param_diff=p_err, stat_diff=s_err,
+                      mu_gap=max(gaps.values()),
+                      mu_gap_text=gaps["gen.text_encoder"], bf16=rep16,
+                      joint_d_total=float(l_jd["total"]))
+
+    # (b) a text/bert-width stream (768) ------------------------------------
+    bert = StepFactory(StepConfig(**dict(TXT, input_modalities=(
+        "audio/log_mel_512", "text/bert"), text_channels=768),
+        fused_decoder=True))
+    st, l_b, _ = g_step(bert, text_batch(trng, B, T, 768), seed,
+                        "text/bert fused G step")
+    check(st.gen.text_encoder.stack.conv0.conv.weight.shape[1] == 768,
+          "text/bert encoder width")
+    log(f"[text] audio + text/bert (768): fused G step total "
+        f"{float(l_b['total']):.5f}, finite; K3 {k3()}")
+    out["bert_total"] = float(l_b["total"])
+
+    # (c) -optim_separate: lr 1e-4, the text encoder at 1e-5 -----------------
+    sep = StepFactory(StepConfig(**TXT, fused_decoder=True,
+                                 optim_separate=TEXT_LR))
+    st0 = sep.init(seed=seed)
+    before = [p.detach().clone() for p in st0.g_opt.params]
+    st, l_s, _ = g_step(sep, batch, seed, "-optim_separate fused G step",
+                        st=st0)
+    opt = st.g_opt
+    check(isinstance(opt, SeparateTextOptimizer), "optimizer groups")
+    moved = {"text": 0.0, "rest": 0.0}
+    for name, p, p0 in zip(opt.names, opt.params, before):
+        g = "text" if ".text_encoder." in name else "rest"
+        # the step, less the float32 rounding of p0 + step (an ULP of p0)
+        step = (p - p0).abs() - p0.abs() * 2.0 ** -23
+        moved[g] = max(moved[g], float(step.max()))
+    # Adam's first update moves a leaf by at most its rate (|mu_hat| /
+    # (sqrt(nu_hat) + eps) ≤ 1), and nearly by it where |g| ≫ eps
+    check(0.5 * TEXT_LR < moved["text"] <= TEXT_LR * (1 + 1e-4),
+          f"text encoder moved {moved['text']}, not at {TEXT_LR}")
+    check(0.5 * lr < moved["rest"] <= lr * (1 + 1e-4),
+          f"the rest moved {moved['rest']}, not at {lr}")
+    cpu = sep.g_tx([(n, p.detach().cpu().clone())
+                    for n, p in zip(opt.names, opt.params)])
+    for slot, tensors in opt.slots().items():
+        for dst, src in zip(cpu.slots()[slot], tensors):
+            dst.copy_(src.cpu())
+    cpu.count = opt.count
+    ggen = torch.Generator().manual_seed(seed + 2)
+    grads = [torch.randn(p.shape, generator=ggen) * 1e-5 for p in cpu.params]
+    norm = float(torch.stack([g.double().norm() for g in grads]).norm())
+    check(norm < cpu.MAX_NORM, f"-optim_separate: gradient norm {norm}")
+    opt.step([g.to(device) for g in grads])
+    cpu.step(grads)
+    torch.cuda.synchronize()
+    err = {"params": max(
+        float((a.cpu() - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        for a, b in zip(opt.params, cpu.params))}
+    for slot, tensors in opt.slots().items():
+        err[slot] = max(
+            float((a.cpu() - b).abs().max()) / max(float(b.abs().max()),
+                                                   1e-30)
+            for a, b in zip(tensors, cpu.slots()[slot]))
+    check(max(err.values()) <= 1e-6, f"-optim_separate: the card's update "
+          f"differs from the CPU's by {err}")
+    check(opt.groups["text"].count == opt.groups["rest"].count == 2,
+          "-optim_separate group counts")
+    log(f"[text] -optim_separate {TEXT_LR:g} (lr {lr:g}): after one fused G "
+        f"step the text encoder moved ≤ {moved['text']:.4e}, the rest ≤ "
+        f"{moved['rest']:.4e}; {len(opt.groups['text'].params)} text and "
+        f"{len(opt.groups['rest'].params)} other leaves; the card's update "
+        f"on given gradients (global norm {norm:.4f}) against the CPU's "
+        f"(max |diff| / max |ref|): "
+        + ", ".join(f"{k} {v:.2e}" for k, v in err.items()))
+    out["optim_separate"] = dict(moved=moved, update_err=err)
+
+    # (d) a Disentangle generator ------------------------------------------
+    name = "JointLateClusterSoftStyleDisentangle9_G"
+    register_model(name, disentangle_generator())
+    register_model(name[:-1] + "D", Speech2Gesture_D)
+    weights = {k: 1.0 for k in DISENTANGLE_INTERNAL_LOSSES if k != "H"}
+    weights["content_+"] = 2.0
+    try:
+        DIS = dict(TRAIN_CFG, model=name,
+                   style_losses=tuple(sorted(weights.items())))
+        dis_f = StepFactory(StepConfig(**DIS, fused_decoder=True))
+        dis_u = StepFactory(StepConfig(**DIS))
+        abatch = train_batch(trng, B, T)
+        base_g = ["pose", "G_gan", "label", "id_in", "id_out"]
+        sums = {}
+        st, lg_f, _ = g_step(dis_f, abatch, seed, "Disentangle fused G step")
+        check(not set(DISENTANGLE_INTERNAL_LOSSES) & set(lg_f),
+              "the fused G step (the backbone) emitted internal losses")
+        sums["g_fused"] = (float(lg_f["total"]),
+                           sum(float(lg_f[k]) for k in base_g))
+        st_u, lg_u, _ = g_step(dis_u, abatch, seed,
+                               "Disentangle unfused G step")
+        check(dict(st_u.gen.style_losses) == weights,
+              "style_losses did not reach the model")
+        sums["g_unfused"] = (float(lg_u["total"]), sum(
+            float(lg_u[k]) for k in base_g + DISENTANGLE_INTERNAL_LOSSES))
+        check(abs(float(lg_u["content_+"]) - float(lg_u["content_-"]))
+              <= 1e-5 * abs(float(lg_u["content_-"])),
+              "style_losses weight of content_+")
+        g0 = [p.detach().clone() for p in st.g_opt.params]
+        st, ld, _ = dis_f.make_steps()["d"](st, abatch, seed + 1)
+        torch.cuda.synchronize()
+        expect("Disentangle D step")
+        finite(ld, "Disentangle D step")
+        sums["d"] = (float(ld["total"]), sum(
+            float(ld[k]) for k in ["real_D", "fake_D", "label", "id_in",
+                                   "id_out"] + DISENTANGLE_INTERNAL_LOSSES))
+        check(all(torch.equal(a, b) for a, b in zip(g0, st.g_opt.params)),
+              "the D step moved G")
+        for what, (total, parts) in sums.items():
+            check(abs(total - parts) <= 1e-5 * abs(parts),
+                  f"Disentangle {what}: total {total} vs its parts {parts}")
+        k = 4
+        coins = np.array([True, False, True, False])
+        s_scan, l_scan, _ = dis_f.make_scan_train_step(k)(
+            dis_f.init(seed=seed), train_batch(trng, B, T, k=k), coins,
+            list(range(k)))
+        torch.cuda.synchronize()
+        fused_g["float32"] += int((~coins).sum())
+        expect(f"Disentangle make_scan_train_step({k})")
+        extra = sorted(set(l_scan) - {"pose", "G_gan", "real_D", "fake_D",
+                                      "total", "label", "id_in", "id_out"})
+        check(extra == sorted(DISENTANGLE_INTERNAL_LOSSES) and all(
+            tuple(l_scan[n].shape) == (k,) and
+            bool(torch.isfinite(l_scan[n]).all()) for n in extra),
+            f"the k-step driver's Disentangle keys {extra}")
+        check(all(float(l_scan["H"][i]) > 0 for i in np.flatnonzero(coins)),
+              "the scan's D steps carry no internal losses")
+    finally:
+        MODEL_REGISTRY.pop(name, None)
+        MODEL_REGISTRY.pop(name[:-1] + "D", None)
+    log(f"[text] Disentangle generator (11 internal losses, content_+ "
+        f"weighted 2): totals against their named parts "
+        + ", ".join(f"{w} {t:.6f}/{p:.6f}" for w, (t, p) in sums.items())
+        + f" (the fused G step runs the backbone, which emits none, as in "
+        f"the JAX package); make_scan_train_step({k}) carries "
+        f"{len(extra)} extra keys; K3 {k3()}")
+    out["disentangle"] = dict(sums=sums, scan_keys=extra)
+
+    # timings (CUDA events, ABBA): the text fused G step against phase 9's
+    # audio-only fused G step ------------------------------------------------
+    audio = StepFactory(StepConfig(**TRAIN_CFG, fused_decoder=True))
+    timed = {"text": (fused, fused.init(seed=seed), batch),
+             "audio": (audio, audio.init(seed=seed),
+                       dict(batch, x=batch["x"][:1]))}
+    turns = {name: [] for name in timed}
+    calls = {}
+    for name, (fac, st, b) in timed.items():
+        db = {k: (tuple(torch.as_tensor(a, device=device) for a in v)
+                  if k == "x" else torch.as_tensor(v, device=device))
+              for k, v in b.items()}
+        calls[name] = partial(fac.make_steps()["g"], st, db)
+    for name in ("text", "audio", "audio", "text"):
+        turns[name].append(cuda_ms(torch, calls[name], reps=10))
+        fused_g["float32"] += 10 + 3
+    # the device's side of it: busy time and launches per step
+    # (torch.profiler; 3 warm-up, 5 timed and 5 traced calls each)
+    traced = {name: trace(torch, fn) for name, fn in calls.items()}
+    fused_g["float32"] += 2 * 13
+    expect("the timed steps")
+    mean = {k: float(np.mean(v)) for k, v in turns.items()}
+    busy = {k: v["device_busy_ms"] for k, v in traced.items()}
+    launches = {k: v["launches_per_call"] for k, v in traced.items()}
+    log(f"[timing] {smi}: phase 23 fused G step bs{B} T{T}, 2 ABBA turns of "
+        f"10: audio + text/w2v {mean['text']:.3f} ms (turns "
+        f"{turns['text']}), audio only {mean['audio']:.3f} ms (turns "
+        f"{turns['audio']}); the text stream adds "
+        f"{mean['text'] - mean['audio']:+.3f} ms; device busy "
+        f"{busy['text']:.4f} against {busy['audio']:.4f} ms a step "
+        f"({busy['text'] - busy['audio']:+.4f}), {launches['text']:.0f} "
+        f"against {launches['audio']:.0f} launches, idle share "
+        f"{traced['text']['idle_share']:.3f} / "
+        f"{traced['audio']['idle_share']:.3f} (torch.profiler)")
+    out["timing"] = dict(mean, turns=turns, busy_ms=busy,
+                         launches_per_step=launches,
+                         idle_share={k: v["idle_share"]
+                                     for k, v in traced.items()})
+
+    # (e) the lifecycle on synthetic PATS with text ----------------------------
+    if "h5py" not in sys.modules and importlib.util.find_spec("h5py") is None:
+        log("[text] h5py: not installed on this machine; this phase's PATS "
+            "h5 files go through chip_smoke's stand-in")
+        install_h5py_stand_in()
+    root = Path(__file__).resolve().parent / "build" / "text"
+    shutil.rmtree(root, ignore_errors=True)
+    data = str(root / "data")
+    speakers = SPEAKERS[:MODEL["num_speakers"]]
+    make_synthetic_dataset(data, speakers, LIFE_INTERVALS, with_text=True,
+                           seed=11212 + args.seed)
+    wrng = np.random.default_rng(args.seed + 52)
+    for h5path in sorted((Path(data) / "processed").glob("*/*.h5")):
+        n = HDF5.load_array(str(h5path), "pose/data").shape[0]
+        starts = np.arange(0, n, 7)
+        write_text_meta(h5path, {
+            "Word": [f"w{int(i)}" for i in wrng.integers(0, 50, len(starts))],
+            "start_frame": starts,
+            "end_frame": np.minimum(starts + 7, n)})
+        # POS classes below the cluster count (-pos labels)
+        HDF5.append(h5path, "text/pos",
+                    wrng.integers(0, MODEL["num_clusters"], n).astype(float))
+    seen = []
+    orig_train = Trainer.train
+
+    def keep(self, exp_num):
+        orig_train(self, exp_num)
+        seen.append(self)
+
+    common = ["-path2data", data, "-speaker", json.dumps(speakers),
+              "-model", "JointLateClusterSoftStyle4_G", "-gan", "1",
+              "-loss", "L1Loss", "-fused_decoder", "1", "-num_clusters",
+              str(MODEL["num_clusters"]), "-batch_size", str(B),
+              "-window_hop", "5", "-num_epochs", "1", "-debug", "2",
+              "-exp", "1", "-seed", str(11212 + args.seed)]
+    runs = {
+        "w2v": ["-modalities", json.dumps(["pose/data", "audio/log_mel_512",
+                                           "text/w2v"]),
+                "-fs_new", "[15,15,15]", "-optim_separate", str(TEXT_LR)],
+        "pos": ["-modalities", json.dumps(["pose/data", "audio/log_mel_512",
+                                           "text/w2v", "text/pos"]),
+                "-input_modalities", json.dumps(list(W2V)),
+                "-fs_new", "[15,15,15,15]", "-pos", "1"]}
+    life = {}
+    Trainer.train = keep
+    try:
+        for name, argv in runs.items():
+            save = str(root / f"save_{name}")
+            t = time.perf_counter()
+            cli_train.main(common + argv + ["-save_dir", save])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            tr = seen[-1]
+            fused_g["float32"] += tr.state.g_step
+            expect(f"cli.train {name}")
+            with open(tr.book.name("res", "json", save)) as f:
+                res = json.load(f)
+            for key in ("train", "dev", "test"):
+                check(bool(np.isfinite(res[key]).all()),
+                      f"cli.train {name}: {key} losses {res[key]}")
+            check(tr.step_cfg.text_channels == 300 and
+                  tr.step_cfg.input_modalities == W2V, f"{name} config")
+            check(tr.data.datasets["train"].datasets[0].text_df is not None,
+                  f"{name}: text/meta not read")
+            life[name] = dict(weights=tr.book.name("weights", "p", save),
+                              wall_s=wall, g_steps=tr.state.g_step)
+            if name == "w2v":
+                check(isinstance(tr.state.g_opt, SeparateTextOptimizer) and
+                      tr.state.g_opt.groups["text"].lr == TEXT_LR,
+                      "cli.train -optim_separate")
+            else:
+                batch0 = next(tr.data_train.iter_all(batch_size=2))
+                step_batch = tr.get_processed_batch(batch0)[0]
+                check(np.array_equal(step_batch["labels"], np.asarray(
+                    batch0["text/pos"], np.int64)),
+                      "-pos: the labels are not the text/pos classes")
+            log(f"[text] cli.train {name}: {wall:.2f} s, "
+                f"{tr.state.g_step} G steps, losses finite; K3 {k3()}")
+        t = time.perf_counter()
+        cli_sample.main(["-load", life["w2v"]["weights"], "-path2data",
+                         data])
+        torch.cuda.synchronize()
+        life["sample_wall_s"] = time.perf_counter() - t
+        expect("cli.sample")
+    finally:
+        Trainer.train = orig_train
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"[text] lifecycle: cli.train audio + text/w2v -optim_separate "
+        f"{TEXT_LR:g} -fused_decoder 1 ({life['w2v']['wall_s']:.2f} s), "
+        f"-pos 1 on a text/pos stream ({life['pos']['wall_s']:.2f} s), "
+        f"cli.sample of the first ({life['sample_wall_s']:.2f} s)")
+    out["lifecycle"] = life
+    launches = dict(zip(("float32", "bfloat16"), k3()))   # phase 23 ends
+    log(f"[text] K3 launches over phase 23 (fwd, bwd): f32 mode "
+        f"{launches['float32']}, bf16 mode {launches['bfloat16']}")
+    out["k3_launches"] = launches
+    results["text"] = out
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3136,6 +3602,7 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(exps["root"], ignore_errors=True)
     rest = steps_rest_phase(torch, args, device, smi, results)
+    text = text_phase(torch, args, device, smi, results)
     for kern in [k1] + k16 + [k4] + k8_16:
         if kern["name"] in served:
             kern["serving_cli_launches"] = served[kern["name"]]
@@ -3146,6 +3613,7 @@ def main(argv=None) -> int:
                     else "float32"
                 kern["lifecycle_launches"] = life[mode][i]
                 kern["steps_rest_launches"] = rest[mode][i]
+                kern["text_launches"] = text[mode][i]
     for kern in [k1] + k3 + [k4]:
         kern["mode"] = "f32" if kern is not k4 else "int8"
     k2["mode"] = "f32"

@@ -11,13 +11,22 @@ hop) or every ``window_hop * stride``.
 
 ``DataLoader.iter_all`` gathers each interval's windows in bulk with numpy
 (the JAX package's numpy path of ``data/native.py::gather_windows``; its C++
-gatherer is not ported).  Text modalities are not ported yet (ROADMAP queue
-1 item 4): a text modality raises ``NotImplementedError``.
+gatherer is not ported), except where a text modality is loaded: then
+``MiniData.__getitem__`` builds each window (with its text keys) and the
+loader's collate pads the ragged text (``text.collate_fn_pad``), as the JAX
+package does.
+
+Text (``mixstage_tpu/data/dataset.py:162-281``): ``MiniData`` reads the
+interval's ``text/meta`` word table (``text.read_text_meta``) and adds
+``text/token_duration`` (the frames of each word in the window) and, with
+``filler``, ``text/filler`` (1 on stopwords) to every text item;
+``repeat_text=0`` keeps one row per word instead of one per frame.
 """
 
 from __future__ import annotations
 
 import bisect
+from functools import partial
 from pathlib import Path
 from typing import Dict, List, Sequence
 
@@ -28,9 +37,13 @@ from mixstage_tpu_torch.data.common import (MissingData, Modality, Table,
                                             infer_as_str)
 from mixstage_tpu_torch.data.hdf5 import HDF5
 from mixstage_tpu_torch.data.skeleton import Skeleton2D
+from mixstage_tpu_torch.data.text import (Text, collate_fn_pad,
+                                          english_stopwords, meta_columns,
+                                          read_text_meta)
 
-TEXT_LATER = ("text modalities come later (ROADMAP queue 1 item 4); the "
-              "port reads pose and audio")
+# the text keys the pad collate pads (dataset.py:469-473)
+TEXT_PAD_KEYS = ["text/w2v", "text/bert", "text/filler", "text/tokens",
+                 "text/token_duration"]
 
 
 def gather_windows(data: np.ndarray, starts, steps: int,
@@ -101,13 +114,15 @@ class DataLoader:
         """Sequential sweep of the whole dataset irrespective of the sampler —
         used by ZNorm/KMeans statistics (reference transform.py:200-204).
 
-        For MiniData concatenations the windows of each interval are
-        gathered in bulk (``gather_windows``), one batch never spanning two
-        intervals, as the JAX package batches them.
+        For MiniData concatenations without text the windows of each
+        interval are gathered in bulk (``gather_windows``), one batch never
+        spanning two intervals, as the JAX package batches them; with text
+        the items are collated in order, across intervals.
         """
         ds = self.dataset
         if (isinstance(ds, ConcatDatasetIndex) and ds.datasets
-                and all(isinstance(d, MiniData) for d in ds.datasets)):
+                and all(isinstance(d, MiniData) and not d.text_in_modalities
+                        for d in ds.datasets)):
             yield from self._iter_all_bulk(batch_size)
             return
         for start in range(0, len(self.dataset), batch_size):
@@ -148,7 +163,8 @@ class MiniData(HDF5):
     (dataUtils.py:466-616)."""
 
     def __init__(self, path2h5, modalities, fs_new, time, modality_classes,
-                 window_hop, style=0):
+                 window_hop, style=0, repeat_text=1, text_in_modalities=False,
+                 filler=0, stopwords=None, tokenizer=None):
         super().__init__()
         self.path2h5 = path2h5
         self.modalities = modalities
@@ -157,12 +173,23 @@ class MiniData(HDF5):
         self.modality_classes = modality_classes
         self.window_hop = window_hop
         self.style = style
+        self.repeat_text = repeat_text
+        self.text_in_modalities = text_in_modalities
+        self.filler = filler
+        self.stopwords = stopwords
+        # a subword tokenizer (``tokenize(str) -> list``) for the filler
+        # masks of bert/tokens streams; tokenising comes with item 7, so
+        # ``Data`` passes None, as the JAX package's does
+        self.tokenizer = tokenizer
 
         self.shapes, self.data = [], []
         for modality in self.modalities:
             arr = self.load_array(self.path2h5, modality)
             self.shapes.append(arr.shape)
             self.data.append(arr)
+
+        self.text_df = read_text_meta(self.path2h5) \
+            if self.text_in_modalities else None
 
         self.idx_start_list_dict: Dict[str, np.ndarray] = {}
         self.idx_end_list_dict: Dict[str, np.ndarray] = {}
@@ -199,6 +226,8 @@ class MiniData(HDF5):
             interval = self.idx_interval_dict[modality]
             item[modality] = data[start:end:interval].astype(np.float64)
             start_time = data[0:start:interval].shape[0] / self.fs_new[-1]
+            if "text" in modality:
+                self._text_item(item, modality, start, end, interval)
 
         duration = item[self.modalities[0]].shape[0] / self.fs_new[-1]
         item["meta"] = {"interval_id": Path(self.path2h5).stem,
@@ -207,6 +236,56 @@ class MiniData(HDF5):
                         "idx": idx}
         item["style"] = np.zeros(item[self.modalities[0]].shape[0]) + self.style
         return item
+
+    def _words_in(self, start, end):
+        """The ``text/meta`` words that overlap frames [start, end]:
+        (words, their start frames)."""
+        words, starts, ends = meta_columns(self.text_df)
+        sel = (start <= ends) & (end > starts)
+        return [w for w, k in zip(words, sel) if k], starts[sel]
+
+    def _text_item(self, item, modality, start, end, interval):
+        """Word spans → token durations, filler masks and, with
+        ``repeat_text=0``, one row per word (``dataset.py:237-281``)."""
+        vec = item[modality]
+        indices = [0]
+        if self.text_df is None or modality == "text/tokens":
+            # a new token wherever the frame's vector changes
+            for t in range(1, vec.shape[0]):
+                if (vec[t] - vec[indices[-1]]).sum() != 0:
+                    indices.append(t)
+        else:
+            starts_ = self._words_in(start, end)[1] - start
+            if len(starts_):
+                starts_[0] = 0
+                indices = list(starts_.astype(np.int64))
+        if not self.repeat_text:
+            item[modality] = vec[indices]
+
+        if self.filler:
+            filler = np.zeros((len(indices),))
+            if self.text_df is not None and self.stopwords is not None:
+                words = [w.lower() for w in self._words_in(start, end)[0]]
+                if ("bert" in modality or "tokens" in modality) \
+                        and self.tokenizer is not None:
+                    words = self.tokenizer.tokenize(" ".join(words))
+                for i, word in enumerate(words[:len(indices)]):
+                    if word in self.stopwords:
+                        filler[i] = 1
+            if self.repeat_text:
+                filler_ = np.zeros((vec.shape[0],))
+                end_indices = indices[1:] + [vec.shape[0]]
+                for i, (st, en) in enumerate(zip(indices, end_indices)):
+                    filler_[st:en] = filler[i]
+                filler = filler_
+            item["text/filler"] = filler
+
+        indices_arr = np.array(indices, dtype=np.int64)
+        length_word = np.zeros_like(indices_arr)
+        length_word[:-1] = indices_arr[1:] - indices_arr[:-1]
+        duration = (end - start) / interval
+        length_word[-1] = duration - indices_arr[-1]
+        item["text/token_duration"] = length_word
 
 
 class ConcatDatasetIndex:
@@ -341,7 +420,7 @@ class Data(Modality):
                  fs_new=(15, 15), time=4.3, split=None, batch_size=100,
                  shuffle=True, num_workers=0, window_hop=0, load_data=True,
                  style_iters=0, num_training_sample=None, sample_all_styles=0,
-                 quantile_sample=None,
+                 repeat_text=1, quantile_sample=None,
                  quantile_num_training_sample=None, weighted=0, filler=0,
                  num_training_iters=None):
         super().__init__(path2data=path2data)
@@ -360,10 +439,14 @@ class Data(Modality):
         self.sample_all_styles = sample_all_styles
         self.quantile_sample = quantile_sample
         self.quantile_num_training_sample = quantile_num_training_sample
+        self.repeat_text = repeat_text
         self.weighted = weighted
+        self.filler = filler
         self.num_training_iters = num_training_iters
-        if any("text" in m for m in self.modalities) or filler:
-            raise NotImplementedError(TEXT_LATER)
+        self.stopwords, self.tokenizer = None, None
+        if self.filler:
+            self.stopwords = english_stopwords()
+        self.text_in_modalities = any("text" in m for m in self.modalities)
         self.missing = MissingData(self.path2data)
 
         self.modality_classes = self._load_modality_classes()
@@ -386,6 +469,9 @@ class Data(Modality):
 
         self.datasets = self.tdt_split()
         self.dataLoader_kwargs = {"batch_size": batch_size, "shuffle": shuffle}
+        if self.text_in_modalities:
+            self.dataLoader_kwargs["collate_fn"] = partial(
+                collate_fn_pad, pad_key=TEXT_PAD_KEYS, dim=0)
         self.update_dataloaders(time, window_hop)
 
     # ------------------------------------------------------------------ maps
@@ -396,9 +482,7 @@ class Data(Modality):
         return out
 
     def mod_map(self, mod):
-        if mod == "text":
-            raise NotImplementedError(TEXT_LATER)
-        cls = {"pose": Skeleton2D, "audio": Audio}[mod]
+        cls = {"pose": Skeleton2D, "audio": Audio, "text": Text}[mod]
         return cls(path2data=self.path2data, speaker=self.speaker)
 
     def getSpeaker(self, interval_id):
@@ -436,7 +520,10 @@ class Data(Modality):
     def minidataKwargs(self):
         return {"modalities": self.modalities, "fs_new": self.fs_new,
                 "time": self.time, "modality_classes": self.modality_classes,
-                "window_hop": self.window_hop}
+                "window_hop": self.window_hop, "repeat_text": self.repeat_text,
+                "text_in_modalities": self.text_in_modalities,
+                "filler": self.filler, "stopwords": self.stopwords,
+                "tokenizer": self.tokenizer}
 
     def get_minidata_list(self, intervals):
         return [MiniData(self.getPath2file(i), style=self.getStyle(i),

@@ -26,7 +26,10 @@ statistics, both optimizer states, the counters) into the port's trainer
 state, and ``jax_train_state_of`` carries it back.  The optimizer states
 are optax's: Adam's and AdamW's ``mu`` / ``nu`` (a bfloat16 ``mu`` under
 ``optim_mu_dtype``), SGD's momentum ``trace``, RMSprop's ``nu``
-(``load_flax_opt_state``).
+(``load_flax_opt_state``).  ``-optim_separate``'s optax state,
+``PartitionState(inner_states={"text": MaskedState(inner_state=...),
+"rest": ...})`` with ``MaskedNode`` at the other group's leaves, carries
+into the port's ``SeparateTextOptimizer`` group by group, and back.
 
 ``quantized_decoder_from_jax`` carries the int8 serving tier's quantized
 decoder (``mixstage_tpu/ops/pallas/quant.py::quantize_folded_decoder``)
@@ -80,18 +83,28 @@ def _kernel_to_flax(arr: np.ndarray) -> np.ndarray:
     raise ValueError(f"conv kernel of rank {arr.ndim}")
 
 
+def _masked(value) -> bool:
+    """optax's ``MaskedNode``: an empty named tuple where a masked
+    transformation's state has no leaf."""
+    return hasattr(value, "_fields") and not value._fields
+
+
 def _torch_leaf_name(collection: str, path: Tuple[str, ...]):
     leaf = _TO_TORCH.get((collection, path[-1]))
     return ".".join(path[:-1] + (leaf,)) if leaf else None
 
 
-def flax_params_to_torch(model: nn.Module, tree: Dict[str, Any]
-                         ) -> Dict[str, np.ndarray]:
+def flax_params_to_torch(model: nn.Module, tree: Dict[str, Any],
+                         masked: bool = False) -> Dict[str, np.ndarray]:
     """A params-shaped flax tree (params, or an optimizer moment of them)
-    → ``{torch parameter name: array in torch layout}``; total both ways."""
+    → ``{torch parameter name: array in torch layout}``; total both ways.
+    ``masked``: the tree is a masked optimizer group's, whose ``MaskedNode``
+    leaves are skipped, and only the leaves it holds are returned."""
     shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
     out = {}
     for path, value in _leaves(tree):
+        if masked and _masked(value):
+            continue
         name = _torch_leaf_name("params", path)
         if name not in shapes:
             raise KeyError(f"flax params leaf {'/'.join(path)} has no "
@@ -106,18 +119,19 @@ def flax_params_to_torch(model: nn.Module, tree: Dict[str, Any]
                              f"port {shapes[name]}")
         out[name] = np.array(arr, order="C")  # a writable, contiguous copy
     unfilled = sorted(set(shapes) - set(out))
-    if unfilled:
+    if unfilled and not masked:
         raise KeyError(f"no flax leaf fills {len(unfilled)} port parameters;"
                        f" first few: {unfilled[:5]}")
     return out
 
 
-def torch_params_to_flax(model: nn.Module, tensors: Dict[str, torch.Tensor]
-                         ) -> Dict[str, Any]:
+def torch_params_to_flax(model: nn.Module, tensors: Dict[str, torch.Tensor],
+                         masked: bool = False) -> Dict[str, Any]:
     """The inverse of ``flax_params_to_torch``: ``{torch parameter name:
-    tensor}`` (every parameter of ``model``) → a nested flax tree of numpy
-    arrays."""
-    names = [n for n, _ in model.named_parameters()]
+    tensor}`` (every parameter of ``model``; ``masked``: some of them) → a
+    nested flax tree of numpy arrays."""
+    names = [n for n, _ in model.named_parameters()
+             if not masked or n in tensors]
     missing = sorted(set(names) ^ set(tensors))
     if missing:
         raise KeyError(f"tensors and {type(model).__name__}'s parameters "
@@ -207,6 +221,28 @@ def _opt_nodes(opt_state) -> Dict[str, Any]:
     return out
 
 
+def _partition(opt_state) -> Dict[str, Any]:
+    """The inner states of optax's ``multi_transform``
+    (``PartitionState.inner_states``), each group's ``MaskedState``
+    unwrapped."""
+    found = []
+
+    def walk(node):
+        if hasattr(node, "_fields"):
+            if "inner_states" in node._fields:
+                found.append(node.inner_states)
+            for field in node._fields:
+                walk(getattr(node, field))
+        elif isinstance(node, (tuple, list)):
+            for child in node:
+                walk(child)
+    walk(opt_state)
+    if len(found) != 1:
+        raise KeyError(f"{len(found)} partitioned optax states; a "
+                       f"SeparateTextOptimizer takes one")
+    return {g: getattr(v, "inner_state", v) for g, v in found[0].items()}
+
+
 @torch.no_grad()
 def load_flax_opt_state(opt, modules: Dict[Any, nn.Module], opt_state
                         ) -> None:
@@ -220,7 +256,22 @@ def load_flax_opt_state(opt, modules: Dict[Any, nn.Module], opt_state
     rule as the parameters; every slot of ``opt`` must be filled, and the
     optax state may hold no other.  The count is read where the state
     keeps one (Adam's, a schedule's); SGD and RMSprop at a constant rate
-    keep none and leave the port's count as it is."""
+    keep none and leave the port's count as it is.  A
+    ``SeparateTextOptimizer`` takes ``multi_transform``'s state, each group
+    from its own masked inner state."""
+    groups = getattr(opt, "groups", None)
+    if groups is not None:
+        inner = _partition(opt_state)
+        if sorted(inner) != sorted(groups):
+            raise KeyError(f"the optax partition holds {sorted(inner)}, the "
+                           f"optimizer {sorted(groups)}")
+        for g, sub in groups.items():
+            _load_opt_nodes(sub, modules, inner[g], masked=True)
+        return
+    _load_opt_nodes(opt, modules, opt_state)
+
+
+def _load_opt_nodes(opt, modules, opt_state, masked: bool = False) -> None:
     nodes = _opt_nodes(opt_state)
     slots = opt.slots()
     fields = sorted(k for k in nodes if k != "count")
@@ -232,7 +283,8 @@ def load_flax_opt_state(opt, modules: Dict[Any, nn.Module], opt_state
         filled = set()
         for key, module in modules.items():
             sub = nodes[field] if key is None else nodes[field][key]
-            for name, arr in flax_params_to_torch(module, sub).items():
+            for name, arr in flax_params_to_torch(module, sub,
+                                                  masked).items():
                 full = name if key is None else f"{key}.{name}"
                 if full not in index:
                     raise KeyError(f"{field} {full} has no optimizer leaf")
@@ -246,10 +298,17 @@ def load_flax_opt_state(opt, modules: Dict[Any, nn.Module], opt_state
         opt.count = int(np.asarray(nodes["count"]))
 
 
-def to_flax_opt_state(opt, modules: Dict[Any, nn.Module]) -> Dict[str, Any]:
+def to_flax_opt_state(opt, modules: Dict[Any, nn.Module],
+                      masked: bool = False) -> Dict[str, Any]:
     """The inverse of ``load_flax_opt_state``: ``{"count", <slot>: tree}``
     for each of ``opt.slots()``, each a flax params tree of numpy arrays
-    (a bfloat16 ``mu`` as float32 arrays of the same values)."""
+    (a bfloat16 ``mu`` as float32 arrays of the same values); for a
+    ``SeparateTextOptimizer`` ``{"inner_states": {group: that dict}}``,
+    each group's trees holding its own leaves only."""
+    groups = getattr(opt, "groups", None)
+    if groups is not None:
+        return {"inner_states": {g: to_flax_opt_state(sub, modules, True)
+                                 for g, sub in groups.items()}}
     out: Dict[str, Any] = {"count": np.int32(opt.count)}
     for field, tensors in opt.slots().items():
         by_name = dict(zip(opt.names, tensors))
@@ -257,7 +316,8 @@ def to_flax_opt_state(opt, modules: Dict[Any, nn.Module]) -> Dict[str, Any]:
         for key, module in modules.items():
             prefix = "" if key is None else f"{key}."
             sub = torch_params_to_flax(module, {
-                n: by_name[prefix + n] for n, _ in module.named_parameters()})
+                n: by_name[prefix + n] for n, _ in module.named_parameters()
+                if not masked or prefix + n in by_name}, masked)
             if key is None:
                 tree = sub
             else:

@@ -1,7 +1,7 @@
 """Mix-StAGE generator: content + style → soft mixture of M decoders.
 
-Counterpart of ``mixstage_tpu/models/mix_stage.py:43-200``: audio content
-encoding → UNet → style-embedding concat → cluster
+Counterpart of ``mixstage_tpu/models/mix_stage.py:43-200``: audio and/or
+text content encoding → UNet → style-embedding concat → cluster
 classifier soft attention → grouped-conv mixture decoder → soft output
 selection.  Submodule names follow the flax tree, including the
 ``pose_encoder`` and ``concat_encoder`` that flax builds even in audio-only
@@ -12,9 +12,16 @@ configs, so the weight bridge round-trips the whole tree.  The mode is
 features, the cluster scores and softmax, and the pose are in ``dtype``, as
 in the JAX package's ``dtype=bfloat16`` model.
 
-Port scope: one audio stream and the curriculum pose input.  The text
-encoder and the ``concat_encoder`` fusion of audio + text come with the
-text-modality slice.
+Content streams (``mix_stage.py:105-137``): each input modality goes
+through its encoder (``audio/*`` the 2-D ``AudioEncoder``, ``text/*`` the
+``TextEncoder1D`` on ``text_channels`` features: 300 for ``text/w2v``, 768
+for ``text/bert``), in the order given; two or more streams are
+concatenated on the channels and fused by ``concat_encoder`` (512 → 256),
+so they must have equal lengths (``repeat_text=0`` text does not).  Flax
+creates an encoder's parameters only when its init sees one of its
+streams, so the port builds ``audio_encoder`` and ``text_encoder`` for the
+``input_modalities`` it is given (one audio stream by default): the
+audio-only tree, and every audio-only checkpoint, stay as they were.
 """
 
 from __future__ import annotations
@@ -27,7 +34,8 @@ from torch import nn
 from mixstage_tpu_torch.models.layers import (AudioEncoder, ClusterClassify,
                                               ConvNormRelu, EmbLin,
                                               GroupedPointwiseConv,
-                                              PoseEncoder, UNet1D, softmax)
+                                              PoseEncoder, TextEncoder1D,
+                                              UNet1D, softmax)
 from mixstage_tpu_torch.ops.mixture import index_select_outputs
 
 # width of the AudioEncoder / PoseEncoder output (layers.py:260-345)
@@ -41,6 +49,8 @@ class JointLateClusterSoftStyle4_G(nn.Module):
                  num_clusters: int = 8, num_speakers: int = 2,
                  style_dim: int = 10, decoder_lowering: str = "conv",
                  audio_lowerings: Optional[Tuple[str, ...]] = None,
+                 input_modalities: Sequence[str] = ("audio/log_mel_512",),
+                 text_channels: Optional[int] = None,
                  dtype: torch.dtype = torch.float32, p: float = 0.0):
         super().__init__()
         self.num_clusters = num_clusters
@@ -48,8 +58,13 @@ class JointLateClusterSoftStyle4_G(nn.Module):
         self.dtype = dtype
         M = num_clusters
         common = dict(dtype=dtype, p=p)      # every ConvNormRelu drops p
-        self.audio_encoder = AudioEncoder(lowerings=audio_lowerings,
-                                          **common)
+        kinds = {m.split("/")[0] for m in input_modalities}
+        if "audio" in kinds:
+            self.audio_encoder = AudioEncoder(lowerings=audio_lowerings,
+                                              **common)
+        if "text" in kinds:
+            self.text_encoder = TextEncoder1D(
+                input_channels=text_channels or 300, **common)
         self.pose_encoder = PoseEncoder(input_channels=out_feats, **common)
         self.unet = UNet1D(CONTENT_FEATS, in_channels, **common)
         self.style_emb = EmbLin(num_speakers, style_dim, dtype=dtype)
@@ -75,16 +90,37 @@ class JointLateClusterSoftStyle4_G(nn.Module):
     def encode_content(self, x_list: Sequence[torch.Tensor], y,
                        input_modalities: Sequence[str],
                        use_pose_input: bool, time_steps: Optional[int]):
-        """Curriculum content encoding (``mix_stage.py:105-137``)."""
+        """Curriculum content encoding (``mix_stage.py:105-137``): the
+        pose, or each input stream through its encoder, several fused by
+        ``concat_encoder``."""
         if use_pose_input:
             return self.pose_encoder(y)
-        kinds = [m.split("/")[0] for m in input_modalities]
-        if kinds != ["audio"]:
-            raise NotImplementedError(
-                f"input modalities {list(input_modalities)!r}: the port "
-                f"encodes one audio stream (text and the fusion of several "
-                f"streams come with a later slice)")
-        return self.audio_encoder(x_list[0], time_steps=time_steps)
+        encoded = []
+        for x, modality in zip(x_list, input_modalities):
+            kind = modality.split("/")[0]
+            if kind in ("audio", "text") and \
+                    not hasattr(self, f"{kind}_encoder"):
+                raise ValueError(f"{modality}: the generator was built "
+                                 f"without a {kind} stream")
+            if kind == "text":
+                if x.ndim != 3:
+                    # flax's conv stack reads a (B, T) stream as one
+                    # unbatched sequence and the fusion fails
+                    raise TypeError(f"{modality} of shape {tuple(x.shape)}: "
+                                    f"the text encoder takes (B, T, C)")
+                encoded.append(self.text_encoder(x))
+            elif kind == "audio":
+                encoded.append(self.audio_encoder(x, time_steps=time_steps))
+            else:
+                raise ValueError(f"unknown input modality {modality!r}")
+        if len(encoded) == 1:
+            return encoded[0]
+        lengths = [e.shape[1] for e in encoded]
+        if len(set(lengths)) > 1:
+            # jnp.concatenate's error (repeat_text=0 gives ragged text)
+            raise TypeError(f"cannot concatenate the content streams "
+                            f"{list(input_modalities)} of lengths {lengths}")
+        return self.concat_encoder(torch.cat(encoded, dim=-1))
 
     def features(self, x_list: Sequence[torch.Tensor], y, style_weights,
                  input_modalities: Sequence[str] = ("audio/log_mel_512",),

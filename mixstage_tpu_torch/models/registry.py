@@ -5,6 +5,13 @@ Speech2Gesture baseline, the style classifier and the discriminator.  Each
 class takes the compute ``dtype`` and the dropout probability ``p`` as
 keywords, as the JAX package's modules take them.  ``register_model`` adds
 an extension model (a Disentangle generator) by name.
+
+A Disentangle generator (a name holding ``Disentangle``) follows the
+Mix-StAGE generator's signature, takes the ``-style_losses`` weights as its
+``style_losses`` keyword (the steps forward them) and returns
+``internal_losses``: scalar losses named after ``DISENTANGLE_INTERNAL_LOSSES``,
+which join the G total and, detached, the D total.  The reference ships no
+such generator, so an unregistered one raises.
 """
 
 from __future__ import annotations
@@ -27,6 +34,20 @@ MODEL_REGISTRY: Dict[str, Type[nn.Module]] = {
     "StyleClassifier_G": StyleClassifier_G,
 }
 
+# The Disentangle trainer's loss vocabulary (``registry.py:61-69``): the
+# display order of the running-loss slots, G branch, D branch, then the
+# generator's internal losses.
+DISENTANGLE_LOSS_KINDS = ["pose", "G_gan", "real_D", "fake_D", "con_+",
+                          "con_-", "id_a", "id_p", "c_a", "c_p", "st_a",
+                          "st_p", "rec_a", "rec_p", "H"]
+
+# The internal losses a Disentangle generator emits, in slot order: the
+# ``-style_losses`` keys plus the unweighted entropy ``H``
+# (``registry.py:71-79``).
+DISENTANGLE_INTERNAL_LOSSES = ["content_+", "content_-", "id_a", "id_p",
+                               "cluster_a", "cluster_p", "style_a", "style_p",
+                               "rec_a", "rec_p", "H"]
+
 
 def register_model(name: str, cls: Type[nn.Module]) -> None:
     """Register an extension model under ``name`` (``registry.py:46-58``:
@@ -39,12 +60,14 @@ def get_model_def(name: str) -> Type[nn.Module]:
     if name not in MODEL_REGISTRY:
         if "Disentangle" in name:
             raise NotImplementedError(
-                f"model {name!r}: the reference ships no Disentangle "
-                f"generator (its trainer composition names one that "
-                f"eval(args.model) cannot find); register_model() one that "
-                f"emits the Disentangle internal losses.  The port's "
-                f"trainer plumbing for those losses comes later (ROADMAP "
-                f"queue 1 item 4)")
+                f"model {name!r}: the Disentangle trainer composition is "
+                "upstream-incomplete — the reference defines "
+                "TrainerLateClusterStyleDisentangleGAN with the extended "
+                "loss list (reference trainer.py:1419-1474) but ships no "
+                "Disentangle generator model (eval(args.model) would "
+                "NameError upstream too).  The trainer-side plumbing is "
+                "implemented: register_model() a generator emitting the "
+                f"internal losses {DISENTANGLE_INTERNAL_LOSSES} to use it.")
         raise KeyError(f"model {name!r} not in the port's registry; known: "
                        f"{sorted(MODEL_REGISTRY)}")
     return MODEL_REGISTRY[name]

@@ -73,9 +73,15 @@ def log_softmax(x, dim: int = -1):
 
 
 def cross_entropy(logits, labels):
-    """Mean softmax cross-entropy with integer labels."""
+    """Mean softmax cross-entropy with integer labels.  A label outside
+    [0, classes) picks NaN, as ``jnp.take_along_axis`` fills an
+    out-of-bounds gather (``-pos`` tags past ``num_clusters``), so the loss
+    is NaN where the JAX package's is."""
     logp = log_softmax(logits, dim=-1)
-    picked = logp.gather(-1, labels.long()[..., None])[..., 0]
+    idx = labels.long()
+    inside = (idx >= 0) & (idx < logp.shape[-1])
+    picked = logp.gather(-1, idx.clamp(0, logp.shape[-1] - 1)[..., None])
+    picked = torch.where(inside, picked[..., 0], float("nan"))
     return -picked.mean()
 
 

@@ -30,7 +30,12 @@ semantics, not ``torch.optim``'s):
   1e-8 inside the root; ``torch.optim.RMSprop``'s α 0.99 and ``g /
   (sqrt(v) + eps)`` compute something else), scaled by ``-lr``, then the
   optional momentum trace;
-* the learning rate is the schedule at the count BEFORE the update.
+* the learning rate is the schedule at the count BEFORE the update;
+* ``text_lr`` (the ``-optim_separate`` flag) is optax's ``multi_transform``
+  behind the one clip (``SeparateTextOptimizer``): every parameter under a
+  module named ``text_encoder`` runs the same rule at the constant
+  ``text_lr``, the rest at the learning rate or the schedule, each group
+  with its own moments and count.
 """
 
 from __future__ import annotations
@@ -98,25 +103,17 @@ class ClippedOptimizer:
     def _scalar(self, v) -> float:
         return float(v) if self.f64 else _f32(v)
 
-    @torch.no_grad()
-    def clip(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
-        """optax ``clip_by_global_norm(1.0)``: ``g / norm`` when ``norm ≥
-        1``, else ``g`` unchanged (optax's ``· max_norm`` is ``· 1``, exact),
-        with no host sync.  The per-leaf norms come from one multi-tensor
-        launch."""
-        norm = torch.stack(torch._foreach_norm(grads)).square().sum().sqrt()
-        return torch._foreach_div(grads, norm.clamp_min(self.MAX_NORM))
-
     def _direction(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
         raise NotImplementedError
 
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor]) -> None:
-        grads = list(grads)
-        if len(grads) != len(self.params):
-            raise ValueError(f"{len(grads)} gradients for "
-                             f"{len(self.params)} parameters")
-        grads = self.clip(grads)
+        self.apply(clip_by_global_norm(_checked(grads, self.params),
+                                       self.MAX_NORM))
+
+    @torch.no_grad()
+    def apply(self, grads: List[torch.Tensor]) -> None:
+        """One update from already clipped gradients."""
         rate = self.learning_rate()
         self.count += 1
         upd = self._direction(grads)
@@ -126,6 +123,25 @@ class ClippedOptimizer:
 
     def _after_rate(self, upd: List[torch.Tensor]) -> None:
         """A transformation after the learning rate (RMSprop's momentum)."""
+
+
+def _checked(grads, params) -> List[torch.Tensor]:
+    grads = list(grads)
+    if len(grads) != len(params):
+        raise ValueError(f"{len(grads)} gradients for {len(params)} "
+                         f"parameters")
+    return grads
+
+
+@torch.no_grad()
+def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float
+                        ) -> List[torch.Tensor]:
+    """optax ``clip_by_global_norm(max_norm)`` at ``max_norm`` 1: ``g /
+    norm`` when ``norm ≥ 1``, else ``g`` unchanged (optax's ``· max_norm``
+    is ``· 1``, exact), with no host sync.  The per-leaf norms come from
+    one multi-tensor launch."""
+    norm = torch.stack(torch._foreach_norm(grads)).square().sum().sqrt()
+    return torch._foreach_div(grads, norm.clamp_min(max_norm))
 
 
 class ClippedAdam(ClippedOptimizer):
@@ -265,6 +281,74 @@ class ClippedRMSprop(ClippedOptimizer):
 OPTIMIZERS = {"Adam": ClippedAdam, "AdamW": ClippedAdamW,
               "SGD": ClippedSGD, "RMSprop": ClippedRMSprop}
 
+TEXT_MODULE = "text_encoder"
+
+
+def is_text_leaf(name: str) -> bool:
+    """A parameter under a module named ``text_encoder`` at any depth
+    (``state.py:72-78``'s label function)."""
+    return TEXT_MODULE in name.split(".")[:-1]
+
+
+class SeparateTextOptimizer:
+    """``chain(clip_by_global_norm(1), multi_transform({"text":
+    rule(text_lr), "rest": rule(lr or schedule)}))`` (``state.py:71-87``).
+
+    One global-norm clip over every leaf, then each group's rule on its own
+    leaves (``groups``: two ``ClippedOptimizer`` objects, each with its moments
+    and count; the text group at the constant ``text_lr``).  ``names``,
+    ``params`` and ``slots()`` span both groups in the parameters' order,
+    so checkpoints see one optimizer; ``count`` reads the rest group's and
+    sets both."""
+
+    MAX_NORM = ClippedOptimizer.MAX_NORM
+    GROUPS = ("text", "rest")
+
+    def __init__(self, named_params: Sequence[Tuple[str, torch.Tensor]],
+                 rule, lr: float, schedule: Optional[Schedule],
+                 text_lr: float):
+        named = list(named_params)
+        self.names = [n for n, _ in named]
+        self.params = [p for _, p in named]
+        self.index = {g: [i for i, n in enumerate(self.names)
+                          if is_text_leaf(n) == (g == "text")]
+                      for g in self.GROUPS}
+        rates = {"text": dict(lr=text_lr, schedule=None),
+                 "rest": dict(lr=lr, schedule=schedule)}
+        self.groups = {g: rule([named[i] for i in self.index[g]], **rates[g])
+                       for g in self.GROUPS}
+        self.SLOTS = self.groups["rest"].SLOTS
+
+    @property
+    def count(self) -> int:
+        return self.groups["rest"].count
+
+    @count.setter
+    def count(self, value: int) -> None:
+        for opt in self.groups.values():
+            opt.count = int(value)
+
+    def learning_rate(self) -> float:
+        return self.groups["rest"].learning_rate()
+
+    def slots(self) -> Dict[str, List[torch.Tensor]]:
+        out = {}
+        for slot in self.SLOTS:
+            tensors = [None] * len(self.names)
+            for g, opt in self.groups.items():
+                for i, t in zip(self.index[g], getattr(opt, slot)):
+                    tensors[i] = t
+            out[slot] = tensors
+        return out
+
+    @torch.no_grad()
+    def step(self, grads: Sequence[torch.Tensor]) -> None:
+        grads = clip_by_global_norm(_checked(grads, self.params),
+                                    self.MAX_NORM)
+        for g, opt in self.groups.items():
+            if opt.params:
+                opt.apply([grads[i] for i in self.index[g]])
+
 
 def translate_optim_kwargs(kwargs: dict) -> dict:
     """torch optimizer kwargs → optax names: ``betas=(b1, b2)`` → b1/b2."""
@@ -280,16 +364,16 @@ def make_optimizer(name: str, lr: float, schedule: Optional[Schedule] = None,
                    ) -> Callable[[Sequence[Tuple[str, torch.Tensor]]],
                                  ClippedOptimizer]:
     """A constructor ``named_params → optimizer`` (``state.py:57-87``) with
-    the clip every caller of the JAX package asks for.  ``kwargs`` are the
-    optax optimizer's (``translate_optim_kwargs``); an unknown one raises
+    the clip every caller of the JAX package asks for; with ``text_lr`` a
+    ``SeparateTextOptimizer``.  ``kwargs`` are the optax optimizer's (``translate_optim_kwargs``); an unknown one raises
     ``TypeError`` when the optimizer is built, as optax raises."""
     if name not in OPTIMIZERS:
         raise KeyError(f"optimizer {name!r} unknown; known: "
                        f"{sorted(OPTIMIZERS)}")
     if text_lr is not None:
-        raise NotImplementedError(
-            "-optim_separate: the text encoder's own learning rate needs "
-            "the text modalities, which come later (ROADMAP queue 1 item 4)")
+        return partial(SeparateTextOptimizer,
+                       rule=partial(OPTIMIZERS[name], **kwargs), lr=lr,
+                       schedule=schedule, text_lr=text_lr)
     return partial(OPTIMIZERS[name], lr=lr, schedule=schedule, **kwargs)
 
 

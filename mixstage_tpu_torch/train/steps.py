@@ -1,7 +1,8 @@
 """Train and eval steps: the GAN, the non-GAN and the classifier trainers.
 
 Counterpart of ``mixstage_tpu/train/steps.py``: every configuration its
-``StepFactory`` builds but those that need text or a Disentangle model.
+``StepFactory`` builds but ``audio_lowering`` (a TPU relowering of the same
+math, not to port).
 The JAX package jits pure functions of a state pytree; here the modules
 live in ``TrainState`` and a step updates it in place, with
 ``module.train()`` / ``.eval()`` as the mode:
@@ -48,9 +49,21 @@ live in ``TrainState`` and a step updates it in place, with
   statistics, optimizer state and losses.  K3 has no float64 mode, so
   ``fused_decoder`` at float64 is refused on the card (its plain versions
   run it on the CPU).
+* text input streams (``text/w2v``, ``text/bert``): the Mix-StAGE
+  generator gets a ``text_encoder`` on ``text_channels`` (else the
+  stream's own width, ``text_channels()``) and fuses several streams
+  through its ``concat_encoder``; a
+  simple generator takes the streams concatenated on the channels (early
+  fusion).  The joint D counts each text stream's width.
+  ``optim_separate`` gives G's optimizer the text encoder's own constant
+  learning rate (``state.SeparateTextOptimizer``; D's has none).
+* a Disentangle generator (``models/registry.py``) gets ``style_losses``
+  as its keyword; its ``internal_losses`` join the G total and, detached,
+  the D total, and the k-step driver carries their keys.  The fused G step
+  runs the generator's ``backbone``, which emits none, so there they are
+  absent, as in the JAX package (``steps.py:323-356``).
 
-Configurations the port does not cover yet raise ``NotImplementedError``
-naming their ROADMAP item.
+Configurations the port does not cover raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -68,7 +81,8 @@ from mixstage_tpu_torch.models.layers import (PoseStyleEncoder,
                                               confidence_entropy_loss,
                                               dropout_rng, reset_parameters_,
                                               softmax)
-from mixstage_tpu_torch.models.registry import (get_model_def,
+from mixstage_tpu_torch.models.registry import (DISENTANGLE_INTERNAL_LOSSES,
+                                                get_model_def,
                                                 infer_discriminator_name)
 from mixstage_tpu_torch.ops.mixture import index_select_outputs
 from mixstage_tpu_torch.train import losses as L
@@ -145,18 +159,10 @@ class StepConfig:
 
 def _unsupported(cfg: StepConfig) -> Optional[str]:
     """Why the port cannot run ``cfg`` (None when it can)."""
-    item = "(ROADMAP queue 1 item {})"
-    if any(not m.startswith("audio/") for m in cfg.input_modalities) or \
-            len(cfg.input_modalities) != 1 or cfg.text_channels:
-        return f"text modalities and fused streams come later {item.format(4)}"
-    if cfg.optim_separate is not None:
-        return (f"-optim_separate: the text encoder's own learning rate "
-                f"comes with the text modalities {item.format(4)}")
-    if cfg.style_losses or "Disentangle" in cfg.model:
-        return f"the Disentangle losses come later {item.format(4)}"
     if cfg.audio_lowering:
         return ("audio_lowering is a TPU relowering plan of the same math; "
-                f"the port runs native convs {item.format(4)}: not to port")
+                "the port runs native convs (ROADMAP queue 1 item 4): not "
+                "to port")
     if cfg.fused_decoder and cfg.p_dropout > 0:
         return (f"-fused_decoder requires p_dropout == 0 (steps.py:338-339):"
                 f" K3 has no dropout (ROADMAP queue 3)")
@@ -257,7 +263,7 @@ class StepFactory:
         if cfg.optim_mu_dtype and cfg.optim in ("Adam", "AdamW"):
             opt_kw["mu_dtype"] = cfg.optim_mu_dtype
         self.g_tx = make_optimizer(cfg.optim, cfg.lr, schedule=g_schedule,
-                                   **opt_kw)
+                                   text_lr=cfg.optim_separate, **opt_kw)
         self.d_tx = make_optimizer(cfg.optim, cfg.lr, schedule=d_schedule,
                                    **opt_kw) if cfg.gan else None
 
@@ -269,18 +275,35 @@ class StepFactory:
         extra = sum(JOINT_CHANNELS.get(m, 0) for m in cfg.input_modalities)
         return cfg.out_feats + (extra if cfg.joint else 0)
 
+    def text_channels(self) -> Optional[int]:
+        """The text encoder's input width when an input stream is text:
+        ``text_channels``, else the stream's own width (``text/w2v`` 300,
+        ``text/bert`` 768; flax infers it from the data), else 300
+        (``mix_stage.py:70-73``); None without a text stream (flax builds
+        no text encoder then)."""
+        text = [m for m in self.cfg.input_modalities
+                if m.split("/")[0] == "text"]
+        if not text:
+            return None
+        return self.cfg.text_channels or JOINT_CHANNELS.get(text[0], 300)
+
     def build_modules(self):
         """(gen, psenc or None, disc or None) of the model family
         (``steps.py:130-199``); at float64 moved to float64."""
         cfg = self.cfg
         mk = dict(cfg.model_kwargs)
+        if "Disentangle" in cfg.model:
+            mk.setdefault("style_losses", dict(cfg.style_losses))
         common = dict(dtype=cfg.dtype, p=cfg.p_dropout)
         psenc = disc = None
         if cfg.has_style:
             gen = self.gen_cls(out_feats=cfg.out_feats,
                                num_clusters=cfg.num_clusters or 1,
                                num_speakers=cfg.num_speakers,
-                               style_dim=cfg.style_dim, **common, **mk)
+                               style_dim=cfg.style_dim,
+                               input_modalities=cfg.input_modalities,
+                               text_channels=self.text_channels(),
+                               **common, **mk)
             psenc = PoseStyleEncoder(input_channels=cfg.out_feats,
                                      num_speakers=cfg.num_speakers, **common)
         elif cfg.is_classifier:
@@ -343,6 +366,18 @@ class StepFactory:
         for k, v in (counters or {}).items():
             setattr(state, k, int(v))
         return state
+
+    @torch.no_grad()
+    def check(self, state: TrainState, batch: Batch) -> None:
+        """Run G (and D) once on ``batch`` in eval mode, changing nothing,
+        as flax's init runs the modules on the JAX trainer's first batch:
+        input streams that do not fit the modules (a 1-D text stream, text
+        of another length than the audio) raise here, at set-up."""
+        self.make_steps()["eval"](state, batch)
+        if state.disc is not None:
+            b = _to_device(batch, self.device, self.cfg.dtype)
+            self._modes(state, False, False)
+            self._apply_disc(state, self._d_input(b["y"], b["x"]))
 
     # --------------------------------------------------------------- helpers
     def _prepare(self, batch: Batch, rng: Rng):
@@ -492,6 +527,9 @@ class StepFactory:
             id_out = zero
         losses = {"label": label_loss, "id_in": id_in * cfg.lambda_id,
                   "id_out": id_out * cfg.lambda_id}
+        # a Disentangle generator's named internal losses (already weighted
+        # by its style_losses) join the total (steps.py:430-435)
+        losses.update(out.get("internal_losses", {}))
         return pose, losses, {"labels_cap_soft": out.get("labels_cap_soft")}
 
     def _forward(self, state, batch, use_pose_input, train, sample_flag):
@@ -683,6 +721,8 @@ class StepFactory:
         keys = {"pose", "G_gan", "real_D", "fake_D", "total"}
         if self.cfg.has_style:
             keys |= {"label", "id_in", "id_out"}
+        if "Disentangle" in self.cfg.model:
+            keys |= set(DISENTANGLE_INTERNAL_LOSSES)
         if self.cfg.gan and self.cfg.weighted:
             keys |= {"W"}
         return sorted(keys)

@@ -23,6 +23,14 @@ sample weights back to the weighted sampler and, with
 ``-pretrained_model_weights`` checkpoint of the port's
 ``StyleClassifier_G`` turns on the style Inception Score.
 
+Text (``-modalities`` with ``text/w2v`` or ``text/bert``): ``Data`` gets
+``-repeat_text`` and ``-filler``, ZNorm skips the hidden keys
+(``text/tokens``, ``text/filler``, ``audio/silence``) and the generator's
+``text_channels`` come from the data's width.  ``-pos 1`` takes the cluster
+labels from a loaded ``text/pos`` stream (raw, before ZNorm) in place of
+the k-means labels, and changes nothing where none is loaded, as in the
+JAX package.
+
 Flags the port cannot run yet raise ``NotImplementedError`` naming their
 ROADMAP item; none is ignored silently.
 """
@@ -93,10 +101,6 @@ def refuse_unported(args: Config) -> None:
     if args.render:
         raise NotImplementedError(
             f"-render {args.render}: rendering comes later {later.format(7)}")
-    if args.pos:
-        raise NotImplementedError(
-            f"-pos: POS-tag cluster labels need the text modalities, which "
-            f"come later {later.format(4)}")
     path = args.pretrained_model_weights
     if path and not args.pretrained_model and Path(path).exists():
         from mixstage_tpu_torch.bookkeeping import load_port_checkpoint
@@ -153,6 +157,7 @@ class Trainer:
                          num_training_sample=args.num_training_sample,
                          load_data=bool(args.load_data),
                          sample_all_styles=self.sample_all_styles,
+                         repeat_text=args.repeat_text,
                          quantile_sample=args.quantile_sample,
                          quantile_num_training_sample=args.quantile_num_training_sample,
                          weighted=args.weighted, filler=args.filler,
@@ -217,8 +222,7 @@ class Trainer:
             softmax=bool(mk.pop("softmax", 1)),
             argmax=bool(mk.pop("argmax", 0)),
             some_grad_flag=bool(mk.pop("some_grad_flag", False)),
-            style_losses=(tuple(sorted((args.style_losses or {}).items()))
-                          if "Disentangle" in args.model else ()),
+            style_losses=tuple(sorted((args.style_losses or {}).items())),
             discriminator=args.discriminator,
             dg_iter_ratio=args.dg_iter_ratio, lambda_gan=args.lambda_gan,
             lambda_D=args.lambda_D, joint=bool(args.joint),
@@ -254,8 +258,9 @@ class Trainer:
         self._coin = np.random.default_rng(args.seed or 0)
         self._preempted = False  # set by the SIGTERM handler, polled in loops
         self._d_prob = self.step_cfg.d_prob
-        self._peek_batch()       # the JAX trainer's init batch: data exist
+        batch0 = self._peek_batch()   # the JAX trainer's init batch
         self.state = self.factory.init(seed=args.seed or 0)
+        self.factory.check(self.state, batch0)
         print("Model Created")
         if args.load:
             print("Loading Model")
@@ -303,7 +308,10 @@ class Trainer:
         and the sampling metric worker all run forward passes ahead of the
         matching inverse."""
         labels = None
-        if self.cluster is not None:
+        if self.args.pos and "text/pos" in batch:
+            # POS tag classes as the cluster labels (trainer.py:252-255)
+            labels = np.asarray(batch["text/pos"], np.int64)
+        elif self.cluster is not None:
             transform_cluster = Compose([RemoveJoints(self.mask)])
             labels = self.cluster(
                 transform_cluster(np.asarray(batch[self.output_modality])))

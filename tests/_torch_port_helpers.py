@@ -312,3 +312,87 @@ def jax_nominal(fn, *args):
     without; the port, eager, 0.0057)."""
     return jax.jit(fn).lower(*args).compile(
         compiler_options={"xla_allow_excess_precision": False})(*args)
+
+
+# ---------------------------------------------------------------------------
+# A Disentangle generator in both packages (``tests/test_disentangle.py``'s)
+# ---------------------------------------------------------------------------
+
+from flax import linen as _nn                                  # noqa: E402
+
+from mixstage_tpu.models import registry as jreg               # noqa: E402
+from mixstage_tpu.models.mix_stage import \
+    JointLateClusterSoftStyle4_G as JaxG                       # noqa: E402
+from mixstage_tpu_torch.models import \
+    JointLateClusterSoftStyle4_G                               # noqa: E402
+from mixstage_tpu_torch.models.registry import \
+    DISENTANGLE_INTERNAL_LOSSES as INTERNAL                    # noqa: E402
+
+
+class JaxDisentangle(JaxG):
+    """``tests/test_disentangle.py``'s generator."""
+
+    style_losses: tuple = ()
+
+    def __call__(self, x_list, y, style_weights, input_modalities,
+                 use_pose_input=False, time_steps=None, train=True):
+        out = super().__call__(x_list, y, style_weights, input_modalities,
+                               use_pose_input=use_pose_input,
+                               time_steps=time_steps, train=train)
+        w = dict(self.style_losses)
+        pose, score = out["pose"], out["labels_score"]
+        losses = {}
+        for i, name in enumerate(jreg.DISENTANGLE_INTERNAL_LOSSES):
+            if name == "H":
+                p = _nn.softmax(score, axis=-1)
+                losses["H"] = -(p * jnp.log(p + 1e-8)).sum(-1).mean()
+            else:
+                losses[name] = w.get(name, 1.0) * \
+                    jnp.abs(pose).mean() * (i + 1) / 100.0
+        out["internal_losses"] = losses
+        return out
+
+
+class PortDisentangle(JointLateClusterSoftStyle4_G):
+    """The same generator in the port."""
+
+    def __init__(self, style_losses=(), **kw):
+        super().__init__(**kw)
+        self.style_losses = dict(style_losses)
+
+    def forward(self, x_list, y, style_weights,
+                input_modalities=("audio/log_mel_512",),
+                use_pose_input=False, time_steps=None):
+        out = super().forward(x_list, y, style_weights, input_modalities,
+                              use_pose_input, time_steps)
+        pose, score = out["pose"], out["labels_score"]
+        losses = {}
+        for i, name in enumerate(INTERNAL):
+            if name == "H":
+                p = torch.softmax(score, dim=-1)
+                losses["H"] = -(p * torch.log(p + 1e-8)).sum(-1).mean()
+            else:
+                losses[name] = self.style_losses.get(name, 1.0) * \
+                    pose.abs().mean() * (i + 1) / 100.0
+        out["internal_losses"] = losses
+        return out
+
+
+def record_steps(trainer, log):
+    """Wrap a trainer's steps: log (kind, use_pose_input, batch without x,
+    scalar losses) per call."""
+    def scalars(losses):
+        return {k: float(np.asarray(v.float() if torch.is_tensor(v) else v))
+                for k, v in losses.items() if np.ndim(v) == 0}
+
+    for kind in ("g", "d", "eval"):
+        fn = trainer.steps[kind]
+
+        def wrapped(state, batch, *a, _fn=fn, _kind=kind, **kw):
+            out = _fn(state, batch, *a, **kw)
+            losses = out[0] if _kind == "eval" else out[1]
+            log.append((_kind, kw.get("use_pose_input", False),
+                        {k: np.asarray(v) for k, v in batch.items()
+                         if k != "x"}, scalars(losses)))
+            return out
+        trainer.steps[kind] = wrapped

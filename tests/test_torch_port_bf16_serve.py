@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_port_memory import release_memory  # noqa: F401
 from _torch_port_helpers import (B, MEL, SMALL, T, as_np, bf16_rule,
                                  bf16_values, jax_serving_factory,
                                  small_generators, style_rows)

@@ -34,6 +34,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_port_memory import release_memory  # noqa: F401
 from _torch_port_helpers import as_np, bf16_rule, flax_variables, \
     jax_nominal
 from mixstage_tpu.train.state import TrainState as JaxTrainState

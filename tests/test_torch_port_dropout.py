@@ -31,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_port_memory import release_memory  # noqa: F401
 from _torch_port_helpers import jax_train_state, port_state
 from mixstage_tpu.train.steps import StepConfig as JaxStepConfig
 from mixstage_tpu.train.steps import StepFactory as JaxStepFactory

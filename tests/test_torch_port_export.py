@@ -28,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_port_memory import release_memory  # noqa: F401
 from _torch_port_helpers import SMALL, jax_serving_factory, small_generators
 from mixstage_tpu_torch.export import (ARTIFACT_FORMAT, MANIFEST, WEIGHTS,
                                        export_serving, load_serving)

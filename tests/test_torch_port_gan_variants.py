@@ -34,6 +34,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_port_memory import release_memory  # noqa: F401
 from _torch_port_helpers import flat_tree, jax_train_state, port_state
 from mixstage_tpu.models.layers import \
     confidence_entropy_loss as jax_confidence

@@ -21,6 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from _torch_port_memory import release_memory  # noqa: F401
 from _torch_port_helpers import (B, MEL, T, jax_serving_factory,
                                  small_generators, style_rows)
 from mixstage_tpu_torch import serve as tserve

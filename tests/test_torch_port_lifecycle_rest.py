@@ -38,6 +38,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_port_memory import release_memory  # noqa: F401
 from _torch_port_helpers import flat_tree, flax_variables
 from mixstage_tpu.config import config_from_dict as jax_cfg
 from mixstage_tpu.data.synthetic import make_synthetic_dataset

@@ -54,6 +54,16 @@ def test_registry_and_text_modality():
         get_model_def("NoSuchModel_G")  # Speech2Gesture_G is ported now
     port = JointLateClusterSoftStyle4_G(num_clusters=2, num_speakers=2,
                                         in_channels=64)
-    with pytest.raises(NotImplementedError, match="text"):
+    # built for audio (flax's tree of an audio-only generator has no
+    # text_encoder) it has no text encoder
+    with pytest.raises(ValueError, match="text stream"):
         port.encode_content([torch.zeros(1, 64, 300)], None, ["text/w2v"],
                             False, None)
+    # built for text it encodes text (held to JAX in
+    # test_torch_port_text_model.py)
+    port = JointLateClusterSoftStyle4_G(num_clusters=2, num_speakers=2,
+                                        in_channels=64,
+                                        input_modalities=["text/w2v"])
+    out = port.encode_content([torch.zeros(1, 64, 300)], None,
+                              ["text/w2v"], False, None)
+    assert tuple(out.shape) == (1, 64, 256)

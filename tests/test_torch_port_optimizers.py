@@ -181,8 +181,14 @@ def test_unknown_and_refused_optimizer_options():
         TS.make_optimizer("Adagrad", 0.1)
     with pytest.raises(TypeError):
         TS.make_optimizer("SGD", 0.1, b1=0.5)([("p", torch.zeros(2))])
-    with pytest.raises(NotImplementedError, match="item 4"):
-        TS.make_optimizer("Adam", 0.1, text_lr=1e-5)
+    # -optim_separate: the text encoder's leaves in their own group
+    opt = TS.make_optimizer("Adam", 0.1, text_lr=1e-5)(
+        [("gen.text_encoder.stack.conv0.conv.weight", torch.zeros(2)),
+         ("gen.unet.pre0.conv.weight", torch.zeros(3))])
+    assert isinstance(opt, TS.SeparateTextOptimizer)
+    assert [o.names for o in opt.groups.values()] == [
+        ["gen.text_encoder.stack.conv0.conv.weight"],
+        ["gen.unet.pre0.conv.weight"]]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TS.make_optimizer("RMSprop", 0.1, centered=True)(
             [("p", torch.zeros(2))])

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_port_memory import release_memory  # noqa: F401
 from mixstage_tpu_torch.cli import export as cli_export
 from mixstage_tpu_torch.cli import serve as cli_serve
 from mixstage_tpu_torch.cli import train as cli_train

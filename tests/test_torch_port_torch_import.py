@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_port_memory import release_memory  # noqa: F401
 from _torch_port_helpers import SMALL, _draw
 from mixstage_tpu.interop import torch_import as jti
 from mixstage_tpu.train.steps import StepConfig as JaxStepConfig

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_port_memory import release_memory  # noqa: F401
 from _torch_port_helpers import small_generators
 from mixstage_tpu.ops.pallas import train_decoder as jtd
 from mixstage_tpu_torch.ops.cuda import train_decoder as ttd

@@ -126,10 +126,12 @@ def test_scheduled_adam_uses_the_count_before_the_update():
 def test_unported_optimizer_raises():
     """Every optimizer of the JAX package is ported (the port's own tests
     in test_torch_port_optimizers.py); an unknown name raises as JAX's
-    make_optimizer does, and -optim_separate waits for the text encoder."""
+    make_optimizer does; -optim_separate builds the text encoder's group
+    (held to optax in test_torch_port_optim_separate.py)."""
     with pytest.raises(KeyError, match="unknown"):
         TS.make_optimizer("Adagrad", 0.1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TS.make_optimizer("SGD", 0.1, text_lr=1e-5)
+    opt = TS.make_optimizer("SGD", 0.1, text_lr=1e-5)(
+        [("gen.text_encoder.w", torch.zeros(2)), ("gen.w", torch.zeros(2))])
+    assert opt.groups["text"].lr == 1e-5 and opt.groups["rest"].lr == 0.1
     assert TS.translate_optim_kwargs({"betas": (0.5, 0.9), "eps": 1e-6}) == \
         {"b1": 0.5, "b2": 0.9, "eps": 1e-6}
