@@ -10,8 +10,9 @@ serving tier with the streaming and waveform endpoints (phases 10-14), the
 bf16 tier, serving and GAN training (phases 15-17), the int8 tier on the
 bf16 model (phases 18-19), the host lifecycle through the CLIs
 (phase 20), the serving entry points on its checkpoints (phase 21), the
-rest of the train steps (phase 22), and text input, ``-optim_separate``
-and the Disentangle losses (phase 23):
+rest of the train steps (phase 22), text input, ``-optim_separate``
+and the Disentangle losses (phase 23), and the parallel layouts (phase
+24):
 
 1. device: the card's name and power limit from ``nvidia-smi``;
 2. build: every CUDA kernel from the checkout's sources, one ``nvcc`` per
@@ -204,7 +205,30 @@ and the Disentangle losses (phase 23):
     -optim_separate 1e-5 -fused_decoder 1``, a ``-pos 1`` run whose labels
     are the ``text/pos`` classes, and ``cli.sample`` on the first.  K3
     launched once each way per fused G step, counted over the phase
-    (``text_launches``).
+    (``text_launches``);
+24. the parallel layouts: (a) K3 at a data rank's bs16 and at 4, 2 and 1
+    groups against its plain versions, K3-fwd with a one-rank exchange
+    hook bit for bit with K3-fwd without one, and a fused G step through
+    the world-1 layout launching K3 once each way; (b) two ranks, child
+    processes of this script (``--child parallel``, each with a timeout),
+    sharing the one card over gloo (NCCL takes one rank a device), which
+    collectives gloo runs on CUDA tensors, then data parallel at bs32 × 64
+    (16 rows a rank, BatchNorm's and K3's statistics over both): the fused
+    f32 G step and, from the same start, the D step against the one-rank
+    steps (losses rtol 1e-4, params 2·lr, BN statistics 1e-4 of scale,
+    Adam mu ``MOMENT_TOL_DP``), the unfused float64 G step (Adam mu
+    ``F64_MU_TOL``), the fused bf16 G step (pose and mu by the bf16 rule,
+    the total within one bf16 ULP); (c) a 1 × 2 data × expert fused G step
+    (K3 at 4 groups a rank) against the one-rank step; K3 launched once
+    each way a G step on each rank (``parallel_launches_per_rank``); (d)
+    serving on ``["cuda:0"] * 2`` at bs32 × 64: batch (K1) and int8 batch
+    (K1 + K4) bit for bit with the one-device call on each device's rows,
+    batch and expert (K1 at 4 groups a device) within 1e-4 and int8 within
+    the int8 route's mean of one whole-batch call, time at B=1 T=4096 over
+    2 shards within 1e-4; K1 and K4 launches per device
+    (``parallel_launches_per_device``); (e) a rank's DP G step time beside
+    one rank's and the serving calls' (two processes sharing one card: no
+    scaling measurement).
 
 The bf16 rule: no bf16 output is held element-wise to another bf16 output
 (two valid roundings differ about as much as either differs from the
@@ -244,6 +268,7 @@ import subprocess
 import sys
 import time
 from functools import partial
+from pathlib import Path
 
 import numpy as np
 
@@ -270,6 +295,15 @@ INT8_DRIFT = (1e-4, 0.10)    # int8 tier against f32 serving (test_pallas:160)
 # at --seed 0 on an H100; tests/test_torch_port_train_steps.py says why);
 # a wrong gradient moves a module by O(1).
 MOMENT_TOL = 3e-3
+# a data-parallel step against the one-rank step (phase 24): there every
+# layer sums its statistics in another order and cuDNN picks its
+# algorithms by the rank's batch, so leaky units flip throughout the
+# backbone, not only in the decoder (5.4e-3 of gen.classify_cluster at
+# --seed 0 on an H100), while in float64 the two steps' moments agree to
+# 1e-9 (the float64 check below; 2e-14 on the CPU,
+# tests/test_torch_port_parallel_steps.py): rounding amplified
+MOMENT_TOL_DP = 1e-2
+F64_MU_TOL = 1e-9
 # the largest of those gaps with K3 on its 3xTF32 mma.sync route at --seed
 # 0 (NVIDIA H100 80GB HBM3, 700 W; PERF.md), the yardstick of its wgmma
 # route's
@@ -603,10 +637,10 @@ def random_folded(torch, gen, b, t, g, layers, f, device):
             draw(g, f, scale=0.1))
 
 
-def random_train(torch, gen, b, t, device):
-    """Seeded K3 inputs at the flagship widths: x (b, t, C0) and the
-    decoder's packed parameters (``train_decoder.py``'s layout)."""
-    g = MODEL["num_clusters"]
+def random_train(torch, gen, b, t, device, g=MODEL["num_clusters"]):
+    """Seeded K3 inputs at the flagship widths, ``g`` groups: x (b, t,
+    C0) and the decoder's packed parameters (``train_decoder.py``'s
+    layout)."""
 
     def draw(*shape, scale, shift=0.0):
         return (torch.randn(*shape, generator=gen) * scale + shift).to(device)
@@ -734,10 +768,11 @@ def g_moment_gaps(s0, s1):
             bias / scale)
 
 
-def compare_states(torch, s0, s1, lr):
+def compare_states(torch, s0, s1, lr, mu_tol=MOMENT_TOL,
+                   label="fused vs unfused G step"):
     """Fused (s1) against unfused (s0) G side after one G step: params at
     atol 2·lr (+1e-6), BN running statistics at 1e-4 of each leaf's scale,
-    G's Adam mu (``g_moment_gaps``) at ``MOMENT_TOL`` per module and the
+    G's Adam mu (``g_moment_gaps``) at ``mu_tol`` per module and the
     pre-BN biases at 1e-4 of the tree's scale.  Returns (max param diff,
     max normalised stat diff, {module: mu gap}, bias gap)."""
     p_err = s_err = 0.0
@@ -753,16 +788,15 @@ def compare_states(torch, s0, s1, lr):
             else:
                 p_err = max(p_err, d)
     gaps, bias = g_moment_gaps(s0, s1)
-    log("[train] fused vs unfused G step, Adam mu per module (relative "
-        "Frobenius): " + ", ".join(f"{m} {g:.2e}" for m, g in sorted(
+    log(f"[train] {label}, Adam mu per module (relative Frobenius): " + ", ".join(f"{m} {g:.2e}" for m, g in sorted(
             gaps.items(), key=lambda kv: -kv[1]))
         + f"; pre-BN conv biases {bias:.2e} of max |mu|")
-    check(p_err <= 2 * lr + 1e-6, f"fused G step params differ by {p_err:.3e}")
-    check(s_err <= KERNEL_TOL, f"fused G step BN stats differ by {s_err:.3e}")
+    check(p_err <= 2 * lr + 1e-6, f"{label}: params differ by {p_err:.3e}")
+    check(s_err <= KERNEL_TOL, f"{label}: BN stats differ by {s_err:.3e}")
     worst = max(gaps, key=gaps.get)
-    check(gaps[worst] <= MOMENT_TOL, f"fused G step Adam mu of {worst} "
-          f"differs by {gaps[worst]:.3e} (tol {MOMENT_TOL:g})")
-    check(bias <= KERNEL_TOL, f"fused G step pre-BN bias mu {bias:.3e}")
+    check(gaps[worst] <= mu_tol, f"{label}: Adam mu of {worst} differs by "
+          f"{gaps[worst]:.3e} (tol {mu_tol:g})")
+    check(bias <= KERNEL_TOL, f"{label}: pre-BN bias mu {bias:.3e}")
     return p_err, s_err, gaps, bias
 
 
@@ -3159,11 +3193,522 @@ def text_phase(torch, args, device, smi, results) -> dict:
     return launches
 
 
+# phase 24: the parallel layouts (two ranks share the one card over gloo)
+PAR_WORLD = 2
+PAR_TIMEOUT_S = 300          # each child process of phase 24
+PAR_T_LONG = 4096            # the time partition's clip
+
+
+def state_snapshot(state):
+    """CPU copies of a train state's module state dicts and G's Adam mu."""
+    out = {n: {k: v.detach().cpu().clone() for k, v in
+               getattr(state, n).state_dict().items()}
+           for n in ("gen", "psenc", "disc") if getattr(state, n) is not None}
+    out["mu"] = [t.detach().cpu().clone() for t in state.g_opt.slots()["mu"]]
+    return out
+
+
+def state_from(factory, seed, snap):
+    """A train state of ``factory`` carrying a ``state_snapshot``."""
+    state = factory.init(seed=seed)
+    for n in ("gen", "psenc", "disc"):
+        if n in snap:
+            getattr(state, n).load_state_dict(snap[n])
+    for t, v in zip(state.g_opt.slots()["mu"], snap["mu"]):
+        t.copy_(v.to(t.device))
+    return state
+
+
+def parallel_child(args) -> int:
+    """One rank of phase 24 (started by ``parallel_phase``): (b) the fused
+    f32 G and D steps and the fused bf16 G step, data parallel over the
+    ranks, bs32 split 16 rows a rank, and the G step's time; (c) the fused
+    G step on a 1 x 2 data x expert layout (K3 at 4 groups a rank).  Writes
+    its outputs to ``out_<rank>.pt`` and prints one ``CHILD {json}`` line:
+    its checks, its K3 launches per step and which collectives gloo ran on
+    CUDA tensors."""
+    import torch
+    import torch.distributed as dist
+
+    from mixstage_tpu_torch.device import resolve_device
+    from mixstage_tpu_torch.ops.cuda import train_decoder as td
+    from mixstage_tpu_torch.parallel import mesh, multihost
+    from mixstage_tpu_torch.train import StepConfig, StepFactory
+
+    work, rank, world = Path(args.workdir), args.rank, args.world
+    multihost.setup(init_method=f"file://{work / 'store'}",
+                    world_size=world, rank=rank, device_type="cuda",
+                    timeout_s=PAR_TIMEOUT_S - 60)
+    device = resolve_device(multihost.local_device("cuda"))
+    report = {"rank": rank, "backend": dist.get_backend(),
+              "device": str(device)}
+    probe = {}
+    for name, fn in (
+            ("all_reduce", lambda t: dist.all_reduce(t)),
+            ("broadcast", lambda t: dist.broadcast(t, 0)),
+            ("all_gather", lambda t: dist.all_gather(
+                [torch.empty_like(t) for _ in range(world)], t)),
+            ("reduce_scatter", lambda t: dist.reduce_scatter(
+                torch.empty_like(t), [t.clone() for _ in range(world)]))):
+        try:
+            fn(torch.ones(4, device=device))
+            torch.cuda.synchronize()
+            probe[name] = "ok"
+        except Exception as e:          # noqa: BLE001 - reported
+            probe[name] = type(e).__name__
+    report["gloo_cuda"] = probe
+
+    def k3():
+        """K3's launches by mode: [fwd f32, bwd f32, fwd bf16, bwd bf16]
+        (``launches`` counts both modes)."""
+        f16, b16 = (td.decoder_train_fwd.launches_bf16,
+                    td.decoder_train_bwd.launches_bf16)
+        return [td.decoder_train_fwd.launches - f16,
+                td.decoder_train_bwd.launches - b16, f16, b16]
+
+    def zero():
+        td.decoder_train_fwd.launches = td.decoder_train_bwd.launches = 0
+        td.decoder_train_fwd.launches_bf16 = 0
+        td.decoder_train_bwd.launches_bf16 = 0
+
+    lay = mesh.make_mesh(world)
+    batch = train_batch(np.random.default_rng(args.seed + 60), B, T)
+    seed = args.seed + 61
+    out = {}
+    fused = StepFactory(StepConfig(**TRAIN_CFG, fused_decoder=True),
+                        device=device, layout=lay)
+    steps = fused.make_steps()
+    state = mesh.replicate_state(fused.init(seed=seed), lay)
+    zero()                                          # the DP path starts
+    state, losses, pose = steps["g"](state, batch)
+    torch.cuda.synchronize()
+    report["k3_g"] = k3()
+    out["g"] = dict(losses={k: v.cpu() for k, v in losses.items()},
+                    pose=pose.cpu(), state=state_snapshot(state))
+    # the D step from the same start (after a G step D would see G's
+    # update, whose rounding flips it carries)
+    s_d = mesh.replicate_state(fused.init(seed=seed), lay)
+    s_d, losses, _ = steps["d"](s_d, batch)
+    torch.cuda.synchronize()
+    report["k3_d"] = [a - b for a, b in zip(k3(), report["k3_g"])]
+    out["d"] = dict(losses={k: v.cpu() for k, v in losses.items()},
+                    state=state_snapshot(s_d))
+    del s_d
+    f16 = StepFactory(StepConfig(**TRAIN_CFG, fused_decoder=True,
+                                 dtype=torch.bfloat16), device=device,
+                      layout=lay)
+    s16 = mesh.replicate_state(f16.init(seed=seed), lay)
+    before = k3()
+    s16, l16, p16 = f16.make_steps()["g"](s16, batch)
+    torch.cuda.synchronize()
+    report["k3_g_bf16"] = [a - b for a, b in zip(k3(), before)]
+    out["g_bf16"] = dict(total=l16["total"].cpu(), pose=p16.float().cpu(),
+                         mu=[t.detach().cpu().clone()
+                             for t in s16.g_opt.slots()["mu"]])
+    # float64, unfused (K3 has no float64 mode): no leaky unit flips, so
+    # the moments agree with the one-rank step's to rounding
+    f64 = StepFactory(StepConfig(**TRAIN_CFG, dtype=torch.float64),
+                      device=device, layout=lay)
+    s64 = mesh.replicate_state(f64.init(seed=seed), lay)
+    s64, l64, _ = f64.make_steps()["g"](s64, batch)
+    out["g_f64"] = dict(total=l64["total"].cpu(),
+                        mu=[t.detach().cpu().clone()
+                            for t in s64.g_opt.slots()["mu"]])
+    del s64
+    # (c) a 1 x world data x expert layout: every rank the whole batch,
+    # its share of the experts
+    lay_ep = mesh.make_mesh_2d(1, world)
+    fep = StepFactory(StepConfig(**TRAIN_CFG, fused_decoder=True),
+                      device=device, layout=lay_ep)
+    sep = mesh.replicate_state(fep.init(seed=seed), lay_ep)
+    mesh.shard_state_mixture(sep, lay_ep)
+    before = k3()
+    sep, lep, pep = fep.make_steps()["g"](sep, batch)
+    torch.cuda.synchronize()
+    report["k3_g_ep"] = [a - b for a, b in zip(k3(), before)]
+    report["ep_groups"] = sep.gen.decoder_groups
+    out["g_ep"] = dict(losses={k: v.cpu() for k, v in lep.items()},
+                       pose=pep.cpu(), start=sep.gen.expert_parallel[1],
+                       state=state_snapshot(sep))
+    report["k3_path"] = k3()                        # the DP path ends
+    # (e) the DP G step's time on this rank (both ranks on the one card)
+    dbatch = {k: (tuple(torch.as_tensor(a, device=device) for a in v)
+                  if k == "x" else torch.as_tensor(v, device=device))
+              for k, v in batch.items()}
+    report["g_step_ms"] = cuda_ms(torch, lambda: steps["g"](state, dbatch),
+                                  reps=10)
+    torch.save(out, work / f"out_{rank}.pt")
+    multihost.teardown()
+    print("CHILD " + json.dumps(report), flush=True)
+    return 0
+
+
+def run_children(args, work: Path):
+    """Start phase 24's ``PAR_WORLD`` ranks, each with a timeout; returns
+    their ``CHILD`` reports and outputs.  A child that fails fails the
+    phase."""
+    import torch
+
+    env = {k: v for k, v in os.environ.items() if k not in (
+        "RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
+        "MASTER_ADDR", "MASTER_PORT")}
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--seed",
+         str(args.seed), "--child", "parallel", "--rank", str(r), "--world",
+         str(PAR_WORLD), "--workdir", str(work)], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(PAR_WORLD)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=PAR_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    reports = []
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        lines = [ln for ln in text.splitlines() if ln.startswith("CHILD ")]
+        if p.returncode != 0 or len(lines) != 1:
+            log(text[-4000:])
+            check(False, f"phase 24 rank {r} failed (rc {p.returncode})")
+        reports.append(json.loads(lines[0][len("CHILD "):]))
+    return reports, [torch.load(work / f"out_{r}.pt", weights_only=False)
+                     for r in range(PAR_WORLD)]
+
+
+def parallel_phase(torch, args, device, smi, model, audio, styles, serve,
+                   plain, results) -> dict:
+    """Phase 24: the parallel layouts.  (a) one rank through the layout
+    code; K3 at the shapes the layouts give it; (b)-(c) two ranks sharing
+    the one card over gloo (``run_children``) against the one-rank steps;
+    (d) the serving partitions over ``["cuda:0"] * 2``; (e) timings.
+    Returns the launches for the kernels line."""
+    from mixstage_tpu_torch.ops.cuda import fused_conv as fcv
+    from mixstage_tpu_torch.ops.cuda import quant as q8
+    from mixstage_tpu_torch.ops.cuda import train_decoder as td
+    from mixstage_tpu_torch.parallel import mesh
+    from mixstage_tpu_torch.serve import build_serving_fn, time_halo
+    from mixstage_tpu_torch.train import StepConfig, StepFactory
+
+    t_phase = time.perf_counter()
+    rec = {}
+    # (a) K3 at the layouts' shapes: a data rank's 16 rows, and 4, 2 and 1
+    # groups (expert layouts of 2, 4 and 8 ranks); the exchange hook on the
+    # card changes nothing at one rank
+    kgen = torch.Generator().manual_seed(args.seed + 62)
+    for name, b, g in (("dp16", B // PAR_WORLD, 8), ("G4", B, 4),
+                       ("G2", B, 2), ("G1", B, 1)):
+        check_k3(torch, td, name, random_train(torch, kgen, b, T, device,
+                                               g=g), args.seed + 63)
+    a = random_train(torch, kgen, B // PAR_WORLD, T, device)
+    base = td.decoder_train_fwd(*a)
+    calls = []
+
+    def hook(stats, rows):
+        calls.append(rows)
+        return rows
+
+    hooked = td.decoder_train_fwd(*a, exchange=hook)
+    torch.cuda.synchronize()
+    check(len(calls) == 4 and all(bool(torch.equal(p, q))
+                                  for p, q in zip(base, hooked)),
+          f"K3-fwd with a one-rank exchange hook ({len(calls)} calls) "
+          f"differs from K3-fwd without one")
+    log(f"[parallel] K3 at a data rank's bs{B // PAR_WORLD} and at 4, 2, 1 "
+        f"groups against its plain versions: ok; a one-rank exchange hook "
+        f"(called {len(calls)} times a forward, between the stages) leaves "
+        f"K3-fwd bit for bit")
+    lay = mesh.make_mesh(0)
+    check((lay.world, lay.dp, lay.mp) == (1, 1, 1), f"world-1 layout {lay}")
+    seed = args.seed + 61
+    batch = train_batch(np.random.default_rng(args.seed + 60), B, T)
+    one = StepFactory(StepConfig(**TRAIN_CFG, fused_decoder=True),
+                      layout=lay)
+    td.decoder_train_fwd.launches = td.decoder_train_bwd.launches = 0
+    s1 = one.init(seed=seed)
+    s1, l1, p1 = one.make_steps()["g"](s1, batch)
+    torch.cuda.synchronize()
+    k3_one = (td.decoder_train_fwd.launches, td.decoder_train_bwd.launches)
+    check(k3_one == (1, 1), f"the world-1 layout's fused G step launched "
+          f"K3 {k3_one} times, expected (1, 1)")
+    log(f"[parallel] (a) {lay}: fused G step, K3 launches (fwd, bwd) "
+        f"{k3_one}, as one card's")
+
+    # (b), (c): two ranks on the one card
+    work = Path(__file__).resolve().parent / "build" / "parallel"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    t0 = time.perf_counter()
+    try:
+        reports, outs = run_children(args, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    rec["children_s"] = time.perf_counter() - t0
+    for r, rep in enumerate(reports):
+        check(rep["backend"] == "gloo", f"rank {r} backend {rep['backend']}")
+        check(rep["k3_g"] == [1, 1, 0, 0] and rep["k3_d"] == [0, 0, 0, 0]
+              and rep["k3_g_bf16"] == [0, 0, 1, 1]
+              and rep["k3_g_ep"] == [1, 1, 0, 0] and rep["ep_groups"] == 4,
+              f"rank {r} K3 launches: G {rep['k3_g']}, D {rep['k3_d']}, "
+              f"bf16 G {rep['k3_g_bf16']}, EP G {rep['k3_g_ep']} at "
+              f"{rep['ep_groups']} groups")
+    log(f"[parallel] two ranks on {reports[0]['device']} over gloo (they "
+        f"share the one card: NCCL takes one rank a device): collectives "
+        f"gloo ran on CUDA tensors {reports[0]['gloo_cuda']}; K3 launches "
+        f"per rank (fwd, bwd, fwd-bf16, bwd-bf16) over the DP and EP path "
+        f"{[rep['k3_path'] for rep in reports]}; children "
+        f"{rec['children_s']:.1f} s")
+    rec["gloo_cuda"] = reports[0]["gloo_cuda"]
+    lr = one.cfg.lr
+
+    def close_losses(got, want, tol, what):
+        for k, v in want.items():
+            a, b = got[k].double(), v.detach().cpu().double()
+            if b.dim():
+                check(bool(torch.equal(a, b)) or
+                      float((a - b).abs().max()) <= tol * float(
+                          b.abs().max()), f"{what} {k}")
+                continue
+            check(abs(float(a) - float(b)) <= tol * abs(float(b)) + 1e-6,
+                  f"{what} loss {k}: {float(a)} vs {float(b)}")
+
+    for r, o in enumerate(outs):
+        close_losses(o["g"]["losses"], l1, KERNEL_TOL, f"rank {r} DP G")
+        pose_drift = float((o["g"]["pose"] - p1.cpu()).abs().mean()
+                           / p1.abs().mean().cpu())
+        p_err, s_err, gaps, _ = compare_states(
+            torch, s1, state_from(one, seed, o["g"]["state"]), lr,
+            MOMENT_TOL_DP, f"rank {r}: DP against one-rank G step")
+        log(f"[parallel] (b) rank {r}: DP fused f32 G step (16 rows a rank, "
+            f"BN and K3 statistics over both) vs one rank on the 32 rows: "
+            f"total {float(o['g']['losses']['total']):.6f} vs "
+            f"{float(l1['total']):.6f}, params max|diff| {p_err:.3e}, BN "
+            f"stats {s_err:.3e} of scale, Adam mu max module gap "
+            f"{max(gaps.values()):.3e}, pose mean drift {pose_drift:.3e}")
+    # (c) the 1 x 2 expert layout against the one-rank step
+    for r, o in enumerate(outs):
+        ep = o["g_ep"]
+        close_losses(ep["losses"], l1, KERNEL_TOL, f"rank {r} EP G")
+        gl, start = MODEL["num_clusters"] // PAR_WORLD, ep["start"]
+        check(start == r * gl, f"rank {r} holds experts from {start}")
+        worst = 0.0
+        for n in ("gen", "psenc"):
+            for k, v in getattr(s1, n).state_dict().items():
+                v = v.detach().cpu()
+                if n == "gen" and mesh.is_expert_leaf(k):
+                    w = v.shape[0] // MODEL["num_clusters"]
+                    v = v[start * w:(start + gl) * w]
+                got = ep["state"][n][k]
+                check(got.shape == v.shape, f"EP {n}.{k} shape")
+                if "running_" in k:
+                    check(float((got - v).abs().max()) <= KERNEL_TOL *
+                          max(float(v.abs().max()), 1e-30),
+                          f"rank {r} EP {n}.{k} statistics")
+                else:
+                    worst = max(worst, float((got - v).abs().max()))
+        check(worst <= 2 * lr + 1e-6, f"rank {r} EP params differ by "
+              f"{worst:.3e}")
+        log(f"[parallel] (c) rank {r}: dp1 x ep2 fused G step (experts "
+            f"{start}-{start + gl - 1}, K3 at {gl} groups) vs one rank: "
+            f"total {float(ep['losses']['total']):.6f} vs "
+            f"{float(l1['total']):.6f}, params (replicated and its experts) "
+            f"max|diff| {worst:.3e} (tol 2·lr)")
+
+    s1d, l1d, _ = one.make_steps()["d"](one.init(seed=seed), batch)
+    for r, o in enumerate(outs):
+        close_losses(o["d"]["losses"], l1d, KERNEL_TOL, f"rank {r} DP D")
+        got = o["d"]["state"]["disc"]
+        for k, v in s1d.disc.state_dict().items():
+            d = float((got[k] - v.detach().cpu()).abs().max())
+            if "running_" in k:
+                check(d <= KERNEL_TOL * max(float(v.abs().max()), 1e-30),
+                      f"rank {r} DP D step: D's {k}")
+            else:
+                check(d <= 2 * lr + 1e-6, f"rank {r} DP D step: D's {k} "
+                      f"differs by {d:.3e}")
+    log(f"[parallel] (b) DP D step from the same start: losses within rtol "
+        f"{KERNEL_TOL:g} (fake_D {float(outs[0]['d']['losses']['fake_D']):.6f}"
+        f" vs {float(l1d['fake_D']):.6f}), D's params within 2·lr, its BN "
+        f"stats within {KERNEL_TOL:g} of scale on both ranks")
+    # the float64 DP G step (unfused) against the one-rank one
+    f64 = StepFactory(StepConfig(**TRAIN_CFG, dtype=torch.float64),
+                      layout=lay)
+    s64, l64, _ = f64.make_steps()["g"](f64.init(seed=seed), batch)
+    for r, o in enumerate(outs):
+        gaps64, _ = g_moment_gaps(s64, state_from(f64, seed,
+                                                  {"mu": o["g_f64"]["mu"]}))
+        worst = max(gaps64, key=gaps64.get)
+        rel = abs(float(o["g_f64"]["total"]) - float(l64["total"])) / \
+            abs(float(l64["total"]))
+        log(f"[parallel] (b) rank {r}: DP float64 G step (unfused) vs one "
+            f"rank: total {rel:.3e} relative, Adam mu worst module {worst} "
+            f"{gaps64[worst]:.3e} (tol {F64_MU_TOL:g})")
+        check(gaps64[worst] <= F64_MU_TOL and rel <= F64_MU_TOL,
+              f"rank {r} float64 DP G step: mu {gaps64[worst]:.3e}, total "
+              f"{rel:.3e}")
+    del s64
+    # the bf16 DP G step by the bf16 rule: its drift from the f32 one-rank
+    # step against the one-rank bf16 step's
+    f16 = StepFactory(StepConfig(**TRAIN_CFG, fused_decoder=True,
+                                 dtype=torch.bfloat16), layout=lay)
+    s16, l16, p16 = f16.make_steps()["g"](f16.init(seed=seed), batch)
+    truth = one.make_steps()["g"](one.init(seed=seed), batch)
+    r_state, r_loss, r_pose = truth
+    # the tensors (pose, mu a module) by the bf16 rule; the total is one
+    # number whose terms were each rounded to bf16 once (the means of the
+    # pose and GAN criteria), and two valid summation orders land on either
+    # side of a rounding boundary (the rule's drifts 1.27e-3 against
+    # 4.50e-3 at --seed 0 on an H100): it is held within one bf16 ULP of
+    # its magnitude instead
+    q_rep = {"pose": drift(p16, r_pose)}
+    q_rep.update({f"mu {m}": v for m, v in
+                  g_moment_gaps(r_state, s16)[0].items()})
+    q_total = float(l16["total"])
+    total_ulp = 2.0 ** (np.floor(np.log2(abs(q_total))) - 7)
+    for r, o in enumerate(outs):
+        snap = o["g_bf16"]
+        p_state = state_from(f16, seed, {"mu": snap["mu"]})
+        p_rep = {"pose": drift(snap["pose"].to(device), r_pose)}
+        p_rep.update({f"mu {m}": v for m, v in
+                      g_moment_gaps(r_state, p_state)[0].items()})
+        fails = [k for k, dq in q_rep.items()
+                 if abs(p_rep[k] - dq) > BF16_REL * dq + BF16_ABS]
+        total_gap = abs(float(snap["total"]) - q_total)
+        log(f"[parallel] (b) rank {r}: DP fused bf16 G step vs the one-rank "
+            f"bf16 step, drift from the f32 step: pose {p_rep['pose']:.4e} "
+            f"vs {q_rep['pose']:.4e}, mu worst module "
+            f"{max(v for k, v in p_rep.items() if k.startswith('mu')):.4e}"
+            f"; bf16 rule fails: {fails or 'none'}; total "
+            f"{float(snap['total']):.6f} vs {q_total:.6f} (f32 "
+            f"{float(r_loss['total']):.6f}), {total_gap:.4e} apart (one bf16 "
+            f"ULP {total_ulp:g})")
+        check(not fails and total_gap <= total_ulp,
+              f"rank {r} DP bf16 G step: the bf16 rule fails on {fails}, "
+              f"total {total_gap:.4e} from the one-rank step's")
+    # (d) serving over ["cuda:0"] * 2, against one device
+    devs = ["cuda:0"] * PAR_WORLD
+    rng = np.random.default_rng(args.seed + 64)
+    calib = (rng.normal(size=(B, T, MEL)).astype(np.float32),
+             rng.integers(0, MODEL["num_speakers"], size=B).astype(np.int32))
+    fns = {"batch": build_serving_fn(model, devices=devs),
+           "expert": build_serving_fn(model, devices=devs,
+                                      partition="expert"),
+           "int8": build_serving_fn(model, devices=devs, quantize_int8=True,
+                                    calib=calib),
+           "time": build_serving_fn(model, devices=devs, partition="time")}
+    one8 = build_serving_fn(model, quantize_int8=True, calib=calib)
+    long_audio = rng.normal(size=(1, PAR_T_LONG, MEL)).astype(np.float32)
+    long_style = styles[:1]
+    refs = {"batch": serve(audio, styles), "expert": serve(audio, styles),
+            "int8": one8(audio, styles),
+            "time": plain(long_audio, long_style)}
+    # cuDNN picks its algorithms by the batch's shape, so a device's share
+    # is held bit for bit against the one-device call on the same rows
+    half = B // PAR_WORLD
+    shares = {name: torch.cat([fn(audio[i:i + half], styles[i:i + half])
+                               for i in range(0, B, half)])
+              for name, fn in (("batch", serve), ("int8", one8))}
+    torch.cuda.synchronize()
+    fcv.fused_mixstage_decoder.launches = 0         # serving path starts
+    q8.fused_mixstage_decoder_int8.launches = 0
+    got, serve_launches = {}, {}
+    for name, fn in fns.items():
+        before = (fcv.fused_mixstage_decoder.launches,
+                  q8.fused_mixstage_decoder_int8.launches)
+        got[name] = fn(long_audio, long_style) if name == "time" \
+            else fn(audio, styles)
+        torch.cuda.synchronize()
+        serve_launches[name] = [
+            (fcv.fused_mixstage_decoder.launches - before[0]) / PAR_WORLD,
+            (q8.fused_mixstage_decoder_int8.launches - before[1])
+            / PAR_WORLD]
+    k1_par = fcv.fused_mixstage_decoder.launches     # serving path ends
+    k4_par = q8.fused_mixstage_decoder_int8.launches
+    want = {"batch": [2, 0], "expert": [2, 0], "int8": [1, 1],
+            "time": [0, 0]}
+    check(serve_launches == want, f"serving launches per device (K1, K4) "
+          f"{serve_launches}, expected {want}")
+    errs, ndiff = {}, {}
+    for name, share in shares.items():
+        ndiff[name] = int((got[name] != share).sum())
+        check(ndiff[name] == 0, f"{name} partition: {ndiff[name]} elements "
+              f"differ from the one-device call on each device's rows")
+    for name in fns:
+        out, ref = got[name], refs[name]
+        check(tuple(out.shape) == tuple(ref.shape) and
+              bool(torch.isfinite(out).all()), f"{name} serving pose")
+        if name == "int8":
+            # against the whole batch in one call, where cuDNN's other
+            # algorithms move the features and the int8 tier amplifies a
+            # flipped LSB: the mean at the int8-route limit, the max logged
+            mean_e, max_e, _, _ = int8_errors(out, ref)
+            errs[name] = (mean_e, max_e)
+            check(mean_e <= INT8_MEAN_TOL, f"int8 batch partition vs one "
+                  f"device: mean {mean_e:.3e}")
+        else:
+            errs[name] = float((out - ref).abs().max() / ref.abs().max())
+            check(errs[name] <= KERNEL_TOL, f"{name} partition vs one "
+                  f"device: {errs[name]:.3e}")
+    log(f"[parallel] (d) serving on {devs} (one card twice): batch (K1) "
+        f"and int8 batch (K1 + K4) against the one-device call on each "
+        f"device's rows: {ndiff['batch']} and {ndiff['int8']} elements "
+        f"differ; against one call on the whole batch: batch "
+        f"{errs['batch']:.3e}, expert (K1 at "
+        f"{MODEL['num_clusters'] // PAR_WORLD} groups a device) "
+        f"{errs['expert']:.3e} (max|diff|/max|ref|, tol {KERNEL_TOL:g}); "
+        f"int8 batch (K1 + K4) mean {errs['int8'][0]:.3e} (tol "
+        f"{INT8_MEAN_TOL:g}) / max {errs['int8'][1]:.3e} of mean|ref|; "
+        f"time B=1 T={PAR_T_LONG} over "
+        f"{PAR_WORLD} shards (plain route, halo {time_halo(model)} "
+        f"frames) {errs['time']:.3e}; launches per device (K1, K4) "
+        f"{serve_launches}")
+
+    # (e) timings
+    audio_dev = torch.as_tensor(audio, device=device)
+    styles_dev = torch.as_tensor(styles, device=device)
+    call_ms = {name: cuda_ms(torch, lambda f=fn: f(audio_dev, styles_dev),
+                             reps=10)
+               for name, fn in fns.items() if name != "time"}
+    call_ms["one"] = cuda_ms(torch, lambda: serve(audio_dev, styles_dev),
+                             reps=10)
+    dbatch = {k: (tuple(torch.as_tensor(a_, device=device) for a_ in v)
+                  if k == "x" else torch.as_tensor(v, device=device))
+              for k, v in batch.items()}
+    steps1 = one.make_steps()
+    one_ms = cuda_ms(torch, lambda: steps1["g"](s1d, dbatch), reps=10)
+    rec.update(dict(dp_g_step_ms=[rep["g_step_ms"] for rep in reports],
+                    one_rank_g_step_ms=one_ms, serving_ms=call_ms,
+                    serving_errors=errs, serving_launches=serve_launches))
+    log(f"[timing] {smi}: phase 24 fused f32 G step bs{B} T{T}, CUDA "
+        f"events, mean of 10: two ranks sharing this one card over gloo "
+        f"(not a scaling measurement) "
+        + ", ".join(f"rank {r} {rep['g_step_ms']:.3f} ms"
+                    for r, rep in enumerate(reports))
+        + f"; one rank {one_ms:.3f} ms")
+    log(f"[timing] {smi}: phase 24 bs{B} serving call, mean of 10: "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in call_ms.items())
+        + " (two devices are the one card)")
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"[parallel] phase 24 in {rec['phase_s']:.1f} s")
+    results["parallel"] = rec
+    return {"k3_per_rank": [rep["k3_path"] for rep in reports],
+            "k1": k1_par, "k4": k4_par,
+            "per_device": serve_launches}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None,
                     help="also write every measurement to this JSON file")
+    # one rank of phase 24, started by the script itself
+    ap.add_argument("--child", choices=("parallel",), default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--rank", type=int, default=0, help=argparse.SUPPRESS)
+    ap.add_argument("--world", type=int, default=1, help=argparse.SUPPRESS)
+    ap.add_argument("--workdir", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     import torch
@@ -3172,6 +3717,8 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
         return 2
+    if args.child:
+        return parallel_child(args)
 
     from mixstage_tpu_torch import resolve_device
     from mixstage_tpu_torch.models import JointLateClusterSoftStyle4_G
@@ -3603,6 +4150,8 @@ def main(argv=None) -> int:
         shutil.rmtree(exps["root"], ignore_errors=True)
     rest = steps_rest_phase(torch, args, device, smi, results)
     text = text_phase(torch, args, device, smi, results)
+    par = parallel_phase(torch, args, device, smi, model, audio, styles,
+                         serve, plain, results)
     for kern in [k1] + k16 + [k4] + k8_16:
         if kern["name"] in served:
             kern["serving_cli_launches"] = served[kern["name"]]
@@ -3614,6 +4163,17 @@ def main(argv=None) -> int:
                 kern["lifecycle_launches"] = life[mode][i]
                 kern["steps_rest_launches"] = rest[mode][i]
                 kern["text_launches"] = text[mode][i]
+    # phase 24: K3 per rank (fwd, bwd, fwd-bf16, bwd-bf16), K1 and K4 per
+    # device of the serving partitions
+    k1["parallel_launches"] = par["k1"]
+    k1["parallel_launches_per_device"] = par["per_device"]
+    k4["parallel_launches"] = par["k4"]
+    for kern in k3 + k16:
+        for i, which in enumerate(("fwd", "bwd")):
+            if kern["name"].startswith(f"decoder_train_{which}"):
+                j = i + (2 if kern["name"].endswith("_bf16") else 0)
+                kern["parallel_launches_per_rank"] = [
+                    counts[j] for counts in par["k3_per_rank"]]
     for kern in [k1] + k3 + [k4]:
         kern["mode"] = "f32" if kern is not k4 else "int8"
     k2["mode"] = "f32"

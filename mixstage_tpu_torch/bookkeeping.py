@@ -168,7 +168,12 @@ class BookKeeper:
 
     def __init__(self, args: Config, args_subset: Optional[List[str]] = None,
                  args_dict_update: Optional[Dict[str, Any]] = None,
-                 tensorboard: Optional[int] = None):
+                 tensorboard: Optional[int] = None, layout=None):
+        # under a data-parallel layout (parallel/mesh.py) only rank 0
+        # writes files; the others take its experiment number and wait
+        # for its checkpoints at a barrier
+        self.layout = layout
+        self.writer = layout is None or layout.is_main
         args_subset = args_subset or ["exp", "cpk", "speaker", "model", "note"]
         args_dict_update = dict(args_dict_update or {})
 
@@ -186,7 +191,12 @@ class BookKeeper:
         self.args = args
 
         if self.args.exp is None:
-            self.args.exp = _next_exp_num(self.args.save_dir)
+            exp = [_next_exp_num(self.args.save_dir) if self.writer else None]
+            if layout is not None and layout.world > 1:
+                import torch.distributed as dist
+
+                dist.broadcast_object_list(exp, src=0)
+            self.args.exp = exp[0]
         parts = []
         for key in args_subset:
             val = getattr(self.args, key, None)
@@ -210,7 +220,7 @@ class BookKeeper:
         # never rewrite a restored experiment's stored args: that would bake
         # inference-time CLI overrides (window_hop=0, -render N, scratch
         # data paths) into the training record
-        if not self._restored_from_ckpt:
+        if not self._restored_from_ckpt and self.writer:
             self.args.save(self.name("args", "args", self.save_dir))
             with open(self.name("name", "name", self.save_dir), "w") as f:
                 f.write(self.name.prefix)
@@ -244,6 +254,8 @@ class BookKeeper:
 
     # ----------------------------------------------------------------- logs
     def _start_log(self):
+        if not self.writer:
+            return
         self._log_file = open(self.name("log", "log", self.save_dir), "a")
         self._log_file.write(f"--- start {time.asctime()}\n")
         self._log_file.flush()
@@ -255,6 +267,8 @@ class BookKeeper:
             self._log_file = None
 
     def log(self, msg: str):
+        if not self.writer:
+            return
         print(msg)
         if self._log_file:
             self._log_file.write(msg + "\n")
@@ -264,10 +278,13 @@ class BookKeeper:
     def _save_model(self, state):
         if not self.args.save_model:
             return
-        _atomic_save(weights_of(state),
-                     self.name(*self.weights_ext, self.save_dir))
-        if getattr(self.args, "save_optim", 0):
-            self._save_train_state(state)
+        if self.writer:
+            _atomic_save(weights_of(state),
+                         self.name(*self.weights_ext, self.save_dir))
+            if getattr(self.args, "save_optim", 0):
+                self._save_train_state(state)
+        if self.layout is not None:
+            self.layout.barrier()
 
     # -- preemption survival: the LIVE state, weights + optimizer + counters,
     # in a file apart from the greedy-saved best weights ------------------
@@ -283,6 +300,8 @@ class BookKeeper:
         model (``PREFIX_weights.p``) is never overwritten by a mid-training
         state; a rerun of the same command consumes and clears it.
         """
+        if not self.writer:
+            return
         p_state, p_meta = self._preempt_paths()
         with open(p_meta, "w") as f:
             json.dump(meta, f, indent=2)
@@ -305,6 +324,10 @@ class BookKeeper:
         return load_optim(state, full["train"]), meta
 
     def clear_preempt(self):
+        if self.layout is not None:
+            self.layout.barrier()       # every rank has read the snapshot
+        if not self.writer:
+            return
         for path in self._preempt_paths():
             if os.path.exists(path):
                 os.remove(path)
@@ -383,6 +406,8 @@ class BookKeeper:
             self.res.setdefault(key, []).append(float(val))
 
     def _save_res(self):
+        if not self.writer:
+            return
         with open(self.name("res", "json", self.save_dir), "w") as f:
             json.dump(self.res, f)
 
@@ -402,7 +427,7 @@ class BookKeeper:
     def update_tb(self, updates: Dict[str, Any]):
         """Tensorboard scalars (reference trainer.py:533-551); no-op without
         a writer backend."""
-        if not self._tb:
+        if not self._tb or not self.writer:
             return
         try:
             from torch.utils.tensorboard import SummaryWriter

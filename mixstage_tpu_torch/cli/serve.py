@@ -25,13 +25,21 @@ exactly the artifact's frame count.
 
 ``build(args, device=None)`` returns the running ``(server, batchers)``;
 ``loop`` serves until interrupted.  The command line runs on the card;
-``device="cpu"`` from Python runs the plain versions on the CPU.  One card
-only: a layout that JAX would run on a mesh (``-serve_partition``, more
-than one device) raises.
+``device="cpu"`` from Python runs the plain versions on the CPU.
+
+Several devices (one process, JAX's single-controller mesh): the cards the
+machine has, or ``-num_devices N`` of them (N may exceed the card count:
+the list then repeats cards, ``cuda:i % count``), serve in the layout of
+``-serve_partition`` (``batch``, ``time`` or ``expert``;
+``serve.build_serving_fn``), as ``resolve_partition`` resolves it:
+
+  python -m mixstage_tpu_torch.cli.serve -load <PREFIX_weights.p> \
+      -path2data <data> -serve_partition expert -num_devices 2
 """
 
 from __future__ import annotations
 
+import dataclasses
 import threading
 
 import numpy as np
@@ -55,17 +63,17 @@ def resolve_partition(partition, n_dev: int, batch: int):
     return (partition if use_mesh else "batch"), use_mesh
 
 
-def one_device(partition, n_dev: int, batch: int) -> str:
-    """``resolve_partition`` for the port, which serves on one card: the
-    effective partition, or ``NotImplementedError`` where the JAX package
-    would take a mesh."""
-    partition, use_mesh = resolve_partition(partition, n_dev, batch)
-    if use_mesh:
-        raise NotImplementedError(
-            f"-serve_partition {partition} over {n_dev} devices: the port's "
-            f"serving layouts across devices come later (ROADMAP queue 1 "
-            f"item 6); it serves on one card")
-    return partition
+def serving_devices(device, num_devices: int):
+    """The device list to serve over: ``num_devices`` devices of
+    ``device``'s type (0: every card, one on the CPU), ``cuda:i`` for the
+    i-th repeating over the cards."""
+    import torch
+
+    if device.type != "cuda":
+        return [device] * max(int(num_devices or 1), 1)
+    count = torch.cuda.device_count()
+    n = int(num_devices) if num_devices and num_devices > 0 else count
+    return [torch.device("cuda", i % count) for i in range(n)]
 
 
 def _calib_windows(trainer, n_batches: int, batch_size: int = 8):
@@ -89,8 +97,6 @@ def build(args: Config, device=None):
     batcher's ``close()``."""
     assert args.load or args.export_dir, \
         "pass -load <PREFIX_weights.p> or -export_dir <artifact>"
-    import torch
-
     from mixstage_tpu_torch.serving import (DynamicBatcher, PoseService,
                                             start_http_server)
 
@@ -114,13 +120,18 @@ def build(args: Config, device=None):
         update = get_args_update_dict(args)
         update["window_hop"] = 0
         update["render"] = 0
-        trainer = Trainer(args, ["exp", "cpk", "speaker", "model", "note"],
+        # -num_devices counts serving devices here, not training ranks
+        trainer = Trainer(dataclasses.replace(args, num_devices=0),
+                          ["exp", "cpk", "speaker", "model", "note"],
                           update, device=device)
         batch = int(trainer.args.batch_size or 32)
         dev = trainer.device
-        one_device(getattr(trainer.args, "serve_partition", None),
-                   torch.cuda.device_count() if dev.type == "cuda" else 1,
-                   batch)
+        devices = serving_devices(dev, args.num_devices)
+        partition, use_mesh = resolve_partition(
+            getattr(trainer.args, "serve_partition", None), len(devices),
+            batch)
+        layout = dict(devices=devices, partition=partition) if use_mesh \
+            else {}
         mel_bins = int(trainer._peek_batch()["x"][0].shape[-1])
         quant_kw = {}
         if getattr(trainer.args, "serve_int8", 0):
@@ -128,7 +139,7 @@ def build(args: Config, device=None):
             quant_kw = {"quantize_int8": True,
                         "calib": _calib_windows(trainer, n_cal)}
         model = trainer.state.gen
-        serve_fn = build_serving_fn(model, device=dev, **quant_kw)
+        serve_fn = build_serving_fn(model, device=dev, **quant_kw, **layout)
         num_styles = model.num_speakers
         backend = dev.type
         # the raw-16 kHz endpoint, for models on the log_mel_400 frontend

@@ -16,6 +16,16 @@ A SIGTERM checkpoints the live state and exits with code 75; rerunning the
 same command resumes from it.  ``loop(args, exp_num, device=...)`` takes
 the device from Python (``"cpu"`` in the tests); the command line always
 runs on the card.
+
+Data-parallel training over N ranks (``-num_devices N``, or 0 for all the
+ranks launched), one process a rank:
+
+  torchrun --nproc_per_node N -m mixstage_tpu_torch.cli.train \
+    -num_devices N ... (the flags above)
+
+Each rank joins the process group through ``parallel/multihost.setup``
+(NCCL when every rank has a card, gloo when ranks share one) and runs on
+``cuda:(LOCAL_RANK % device_count)``; rank 0 writes the files.
 """
 
 from __future__ import annotations
@@ -23,12 +33,16 @@ from __future__ import annotations
 import gc
 
 import numpy as np
+import torch
 
 from mixstage_tpu_torch.config import Config, argparse_n_loop
+from mixstage_tpu_torch.parallel import multihost
 from mixstage_tpu_torch.train.trainer import Trainer, TrainingPreempted
 
 
 def loop(args: Config, exp_num: int, device=None):
+    multihost.setup(device_type=None if device is None
+                    else torch.device(device).type)
     try:
         _loop(args, exp_num, device)
     except TrainingPreempted as e:
@@ -102,6 +116,7 @@ def _loop(args: Config, exp_num: int, device=None):
 
 def main(argv=None):
     argparse_n_loop(loop, argv)
+    multihost.teardown()
 
 
 if __name__ == "__main__":

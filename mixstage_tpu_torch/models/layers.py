@@ -42,6 +42,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mixstage_tpu_torch.parallel.mesh import all_reduce_sum, batch_stats_group
+
 LOWERINGS = ("conv", "einsum", "s2d", "im2col")
 
 # the generator the dropout masks are drawn from (``dropout_rng``)
@@ -105,6 +107,14 @@ class BatchNorm(nn.Module):
     under ``no_grad``, as ``ra = 0.9·ra + 0.1·batch``.
     ``torch.nn.BatchNorm*`` is not a drop-in: it stores the UNBIASED batch
     variance in its running var.
+
+    Under data parallelism (``parallel/mesh.py::batch_stats``) the batch is
+    the data group's global batch: the per-channel count, sum and sum of
+    squares are summed over the group by an autograd-aware all-reduce, so
+    the mean, the biased variance, the running statistics and the
+    gradients (with their cross-rank terms) are the single-device ones on
+    the whole batch.  ``torch.nn.SyncBatchNorm`` stores the unbiased
+    variance too.
     """
 
     MOMENTUM = 0.9
@@ -125,8 +135,17 @@ class BatchNorm(nn.Module):
         else:
             axes = tuple(range(x.ndim - 1))
             xf = x if x.dtype == torch.float64 else x.float()
-            mean = xf.mean(axes)
-            var = ((xf * xf).mean(axes) - mean * mean).clamp_min(0.0)
+            group = batch_stats_group()
+            if group is None:
+                mean = xf.mean(axes)
+                var = ((xf * xf).mean(axes) - mean * mean).clamp_min(0.0)
+            else:
+                C = x.shape[-1]
+                count = xf.new_full((1,), xf.numel() // C)
+                sums = all_reduce_sum(torch.cat(
+                    [xf.sum(axes), (xf * xf).sum(axes), count]), group)
+                mean = sums[:C] / sums[-1]
+                var = (sums[C:2 * C] / sums[-1] - mean * mean).clamp_min(0.0)
             self.update_running_stats(mean, var)
         mul = torch.rsqrt(var + self.eps) * self.weight
         if self.dtype in (torch.float32, torch.float64):

@@ -84,8 +84,47 @@ class JointLateClusterSoftStyle4_G(nn.Module):
             num_clusters=M, input_channels=style_dim + in_channels,
             **common)
 
+    # (model group, first expert, experts) once the mixture decoder's
+    # experts are split over ranks (parallel/mesh.py::shard_state_mixture)
+    expert_parallel = None
+
     def decoder_layers(self):
         return [getattr(self, f"decoder{i}") for i in range(4)]
+
+    @property
+    def decoder_groups(self) -> int:
+        """The experts this module's decoder holds: all of them, or this
+        rank's share under expert parallelism."""
+        ep = self.expert_parallel
+        return self.num_clusters if ep is None else ep[2]
+
+    def mixture(self, x, labels_cap_soft, decode):
+        """``index_select_outputs`` of ``decode(x)`` (the grouped logits of
+        the decoder's experts) under the soft attention.  Under expert
+        parallelism each rank decodes its experts, weighs them with its
+        slice of the attention and the partial sums are all-reduced over
+        the model group; x and the attention enter through copies whose
+        backward sums their gradients over it."""
+        ep = self.expert_parallel
+        if ep is None:
+            return index_select_outputs(decode(x), labels_cap_soft,
+                                        self.num_clusters)
+        from mixstage_tpu_torch.parallel.mesh import (copy_to_group,
+                                                      reduce_from_group)
+
+        group, start, gl = ep
+        x = copy_to_group(x, group)
+        soft = copy_to_group(labels_cap_soft, group)[..., start:start + gl]
+        return reduce_from_group(index_select_outputs(decode(x), soft, gl),
+                                 group)
+
+    def decode(self, x):
+        """The grouped logits (B, T, groups·F) of the decoder's experts
+        on the shared features x."""
+        xr = x.repeat(1, 1, self.decoder_groups)
+        for layer in self.decoder_layers():
+            xr = layer(xr)
+        return self.logits(xr)
 
     def encode_content(self, x_list: Sequence[torch.Tensor], y,
                        input_modalities: Sequence[str],
@@ -155,10 +194,6 @@ class JointLateClusterSoftStyle4_G(nn.Module):
             x_list, y, style_weights, input_modalities, use_pose_input,
             time_steps)
         # replicate the fused content M times: one grouped conv per layer
-        xr = x.repeat(1, 1, self.num_clusters)
-        for layer in self.decoder_layers():
-            xr = layer(xr)
-        pose = index_select_outputs(self.logits(xr), labels_cap_soft,
-                                    self.num_clusters)
+        pose = self.mixture(x, labels_cap_soft, self.decode)
         return {"pose": pose, "labels_score": labels_score,
                 "labels_cap_soft": labels_cap_soft}

@@ -6,7 +6,8 @@
 // _bwd_kernel).  Per group g of G, with the input x shared by all groups:
 //
 //   c_l = conv3(h_{l-1}, w_l[g]) + cb[g, l]          h_{-1} = x (C0 wide)
-//   mu_l, var_l = mean(c_l), mean(c_l^2) - mu_l^2    over all B*T rows, f32
+//   mu_l, var_l = mean(c_l), mean(c_l^2) - mu_l^2    over all B*T rows
+//                 (of every rank's batch under data parallelism), f32
 //   h_l = leaky((c_l - mu_l) * rsqrt(var_l + eps) * gamma + beta)   l < 4
 //   out[g] = h_3 @ wl[g] + bl[g]
 //
@@ -46,6 +47,15 @@
 //     run to run.
 // Fusing the column passes into the GEMMs' prologues and epilogues is left
 // to a later version.
+//
+// Data parallelism.  BatchNorm's statistics are those of the data group's
+// global batch, so each call is cut into stages at the statistics: the
+// forward's conv pass writes each layer's local (G, 2, C) sums of c and
+// c^2 (stats_reduce_kernel), the caller sums them over the ranks, and the
+// next stage normalises with them; the backward does the same with the
+// sums of dpre and dpre * xhat behind its two column means.  The gradients
+// stay local (the caller averages them).  With one rank the sums are the
+// local ones, reduced in the order the undivided kernel reduced them.
 //
 // Rounding.  The f32 mode stores f32 everywhere: cs, out, dh and every
 // gradient; its products are f32-accurate (the six-product split).  The
@@ -124,17 +134,6 @@ __device__ __forceinline__ void split_rows(int rows, int& lo, int& hi) {
 __device__ __forceinline__ float* part_at(float* part, int q, int width) {
   return part + (((long long)q * gridDim.z + blockIdx.z) * gridDim.y +
                  blockIdx.y) * width;
-}
-
-// Quantity q of channel ch, group blockIdx.y, summed over the splits in a
-// fixed order.
-__device__ __forceinline__ float splits_sum(const float* part, int q,
-                                            int width, int ch) {
-  float total = 0.f;
-  for (int s = 0; s < (int)gridDim.z; ++s)
-    total += __ldg(part + (((long long)q * gridDim.z + s) * gridDim.y +
-                           blockIdx.y) * width + ch);
-  return total;
 }
 
 // Where the activations h and dc go: the GEMM's activation image
@@ -304,14 +303,16 @@ __device__ __forceinline__ void store8(bf16* line, long long term, int ch,
 }
 
 // h = leaky(BN(c)) over this split's rows of 32 columns of group
-// blockIdx.y, written as the image `im` (c is (G, rows, C)).  With `part`,
-// the statistics are bn_stats_kernel's sums (written to mu_out / var_out
-// by split 0); else lp.mu / lp.var.
+// blockIdx.y, written as the image `im` (c is (G, rows, C)).  With
+// `stats`, the statistics are the layer's (G, 2, C) sums of c and c^2
+// over `count` rows (stats_reduce_kernel's, summed over the data group by
+// the caller between the stages; written to mu_out / var_out by split 0);
+// else lp.mu / lp.var.
 template <class E>
 __global__ void __launch_bounds__(kImgThreads) bn_act_img_kernel(
-    const E* __restrict__ c, LayerParams<E> lp, const float* part,
-    float* mu_out, float* var_out, bf16* __restrict__ h, int rows, int C,
-    ActImg im) {
+    const E* __restrict__ c, LayerParams<E> lp, const float* stats,
+    float count, float* mu_out, float* var_out, bf16* __restrict__ h,
+    int rows, int C, ActImg im) {
   __shared__ float4 coef[kColW];          // mu, inv, gamma, beta
   const int g = blockIdx.y, t = threadIdx.x;
   if (t < kColW) {
@@ -320,9 +321,9 @@ __global__ void __launch_bounds__(kImgThreads) bn_act_img_kernel(
     if (ch < C) {
       const int pidx = g * kL * C + ch;
       float mu, var;
-      if (part) {
-        mu = splits_sum(part, 0, C, ch) / rows;
-        var = splits_sum(part, 1, C, ch) / rows - mu * mu;
+      if (stats) {
+        mu = __ldg(stats + (2LL * g) * C + ch) / count;
+        var = __ldg(stats + (2LL * g + 1) * C + ch) / count - mu * mu;
         if (blockIdx.z == 0) {
           mu_out[pidx] = mu;
           var_out[pidx] = var;
@@ -355,19 +356,22 @@ __global__ void __launch_bounds__(kImgThreads) bn_act_img_kernel(
   }
 }
 
-// BatchNorm + leaky backward, second pass: dbeta, dgamma from the first
-// pass's sums (split 0 writes them), then dc = inv * (dxhat - mean(dxhat)
-// - xhat * mean(dxhat * xhat)) over this split's rows, written as the image
-// `im`, and the split's sum of dc (before dc is rounded or split) into
-// part (q = 2), reduced over the CTA's threads in a fixed order.  With
-// h_prev, also h_prev = leaky(BN(c_prev)) over the same rows, as the image
-// `im`: the previous layer's activation, which the dW pass reads next.
+// BatchNorm + leaky backward, second pass: dc = inv * (dxhat -
+// mean(dxhat) - xhat * mean(dxhat * xhat)) over this split's rows, the
+// means from the layer's (G, 2, C) sums of dpre and dpre * xhat over
+// `count` rows (stats_reduce_kernel's, summed over the data group by the
+// caller between the stages), written as the image `im`, and the split's
+// sum of dc (before dc is rounded or split) into part (q = 2), reduced
+// over the CTA's threads in a fixed order.  With h_prev, also h_prev =
+// leaky(BN(c_prev)) over the same rows, as the image `im`: the previous
+// layer's activation, which the dW pass reads next.
 template <class E>
 __global__ void __launch_bounds__(kImgThreads) bn_bwd_dc_img_kernel(
     const E* __restrict__ c, const float* __restrict__ dh,
-    bf16* __restrict__ dc, LayerParams<E> lp, float* part, float* dgamma,
-    float* dbeta, int rows, int C, const E* __restrict__ c_prev,
-    LayerParams<E> lp_prev, bf16* __restrict__ h_prev, ActImg im) {
+    bf16* __restrict__ dc, LayerParams<E> lp, float* part,
+    const float* __restrict__ stats, float count, int rows, int C,
+    const E* __restrict__ c_prev, LayerParams<E> lp_prev,
+    bf16* __restrict__ h_prev, ActImg im) {
   __shared__ float4 coef[kColW], coefp[kColW];   // mu, inv, gamma, beta
   __shared__ float2 means[kColW];                // mean_dx, mean_dxx
   __shared__ float red[kImgThreads / 32][kColW];
@@ -379,14 +383,10 @@ __global__ void __launch_bounds__(kImgThreads) bn_bwd_dc_img_kernel(
     if (ch < C) {
       const int pidx = g * kL * C + ch;
       const BnCoef<E> b(lp, pidx);
-      const float sdb = splits_sum(part, 0, C, ch);
-      const float sdg = splits_sum(part, 1, C, ch);
-      if (blockIdx.z == 0) {
-        dbeta[pidx] = sdb;
-        dgamma[pidx] = sdg;
-      }
+      const float sdb = __ldg(stats + (2LL * g) * C + ch);
+      const float sdg = __ldg(stats + (2LL * g + 1) * C + ch);
       k = make_float4(b.mu, b.inv, b.ga, b.be);
-      m = make_float2(b.ga * sdb / rows, b.ga * sdg / rows);
+      m = make_float2(b.ga * sdb / count, b.ga * sdg / count);
       if (h_prev) {
         const BnCoef<E> bp(lp_prev, pidx);
         kp = make_float4(bp.mu, bp.inv, bp.ga, bp.be);
@@ -496,6 +496,31 @@ __global__ void reduce_splits_kernel(const float* __restrict__ part, int S,
   out[(long long)g * out_g + ch] = total;
 }
 
+// The exchange buffer of one layer: stats[(2 g + q) C + ch] = the sum
+// over the S splits of quantity q (0, 1) of part, in split order; with
+// q0 / q1, also written there ((G, 4, C) arrays offset to the layer: the
+// backward's local dbeta and dgamma).
+__global__ void stats_reduce_kernel(const float* __restrict__ part, int S,
+                                    int G, int C, float* stats, float* q0,
+                                    float* q1) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= G * C) return;
+  const int g = i / C, ch = i - g * C;
+  float total[2];
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    float acc = 0.f;
+    for (int s = 0; s < S; ++s)
+      acc += __ldg(part + (((long long)q * S + s) * G + g) * C + ch);
+    total[q] = acc;
+    stats[(2LL * g + q) * C + ch] = acc;
+  }
+  if (q0) {
+    q0[(long long)g * kL * C + ch] = total[0];
+    q1[(long long)g * kL * C + ch] = total[1];
+  }
+}
+
 // out[i] = sum over the G groups of part[g * n + i], in group order.
 __global__ void group_sum_kernel(const float* __restrict__ part, int G,
                                  long long n, float* __restrict__ out) {
@@ -532,10 +557,11 @@ bool bad_dims(int B, int T, int C0, int C, int F, int G) {
 // activation the next GEMM reads), dc, x and dout, the weight images of
 // w0, wc and wl (kConv ones in the forward, kConvT ones in the backward;
 // train_gemm_bf16.cuh), each `terms` images a group, then f32: the column
-// passes' partial sums, the weight gradients' split-K partials and layer
-// 0's per-group dx partials.
+// passes' partial sums, the weight gradients' split-K partials, layer
+// 0's per-group dx partials and the (kL, G, 2, C) statistics of the
+// monolithic entry points.
 struct ImgScratch {
-  long long h, dc, x, dout, w0, wc, wl, part, dw_part, dx_part, bytes;
+  long long h, dc, x, dout, w0, wc, wl, part, dw_part, dx_part, stats, bytes;
   ImgScratch(int B, int T, int C0, int C, int F, int G, int terms) {
     namespace k3 = mixstage::k3;
     auto max = [](long long a, long long b) { return a > b ? a : b; };
@@ -562,6 +588,7 @@ struct ImgScratch {
     part = take(4 * 3LL * kMaxSplits * G * width);
     dw_part = take(4LL * k3::kMaxSplitK * G * max(conv, (long long)C * F));
     dx_part = take(4LL * G * B * T * C0);
+    stats = take(4LL * kL * 2 * G * C);
     bytes = at;
   }
 };
@@ -620,45 +647,98 @@ mixstage::k3::Params wgmma_params(Img a, Img b, void* out, long long out_g,
   return p;
 }
 
-// K3 forward in the mode of E (float: f32, bf16: bf16); see the entry
-// points.  The GEMMs read images: x's and the weights' packed first (one
+// The stages of a call (the Python wrapper runs them one by one and sums
+// each layer's statistics over the data group between two of them; the
+// monolithic entry points run them back to back).  The forward's stage s:
+// s = 0 packs; s > 0 normalises layer s-1 with its summed statistics
+// (stats + (s-1) G 2 C over rows_total rows) and writes its activation; s
+// < kL runs layer s's conv and writes its local (G, 2, C) sums of c and
+// c^2 to stats + s G 2 C; s = kL runs the logits.  The backward's stage s:
+// s = 0 packs and runs the logits head; s > 0 runs layer l = kL - s from
+// its summed (G, 2, C) sums of dpre and dpre * xhat (stats + l G 2 C) to
+// its dW and d(input); s < kL writes layer kL-1-s's local sums there (and
+// its dbeta, dgamma).
+constexpr int kStages = kL + 1;
+
+// A stage's launches share these: the card, the scratch's regions, the
+// layer images' geometry.
+template <class E>
+struct Ctx {
+  static constexpr int kT = kTermsOf<E>;
+  int sms = 0, N, S, P;
+  long long act, hg;
+  ImgScratch at;
+  unsigned char* base;
+  ActImg im;
+  Ctx(float* scratch, int B, int T, int C0, int C, int F, int G)
+      : N(B * T),
+        S(splits(B * T)),
+        P(mixstage::k3::padded_rows(B, T)),
+        act((long long)B * T * C),
+        hg(mixstage::k3::act_elems(B, T, C)),
+        at(B, T, C0, C, F, G, kT),
+        base(reinterpret_cast<unsigned char*>(scratch)),
+        im{kT * hg, hg, mixstage::k3::act_rows(B, T), T} {}
+  template <class U>
+  U* region(long long off) const {
+    return reinterpret_cast<U*>(base + off);
+  }
+  cudaError_t card() {
+    int smem_limit;
+    return mixstage::card(&sms, &smem_limit);
+  }
+};
+
+// One forward stage in the mode of E (float: f32, bf16: bf16); see above.
+// The GEMMs read images: x's and the weights' packed at stage 0 (one
 // pack_kernel launch, which also zeroes h's padding), h's written by
 // bn_act_img_kernel.
 template <class E>
-int forward(const E* x, const E* w0, const E* wc, const E* cb,
-            const E* gamma, const E* beta, const E* wl, const E* bl, E* out,
-            E* cs, float* mu, float* var, float* scratch, int B, int T,
-            int C0, int C, int F, int G, void* stream_) {
+int forward_stage(int stage, const E* x, const E* w0, const E* wc,
+                  const E* cb, const E* gamma, const E* beta, const E* wl,
+                  const E* bl, E* out, E* cs, float* mu, float* var,
+                  float* scratch, float* stats, float rows_total, int B,
+                  int T, int C0, int C, int F, int G, void* stream_) {
   namespace k3 = mixstage::k3;
-  constexpr int kT = kTermsOf<E>, kc = k3::Depth<kT>::kConv;
-  if (bad_dims(B, T, C0, C, F, G)) return (int)cudaErrorInvalidValue;
+  using Cx = Ctx<E>;
+  constexpr int kT = Cx::kT, kc = k3::Depth<kT>::kConv;
+  if (bad_dims(B, T, C0, C, F, G) || stage < 0 || stage >= kStages ||
+      !(rows_total > 0.f))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_;
-  int sms, smem_limit;
-  MIXSTAGE_CHECK(mixstage::card(&sms, &smem_limit));
-  const int N = B * T, S = splits(N), P = k3::padded_rows(B, T);
-  const long long act = (long long)N * C;
-  const ImgScratch at(B, T, C0, C, F, G, kT);
-  unsigned char* base = reinterpret_cast<unsigned char*>(scratch);
-  bf16* h = reinterpret_cast<bf16*>(base + at.h);
-  bf16* xi = reinterpret_cast<bf16*>(base + at.x);
-  bf16* w0i = reinterpret_cast<bf16*>(base + at.w0);
-  bf16* wci = reinterpret_cast<bf16*>(base + at.wc);
-  bf16* wli = reinterpret_cast<bf16*>(base + at.wl);
-  float* part = reinterpret_cast<float*>(base + at.part);
-  const long long hg = k3::act_elems(B, T, C);
-  const ActImg im{kT * hg, hg, k3::act_rows(B, T), T};
+  Cx cx(scratch, B, T, C0, C, F, G);
+  MIXSTAGE_CHECK(cx.card());
+  const int N = cx.N, S = cx.S, P = cx.P;
+  const long long act = cx.act, hg = cx.hg;
+  bf16* h = cx.template region<bf16>(cx.at.h);
+  bf16* xi = cx.template region<bf16>(cx.at.x);
+  bf16* w0i = cx.template region<bf16>(cx.at.w0);
+  bf16* wci = cx.template region<bf16>(cx.at.wc);
+  bf16* wli = cx.template region<bf16>(cx.at.wl);
+  float* part = cx.template region<float>(cx.at.part);
   const long long w0g = k3::w_conv_elems(3, C0, C, kc);
   const long long wcg = k3::w_conv_elems(3, C, C, kc);
   const long long wlg = k3::w_conv_elems(1, C, F, kc);
-  k3::Packer<E, kT> pk(B, T);
-  pk.add(k3::kPackAct, x, 0, C0, 0, 0, 1, xi);
-  pk.add(k3::kPackConv, w0, 3LL * C0 * C, C0, C, 3, G, w0i);
-  pk.add(k3::kPackConv, wc, 3LL * C * C, C, C, 3, 3 * G, wci);
-  pk.add(k3::kPackConv, wl, (long long)C * F, C, F, 1, G, wli);
-  pk.add(k3::kPackPad, nullptr, 0, C, 0, 0, G, h);
-  MIXSTAGE_CHECK(pk.launch(stream));
   const Img hs{h, kT * hg, hg};
-  for (int l = 0; l < kL; ++l) {
+  const long long sl = 2LL * G * C;              // stats of a layer
+  if (stage == 0) {
+    k3::Packer<E, kT> pk(B, T);
+    pk.add(k3::kPackAct, x, 0, C0, 0, 0, 1, xi);
+    pk.add(k3::kPackConv, w0, 3LL * C0 * C, C0, C, 3, G, w0i);
+    pk.add(k3::kPackConv, wc, 3LL * C * C, C, C, 3, 3 * G, wci);
+    pk.add(k3::kPackConv, wl, (long long)C * F, C, F, 1, G, wli);
+    pk.add(k3::kPackPad, nullptr, 0, C, 0, 0, G, h);
+    MIXSTAGE_CHECK(pk.launch(stream));
+  } else {
+    const int l = stage - 1;
+    const LayerParams<E> lp{nullptr, nullptr, gamma + l * C, beta + l * C};
+    bn_act_img_kernel<E><<<col_grid(C, G, S), kImgThreads, 0, stream>>>(
+        cs + l * G * act, lp, stats + l * sl, rows_total, mu + l * C,
+        var + l * C, h, N, C, cx.im);
+    MIXSTAGE_CHECK(cudaGetLastError());
+  }
+  if (stage < kL) {
+    const int l = stage;
     E* c = cs + l * G * act;
     const Img a = l == 0 ? Img{xi, 0, k3::act_elems(B, T, C0)} : hs;
     const Img w = l == 0 ? Img{w0i, kT * w0g, w0g}
@@ -668,71 +748,61 @@ int forward(const E* x, const E* w0, const E* wc, const E* cb,
     p.bias = cb + l * C;
     p.bias_g = kL * C;
     p.round_acc = kT == 1;
-    MIXSTAGE_CHECK((wgmma_pass<k3::kConv, E, kT>(p, sms, stream)));
+    MIXSTAGE_CHECK((wgmma_pass<k3::kConv, E, kT>(p, cx.sms, stream)));
     bn_stats_kernel<E><<<col_grid(C, G, S), kColBlock, 0, stream>>>(
         c, part, N, C);
     MIXSTAGE_CHECK(cudaGetLastError());
-    const LayerParams<E> lp{nullptr, nullptr, gamma + l * C, beta + l * C};
-    bn_act_img_kernel<E><<<col_grid(C, G, S), kImgThreads, 0, stream>>>(
-        c, lp, part, mu + l * C, var + l * C, h, N, C, im);
-    MIXSTAGE_CHECK(cudaGetLastError());
+    stats_reduce_kernel<<<(G * C + 255) / 256, 256, 0, stream>>>(
+        part, S, G, C, stats + l * sl, nullptr, nullptr);
+    return (int)cudaGetLastError();
   }
   k3::Params p = wgmma_params(hs, Img{wli, kT * wlg, wlg}, out,
                               (long long)N * F, P, F, C, 1, 1, B, T, G);
   p.bias = bl;
   p.bias_g = F;
-  return (int)wgmma_pass<k3::kConv, E, kT>(p, sms, stream);
+  return (int)wgmma_pass<k3::kConv, E, kT>(p, cx.sms, stream);
 }
 
-// K3 backward in the mode of E; see the entry points.  As forward: x's,
-// dout's and the weights' images packed first (kConvT ones), h's and dc's
-// written by the column passes.
+// One backward stage in the mode of E; see above.  As forward_stage: x's,
+// dout's and the weights' images packed at stage 0 (kConvT ones), h's and
+// dc's written by the column passes.
 template <class E>
-int backward(const E* dout, const E* x, const E* cs, const float* mu,
-             const float* var, const E* w0, const E* wc, const E* gamma,
-             const E* beta, const E* wl, float* dx, float* dw0, float* dwc,
-             float* dcb, float* dgamma, float* dbeta, float* dwl, float* dbl,
-             float* scratch, float* dh, int B, int T, int C0, int C, int F,
-             int G, void* stream_) {
+int backward_stage(int stage, const E* dout, const E* x, const E* cs,
+                   const float* mu, const float* var, const E* w0,
+                   const E* wc, const E* gamma, const E* beta, const E* wl,
+                   float* dx, float* dw0, float* dwc, float* dcb,
+                   float* dgamma, float* dbeta, float* dwl, float* dbl,
+                   float* scratch, float* dh, float* stats, float rows_total,
+                   int B, int T, int C0, int C, int F, int G, void* stream_) {
   namespace k3 = mixstage::k3;
-  constexpr int kT = kTermsOf<E>, kc = k3::Depth<kT>::kConv;
-  if (bad_dims(B, T, C0, C, F, G)) return (int)cudaErrorInvalidValue;
+  using Cx = Ctx<E>;
+  constexpr int kT = Cx::kT, kc = k3::Depth<kT>::kConv;
+  if (bad_dims(B, T, C0, C, F, G) || stage < 0 || stage >= kStages ||
+      !(rows_total > 0.f))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_;
-  int sms, smem_limit;
-  MIXSTAGE_CHECK(mixstage::card(&sms, &smem_limit));
-  const int N = B * T, S = splits(N), P = k3::padded_rows(B, T);
-  const long long act = (long long)N * C;
-  const ImgScratch at(B, T, C0, C, F, G, kT);
-  unsigned char* base = reinterpret_cast<unsigned char*>(scratch);
-  bf16* h = reinterpret_cast<bf16*>(base + at.h);
-  bf16* dc = reinterpret_cast<bf16*>(base + at.dc);
-  bf16* xi = reinterpret_cast<bf16*>(base + at.x);
-  bf16* doi = reinterpret_cast<bf16*>(base + at.dout);
-  bf16* w0i = reinterpret_cast<bf16*>(base + at.w0);
-  bf16* wci = reinterpret_cast<bf16*>(base + at.wc);
-  bf16* wli = reinterpret_cast<bf16*>(base + at.wl);
-  float* part = reinterpret_cast<float*>(base + at.part);
-  float* dw_part = reinterpret_cast<float*>(base + at.dw_part);
-  float* dx_part = reinterpret_cast<float*>(base + at.dx_part);
-  const long long hg = k3::act_elems(B, T, C);
+  Cx cx(scratch, B, T, C0, C, F, G);
+  MIXSTAGE_CHECK(cx.card());
+  const int N = cx.N, S = cx.S, P = cx.P, sms = cx.sms;
+  const long long act = cx.act, hg = cx.hg;
+  bf16* h = cx.template region<bf16>(cx.at.h);
+  bf16* dc = cx.template region<bf16>(cx.at.dc);
+  bf16* xi = cx.template region<bf16>(cx.at.x);
+  bf16* doi = cx.template region<bf16>(cx.at.dout);
+  bf16* w0i = cx.template region<bf16>(cx.at.w0);
+  bf16* wci = cx.template region<bf16>(cx.at.wc);
+  bf16* wli = cx.template region<bf16>(cx.at.wl);
+  float* part = cx.template region<float>(cx.at.part);
+  float* dw_part = cx.template region<float>(cx.at.dw_part);
+  float* dx_part = cx.template region<float>(cx.at.dx_part);
   const long long fg = k3::act_elems(B, T, F);
-  const ActImg im{kT * hg, hg, k3::act_rows(B, T), T};
+  const ActImg im = cx.im;
   const long long w0g = k3::w_convt_elems(3, C0, C, kc);
   const long long wcg = k3::w_convt_elems(3, C, C, kc);
   const long long wlg = k3::w_convt_elems(1, C, F, kc);
-  // kConvT images: w (taps, N = the layer's input channels, K = its output
-  // channels, reduced)
-  k3::Packer<E, kT> pk(B, T);
-  pk.add(k3::kPackAct, x, 0, C0, 0, 0, 1, xi);
-  pk.add(k3::kPackAct, dout, (long long)N * F, F, 0, 0, G, doi);
-  pk.add(k3::kPackConvT, w0, 3LL * C0 * C, C, C0, 3, G, w0i);
-  pk.add(k3::kPackConvT, wc, 3LL * C * C, C, C, 3, 3 * G, wci);
-  pk.add(k3::kPackConvT, wl, (long long)C * F, F, C, 1, G, wli);
-  pk.add(k3::kPackPad, nullptr, 0, C, 0, 0, G, h);
-  pk.add(k3::kPackPad, nullptr, 0, C, 0, 0, G, dc);
-  MIXSTAGE_CHECK(pk.launch(stream));
   const Img hs{h, kT * hg, hg}, dcs{dc, kT * hg, hg};
   const Img dos{doi, kT * fg, fg};
+  const long long sl = 2LL * G * C;              // stats of a layer
   auto params = [&](int l) {
     return LayerParams<E>{mu + l * C, var + l * C, gamma + l * C,
                           beta + l * C};
@@ -744,57 +814,117 @@ int backward(const E* dout, const E* x, const E* cs, const float* mu,
                                                      out_g);
     return cudaGetLastError();
   };
-  // logits head: h3, dwl = h3^T dout, dbl = sum dout, dh = dout wl^T
-  bn_act_img_kernel<E><<<col_grid(C, G, S), kImgThreads, 0, stream>>>(
-      cs + (kL - 1) * G * act, params(kL - 1), nullptr, nullptr, nullptr, h,
-      N, C, im);
-  MIXSTAGE_CHECK(cudaGetLastError());
-  k3::Params p = wgmma_params(hs, dos, dwl, (long long)C * F, C, F, P, 1, 1,
-                              B, T, G);
-  p.part = dw_part;
-  MIXSTAGE_CHECK((wgmma_pass<k3::kDW, float, kT>(p, sms, stream)));
-  col_sum_kernel<E><<<col_grid(F, G, S), kColBlock, 0, stream>>>(
-      dout, part, N, F);
-  MIXSTAGE_CHECK(cudaGetLastError());
-  MIXSTAGE_CHECK(reduce(F, dbl, F));
-  MIXSTAGE_CHECK((wgmma_pass<k3::kConvT, float, kT>(
-      wgmma_params(dos, Img{wli, kT * wlg, wlg}, dh, act, P, C, F, 1, -1, B,
-                   T, G),
-      sms, stream)));
-  for (int l = kL - 1; l >= 0; --l) {
-    const E* c = cs + l * G * act;
+  // the local sums of layer l's BN backward: dpre and dpre * xhat, into
+  // its stats and its dbeta, dgamma
+  auto sums = [&](int l) {
     bn_bwd_sums_kernel<E><<<col_grid(C, G, S), kColBlock, 0, stream>>>(
-        c, dh, params(l), part, N, C);
+        cs + l * G * act, dh, params(l), part, N, C);
     MIXSTAGE_CHECK(cudaGetLastError());
-    // with the layer's input h_{l-1}, recomputed (l > 0)
-    bn_bwd_dc_img_kernel<E><<<col_grid(C, G, S), kImgThreads, 0, stream>>>(
-        c, dh, dc, params(l), part, dgamma + l * C, dbeta + l * C, N, C,
-        l > 0 ? cs + (l - 1) * G * act : nullptr, params(l > 0 ? l - 1 : 0),
-        l > 0 ? h : nullptr, im);
+    stats_reduce_kernel<<<(G * C + 255) / 256, 256, 0, stream>>>(
+        part, S, G, C, stats + l * sl, dbeta + l * C, dgamma + l * C);
+    return (int)cudaGetLastError();
+  };
+  if (stage == 0) {
+    // kConvT images: w (taps, N = the layer's input channels, K = its
+    // output channels, reduced)
+    k3::Packer<E, kT> pk(B, T);
+    pk.add(k3::kPackAct, x, 0, C0, 0, 0, 1, xi);
+    pk.add(k3::kPackAct, dout, (long long)N * F, F, 0, 0, G, doi);
+    pk.add(k3::kPackConvT, w0, 3LL * C0 * C, C, C0, 3, G, w0i);
+    pk.add(k3::kPackConvT, wc, 3LL * C * C, C, C, 3, 3 * G, wci);
+    pk.add(k3::kPackConvT, wl, (long long)C * F, F, C, 1, G, wli);
+    pk.add(k3::kPackPad, nullptr, 0, C, 0, 0, G, h);
+    pk.add(k3::kPackPad, nullptr, 0, C, 0, 0, G, dc);
+    MIXSTAGE_CHECK(pk.launch(stream));
+    // logits head: h3, dwl = h3^T dout, dbl = sum dout, dh = dout wl^T
+    bn_act_img_kernel<E><<<col_grid(C, G, S), kImgThreads, 0, stream>>>(
+        cs + (kL - 1) * G * act, params(kL - 1), nullptr, 0.f, nullptr,
+        nullptr, h, N, C, im);
     MIXSTAGE_CHECK(cudaGetLastError());
-    MIXSTAGE_CHECK(reduce(C, dcb + l * C, kL * C));
-    const int cin = l == 0 ? C0 : C;
-    const long long wsz = 3LL * cin * C;
-    float* dw = l == 0 ? dw0 : dwc + (long long)(l - 1) * G * wsz;
-    const Img a = l == 0 ? Img{xi, 0, k3::act_elems(B, T, C0)} : hs;
-    p = wgmma_params(a, dcs, dw, wsz, cin, C, P, 3, 1, B, T, G);
+    k3::Params p = wgmma_params(hs, dos, dwl, (long long)C * F, C, F, P, 1,
+                                1, B, T, G);
     p.part = dw_part;
     MIXSTAGE_CHECK((wgmma_pass<k3::kDW, float, kT>(p, sms, stream)));
-    // d(input): taps shifted back; layer 0 writes one dx partial per group
-    // and sums them in group order
-    const long long nx = (long long)N * C0;
-    const Img w = l == 0 ? Img{w0i, kT * w0g, w0g}
-                         : Img{wci + (l - 1) * G * kT * wcg, kT * wcg, wcg};
+    col_sum_kernel<E><<<col_grid(F, G, S), kColBlock, 0, stream>>>(
+        dout, part, N, F);
+    MIXSTAGE_CHECK(cudaGetLastError());
+    MIXSTAGE_CHECK(reduce(F, dbl, F));
     MIXSTAGE_CHECK((wgmma_pass<k3::kConvT, float, kT>(
-        wgmma_params(dcs, w, l > 0 ? (void*)dh : (void*)dx_part,
-                     l > 0 ? act : nx, P, cin, C, 3, -1, B, T, G),
+        wgmma_params(dos, Img{wli, kT * wlg, wlg}, dh, act, P, C, F, 1, -1,
+                     B, T, G),
         sms, stream)));
-    if (l == 0) {
-      const long long blocks = (nx + 255) / 256;
-      group_sum_kernel<<<(int)(blocks < 4096 ? blocks : 4096), 256, 0,
-                         stream>>>(dx_part, G, nx, dx);
-      MIXSTAGE_CHECK(cudaGetLastError());
-    }
+    return sums(kL - 1);
+  }
+  const int l = kL - stage;
+  const E* c = cs + l * G * act;
+  // with the layer's input h_{l-1}, recomputed (l > 0)
+  bn_bwd_dc_img_kernel<E><<<col_grid(C, G, S), kImgThreads, 0, stream>>>(
+      c, dh, dc, params(l), part, stats + l * sl, rows_total, N, C,
+      l > 0 ? cs + (l - 1) * G * act : nullptr, params(l > 0 ? l - 1 : 0),
+      l > 0 ? h : nullptr, im);
+  MIXSTAGE_CHECK(cudaGetLastError());
+  MIXSTAGE_CHECK(reduce(C, dcb + l * C, kL * C));
+  const int cin = l == 0 ? C0 : C;
+  const long long wsz = 3LL * cin * C;
+  float* dw = l == 0 ? dw0 : dwc + (long long)(l - 1) * G * wsz;
+  const Img a = l == 0 ? Img{xi, 0, k3::act_elems(B, T, C0)} : hs;
+  k3::Params p = wgmma_params(a, dcs, dw, wsz, cin, C, P, 3, 1, B, T, G);
+  p.part = dw_part;
+  MIXSTAGE_CHECK((wgmma_pass<k3::kDW, float, kT>(p, sms, stream)));
+  // d(input): taps shifted back; layer 0 writes one dx partial per group
+  // and sums them in group order
+  const long long nx = (long long)N * C0;
+  const Img w = l == 0 ? Img{w0i, kT * w0g, w0g}
+                       : Img{wci + (l - 1) * G * kT * wcg, kT * wcg, wcg};
+  MIXSTAGE_CHECK((wgmma_pass<k3::kConvT, float, kT>(
+      wgmma_params(dcs, w, l > 0 ? (void*)dh : (void*)dx_part,
+                   l > 0 ? act : nx, P, cin, C, 3, -1, B, T, G),
+      sms, stream)));
+  if (l > 0) return sums(l - 1);
+  const long long blocks = (nx + 255) / 256;
+  group_sum_kernel<<<(int)(blocks < 4096 ? blocks : 4096), 256, 0,
+                     stream>>>(dx_part, G, nx, dx);
+  return (int)cudaGetLastError();
+}
+
+// Every stage of a call back to back, with the local statistics (one
+// rank's batch): the scratch's own stats region.
+template <class E>
+int forward(const E* x, const E* w0, const E* wc, const E* cb,
+            const E* gamma, const E* beta, const E* wl, const E* bl, E* out,
+            E* cs, float* mu, float* var, float* scratch, int B, int T,
+            int C0, int C, int F, int G, void* stream) {
+  if (bad_dims(B, T, C0, C, F, G)) return (int)cudaErrorInvalidValue;
+  float* stats = reinterpret_cast<float*>(
+      reinterpret_cast<unsigned char*>(scratch) +
+      ImgScratch(B, T, C0, C, F, G, kTermsOf<E>).stats);
+  for (int s = 0; s < kStages; ++s) {
+    const int err = forward_stage<E>(s, x, w0, wc, cb, gamma, beta, wl, bl,
+                                     out, cs, mu, var, scratch, stats,
+                                     (float)B * T, B, T, C0, C, F, G,
+                                     stream);
+    if (err) return err;
+  }
+  return 0;
+}
+
+template <class E>
+int backward(const E* dout, const E* x, const E* cs, const float* mu,
+             const float* var, const E* w0, const E* wc, const E* gamma,
+             const E* beta, const E* wl, float* dx, float* dw0, float* dwc,
+             float* dcb, float* dgamma, float* dbeta, float* dwl, float* dbl,
+             float* scratch, float* dh, int B, int T, int C0, int C, int F,
+             int G, void* stream) {
+  if (bad_dims(B, T, C0, C, F, G)) return (int)cudaErrorInvalidValue;
+  float* stats = reinterpret_cast<float*>(
+      reinterpret_cast<unsigned char*>(scratch) +
+      ImgScratch(B, T, C0, C, F, G, kTermsOf<E>).stats);
+  for (int s = 0; s < kStages; ++s) {
+    const int err = backward_stage<E>(
+        s, dout, x, cs, mu, var, w0, wc, gamma, beta, wl, dx, dw0, dwc, dcb,
+        dgamma, dbeta, dwl, dbl, scratch, dh, stats, (float)B * T, B, T, C0,
+        C, F, G, stream);
+    if (err) return err;
   }
   return 0;
 }
@@ -864,6 +994,64 @@ int mixstage_train_decoder_bwd_bf16(
   return backward<bf16>(dout, x, cs, mu, var, w0, wc, gamma, beta, wl, dx,
                         dw0, dwc, dcb, dgamma, dbeta, dwl, dbl, h, dh, B, T,
                         C0, C, F, G, stream);
+}
+
+// One stage of the forward (0 <= stage <= 4; see forward_stage): as
+// mixstage_train_decoder_fwd_f32, plus stats, the (4, G, 2, C) float32
+// exchange buffer (stage s < 4 writes layer s's local sums of c and c^2;
+// stage s > 0 normalises layer s-1 by its entries over rows_total rows).
+int mixstage_train_decoder_fwd_stage_f32(
+    int stage, const float* x, const float* w0, const float* wc,
+    const float* cb, const float* gamma, const float* beta, const float* wl,
+    const float* bl, float* out, float* cs, float* mu, float* var, float* h,
+    float* stats, float rows_total, int B, int T, int C0, int C, int F,
+    int G, void* stream) {
+  return forward_stage<float>(stage, x, w0, wc, cb, gamma, beta, wl, bl, out,
+                              cs, mu, var, h, stats, rows_total, B, T, C0, C,
+                              F, G, stream);
+}
+
+int mixstage_train_decoder_fwd_stage_bf16(
+    int stage, const bf16* x, const bf16* w0, const bf16* wc, const bf16* cb,
+    const bf16* gamma, const bf16* beta, const bf16* wl, const bf16* bl,
+    bf16* out, bf16* cs, float* mu, float* var, float* h, float* stats,
+    float rows_total, int B, int T, int C0, int C, int F, int G,
+    void* stream) {
+  return forward_stage<bf16>(stage, x, w0, wc, cb, gamma, beta, wl, bl, out,
+                             cs, mu, var, h, stats, rows_total, B, T, C0, C,
+                             F, G, stream);
+}
+
+// One stage of the backward (see backward_stage): as
+// mixstage_train_decoder_bwd_f32, plus stats (stage s < 4 writes layer
+// 3-s's local sums of dpre and dpre * xhat; stage s > 0 takes layer 4-s's
+// means from its entries over rows_total rows).
+int mixstage_train_decoder_bwd_stage_f32(
+    int stage, const float* dout, const float* x, const float* cs,
+    const float* mu, const float* var, const float* w0, const float* wc,
+    const float* gamma, const float* beta, const float* wl, float* dx,
+    float* dw0, float* dwc, float* dcb, float* dgamma, float* dbeta,
+    float* dwl, float* dbl, float* h, float* dh, float* stats,
+    float rows_total, int B, int T, int C0, int C, int F, int G,
+    void* stream) {
+  return backward_stage<float>(stage, dout, x, cs, mu, var, w0, wc, gamma,
+                               beta, wl, dx, dw0, dwc, dcb, dgamma, dbeta,
+                               dwl, dbl, h, dh, stats, rows_total, B, T, C0,
+                               C, F, G, stream);
+}
+
+int mixstage_train_decoder_bwd_stage_bf16(
+    int stage, const bf16* dout, const bf16* x, const bf16* cs,
+    const float* mu, const float* var, const bf16* w0, const bf16* wc,
+    const bf16* gamma, const bf16* beta, const bf16* wl, float* dx,
+    float* dw0, float* dwc, float* dcb, float* dgamma, float* dbeta,
+    float* dwl, float* dbl, float* h, float* dh, float* stats,
+    float rows_total, int B, int T, int C0, int C, int F, int G,
+    void* stream) {
+  return backward_stage<bf16>(stage, dout, x, cs, mu, var, w0, wc, gamma,
+                              beta, wl, dx, dw0, dwc, dcb, dgamma, dbeta,
+                              dwl, dbl, h, dh, stats, rows_total, B, T, C0,
+                              C, F, G, stream);
 }
 
 // The GEMM plan (train_gemm_bf16.cuh) of one pass on a card of `sms` SMs,

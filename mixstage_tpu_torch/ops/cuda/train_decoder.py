@@ -37,6 +37,15 @@ rounds dc to bf16 before the dW and d(input) products (``:227``), and
 returns every gradient in float32 (``:332-341``).  mu and var are float32
 in both modes.
 
+Data parallelism (``parallel/mesh.py``): BatchNorm's statistics are the
+data group's global batch's.  Each C entry runs in five stages, cut at the
+statistics; between two of them the wrapper hands a layer's (G, 2, C)
+float32 sums (forward: c and c²; backward: dpre and dpre·xhat) to an
+``exchange`` hook that sums them over the ranks.  Without a hook the sums
+are the local ones, reduced in the order the undivided kernel reduced
+them, so one rank computes what it computed before.  The plain versions
+take the same hook.
+
 K3 has no float64 mode.  The plain versions also take float64 tensors on
 the CPU (the JAX package's float64 parity mode, where they compute
 everything in float64); on CUDA a float64 call raises.
@@ -58,6 +67,8 @@ L = 4                     # ConvNormRelu layers (1 rectangular + 3 square)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
+STAGES = L + 1            # the C entry's stages a call (see _run_stages)
 
 
 # ---------------------------------------------------------------------------
@@ -89,38 +100,55 @@ def _conv_bias(h, w, cb):
     return (acc.to(dt).float() + cb.float()[:, None]).to(dt)
 
 
-def decoder_train_fwd_plain(x, w0, wc, cb, gamma, beta, wl, bl):
-    """The training forward in plain PyTorch, group by group with
-    ``F.conv1d``: returns (out (G,B,T,F), cs (4,G,B,T,C) in ``x.dtype``,
-    mu, var (G,4,C) float32), rounding as K3 does at either dtype."""
+def _exchanged(sums, rows, exchange):
+    """A layer's (G, 2, C) local sums summed over the data group by
+    ``exchange`` (in place), and the rows they cover; the local ones
+    without an exchange."""
+    if exchange is None:
+        return sums, rows
+    return sums, exchange(sums, rows)
+
+
+def decoder_train_fwd_plain(x, w0, wc, cb, gamma, beta, wl, bl,
+                            exchange=None):
+    """The training forward in plain PyTorch, layer by layer over the
+    groups with ``F.conv1d``: returns (out (G,B,T,F), cs (4,G,B,T,C) in
+    ``x.dtype``, mu, var (G,4,C) float32), rounding as K3 does at either
+    dtype.  Each layer's statistics come from its (G, 2, C) sums of c and
+    c² over the rows, which ``exchange(sums, rows) → total rows`` sums over
+    the data group in place (K3's stages take the same hook)."""
     B, T, _ = x.shape
     G, C, Fo = w0.shape[0], w0.shape[-1], wl.shape[-1]
     dt = x.dtype
     acc = _acc(dt)
-    outs, cs, mus, vrs = [], [], [], []
-    for g in range(G):
-        h = x.transpose(1, 2)                               # (B, cin, T)
-        cs_g, mu_g, var_g = [], [], []
-        for layer in range(L):
+    hs = [x.transpose(1, 2)] * G                            # (B, cin, T)
+    cs = [[] for _ in range(G)]
+    mus, vrs = [[] for _ in range(G)], [[] for _ in range(G)]
+    for layer in range(L):
+        cfs = []
+        for g in range(G):
             w = w0[g] if layer == 0 else wc[layer - 1, g]   # (3, cin, C)
-            c = _conv_bias(h, w.permute(2, 1, 0), cb[g, layer])
+            c = _conv_bias(hs[g], w.permute(2, 1, 0), cb[g, layer])
             c = c.transpose(1, 2).reshape(B * T, C)
-            cf = c.to(acc)
-            mu = cf.mean(0)
-            var = (cf * cf).mean(0) - mu * mu
+            cs[g].append(c.reshape(B, T, C))
+            cfs.append(c.to(acc))
+        sums, rows = _exchanged(
+            torch.stack([torch.stack([cf.sum(0), (cf * cf).sum(0)])
+                         for cf in cfs]), B * T, exchange)
+        for g, cf in enumerate(cfs):
+            mu = sums[g, 0] / rows
+            var = sums[g, 1] / rows - mu * mu
             _, _, act = _bn_leaky(cf, mu, var, gamma[g, layer].to(acc),
                                   beta[g, layer].to(acc))
-            cs_g.append(c.reshape(B, T, C))
-            mu_g.append(mu)
-            var_g.append(var)
-            h = act.to(dt).reshape(B, T, C).transpose(1, 2)
-        outs.append((h.transpose(1, 2).to(acc) @ wl[g].to(acc)
-                     + bl[g].to(acc)).to(dt))
-        cs.append(torch.stack(cs_g))
-        mus.append(torch.stack(mu_g))
-        vrs.append(torch.stack(var_g))
-    return (torch.stack(outs), torch.stack(cs, dim=1), torch.stack(mus),
-            torch.stack(vrs))
+            mus[g].append(mu)
+            vrs[g].append(var)
+            hs[g] = act.to(dt).reshape(B, T, C).transpose(1, 2)
+    outs = [(hs[g].transpose(1, 2).to(acc) @ wl[g].to(acc)
+             + bl[g].to(acc)).to(dt) for g in range(G)]
+    return (torch.stack(outs), torch.stack([torch.stack(c) for c in cs],
+                                           dim=1),
+            torch.stack([torch.stack(m) for m in mus]),
+            torch.stack([torch.stack(v) for v in vrs]))
 
 
 def _shift(a, s):
@@ -131,15 +159,19 @@ def _shift(a, s):
         torch.cat([z, a[:, :-1]], 1)
 
 
-def decoder_train_bwd_plain(dout, x, cs, mu, var, w0, wc, gamma, beta, wl):
+def decoder_train_bwd_plain(dout, x, cs, mu, var, w0, wc, gamma, beta, wl,
+                            exchange=None):
     """The training backward as explicit formulas, in the order of the TPU
     kernel's ``_bwd_kernel``: the logits head (dwl, dbl, dh), then layer by
     layer walking back: leaky', dγ, dβ, the train-mode BN backward
     ``inv·(dxhat − mean(dxhat) − xhat·mean(dxhat·xhat))``, dcb, the per-tap
     dW and d(input) with the taps shifted back; dx is summed over groups.
     Returns (dx, dw0, dwc, dcb, dgamma, dbeta, dwl, dbl), all float32
-    (float64 for float64 inputs).  With bfloat16 inputs the recomputed activations and dc are rounded to
-    bfloat16 where they feed a product, as K3 rounds them."""
+    (float64 for float64 inputs).  With bfloat16 inputs the recomputed
+    activations and dc are rounded to bfloat16 where they feed a product,
+    as K3 rounds them.  The two means come from each layer's (G, 2, C)
+    sums of dpre and dpre·xhat, which ``exchange`` sums over the data group
+    (as in ``decoder_train_fwd_plain``); dγ and dβ stay local."""
     B, T, C0 = x.shape
     G, C, N = w0.shape[0], w0.shape[-1], B * T
     dt = x.dtype
@@ -161,21 +193,29 @@ def decoder_train_bwd_plain(dout, x, cs, mu, var, w0, wc, gamma, beta, wl):
         return _bn_leaky(cs[layer, g].reshape(N, C), mu[g, layer],
                          var[g, layer], gamma[g, layer], beta[g, layer])
 
+    dhs = []
     for g in range(G):
         do = dout[g].reshape(N, -1).to(acc)
         h3 = rounded(act(g, L - 1)[2])
         dwl[g] = h3.T @ do
         dbl[g, 0] = do.sum(0)
-        dh = do @ wl[g].T
-        for layer in range(L - 1, -1, -1):
-            inv = torch.rsqrt(var[g, layer] + EPS)
+        dhs.append(do @ wl[g].T)
+    for layer in range(L - 1, -1, -1):
+        pieces = []
+        for g in range(G):
             xhat, pre, _ = act(g, layer)
-            dpre = torch.where(pre >= 0, dh, SLOPE * dh)
-            dg[g, layer] = (dpre * xhat).sum(0)
+            dpre = torch.where(pre >= 0, dhs[g], SLOPE * dhs[g])
             db[g, layer] = dpre.sum(0)
-            dxhat = dpre * gamma[g, layer]
-            dc = inv * (dxhat - dxhat.mean(0)
-                        - xhat * (dxhat * xhat).mean(0))
+            dg[g, layer] = (dpre * xhat).sum(0)
+            pieces.append((xhat, dpre))
+        sums, rows = _exchanged(
+            torch.stack([db[:, layer], dg[:, layer]], dim=1).clone(), N,
+            exchange)
+        for g, (xhat, dpre) in enumerate(pieces):
+            inv = torch.rsqrt(var[g, layer] + EPS)
+            gm = gamma[g, layer]
+            dc = inv * (dpre * gm - gm * sums[g, 0] / rows
+                        - xhat * (gm * sums[g, 1] / rows))
             dcb[g, layer] = dc.sum(0)
             dc = rounded(dc)
             if layer == 0:
@@ -195,7 +235,7 @@ def decoder_train_bwd_plain(dout, x, cs, mu, var, w0, wc, gamma, beta, wl):
             if layer == 0:
                 dx += dinp
             else:
-                dh = dinp.reshape(N, cin)
+                dhs[g] = dinp.reshape(N, cin)
     return dx, dw0, dwc, dcb, dg, db, dwl, dbl
 
 
@@ -258,7 +298,11 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                 [_P] * 13 + [_I] * 6 + [_P]
             getattr(lib, f"mixstage_train_decoder_bwd_{mode}").argtypes = \
                 [_P] * 20 + [_I] * 6 + [_P]
-            for way in ("fwd", "bwd"):
+            getattr(lib, f"mixstage_train_decoder_fwd_stage_{mode}"
+                    ).argtypes = [_I] + [_P] * 14 + [_F] + [_I] * 6 + [_P]
+            getattr(lib, f"mixstage_train_decoder_bwd_stage_{mode}"
+                    ).argtypes = [_I] + [_P] * 21 + [_F] + [_I] * 6 + [_P]
+            for way in ("fwd", "bwd", "fwd_stage", "bwd_stage"):
                 getattr(lib, f"mixstage_train_decoder_{way}_{mode}"
                         ).restype = _I
         lib.mixstage_train_decoder_error_string.argtypes = [_I]
@@ -325,19 +369,40 @@ def _mode(dt):
     return "bf16" if dt == torch.bfloat16 else "f32"
 
 
-def decoder_train_fwd(x, w0, wc, cb, gamma, beta, wl, bl
+def _run_stages(entry, ptrs, stats, rows, dims, stream, exchange,
+                layer_of):
+    """The C entry's stages in order; after stage s < L the layer
+    ``layer_of(s)``'s (G, 2, C) sums in ``stats`` go through ``exchange``
+    (summed over the data group) and the next stage reads them over the
+    rows it returns.  Returns the first error (0: none)."""
+    total = rows
+    for stage in range(STAGES):
+        err = entry(stage, *ptrs, stats.data_ptr(), float(total), *dims,
+                    stream)
+        if err:
+            return err
+        if stage < L and exchange is not None:
+            total = exchange(stats[layer_of(stage)], rows)
+    return 0
+
+
+def decoder_train_fwd(x, w0, wc, cb, gamma, beta, wl, bl, exchange=None
                       ) -> Tuple[torch.Tensor, ...]:
     """K3-fwd: (out (G,B,T,F), cs (4,G,B,T,C), mu, var (G,4,C)).  All
     contiguous, all float32 or all bfloat16 (the bf16 mode: out and cs
     bfloat16, mu and var float32); plain version on the CPU, kernel on
-    CUDA."""
+    CUDA.  ``exchange(sums (G, 2, C), rows) → total rows`` sums each
+    layer's statistics over the data group between the kernel's stages
+    (``parallel/mesh.py::stats_exchange``); None keeps them local.  One
+    launch is counted a call, whatever its stages."""
     dev, dt = _check(x=x, w0=w0, wc=wc, cb=cb, gamma=gamma, beta=beta,
                      wl=wl, bl=bl)
     dims = _shapes(x, w0, wl)
     _expect(*dims, x=x, w0=w0, wc=wc, cb=cb, gamma=gamma, beta=beta, wl=wl,
             bl=bl)
     if dev.type == "cpu":
-        return decoder_train_fwd_plain(x, w0, wc, cb, gamma, beta, wl, bl)
+        return decoder_train_fwd_plain(x, w0, wc, cb, gamma, beta, wl, bl,
+                                       exchange)
     if dev.type != "cuda":
         raise ValueError(f"decoder_train_fwd runs on CUDA (or the CPU plain "
                          f"version), got device {dev}")
@@ -349,11 +414,13 @@ def decoder_train_fwd(x, w0, wc, cb, gamma, beta, wl, bl
     mu = torch.empty((G, L, C), **new)
     var = torch.empty((G, L, C), **new)
     h = _scratch(lib, dims, new)
+    stats = torch.empty((L, G, 2, C), **new)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(lib, f"mixstage_train_decoder_fwd_{_mode(dt)}")(
-            *_ptrs(x, w0, wc, cb, gamma, beta, wl, bl, out, cs, mu, var, h),
-            *dims, stream)
+        err = _run_stages(
+            getattr(lib, f"mixstage_train_decoder_fwd_stage_{_mode(dt)}"),
+            _ptrs(x, w0, wc, cb, gamma, beta, wl, bl, out, cs, mu, var, h),
+            stats, B * T, dims, stream, exchange, lambda s: s)
     _raise_on(lib, err, f"decoder_train_fwd ({dt})", dims)
     decoder_train_fwd.launches += 1
     if dt == torch.bfloat16:
@@ -365,12 +432,13 @@ decoder_train_fwd.launches = 0
 decoder_train_fwd.launches_bf16 = 0
 
 
-def decoder_train_bwd(dout, x, cs, mu, var, w0, wc, gamma, beta, wl
-                      ) -> Tuple[torch.Tensor, ...]:
+def decoder_train_bwd(dout, x, cs, mu, var, w0, wc, gamma, beta, wl,
+                      exchange=None) -> Tuple[torch.Tensor, ...]:
     """K3-bwd: (dx, dw0, dwc, dcb, dgamma, dbeta, dwl, dbl), all float32,
     dx summed over the groups.  The inputs all float32, or all bfloat16 but
     mu and var (the bf16 mode).  Plain version on the CPU, kernel on
-    CUDA."""
+    CUDA.  ``exchange`` as for ``decoder_train_fwd``: the sums behind BN's
+    two column means; the gradients stay local."""
     dev, dt = _check(dout=dout, x=x, cs=cs, mu=mu, var=var, w0=w0, wc=wc,
                      gamma=gamma, beta=beta, wl=wl)
     dims = _shapes(x, w0, wl)
@@ -378,7 +446,7 @@ def decoder_train_bwd(dout, x, cs, mu, var, w0, wc, gamma, beta, wl
             gamma=gamma, beta=beta, wl=wl)
     if dev.type == "cpu":
         return decoder_train_bwd_plain(dout, x, cs, mu, var, w0, wc, gamma,
-                                       beta, wl)
+                                       beta, wl, exchange)
     if dev.type != "cuda":
         raise ValueError(f"decoder_train_bwd runs on CUDA (or the CPU plain "
                          f"version), got device {dev}")
@@ -392,12 +460,14 @@ def decoder_train_bwd(dout, x, cs, mu, var, w0, wc, gamma, beta, wl
     dbl = torch.empty((G, 1, Fo), **new)
     h = _scratch(lib, dims, new)
     dh = torch.empty((G, B, T, C), **new)            # d(layer output)
+    stats = torch.empty((L, G, 2, C), **new)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(lib, f"mixstage_train_decoder_bwd_{_mode(dt)}")(
-            *_ptrs(dout, x, cs, mu, var, w0, wc, gamma, beta, wl,
-                   dx, dw0, dwc, dcb, dg, db, dwl, dbl, h, dh),
-            *dims, stream)
+        err = _run_stages(
+            getattr(lib, f"mixstage_train_decoder_bwd_stage_{_mode(dt)}"),
+            _ptrs(dout, x, cs, mu, var, w0, wc, gamma, beta, wl,
+                  dx, dw0, dwc, dcb, dg, db, dwl, dbl, h, dh),
+            stats, B * T, dims, stream, exchange, lambda s: L - 1 - s)
     _raise_on(lib, err, f"decoder_train_bwd ({dt})", dims)
     decoder_train_bwd.launches += 1
     if dt == torch.bfloat16:
@@ -410,17 +480,19 @@ decoder_train_bwd.launches_bf16 = 0
 
 
 class DecoderTrain(torch.autograd.Function):
-    """(x, w0, wc, cb, gamma, beta, wl, bl) → (out, mu, var): K3-fwd in the
-    forward, K3-bwd in the backward.  mu / var are not differentiable (the
+    """(x, w0, wc, cb, gamma, beta, wl, bl, exchange) → (out, mu, var):
+    K3-fwd in the forward, K3-bwd in the backward, both with ``exchange``
+    (None: local statistics).  mu / var are not differentiable (the
     JAX custom_vjp drops their cotangents, ``train_decoder.py:373``).  In
     the bf16 mode K3-bwd's float32 gradients are rounded to the inputs'
     bfloat16 by autograd, as JAX's custom_vjp casts them (``:381-384``)."""
 
     @staticmethod
-    def forward(ctx, x, w0, wc, cb, gamma, beta, wl, bl):
+    def forward(ctx, x, w0, wc, cb, gamma, beta, wl, bl, exchange=None):
         out, cs, mu, var = decoder_train_fwd(x, w0, wc, cb, gamma, beta, wl,
-                                             bl)
+                                             bl, exchange)
         ctx.save_for_backward(x, cs, mu, var, w0, wc, gamma, beta, wl)
+        ctx.exchange = exchange
         ctx.mark_non_differentiable(mu, var)
         return out, mu, var
 
@@ -428,7 +500,7 @@ class DecoderTrain(torch.autograd.Function):
     def backward(ctx, dout, _dmu, _dvar):
         x, cs, mu, var, w0, wc, gamma, beta, wl = ctx.saved_tensors
         return decoder_train_bwd(dout.contiguous(), x, cs, mu, var, w0, wc,
-                                 gamma, beta, wl)
+                                 gamma, beta, wl, ctx.exchange) + (None,)
 
 
 # ---------------------------------------------------------------------------
@@ -440,7 +512,7 @@ def extract_train_decoder(model) -> Dict[str, torch.Tensor]:
     """The generator's decoder modules in K3's layout (``train_decoder.py:
     416-461``, without the TPU padding).  A differentiable gather: gradients
     of the packed tensors reach the modules' own parameters."""
-    G = model.num_clusters
+    G = model.decoder_groups
     layers = model.decoder_layers()
 
     def taps(conv):                 # (G·C, cin, 3) → (G, 3, cin, C)
@@ -463,19 +535,19 @@ def extract_train_decoder(model) -> Dict[str, torch.Tensor]:
     return {k: v.contiguous() for k, v in packed.items()}
 
 
-def fused_decoder_train(x, model):
+def fused_decoder_train(x, model, exchange=None):
     """The generator's mixture decoder in training mode through K3:
     x (B, T, C0) shared content⊕style features → (xr (B, T, G·F) per-group
     pose logits, mu, var (G, 4, C) float32 batch statistics for the running
-    stats update).  The float32 parameters are cast to ``x.dtype`` inside
+    stats update), G the experts the decoder holds (``decoder_groups``).
+    The float32 parameters are cast to ``x.dtype`` inside
     the graph (``train_decoder.py:486-493``): at bfloat16 K3 runs its bf16
     mode and the casts' backward hands float32 gradients to the
-    parameters."""
+    parameters.  ``exchange``: see ``decoder_train_fwd``."""
     p = {k: v.to(x.dtype) for k, v in extract_train_decoder(model).items()}
     B, T, _ = x.shape
-    G = model.num_clusters
     out, mu, var = DecoderTrain.apply(
         x.contiguous(), p["w0"], p["wc"], p["cb"], p["gamma"], p["beta"],
-        p["wl"], p["bl"])
+        p["wl"], p["bl"], exchange)
     xr = out.permute(1, 2, 0, 3).reshape(B, T, -1)
     return xr, mu, var

@@ -1,7 +1,9 @@
 """Serving fast path: audio → pose with BatchNorm folded into both conv chains.
 
-Counterpart of ``mixstage_tpu/serve.py:37-300,386-422`` (one device, the
-batch layout).  Compared with the eval forward:
+Counterpart of ``mixstage_tpu/serve.py:37-422``: one device, or several
+devices from one process in the batch, time or expert partition
+(``build_serving_fn(devices=..., partition=...)``).  Compared with the
+eval forward:
 
 * BatchNorm is folded into the conv weights of the mixture decoder and of
   the cluster-classifier chain (``fold_bn_into_conv``);
@@ -38,7 +40,8 @@ rounds K4's float32 logits to bfloat16 before the mixture, as JAX's
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import copy
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -123,32 +126,46 @@ def style_weights(style, num_speakers: int, device,
     return style.to(dtype)
 
 
-def _pose(model: nn.Module, audio, sw, fd, fc, packed, use_kernel: bool,
-          qfd=None, k1=fused_mixstage_decoder):
-    """The serving body: audio and (B, T, S) style rows in the compute dtype
-    → float32 pose.  On the kernel route both chains run through ``k1``
-    (K1's wrapper, or its registered operator in an exported program) on
-    the weights ``packed`` by ``pack_decoder_bf16``; ``qfd`` (the int8
-    tier) runs the decoder through K4 or ``decoder_int8_plain``."""
-    G, dtype = model.num_clusters, model.dtype
+def _features_soft(model: nn.Module, audio, sw, fc, packed,
+                   use_kernel: bool, k1=fused_mixstage_decoder):
+    """The content+style features x and the (B, T, G) mixture attention:
+    on the kernel route the classifier chain runs through ``k1`` (K1's
+    wrapper, or its registered operator in an exported program) on the
+    weights ``packed`` by ``pack_decoder_bf16``."""
     if use_kernel:
         x = model.features([audio], None, sw)
         scores = k1(x, *(fc[k] for k in _FOLDED_KEYS), groups=1,
                     packed=packed.get("classifier"))
-        soft = softmax(scores, dim=-1)
-        if qfd is not None:            # f32 logits, in the compute dtype
-            logits = fused_mixstage_decoder_int8(x, qfd, groups=G).to(dtype)
-        else:
-            logits = k1(x, *(fd[k] for k in _FOLDED_KEYS), groups=G,
-                        packed=packed.get("decoder"))
-    else:
-        x, _, soft = model.backbone([audio], None, sw)
-        if qfd is not None:
-            logits = decoder_int8_plain(x, qfd, groups=G).to(dtype)
-        else:
-            logits = fused_mixstage_decoder_plain(
-                x, *(fd[k] for k in _FOLDED_KEYS), groups=G)
-    return index_select_outputs(logits, soft, G).float()
+        return x, softmax(scores, dim=-1)
+    x, _, soft = model.backbone([audio], None, sw)
+    return x, soft
+
+
+def _decode(model: nn.Module, x, fd, packed, use_kernel: bool, qfd=None,
+            k1=fused_mixstage_decoder):
+    """The grouped logits (B, T, groups·F) of the folded decoder ``fd``'s
+    groups (all of them, or a device's share under the expert partition),
+    in the compute dtype: through ``k1`` or its plain version; ``qfd``
+    (the int8 tier) through K4 or ``decoder_int8_plain``."""
+    groups = fd["w0"].shape[0]
+    if qfd is not None:                # f32 logits, in the compute dtype
+        int8 = fused_mixstage_decoder_int8 if use_kernel \
+            else decoder_int8_plain
+        return int8(x, qfd, groups=groups).to(model.dtype)
+    if use_kernel:
+        return k1(x, *(fd[k] for k in _FOLDED_KEYS), groups=groups,
+                  packed=packed.get("decoder"))
+    return fused_mixstage_decoder_plain(x, *(fd[k] for k in _FOLDED_KEYS),
+                                        groups=groups)
+
+
+def _pose(model: nn.Module, audio, sw, fd, fc, packed, use_kernel: bool,
+          qfd=None, k1=fused_mixstage_decoder):
+    """The serving body: audio and (B, T, S) style rows in the compute dtype
+    → float32 pose (``_features_soft``, ``_decode``)."""
+    x, soft = _features_soft(model, audio, sw, fc, packed, use_kernel, k1)
+    logits = _decode(model, x, fd, packed, use_kernel, qfd, k1)
+    return index_select_outputs(logits, soft, model.num_clusters).float()
 
 
 class _Body(nn.Module):
@@ -189,9 +206,93 @@ class ServingProgram(nn.Module):
             (audio, sw, fd, fc, packed))
 
 
+PARTITIONS = ("batch", "time", "expert")
+TIME_ALIGN = 32          # UNet1D's 2^5 (its length must divide it)
+
+
+def _conv_reach(conv, scale: int) -> Tuple[int, int]:
+    """(input frames a conv's window spans at ``scale`` frames an element,
+    the scale after its stride) along time (dim 0 of its kernel)."""
+    k, st, d = conv.kernel_size[0], conv.stride[0], conv.dilation[0]
+    return (k - 1) * d * scale, scale * st
+
+
+def time_receptive_field(model: nn.Module) -> int:
+    """An upper bound, in input frames, of how far along time one pose
+    frame of the eval-mode generator depends on its audio: each conv
+    reaches across its whole kernel at its layer's scale; the audio
+    encoder's bilinear resize and each nearest upsampling of ``UNet1D``
+    one coarse element.  The classifier and the decoder both count."""
+    reach, scale = 0, 1
+    enc = model.audio_encoder
+    for i in range(8):
+        r, scale = _conv_reach(getattr(enc, f"conv{i}").conv, scale)
+        reach += r
+    reach += scale                              # the resize back to T
+    unet, scale = model.unet, 1
+    for name in ("pre0", "pre1") + tuple(f"down{i}"
+                                         for i in range(unet.max_depth)):
+        r, scale = _conv_reach(getattr(unet, name).conv, scale)
+        reach += r
+    for i in range(unet.max_depth):
+        reach += scale                          # nearest ×2
+        scale //= 2
+        reach += _conv_reach(getattr(unet, f"up{i}").conv, scale)[0]
+    cc = model.classify_cluster.stack
+    for i in range(cc.depth):
+        reach += _conv_reach(getattr(cc, f"conv{i}").conv, 1)[0]
+    for layer in model.decoder_layers():
+        reach += _conv_reach(layer.conv, 1)[0]
+    return reach
+
+
+def time_halo(model: nn.Module) -> int:
+    """The frames a time shard reads on either side of its own:
+    ``time_receptive_field`` rounded up to ``TIME_ALIGN``, so every window
+    starts where the whole clip's strided layers and resize line up."""
+    return -(-time_receptive_field(model) // TIME_ALIGN) * TIME_ALIGN
+
+
+def time_windows(T: int, n: int, halo: int):
+    """(window start, window end, shard start, shard end) of ``n`` time
+    shards of a clip of T frames: the shards start at multiples of
+    ``TIME_ALIGN``; each window adds ``halo`` frames a side, cut at the
+    clip's own ends (which it then pads as the whole clip does)."""
+    if T % TIME_ALIGN:
+        raise ValueError(f"time partitioning: T = {T} must divide "
+                         f"{TIME_ALIGN} (the UNet's length)")
+    step = -(-T // (n * TIME_ALIGN)) * TIME_ALIGN
+    out = []
+    for s in range(0, T, step):
+        e = min(T, s + step)
+        out.append((max(0, s - halo), min(T, e + halo), s, e))
+    return out
+
+
+def _to(tree, device):
+    """A dict of tensors (and other leaves) with its tensors on
+    ``device``."""
+    return {k: _to(v, device) if isinstance(v, dict) else
+            (v.to(device) if torch.is_tensor(v) else v)
+            for k, v in tree.items()}
+
+
+def _expert_share(fd: Dict[str, torch.Tensor], i: int, gl: int):
+    """Experts ``[i·gl, (i+1)·gl)`` of the folded decoder (its group axis,
+    JAX's ``fd_specs``: w0, biases, w_logits, b_logits on axis 0, wc on
+    axis 1)."""
+    sl = slice(i * gl, (i + 1) * gl)
+    return _detached({"w0": fd["w0"][sl], "wc": fd["wc"][:, sl],
+                      "biases": fd["biases"][sl],
+                      "w_logits": fd["w_logits"][sl],
+                      "b_logits": fd["b_logits"][sl]})
+
+
 def build_serving_fn(model: nn.Module, device=None,
                      use_kernel: Optional[bool] = None,
-                     quantize_int8: bool = False, calib=None):
+                     quantize_int8: bool = False, calib=None,
+                     devices: Optional[Sequence] = None,
+                     partition: str = "batch"):
     """``fn(audio (B, T, mel), style (B,) ids or (B, S) rows) → pose
     (B, T, out_feats)`` on ``device``.
 
@@ -211,17 +312,56 @@ def build_serving_fn(model: nn.Module, device=None,
     The call runs at the model's compute dtype (``model.dtype``), the int8
     tier included; the pose is returned as float32 either way.
 
-    Outside the int8 tier, ``fn.program`` (a ``ServingProgram``) and
-    ``fn.bound_args`` (``gen, fd, fc, packed``) are the same call as a pure
-    function of its weights, which ``export.export_serving`` traces; the
-    call itself runs the kernels' wrappers directly.
+    ``devices`` (a list, which may repeat a device: ``["cuda:0"] * 2``, or
+    ``["cpu"] * n`` in the tests) serves over several devices from this one
+    process, JAX's ``mesh=`` (``serve.py:133-383``), the pose returned on
+    the first; ``partition`` picks the layout:
+
+    * ``"batch"``: the weights on every device, the batch split (it must
+      divide the device count), each share through K1 (or K4), the poses
+      concatenated;
+    * ``"time"``: one clip's time axis cut into shards starting at
+      multiples of 32, each computed with a halo of ``time_halo`` frames a
+      side and trimmed, so the pose is the whole clip's; the plain route
+      only (``use_kernel=True`` raises, as JAX's Pallas kernel cannot be
+      partitioned over time);
+    * ``"expert"``: the folded decoder split on its group axis (the count
+      must divide ``num_clusters``), K1 packed per device; each device runs
+      the backbone and the classifier, decodes its experts, weighs them
+      with its slice of the attention, and the partial sums are added on
+      the first device.  The int8 tier is batch-partitioned only.
+
+    Outside the int8 tier and ``devices``, ``fn.program`` (a
+    ``ServingProgram``) and ``fn.bound_args`` (``gen, fd, fc, packed``)
+    are the same call as a pure function of its weights, which
+    ``export.export_serving`` traces; the call itself runs the kernels'
+    wrappers directly.
     """
+    if partition not in PARTITIONS:
+        raise ValueError(f"unknown partition {partition!r}; expected "
+                         f"'batch', 'time' or 'expert'")
+    if partition != "batch" and not devices:
+        raise ValueError(f"partition={partition!r} needs devices")
+    if partition == "time":
+        if use_kernel:
+            raise ValueError(
+                "time partitioning requires the plain decoder route: K1 "
+                "cannot be partitioned over its time axis")
+        use_kernel = False
+    if partition == "expert" and quantize_int8:
+        raise ValueError("the int8 tier is batch-partitioned only (its "
+                         "per-channel scale layout is not expert-sliced)")
     dtype = model.dtype
     if quantize_int8 and calib is None:
         raise ValueError("quantize_int8 needs calib=(audio, style ids or "
                          "(B, S) rows) for the one-shot activation "
                          "calibration pass")
-    device = resolve_device(device)
+    devices = [resolve_device(d) for d in devices] if devices else None
+    device = devices[0] if devices else resolve_device(device)
+    G, n = model.num_clusters, len(devices or [device])
+    if partition == "expert" and G % n:
+        raise ValueError(f"expert serving: the {n} devices must divide "
+                         f"num_clusters {G} (whole experts per device)")
     if use_kernel is None:
         use_kernel = device.type == "cuda"
     model = model.to(device).eval()
@@ -229,12 +369,12 @@ def build_serving_fn(model: nn.Module, device=None,
     fc = extract_folded_classify(model)
     S = model.num_speakers
 
-    def inputs(audio, style):
-        """The audio on ``device`` and its (B, T, S) style rows, in the
+    def inputs(audio, style, dev=device):
+        """The audio on ``dev`` and its (B, T, S) style rows, in the
         compute dtype."""
-        audio = torch.as_tensor(audio, device=device).to(dtype)
+        audio = torch.as_tensor(audio, device=dev).to(dtype)
         B, T = audio.shape[:2]
-        return audio, style_weights(style, S, device, dtype)[:, None, :] \
+        return audio, style_weights(style, S, dev, dtype)[:, None, :] \
             .expand(B, T, S)
 
     qfd = None
@@ -246,29 +386,82 @@ def build_serving_fn(model: nn.Module, device=None,
             audio, sw = inputs(*calib)
             qfd = quantize_folded_decoder(fd, model.features([audio], None,
                                                              sw))
+
+    def replica(dev, fd_d):
+        """(model, fd, fc, packed, qfd) on ``dev``: the model itself on the
+        first device, a copy elsewhere; K1's (and K4's) weights packed once,
+        here."""
+        m = model if dev == device else copy.deepcopy(model).to(dev)
+        fd_d, fc_d = _to(fd_d, dev), _to(fc, dev)
+        q = None if qfd is None else _to(qfd, dev)
+        packed = {}
         if use_kernel:
-            qfd = pack_decoder_int8(qfd)
-    # K1 streams the weights split and packed (both modes): once, here
-    packed = {}
-    if use_kernel:
-        packed["classifier"] = pack_decoder_bf16(fc)
-        if not quantize_int8:
-            packed["decoder"] = pack_decoder_bf16(fd)
+            packed["classifier"] = pack_decoder_bf16(fc_d)
+            if q is None:
+                packed["decoder"] = pack_decoder_bf16(fd_d)
+            else:
+                q = pack_decoder_int8(q)
+        return m, fd_d, fc_d, packed, q
+
+    if partition == "expert":
+        gl = G // n
+        shards = [replica(dev, _expert_share(fd, i, gl))
+                  for i, dev in enumerate(devices)]
+    else:
+        cache = {}
+        shards = [cache.setdefault(dev, replica(dev, fd))
+                  for dev in (devices or [device])]
+    halo = time_halo(model) if partition == "time" else 0
+
+    def one(i, audio, style):
+        m, fd_d, fc_d, packed, q = shards[i]
+        dev = fd_d["w0"].device
+        return _pose(m, *inputs(audio, style, dev), fd_d, fc_d, packed,
+                     use_kernel, q)
 
     @torch.inference_mode()
     def fn(audio, style):
-        audio, sw = inputs(audio, style)
-        return _pose(model, audio, sw, fd, fc, packed, use_kernel, qfd)
+        if devices is None:
+            return one(0, audio, style)
+        audio = torch.as_tensor(audio)
+        style = torch.as_tensor(style)
+        if partition == "batch":
+            B = audio.shape[0]
+            if B % n:
+                raise ValueError(f"batch serving: batch {B} must divide "
+                                 f"the {n} devices")
+            b = B // n
+            return torch.cat([one(i, audio[i * b:(i + 1) * b],
+                                  style[i * b:(i + 1) * b]).to(device)
+                              for i in range(n)])
+        if partition == "time":
+            wins = time_windows(audio.shape[1], n, halo)
+            return torch.cat([
+                one(i % n, audio[:, ws:we], style)[:, s - ws:e - ws]
+                .to(device) for i, (ws, we, s, e) in enumerate(wins)], dim=1)
+        partials = []
+        for i, (m, fd_d, fc_d, packed, _) in enumerate(shards):
+            dev = fd_d["w0"].device
+            a, sw = inputs(audio, style, dev)
+            x, soft = _features_soft(m, a, sw, fc_d, packed, use_kernel)
+            part = index_select_outputs(
+                _decode(m, x, fd_d, packed, use_kernel),
+                soft[..., i * gl:(i + 1) * gl], gl)
+            partials.append(part.float().to(device))
+        return sum(partials[1:], partials[0])
 
     fn.device = device
+    fn.devices = devices
+    fn.partition = partition
     fn.dtype = dtype
     fn.use_kernel = use_kernel
     fn.quantize_int8 = quantize_int8
     fn.program = fn.bound_args = None
-    if not quantize_int8:
+    if not quantize_int8 and devices is None:
         fn.program = ServingProgram(model, use_kernel)
         fn.bound_args = ({k: v.detach() for k, v in
-                          model.state_dict().items()}, fd, fc, packed)
+                          model.state_dict().items()}, fd, fc,
+                         shards[0][3])
     return fn
 
 

@@ -126,9 +126,10 @@ def sample_loop(trainer, desc: str):
         keys.append(trainer.output_modality)
         y_outs.append(y_cap_out)  # (B*T, 2, joints) raw, root-zeroed
         if flush:
-            parallel(
-                trainer.data.modality_classes[trainer.output_modality].append,
-                -1, filenames, keys, y_outs)
+            if trainer.layout.is_main:              # rank 0 writes them
+                parallel(trainer.data.modality_classes[
+                    trainer.output_modality].append, -1, filenames, keys,
+                    y_outs)
             filenames.clear(), keys.clear(), y_outs.clear()
 
     len_data = len(datasets)

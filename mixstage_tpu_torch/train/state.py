@@ -79,6 +79,9 @@ class ClippedOptimizer:
 
     MAX_NORM = 1.0          # the reference clips G and D to 1 (both steps)
     SLOTS: Tuple[str, ...] = ()
+    # (mask over params, model group) once the mixture decoder's experts
+    # are split over ranks (parallel/mesh.py::shard_state_mixture)
+    expert_norm = None
 
     def __init__(self, named_params: Sequence[Tuple[str, torch.Tensor]],
                  lr: float = 1e-4, schedule: Optional[Schedule] = None):
@@ -109,7 +112,7 @@ class ClippedOptimizer:
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor]) -> None:
         self.apply(clip_by_global_norm(_checked(grads, self.params),
-                                       self.MAX_NORM))
+                                       self.MAX_NORM, self.expert_norm))
 
     @torch.no_grad()
     def apply(self, grads: List[torch.Tensor]) -> None:
@@ -134,13 +137,24 @@ def _checked(grads, params) -> List[torch.Tensor]:
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float
-                        ) -> List[torch.Tensor]:
+def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,
+                        expert_norm=None) -> List[torch.Tensor]:
     """optax ``clip_by_global_norm(max_norm)`` at ``max_norm`` 1: ``g /
     norm`` when ``norm ≥ 1``, else ``g`` unchanged (optax's ``· max_norm``
     is ``· 1``, exact), with no host sync.  The per-leaf norms come from
-    one multi-tensor launch."""
-    norm = torch.stack(torch._foreach_norm(grads)).square().sum().sqrt()
+    one multi-tensor launch.  ``expert_norm`` (mask, model group): the
+    masked leaves hold this rank's share of the experts, so their squares
+    are summed over the model group, and every rank clips by the norm of
+    the whole parameter set."""
+    sq = torch.stack(torch._foreach_norm(grads)).square()
+    if expert_norm is None:
+        norm = sq.sum().sqrt()
+    else:
+        from mixstage_tpu_torch.parallel.mesh import all_reduce_
+
+        mask = torch.tensor(expert_norm[0], device=sq.device)
+        norm = (sq[~mask].sum() +
+                all_reduce_(sq[mask].sum(), expert_norm[1])).sqrt()
     return torch._foreach_div(grads, norm.clamp_min(max_norm))
 
 
@@ -303,6 +317,7 @@ class SeparateTextOptimizer:
 
     MAX_NORM = ClippedOptimizer.MAX_NORM
     GROUPS = ("text", "rest")
+    expert_norm = None
 
     def __init__(self, named_params: Sequence[Tuple[str, torch.Tensor]],
                  rule, lr: float, schedule: Optional[Schedule],
@@ -344,7 +359,7 @@ class SeparateTextOptimizer:
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor]) -> None:
         grads = clip_by_global_norm(_checked(grads, self.params),
-                                    self.MAX_NORM)
+                                    self.MAX_NORM, self.expert_norm)
         for g, opt in self.groups.items():
             if opt.params:
                 opt.apply([grads[i] for i in self.index[g]])

@@ -63,6 +63,18 @@ live in ``TrainState`` and a step updates it in place, with
   runs the generator's ``backbone``, which emits none, so there they are
   absent, as in the JAX package (``steps.py:323-356``).
 
+* ``layout`` (``parallel/mesh.py``, one rank a process): every step takes
+  the global batch, moves it to the device (the pose noise is drawn at its
+  global shape, so it is the single-process draw), keeps its rank's rows
+  (``shard_batch``; a batch that does not split stays whole) and runs
+  under ``batch_stats``, so BatchNorm and K3 take the global batch's
+  statistics; gradients are averaged over the data group before the
+  optimizer's clip, and the step returns the global losses (scalars: the
+  means over the ranks; ``W``: gathered) and the global pose, as JAX's
+  GSPMD step does.  Dropout masks are drawn at each rank's shape.  Under
+  expert parallelism (``shard_state_mixture``) the generator decodes its
+  rank's experts.
+
 Configurations the port does not cover raise ``NotImplementedError``.
 """
 
@@ -84,7 +96,10 @@ from mixstage_tpu_torch.models.layers import (PoseStyleEncoder,
 from mixstage_tpu_torch.models.registry import (DISENTANGLE_INTERNAL_LOSSES,
                                                 get_model_def,
                                                 infer_discriminator_name)
-from mixstage_tpu_torch.ops.mixture import index_select_outputs
+from mixstage_tpu_torch.parallel.mesh import (all_gather, all_reduce_grads,
+                                              batch_stats, batch_stats_group,
+                                              mean_over_data, shard_batch,
+                                              stats_exchange)
 from mixstage_tpu_torch.train import losses as L
 from mixstage_tpu_torch.train.state import (TrainState, g_named_parameters,
                                             make_optimizer,
@@ -232,14 +247,16 @@ class StepFactory:
     """Builds the train state and the step callables for a StepConfig.
 
     ``device=None`` is the CUDA card (raises without one); the tests pass
-    ``device="cpu"``."""
+    ``device="cpu"``.  ``layout``: the data-parallel (or data × expert)
+    layout the steps run under (None: one device)."""
 
     def __init__(self, cfg: StepConfig, g_schedule=None, d_schedule=None,
-                 device=None):
+                 device=None, layout=None):
         why = _unsupported(cfg)
         if why:
             raise NotImplementedError(why)
         self.cfg = cfg
+        self.layout = layout
         self.device = resolve_device(device)
         if cfg.fused_decoder and cfg.dtype == torch.float64 and \
                 self.device.type == "cuda":
@@ -425,17 +442,26 @@ class StepFactory:
     def _apply_gen_style_fused(self, state, batch, style_weights, kwargs):
         """Train-mode forward with the mixture decoder through K3
         (``steps.py:323-356``): the backbone through autograd, the decoder
-        as ``DecoderTrain``; its running statistics take the flax rule from
-        K3's batch mean and (biased) variance."""
+        as ``DecoderTrain`` (its statistics exchanged over the data group
+        under data parallelism; the rank's experts under expert
+        parallelism); its running statistics take the flax rule from K3's
+        batch mean and (biased) variance."""
         from mixstage_tpu_torch.ops.cuda.train_decoder import \
             fused_decoder_train
 
         gen = state.gen
         x_feat, labels_score, labels_cap_soft = gen.backbone(
             list(batch["x"]), batch["y"], style_weights, **kwargs)
-        M = gen.num_clusters
-        xr, mu, var = fused_decoder_train(x_feat, gen)
-        pose = index_select_outputs(xr, labels_cap_soft, M)
+        exchange = stats_exchange(batch_stats_group())
+        stats = []
+
+        def decode(x):
+            xr, mu, var = fused_decoder_train(x, gen, exchange)
+            stats.append((mu, var))
+            return xr
+
+        pose = gen.mixture(x_feat, labels_cap_soft, decode)
+        mu, var = stats[0]
         for i, layer in enumerate(gen.decoder_layers()):
             layer.norm.update_running_stats(mu[:, i].reshape(-1),
                                             var[:, i].reshape(-1))
@@ -575,8 +601,28 @@ class StepFactory:
     def _step_g_opt(self, state, total):
         grads = torch.autograd.grad(total, state.g_opt.params,
                                     allow_unused=True)
-        state.g_opt.step([torch.zeros_like(p) if g is None else g
-                          for g, p in zip(grads, state.g_opt.params)])
+        state.g_opt.step(all_reduce_grads(
+            [torch.zeros_like(p) if g is None else g
+             for g, p in zip(grads, state.g_opt.params)], self.layout))
+
+    def _shard(self, batch):
+        """(this rank's rows of the device batch, whether it was split):
+        the batch itself without a data-parallel layout or when its size
+        does not divide the data extent (then every rank runs all of it)."""
+        lay = self.layout
+        if lay is None or not lay.divides(batch["y"].shape[0]):
+            return batch, False
+        return shard_batch(batch, lay), True
+
+    def _report(self, losses, pose, sharded):
+        """The step's (losses, pose) as the single-device step returns them:
+        for a split batch the scalar losses averaged over the data group,
+        ``W`` and the pose gathered."""
+        losses = self._out(losses)
+        if not sharded:
+            return losses, pose
+        return mean_over_data(losses, self.layout), \
+            all_gather(pose.contiguous(), self.layout.data_group)
 
     # ----------------------------------------------------------------- steps
     def make_steps(self):
@@ -595,9 +641,11 @@ class StepFactory:
                            rng: Rng = None, use_pose_input: bool = False):
         """Non-GAN step (``steps.py:477-505``): (state, losses, pose)."""
         batch, drop_gen = self._prepare(batch, rng)
+        batch, sharded = self._shard(batch)
         y = batch["y"]
         self._modes(state, True, False)
-        with torch.enable_grad(), dropout_rng(drop_gen):
+        with torch.enable_grad(), dropout_rng(drop_gen), \
+                batch_stats(self.layout, sharded):
             pose, internal, _ = self._forward(state, batch, use_pose_input,
                                               True, False)
             pose_loss = self.criterion(pose, y).mean()
@@ -608,18 +656,20 @@ class StepFactory:
         state.g_step += 1
         state.curriculum_step += 1
         losses = {"pose": pose_loss, "total": total, **internal}
-        return state, self._out(losses), pose.detach()
+        return (state, *self._report(losses, pose.detach(), sharded))
 
     def _g_step(self, state: TrainState, batch: Batch, rng: Rng = None,
                 use_pose_input: bool = False):
         """GAN G step (``steps.py:508-554``): (state, losses, pose)."""
         cfg = self.cfg
         batch, drop_gen = self._prepare(batch, rng)
+        batch, sharded = self._shard(batch)
         y = batch["y"]
         lambda_gan = self._lambda(state.lambda_step, cfg.lambda_gan)
         W = self._weights(state, batch)
         self._modes(state, True, True)
-        with torch.enable_grad(), dropout_rng(drop_gen):
+        with torch.enable_grad(), dropout_rng(drop_gen), \
+                batch_stats(self.layout, sharded):
             pose, internal, _ = self._forward(state, batch, use_pose_input,
                                               True, False)
             d_score = self._apply_disc(state, self._d_input(pose, batch["x"]))
@@ -638,13 +688,14 @@ class StepFactory:
         state.curriculum_step += 1
         losses = {"pose": pose_loss, "G_gan": G_gan, "total": total, "W": W,
                   **internal}
-        return state, self._out(losses), pose.detach()
+        return (state, *self._report(losses, pose.detach(), sharded))
 
     def _d_step(self, state: TrainState, batch: Batch, rng: Rng = None,
                 use_pose_input: bool = False):
         """GAN D step (``steps.py:557-605``): (state, losses, pose)."""
         cfg = self.cfg
         batch, drop_gen = self._prepare(batch, rng)
+        batch, sharded = self._shard(batch)
         y = batch["y"]
         lambda_D = self._lambda(state.lambda_step, cfg.lambda_D)
         W = self._weights(state, batch)
@@ -654,7 +705,8 @@ class StepFactory:
                                               False, False)
         fake_v, real_v = self._d_input(pose, batch["x"]), \
             self._d_input(y, batch["x"])
-        with torch.enable_grad(), dropout_rng(drop_gen):
+        with torch.enable_grad(), dropout_rng(drop_gen), \
+                batch_stats(self.layout, sharded):
             fake_score = self._apply_disc(state, fake_v)
             real_score = self._apply_disc(state, real_v)
             fake_D = lambda_D * L.sample_wise_weight_mean(
@@ -665,12 +717,12 @@ class StepFactory:
                 torch.ones_like(W))
             total = real_D + fake_D + sum(internal.values())
             grads = torch.autograd.grad(total, state.d_opt.params)
-        state.d_opt.step(grads)
+        state.d_opt.step(all_reduce_grads(grads, self.layout))
         state.step += 1
         state.lambda_step += 1
         losses = {"real_D": real_D, "fake_D": fake_D, "total": total,
                   "W": W, **internal}
-        return state, self._out(losses), pose
+        return (state, *self._report(losses, pose, sharded))
 
     @torch.no_grad()
     def _eval_step(self, state: TrainState, batch: Batch,
@@ -678,13 +730,19 @@ class StepFactory:
         """Eval / sampling forward (``steps.py:608-616``): (losses, pose,
         aux), every module in eval mode."""
         batch = _to_device(batch, self.device, self.cfg.dtype)
+        batch, sharded = self._shard(batch)
         self._modes(state, False, False)
         pose, internal, aux = self._forward(state, batch, use_pose_input,
                                             False, sample_flag)
         pose_loss = self.criterion(pose, batch["y"]).mean()
         losses = {"pose": pose_loss,
                   "total": pose_loss + sum(internal.values()), **internal}
-        return self._out(losses), pose, aux
+        losses, pose = self._report(losses, pose, sharded)
+        if sharded:
+            aux = {k: None if v is None else
+                   all_gather(v.contiguous(), self.layout.data_group)
+                   for k, v in aux.items()}
+        return losses, pose, aux
 
     def _classifier_step(self, state: TrainState, batch: Batch,
                          rng: Rng = None, train: bool = True):
@@ -693,6 +751,7 @@ class StepFactory:
         accuracy.  Training: (state, {"pose", "total", "acc"}, logits);
         ``train=False``: (losses, logits, {}), the model in eval mode."""
         batch = _to_device(batch, self.device, self.cfg.dtype)
+        batch, sharded = self._shard(batch)
         y_true = batch["style"][:, 0].long()
         self._modes(state, train, False)
         if not train:
@@ -700,19 +759,20 @@ class StepFactory:
                 logits, _ = state.gen(batch["y"])
                 loss = L.cross_entropy(logits, y_true)
             acc = (logits.argmax(-1) == y_true).float().mean()
-            return self._out({"pose": loss, "total": loss, "acc": acc}), \
-                logits, {}
+            return (*self._report({"pose": loss, "total": loss, "acc": acc},
+                                  logits, sharded), {})
         drop_gen = split_rng(rng, self.device)[1] \
             if self.cfg.p_dropout > 0 else None
-        with torch.enable_grad(), dropout_rng(drop_gen):
+        with torch.enable_grad(), dropout_rng(drop_gen), \
+                batch_stats(self.layout, sharded):
             logits, _ = state.gen(batch["y"])
             loss = L.cross_entropy(logits, y_true)
             self._step_g_opt(state, loss)
         acc = (logits.argmax(-1) == y_true).float().mean()
         state.step += 1
         state.g_step += 1
-        return state, self._out({"pose": loss, "total": loss, "acc": acc}), \
-            logits.detach()
+        return (state, *self._report({"pose": loss, "total": loss,
+                                      "acc": acc}, logits.detach(), sharded))
 
     # -- multi-step training driver -------------------------------------------
     def union_keys(self) -> Sequence[str]:

@@ -6,7 +6,18 @@ the GAN and curriculum host coins, sampling and style transfer; the
 per-batch compute is the port's ``StepFactory`` steps, which move each
 numpy batch to the device.  ``Trainer(args, subset, update, device=None)``
 runs on the card (``device="cpu"`` runs the plain versions on the CPU, as
-the tests do); there is no mesh: one card.
+the tests do).
+
+``-num_devices N`` trains data-parallel over a process group of N ranks
+(``parallel/mesh.py``), launched by ``torchrun --nproc_per_node N -m
+mixstage_tpu_torch.cli.train ...`` (``cli.train`` joins the group through
+``parallel/multihost.setup``); 0 takes the world, and N other than the
+world's size raises ``ValueError``.  Rank r runs on ``cuda:(LOCAL_RANK %
+device_count)``.  Every rank reads the same seeded global batch and draws
+the same coins, the steps keep the rank's rows and return the global
+losses and pose, so the run takes the single-process trainer's decisions.
+Only rank 0 writes files (checkpoints, logs, metrics, h5 dumps, the data's
+preprocessing files); the others wait for them at a barrier.
 
 The host coins follow the JAX trainer draw for draw, so the two trainers
 take the same D/G and curriculum decisions from the same ``-seed``: before
@@ -56,6 +67,9 @@ from mixstage_tpu_torch.data.dataset import Data
 from mixstage_tpu_torch.data.transforms import (Compose, KMeansTransform,
                                                 Relative2Parent, RemoveJoints,
                                                 ZNorm)
+from mixstage_tpu_torch.parallel.mesh import (any_rank, make_mesh,
+                                              replicate_state)
+from mixstage_tpu_torch.parallel.multihost import local_device
 from mixstage_tpu_torch.train.sampling import to_numpy
 from mixstage_tpu_torch.train.state import make_schedule
 from mixstage_tpu_torch.train.steps import StepConfig, StepFactory
@@ -94,10 +108,6 @@ def refuse_unported(args: Config) -> None:
         resolve_variants([v.strip() for v in
                           (args.export_variants or "").split(",")
                           if v.strip()])
-    if args.num_devices and args.num_devices > 1:
-        raise NotImplementedError(
-            f"-num_devices {args.num_devices}: the data-parallel layouts "
-            f"come later {later.format(6)}; the port trains on one card")
     if args.render:
         raise NotImplementedError(
             f"-render {args.render}: rendering comes later {later.format(7)}")
@@ -120,9 +130,14 @@ class Trainer:
 
     def __init__(self, args: Config, args_subset=None, args_dict_update=None,
                  device=None):
+        # the layout follows the command line's -num_devices (not a
+        # restored checkpoint's): N ranks, or the world for 0
+        self.layout = make_mesh(args.num_devices)
+        if device is None and self.layout.world > 1:
+            device = local_device("cuda")
         self.book = BookKeeper(args, args_subset,
                                args_dict_update=args_dict_update or {},
-                               tensorboard=args.tb)
+                               tensorboard=args.tb, layout=self.layout)
         self.args = args = self.book.args
         refuse_unported(args)
 
@@ -148,6 +163,10 @@ class Trainer:
         self.np_fp = NP_DTYPES[args.dtype]
 
         # ------------------------------------------------------------- data
+        # rank 0 opens the data (which writes its missing-interval ledger)
+        # and fits and writes the preprocessing files; the others read them
+        # after it
+        self._after_rank0()
         self.data = Data(self.path2data, self.speaker, self.modalities,
                          self.fs_new, time=self.time, split=args.split,
                          batch_size=self.batch_size,
@@ -192,6 +211,7 @@ class Trainer:
                                     pre=pre_op))
         self.pre = Compose(pre_transforms)
         self.transform = Compose([RemoveJoints(self.mask, self.parents)])
+        self._release_ranks()
 
         if args.preprocess_only:
             # reference exits after data preprocessing (trainer.py:131-133)
@@ -238,7 +258,8 @@ class Trainer:
             p_dropout=float(mk.pop("p", 0.0)), dtype=self.fp,
             model_kwargs=tuple(mk.items()))
         self.factory = StepFactory(self.step_cfg, g_schedule=schedule,
-                                   d_schedule=schedule, device=device)
+                                   d_schedule=schedule, device=device,
+                                   layout=self.layout)
         self.device = self.factory.device
         self.steps = self.factory.make_steps()
         self._scan_k = int(args.scan_steps or 0)
@@ -259,7 +280,8 @@ class Trainer:
         self._preempted = False  # set by the SIGTERM handler, polled in loops
         self._d_prob = self.step_cfg.d_prob
         batch0 = self._peek_batch()   # the JAX trainer's init batch
-        self.state = self.factory.init(seed=args.seed or 0)
+        self.state = replicate_state(self.factory.init(seed=args.seed or 0),
+                                     self.layout)
         self.factory.check(self.state, batch0)
         print("Model Created")
         if args.load:
@@ -271,8 +293,22 @@ class Trainer:
         # ------------------------------------------------------------ metrics
         self.num_styles = len(self.style_dict)
         self._init_label_hist()
+        self._after_rank0()             # the F1 metric's k-means file
         self._init_metrics()
+        self._release_ranks()
         self.weight_counter: Dict[int, int] = {}
+
+    def _after_rank0(self):
+        """Opens a block that rank 0 runs first (it writes the data's
+        files): the other ranks wait here until ``_release_ranks``."""
+        if not self.layout.is_main:
+            self.layout.barrier()
+
+    def _release_ranks(self):
+        """Closes an ``_after_rank0`` block: rank 0 lets the others run it,
+        reading what it wrote."""
+        if self.layout.is_main:
+            self.layout.barrier()
 
     # ------------------------------------------------------------------ data
     def peek_batches(self, n_batches: int = 1, batch_size: int = 2):
@@ -413,7 +449,8 @@ class Trainer:
 
         Within-epoch progress is IN the snapshot; the resume re-enters the
         current epoch, so the only cost is that epoch's partial metrics."""
-        if not (self._preempted and self.args.preempt_save):
+        if not self.args.preempt_save or not any_rank(self._preempted,
+                                                      self.layout):
             return
         meta = {"epoch_next": int(epoch), "step": int(self.state.step),
                 "reason": "SIGTERM", "time": time.asctime(),
@@ -563,8 +600,8 @@ class Trainer:
                             lambda b: (b, self.get_processed_batch(b)),
                             depth=2 if not self._scan_k else self._scan_k + 2,
                             workers=max(1, int(self.args.num_workers)))
-        with trace(self.args.profile_dir
-                   if training and epoch == 0 else None):
+        with trace(self.args.profile_dir if training and epoch == 0 and
+                   self.layout.is_main else None):
             if training and self._scan_step is not None:
                 return self._train_loop_scan(prepared, desc, epoch, timer,
                                              running, running_count, t0)
@@ -869,7 +906,7 @@ class Trainer:
         test_loss, test_metrics, test_split = sample_loop(self, "test")
         train_loss, train_metrics, _ = sample_loop(self, "train")
         dev_loss, dev_metrics, _ = sample_loop(self, "dev")
-        if self.sample_all_styles == 0:
+        if self.sample_all_styles == 0 and self.layout.is_main:
             self._save_labels()
             with open(self.book.name("metrics", "json",
                                      self.book.save_dir), "w") as f:

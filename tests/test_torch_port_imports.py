@@ -1,7 +1,8 @@
-"""The port stands alone: no file of ``mixstage_tpu_torch``, ``tools/`` nor
-``chip_smoke.py`` imports jax, flax, optax or the JAX package, nor the host
-libraries the card's machine lacks or the port replaced (pandas,
-scikit-learn, joblib, PyYAML); and importing the port loads no JAX."""
+"""The port stands alone: no file of ``mixstage_tpu_torch``, ``tools/``,
+``chip_smoke.py`` nor the multi-rank tests' children imports jax, flax,
+optax or the JAX package, nor the host libraries the card's machine lacks
+or the port replaced (pandas, scikit-learn, joblib, PyYAML); and importing
+the port loads no JAX."""
 
 import ast
 import os
@@ -17,8 +18,10 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "mixstage_tpu"}
 # is read with ``csv``, the k-means fit is its own, the thread map runs on
 # ``concurrent.futures``, the OpenPose YAML reader is not ported
 HOST_FORBIDDEN = {"pandas", "sklearn", "joblib", "yaml"}
+# the multi-rank tests' children run the port without JAX too
 FILES = sorted((ROOT / "mixstage_tpu_torch").rglob("*.py")) + \
-    sorted((ROOT / "tools").glob("*.py")) + [ROOT / "chip_smoke.py"]
+    sorted((ROOT / "tools").glob("*.py")) + [ROOT / "chip_smoke.py"] + \
+    sorted((ROOT / "tests").glob("_torch_port_parallel*.py"))
 
 
 def _imported_roots(path: Path):
@@ -64,6 +67,8 @@ def test_importing_the_port_loads_no_jax():
             "mixstage_tpu_torch.data.prefetch, "
             "mixstage_tpu_torch.evaluation, "
             "mixstage_tpu_torch.parallel, "
+            "mixstage_tpu_torch.parallel.mesh, "
+            "mixstage_tpu_torch.parallel.multihost, "
             "mixstage_tpu_torch.train.profiling, "
             "mixstage_tpu_torch.train.sampling, "
             "mixstage_tpu_torch.train.trainer, "

@@ -335,7 +335,14 @@ def text_data(tmp_path_factory):
 def test_unported_flags_raise(data, text_data, tmp_path, name):
     """A refused flag raises naming its ROADMAP item (an unregistered
     Disentangle generator with the JAX package's message); a flag ported
-    since builds its trainer."""
+    since builds its trainer.  ``-num_devices 2`` runs under a process
+    group of two ranks: a single process asking for it raises
+    ``ValueError`` naming the launch (``torchrun``)."""
+    if name == "num_devices":
+        with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
+            Trainer(cfg(data, tmp_path, **REFUSED[name]), SUB, {},
+                    device="cpu")
+        return
     if name in PORTED:
         path = text_data if name.startswith("text") else data
         tr = Trainer(cfg(path, tmp_path, **REFUSED[name]), SUB, {},

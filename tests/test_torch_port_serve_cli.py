@@ -1,7 +1,8 @@
 """The port's serving CLIs on the CPU: ``cli.serve`` (``build`` on port
 0) in checkpoint mode (f32 and ``-serve_int8 1``, the waveform endpoint
 on a ``log_mel_400`` model) and artifact mode (``-export_dir``, after
-``cli.export``), ``resolve_partition``, and ``Trainer.peek_batches`` with
+``cli.export``), ``resolve_partition`` and the partitions ``build``
+serves over several devices, and ``Trainer.peek_batches`` with
 the pooled int8 calibration windows against the JAX package's.
 
 The experiments are trained here by ``cli.train`` at the sizes of
@@ -147,14 +148,40 @@ def test_resolve_partition_matches_jax(case):
         jax_resolve(*_CASES[case])
 
 
-def test_resolve_partition_refuses_typos_and_meshes():
+def test_resolve_partition_refuses_typos_and_meshes(exps):
+    """A typo raises on any device count; ``build`` serves the layout that
+    ``resolve_partition`` resolves over ``-num_devices`` devices (here
+    ``["cpu"] * 2``): batch, time and expert across the devices, a batch
+    that does not divide them on one; each serving function's pose equals
+    the single-device one on the restored model."""
     for n_dev in (1, 8):
         with pytest.raises(ValueError, match="unknown -serve_partition"):
             cli_serve.resolve_partition("exprt", n_dev, 32)
-    for case in ("default_dp", "time", "expert"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-            cli_serve.one_device(*_CASES[case])
-    assert cli_serve.one_device(*_CASES["dp_ragged"]) == "batch"
+    data, weights, _ = exps
+    direct = build_serving_fn(restored(data, weights["mel512"]).state.gen,
+                              device="cpu")
+    audio = np.random.default_rng(0).normal(size=(BATCH, 64, 128)) \
+        .astype(np.float32)
+    for partition, n_dev, want in (("batch", 2, "batch"),
+                                   ("time", 2, "time"),
+                                   ("expert", 2, "expert"),
+                                   ("batch", 3, None)):
+        server, batchers = cli_serve.build(args_of([
+            "-serve_port", "0", "-load", weights["mel512"], "-path2data",
+            data, "-serve_partition", partition, "-num_devices",
+            str(n_dev)]), device="cpu")
+        try:
+            fn = batchers[0].serve_fn
+            assert fn.partition == (want or "batch")
+            assert (fn.devices is None) == (want is None)
+            if want is not None:
+                assert [d.type for d in fn.devices] == ["cpu"] * n_dev
+            styles = np.arange(BATCH) % 2
+            np.testing.assert_allclose(fn(audio, styles),
+                                       direct(audio, styles), rtol=0,
+                                       atol=1e-5)
+        finally:
+            stop(server, batchers)
 
 
 def test_peek_batches_and_calibration_match_jax(tmp_path):
