@@ -11,8 +11,9 @@ bf16 tier, serving and GAN training (phases 15-17), the int8 tier on the
 bf16 model (phases 18-19), the host lifecycle through the CLIs
 (phase 20), the serving entry points on its checkpoints (phase 21), the
 rest of the train steps (phase 22), text input, ``-optim_separate``
-and the Disentangle losses (phase 23), and the parallel layouts (phase
-24):
+and the Disentangle losses (phase 23), the parallel layouts (phase
+24), and the two ends of the lifecycle (phase 25: rendering, JAX
+checkpoints, data preparation):
 
 1. device: the card's name and power limit from ``nvidia-smi``;
 2. build: every CUDA kernel from the checkout's sources, one ``nvcc`` per
@@ -228,7 +229,27 @@ and the Disentangle losses (phase 23), and the parallel layouts (phase
     2 shards within 1e-4; K1 and K4 launches per device
     (``parallel_launches_per_device``); (e) a rank's DP G step time beside
     one rank's and the serving calls' (two processes sharing one card: no
-    scaling measurement).
+    scaling measurement);
+25. the two ends of the lifecycle at full width: (a) the skeleton
+    rasteriser (host C++, built by g++ at first use) on 64 frames of 52
+    joints, prediction beside ground truth (480 x 960), equal to its numpy
+    plain version frame for frame, each one's ms a frame on the host CPU
+    (named), its GIF decoding (PIL, else the port's reader) to the
+    palette's frames, captions and an MJPEG + PCM AVI where PIL exists;
+    (b) ``cli.train -fused_decoder 1 -render 1`` (8 speakers x 3 synthetic
+    intervals of 8 s): K3 once each way a G step, 10 GIFs and
+    ``videos.html``, one interval re-rasterised equal to its plain version
+    and to its GIF; (c) ``cli.render -load`` of it with a render list:
+    prediction beside ground truth and the ``render_eval*`` pass, nothing
+    new with ``-clean_render 0``; (d) a flax-msgpack ``PREFIX_weights.p``
+    of its weights (``to_flax_state`` and the port's ``packb``) restoring
+    them bit for bit, ``cli.serve -load`` of it in f32 (K1 twice a batch)
+    and ``-serve_int8 1`` (K1 and K4 once) answering bit for bit with the
+    direct call, ``cli.sample -load`` of it writing (b)'s keypoints bit for
+    bit; (e) ``cli.preprocess`` (pose data, normalize, the OpenPose-YAML
+    confidence branch; audio only where ``soundfile`` exists) on a raw
+    tree and ``cli.delete_keys``; each sub-phase's seconds and the
+    phase's.
 
 The bf16 rule: no bf16 output is held element-wise to another bf16 output
 (two valid roundings differ about as much as either differs from the
@@ -3698,6 +3719,467 @@ def parallel_phase(torch, args, device, smi, model, audio, styles, serve,
             "per_device": serve_launches}
 
 
+# phase 25: the two ends of the lifecycle (rendering, JAX checkpoints,
+# data preparation)
+ENDS_INTERVAL_S = 8.0        # phase 25's synthetic intervals: 120 frames
+ENDS_STEPS = 2               # its cli.train's -debug (3 G or D steps)
+ENDS_RENDER_LIST = 3         # intervals cli.render renders
+RASTER_FRAMES = 64           # (a): prediction beside ground truth
+
+
+def cli_config(argv):
+    """A ``Config`` as ``argparse_n_loop`` hands it to a CLI's loop: the
+    flags typed on the command line kept over a restored checkpoint's."""
+    from mixstage_tpu_torch.config import (_typed_flag_names,
+                                           config_from_dict, get_args_perm)
+
+    _, perms = get_args_perm(argv)
+    cfg = config_from_dict(perms[0])
+    cfg.typed_flags = _typed_flag_names(argv)
+    return cfg
+
+
+def host_cpu() -> str:
+    """The host CPU's model name (``/proc/cpuinfo``, else ``lscpu``), its
+    architecture and logical core count."""
+    import platform
+
+    name = None
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.lower().startswith("model name"):
+                    name = line.split(":", 1)[1].strip()
+                    break
+    except OSError:
+        pass
+    if not name and shutil.which("lscpu"):
+        out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                             timeout=30).stdout
+        name = next((ln.split(":", 1)[1].strip() for ln in out.splitlines()
+                     if ln.lower().startswith("model name")), None)
+    return (f"{name or 'model not reported'} ({platform.machine()}), "
+            f"{os.cpu_count()} logical cores")
+
+
+def palette_frames(raster, frames):
+    """``frames`` through the GIF palette (each colour's nearest entry),
+    what a GIF of them decodes to."""
+    pal = raster.gif_palette().astype(np.int64)
+    keys = ((frames[..., 0].astype(np.uint32) << 16)
+            | (frames[..., 1].astype(np.uint32) << 8) | frames[..., 2])
+    present = np.zeros(1 << 24, bool)
+    present[keys.reshape(-1)] = True
+    colors = np.flatnonzero(present)
+    lut = np.zeros((1 << 24, 3), np.uint8)
+    for i in range(0, len(colors), 8192):        # bounded memory
+        c = colors[i:i + 8192]
+        rgb = np.stack([c >> 16, (c >> 8) & 255, c & 255], -1)
+        lut[c] = pal[((rgb[:, None, :] - pal) ** 2).sum(-1).argmin(-1)]
+    return lut[keys]
+
+
+def decode_gif_frames(raster, data: bytes):
+    """A GIF's frames, by PIL where it is installed, else by the port's own
+    reader; returns (frames, reader)."""
+    try:
+        import io
+
+        from PIL import Image, ImageSequence
+    except ImportError:
+        return np.stack(raster.decode_gif(data)), "the port's reader"
+    with Image.open(io.BytesIO(data)) as im:
+        return np.stack([np.asarray(f.convert("RGB"))
+                         for f in ImageSequence.Iterator(im)]), "PIL"
+
+
+def lifecycle_ends_phase(torch, args, smi, results) -> dict:
+    """Phase 25: the two ends of the lifecycle at full width.  (a) the
+    rasteriser (host C++) against its numpy plain version, the GIF
+    encoder; (b) ``cli.train -fused_decoder 1 -render 1`` (K3) and its
+    videos; (c) ``cli.render -load`` of that experiment; (d) a JAX-format
+    (flax msgpack) checkpoint of its weights served by ``cli.serve -load``
+    (K1; K1 and K4 with ``-serve_int8 1``) and sampled by ``cli.sample``;
+    (e) ``cli.preprocess`` and ``cli.delete_keys`` on a raw tree.  Returns
+    the launches of K3 (fwd, bwd) over (b) and of K1 and K4 over (d)'s
+    servers."""
+    import importlib.util
+    import shutil
+    from pathlib import Path
+
+    if "h5py" not in sys.modules and importlib.util.find_spec("h5py") is None:
+        install_h5py_stand_in()
+    stand_in = not hasattr(sys.modules.get("h5py") or __import__("h5py"),
+                           "__version__")
+    from mixstage_tpu_torch.animation import raster
+    from mixstage_tpu_torch.bookkeeping import weights_of
+    from mixstage_tpu_torch.cli import delete_keys as cli_delete
+    from mixstage_tpu_torch.cli import preprocess as cli_pre
+    from mixstage_tpu_torch.cli import render as cli_render
+    from mixstage_tpu_torch.cli import sample as cli_sample
+    from mixstage_tpu_torch.cli import serve as cli_serve
+    from mixstage_tpu_torch.cli import train as cli_train
+    from mixstage_tpu_torch.data.common import SPEAKERS
+    from mixstage_tpu_torch.data.hdf5 import HDF5
+    from mixstage_tpu_torch.data.skeleton import PARENTS
+    from mixstage_tpu_torch.data.synthetic import make_synthetic_dataset
+    from mixstage_tpu_torch.interop.flax_msgpack import packb, unpackb
+    from mixstage_tpu_torch.interop.weights import to_flax_state
+    from mixstage_tpu_torch.ops.cuda import train_decoder as td
+    from mixstage_tpu_torch.ops.cuda.fused_conv import \
+        fused_mixstage_decoder as k1
+    from mixstage_tpu_torch.ops.cuda.quant import \
+        fused_mixstage_decoder_int8 as k4
+    from mixstage_tpu_torch.serve import build_serving_fn
+    from mixstage_tpu_torch.serving import PoseClient
+    from mixstage_tpu_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    secs, rec = {}, {}
+    root = Path(__file__).resolve().parent / "build" / "lifecycle_ends"
+    shutil.rmtree(root, ignore_errors=True)
+    rng = np.random.default_rng(args.seed + 25)
+    cpu = host_cpu()
+    log(f"[ends] host: {cpu}; h5 files "
+        f"{'through the stand-in h5py' if stand_in else 'by h5py'}")
+    extras = {m: importlib.util.find_spec(m) is not None
+              for m in ("PIL", "matplotlib", "soundfile")}
+    log(f"[ends] optional host libraries: "
+        + ", ".join(f"{m} {'present' if v else 'absent'}"
+                    for m, v in extras.items())
+        + f"; ffmpeg {'present' if shutil.which('ffmpeg') else 'absent'}")
+
+    # (a) the rasteriser ---------------------------------------------------
+    t = time.perf_counter()
+    lib_path = raster.build(force=True)
+    build_s = time.perf_counter() - t
+    walk = np.cumsum(rng.normal(size=(2, RASTER_FRAMES, 2, 52)), 1) * 25 \
+        + rng.normal(size=(2, 1, 2, 52)) * 120
+    pred, gt = walk[0], walk[1]
+    raster.rasterize([pred[:2], gt[:2]], PARENTS)             # warm
+    t = time.perf_counter()
+    frames = raster.rasterize([pred, gt], PARENTS)
+    cpp_ms = (time.perf_counter() - t) * 1e3 / RASTER_FRAMES
+    t = time.perf_counter()
+    plain = raster.rasterize_plain([pred, gt], PARENTS)
+    plain_ms = (time.perf_counter() - t) * 1e3 / RASTER_FRAMES
+    differ = float((frames != plain).any(-1).mean())
+    check(frames.shape == (RASTER_FRAMES, 480, 960, 3) and differ == 0.0,
+          f"[ends] rasteriser {frames.shape} differs from its plain version "
+          f"at {differ:.3e} of the pixels")
+    t = time.perf_counter()
+    gif = raster.encode_gif(frames, max(2, round(100 / 15))) + b"\x3b"
+    gif_ms = (time.perf_counter() - t) * 1e3 / RASTER_FRAMES
+    decoded, reader = decode_gif_frames(raster, gif)
+    check(decoded.shape == frames.shape and bool(np.array_equal(
+        decoded, palette_frames(raster, frames))),
+        f"[ends] the GIF ({reader}) does not decode to the palette's frames")
+    ran = {}
+    if extras["PIL"]:             # captions and the AVI writer need PIL
+        from mixstage_tpu_torch.animation import aviwriter
+        from mixstage_tpu_torch.data.common import Table
+
+        words = Table({"Word": ["gestures", "carry", "style"],
+                       "start_frame": [0, 20, 40],
+                       "end_frame": [20, 40, RASTER_FRAMES]})
+        capt = raster.overlay_captions(frames, words)
+        strip = capt[:, frames.shape[1]:]
+        check(capt.shape[1] == frames.shape[1] + raster.CAPTION_H and
+              bool((strip < 128).any()) and
+              bool(np.array_equal(capt[:, :frames.shape[1]], frames)),
+              "[ends] captions")
+        avi = root / "clip.avi"
+        root.mkdir(parents=True, exist_ok=True)
+        pcm = (rng.normal(size=16000 * RASTER_FRAMES // 15) * 3000).astype(
+            np.int16)
+        w = aviwriter.AviWriter(str(avi), fps=15)
+        w.add(capt)
+        w.set_audio(pcm, 16000)
+        w.close()
+        parsed = aviwriter.parse_avi(str(avi))
+        check(len(parsed["frames"]) == RASTER_FRAMES and
+              parsed["pcm"] == pcm.tobytes(), "[ends] AVI")
+        ran["captions"] = ran["AVI"] = "ran (PIL present)"
+    else:
+        ran["captions"] = ran["AVI"] = "not run (PIL absent)"
+    secs["a"] = time.perf_counter() - t_phase
+    log(f"[ends] (a) {smi}: rasteriser library {lib_path.name} built by g++ "
+        f"in {build_s:.2f} s; {RASTER_FRAMES} frames of 52 joints, "
+        f"prediction beside ground truth (480 x 960): C++ "
+        f"{cpp_ms:.3f} ms a frame, numpy plain version {plain_ms:.3f} ms a "
+        f"frame, equal frames; GIF encoder {gif_ms:.3f} ms a frame "
+        f"({len(gif)} bytes), decoded by {reader} to the palette's frames; "
+        f"host {cpu}")
+    rec["raster"] = dict(build_s=build_s, cpp_ms_per_frame=cpp_ms,
+                         plain_ms_per_frame=plain_ms,
+                         gif_ms_per_frame=gif_ms, gif_bytes=len(gif),
+                         reader=reader, cpu=cpu)
+
+    # (b) cli.train -fused_decoder 1 -render 1 ------------------------------
+    t_b = time.perf_counter()
+    data = str(root / "data")
+    speakers = SPEAKERS[:MODEL["num_speakers"]]
+    make_synthetic_dataset(data, speakers, LIFE_INTERVALS,
+                           interval_seconds=ENDS_INTERVAL_S,
+                           seed=11212 + args.seed)
+    save = str(root / "save")
+    argv = ["-path2data", data, "-speaker", json.dumps(speakers),
+            "-model", "JointLateClusterSoftStyle4_G", "-gan", "1",
+            "-loss", "L1Loss", "-num_clusters", str(MODEL["num_clusters"]),
+            "-batch_size", str(B), "-fused_decoder", "1", "-num_epochs", "1",
+            "-window_hop", "5", "-debug", str(ENDS_STEPS), "-num_iters", "2",
+            "-save_dir", save, "-exp", "1", "-seed",
+            str(11212 + args.seed), "-render", "1"]
+    seen = {"train": [], "sample": []}
+    orig = {name: getattr(Trainer, name) for name in seen}
+
+    def keep(name):
+        def run(self, exp_num):
+            orig[name](self, exp_num)
+            seen[name].append(self)
+        return run
+    for name in seen:
+        setattr(Trainer, name, keep(name))
+    try:
+        td.decoder_train_fwd.launches = 0          # -render 1 path starts
+        td.decoder_train_bwd.launches = 0
+        cli_train.main(argv)
+        torch.cuda.synchronize()
+        k3 = (td.decoder_train_fwd.launches,       # -render 1 path ends
+              td.decoder_train_bwd.launches)
+    finally:
+        for name, fn in orig.items():
+            setattr(Trainer, name, fn)
+    trainer, sampler = seen["train"][0], seen["sample"][-1]
+    g_steps = trainer.state.g_step
+    check(g_steps > 0 and k3 == (g_steps, g_steps),
+          f"[ends] K3 launches {k3} over cli.train -render 1, expected one "
+          f"each way per G step ({g_steps})")
+    exp_dir = Path(sampler.dir_name)
+    kp_files = [f for d in sorted(exp_dir.glob("keypoints*"))
+                for f in sorted(d.rglob("*.h5"))]
+    gifs = sorted(exp_dir.glob("render*/*/*/*.gif"))
+    check(len(kp_files) == 2 * len(speakers) * LIFE_INTERVALS and
+          len(gifs) == min(10, len(kp_files)) and
+          (exp_dir / "videos.html").exists(),
+          f"[ends] -render 1 wrote {len(gifs)} GIFs for {len(kp_files)} "
+          f"keypoint files, videos.html "
+          f"{(exp_dir / 'videos.html').exists()}")
+    first = kp_files[0]
+    y = HDF5.load_array(str(first), "pose/data").reshape(-1, 2, 52)
+    sub = first.parent.parent.parent.name.replace("keypoints", "render")
+    rendered = (exp_dir / sub / first.parent.parent.name / first.parent.name
+                / f"{first.stem}.gif")
+    cpp_frames = raster.rasterize(y, PARENTS)
+    plain_frames = raster.rasterize_plain(y, PARENTS)
+    got, reader = decode_gif_frames(raster, rendered.read_bytes())
+    check(bool(np.array_equal(cpp_frames, plain_frames)) and
+          got.shape == cpp_frames.shape and
+          bool(np.array_equal(got, palette_frames(raster, cpp_frames))),
+          f"[ends] {rendered.name}: the C++ frames, their plain version and "
+          f"the GIF disagree")
+    secs["b"] = time.perf_counter() - t_b
+    log(f"[ends] (b) cli.train -fused_decoder 1 -render 1 (flagship at full "
+        f"width, {B}-window batches, -debug {ENDS_STEPS}, "
+        f"{len(speakers)} speakers x {LIFE_INTERVALS} intervals of "
+        f"{ENDS_INTERVAL_S:g} s): K3 launches (fwd, bwd) {k3} = {g_steps} G "
+        f"steps; {len(gifs)} GIFs for {len(kp_files)} keypoint files "
+        f"(at most 10) and videos.html; interval {first.stem} "
+        f"({y.shape[0]} frames) re-rasterised: C++ = plain version, its GIF "
+        f"({reader}) = the palette's frames")
+    rec["render_train"] = dict(k3_launches=k3, g_steps=g_steps,
+                               gifs=len(gifs), keypoint_files=len(kp_files))
+
+    # (c) cli.render -load ------------------------------------------------
+    t_c = time.perf_counter()
+    weights = trainer.book.name("weights", "p", save)
+    for d in exp_dir.glob("render*"):
+        shutil.rmtree(d)
+    ids = sorted({f.stem for f in kp_files})[:ENDS_RENDER_LIST]
+    listing = root / "render_list.txt"
+    listing.write_text("\n".join(ids))
+    render_argv = ["-load", weights, "-path2data", data, "-render", "1",
+                   "-render_list", str(listing)]
+    cli_render.main(render_argv)
+    written = {p: p.stat().st_mtime_ns
+               for p in exp_dir.glob("render*/*/*/*.gif")}
+    want = set()
+    for f in kp_files:
+        if f.stem in ids:
+            sub = f.parent.parent.parent.name.replace("keypoints", "")
+            split, spk = f.parent.parent.name, f.parent.name
+            for kind in ("render", "render_eval"):
+                want.add(exp_dir / (kind + sub) / split / spk
+                         / f"{f.stem}.gif")
+    check(set(written) == want,
+          f"[ends] cli.render wrote {sorted(p.name for p in written)}, "
+          f"expected {len(want)} files")
+    cli_render.main([*render_argv, "-clean_render", "0"])
+    again = {p: p.stat().st_mtime_ns
+             for p in exp_dir.glob("render*/*/*/*.gif")}
+    check(again == written,
+          "[ends] cli.render -clean_render 0 wrote files again")
+    secs["c"] = time.perf_counter() - t_c
+    log(f"[ends] (c) cli.render -load -render 1 -render_list ({len(ids)} "
+        f"intervals): {len(written)} GIFs, prediction beside ground truth "
+        f"under render*/ and alone under render_eval*/ for keypoints/ and "
+        f"keypoints_style/; -clean_render 0 again: nothing new")
+
+    # (d) a JAX checkpoint served and sampled -----------------------------
+    t_d = time.perf_counter()
+    prefix = sampler.book.name.prefix
+    jax_dir = root / "jax_exp"
+    jax_dir.mkdir()
+    flax = {m: to_flax_state(getattr(sampler.state, m))
+            for m in ("gen", "psenc", "disc")}
+    blob = packb({"g_params": {m: flax[m][0] for m in ("gen", "psenc")},
+                  "g_state": {m: flax[m][1] for m in ("gen", "psenc")},
+                  "d_params": flax["disc"][0], "d_state": flax["disc"][1]})
+    jax_weights = jax_dir / f"{prefix}_weights.p"
+    jax_weights.write_bytes(blob)
+    shutil.copy(Path(save) / f"{prefix}_args.args",
+                jax_dir / f"{prefix}_args.args")
+    check(sorted(unpackb(blob)) == ["d_params", "d_state", "g_params",
+                                    "g_state"], "[ends] packb's tree")
+    restored = Trainer(cli_config(["-load", str(jax_weights), "-path2data",
+                                   data]),
+                       ["exp", "cpk", "speaker", "model", "note"],
+                       {"window_hop": 0, "render": 0})
+    w_ref, w_jax = weights_of(sampler.state), weights_of(restored.state)
+    check(all(torch.equal(v, w_jax[m][k]) for m in w_ref
+              for k, v in w_ref[m].items()),
+          "[ends] the JAX-format checkpoint does not restore the weights "
+          "bit for bit")
+    model = restored.state.gen
+    S = MODEL["num_speakers"]
+    onehot = np.eye(S, dtype=np.float32)
+    soft = rng.dirichlet(np.ones(S)).astype(np.float32)
+    direct = {"f32": build_serving_fn(model),
+              "int8": build_serving_fn(model, quantize_int8=True,
+                                       calib=cli_serve._calib_windows(
+                                           restored, 8))}
+    modes = {"f32": ([], (2, 0)), "int8": (["-serve_int8", "1"], (1, 1))}
+    served, errs = {}, {}
+    for mode, (extra, per_batch) in modes.items():
+        server, batchers = cli_serve.build(cli_config(
+            ["-load", str(jax_weights), "-path2data", data, "-serve_port",
+             "0", *extra]))
+        reqs = [("json", rng.normal(size=(64, MEL)).astype(np.float32), 1),
+                ("npz", rng.normal(size=(100, MEL)).astype(np.float32),
+                 soft)]
+        try:
+            client = PoseClient(
+                f"http://127.0.0.1:{server.server_address[1]}",
+                timeout_s=600)
+            for b in batchers:
+                b.batches = 0
+            k1.launches = k4.launches = 0          # this server's path starts
+            got = [(client.pose if kind == "npz" else client.pose_json)(
+                a, style=sty) for kind, a, sty in reqs]
+            torch.cuda.synchronize()
+            n = (k1.launches, k4.launches)         # this server's path ends
+            nb = sum(b.batches for b in batchers)
+        finally:
+            server.shutdown()
+            server.server_close()
+            for b in batchers:
+                b.close()
+        check(n == tuple(c * nb for c in per_batch),
+              f"[ends] {mode}: (K1, K4) launches {n} over {nb} batches")
+        served[mode] = n
+        worst = 0.0
+        for (kind, a, sty), pose in zip(reqs, got):
+            bucket = 64 if a.shape[0] <= 64 else 128
+            padded = np.concatenate(
+                [a, np.repeat(a[-1:], bucket - a.shape[0], 0)])
+            rows = onehot[sty] if np.ndim(sty) == 0 else sty
+            want_pose = direct[mode](np.repeat(padded[None], B, axis=0),
+                                     np.repeat(rows[None], B, axis=0))
+            want_pose = want_pose[0].float().cpu().numpy()[:a.shape[0]]
+            check(pose.shape == want_pose.shape, f"[ends] {mode} {kind}")
+            worst = max(worst, float(np.abs(pose - want_pose).max()))
+        errs[mode] = worst
+        check(worst == 0.0, f"[ends] {mode}: served poses differ from the "
+              f"direct call by {worst:.3e}")
+    sample_dir = root / "jax_sample"
+    cli_sample.main(["-load", str(jax_weights), "-path2data", data,
+                     "-save_dir", str(sample_dir)])
+    ours = sorted((sample_dir / prefix).glob("keypoints*/*/*/*.h5"))
+    same = all(np.array_equal(
+        HDF5.load_array(str(f), "pose/data"),
+        HDF5.load_array(str(exp_dir / f.relative_to(sample_dir / prefix)),
+                        "pose/data")) for f in ours)
+    check(len(ours) == len(kp_files) and same,
+          f"[ends] cli.sample of the JAX checkpoint: {len(ours)} keypoint "
+          f"files, equal to (b)'s {same}")
+    secs["d"] = time.perf_counter() - t_d
+    log(f"[ends] (d) a flax-msgpack PREFIX_weights.p ({len(blob)} bytes, "
+        f"packb of to_flax_state) restores the weights bit for bit; "
+        f"cli.serve -load of it: f32 and -serve_int8 1 answers (JSON, npz) "
+        f"equal the direct call at bs{B}, max|diff| f32 {errs['f32']:.3e}, "
+        f"int8 {errs['int8']:.3e}; (K1, K4) launches f32 {served['f32']}, "
+        f"int8 {served['int8']}; cli.sample of it: {len(ours)} keypoint "
+        f"files equal to (b)'s bit for bit")
+    rec["jax_checkpoint"] = dict(bytes=len(blob), errors=errs,
+                                 launches=served)
+
+    # (e) cli.preprocess and cli.delete_keys -------------------------------
+    t_e = time.perf_counter()
+    raw = root / "raw"
+    pre_speakers = speakers[:2]
+    make_synthetic_dataset(str(raw), pre_speakers, 2, interval_seconds=2.0,
+                           with_raw_keypoints=True, with_raw_audio=True,
+                           seed=args.seed)
+    shutil.rmtree(raw / "processed")
+    common = ["-path2data", str(raw), "-path2outdata", str(raw),
+              "-speaker", json.dumps(pre_speakers)]
+    for method in ("data", "normalize", "confidence"):
+        cli_pre.main([*common, "-modalities", '["pose"]',
+                      "-preprocess_methods", f'["{method}"]'])
+    files = sorted((raw / "processed").rglob("*.h5"))
+    keys = ("pose/data", "pose/normalize", "pose/confidence")
+    ok = len(files) == 2 * len(pre_speakers) and all(
+        HDF5.isDatasetInFile(str(f), k) and
+        HDF5.load_array(str(f), k).shape == (31, 104)
+        for f in files for k in keys)
+    check(ok, f"[ends] cli.preprocess pose: {len(files)} files without "
+          f"{keys} of (31, 104)")
+    if extras["soundfile"]:
+        for wav in (raw / "raw").rglob("*.wav"):
+            shutil.copy(wav, wav.with_suffix(".mp3"))   # read by content
+        cli_pre.main([*common, "-modalities", '["audio"]',
+                      "-preprocess_methods", '["log_mel_512"]'])
+        audio_ok = all(HDF5.isDatasetInFile(str(f), "audio/log_mel_512")
+                       for f in files)
+        check(audio_ok, "[ends] cli.preprocess audio: no audio/log_mel_512")
+        audio = "ran (soundfile present): audio/log_mel_512 in every file"
+    else:
+        audio = "not run (soundfile absent)"
+    ran["audio preprocessing"] = audio
+    cli_delete.main([*common, "-modalities", '["pose"]',
+                     "-preprocess_methods", '["normalize"]'])
+    check(all(not HDF5.isDatasetInFile(str(f), "pose/normalize") and
+              HDF5.isDatasetInFile(str(f), "pose/data") for f in files),
+          "[ends] cli.delete_keys left pose/normalize")
+    secs["e"] = time.perf_counter() - t_e
+    log(f"[ends] (e) cli.preprocess on a raw tree ({len(pre_speakers)} "
+        f"speakers x 2 intervals of 2 s, txt frames and OpenPose YAML "
+        f"dumps): pose data, normalize and confidence (the YAML branch) in "
+        f"every file; audio {audio}; cli.delete_keys removed "
+        f"pose/normalize")
+    log("[ends] optional paths: " + "; ".join(f"{k} {v}"
+                                             for k, v in ran.items()))
+    shutil.rmtree(root, ignore_errors=True)
+    total = time.perf_counter() - t_phase
+    log(f"[ends] sub-phase seconds: " + ", ".join(
+        f"({k}) {v:.1f} s" for k, v in secs.items()))
+    log(f"[ends] phase 25 in {total:.1f} s")
+    rec.update(seconds=secs, total_s=total, optional=ran)
+    results["lifecycle_ends"] = rec
+    return {"k3": k3, "k1": served["f32"][0] + served["int8"][0],
+            "k4": served["int8"][1]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3733,6 +4215,7 @@ def main(argv=None) -> int:
                                             PoseService, start_http_server)
 
     results: dict = {}
+    t_script = time.perf_counter()
 
     # 1. device ------------------------------------------------------------
     device = resolve_device()            # cuda, TF32 off (device.py)
@@ -4152,6 +4635,7 @@ def main(argv=None) -> int:
     text = text_phase(torch, args, device, smi, results)
     par = parallel_phase(torch, args, device, smi, model, audio, styles,
                          serve, plain, results)
+    ends = lifecycle_ends_phase(torch, args, smi, results)
     for kern in [k1] + k16 + [k4] + k8_16:
         if kern["name"] in served:
             kern["serving_cli_launches"] = served[kern["name"]]
@@ -4174,11 +4658,20 @@ def main(argv=None) -> int:
                 j = i + (2 if kern["name"].endswith("_bf16") else 0)
                 kern["parallel_launches_per_rank"] = [
                     counts[j] for counts in par["k3_per_rank"]]
+    # phase 25: K3 over cli.train -render 1, K1 and K4 over the servers of
+    # the JAX-format checkpoint
+    k1["lifecycle_ends_launches"] = ends["k1"]
+    k4["lifecycle_ends_launches"] = ends["k4"]
+    for i, kern in enumerate(k3):
+        kern["lifecycle_ends_launches"] = ends["k3"][i]
     for kern in [k1] + k3 + [k4]:
         kern["mode"] = "f32" if kern is not k4 else "int8"
     k2["mode"] = "f32"
     kernels = [k1] + k3 + [k4, k2] + k16 + k8_16
     results["kernels"] = kernels
+    results["script_s"] = time.perf_counter() - t_script
+    log(f"[done] {smi}: chip_smoke.py in {results['script_s']:.1f} s, the "
+        f"kernels' build included")
     if args.out:
         with open(args.out, "w") as f:
             json.dump(results, f, indent=1)

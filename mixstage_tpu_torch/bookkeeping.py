@@ -22,14 +22,17 @@ The checkpoints are ``torch.save`` files and load with
   SIGTERM snapshots (with ``PREFIX_preempt.json``, the loop's metadata).
 
 ``-load`` also takes a reference (chahuja/mix-stage) ``PREFIX_weights.p``,
-converted on the way (``_load_model``).
+converted on the way, and the JAX package's flax msgpack checkpoints: its
+``PREFIX_weights.p``, with ``-save_optim 1`` its ``PREFIX_trainstate.p``
+(optimizer states and counters, so a JAX run resumes in the port at JAX's
+step), and its ``PREFIX_preempt.p`` snapshot (``read_checkpoint``,
+``_load_model``).  An orbax directory still raises.
 """
 
 from __future__ import annotations
 
 import json
 import os
-import pickle
 import random
 import re
 import time
@@ -40,6 +43,8 @@ import numpy as np
 import torch
 
 from mixstage_tpu_torch.config import Config, config_from_dict
+from mixstage_tpu_torch.interop.weights import (load_flax_checkpoint,
+                                                load_flax_train)
 
 MODULES = ("gen", "psenc", "disc")
 COUNTERS = ("step", "g_step", "lambda_step", "curriculum_step")
@@ -120,19 +125,40 @@ def _torch_load(path: str):
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
-def load_port_checkpoint(path: str) -> Dict[str, Dict[str, torch.Tensor]]:
-    """``weights_of``'s dict from a weights file of the port; anything else
-    (a JAX checkpoint, flax msgpack or orbax) raises."""
-    try:
-        ckpt = _torch_load(path)
-    except (pickle.UnpicklingError, RuntimeError, IsADirectoryError):
-        ckpt = None                   # not a torch file (msgpack, orbax)
-    if not is_port_checkpoint(ckpt):
+def read_checkpoint(path: str):
+    """``("torch", obj)`` for a torch file (the port's checkpoints, the
+    reference's state dicts), ``("flax", tree)`` for a flax msgpack file
+    (the JAX package's checkpoints, read by ``interop/flax_msgpack.py``).
+    A directory (the JAX package's orbax checkpoint) raises
+    ``NotImplementedError``; a file that is neither raises ``ValueError``
+    naming it."""
+    from mixstage_tpu_torch.interop import flax_msgpack
+    from mixstage_tpu_torch.interop.torch_import import sniff_torch_file
+
+    if os.path.isdir(path):
         raise NotImplementedError(
-            f"{path} is not a checkpoint of the port; importing a JAX "
-            f"checkpoint (flax msgpack or orbax) comes later (ROADMAP queue "
-            f"1 item 7)")
-    return ckpt
+            f"{path} is a directory, the JAX package's orbax checkpoint "
+            f"(-ckpt_backend orbax); reading orbax comes later (ROADMAP "
+            f"queue 1 item 7)")
+    if sniff_torch_file(path):
+        return "torch", _torch_load(path)
+    with open(path, "rb") as f:
+        blob = f.read()
+    if not flax_msgpack.is_flax_msgpack(blob[:1]):
+        raise ValueError(f"{path} is neither a torch file nor a flax "
+                         f"msgpack checkpoint")
+    try:
+        return "flax", flax_msgpack.unpackb(blob)
+    except ValueError as e:
+        raise ValueError(f"{path} is malformed flax msgpack: {e}") from e
+
+
+def _flax_weights(path: str, tree) -> Dict[str, Any]:
+    """The weights part of a JAX checkpoint's tree, checked."""
+    if not isinstance(tree, dict) or "g_params" not in tree:
+        raise ValueError(f"{path} is flax msgpack but not a JAX weights "
+                         f"checkpoint (no g_params)")
+    return tree
 
 
 class Name:
@@ -231,7 +257,7 @@ class BookKeeper:
         updates (reference sample.py:10-15 semantics)."""
         load_path = args.load
         args_file = re.sub(r"_weights\.p$", "_args.args", load_path)
-        if os.path.exists(args_file):
+        if args_file != load_path and os.path.isfile(args_file):
             self._restored_from_ckpt = True
             with open(args_file) as f:
                 restored = config_from_dict(json.load(f))
@@ -315,11 +341,14 @@ class BookKeeper:
         p_state, p_meta = self._preempt_paths()
         if not os.path.exists(p_state):
             return None
-        full = _torch_load(p_state)
+        kind, full = read_checkpoint(p_state)
         meta = {}
         if os.path.exists(p_meta):
             with open(p_meta) as f:
                 meta = json.load(f)
+        if kind == "flax":                  # the JAX package's snapshot
+            load_flax_checkpoint(state, _flax_weights(p_state, full["model"]))
+            return load_flax_train(state, full["train"]), meta
         load_weights(state, full["weights"])
         return load_optim(state, full["train"]), meta
 
@@ -343,29 +372,37 @@ class BookKeeper:
         path = self.name("trainstate", "p", self.save_dir)
         if not os.path.exists(path):
             return state
-        return load_optim(state, _torch_load(path))
+        kind, full = read_checkpoint(path)
+        if kind == "flax":                  # the JAX package's -save_optim
+            return load_flax_train(state, full)
+        return load_optim(state, full)
 
     def _load_model(self, state):
         """Return ``state`` with weights restored from ``args.load`` (or the
         experiment's own weights file).
 
-        Both the port's checkpoints and the reference's (chahuja/mix-stage,
-        pycasper ``PREFIX_weights.p``) are torch files: a dict keyed exactly
-        by some of ``MODULES`` is the port's own; a flat state dict (keys with or
-        without ``G.`` / ``D.``) is the reference's, converted into the
-        modules on the way (``interop/torch_import.py``, as the JAX
-        package's ``-load`` does, ``bookkeeping.py:385-403``).  Anything
-        else, a JAX checkpoint among them, raises."""
+        Three kinds of file: a torch file keyed exactly by some of
+        ``MODULES`` is the port's own checkpoint; a flat torch state dict
+        (keys with or without ``G.`` / ``D.``) is the reference's
+        (chahuja/mix-stage, pycasper ``PREFIX_weights.p``), converted into
+        the modules on the way (``interop/torch_import.py``, as the JAX
+        package's ``-load`` does, ``bookkeeping.py:385-403``); a flax
+        msgpack file is the JAX package's (``{g_params, g_state, d_params,
+        d_state}``), carried over by the weight bridge
+        (``interop/weights.py::load_flax_checkpoint``).  Any other torch
+        file and an orbax directory raise ``NotImplementedError``
+        naming ROADMAP queue 1 item 7; malformed msgpack raises
+        ``ValueError``."""
         from mixstage_tpu_torch.interop.torch_import import (
             is_reference_state_dict, load_reference_state,
             state_dict_to_numpy)
 
         path = self.args.load or self.name(*self.weights_ext, self.save_dir)
-        try:
-            ckpt = _torch_load(path)
-        except (pickle.UnpicklingError, RuntimeError,
-                IsADirectoryError):                 # not a torch file
-            ckpt = None
+        kind, ckpt = read_checkpoint(path)
+        if kind == "flax":
+            load_flax_checkpoint(state, _flax_weights(path, ckpt))
+            print(f"[import] JAX checkpoint {path} (flax msgpack)")
+            return state
         if is_port_checkpoint(ckpt):
             return load_weights(state, ckpt)
         if is_reference_state_dict(ckpt):
@@ -379,9 +416,10 @@ class BookKeeper:
                       + ", ".join(report["surprising_skipped"][:8]))
             return state
         raise NotImplementedError(
-            f"{path} is neither a checkpoint of the port nor a reference "
-            f"(chahuja/mix-stage) state dict; importing a JAX checkpoint "
-            f"(flax msgpack or orbax) comes later (ROADMAP queue 1 item 7)")
+            f"{path} is a torch file but neither a checkpoint of the port "
+            f"nor a reference (chahuja/mix-stage) state dict, nor is it a "
+            f"JAX checkpoint (flax msgpack); the reference's other layouts "
+            f"come later (ROADMAP queue 1 item 7)")
 
     def export_experiment(self, state, out_dir: str) -> str:
         """Write this experiment (args + weights) in the port's format into

@@ -1,7 +1,8 @@
 """Dataset registry, the master-CSV table and the missing-interval ledger.
 
 The port's copy of ``mixstage_tpu/data/common.py``: ``Modality`` (the
-master CSV and the 25-speaker PATS registry) and ``MissingData`` (the
+master CSV, the 25-speaker PATS registry and ``del_keys``, which
+``cli.delete_keys`` runs) and ``MissingData`` (the
 persistent ledger of intervals that failed preprocessing).  The JAX package
 reads ``cmu_intervals_df.csv`` with pandas; the port reads it with the
 standard ``csv`` module into ``Table``, a small column table that does what
@@ -134,6 +135,31 @@ class Modality(HDF5):
     @property
     def speakers(self):
         return list(SPEAKERS)
+
+    @property
+    def inv_speakers(self):
+        return {sp: i for i, sp in enumerate(self.speakers)}
+
+    def speaker_id(self, speaker):
+        return self.inv_speakers[speaker]
+
+    def del_keys(self, h5_key):
+        """Delete the ``h5_key[0]/<method>`` datasets of each preprocess
+        method from a speaker's interval files (``data/common.py:70-88``);
+        a method stops at the first file that lacks it."""
+        speakers = [self.speaker] if self.speaker != "all" else self.speakers
+        for speaker in speakers:
+            df_speaker = self.get_df_subset("speaker", speaker)
+            for preprocess_method in self.preprocess_methods:
+                for interval_id in df_speaker.unique("interval_id"):
+                    filename = (Path(self.path2outdata) / "processed" / speaker
+                                / f"{interval_id}.h5")
+                    key = self.add_key(h5_key[0], [preprocess_method])
+                    h5 = self.h5_open(filename.as_posix(), "a")
+                    found = self.del_dataset(h5, key)
+                    self.h5_close(h5)
+                    if not found:
+                        break
 
 
 class MissingData(HDF5):

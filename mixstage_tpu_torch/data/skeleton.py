@@ -4,14 +4,15 @@ preprocessing (the port's copy of ``mixstage_tpu/data/skeleton.py``).
 Raw per-frame keypoint files → root-relative pose vectors (``pose/data``),
 shoulder-normalized pose (``pose/normalize``, shoulder length 167 px),
 OpenPose confidences (``pose/confidence``); the 52-joint PATS tree (10 body
-+ 2×21 fingers).  The OpenPose YAML reader of the Berkeley confidence
-branch belongs to ``cli/preprocess`` and is not ported yet (ROADMAP queue 1
-item 7).
++ 2×21 fingers).  The Berkeley confidence branch reads OpenPose's
+OpenCV-YAML dumps with the port's own reader (``load_yaml_keypoints``: the
+port imports no PyYAML).
 """
 
 from __future__ import annotations
 
 import os
+import re
 import warnings
 from pathlib import Path
 from typing import Optional
@@ -56,6 +57,49 @@ REF_SHOULDER_LEN = 167.0   # normalization target (skeleton.py:118)
 
 # OpenPose BODY_25 → 10-joint upper-body subset (reference skeleton.py:43)
 BERK_BODY_IDX = [0, 1, 2, 3, 4, 5, 6, 18, 19, 21]
+
+
+_YAML_INT = re.compile(r"^[-+]?(0|[1-9][0-9_]*)$")
+_YAML_SPECIAL = re.compile(r"^([-+]?)\.(inf|Inf|INF)$|^\.(nan|NaN|NAN)$")
+
+
+def _yaml_number(token: str):
+    """A scalar of an OpenCV matrix as PyYAML's safe loader reads it: an
+    int, a float, or ``.nan`` / ``.inf`` in the cases YAML 1.1 allows."""
+    t = token.strip()
+    if _YAML_INT.match(t):
+        return int(t.replace("_", ""))
+    special = _YAML_SPECIAL.match(t)
+    if special:
+        return float("nan") if special.group(3) else \
+            float(special.group(1) + "inf")
+    return float(t)
+
+
+def load_yaml_keypoints(filename: str) -> np.ndarray:
+    """OpenCV-YAML keypoint matrix → ``(J, 3)`` x/y/confidence array (the
+    reference's ``loadYAML``, skeleton.py:29-34).  The port's own reader of
+    the matrix: the first 3 lines (the ``%YAML`` directive block) are
+    skipped, as the JAX package skips them, and the ``data: [ ... ]`` list
+    is read, over as many lines as it spans."""
+    with open(filename) as f:
+        text = "".join(f.readlines()[3:])
+    m = re.search(r"(?m)^\s*data\s*:\s*\[(.*?)\]", text, re.S)
+    if m is None:
+        raise ValueError(f"{filename}: no 'data: [...]' matrix")
+    tokens = [t for t in m.group(1).replace("\n", " ").split(",")
+              if t.strip()]
+    return np.array([_yaml_number(t) for t in tokens]).reshape(-1, 3)
+
+
+def load_pose(filename: str) -> np.ndarray:
+    """``<base>_{pose,hand_left,hand_right}.yml`` → ``(52, 3)`` stack (the
+    reference's ``loadPose``, skeleton.py:36-48)."""
+    base = "_".join(filename.split("_")[:-1])
+    pose = load_yaml_keypoints(base + "_pose.yml")[BERK_BODY_IDX]
+    left = load_yaml_keypoints(base + "_hand_left.yml")[:21]
+    right = load_yaml_keypoints(base + "_hand_right.yml")[:21]
+    return np.concatenate([pose, left, right])
 
 
 def timedelta_seconds(text: str) -> float:
@@ -209,11 +253,23 @@ class Skeleton2D(Modality):
         return np.concatenate([keypoints] * 2, axis=1)
 
     def berk_confidence(self, interval_id):
-        """Confidence column of the interval's OpenPose YAML dumps: their
-        reader belongs to ``cli/preprocess``, not ported yet."""
-        raise NotImplementedError(
-            "the OpenPose YAML confidence branch comes with cli/preprocess "
-            "(ROADMAP queue 1 item 7)")
+        """Confidence column of the interval's OpenPose YAML dumps under
+        the sibling ``keypoints_all`` tree (skeleton.py:139-156)."""
+        file_list = self.get_filelist(interval_id)
+        if file_list is None:
+            return None
+        kp = []
+        for f in file_list:
+            p = Path(f)
+            yml = (p.parent.parent.parent / "keypoints_all" / p.parent.name
+                   / (p.name[:-4] + "_pose.yml"))
+            kp.append(load_pose(yml.as_posix()))
+        try:
+            keypoints = np.stack(kp, axis=0)[..., -1]
+        except ValueError:
+            warnings.warn(f"[BERK_CONFIDENCE] interval_id: {interval_id}")
+            return None
+        return np.concatenate([keypoints] * 2, axis=1)
 
     @staticmethod
     def time_from_file(name: str) -> str:

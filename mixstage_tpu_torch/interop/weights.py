@@ -31,6 +31,13 @@ are optax's: Adam's and AdamW's ``mu`` / ``nu`` (a bfloat16 ``mu`` under
 "rest": ...})`` with ``MaskedNode`` at the other group's leaves, carries
 into the port's ``SeparateTextOptimizer`` group by group, and back.
 
+``load_flax_checkpoint`` and ``load_flax_train`` carry a JAX checkpoint
+file's trees (``interop/flax_msgpack.py`` reads them: the weights of
+``PREFIX_weights.p``, the optimizer states and counters of
+``PREFIX_trainstate.p`` and ``PREFIX_preempt.p``, in flax's state-dict
+form, which ``optax_state_of_dict`` turns back into optax's tuples) into
+the port's trainer state.
+
 ``quantized_decoder_from_jax`` carries the int8 serving tier's quantized
 decoder (``mixstage_tpu/ops/pallas/quant.py::quantize_folded_decoder``)
 into the port's layout, so both packages' int8 decoders can run on the same
@@ -39,6 +46,7 @@ int8 weights.
 
 from __future__ import annotations
 
+from collections import namedtuple
 from typing import Any, Dict, Iterator, Tuple
 
 import numpy as np
@@ -83,6 +91,18 @@ def _kernel_to_flax(arr: np.ndarray) -> np.ndarray:
     raise ValueError(f"conv kernel of rank {arr.ndim}")
 
 
+def _as_numpy(value) -> np.ndarray:
+    """A leaf as a numpy array: JAX's bf16 arrays (ml_dtypes) and the
+    bf16 tensors of ``flax_msgpack.unpackb`` as float32 of the same
+    values."""
+    if torch.is_tensor(value):
+        value = value.detach().cpu()
+        return (value.float() if value.dtype == torch.bfloat16
+                else value).numpy()
+    arr = np.asarray(value)
+    return arr.astype(np.float32) if arr.dtype.name == "bfloat16" else arr
+
+
 def _masked(value) -> bool:
     """optax's ``MaskedNode``: an empty named tuple where a masked
     transformation's state has no leaf."""
@@ -109,9 +129,7 @@ def flax_params_to_torch(model: nn.Module, tree: Dict[str, Any],
         if name not in shapes:
             raise KeyError(f"flax params leaf {'/'.join(path)} has no "
                            f"counterpart in {type(model).__name__}")
-        arr = np.asarray(value)
-        if arr.dtype.name == "bfloat16":        # JAX's bf16 (ml_dtypes)
-            arr = arr.astype(np.float32)
+        arr = _as_numpy(value)
         if path[-1] == "kernel":
             arr = _kernel_to_torch(arr)
         if shapes[name] != arr.shape:
@@ -167,7 +185,7 @@ def load_flax_state(model: nn.Module, params: Dict[str, Any],
         if name not in buffers:
             raise KeyError(f"flax batch_stats leaf {'/'.join(path)} has no "
                            f"counterpart in {type(model).__name__}")
-        arr = np.array(value)
+        arr = np.array(_as_numpy(value))
         if tuple(buffers[name].shape) != arr.shape:
             raise ValueError(f"{name}: flax {arr.shape} vs port "
                              f"{tuple(buffers[name].shape)}")
@@ -366,6 +384,78 @@ def jax_train_state_of(state) -> Dict[str, Any]:
                                                {None: state.disc})
     out.update({k: np.int32(getattr(state, k)) for k in COUNTERS})
     return out
+
+
+# flax's state dict of an optax state: ``to_state_dict`` turns a named
+# tuple into a dict of its fields and a tuple into ``{"0": .., "1": ..}``
+OPTAX_FIELDS = ("count", "mu", "nu", "trace", "inner_states", "inner_state")
+_PARAM_TREES = ("mu", "nu", "trace")
+
+
+def optax_state_of_dict(tree):
+    """An optax state (tuples and named tuples) from its flax state dict,
+    as ``serialization.to_bytes`` writes the JAX package's optimizer
+    states: ``{"0": .., "1": ..}`` back into a tuple, a dict naming optax
+    fields into a named tuple of them, the params-shaped trees (``mu``,
+    ``nu``, ``trace``) kept as they are.  ``load_flax_opt_state`` takes
+    the result; an empty state (``EmptyState``, ``MaskedNode``) stays
+    ``{}``, which holds no field and no leaf."""
+    if not isinstance(tree, dict) or not tree:
+        return tree
+    if set(tree) == {str(i) for i in range(len(tree))}:
+        return tuple(optax_state_of_dict(tree[str(i)])
+                     for i in range(len(tree)))
+    if not any(k in OPTAX_FIELDS for k in tree):
+        return tree
+    fields = {}
+    for k, v in tree.items():
+        if k in _PARAM_TREES:
+            fields[k] = v
+        elif k == "inner_states":
+            fields[k] = {g: optax_state_of_dict(x) for g, x in v.items()}
+        else:
+            fields[k] = optax_state_of_dict(v)
+    return namedtuple("OptaxState", list(fields))(**fields)
+
+
+def _empty(tree) -> bool:
+    return tree is None or (isinstance(tree, dict) and not tree)
+
+
+@torch.no_grad()
+def load_flax_checkpoint(state, ckpt: Dict[str, Any]):
+    """The weights of a JAX checkpoint (``{g_params, g_state, d_params,
+    d_state}``, what the JAX package's ``BookKeeper`` writes into
+    ``PREFIX_weights.p``) into ``state``'s modules, in place, through
+    ``load_flax_state`` and the G side's module map.  An empty D tree (a
+    checkpoint without a discriminator) leaves D as it is, as the JAX
+    package's ``-load`` keeps its template there."""
+    g_state = ckpt.get("g_state") or {}
+    for key, module in _g_modules(state).items():
+        if key not in ckpt["g_params"]:
+            raise KeyError(f"the JAX checkpoint has no g_params/{key}; it "
+                           f"holds {sorted(ckpt['g_params'])}")
+        load_flax_state(module, ckpt["g_params"][key], g_state.get(key, {}))
+    if state.disc is not None and not _empty(ckpt.get("d_params")):
+        load_flax_state(state.disc, ckpt["d_params"],
+                        ckpt.get("d_state") or {})
+    return state
+
+
+@torch.no_grad()
+def load_flax_train(state, full: Dict[str, Any]):
+    """The optimizer states and counters of a JAX checkpoint (``{g_opt_state,
+    d_opt_state, counters}`` as state dicts: ``-save_optim 1``'s
+    ``PREFIX_trainstate.p``, the ``train`` part of ``PREFIX_preempt.p``)
+    into ``state``, in place."""
+    load_flax_opt_state(state.g_opt, _g_modules(state),
+                        optax_state_of_dict(full["g_opt_state"]))
+    if state.disc is not None and not _empty(full.get("d_opt_state")):
+        load_flax_opt_state(state.d_opt, {None: state.disc},
+                            optax_state_of_dict(full["d_opt_state"]))
+    for k in COUNTERS:
+        setattr(state, k, int(np.asarray(full["counters"][k])))
+    return state
 
 
 def quantized_decoder_from_jax(qfd: Dict[str, Any], c0: int

@@ -31,8 +31,10 @@ The model family sets the loop: the GAN's D/G coin, the non-GAN step
 metric is its accuracy, ``{split}_acc``).  The weighted GAN feeds its
 sample weights back to the weighted sampler and, with
 ``-update_D_prob_flag``, to the D/G coin (``trainer.py:295-312``).  A
-``-pretrained_model_weights`` checkpoint of the port's
-``StyleClassifier_G`` turns on the style Inception Score.
+``-pretrained_model_weights`` checkpoint of ``StyleClassifier_G`` (the
+port's or the JAX package's) turns on the style Inception Score.
+``-render N`` renders the sampled keypoints after ``sample``
+(``render_samples``: videos and the HTML grid).
 
 Text (``-modalities`` with ``text/w2v`` or ``text/bert``): ``Data`` gets
 ``-repeat_text`` and ``-filler``, ZNorm skips the hidden keys
@@ -93,29 +95,19 @@ def _expand_mask(mask) -> List[int]:
     return out
 
 
-def refuse_unported(args: Config) -> None:
-    """Raise ``NotImplementedError`` for a flag whose path the port does
-    not have yet (the step configuration's own refusals come from
-    ``StepFactory``), and ``ValueError`` for an ``-export_variants`` name
-    that is not one of the port's variants (``plain`` and ``kernel``, or
-    the JAX package's ``xla`` and ``pallas`` for them; ``export.py``).
-    ``-serve_partition`` over more than one device is refused by
-    ``cli.serve``."""
-    later = "(ROADMAP queue 1 item {})"
+def check_export_variants(args: Config) -> None:
+    """Raise ``ValueError`` for an ``-export_variants`` name that is not
+    one of the port's variants (``plain`` and ``kernel``, or the JAX
+    package's ``xla`` and ``pallas`` for them; ``export.py``).  The flags
+    the port does not run yet are refused by ``StepFactory`` (the step
+    configuration), ``BookKeeper`` (``-ckpt_backend orbax``) and
+    ``cli.serve`` (``-serve_partition`` over more than one device)."""
     if args.export_dir:
         from mixstage_tpu_torch.export import resolve_variants
 
         resolve_variants([v.strip() for v in
                           (args.export_variants or "").split(",")
                           if v.strip()])
-    if args.render:
-        raise NotImplementedError(
-            f"-render {args.render}: rendering comes later {later.format(7)}")
-    path = args.pretrained_model_weights
-    if path and not args.pretrained_model and Path(path).exists():
-        from mixstage_tpu_torch.bookkeeping import load_port_checkpoint
-
-        load_port_checkpoint(path)            # a JAX checkpoint raises
 
 
 class TrainingPreempted(RuntimeError):
@@ -139,7 +131,7 @@ class Trainer:
                                args_dict_update=args_dict_update or {},
                                tensorboard=args.tb, layout=self.layout)
         self.args = args = self.book.args
-        refuse_unported(args)
+        check_export_variants(args)
 
         self.path2data = args.path2data
         self.speaker = args.speaker if isinstance(args.speaker, list) \
@@ -701,14 +693,18 @@ class Trainer:
 
     def _load_is_classifier(self):
         """The frozen ``StyleClassifier_G`` forward of the IS metric
-        (``trainer.py:584-614``): from ``-pretrained_model_weights``, a
-        checkpoint of the port (what ``cli.train -model StyleClassifier_G``
-        writes; a JAX checkpoint raises), over every speaker of the data.
-        None when no file is named or it does not exist."""
+        (``trainer.py:584-614``): from ``-pretrained_model_weights``, what
+        ``cli.train -model StyleClassifier_G`` writes, the port's torch
+        checkpoint or the JAX package's flax msgpack one (its
+        ``g_params/gen`` and ``g_state/gen`` through the weight bridge),
+        over every speaker of the data.  None when no file is named or it
+        does not exist; any other file raises."""
         path = self.args.pretrained_model_weights
         if not path or not Path(path).exists():
             return None
-        from mixstage_tpu_torch.bookkeeping import load_port_checkpoint
+        from mixstage_tpu_torch.bookkeeping import (is_port_checkpoint,
+                                                    read_checkpoint)
+        from mixstage_tpu_torch.interop.weights import load_flax_state
         from mixstage_tpu_torch.models.style_classifier import \
             StyleClassifier_G
 
@@ -717,7 +713,15 @@ class Trainer:
                                 dtype=self.fp)
         if self.fp == torch.float64:
             clf.double()
-        clf.load_state_dict(load_port_checkpoint(path)["gen"])
+        kind, ckpt = read_checkpoint(path)
+        if kind == "flax":
+            load_flax_state(clf, ckpt["g_params"]["gen"],
+                            (ckpt.get("g_state") or {}).get("gen", {}))
+        elif is_port_checkpoint(ckpt):
+            clf.load_state_dict(ckpt["gen"])
+        else:
+            raise ValueError(f"{path} is not a checkpoint of the IS "
+                             f"metric's StyleClassifier_G")
         clf = clf.to(self.device).eval()
         out = torch.float64 if self.fp == torch.float64 else torch.float32
 
@@ -926,6 +930,36 @@ class Trainer:
         self.book.update_res(test_metrics)
         self.book.print_res(epoch=0, key_order=["train", "dev", "test"],
                             metric_order=self.metric_order, exp=exp_num, lr=0)
+        if self.args.render and self.layout.is_main:
+            self.render_samples()
+
+    def render_samples(self, max_videos: int = 10):
+        """Render the dumped keypoints to videos and the HTML grid
+        (``-render``, ``trainer.py:819-845``): at most ``max_videos``
+        intervals, each tree's files in sorted order, without audio;
+        returns the files written."""
+        from mixstage_tpu_torch.animation.animation import animate
+        from mixstage_tpu_torch.data.hdf5 import HDF5
+        from mixstage_tpu_torch.htmlgrid.to_html import make_html_file
+
+        exp_dir = Path(self.dir_name)
+        feats_shape = self.data_shape[self.output_modality][-1] // 2
+        written = []
+        for kp_dir in sorted(exp_dir.glob("keypoints*")):
+            subname = kp_dir.name.replace("keypoints", "").lstrip("_") or None
+            for h5file in sorted(kp_dir.rglob("*.h5")):
+                if len(written) >= max_videos:
+                    break
+                y_pred = HDF5.load_array(h5file.as_posix(),
+                                         self.output_modality)
+                if y_pred.ndim == 2:
+                    y_pred = y_pred.reshape(-1, 2, feats_shape)
+                desc = h5file.parent.parent.name
+                written.append(animate(y_pred, h5file.stem, self.parents,
+                                       exp_dir.as_posix(), desc, self.data,
+                                       None, None, None, subname))
+        make_html_file(exp_dir.as_posix())
+        return written
 
     def _sample_classifier(self, exp_num):
         """The classifier has no pose to sample: its loss and accuracy on

@@ -153,14 +153,27 @@ def test_preempt_snapshot_round_trip(tmp_path, trained_state):
 
 
 def test_foreign_checkpoint_is_refused(tmp_path, trained_state):
+    """A torch file of neither kind and an orbax directory still raise,
+    naming ROADMAP queue 1 item 7; truncated msgpack (a map of four keys
+    cut after one) raises ``ValueError`` naming the file as malformed
+    flax msgpack.  A JAX checkpoint loads
+    (``test_torch_port_jax_checkpoint.py``)."""
     f, _ = trained_state
     path = tmp_path / "ref_weights.p"
     torch.save({"G": {"w": torch.zeros(1)}}, path)      # neither kind
+    orbax = tmp_path / "jax_weights.orbax"
+    orbax.mkdir()
     msgpack = tmp_path / "jax_weights.p"
-    msgpack.write_bytes(b"\x84\xa8g_params\x80")         # flax msgpack
-    for p in (path, msgpack):
+    msgpack.write_bytes(b"\x84\xa8g_params\x80")         # truncated msgpack
+    for p in (path, orbax, msgpack):
         book = BookKeeper(config_from_dict(dict(load=str(p),
                                                 save_dir=str(tmp_path))), SUB)
+        if p == msgpack:
+            with pytest.raises(ValueError,
+                               match="jax_weights.p is malformed flax "
+                                     "msgpack"):
+                book._load_model(f.init(seed=6))
+            continue
         with pytest.raises(NotImplementedError, match="queue 1 item 7"):
             book._load_model(f.init(seed=6))
     with pytest.raises(NotImplementedError, match="orbax"):

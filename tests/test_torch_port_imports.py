@@ -1,8 +1,8 @@
 """The port stands alone: no file of ``mixstage_tpu_torch``, ``tools/``,
 ``chip_smoke.py`` nor the multi-rank tests' children imports jax, flax,
-optax or the JAX package, nor the host libraries the card's machine lacks
-or the port replaced (pandas, scikit-learn, joblib, PyYAML); and importing
-the port loads no JAX."""
+optax, msgpack or the JAX package, nor the host libraries the card's
+machine lacks or the port replaced (pandas, scikit-learn, joblib, PyYAML);
+and importing the port loads none of them."""
 
 import ast
 import os
@@ -13,10 +13,12 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "mixstage_tpu"}
+# msgpack too: the port reads and writes flax checkpoints with its own
+# ``interop/flax_msgpack.py``
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "msgpack", "mixstage_tpu"}
 # the JAX package's host libraries the port does without: the master CSV
 # is read with ``csv``, the k-means fit is its own, the thread map runs on
-# ``concurrent.futures``, the OpenPose YAML reader is not ported
+# ``concurrent.futures``, the OpenPose YAML reader is its own
 HOST_FORBIDDEN = {"pandas", "sklearn", "joblib", "yaml"}
 # the multi-rank tests' children run the port without JAX too
 FILES = sorted((ROOT / "mixstage_tpu_torch").rglob("*.py")) + \
@@ -75,7 +77,16 @@ def test_importing_the_port_loads_no_jax():
             "mixstage_tpu_torch.cli.train, mixstage_tpu_torch.cli.sample, "
             "mixstage_tpu_torch.cli.serve, mixstage_tpu_torch.cli.export, "
             "mixstage_tpu_torch.cli.import_torch, mixstage_tpu_torch.export, "
-            "mixstage_tpu_torch.interop.torch_import; "
+            "mixstage_tpu_torch.interop.torch_import, "
+            "mixstage_tpu_torch.interop.flax_msgpack, "
+            "mixstage_tpu_torch.animation, "
+            "mixstage_tpu_torch.animation.raster, "
+            "mixstage_tpu_torch.animation.aviwriter, "
+            "mixstage_tpu_torch.htmlgrid, "
+            "mixstage_tpu_torch.htmlgrid.snippets, "
+            "mixstage_tpu_torch.cli.render, "
+            "mixstage_tpu_torch.cli.preprocess, "
+            "mixstage_tpu_torch.cli.delete_keys; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN | HOST_FORBIDDEN)!r}); print(bad); "
             "sys.exit(1 if bad else 0)")

@@ -281,7 +281,8 @@ def test_sigterm_exits_75_and_resumes(data, tmp_path, monkeypatch):
 # weighted GAN, the joint D, the non-GAN trainer and Speech2Gesture_G run
 # in test_torch_port_lifecycle_rest.py and test_torch_port_simple_models.py;
 # text, -pos, -filler and -optim_separate are held to the JAX trainer in
-# test_torch_port_text_trainer.py.
+# test_torch_port_text_trainer.py, -render's output to the JAX package's in
+# test_torch_port_render.py.
 REFUSED = {
     "num_devices": dict(num_devices=2),
     "render": dict(render=1),
@@ -315,6 +316,8 @@ PORTED = {
     "filler": lambda tr: tr.data.filler == 1 and tr.data.stopwords is not None,
     "optim_separate": lambda tr: type(tr.state.g_opt).__name__ ==
     "SeparateTextOptimizer" and tr.state.g_opt.groups["text"].lr == 1e-5,
+    # the trainer renders after sampling (test_torch_port_render.py)
+    "render": lambda tr: tr.args.render == 1 and callable(tr.render_samples),
 }
 
 
@@ -359,17 +362,25 @@ def test_unported_flags_raise(data, text_data, tmp_path, name):
 
 def test_pretrained_classifier_weights_raise(data, tmp_path):
     """``-pretrained_model_weights`` naming a file that exists must be a
-    port checkpoint of the IS metric's ``StyleClassifier_G`` (anything
-    else, a JAX checkpoint among them, raises); a path that does not exist
-    is ignored, as the JAX package ignores it."""
+    checkpoint of the IS metric's ``StyleClassifier_G``, the port's or the
+    JAX package's (``test_torch_port_jax_checkpoint.py``): a file of
+    neither format raises ``ValueError``, an orbax directory
+    ``NotImplementedError`` naming ROADMAP queue 1 item 7; a path that
+    does not exist is ignored, as the JAX package ignores it."""
     missing = tmp_path / "absent.p"
     tr = Trainer(cfg(data, tmp_path / "a", pretrained_model_weights=str(
         missing)), SUB, {}, device="cpu")
     assert tr.IS is None
     missing.write_bytes(b"x")
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+    with pytest.raises(ValueError, match="neither a torch file nor"):
         Trainer(cfg(data, tmp_path / "b",
                     pretrained_model_weights=str(missing)), SUB, {},
+                device="cpu")
+    orbax = tmp_path / "clf_weights.orbax"
+    orbax.mkdir()
+    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+        Trainer(cfg(data, tmp_path / "c",
+                    pretrained_model_weights=str(orbax)), SUB, {},
                 device="cpu")
 
 

@@ -187,7 +187,8 @@ def test_missing_weight_raises_as_jax(jax_side):
 def test_load_model_tells_port_from_reference(jax_side, tmp_path):
     """``-load``: a dict keyed by the port's modules is the port's own, a
     flat state dict (with or without ``G.``/``D.``) a reference one,
-    converted on the way; anything else raises, naming JAX checkpoints."""
+    converted on the way; another torch file raises, naming JAX
+    checkpoints, and malformed msgpack raises ``ValueError``."""
     _, _, template = jax_side
     f = port_factory()
     trained = f.init(seed=7)
@@ -219,9 +220,11 @@ def test_load_model_tells_port_from_reference(jax_side, tmp_path):
     for m, sd_m in weights_of(want).items():
         for k, v in sd_m.items():
             assert torch.equal(got[m][k], v), (m, k)
-    for name in ("nested", "msgpack"):
-        with pytest.raises(NotImplementedError, match="JAX checkpoint"):
-            load(name)
+    with pytest.raises(NotImplementedError, match="JAX checkpoint"):
+        load("nested")
+    # the truncated map is not a JAX checkpoint either: malformed msgpack
+    with pytest.raises(ValueError, match="malformed flax msgpack"):
+        load("msgpack")
 
 
 def test_cli_import_torch_end_to_end(jax_side, tmp_path):
