@@ -12,8 +12,10 @@ bf16 model (phases 18-19), the host lifecycle through the CLIs
 (phase 20), the serving entry points on its checkpoints (phase 21), the
 rest of the train steps (phase 22), text input, ``-optim_separate``
 and the Disentangle losses (phase 23), the parallel layouts (phase
-24), and the two ends of the lifecycle (phase 25: rendering, JAX
-checkpoints, data preparation):
+24), the two ends of the lifecycle (phase 25: rendering, JAX
+checkpoints, data preparation) and the long tail (phase 26: orbax
+checkpoints, the C++ window gatherer, the other layers, centered RMSprop,
+text preprocessing):
 
 1. device: the card's name and power limit from ``nvidia-smi``;
 2. build: every CUDA kernel from the checkout's sources, one ``nvcc`` per
@@ -250,6 +252,21 @@ checkpoints, data preparation):
     confidence branch; audio only where ``soundfile`` exists) on a raw
     tree and ``cli.delete_keys``; each sub-phase's seconds and the
     phase's.
+26. the long tail: (a) the C++ window gatherer built by g++ and its
+    ZNorm on a bs32 x 64 batch, equal to their numpy versions, both timed;
+    (b) ``cli.train -fused_decoder 1 -ckpt_backend orbax -save_optim 1``
+    (K3 once each way a G step) writing ``PREFIX_weights.orbax``, its
+    write and read timed, a resume from it at the saved step bit for bit,
+    ``cli.serve -load`` of it in f32 (K1 twice a batch) and
+    ``-serve_int8 1`` (K1 and K4 once) answering bit for bit with the
+    direct call, ``cli.sample -load`` of it writing the trainer's
+    keypoints bit for bit; (c) ``PoseDecoder`` and ``StyleDecoder`` at
+    full width, card against CPU (eval, train, running statistics, max
+    |diff| / max |ref| ≤ 1e-4); (d) a fused G step with centered,
+    bias-corrected RMSprop (K3 once each way) and two more updates, card
+    against CPU (≤ 1e-6); (e) ``cli.preprocess`` of text, not aligned
+    then aligned; (f) ``tests/orbax_fixture/ocdbt`` (JAX's orbax, OCDBT,
+    zstd) against its checksums.
 
 The bf16 rule: no bf16 output is held element-wise to another bf16 output
 (two valid roundings differ about as much as either differs from the
@@ -4180,6 +4197,455 @@ def lifecycle_ends_phase(torch, args, smi, results) -> dict:
             "k4": served["int8"][1]}
 
 
+# phase 26: the long tail (the C++ gatherer, orbax checkpoints, the other
+# layers, centered RMSprop, text preprocessing)
+GATHER_REPS = 200            # (a): timed bs32 x 64 gathers per route
+ORBAX_REPS = 3               # (b): timed writes and reads of the checkpoint
+RMS_KW = (("centered", True), ("bias_correction", True),
+          ("initial_scale", 0.1))
+FIXTURE = Path(__file__).resolve().parent / "tests" / "orbax_fixture"
+
+
+def _ms_per_call(fn, reps):
+    fn()                                              # warm
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t) * 1e3 / reps
+
+
+def long_tail_phase(torch, args, device, smi, results) -> dict:
+    """Phase 26: what the last slice ported, at full width.  (a) the C++
+    window gatherer (g++ build, a bs32 x 64 pose and audio batch and its
+    ZNorm, bit for bit with the numpy versions, both timed); (b)
+    ``cli.train -fused_decoder 1 -ckpt_backend orbax -save_optim 1`` (K3)
+    writing ``PREFIX_weights.orbax``, the write and read timed, a resume
+    from it at the saved step bit for bit, ``cli.serve -load`` of it in
+    f32 (K1) and ``-serve_int8 1`` (K1, K4) answering bit for bit with the
+    direct call, ``cli.sample -load`` of it writing the trainer's
+    keypoints bit for bit; (c) ``PoseDecoder`` (8 groups x (256 + 10))
+    and ``StyleDecoder`` (10 groups x 256) at bs32 x 64 on the card
+    against the CPU; (d) a fused G step with centered, bias-corrected
+    RMSprop (K3) and the card's update against the CPU's; (e)
+    ``cli.preprocess`` of text, not aligned then aligned; (f) the
+    committed OCDBT directory JAX's orbax wrote, against its checksums.
+    Returns the launches of K3 (fwd, bwd) over (b) and (d), of K1 and K4
+    over (b)'s servers."""
+    import copy
+    import hashlib
+    import importlib.util
+    import warnings
+
+    if "h5py" not in sys.modules and importlib.util.find_spec("h5py") is None:
+        install_h5py_stand_in()
+    from mixstage_tpu_torch.bookkeeping import read_checkpoint
+    from mixstage_tpu_torch.cli import preprocess as cli_pre
+    from mixstage_tpu_torch.cli import sample as cli_sample
+    from mixstage_tpu_torch.cli import serve as cli_serve
+    from mixstage_tpu_torch.cli import train as cli_train
+    from mixstage_tpu_torch.data import native
+    from mixstage_tpu_torch.data import text as ptext
+    from mixstage_tpu_torch.data.common import SPEAKERS
+    from mixstage_tpu_torch.data.hdf5 import HDF5
+    from mixstage_tpu_torch.data.synthetic import make_synthetic_dataset
+    from mixstage_tpu_torch.interop import orbax
+    from mixstage_tpu_torch.interop.weights import full_tree_of
+    from mixstage_tpu_torch.models.layers import (PoseDecoder, StyleDecoder,
+                                                  reset_parameters_)
+    from mixstage_tpu_torch.ops.cuda import train_decoder as td
+    from mixstage_tpu_torch.ops.cuda.fused_conv import \
+        fused_mixstage_decoder as k1
+    from mixstage_tpu_torch.ops.cuda.quant import \
+        fused_mixstage_decoder_int8 as k4
+    from mixstage_tpu_torch.serve import build_serving_fn
+    from mixstage_tpu_torch.serving import PoseClient
+    from mixstage_tpu_torch.train import StepConfig, StepFactory
+    from mixstage_tpu_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    secs, rec = {}, {}
+    root = Path(__file__).resolve().parent / "build" / "long_tail"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    rng = np.random.default_rng(args.seed + 26)
+    cpu = host_cpu()
+
+    # (a) the C++ window gatherer ----------------------------------------
+    t = time.perf_counter()
+    lib = native.build(force=True)
+    build_s = time.perf_counter() - t
+    pose = rng.normal(size=(375, 104)) * 50        # a 25 s interval, 15 fps
+    audio = rng.normal(size=(2225, MEL))           # its log-mel, ~89 fps
+    starts = np.sort(rng.integers(0, 375 - T, size=B))
+    a_starts = starts * 6                          # stride round(89 / 15)
+    mean, var = pose.mean(0), pose.var(0)
+    mask = [0, 7, 8, 9]
+
+    def batch(gather):
+        return gather(pose, starts, T, 1), gather(audio, a_starts, T, 6)
+    got, want = batch(native.gather_windows), batch(
+        native.gather_windows_plain)
+    check(all(np.array_equal(g, w) for g, w in zip(got, want)) and
+          got[0].shape == (B, T, 104) and got[1].shape == (B, T, MEL),
+          "[tail] the gatherer differs from its numpy version")
+    zm = native.znorm_mask(got[0], mean, var, mask)
+    zf = native.znorm_f32(got[1], audio.mean(0), audio.var(0))
+    check(np.array_equal(zm, native.znorm_mask_plain(got[0], mean, var, mask))
+          and np.array_equal(zf, native.znorm_f32_plain(
+              got[1], audio.mean(0), audio.var(0))),
+          "[tail] the library's ZNorm differs from its numpy version")
+    gms = {name: _ms_per_call(lambda: batch(fn), GATHER_REPS)
+           for name, fn in (("cpp", native.gather_windows),
+                            ("numpy", native.gather_windows_plain))}
+    zms = {"cpp": _ms_per_call(lambda: native.znorm_mask(
+                got[0], mean, var, mask), GATHER_REPS),
+           "numpy": _ms_per_call(lambda: native.znorm_mask_plain(
+                got[0], mean, var, mask), GATHER_REPS)}
+    secs["a"] = time.perf_counter() - t_phase
+    log(f"[tail] (a) {smi}: gatherer {lib.name} built by g++ in "
+        f"{build_s:.2f} s; a bs{B} x {T} batch (pose 104 + audio {MEL} "
+        f"wide, stride 1 and 6) gathers in {gms['cpp']:.4f} ms (numpy "
+        f"{gms['numpy']:.4f} ms), its pose ZNorm + joint mask in "
+        f"{zms['cpp']:.4f} ms (numpy {zms['numpy']:.4f} ms), equal "
+        f"arrays; host {cpu}")
+    rec["gatherer"] = dict(build_s=build_s, gather_ms=gms, znorm_ms=zms,
+                           cpu=cpu)
+
+    # (b) cli.train -ckpt_backend orbax, then serve, sample, resume --------
+    t_b = time.perf_counter()
+    data = str(root / "data")
+    speakers = SPEAKERS[:MODEL["num_speakers"]]
+    make_synthetic_dataset(data, speakers, LIFE_INTERVALS,
+                           interval_seconds=ENDS_INTERVAL_S,
+                           seed=11212 + args.seed)
+    save = str(root / "save")
+    argv = ["-path2data", data, "-speaker", json.dumps(speakers),
+            "-model", "JointLateClusterSoftStyle4_G", "-gan", "1",
+            "-loss", "L1Loss", "-num_clusters", str(MODEL["num_clusters"]),
+            "-batch_size", str(B), "-fused_decoder", "1", "-num_epochs", "1",
+            "-window_hop", "5", "-debug", str(ENDS_STEPS), "-num_iters", "2",
+            "-save_dir", save, "-exp", "1", "-seed", str(11212 + args.seed),
+            "-ckpt_backend", "orbax", "-save_optim", "1"]
+    seen = {"train": [], "sample": []}
+    orig = {name: getattr(Trainer, name) for name in seen}
+
+    def keep(name):
+        def run(self, exp_num):
+            orig[name](self, exp_num)
+            seen[name].append(self)
+        return run
+    for name in seen:
+        setattr(Trainer, name, keep(name))
+    try:
+        td.decoder_train_fwd.launches = 0          # -ckpt_backend orbax
+        td.decoder_train_bwd.launches = 0          # path starts
+        cli_train.main(argv)
+        torch.cuda.synchronize()
+        k3 = (td.decoder_train_fwd.launches,       # path ends
+              td.decoder_train_bwd.launches)
+    finally:
+        for name, fn in orig.items():
+            setattr(Trainer, name, fn)
+    trainer, sampler = seen["train"][0], seen["sample"][-1]
+    g_steps = trainer.state.g_step
+    check(g_steps > 0 and k3 == (g_steps, g_steps),
+          f"[tail] K3 launches {k3} over cli.train -ckpt_backend orbax, "
+          f"expected one each way per G step ({g_steps})")
+    opath = trainer.book._orbax_path()
+    meta = json.loads((Path(opath) / "_METADATA").read_text())
+    nbytes = sum(f.stat().st_size for f in Path(opath).rglob("*")
+                 if f.is_file())
+    check(os.path.isdir(opath) and meta["use_ocdbt"] is False and
+          not os.path.exists(trainer.book.name("weights", "p", save)),
+          f"[tail] {opath}: not the port's orbax directory")
+    tree = read_checkpoint(opath)[1]
+    write_s, read_s = [], []
+    for i in range(ORBAX_REPS):
+        t = time.perf_counter()
+        orbax.write_directory(str(root / f"timed_{i}.orbax"),
+                              full_tree_of(trainer.state))
+        write_s.append(time.perf_counter() - t)
+        t = time.perf_counter()
+        read_checkpoint(opath)
+        read_s.append(time.perf_counter() - t)
+    resumed = Trainer(cli_config(["-load", opath, "-path2data", data,
+                                  "-save_optim", "1"]),
+                      ["exp", "cpk", "speaker", "model", "note"],
+                      {"window_hop": 0, "render": 0})
+    # the resumed state, written and read back, against the directory
+    stored = {n: (a, d) for n, a, d in orbax.array_leaves(tree)}
+    orbax.write_directory(str(root / "resumed.orbax"),
+                          full_tree_of(resumed.state))
+    mine = {n: (a, d) for n, a, d in orbax.array_leaves(
+        read_checkpoint(str(root / "resumed.orbax"))[1])}
+    timed = {n for n, _, _ in orbax.array_leaves(
+        read_checkpoint(str(root / "timed_0.orbax"))[1])}
+    same = sorted(mine) == sorted(stored) == sorted(timed) and all(
+        mine[n][1] == stored[n][1] and np.array_equal(mine[n][0],
+                                                      stored[n][0])
+        for n in stored)
+    counters = {k: int(stored[f"train.counters.{k}"][0])
+                for k in ("step", "g_step", "lambda_step",
+                          "curriculum_step")}
+    check(same and counters["step"] > 0 and
+          counters == {k: getattr(resumed.state, k) for k in counters},
+          f"[tail] the resume from {Path(opath).name} differs from the "
+          f"checkpoint (counters {counters})")
+    model = resumed.state.gen
+    S = MODEL["num_speakers"]
+    onehot = np.eye(S, dtype=np.float32)
+    soft = rng.dirichlet(np.ones(S)).astype(np.float32)
+    direct = {"f32": build_serving_fn(model),
+              "int8": build_serving_fn(model, quantize_int8=True,
+                                       calib=cli_serve._calib_windows(
+                                           resumed, 8))}
+    modes = {"f32": ([], (2, 0)), "int8": (["-serve_int8", "1"], (1, 1))}
+    served, errs = {}, {}
+    for mode, (extra, per_batch) in modes.items():
+        server, batchers = cli_serve.build(cli_config(
+            ["-load", opath, "-path2data", data, "-serve_port", "0",
+             *extra]))
+        reqs = [("json", rng.normal(size=(64, MEL)).astype(np.float32), 1),
+                ("npz", rng.normal(size=(100, MEL)).astype(np.float32),
+                 soft)]
+        try:
+            client = PoseClient(
+                f"http://127.0.0.1:{server.server_address[1]}",
+                timeout_s=600)
+            for b in batchers:
+                b.batches = 0
+            k1.launches = k4.launches = 0          # this server's path starts
+            poses = [(client.pose if kind == "npz" else client.pose_json)(
+                a, style=sty) for kind, a, sty in reqs]
+            torch.cuda.synchronize()
+            n = (k1.launches, k4.launches)         # this server's path ends
+            nb = sum(b.batches for b in batchers)
+        finally:
+            server.shutdown()
+            server.server_close()
+            for b in batchers:
+                b.close()
+        check(n == tuple(c * nb for c in per_batch),
+              f"[tail] {mode}: (K1, K4) launches {n} over {nb} batches")
+        served[mode] = n
+        worst = 0.0
+        for (kind, a, sty), got_pose in zip(reqs, poses):
+            bucket = 64 if a.shape[0] <= 64 else 128
+            padded = np.concatenate(
+                [a, np.repeat(a[-1:], bucket - a.shape[0], 0)])
+            rows = onehot[sty] if np.ndim(sty) == 0 else sty
+            want_pose = direct[mode](np.repeat(padded[None], B, axis=0),
+                                     np.repeat(rows[None], B, axis=0))
+            want_pose = want_pose[0].float().cpu().numpy()[:a.shape[0]]
+            check(got_pose.shape == want_pose.shape, f"[tail] {mode} {kind}")
+            worst = max(worst, float(np.abs(got_pose - want_pose).max()))
+        errs[mode] = worst
+        check(worst == 0.0, f"[tail] {mode}: served poses differ from the "
+              f"direct call by {worst:.3e}")
+    exp_dir = Path(sampler.dir_name)
+    kp_files = [f for d in sorted(exp_dir.glob("keypoints*"))
+                for f in sorted(d.rglob("*.h5"))]
+    sample_dir = root / "sample"
+    cli_sample.main(["-load", opath, "-path2data", data, "-save_dir",
+                     str(sample_dir)])
+    prefix = sampler.book.name.prefix
+    ours = sorted((sample_dir / prefix).glob("keypoints*/*/*/*.h5"))
+    same_kp = all(np.array_equal(
+        HDF5.load_array(str(f), "pose/data"),
+        HDF5.load_array(str(exp_dir / f.relative_to(sample_dir / prefix)),
+                        "pose/data")) for f in ours)
+    check(len(ours) == len(kp_files) == 2 * len(speakers) * LIFE_INTERVALS
+          and same_kp, f"[tail] cli.sample of the orbax directory: "
+          f"{len(ours)} keypoint files, equal to the trainer's {same_kp}")
+    secs["b"] = time.perf_counter() - t_b
+    w_ms, r_ms = float(np.mean(write_s)), float(np.mean(read_s))
+    log(f"[tail] (b) cli.train -fused_decoder 1 -ckpt_backend orbax "
+        f"-save_optim 1 (flagship at full width, {B}-window batches, -debug "
+        f"{ENDS_STEPS}): K3 launches (fwd, bwd) {k3} = {g_steps} G steps; "
+        f"{Path(opath).name}: {len(stored)} arrays, {nbytes} bytes, plain "
+        f"layout; write {w_ms:.3f} s, read {r_ms:.3f} s (mean of "
+        f"{ORBAX_REPS}: {', '.join(f'{x:.3f}' for x in write_s)} / "
+        f"{', '.join(f'{x:.3f}' for x in read_s)}); resumed at step "
+        f"{counters['step']} (g_step {counters['g_step']}) bit for bit; "
+        f"cli.serve -load: served poses max|diff| f32 {errs['f32']:.3e}, "
+        f"int8 {errs['int8']:.3e}; (K1, K4) launches f32 {served['f32']}, "
+        f"int8 {served['int8']}; cli.sample: {len(ours)} keypoint files "
+        f"equal to the trainer's; host {cpu}")
+    rec["orbax"] = dict(k3_launches=k3, g_steps=g_steps, bytes=nbytes,
+                        arrays=len(stored), write_s=write_s, read_s=read_s,
+                        counters=counters, errors=errs, launches=served)
+    del resumed, direct, trainer, sampler, model
+    torch.cuda.empty_cache()
+
+    # (c) the other layers at full width, card against CPU ------------------
+    t_c = time.perf_counter()
+    G = MODEL["num_clusters"]
+    layer_err = {}
+    for name, layer, width, groups in (
+            ("PoseDecoder", PoseDecoder(C, MODEL["style_dim"], G, F_POSE),
+             G * C0, G),
+            ("StyleDecoder", StyleDecoder(C, 10, F_POSE), 10 * C, 10)):
+        reset_parameters_(layer, torch.Generator().manual_seed(args.seed + 9),
+                          random_bn_stats=True)
+        x = torch.randn(B, T, width,
+                        generator=torch.Generator().manual_seed(args.seed))
+        card = copy.deepcopy(layer).to(device)
+        errs_l = {}
+        for train in (False, True):
+            layer.train(train)
+            card.train(train)
+            with torch.no_grad():
+                want = layer(x)
+                got = card(x.to(device)).cpu()
+            errs_l["train" if train else "eval"] = float(
+                (got - want).abs().max() / want.abs().max())
+        stats = max(float((a.cpu() - b).abs().max() / b.abs().max())
+                    for a, b in zip(card.buffers(), layer.buffers())
+                    if b.dtype.is_floating_point)
+        errs_l["running_stats"] = stats
+        check(tuple(got.shape) == (B, T, groups * F_POSE) and
+              max(errs_l.values()) <= KERNEL_TOL,
+              f"[tail] {name} on the card against the CPU: {errs_l}")
+        layer_err[name] = errs_l
+    secs["c"] = time.perf_counter() - t_c
+    log(f"[tail] (c) PoseDecoder (8 groups x (256 + 10)) and StyleDecoder "
+        f"(10 groups x 256) at bs{B} x {T}, card against CPU (max |diff| / "
+        f"max |ref|, tol {KERNEL_TOL:g}): "
+        + "; ".join(f"{n} " + ", ".join(f"{k} {v:.3e}" for k, v in e.items())
+                    for n, e in layer_err.items()))
+    rec["layers"] = layer_err
+
+    # (d) centered, bias-corrected RMSprop ---------------------------------
+    t_d = time.perf_counter()
+    fac = StepFactory(StepConfig(**TRAIN_CFG, fused_decoder=True,
+                                 optim="RMSprop", optim_kwargs=RMS_KW))
+    tb = train_batch(np.random.default_rng(args.seed + 27), B, T)
+    td.decoder_train_fwd.launches = 0               # RMSprop step starts
+    td.decoder_train_bwd.launches = 0
+    st, ls, _ = fac.make_steps()["g"](fac.init(seed=args.seed + 27), tb,
+                                      args.seed)
+    torch.cuda.synchronize()
+    k3_rms = (td.decoder_train_fwd.launches,        # RMSprop step ends
+              td.decoder_train_bwd.launches)
+    check(k3_rms == (1, 1) and all(bool(torch.isfinite(v).all())
+                                   for v in ls.values()),
+          f"[tail] the RMSprop G step: K3 {k3_rms}, losses finite")
+    opt = st.g_opt
+    check(opt.centered and opt.bias_correction and opt.count == 1 and
+          sorted(opt.slots()) == ["mu", "nu"], "[tail] RMSprop's state")
+    cpu_opt = fac.g_tx([(n, p.detach().cpu().clone())
+                        for n, p in zip(opt.names, opt.params)])
+    for slot, tensors in opt.slots().items():
+        for dst, src in zip(getattr(cpu_opt, slot), tensors):
+            dst.copy_(src.cpu())
+    cpu_opt.count = opt.count
+    ggen = torch.Generator().manual_seed(args.seed + 28)
+    for _ in range(2):           # counts 2 and 3: the correction moves
+        grads = [torch.randn(p.shape, generator=ggen) * 1e-5
+                 for p in cpu_opt.params]
+        opt.step([g.to(device) for g in grads])
+        cpu_opt.step(grads)
+    torch.cuda.synchronize()
+    rms_err = {"params": max(
+        float((a.detach().cpu() - b).abs().max())
+        / max(float(b.abs().max()), 1e-30)
+        for a, b in zip(opt.params, cpu_opt.params))}
+    for slot, tensors in opt.slots().items():
+        rms_err[slot] = max(
+            float((a.cpu() - b).abs().max()) / max(float(b.abs().max()),
+                                                   1e-30)
+            for a, b in zip(tensors, getattr(cpu_opt, slot)))
+    check(max(rms_err.values()) <= 1e-6 and opt.count == cpu_opt.count == 3,
+          f"[tail] the card's RMSprop update differs from the CPU's: "
+          f"{rms_err}")
+    secs["d"] = time.perf_counter() - t_d
+    log(f"[tail] (d) centered, bias-corrected RMSprop (initial scale 0.1): "
+        f"fused G step finite, K3 {k3_rms}; two more updates on given "
+        f"gradients, card against CPU (max |diff| / max |ref|): "
+        + ", ".join(f"{k} {v:.3e}" for k, v in rms_err.items()))
+    rec["rmsprop"] = dict(k3_launches=k3_rms, update_err=rms_err)
+    del st, opt, cpu_opt, fac
+
+    # (e) cli.preprocess of text ---------------------------------------------
+    t_e = time.perf_counter()
+    raw = root / "text"
+    text_speakers = speakers[:2]
+    make_synthetic_dataset(str(raw), text_speakers, 2, interval_seconds=5.0,
+                           with_raw_transcripts=True, seed=args.seed)
+    methods = ["w2v", "pos", "tokens", "bert"]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        try:                     # the JAX package's fall-backs, no files
+            ptext.BertEmbedder()
+            ptext.BertSentenceBatching()
+            bert = "absent (zeros, word indices)"
+        except NotImplementedError:      # the real embedders wait
+            try:
+                from huggingface_hub import constants
+                where = constants.HF_HUB_CACHE
+            except ImportError:
+                where = "a local cache"
+            methods, bert = ["w2v", "pos"], f"installed in {where}: not run"
+        common = ["-modalities", '["text"]', "-path2data", str(raw),
+                  "-path2outdata", str(raw), "-speaker",
+                  json.dumps(text_speakers)]
+        cli_pre.main([*common, "-preprocess_methods", json.dumps(methods),
+                      "-text_aligned", "0"])
+        files = sorted((raw / "processed").rglob("*.h5"))
+        words = [len(HDF5.load_array(str(f), "text/meta/Word"))
+                 for f in files]
+        for f in files:          # the aligned path from the written meta
+            h5 = HDF5.h5_open(str(f), "a")
+            HDF5.del_dataset(h5, "text/w2v")
+            h5.close()
+        cli_pre.main([*common, "-preprocess_methods", '["w2v"]',
+                      "-text_aligned", "1"])
+    widths = {"w2v": 300, "bert": 768}
+    ok = len(files) == 2 * len(text_speakers) and min(words) > 1
+    for f in files:
+        frames = HDF5.load_array(str(f), "pose/data").shape[0]
+        for m in methods:
+            a = HDF5.load_array(str(f), f"text/{m}")
+            ok &= a.shape == ((frames, widths[m]) if m in widths
+                              else (frames,))
+            if m == "tokens":
+                ok &= int(a.max()) == len(HDF5.load_array(
+                    str(f), "text/meta/Word")) - 1
+    check(ok, f"[tail] cli.preprocess text: {len(files)} files, words "
+          f"{words}, streams {methods}")
+    secs["e"] = time.perf_counter() - t_e
+    log(f"[tail] (e) cli.preprocess -modalities text on "
+        f"{len(text_speakers)} speakers x 2 intervals of 5 s with raw "
+        f"transcripts: -text_aligned 0 wrote text/meta ({words} words) and "
+        f"{methods}, -text_aligned 1 rewrote text/w2v from text/meta; "
+        f"BERT's files {bert}")
+    rec["text"] = dict(words=words, methods=methods, bert=bert)
+
+    # (f) the committed OCDBT directory JAX's orbax wrote ---------------------
+    t_f = time.perf_counter()
+    want = json.loads((FIXTURE / "checksums.json").read_text())
+    fixture = orbax.read_directory(str(FIXTURE / "ocdbt"))
+    got = {name: {"sha256": hashlib.sha256(a.tobytes()).hexdigest(),
+                  "dtype": dtype, "shape": list(a.shape)}
+           for name, a, dtype in orbax.array_leaves(fixture)}
+    check(got == want, "[tail] the OCDBT fixture differs from its "
+          "checksums")
+    secs["f"] = time.perf_counter() - t_f
+    log(f"[tail] (f) tests/orbax_fixture/ocdbt (JAX's orbax, OCDBT, zstd; "
+        f"libzstd {orbax.libzstd()._name}): {len(got)} arrays equal their "
+        f"SHA-256 checksums")
+    shutil.rmtree(root, ignore_errors=True)
+    total = time.perf_counter() - t_phase
+    log(f"[tail] sub-phase seconds: " + ", ".join(
+        f"({k}) {v:.1f} s" for k, v in secs.items()))
+    log(f"[tail] phase 26 in {total:.1f} s")
+    rec.update(seconds=secs, total_s=total)
+    results["long_tail"] = rec
+    return {"k3": (k3[0] + k3_rms[0], k3[1] + k3_rms[1]),
+            "k1": served["f32"][0] + served["int8"][0],
+            "k4": served["int8"][1]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4636,6 +5102,7 @@ def main(argv=None) -> int:
     par = parallel_phase(torch, args, device, smi, model, audio, styles,
                          serve, plain, results)
     ends = lifecycle_ends_phase(torch, args, smi, results)
+    tail = long_tail_phase(torch, args, device, smi, results)
     for kern in [k1] + k16 + [k4] + k8_16:
         if kern["name"] in served:
             kern["serving_cli_launches"] = served[kern["name"]]
@@ -4664,6 +5131,12 @@ def main(argv=None) -> int:
     k4["lifecycle_ends_launches"] = ends["k4"]
     for i, kern in enumerate(k3):
         kern["lifecycle_ends_launches"] = ends["k3"][i]
+    # phase 26: K3 over cli.train -ckpt_backend orbax and the RMSprop G
+    # step, K1 and K4 over the servers of the orbax checkpoint
+    k1["long_tail_launches"] = tail["k1"]
+    k4["long_tail_launches"] = tail["k4"]
+    for i, kern in enumerate(k3):
+        kern["long_tail_launches"] = tail["k3"][i]
     for kern in [k1] + k3 + [k4]:
         kern["mode"] = "f32" if kern is not k4 else "int8"
     k2["mode"] = "f32"

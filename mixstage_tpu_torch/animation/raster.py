@@ -25,9 +25,7 @@ exists, MJPEG + PCM AVI (``aviwriter.py``, PIL).
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import shutil
 import subprocess
 import threading
 from pathlib import Path
@@ -35,8 +33,10 @@ from typing import List, Optional
 
 import numpy as np
 
+from mixstage_tpu_torch import hostlib
+
 SOURCE = Path(__file__).resolve().parent / "raster.cpp"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+BUILD_DIR = hostlib.BUILD_DIR
 # the JAX package's native/Makefile flags, and no contraction of a * b + c
 # into one FMA (GCC contracts by default where -march=native has FMA), so
 # that the library rounds as its numpy plain version does
@@ -61,50 +61,17 @@ PEAK_W_PX = 3.0 * _PT
 N_BODY_BONES = 9
 
 
-def _host_tag() -> bytes:
-    """The host CPU's feature flags: ``-march=native`` builds for them, so
-    a library built on another CPU is not reused."""
-    try:
-        with open("/proc/cpuinfo") as f:
-            for line in f:
-                if line.startswith(("flags", "Features")):
-                    return line.encode()
-    except OSError:
-        pass
-    import platform
-
-    return platform.processor().encode()
-
-
 def library_path() -> Path:
     """Where the library lives: named by a hash of the source, the flags
-    and the host CPU's features."""
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(CXX_FLAGS).encode()
-                            + _host_tag()).hexdigest()
-    return BUILD_DIR / f"libraster_{digest[:16]}.so"
+    and the host CPU's features (``hostlib.library_path``)."""
+    return hostlib.library_path(SOURCE, CXX_FLAGS, "libraster", BUILD_DIR)
 
 
 def build(force: bool = False) -> Path:
     """Compile ``raster.cpp`` with g++ (reused when a library of the same
     source exists, unless ``force``); raises ``RuntimeError`` with the
     compiler's log when it fails."""
-    target = library_path()
-    if target.exists() and not force:
-        return target
-    cxx = os.environ.get("CXX") or shutil.which("g++") or "g++"
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = target.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    try:
-        proc = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(SOURCE)],
-                              capture_output=True, text=True)
-    except OSError as e:
-        raise RuntimeError(f"cannot run {cxx} to build {SOURCE}: {e}") from e
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"{cxx} failed for {SOURCE} (exit "
-                           f"{proc.returncode}):\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, target)     # atomic: a concurrent loader sees all or none
-    return target
+    return hostlib.build(SOURCE, CXX_FLAGS, "libraster", BUILD_DIR, force)
 
 
 def get_lib() -> ctypes.CDLL:

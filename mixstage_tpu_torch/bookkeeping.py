@@ -22,11 +22,22 @@ The checkpoints are ``torch.save`` files and load with
   SIGTERM snapshots (with ``PREFIX_preempt.json``, the loop's metadata).
 
 ``-load`` also takes a reference (chahuja/mix-stage) ``PREFIX_weights.p``,
-converted on the way, and the JAX package's flax msgpack checkpoints: its
+converted on the way, and the JAX package's checkpoints: its flax msgpack
 ``PREFIX_weights.p``, with ``-save_optim 1`` its ``PREFIX_trainstate.p``
 (optimizer states and counters, so a JAX run resumes in the port at JAX's
-step), and its ``PREFIX_preempt.p`` snapshot (``read_checkpoint``,
-``_load_model``).  An orbax directory still raises.
+step), its ``PREFIX_preempt.p`` snapshot, and its orbax directory
+``PREFIX_weights.orbax`` (``read_checkpoint``, ``_load_model``).
+
+``-ckpt_backend orbax`` writes ``PREFIX_weights.orbax`` as the JAX package
+does (``mixstage_tpu/bookkeeping.py:197-286``): one directory holding the
+weights, the optimizer states and the counters (``{"model": {g_params,
+g_state, d_params, d_state}, "train": {g_opt_state, d_opt_state,
+counters}}``, the optimizer states nested as optax nests them), in
+orbax's plain layout (``interop/orbax.py``), committed by writing a
+sibling ``.tmp`` and swapping it in through ``.old``; ``_load_model``
+recovers a ``.old`` left by a crash between the two renames.  Its
+optimizer states and counters are restored under ``-save_optim 1``, as
+the JAX package's ``_load_orbax`` does.
 """
 
 from __future__ import annotations
@@ -43,7 +54,9 @@ import numpy as np
 import torch
 
 from mixstage_tpu_torch.config import Config, config_from_dict
-from mixstage_tpu_torch.interop.weights import (load_flax_checkpoint,
+from mixstage_tpu_torch.interop import orbax
+from mixstage_tpu_torch.interop.weights import (full_tree_of,
+                                                load_flax_checkpoint,
                                                 load_flax_train)
 
 MODULES = ("gen", "psenc", "disc")
@@ -128,18 +141,22 @@ def _torch_load(path: str):
 def read_checkpoint(path: str):
     """``("torch", obj)`` for a torch file (the port's checkpoints, the
     reference's state dicts), ``("flax", tree)`` for a flax msgpack file
-    (the JAX package's checkpoints, read by ``interop/flax_msgpack.py``).
-    A directory (the JAX package's orbax checkpoint) raises
-    ``NotImplementedError``; a file that is neither raises ``ValueError``
-    naming it."""
+    (the JAX package's checkpoints, read by ``interop/flax_msgpack.py``),
+    ``("orbax", {"model": .., "train": ..})`` for an orbax directory (the
+    ``-ckpt_backend orbax`` checkpoints of either package, read by
+    ``interop/orbax.py``).  Anything else raises ``ValueError`` naming
+    it."""
     from mixstage_tpu_torch.interop import flax_msgpack
     from mixstage_tpu_torch.interop.torch_import import sniff_torch_file
 
     if os.path.isdir(path):
-        raise NotImplementedError(
-            f"{path} is a directory, the JAX package's orbax checkpoint "
-            f"(-ckpt_backend orbax); reading orbax comes later (ROADMAP "
-            f"queue 1 item 7)")
+        tree = orbax.read_directory(path)
+        if not isinstance(tree.get("model"), dict) or \
+                "g_params" not in tree["model"]:
+            raise ValueError(f"{path} is an orbax directory but not a "
+                             f"checkpoint of an experiment (no "
+                             f"model/g_params)")
+        return "orbax", tree
     if sniff_torch_file(path):
         return "torch", _torch_load(path)
     with open(path, "rb") as f:
@@ -203,11 +220,10 @@ class BookKeeper:
         args_subset = args_subset or ["exp", "cpk", "speaker", "model", "note"]
         args_dict_update = dict(args_dict_update or {})
 
-        if getattr(args, "ckpt_backend", "msgpack") != "msgpack":
-            raise NotImplementedError(
-                f"-ckpt_backend {args.ckpt_backend}: the orbax directory is "
-                f"the JAX package's; the port writes torch checkpoints "
-                f"(PREFIX_weights.p, with -save_optim 1 the optimizer too)")
+        if getattr(args, "ckpt_backend", "msgpack") not in ("msgpack",
+                                                            "orbax"):
+            raise ValueError(f"-ckpt_backend {args.ckpt_backend}: "
+                             f"'msgpack' or 'orbax'")
         self._restored_from_ckpt = False
         if getattr(args, "load", None):
             args = self._restore_args(args, args_dict_update)
@@ -256,7 +272,15 @@ class BookKeeper:
         """Rebuild args from the checkpoint's ``_args.args`` file, then apply
         updates (reference sample.py:10-15 semantics)."""
         load_path = args.load
-        args_file = re.sub(r"_weights\.p$", "_args.args", load_path)
+        args_file = re.sub(r"_weights\.(p|orbax)/?$", "_args.args", load_path)
+        if not os.path.isfile(args_file) and args_file != load_path:
+            # an orbax directory's name is sanitized (_orbax_path): find
+            # the args file whose sanitized name matches
+            want = os.path.basename(args_file)
+            for cand in sorted(Path(load_path).parent.glob("*_args.args")):
+                if _sanitized(cand.name) == want:
+                    args_file = str(cand)
+                    break
         if args_file != load_path and os.path.isfile(args_file):
             self._restored_from_ckpt = True
             with open(args_file) as f:
@@ -305,12 +329,50 @@ class BookKeeper:
         if not self.args.save_model:
             return
         if self.writer:
-            _atomic_save(weights_of(state),
-                         self.name(*self.weights_ext, self.save_dir))
-            if getattr(self.args, "save_optim", 0):
-                self._save_train_state(state)
+            if getattr(self.args, "ckpt_backend", "msgpack") == "orbax":
+                self._save_orbax(state)
+            else:
+                _atomic_save(weights_of(state),
+                             self.name(*self.weights_ext, self.save_dir))
+                if getattr(self.args, "save_optim", 0):
+                    self._save_train_state(state)
         if self.layout is not None:
             self.layout.barrier()
+
+    # -- -ckpt_backend orbax: one directory, weights + optimizer + counters
+    def _orbax_path(self) -> str:
+        """``PREFIX_weights.orbax``, absolute, with the characters the JAX
+        package sanitizes (tensorstore fails to commit a directory named
+        with them) replaced by ``-``."""
+        head, tail = os.path.split(self.name("weights", "orbax",
+                                             self.save_dir))
+        return os.path.abspath(os.path.join(head, _sanitized(tail)))
+
+    def _save_orbax(self, state):
+        """Write the full tree to a sibling ``.tmp``, then swap it in
+        through ``.old``, so that a crash at any point leaves a whole
+        checkpoint on disk (``mixstage_tpu/bookkeeping.py:228-250``)."""
+        import shutil
+
+        path = self._orbax_path()
+        tmp, old = path + ".tmp", path + ".old"
+        for stale in (tmp, old):
+            if os.path.exists(stale):
+                shutil.rmtree(stale)
+        orbax.write_directory(tmp, full_tree_of(state))
+        if os.path.exists(path):
+            os.rename(path, old)
+        os.rename(tmp, path)
+        if os.path.exists(old):
+            shutil.rmtree(old)
+
+    def _load_orbax(self, state, tree):
+        """An orbax checkpoint's tree into ``state``: the weights, and the
+        optimizer states and counters under ``-save_optim 1``."""
+        load_flax_checkpoint(state, tree["model"])
+        if getattr(self.args, "save_optim", 0):
+            load_flax_train(state, tree["train"])
+        return state
 
     # -- preemption survival: the LIVE state, weights + optimizer + counters,
     # in a file apart from the greedy-saved best weights ------------------
@@ -389,16 +451,31 @@ class BookKeeper:
         package's ``-load`` does, ``bookkeeping.py:385-403``); a flax
         msgpack file is the JAX package's (``{g_params, g_state, d_params,
         d_state}``), carried over by the weight bridge
-        (``interop/weights.py::load_flax_checkpoint``).  Any other torch
-        file and an orbax directory raise ``NotImplementedError``
-        naming ROADMAP queue 1 item 7; malformed msgpack raises
-        ``ValueError``."""
+        (``interop/weights.py::load_flax_checkpoint``); an orbax directory
+        (``PREFIX_weights.orbax``, of either package) holds the weights and,
+        under ``-save_optim 1``, the optimizer states and counters
+        (``_load_orbax``).  Under ``-ckpt_backend orbax`` a weights file
+        that does not exist (``cli.train``'s sampling pass names
+        ``PREFIX_weights.p``) gives way to the experiment's own directory,
+        recovered from ``.old`` first where a crash left it there.  Any
+        other torch file raises ``NotImplementedError``; a malformed
+        checkpoint raises ``ValueError``."""
         from mixstage_tpu_torch.interop.torch_import import (
             is_reference_state_dict, load_reference_state,
             state_dict_to_numpy)
 
         path = self.args.load or self.name(*self.weights_ext, self.save_dir)
+        if (not os.path.exists(path)
+                and getattr(self.args, "ckpt_backend", "msgpack") == "orbax"):
+            path = self._orbax_path()
+            if not os.path.isdir(path) and os.path.isdir(path + ".old"):
+                # a crash between _save_orbax's two renames: the previous
+                # checkpoint survives at .old
+                os.rename(path + ".old", path)
         kind, ckpt = read_checkpoint(path)
+        if kind == "orbax":
+            print(f"[import] orbax checkpoint {path}")
+            return self._load_orbax(state, ckpt)
         if kind == "flax":
             load_flax_checkpoint(state, _flax_weights(path, ckpt))
             print(f"[import] JAX checkpoint {path} (flax msgpack)")
@@ -418,8 +495,7 @@ class BookKeeper:
         raise NotImplementedError(
             f"{path} is a torch file but neither a checkpoint of the port "
             f"nor a reference (chahuja/mix-stage) state dict, nor is it a "
-            f"JAX checkpoint (flax msgpack); the reference's other layouts "
-            f"come later (ROADMAP queue 1 item 7)")
+            f"JAX checkpoint (flax msgpack or an orbax directory)")
 
     def export_experiment(self, state, out_dir: str) -> str:
         """Write this experiment (args + weights) in the port's format into
@@ -508,6 +584,14 @@ class BookKeeper:
                      f"(best {key}: {self.best_dev_score:.6f})")
             return True
         return False
+
+
+def _sanitized(name: str) -> str:
+    """``name`` with ``[ ] ' " ,`` and spaces replaced by ``-``, as the JAX
+    package names its orbax directories."""
+    for ch in "[]'\" ,":
+        name = name.replace(ch, "-")
+    return name
 
 
 def _atomic_save(obj, path: str) -> None:

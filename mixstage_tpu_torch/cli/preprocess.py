@@ -8,10 +8,15 @@ double as CLIs: ``src/data/audio.py:189-198``, ``skeleton.py:302-311``).
   python -m mixstage_tpu_torch.cli.preprocess -modalities '["pose"]' \
       -path2data <raw> -path2outdata <out> -speaker '["oliver"]' \
       -preprocess_methods '["data"]'        # or normalize, confidence
+  python -m mixstage_tpu_torch.cli.preprocess -modalities '["text"]' \
+      -path2data <data> -path2outdata <out> -speaker '["oliver"]' \
+      -preprocess_methods '["w2v", "bert", "pos", "tokens"]' \
+      -text_aligned 0             # 1: from each interval's text/meta
 
-Audio needs ``soundfile`` to read the raw mp3s.  ``text`` raises
-``NotImplementedError``: its embedders need downloads (ROADMAP queue 1
-item 7).
+Audio needs ``soundfile`` to read the raw mp3s.  Text runs without
+downloads: where the embedders' files are absent it writes what the JAX
+package writes then (``data/text.py``: zeros for w2v and bert, word
+indices for tokens).
 """
 
 from __future__ import annotations

@@ -9,9 +9,9 @@ reference's (dataUtils.py:510-527): ``window = time * fs(modality)``,
 subsample stride ``round(fs / fs_new)``, window starts every ``window`` (no
 hop) or every ``window_hop * stride``.
 
-``DataLoader.iter_all`` gathers each interval's windows in bulk with numpy
-(the JAX package's numpy path of ``data/native.py::gather_windows``; its C++
-gatherer is not ported), except where a text modality is loaded: then
+``DataLoader.iter_all`` gathers each interval's windows in bulk with the
+C++ gatherer (``data/native.py::gather_windows``, built by g++ at first
+use), except where a text modality is loaded: then
 ``MiniData.__getitem__`` builds each window (with its text keys) and the
 loader's collate pads the ragged text (``text.collate_fn_pad``), as the JAX
 package does.
@@ -36,6 +36,7 @@ from mixstage_tpu_torch.data.audio import Audio
 from mixstage_tpu_torch.data.common import (MissingData, Modality, Table,
                                             infer_as_str)
 from mixstage_tpu_torch.data.hdf5 import HDF5
+from mixstage_tpu_torch.data.native import gather_windows
 from mixstage_tpu_torch.data.skeleton import Skeleton2D
 from mixstage_tpu_torch.data.text import (Text, collate_fn_pad,
                                           english_stopwords, meta_columns,
@@ -45,16 +46,6 @@ from mixstage_tpu_torch.data.text import (Text, collate_fn_pad,
 TEXT_PAD_KEYS = ["text/w2v", "text/bert", "text/filler", "text/tokens",
                  "text/token_duration"]
 
-
-def gather_windows(data: np.ndarray, starts, steps: int,
-                   stride: int) -> np.ndarray:
-    """(rows, cols) + window starts → (n, steps, cols) float64 (the numpy
-    path of ``mixstage_tpu/data/native.py::gather_windows``)."""
-    data = np.ascontiguousarray(data, np.float64)
-    starts = np.ascontiguousarray(starts, np.int64)
-    idx = starts[:, None] + stride * np.arange(steps)[None, :]
-    idx = np.minimum(idx, data.shape[0] - 1)
-    return data[idx]
 
 # ---------------------------------------------------------------------------
 # Collate + loader
@@ -158,6 +149,31 @@ class DataLoader:
 # ---------------------------------------------------------------------------
 
 
+class DummyData:
+    """A synthetic dataset for the transforms' self-tests
+    (``dataset.py:134-154``): ``length`` items of each variable, 1..length,
+    or with ``random`` (30, 50) uniform draws in [1, 2) from ``seed``."""
+
+    def __init__(self, variable_list=("pose", "audio"), length=1000,
+                 random=False, seed=0):
+        self.variable_list = list(variable_list)
+        self.len = length
+        rng = np.random.default_rng(seed)
+        if random:
+            self.data = {v: rng.random((length, 30, 50)) + 1
+                         for v in self.variable_list}
+        else:
+            self.data = {v: np.arange(length, dtype=np.float64) + 1
+                         for v in self.variable_list}
+
+    def __getitem__(self, idx):
+        return {v: np.asarray(self.data[v][idx], np.float64)
+                for v in self.variable_list}
+
+    def __len__(self):
+        return self.len
+
+
 class MiniData(HDF5):
     """One h5 interval file → windowed samples, whole interval in RAM
     (dataUtils.py:466-616)."""
@@ -178,8 +194,8 @@ class MiniData(HDF5):
         self.filler = filler
         self.stopwords = stopwords
         # a subword tokenizer (``tokenize(str) -> list``) for the filler
-        # masks of bert/tokens streams; tokenising comes with item 7, so
-        # ``Data`` passes None, as the JAX package's does
+        # masks of bert/tokens streams; ``Data`` passes None, as the JAX
+        # package's does
         self.tokenizer = tokenizer
 
         self.shapes, self.data = [], []

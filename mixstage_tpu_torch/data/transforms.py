@@ -55,6 +55,20 @@ def add_slices(x: np.ndarray, insert: np.ndarray, mask: Sequence[int],
     return out
 
 
+class TransformDict:
+    """An array → array transform applied to every value of a dict batch
+    (``transforms.py:58-69``)."""
+
+    def __init__(self, transform):
+        self.transform = transform
+
+    def __call__(self, batch, **kwargs):
+        return {key: self.transform(batch[key], **kwargs) for key in batch}
+
+    def __repr__(self):
+        return f"{self.__class__.__name__}({self.transform})"
+
+
 class Compose:
     """Compose transforms; ``inv=True`` applies inverses in reverse order
     (transform.py:50-96)."""
@@ -442,3 +456,41 @@ class RemoveJoints:
     def __repr__(self):
         return f"RemoveJoints(mask={self.mask})"
 
+
+def znorm_self_test(length: int = 500, savepath: Optional[str] = None
+                    ) -> Dict[str, tuple]:
+    """ZNorm fitted on ``DummyData`` normalises it to mean 0, std 1
+    (``transforms.py:405-437``, the reference's ``transform.py``
+    self-test): ``{variable: (mean, std)}`` of the normalised batch."""
+    import tempfile
+
+    from mixstage_tpu_torch.data.dataset import DummyData
+
+    class _Loader:
+        """``iter_all`` over ``DummyData`` for ZNorm's streaming stats."""
+
+        def __init__(self, dummy):
+            self.dummy = dummy
+
+        def iter_all(self, batch_size=32):
+            for s in range(0, len(self.dummy), batch_size):
+                items = [self.dummy[i] for i in
+                         range(s, min(s + batch_size, len(self.dummy)))]
+                yield {v: np.stack([it[v] for it in items])
+                       for v in self.dummy.variable_list}
+
+    dummy = DummyData(variable_list=["pose", "audio"], length=length,
+                      random=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        znorm = ZNorm(["pose", "audio"], savepath=savepath or tmp,
+                      key="dummy", data=_Loader(dummy), verbose=False)
+        out = znorm(next(_Loader(dummy).iter_all(batch_size=length)))
+    return {v: (float(np.mean(out[v])), float(np.std(out[v])))
+            for v in ("pose", "audio")}
+
+
+if __name__ == "__main__":
+    for variable, (m, s) in znorm_self_test().items():
+        print(f"{variable}: mean={m:+.4f} std={s:.4f}")
+        assert abs(m) < 1e-6 and abs(s - 1) < 1e-2, (variable, m, s)
+    print("ZNorm self-test OK")

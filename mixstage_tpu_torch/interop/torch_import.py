@@ -221,35 +221,43 @@ def convert_reference_checkpoint(
     return out, report
 
 
+def _g_modules(state) -> Dict[str, Any]:
+    """The G side's modules under their params-tree keys: ``gen`` and, for
+    the style models, ``psenc``."""
+    out = {"gen": state.gen}
+    if state.psenc is not None:
+        out["psenc"] = state.psenc
+    return out
+
+
 def reference_template(state) -> Dict[str, Any]:
     """The port's ``TrainState`` modules as the converter's template:
     ``{g_params, g_state, d_params, d_state}`` in the flax layout (numpy,
     through the weight bridge), shaped as the JAX package's checkpoint
-    trees."""
+    trees for every model family ``convert_reference_checkpoint`` fills:
+    the Mix-StAGE generator with its pose-style encoder, with or without
+    the discriminator, ``Speech2Gesture_G`` with or without its D,
+    ``StyleClassifier_G``.  Without a discriminator the D trees are
+    None."""
     from mixstage_tpu_torch.interop.weights import to_flax_state
 
-    if state.psenc is None or state.disc is None:
-        raise NotImplementedError(
-            "a reference checkpoint converts into the Mix-StAGE GAN's "
-            "modules (gen, psenc, disc); the other model families come "
-            "later (ROADMAP queue 1 item 7)")
-    gen_p, gen_s = to_flax_state(state.gen)
-    ps_p, ps_s = to_flax_state(state.psenc)
-    d_p, d_s = to_flax_state(state.disc)
-    return {"g_params": {"gen": gen_p, "psenc": ps_p},
-            "g_state": {"gen": gen_s, "psenc": ps_s},
+    flax = {k: to_flax_state(m) for k, m in _g_modules(state).items()}
+    d_p, d_s = (to_flax_state(state.disc) if state.disc is not None
+                else (None, None))
+    return {"g_params": {k: v[0] for k, v in flax.items()},
+            "g_state": {k: v[1] for k, v in flax.items()},
             "d_params": d_p, "d_state": d_s}
 
 
 def load_reference_state(state, sd: Dict[str, np.ndarray]):
     """Convert the reference state dict ``sd`` (numpy, ``load_torch_state_
-    dict``) and load it into ``state``'s modules in place.  Returns
-    ``(state, report)``."""
+    dict``) and load it into ``state``'s modules in place (a discriminator
+    the file does not hold stays as it is).  Returns ``(state, report)``."""
     from mixstage_tpu_torch.interop.weights import load_flax_state
 
     conv, report = convert_reference_checkpoint(sd, reference_template(state))
-    load_flax_state(state.gen, conv["g_params"]["gen"], conv["g_state"]["gen"])
-    load_flax_state(state.psenc, conv["g_params"]["psenc"],
-                    conv["g_state"]["psenc"])
-    load_flax_state(state.disc, conv["d_params"], conv["d_state"])
+    for key, module in _g_modules(state).items():
+        load_flax_state(module, conv["g_params"][key], conv["g_state"][key])
+    if state.disc is not None:
+        load_flax_state(state.disc, conv["d_params"], conv["d_state"])
     return state, report

@@ -418,6 +418,101 @@ def optax_state_of_dict(tree):
     return namedtuple("OptaxState", list(fields))(**fields)
 
 
+def _with_masked(tree: Dict[str, Any], module: nn.Module) -> Dict[str, Any]:
+    """A masked group's params-shaped tree with ``None`` (optax's
+    ``MaskedNode``) at every leaf of ``module`` the group does not hold."""
+    for name, _ in module.named_parameters():
+        *path, leaf = name.split(".")
+        owner = module.get_submodule(".".join(path))
+        if leaf == "weight":
+            leaf = "scale" if isinstance(owner, BatchNorm) else "kernel"
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        node.setdefault(leaf, None)
+    return tree
+
+
+def _rule_chain(opt, modules: Dict[Any, nn.Module], masked: bool = False):
+    """One optimizer's state as its optax chain nests it (without the
+    clip): a tuple of each transformation's state, a named tuple as the
+    dict of its fields, ``None`` for a stateless one (``EmptyState``).
+    ``optax.adam``: ``(ScaleByAdamState(count, mu, nu), schedule)``;
+    ``adamw``: ``(adam, add_decayed_weights, schedule)``; ``sgd``:
+    ``(TraceState(trace) or None, schedule)``; ``rmsprop``: ``(rms,
+    schedule, TraceState or None)``, ``rms`` holding ``nu`` and, centered,
+    ``mu``, with bias correction ``count``.  ``schedule`` is
+    ``ScaleByScheduleState(count)`` under a schedule, else ``None``."""
+    from mixstage_tpu_torch.train import state as st
+
+    flat = to_flax_opt_state(opt, modules, masked)
+    if masked:
+        for field in opt.slots():
+            for key, module in modules.items():
+                if key is None:
+                    _with_masked(flat[field], module)
+                else:
+                    _with_masked(flat[field].setdefault(key, {}), module)
+    count = flat["count"]
+    sched = {"count": count} if opt.schedule is not None else None
+    if isinstance(opt, st.ClippedAdam):
+        adam = {"count": count, "mu": flat["mu"], "nu": flat["nu"]}
+        if isinstance(opt, st.ClippedAdamW):
+            return (adam, None, sched)
+        return (adam, sched)
+    trace = {"trace": flat["trace"]} if "trace" in flat else None
+    if isinstance(opt, st.ClippedSGD):
+        return (trace, sched)
+    if isinstance(opt, st.ClippedRMSprop):
+        rms = {"nu": flat["nu"]}
+        if opt.centered:
+            rms["mu"] = flat["mu"]
+        if opt.bias_correction:
+            rms["count"] = count
+        return (rms, sched, trace)
+    raise TypeError(f"no optax nesting for {type(opt).__name__}")
+
+
+def optax_tree_of(opt, modules: Dict[Any, nn.Module]):
+    """The optimizer's state nested as optax nests the JAX package's
+    (``chain(clip_by_global_norm, <rule>)``: ``(None, <rule chain>)``; a
+    ``SeparateTextOptimizer``'s ``multi_transform`` as ``(None,
+    {"inner_states": {group: {"inner_state": <rule chain>}}})`` with
+    ``None`` at the other group's leaves), so that a checkpoint written
+    from it restores into the JAX package's optax state
+    (``BookKeeper._save_orbax``).  The inverse of ``optax_state_of_dict``
+    followed by ``load_flax_opt_state``."""
+    groups = getattr(opt, "groups", None)
+    if groups is None:
+        return (None, _rule_chain(opt, modules))
+    return (None, {"inner_states": {
+        g: {"inner_state": _rule_chain(sub, modules, masked=True)}
+        for g, sub in groups.items()}})
+
+
+def full_tree_of(state) -> Dict[str, Any]:
+    """The tree the JAX package's ``BookKeeper._state_to_full_ckpt``
+    checkpoints, from the port's state: ``{"model": {g_params, g_state,
+    d_params, d_state}, "train": {g_opt_state, d_opt_state, counters}}``,
+    the weights in flax layout, each optimizer state nested as optax nests
+    it (``optax_tree_of``), the four counters as int32 scalars, ``{}`` for
+    the D side without a discriminator."""
+    g_mods = _g_modules(state)
+    flax = {k: to_flax_state(m) for k, m in g_mods.items()}
+    model = {"g_params": {k: v[0] for k, v in flax.items()},
+             "g_state": {k: v[1] for k, v in flax.items()},
+             "d_params": {}, "d_state": {}}
+    train = {"g_opt_state": optax_tree_of(state.g_opt, g_mods),
+             "d_opt_state": {},
+             "counters": {k: np.asarray(getattr(state, k), np.int32)
+                          for k in COUNTERS}}
+    if state.disc is not None:
+        model["d_params"], model["d_state"] = to_flax_state(state.disc)
+        train["d_opt_state"] = optax_tree_of(state.d_opt,
+                                             {None: state.disc})
+    return {"model": model, "train": train}
+
+
 def _empty(tree) -> bool:
     return tree is None or (isinstance(tree, dict) and not tree)
 

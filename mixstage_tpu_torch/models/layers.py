@@ -1,6 +1,9 @@
-"""PyTorch port of the layer subset the Mix-StAGE generator uses.
+"""PyTorch port of the layer vocabulary of the Mix-StAGE models.
 
-Counterpart of ``mixstage_tpu/models/layers.py``.  Forwards take and return
+Counterpart of ``mixstage_tpu/models/layers.py``: every layer but the TPU
+relowerings of ``audio_lowering`` (``_Conv2DS2DFold``, ``_Conv2DIm2col``,
+the same math on the same parameters; ``ConvNormRelu`` runs the native
+conv for any ``lowering``).  Forwards take and return
 channels-last tensors ``(B, T, C)`` / ``(B, H, W, C)``, as the JAX package
 does; each convolution runs on a permuted view in torch's ``(B, C, T)`` /
 NCHW layout, so a chain of layers permutes without copying.
@@ -313,21 +316,25 @@ def resize_bilinear_time(x, time_steps: int):
 
 class AudioEncoder(nn.Module):
     """2D conv pyramid over (time, mel) log-spectrogram windows
-    (``layers.py:260-308``): (B, T, mel) → (B, time_steps, 256)."""
+    (``layers.py:260-308``): (B, T, mel) → (B, time_steps, 256).  With
+    ``groups`` G every conv is grouped (``ConvNormRelu``'s per-group
+    widths): the input holds ``input_channels · G`` channels, the output
+    256 · G."""
 
     CHANNELS = ((64, False), (64, True), (128, False), (128, True),
                 (256, False), (256, True), (256, False))
 
     def __init__(self, lowerings: Optional[Tuple[str, ...]] = None,
-                 dtype: torch.dtype = torch.float32, p: float = 0.0):
+                 dtype: torch.dtype = torch.float32, p: float = 0.0,
+                 input_channels: int = 1, groups: int = 1):
         super().__init__()
         if lowerings is not None and (
                 len(lowerings) != 8
                 or any(lo not in ("conv", "s2d", "im2col") for lo in lowerings)):
             raise ValueError(f"lowerings must be 8 entries from "
                              f"conv|s2d|im2col, got {lowerings!r}")
-        common = dict(type="2d", leaky=True, dtype=dtype, p=p)
-        cin = 1                                   # one log-mel channel
+        common = dict(type="2d", leaky=True, dtype=dtype, p=p, groups=groups)
+        cin = input_channels                      # one log-mel channel
         for i, (cout, down) in enumerate(self.CHANNELS):
             self.add_module(f"conv{i}", ConvNormRelu(cin, cout,
                                                      downsample=down, **common))
@@ -347,16 +354,18 @@ class AudioEncoder(nn.Module):
 
 class _Conv1DStack(nn.Module):
     """A stack of 1D leaky ConvNormRelu blocks from a (cin, cout, downsample)
-    plan (``layers.py:311-326``)."""
+    plan (``layers.py:311-326``), each grouped by ``groups`` (per-group
+    widths)."""
 
     def __init__(self, plan: Sequence[Tuple[int, int, bool]],
-                 dtype: torch.dtype = torch.float32, p: float = 0.0):
+                 dtype: torch.dtype = torch.float32, p: float = 0.0,
+                 groups: int = 1):
         super().__init__()
         self.depth = len(plan)
         for i, (cin, cout, down) in enumerate(plan):
             self.add_module(f"conv{i}", ConvNormRelu(
                 cin, cout, type="1d", leaky=True, downsample=down,
-                dtype=dtype, p=p))
+                dtype=dtype, p=p, groups=groups))
 
     def forward(self, x):
         for i in range(self.depth):
@@ -370,12 +379,15 @@ def _encoder_plan(input_channels: int):
 
 
 class PoseEncoder(nn.Module):
-    """(B, T, pose_feats) → (B, T, 256) (``layers.py:329-345``)."""
+    """(B, T, pose_feats) → (B, T, 256) (``layers.py:329-345``); grouped,
+    (B, T, pose_feats · G) → (B, T, 256 · G)."""
 
     def __init__(self, input_channels: int = 96,
-                 dtype: torch.dtype = torch.float32, p: float = 0.0):
+                 dtype: torch.dtype = torch.float32, p: float = 0.0,
+                 groups: int = 1):
         super().__init__()
-        self.stack = _Conv1DStack(_encoder_plan(input_channels), dtype, p)
+        self.stack = _Conv1DStack(_encoder_plan(input_channels), dtype, p,
+                                  groups)
 
     def forward(self, x):
         return self.stack(x)
@@ -387,12 +399,13 @@ class PoseStyleEncoder(nn.Module):
     (B, num_speakers)."""
 
     def __init__(self, input_channels: int = 96, num_speakers: int = 4,
-                 dtype: torch.dtype = torch.float32, p: float = 0.0):
+                 dtype: torch.dtype = torch.float32, p: float = 0.0,
+                 groups: int = 1):
         super().__init__()
         self.stack = _Conv1DStack([
             (input_channels, 64, False), (64, 64, True), (64, 128, True),
             (128, 128, True), (128, 256, True), (256, 256, True),
-            (256, num_speakers, True)], dtype, p)
+            (256, num_speakers, True)], dtype, p, groups)
 
     def forward(self, x):
         return self.stack(x).mean(dim=1)
@@ -402,9 +415,43 @@ class TextEncoder1D(nn.Module):
     """(B, T, emb) → (B, T, 256) (``layers.py:373-389``)."""
 
     def __init__(self, input_channels: int = 300,
-                 dtype: torch.dtype = torch.float32, p: float = 0.0):
+                 dtype: torch.dtype = torch.float32, p: float = 0.0,
+                 groups: int = 1):
         super().__init__()
-        self.stack = _Conv1DStack(_encoder_plan(input_channels), dtype, p)
+        self.stack = _Conv1DStack(_encoder_plan(input_channels), dtype, p,
+                                  groups)
+
+    def forward(self, x):
+        return self.stack(x)
+
+
+class AudioEncoder1D(nn.Module):
+    """1D audio encoder over (B, T, mel) → (B, T, 256)
+    (``layers.py:392-408``): PoseEncoder's plan on log-mel frames."""
+
+    def __init__(self, input_channels: int = 128,
+                 dtype: torch.dtype = torch.float32, p: float = 0.0,
+                 groups: int = 1):
+        super().__init__()
+        self.stack = _Conv1DStack(_encoder_plan(input_channels), dtype, p,
+                                  groups)
+
+    def forward(self, x):
+        return self.stack(x)
+
+
+class LatentEncoder(nn.Module):
+    """Four 1D ConvNormRelu, (B, T, in) → (B, T, out)
+    (``layers.py:411-428``)."""
+
+    def __init__(self, in_channels: int, hidden_channels: int,
+                 out_channels: int = 2, dtype: torch.dtype = torch.float32,
+                 p: float = 0.0):
+        super().__init__()
+        h = hidden_channels
+        self.stack = _Conv1DStack([(in_channels, h, False), (h, h, False),
+                                   (h, h, False), (h, out_channels, False)],
+                                  dtype, p)
 
     def forward(self, x):
         return self.stack(x)
@@ -455,8 +502,10 @@ class GroupedPointwiseConv(nn.Module):
 
 
 class EmbLin(nn.Module):
-    """Style table in the soft-matmul ('lin') mode the generator uses
-    (``layers.py:636-654``): (..., S) style weights → (..., dim)."""
+    """The style table (``layers.py:636-654``): in the soft-matmul
+    ``'lin'`` mode the generator uses, (..., S) style weights → (...,
+    dim); in the hard-index ``'emb'`` mode, (...) integer rows → (...,
+    dim)."""
 
     def __init__(self, num_embeddings: int, embedding_dim: int,
                  dtype: torch.dtype = torch.float32):
@@ -465,9 +514,81 @@ class EmbLin(nn.Module):
         self.embedding = nn.Parameter(
             torch.randn(num_embeddings, embedding_dim))
 
-    def forward(self, x):
+    def forward(self, x, mode: str = "lin"):
         emb = _cast(self.embedding, self.dtype)
-        return x.to(emb.dtype) @ emb
+        if mode == "lin":
+            return x.to(emb.dtype) @ emb
+        if mode == "emb":
+            return emb[x.long()]
+        raise ValueError(f"unknown EmbLin mode {mode!r}")
+
+
+def curriculum_value(step, start: float, end: float, num_iters: int):
+    """The linear style curriculum (``layers.py:656-661``, the reference's
+    ``Curriculum``): ``start + (end - start) · clip(step / num_iters, 0,
+    1)`` in float32, a 0-d tensor."""
+    if torch.is_tensor(step):
+        frac = step.float() / max(num_iters, 1)
+    else:
+        frac = torch.tensor(step / max(num_iters, 1), dtype=torch.float32)
+    return start + (end - start) * frac.clamp(0.0, 1.0)
+
+
+class PoseDecoder(nn.Module):
+    """Grouped pose decoder with per-group style re-injection
+    (``layers.py:681-718``): four ConvNormRelu grouped by
+    ``num_clusters`` M; after each of the first three, each group's last
+    ``style_dim`` input channels are appended to its output again; then a
+    grouped 1×1 conv.  (B, T, M·(input_channels + style_dim)) → (B, T,
+    M·out_feats)."""
+
+    def __init__(self, input_channels: int = 256, style_dim: int = 10,
+                 num_clusters: int = 8, out_feats: int = 96, p: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.style_dim, self.num_clusters, self.dtype = (style_dim,
+                                                         num_clusters, dtype)
+        for i in range(4):
+            self.add_module(f"dec{i}", ConvNormRelu(
+                input_channels + style_dim, input_channels, type="1d",
+                leaky=True, groups=num_clusters, dtype=dtype, p=p))
+        self.pose_logits = nn.Conv1d(input_channels * num_clusters,
+                                     out_feats * num_clusters, 1,
+                                     groups=num_clusters)
+
+    def forward(self, x):
+        B, T, _ = x.shape
+        M = self.num_clusters
+        style = x.reshape(B, T, M, -1)[..., -self.style_dim:]
+        for i in range(4):
+            x = getattr(self, f"dec{i}")(x)
+            if i < 3:
+                x = torch.cat([x.reshape(B, T, M, -1), style],
+                              dim=-1).reshape(B, T, -1)
+        return _conv_channels_last(self.pose_logits, x, self.dtype)
+
+
+class StyleDecoder(nn.Module):
+    """Two grouped ConvNormRelu and a grouped 1×1 conv
+    (``layers.py:721-741``): (B, T, M·input_channels) → (B, T,
+    M·out_feats), M = ``num_clusters``."""
+
+    def __init__(self, input_channels: int = 256, num_clusters: int = 10,
+                 out_feats: int = 96, p: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        for i in range(2):
+            self.add_module(f"dec{i}", ConvNormRelu(
+                input_channels, input_channels, type="1d", leaky=True,
+                groups=num_clusters, dtype=dtype, p=p))
+        self.pose_logits = nn.Conv1d(input_channels * num_clusters,
+                                     out_feats * num_clusters, 1,
+                                     groups=num_clusters)
+
+    def forward(self, x):
+        return _conv_channels_last(self.pose_logits, self.dec1(self.dec0(x)),
+                                   self.dtype)
 
 
 def confidence_entropy_loss(y, y_cap, confidence, beta: float = 1.0,

@@ -3,4 +3,5 @@ host-side thread map (``parallel.py``), the device layouts (``mesh.py``:
 data parallelism, data × expert) and the multi-process set-up
 (``multihost.py``)."""
 
-from mixstage_tpu_torch.parallel.parallel import parallel  # noqa: F401
+from mixstage_tpu_torch.parallel.parallel import (  # noqa: F401
+    get_parallel_list, parallel)

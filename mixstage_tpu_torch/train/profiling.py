@@ -35,6 +35,18 @@ class StepTimer:
             self.times.append(time.perf_counter() - self._t0)
             self._t0 = None
 
+    @contextlib.contextmanager
+    def measure(self):
+        """Time the block as one step."""
+        self.start()
+        try:
+            yield
+        finally:
+            self.stop()
+
+    def reset(self):
+        self.times = []
+
     def summary(self, prefix: str = "") -> Dict[str, float]:
         if not self.times:
             return {}

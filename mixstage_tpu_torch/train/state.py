@@ -29,7 +29,9 @@ semantics, not ``torch.optim``'s):
   ``initial_scale`` 0, decay 0.9, the update ``g · rsqrt(nu + eps)`` (eps
   1e-8 inside the root; ``torch.optim.RMSprop``'s α 0.99 and ``g /
   (sqrt(v) + eps)`` compute something else), scaled by ``-lr``, then the
-  optional momentum trace;
+  optional momentum trace; ``centered`` subtracts the squared running
+  mean ``mu`` of the gradients, ``bias_correction`` divides the moments
+  by ``1 - decay^count``;
 * the learning rate is the schedule at the count BEFORE the update;
 * ``text_lr`` (the ``-optim_separate`` flag) is optax's ``multi_transform``
   behind the one clip (``SeparateTextOptimizer``): every parameter under a
@@ -252,7 +254,15 @@ class ClippedSGD(ClippedOptimizer):
 
 
 class ClippedRMSprop(ClippedOptimizer):
-    """``optax.rmsprop`` (not centered, no bias correction)."""
+    """``optax.rmsprop`` (optax 0.2.6): ``scale_by_rms`` or, ``centered``,
+    ``scale_by_stddev``, then the learning rate, then the optional
+    momentum trace.  ``nu = (1-decay)·g² + decay·nu`` from
+    ``initial_scale``; centered, also ``mu = (1-decay)·g + decay·mu`` from
+    0 and the denominator ``nu - mu²``; ``bias_correction`` divides
+    ``nu`` (and ``mu``) by ``1 - decay^count`` (float32, as optax's
+    ``bias_correction``) before the root.  The update is ``g · rsqrt(den
+    + eps)`` (``eps_in_sqrt``, the default) or ``g / (sqrt(den) +
+    eps)``."""
 
     def __init__(self, named_params, lr: float = 1e-4,
                  schedule: Optional[Schedule] = None, decay: float = 0.9,
@@ -260,27 +270,41 @@ class ClippedRMSprop(ClippedOptimizer):
                  eps_in_sqrt: bool = True, centered: bool = False,
                  momentum: Optional[float] = None, nesterov: bool = False,
                  bias_correction: bool = False):
-        if centered or bias_correction:
-            raise NotImplementedError(
-                "RMSprop with centered or bias_correction: the port has "
-                "optax's default rmsprop (ROADMAP queue 1 item 7)")
         super().__init__(named_params, lr, schedule)
         self.decay, self.eps, self.eps_in_sqrt = decay, eps, eps_in_sqrt
+        self.centered, self.bias_correction = centered, bias_correction
         self.momentum, self.nesterov = momentum, nesterov
-        self.SLOTS = ("nu",) + (("trace",) if momentum is not None else ())
+        self.SLOTS = (("mu",) if centered else ()) + ("nu",) + \
+            (("trace",) if momentum is not None else ())
         self.nu = [torch.full_like(p, initial_scale) for p in self.params]
+        if centered:
+            self.mu = [torch.zeros_like(p) for p in self.params]
         if momentum is not None:
             self.trace = [torch.zeros_like(p) for p in self.params]
 
+    _bias_correction = ClippedAdam._bias_correction
+
     def _direction(self, grads):
-        torch._foreach_mul_(self.nu, self.decay)
+        d = self.decay
+        torch._foreach_mul_(self.nu, d)
         torch._foreach_add_(self.nu, torch._foreach_mul(
-            torch._foreach_mul(grads, grads), 1.0 - self.decay))
+            torch._foreach_mul(grads, grads), 1.0 - d))
+        den = self.nu
+        if self.centered:
+            torch._foreach_mul_(self.mu, d)
+            torch._foreach_add_(self.mu, torch._foreach_mul(grads, 1.0 - d))
+        if self.bias_correction:
+            bc = self._bias_correction(d)
+            den = torch._foreach_div(self.nu, bc)
+        if self.centered:
+            mu = (torch._foreach_div(self.mu, bc) if self.bias_correction
+                  else self.mu)
+            den = torch._foreach_sub(den, torch._foreach_mul(mu, mu))
         if self.eps_in_sqrt:
-            scale = torch._foreach_add(self.nu, self.eps)
+            scale = torch._foreach_add(den, self.eps)
             torch._foreach_rsqrt_(scale)
         else:
-            scale = torch._foreach_sqrt(self.nu)
+            scale = torch._foreach_sqrt(den)
             torch._foreach_add_(scale, self.eps)
             torch._foreach_reciprocal_(scale)
         return torch._foreach_mul(scale, grads)
@@ -440,3 +464,18 @@ def g_named_parameters(gen: nn.Module, psenc: Optional[nn.Module]
     if psenc is not None:
         out += [("psenc." + n, p) for n, p in psenc.named_parameters()]
     return out
+
+
+def tree_size(tree) -> int:
+    """The number of elements of every array in ``tree`` (nested dicts,
+    lists and tuples of tensors or arrays; a module's parameters)."""
+    if isinstance(tree, nn.Module):
+        return sum(p.numel() for p in tree.parameters())
+    if isinstance(tree, dict):
+        return sum(tree_size(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tree_size(v) for v in tree)
+    if tree is None:
+        return 0
+    return int(tree.numel()) if torch.is_tensor(tree) else int(
+        getattr(tree, "size", 1))

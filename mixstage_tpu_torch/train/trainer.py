@@ -100,8 +100,8 @@ def check_export_variants(args: Config) -> None:
     one of the port's variants (``plain`` and ``kernel``, or the JAX
     package's ``xla`` and ``pallas`` for them; ``export.py``).  The flags
     the port does not run yet are refused by ``StepFactory`` (the step
-    configuration), ``BookKeeper`` (``-ckpt_backend orbax``) and
-    ``cli.serve`` (``-serve_partition`` over more than one device)."""
+    configuration) and ``cli.serve`` (``-serve_partition`` over more than
+    one device)."""
     if args.export_dir:
         from mixstage_tpu_torch.export import resolve_variants
 
@@ -695,7 +695,7 @@ class Trainer:
         """The frozen ``StyleClassifier_G`` forward of the IS metric
         (``trainer.py:584-614``): from ``-pretrained_model_weights``, what
         ``cli.train -model StyleClassifier_G`` writes, the port's torch
-        checkpoint or the JAX package's flax msgpack one (its
+        checkpoint or the JAX package's flax msgpack or orbax one (its
         ``g_params/gen`` and ``g_state/gen`` through the weight bridge),
         over every speaker of the data.  None when no file is named or it
         does not exist; any other file raises."""
@@ -714,6 +714,8 @@ class Trainer:
         if self.fp == torch.float64:
             clf.double()
         kind, ckpt = read_checkpoint(path)
+        if kind == "orbax":
+            kind, ckpt = "flax", ckpt["model"]
         if kind == "flax":
             load_flax_state(clf, ckpt["g_params"]["gen"],
                             (ckpt.get("g_state") or {}).get("gen", {}))
@@ -874,6 +876,17 @@ class Trainer:
 
     def finish_exp(self):
         self.book._stop_log()
+
+    def get_gt(self, path2h5):
+        """An interval's output stream as (frames, 2, joints) with the root
+        joint's coordinates set to 0 (``trainer.py:756-763``)."""
+        from mixstage_tpu_torch.data.hdf5 import HDF5
+
+        Y = HDF5.load_array(path2h5, self.output_modality)
+        feats_shape = self.data_shape[self.output_modality][-1] // 2
+        Y = Y.reshape(-1, 2, feats_shape).copy()
+        Y[..., 0] = 0
+        return Y
 
     # -------------------------------------------------------------- sampling
     def update_kwargs_styles(self, style):

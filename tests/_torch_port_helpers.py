@@ -396,3 +396,19 @@ def record_steps(trainer, log):
                          if k != "x"}, scalars(losses)))
             return out
         trainer.steps[kind] = wrapped
+
+
+def no_hub_requests(monkeypatch):
+    """Keep ``transformers`` from the network for the rest of a test: the
+    offline variables for a first import, and huggingface_hub's request
+    guard and transformers' copy of it set in place (both are read once,
+    at import, so a variable set later does not reach a worker that
+    imported them before).  ``from_pretrained`` then fails at once where
+    the files are absent."""
+    import huggingface_hub.constants
+    import transformers.utils.hub
+
+    monkeypatch.setenv("HF_HUB_OFFLINE", "1")
+    monkeypatch.setenv("TRANSFORMERS_OFFLINE", "1")
+    monkeypatch.setattr(huggingface_hub.constants, "HF_HUB_OFFLINE", True)
+    monkeypatch.setattr(transformers.utils.hub, "_is_offline_mode", True)

@@ -153,11 +153,12 @@ def test_preempt_snapshot_round_trip(tmp_path, trained_state):
 
 
 def test_foreign_checkpoint_is_refused(tmp_path, trained_state):
-    """A torch file of neither kind and an orbax directory still raise,
-    naming ROADMAP queue 1 item 7; truncated msgpack (a map of four keys
-    cut after one) raises ``ValueError`` naming the file as malformed
-    flax msgpack.  A JAX checkpoint loads
-    (``test_torch_port_jax_checkpoint.py``)."""
+    """A torch file of neither kind raises ``NotImplementedError``; a
+    directory without orbax's ``_METADATA`` and truncated msgpack (a map
+    of four keys cut after one) raise ``ValueError`` naming the file; a
+    ``-ckpt_backend`` other than msgpack and orbax raises ``ValueError``.
+    JAX checkpoints load (``test_torch_port_jax_checkpoint.py``,
+    ``test_torch_port_orbax.py``)."""
     f, _ = trained_state
     path = tmp_path / "ref_weights.p"
     torch.save({"G": {"w": torch.zeros(1)}}, path)      # neither kind
@@ -173,9 +174,13 @@ def test_foreign_checkpoint_is_refused(tmp_path, trained_state):
                                match="jax_weights.p is malformed flax "
                                      "msgpack"):
                 book._load_model(f.init(seed=6))
-            continue
-        with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-            book._load_model(f.init(seed=6))
-    with pytest.raises(NotImplementedError, match="orbax"):
-        BookKeeper(config_from_dict(_args(tmp_path, ckpt_backend="orbax")),
+        elif p == orbax:
+            with pytest.raises(ValueError, match="_METADATA"):
+                book._load_model(f.init(seed=6))
+        else:
+            with pytest.raises(NotImplementedError,
+                               match="neither a checkpoint of the port"):
+                book._load_model(f.init(seed=6))
+    with pytest.raises(ValueError, match="'msgpack' or 'orbax'"):
+        BookKeeper(config_from_dict(_args(tmp_path, ckpt_backend="zarr")),
                    SUB)

@@ -1,8 +1,9 @@
 """The port stands alone: no file of ``mixstage_tpu_torch``, ``tools/``,
 ``chip_smoke.py`` nor the multi-rank tests' children imports jax, flax,
-optax, msgpack or the JAX package, nor the host libraries the card's
-machine lacks or the port replaced (pandas, scikit-learn, joblib, PyYAML);
-and importing the port loads none of them."""
+optax, msgpack, orbax, tensorstore or the JAX package, nor the host
+libraries the card's machine lacks or the port replaced (pandas,
+scikit-learn, joblib, PyYAML, zstandard); and importing the port loads
+none of them."""
 
 import ast
 import os
@@ -14,12 +15,15 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 # msgpack too: the port reads and writes flax checkpoints with its own
-# ``interop/flax_msgpack.py``
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "msgpack", "mixstage_tpu"}
+# ``interop/flax_msgpack.py``; orbax and tensorstore: it reads and writes
+# orbax directories with its own ``interop/orbax.py``
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "msgpack", "orbax",
+             "tensorstore", "mixstage_tpu"}
 # the JAX package's host libraries the port does without: the master CSV
 # is read with ``csv``, the k-means fit is its own, the thread map runs on
-# ``concurrent.futures``, the OpenPose YAML reader is its own
-HOST_FORBIDDEN = {"pandas", "sklearn", "joblib", "yaml"}
+# ``concurrent.futures``, the OpenPose YAML reader is its own, zstd frames
+# are decoded by the system's libzstd through ``ctypes``
+HOST_FORBIDDEN = {"pandas", "sklearn", "joblib", "yaml", "zstandard"}
 # the multi-rank tests' children run the port without JAX too
 FILES = sorted((ROOT / "mixstage_tpu_torch").rglob("*.py")) + \
     sorted((ROOT / "tools").glob("*.py")) + [ROOT / "chip_smoke.py"] + \
@@ -79,6 +83,9 @@ def test_importing_the_port_loads_no_jax():
             "mixstage_tpu_torch.cli.import_torch, mixstage_tpu_torch.export, "
             "mixstage_tpu_torch.interop.torch_import, "
             "mixstage_tpu_torch.interop.flax_msgpack, "
+            "mixstage_tpu_torch.interop.orbax, "
+            "mixstage_tpu_torch.hostlib, mixstage_tpu_torch.data.native, "
+            "mixstage_tpu_torch.data.text, mixstage_tpu_torch.models.layers, "
             "mixstage_tpu_torch.animation, "
             "mixstage_tpu_torch.animation.raster, "
             "mixstage_tpu_torch.animation.aviwriter, "

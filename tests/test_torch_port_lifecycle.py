@@ -318,6 +318,11 @@ PORTED = {
     "SeparateTextOptimizer" and tr.state.g_opt.groups["text"].lr == 1e-5,
     # the trainer renders after sampling (test_torch_port_render.py)
     "render": lambda tr: tr.args.render == 1 and callable(tr.render_samples),
+    # centered, bias-corrected RMSprop (test_torch_port_rmsprop_centered.py)
+    "rmsprop_centered": lambda tr: tr.state.g_opt.centered
+    and tr.state.g_opt.SLOTS == ("mu", "nu"),
+    # orbax directories (test_torch_port_orbax.py)
+    "orbax": lambda tr: tr.book._orbax_path().endswith("_weights.orbax"),
 }
 
 
@@ -356,7 +361,7 @@ def test_unported_flags_raise(data, text_data, tmp_path, name):
         Trainer(cfg(data, tmp_path, **REFUSED[name]), SUB, {}, device="cpu")
     if name == "disentangle":
         assert "upstream-incomplete" in str(e.value), str(e.value)
-    elif name != "orbax":
+    else:
         assert "ROADMAP queue 1" in str(e.value), str(e.value)
 
 
@@ -364,9 +369,9 @@ def test_pretrained_classifier_weights_raise(data, tmp_path):
     """``-pretrained_model_weights`` naming a file that exists must be a
     checkpoint of the IS metric's ``StyleClassifier_G``, the port's or the
     JAX package's (``test_torch_port_jax_checkpoint.py``): a file of
-    neither format raises ``ValueError``, an orbax directory
-    ``NotImplementedError`` naming ROADMAP queue 1 item 7; a path that
-    does not exist is ignored, as the JAX package ignores it."""
+    neither format raises ``ValueError``, and so does a directory that is
+    not an orbax checkpoint (no ``_METADATA``); a path that does not exist
+    is ignored, as the JAX package ignores it."""
     missing = tmp_path / "absent.p"
     tr = Trainer(cfg(data, tmp_path / "a", pretrained_model_weights=str(
         missing)), SUB, {}, device="cpu")
@@ -378,7 +383,7 @@ def test_pretrained_classifier_weights_raise(data, tmp_path):
                 device="cpu")
     orbax = tmp_path / "clf_weights.orbax"
     orbax.mkdir()
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+    with pytest.raises(ValueError, match="_METADATA"):
         Trainer(cfg(data, tmp_path / "c",
                     pretrained_model_weights=str(orbax)), SUB, {},
                 device="cpu")

@@ -189,6 +189,8 @@ def test_unknown_and_refused_optimizer_options():
     assert [o.names for o in opt.groups.values()] == [
         ["gen.text_encoder.stack.conv0.conv.weight"],
         ["gen.unet.pre0.conv.weight"]]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TS.make_optimizer("RMSprop", 0.1, centered=True)(
-            [("p", torch.zeros(2))])
+    # centered RMSprop keeps the gradients' mean too
+    # (test_torch_port_rmsprop_centered.py)
+    opt = TS.make_optimizer("RMSprop", 0.1, centered=True)(
+        [("p", torch.zeros(2))])
+    assert sorted(opt.slots()) == ["mu", "nu"]

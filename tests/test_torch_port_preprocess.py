@@ -20,6 +20,7 @@ import joblib
 import numpy as np
 import pytest
 
+
 from mixstage_tpu.cli import delete_keys as jdel
 from mixstage_tpu.cli import preprocess as jpre
 from mixstage_tpu.config import argparse_n_loop as jax_loop
@@ -217,11 +218,25 @@ def test_pose_preprocess_equals_jax(raw, tmp_path):
 
 
 def test_text_preprocessing_still_raises(raw, tmp_path):
-    path = _copy(raw, tmp_path / "t")
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        ppre.main(["-modalities", '["text"]', "-speaker", '["oliver"]',
-                   "-preprocess_methods", '["w2v"]', "-path2data", path,
-                   "-path2outdata", path])
+    """Text preprocessing runs now (``test_torch_port_text_preprocess.py``
+    holds it to the JAX package): on this tree, which has no transcripts
+    and no ``text/meta``, both CLIs record every interval of the speaker
+    missing and write no text stream.  What still raises is reading a
+    pytables ``text/meta`` (``test_torch_port_text_data.py``)."""
+    roots = {}
+    for name, loop in (("jax", lambda a: jax_loop(jpre.loop, a)),
+                       ("port", ppre.main)):
+        path = _copy(raw, tmp_path / name)
+        roots[name] = Path(path)
+        for aligned in ("0", "1"):
+            loop(["-modalities", '["text"]', "-speaker", '["oliver"]',
+                  "-preprocess_methods", '["w2v"]', "-text_aligned",
+                  aligned, "-path2data", path, "-path2outdata", path])
+    _assert_same_h5(roots["jax"], roots["port"])
+    tree = _h5_tree(roots["port"])
+    assert not any(k.startswith("text/") for f in tree.values() for k in f)
+    assert sorted(m.decode() for m in tree["missing_intervals.h5"][
+        "intervals"]) == ["100000", "100001", "100002"]
 
 
 def test_wav_round_trip_for_the_mux(tmp_path):

@@ -23,6 +23,7 @@ import h5py
 import numpy as np
 import pytest
 
+
 from _torch_port_memory import release_memory  # noqa: F401
 from mixstage_tpu.data import dataset as jds
 from mixstage_tpu.data import text as jtext
@@ -198,9 +199,23 @@ def test_subword_frames_times_tags_and_alignment_match_jax():
         jtext.Text.frame_align(None, words[:3], s, e, v, 30))
 
 
-def test_text_preprocessing_is_refused():
+def test_text_preprocessing_is_refused(tmp_path):
+    """Text preprocessing is no longer refused
+    (``test_torch_port_text_preprocess.py``): the aligned path over data
+    with ``text/meta`` writes ``text/w2v`` as the JAX package does (zeros
+    without word2vec's weights).  The real embedders still raise."""
+    make_synthetic_dataset(str(tmp_path), ["oliver"], 1)
+    f = next((tmp_path / "processed" / "oliver").glob("*.h5"))
+    ptext.write_text_meta(f, {"Word": ["a", "b"], "start_frame": [0, 5],
+                              "end_frame": [5, 9]})
+    ptext.Text(path2data=str(tmp_path), path2outdata=str(tmp_path),
+               speaker=["oliver"], preprocess_methods=["w2v"]).preprocess()
+    with h5py.File(f) as h5:
+        w2v, frames = h5["text/w2v"][()], h5["pose/data"].shape[0]
+    assert w2v.shape == (frames, 300)
+    assert not w2v.any()
     with pytest.raises(NotImplementedError, match="item 7"):
-        ptext.Text(path2data="/nonexistent").preprocess()
+        ptext.Word2VecEmbedder("GoogleNews-vectors-negative300.bin")
 
 
 # ------------------------------------------------------------- MiniData
