@@ -13,9 +13,11 @@ bf16 model (phases 18-19), the host lifecycle through the CLIs
 rest of the train steps (phase 22), text input, ``-optim_separate``
 and the Disentangle losses (phase 23), the parallel layouts (phase
 24), the two ends of the lifecycle (phase 25: rendering, JAX
-checkpoints, data preparation) and the long tail (phase 26: orbax
+checkpoints, data preparation), the long tail (phase 26: orbax
 checkpoints, the C++ window gatherer, the other layers, centered RMSprop,
-text preprocessing):
+text preprocessing) and BERT (phase 27: ``bert`` and ``tokens``
+preprocessing on the card, a K3-trained ``text/bert`` lifecycle,
+``-audio_lowering``, ``-fused_decoder`` without the mixture decoder):
 
 1. device: the card's name and power limit from ``nvidia-smi``;
 2. build: every CUDA kernel from the checkout's sources, one ``nvcc`` per
@@ -265,8 +267,24 @@ text preprocessing):
     |diff| / max |ref| ≤ 1e-4); (d) a fused G step with centered,
     bias-corrected RMSprop (K3 once each way) and two more updates, card
     against CPU (≤ 1e-6); (e) ``cli.preprocess`` of text, not aligned
-    then aligned; (f) ``tests/orbax_fixture/ocdbt`` (JAX's orbax, OCDBT,
-    zstd) against its checksums.
+    then aligned, every method (BERT on the card; ``text/tokens`` the ids
+    of each interval's subwords); (f) ``tests/orbax_fixture/ocdbt``
+    (JAX's orbax, OCDBT, zstd) against its checksums;
+27. BERT from local files: ``bert-base-uncased`` from the hub cache, or,
+    where the cache holds none, a seeded one at its full size (12 layers,
+    768 wide, 30522 entries, the synthetic transcripts' words and pieces
+    among them) written under ``build/`` before ``transformers`` is
+    imported, the hub kept offline; (a) ``BertEmbedder`` on the card
+    against the CPU (subword states and word means, max |diff| / max
+    |ref| ≤ 1e-4), load times and ms per interval on both; (b)
+    ``cli.preprocess -preprocess_methods '["bert", "tokens"]'`` on 2
+    speakers x 2 intervals on the card against a CPU rerun
+    (``text/bert`` within 1e-4, ``text/tokens`` and ``text/meta``
+    equal); (c) ``cli.preprocess`` of 8 speakers x 3 intervals of 8 s,
+    then ``cli.train`` on ``text/bert`` with ``-fused_decoder 1`` (K3
+    once each way a G step) and ``cli.sample``; (d) ``cli.train
+    -audio_lowering tpu`` (K3 once each way a G step) and ``-model
+    Speech2Gesture_G -fused_decoder 1`` (K3 0 times).
 
 The bf16 rule: no bf16 output is held element-wise to another bf16 output
 (two valid roundings differ about as much as either differs from the
@@ -4575,17 +4593,6 @@ def long_tail_phase(torch, args, device, smi, results) -> dict:
     methods = ["w2v", "pos", "tokens", "bert"]
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
-        try:                     # the JAX package's fall-backs, no files
-            ptext.BertEmbedder()
-            ptext.BertSentenceBatching()
-            bert = "absent (zeros, word indices)"
-        except NotImplementedError:      # the real embedders wait
-            try:
-                from huggingface_hub import constants
-                where = constants.HF_HUB_CACHE
-            except ImportError:
-                where = "a local cache"
-            methods, bert = ["w2v", "pos"], f"installed in {where}: not run"
         common = ["-modalities", '["text"]', "-path2data", str(raw),
                   "-path2outdata", str(raw), "-speaker",
                   json.dumps(text_speakers)]
@@ -4600,6 +4607,9 @@ def long_tail_phase(torch, args, device, smi, results) -> dict:
             h5.close()
         cli_pre.main([*common, "-preprocess_methods", '["w2v"]',
                       "-text_aligned", "1"])
+        tokenizer = ptext.BertSentenceBatching().tokenizer
+    check(tokenizer is not None, f"[tail] BERT's tokenizer did not load "
+          f"from {hub_cache()}")
     widths = {"w2v": 300, "bert": 768}
     ok = len(files) == 2 * len(text_speakers) and min(words) > 1
     for f in files:
@@ -4608,18 +4618,23 @@ def long_tail_phase(torch, args, device, smi, results) -> dict:
             a = HDF5.load_array(str(f), f"text/{m}")
             ok &= a.shape == ((frames, widths[m]) if m in widths
                               else (frames,))
-            if m == "tokens":
-                ok &= int(a.max()) == len(HDF5.load_array(
-                    str(f), "text/meta/Word")) - 1
+            if m == "tokens":    # the ids of the interval's subwords
+                said = " ".join(str(w) for w in HDF5.load_array(
+                    str(f), "text/meta/Word")).lower()
+                vocab = set(tokenizer.convert_tokens_to_ids(
+                    tokenizer.tokenize(said)))
+                ok &= set(np.unique(a).astype(int)) - {0} <= vocab
+            if m == "bert":
+                ok &= bool(np.abs(a).max() > 0)
     check(ok, f"[tail] cli.preprocess text: {len(files)} files, words "
           f"{words}, streams {methods}")
     secs["e"] = time.perf_counter() - t_e
     log(f"[tail] (e) cli.preprocess -modalities text on "
         f"{len(text_speakers)} speakers x 2 intervals of 5 s with raw "
         f"transcripts: -text_aligned 0 wrote text/meta ({words} words) and "
-        f"{methods}, -text_aligned 1 rewrote text/w2v from text/meta; "
-        f"BERT's files {bert}")
-    rec["text"] = dict(words=words, methods=methods, bert=bert)
+        f"{methods} (BERT on the card, token ids of each interval's "
+        f"subwords), -text_aligned 1 rewrote text/w2v from text/meta")
+    rec["text"] = dict(words=words, methods=methods)
 
     # (f) the committed OCDBT directory JAX's orbax wrote ---------------------
     t_f = time.perf_counter()
@@ -4646,6 +4661,336 @@ def long_tail_phase(torch, args, device, smi, results) -> dict:
             "k4": served["int8"][1]}
 
 
+# phase 27: BERT from local files (bert and tokens preprocessing on the
+# card, a K3-trained text/bert lifecycle), -audio_lowering and
+# -fused_decoder without the mixture decoder
+BERT_REPO = "models--bert-base-uncased"
+BERT_TOL = 1e-4              # card against CPU, max |diff| / max |ref|
+BERT_WORDS = 50              # an interval's words: 25 s, one every 0.5 s
+BERT_REPS = (20, 5)          # timed calls on the card, on the CPU
+# the synthetic transcripts' words (data/synthetic.py), some as ## pieces
+# ("louder" and "matters" are left out: [UNK]), for the seeded vocabulary
+SEEDED_PIECES = ["the", "gest", "##ure", "speaks", "than", "words", "and",
+                 "style", "un", "##believ", "##able", "punct", "##uation"]
+
+
+def hub_cache() -> Path:
+    """The hub cache ``transformers`` reads, by huggingface_hub's rules:
+    ``HF_HUB_CACHE``, else ``HF_HOME/hub``, else
+    ``$XDG_CACHE_HOME/huggingface/hub`` (``~/.cache`` by default)."""
+    if os.environ.get("HF_HUB_CACHE"):
+        return Path(os.environ["HF_HUB_CACHE"])
+    home = os.environ.get("HF_HOME") or os.path.join(
+        os.environ.get("XDG_CACHE_HOME", os.path.expanduser("~/.cache")),
+        "huggingface")
+    return Path(home) / "hub"
+
+
+def write_seeded_bert(hub: Path, seed: int) -> None:
+    """A ``bert-base-uncased`` snapshot at the model's full size (its
+    config: 12 layers, 768 wide, 30522 entries) with weights drawn from
+    ``seed`` and a vocabulary of ``SEEDED_PIECES`` (the rest unused
+    entries), in the hub cache's layout."""
+    import torch
+    from transformers import BertConfig, BertModel
+
+    repo = hub / BERT_REPO
+    shutil.rmtree(repo, ignore_errors=True)
+    rev = f"{seed:040d}"
+    snap = repo / "snapshots" / rev
+    snap.mkdir(parents=True)
+    (repo / "refs").mkdir()
+    (repo / "refs" / "main").write_text(rev)
+    cfg = BertConfig()
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        BertModel(cfg).save_pretrained(snap)
+    vocab = (["[PAD]"] + [f"[unused{i}]" for i in range(99)]
+             + ["[UNK]", "[CLS]", "[SEP]", "[MASK]"] + SEEDED_PIECES)
+    vocab += [f"[unused{i}]" for i in range(99, 99 + cfg.vocab_size
+                                            - len(vocab))]
+    (snap / "vocab.txt").write_text("\n".join(vocab) + "\n")
+    (snap / "tokenizer_config.json").write_text(json.dumps(
+        {"do_lower_case": True, "model_max_length": 512}))
+
+
+def bert_source(seed: int) -> dict:
+    """Where ``bert-base-uncased`` comes from in phases 26 (e) and 27: the
+    hub cache where it holds a snapshot, else a seeded one at full size
+    (``write_seeded_bert``) under ``build/``, the hub pointed at it.  Runs
+    before ``transformers`` is imported (the hub reads its variables once,
+    at import), and keeps it offline: nothing is requested from the
+    network."""
+    os.environ.setdefault("HF_HUB_OFFLINE", "1")
+    os.environ.setdefault("TRANSFORMERS_OFFLINE", "1")
+    os.environ.setdefault("USE_TF", "0")
+    cache = hub_cache()
+    if list((cache / BERT_REPO / "snapshots").glob("*/config.json")):
+        return dict(cache=str(cache), installed=True)
+    seeded = Path(__file__).resolve().parent / "build" / "hf_bert" / "hub"
+    os.environ["HF_HUB_CACHE"] = str(seeded)
+    t = time.perf_counter()
+    write_seeded_bert(seeded, seed)
+    return dict(cache=str(seeded), installed=False, absent_from=str(cache),
+                absent_listing=sorted(os.listdir(cache))
+                if cache.is_dir() else None,
+                write_s=time.perf_counter() - t)
+
+
+def bert_phase(torch, args, device, smi, results, bert) -> dict:
+    """Phase 27: BERT at full size from local files (``bert_source``).
+    (a) ``BertEmbedder`` on the card against ``device="cpu"`` on an
+    interval's words: subword hidden states and word means within
+    ``BERT_TOL``; load times and ms per interval on both; (b)
+    ``cli.preprocess -preprocess_methods '["bert", "tokens"]'`` on 2
+    speakers x 2 intervals on the card against a CPU rerun: ``text/bert``
+    within ``BERT_TOL``, ``text/meta`` and ``text/tokens`` equal; (c) the
+    flagship's ``cli.train`` on ``text/bert`` that BERT wrote (8 speakers x
+    3 intervals of 8 s) with ``-fused_decoder 1`` (K3 once each way a G
+    step), then ``cli.sample``; (d) ``cli.train -audio_lowering tpu``
+    (K3 once each way a G step) and ``-model Speech2Gesture_G
+    -fused_decoder 1`` (K3 0 times).  Returns K3's launches (fwd, bwd)
+    over (c) and (d)."""
+    import importlib.util
+    import warnings
+    from functools import partial
+
+    if "h5py" not in sys.modules and importlib.util.find_spec("h5py") is None:
+        install_h5py_stand_in()
+    from mixstage_tpu_torch.cli import preprocess as cli_pre
+    from mixstage_tpu_torch.cli import sample as cli_sample
+    from mixstage_tpu_torch.cli import train as cli_train
+    from mixstage_tpu_torch.config import argparse_n_loop
+    from mixstage_tpu_torch.data import text as ptext
+    from mixstage_tpu_torch.data.common import SPEAKERS
+    from mixstage_tpu_torch.data.hdf5 import HDF5
+    from mixstage_tpu_torch.data.synthetic import make_synthetic_dataset
+    from mixstage_tpu_torch.ops.cuda import train_decoder as td
+    from mixstage_tpu_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    secs, rec = {}, dict(bert)
+    root = Path(__file__).resolve().parent / "build" / "bert"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    held = bert.get("absent_listing")
+    where = (f"bert-base-uncased from {bert['cache']} (the machine's files)"
+             if bert["installed"] else
+             f"{bert['absent_from']} holds no bert-base-uncased ("
+             + (f"it holds {held}" if held is not None else "no such "
+                "directory") + f"): a seeded one at full size written to "
+             f"{bert['cache']} in {bert['write_s']:.1f} s")
+    log(f"[bert] {where}")
+    cpu = host_cpu()
+
+    # (a) BertEmbedder, card against CPU ---------------------------------
+    t = time.perf_counter()
+    card = ptext.BertEmbedder()
+    torch.cuda.synchronize()
+    load = {"card": time.perf_counter() - t}
+    check(card.model is not None,
+          f"[bert] BERT did not load from {bert['cache']}")
+    t = time.perf_counter()
+    host = ptext.BertEmbedder("cpu")
+    load["cpu"] = time.perf_counter() - t
+    config = card.model.config
+    check(card.device.type == "cuda" and
+          next(card.model.parameters()).is_cuda and
+          (config.num_hidden_layers, config.hidden_size) == (12, 768),
+          f"[bert] the model: {config.num_hidden_layers} layers, "
+          f"{config.hidden_size} wide, on {card.device}")
+    wrng = np.random.default_rng(args.seed + 27)
+    pool = SEEDED_PIECES[:2] + ["gesture", "speaks", "louder", "than",
+                                "words", "and", "style", "matters",
+                                "unbelievable", "punctuation"]
+    words = [pool[int(i)] for i in wrng.integers(0, len(pool), BERT_WORDS)]
+    (hc, tc), (hp, tp) = card.subword_embed(words), host.subword_embed(words)
+    errs = {"subwords": float(np.abs(hc - hp).max() / np.abs(hp).max())}
+    wc, wp = card(words), host(words)
+    errs["word_means"] = float(np.abs(wc - wp).max() / np.abs(wp).max())
+    check(tc == tp and hc.shape == (len(tc), 768) and hc.dtype == np.float32
+          and wc.shape == (BERT_WORDS, 768) and
+          max(errs.values()) <= BERT_TOL,
+          f"[bert] BertEmbedder on the card against the CPU: {errs}")
+    ms = {"card": _ms_per_call(lambda: card.subword_embed(words),
+                               BERT_REPS[0]),
+          "cpu": _ms_per_call(lambda: host.subword_embed(words),
+                              BERT_REPS[1])}
+    secs["a"] = time.perf_counter() - t_phase
+    log(f"[bert] (a) {smi}: BertEmbedder loaded in {load['card']:.2f} s "
+        f"(card), {load['cpu']:.2f} s (CPU); an interval's {BERT_WORDS} "
+        f"words ({len(tc)} subwords) in {ms['card']:.3f} ms on the card, "
+        f"{ms['cpu']:.3f} ms on the CPU (host {cpu}; tokenizing and the "
+        f"copy back included); card against CPU (max |diff| / max |ref|, "
+        f"tol {BERT_TOL:g}): subword states {errs['subwords']:.3e}, word "
+        f"means {errs['word_means']:.3e}")
+    rec.update(load_s=load, ms_per_interval=ms, subwords=len(tc),
+               card_vs_cpu=errs, cpu=cpu)
+    del card, host
+    torch.cuda.empty_cache()
+
+    # (b) cli.preprocess bert + tokens, card against a CPU rerun ----------
+    t_b = time.perf_counter()
+    speakers = SPEAKERS[:MODEL["num_speakers"]]
+    small = root / "small"
+    make_synthetic_dataset(str(small), speakers[:2], 2, interval_seconds=5.0,
+                           with_raw_transcripts=True, seed=args.seed + 27)
+    shutil.copytree(small, root / "small_cpu")
+    argv = ["-modalities", '["text"]', "-speaker", json.dumps(speakers[:2]),
+            "-preprocess_methods", '["bert", "tokens"]', "-text_aligned",
+            "0"]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        t = time.perf_counter()
+        cli_pre.main(argv + ["-path2data", str(small), "-path2outdata",
+                             str(small)])
+        pre_s = {"card": time.perf_counter() - t}
+        t = time.perf_counter()
+        argparse_n_loop(partial(cli_pre.loop, device="cpu"), argv + [
+            "-path2data", str(root / "small_cpu"), "-path2outdata",
+            str(root / "small_cpu")])
+        pre_s["cpu"] = time.perf_counter() - t
+    files = sorted((small / "processed").rglob("*.h5"))
+    stream_err, same = 0.0, len(files) == 4
+    for f in files:
+        g = root / "small_cpu" / f.relative_to(small)
+        got, want = (HDF5.load_array(str(x), "text/bert") for x in (f, g))
+        stream_err = max(stream_err, float(np.abs(got - want).max()
+                                           / np.abs(want).max()))
+        same &= got.shape[1] == 768 and all(
+            np.array_equal(HDF5.load_array(str(f), k),
+                           HDF5.load_array(str(g), k))
+            for k in ("text/tokens", "text/meta/start_frame",
+                      "text/meta/end_frame"))
+    check(same and stream_err <= BERT_TOL,
+          f"[bert] cli.preprocess on the card against the CPU: text/bert "
+          f"{stream_err:.3e}, the rest equal {same}")
+    secs["b"] = time.perf_counter() - t_b
+    log(f"[bert] (b) cli.preprocess bert + tokens, 2 speakers x 2 intervals "
+        f"of 5 s: card {pre_s['card']:.2f} s, CPU {pre_s['cpu']:.2f} s (each "
+        f"loading BERT); text/bert card against CPU {stream_err:.3e} (tol "
+        f"{BERT_TOL:g}), text/tokens and text/meta equal")
+    rec.update(preprocess_s=pre_s, stream_err=stream_err)
+
+    # (c) the text/bert lifecycle through K3 --------------------------------
+    t_c = time.perf_counter()
+    data = str(root / "data")
+    make_synthetic_dataset(data, speakers, LIFE_INTERVALS,
+                           interval_seconds=ENDS_INTERVAL_S,
+                           with_raw_transcripts=True, seed=11212 + args.seed)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        t = time.perf_counter()
+        cli_pre.main(["-modalities", '["text"]', "-speaker",
+                      json.dumps(speakers), "-preprocess_methods",
+                      '["bert", "tokens"]', "-text_aligned", "0",
+                      "-path2data", data, "-path2outdata", data])
+        torch.cuda.synchronize()
+        pre_s["card_all"] = time.perf_counter() - t
+    n_files = len(list((Path(data) / "processed").rglob("*.h5")))
+    seen = []
+    orig_train = Trainer.train
+
+    def keep(self, exp_num):
+        orig_train(self, exp_num)
+        seen.append(self)
+
+    def train(extra, save):
+        td.decoder_train_fwd.launches = 0          # this cli.train starts
+        td.decoder_train_bwd.launches = 0
+        t = time.perf_counter()
+        cli_train.main(
+            ["-path2data", data, "-speaker", json.dumps(speakers),
+             "-gan", "1", "-loss", "L1Loss", "-batch_size", str(B),
+             "-num_epochs", "1", "-window_hop", "5", "-debug",
+             str(ENDS_STEPS), "-num_iters", "2", "-save_dir", str(save),
+             "-exp", "1", "-seed", str(11212 + args.seed), *extra])
+        torch.cuda.synchronize()
+        k3 = (td.decoder_train_fwd.launches,       # this cli.train ends
+              td.decoder_train_bwd.launches)
+        tr = seen[-1]
+        with open(tr.book.name("res", "json", str(save))) as f:
+            res = json.load(f)
+        check(all(bool(np.isfinite(res[k]).all())
+                  for k in ("train", "dev", "test")),
+              f"[bert] cli.train {extra}: losses not finite")
+        return tr, k3, time.perf_counter() - t
+
+    mixstage = ["-model", "JointLateClusterSoftStyle4_G", "-num_clusters",
+                str(MODEL["num_clusters"]), "-fused_decoder", "1"]
+    runs = {}
+    Trainer.train = keep
+    try:
+        tr, k3, wall = train(mixstage + [
+            "-modalities", json.dumps(["pose/data", "audio/log_mel_512",
+                                       "text/bert"]),
+            "-fs_new", "[15,15,15]"], root / "save_bert")
+        g = tr.state.g_step
+        check(g > 0 and k3 == (g, g) and tr.step_cfg.text_channels == 768
+              and "text/bert" in tr.step_cfg.input_modalities and
+              tr.data.datasets["train"].datasets[0].text_df is not None,
+              f"[bert] cli.train on text/bert: K3 {k3} over {g} G steps, "
+              f"text channels {tr.step_cfg.text_channels}")
+        runs["text_bert"] = dict(k3=k3, g_steps=g, wall_s=wall)
+        weights = tr.book.name("weights", "p", str(root / "save_bert"))
+        t = time.perf_counter()
+        cli_sample.main(["-load", weights, "-path2data", data, "-save_dir",
+                         str(root / "sample")])
+        torch.cuda.synchronize()
+        sample_s = time.perf_counter() - t
+        kp = list((root / "sample").rglob("keypoints*/*/*/*.h5"))
+        check(len(kp) == 2 * len(speakers) * LIFE_INTERVALS and all(
+            np.isfinite(HDF5.load_array(str(f), "pose/data")).all()
+            for f in kp), f"[bert] cli.sample: {len(kp)} keypoint files")
+        secs["c"] = time.perf_counter() - t_c
+
+        # (d) -audio_lowering tpu; -fused_decoder 1 on Speech2Gesture_G ------
+        t_d = time.perf_counter()
+        tr, k3, wall = train(mixstage + ["-audio_lowering", "tpu"],
+                             root / "save_lowering")
+        g = tr.state.g_step
+        check(g > 0 and k3 == (g, g) and
+              tr.step_cfg.audio_lowering == "tpu",
+              f"[bert] cli.train -audio_lowering tpu: K3 {k3} over {g} G "
+              f"steps")
+        runs["audio_lowering_tpu"] = dict(k3=k3, g_steps=g, wall_s=wall)
+        tr, k3_s2g, wall = train(["-model", "Speech2Gesture_G",
+                                  "-fused_decoder", "1"], root / "save_s2g")
+        g = tr.state.g_step
+        check(g > 0 and k3_s2g == (0, 0) and tr.step_cfg.fused_decoder,
+              f"[bert] cli.train Speech2Gesture_G -fused_decoder 1: K3 "
+              f"{k3_s2g} over {g} G steps, expected none")
+        runs["speech2gesture_fused_flag"] = dict(k3=k3_s2g, g_steps=g,
+                                                 wall_s=wall)
+        secs["d"] = time.perf_counter() - t_d
+    finally:
+        Trainer.train = orig_train
+    log(f"[bert] (c) cli.preprocess bert + tokens on {n_files} intervals of "
+        f"{ENDS_INTERVAL_S:g} s on the card in {pre_s['card_all']:.2f} s; "
+        f"cli.train audio + text/bert -fused_decoder 1 (flagship, full "
+        f"width, -debug {ENDS_STEPS}) in {runs['text_bert']['wall_s']:.2f} "
+        f"s: K3 launches (fwd, bwd) {runs['text_bert']['k3']} = "
+        f"{runs['text_bert']['g_steps']} G steps; cli.sample {len(kp)} "
+        f"keypoint files in {sample_s:.2f} s")
+    log(f"[bert] (d) cli.train -audio_lowering tpu: K3 "
+        f"{runs['audio_lowering_tpu']['k3']} = "
+        f"{runs['audio_lowering_tpu']['g_steps']} G steps; "
+        f"Speech2Gesture_G -fused_decoder 1: K3 "
+        f"{runs['speech2gesture_fused_flag']['k3']} over "
+        f"{runs['speech2gesture_fused_flag']['g_steps']} G steps (the flag "
+        f"ignored, as JAX ignores it)")
+    rec.update(runs=runs, sample_s=sample_s, seconds=secs)
+    shutil.rmtree(root, ignore_errors=True)
+    total = time.perf_counter() - t_phase
+    log(f"[bert] sub-phase seconds: " + ", ".join(
+        f"({k}) {v:.1f} s" for k, v in secs.items()))
+    log(f"[bert] phase 27 in {total:.1f} s")
+    rec["total_s"] = total
+    results["bert"] = rec
+    return {"k3": tuple(sum(r["k3"][i] for r in runs.values())
+                        for i in range(2))}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4667,6 +5012,7 @@ def main(argv=None) -> int:
         return 2
     if args.child:
         return parallel_child(args)
+    bert = bert_source(args.seed + 27)   # before transformers is imported
 
     from mixstage_tpu_torch import resolve_device
     from mixstage_tpu_torch.models import JointLateClusterSoftStyle4_G
@@ -5103,6 +5449,7 @@ def main(argv=None) -> int:
                          serve, plain, results)
     ends = lifecycle_ends_phase(torch, args, smi, results)
     tail = long_tail_phase(torch, args, device, smi, results)
+    lm = bert_phase(torch, args, device, smi, results, bert)
     for kern in [k1] + k16 + [k4] + k8_16:
         if kern["name"] in served:
             kern["serving_cli_launches"] = served[kern["name"]]
@@ -5137,6 +5484,10 @@ def main(argv=None) -> int:
     k4["long_tail_launches"] = tail["k4"]
     for i, kern in enumerate(k3):
         kern["long_tail_launches"] = tail["k3"][i]
+    # phase 27: K3 over cli.train on text/bert and -audio_lowering tpu (none
+    # over Speech2Gesture_G -fused_decoder 1)
+    for i, kern in enumerate(k3):
+        kern["bert_launches"] = lm["k3"][i]
     for kern in [k1] + k3 + [k4]:
         kern["mode"] = "f32" if kern is not k4 else "int8"
     k2["mode"] = "f32"

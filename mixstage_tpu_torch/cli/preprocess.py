@@ -14,9 +14,11 @@ double as CLIs: ``src/data/audio.py:189-198``, ``skeleton.py:302-311``).
       -text_aligned 0             # 1: from each interval's text/meta
 
 Audio needs ``soundfile`` to read the raw mp3s.  Text runs without
-downloads: where the embedders' files are absent it writes what the JAX
-package writes then (``data/text.py``: zeros for w2v and bert, word
-indices for tokens).
+downloads: ``bert`` runs ``bert-base-uncased`` from local files on the card
+(``loop(args, exp_num, device=...)`` takes another device from Python, as
+``cli.train``'s loop does), ``tokens`` its tokenizer; where their files
+are absent it writes what the JAX package writes then (``data/text.py``:
+zeros for w2v and bert, word indices for tokens).
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ MODALITY_MAP = {"audio": Audio, "pose": Skeleton2D, "skeleton": Skeleton2D,
                 "text": Text}
 
 
-def loop(args: Config, exp_num: int):
+def loop(args: Config, exp_num: int, device=None):
     modalities = args.modalities if isinstance(args.modalities, list) \
         else [args.modalities]
     for modality in modalities:
@@ -41,7 +43,8 @@ def loop(args: Config, exp_num: int):
             methods = methods[0]
         speaker = args.speaker if isinstance(args.speaker, list) \
             else [args.speaker]
-        extra = {"text_aligned": args.text_aligned} if kind == "text" else {}
+        extra = dict(text_aligned=args.text_aligned, device=device) \
+            if kind == "text" else {}
         mod = cls(path2data=args.path2data, path2outdata=args.path2outdata,
                   speaker=speaker, preprocess_methods=methods, **extra)
         mod.preprocess()

@@ -21,15 +21,18 @@ file whose ``text/meta`` is a pytables group (the JAX package reads it with
 pytables-format PATS file is in the repository to be held against
 (returning nothing would cut other windows than the JAX package).
 
-The embedders behave as the JAX package's do where their files are absent:
-``Word2VecEmbedder()`` gives zeros; ``BertEmbedder`` and
-``BertSentenceBatching`` look for ``bert-base-uncased`` through
-``transformers`` (local files only: nothing is downloaded) and, without it,
-warn and give zeros and word indices; ``pos_tags`` tags with nltk's data
-where installed, else gives zeros.  The real embedders (GoogleNews
-word2vec weights, ``bert-base-uncased`` and its tokenizer) raise
-``NotImplementedError``: they wait until their files are in the
-repository.
+BERT: ``BertEmbedder`` and ``BertSentenceBatching`` load
+``bert-base-uncased`` and its tokenizer through ``transformers`` from
+local files only (nothing is downloaded).  The model runs on the card
+unless the caller names another device (``Text(..., device=...)``,
+``cli.preprocess.loop(args, i, device=...)``), its hidden states come back
+to the host in float32, and the subword vectors are spread over each
+word's frames (``text/bert``) or averaged per word; ``text/tokens`` holds
+the vocabulary ids, frame-aligned.  Without the files they warn and give
+zeros and word indices, as the JAX package does.  ``Word2VecEmbedder()``
+gives zeros; ``pos_tags`` tags with nltk's data where installed, else
+gives zeros.  GoogleNews word2vec weights raise ``NotImplementedError``:
+they wait until the file is in the repository.
 """
 
 from __future__ import annotations
@@ -48,6 +51,8 @@ W2V_DIM = 300
 BERT_DIM = 768
 TEXT_FS = 15  # words are frame-aligned to the pose stream
 
+BERT_NAME = "bert-base-uncased"
+BERT_MAX_TOKENS = 512        # the model's positions, [CLS] and [SEP] in
 WAITS = ("waits until {} is in the repository, to be held against the "
          "JAX package (ROADMAP queue 1 item 7)")
 
@@ -154,54 +159,104 @@ class Word2VecEmbedder:
         return np.zeros((len(words), W2V_DIM))
 
 
-def _bert_files(what: str, load):
-    """``load()`` (``from_pretrained`` of local files only) or, where the
-    files are absent, None after the JAX package's warning."""
-    try:
-        load()
-    except Exception as e:  # noqa: BLE001 - no transformers, no files
-        warnings.warn(f"{what} unavailable: {e}")
-        return None
-    raise NotImplementedError(
-        f"bert-base-uncased is installed: running it "
-        + WAITS.format("bert-base-uncased and its tokenizer"))
-
-
 class BertEmbedder:
-    """Frozen bert-base-uncased sequence embeddings (``text.py:111-165``);
-    without its files, zeros."""
+    """Frozen bert-base-uncased hidden states (``text.py:111-164``), on
+    ``device`` (None: the card, resolved once the files have loaded);
+    without the files, zeros."""
 
-    def __init__(self):
-        def load():
+    def __init__(self, device=None):
+        self.model = None
+        try:
             from transformers import BertModel, BertTokenizer
 
-            BertTokenizer.from_pretrained("bert-base-uncased",
-                                          local_files_only=True)
-            BertModel.from_pretrained("bert-base-uncased",
-                                      local_files_only=True)
-        self.model = _bert_files("BERT", load)
+            tokenizer = BertTokenizer.from_pretrained(BERT_NAME,
+                                                      local_files_only=True)
+            model = BertModel.from_pretrained(BERT_NAME,
+                                              local_files_only=True).eval()
+        except Exception as e:  # noqa: BLE001 - no transformers, no files
+            warnings.warn(f"BERT unavailable: {e}")
+            return
+        from mixstage_tpu_torch.device import resolve_device
+
+        self.device = resolve_device(device)
+        self.tokenizer = tokenizer
+        self.model = model.to(self.device)
+
+    def _hidden(self, text: str):
+        """(last hidden states (tokens, 768) float32 on the host, tokens)
+        of ``text``, cut at ``BERT_MAX_TOKENS`` tokens."""
+        import torch
+
+        enc = self.tokenizer(text, return_tensors="pt", truncation=True,
+                             max_length=BERT_MAX_TOKENS)
+        with torch.no_grad():
+            hidden = self.model(**{k: v.to(self.device)
+                                   for k, v in enc.items()})
+        tokens = self.tokenizer.convert_ids_to_tokens(
+            enc["input_ids"][0].tolist())
+        return hidden.last_hidden_state[0].cpu().numpy(), tokens
 
     def __call__(self, words: List[str]) -> np.ndarray:
-        return np.zeros((len(words), BERT_DIM))
+        """(len(words), 768) float64: each word's subword vectors averaged,
+        a new word at every token that does not start with ``##``
+        (``[CLS]``/``[SEP]`` stripped); words past the cut stay zeros."""
+        out = np.zeros((len(words), BERT_DIM))
+        if self.model is None:
+            return out
+        hidden, tokens = self._hidden(" ".join(words))
+        wi, acc, cnt = 0, np.zeros(BERT_DIM), 0
+        for tok, vec in zip(tokens[1:-1], hidden[1:-1]):
+            if not tok.startswith("##") and cnt > 0:
+                if wi < len(words):
+                    out[wi] = acc / cnt
+                wi, acc, cnt = wi + 1, np.zeros(BERT_DIM), 0
+            acc = acc + vec
+            cnt += 1
+        if cnt > 0 and wi < len(words):
+            out[wi] = acc / cnt
+        return out
 
     def subword_embed(self, words: List[str]):
-        return None
+        """(per-subword hidden states float32, tokens) of the lowercased
+        words, ``[CLS]``/``[SEP]`` stripped; None without the files."""
+        if self.model is None:
+            return None
+        hidden, tokens = self._hidden(" ".join(w.lower() for w in words))
+        return hidden[1:-1], tokens[1:-1]
 
 
 class BertSentenceBatching:
-    """Sentences → BERT token ids and mask (``text.py:168-204``); without
-    the tokenizer's files, ``(None, None, None)``."""
+    """Sentences → BERT token ids, mask and tokens (``text.py:167-199``):
+    one sentence is cut into chunks of at most ``BERT_MAX_TOKENS`` - 2
+    tokens, each chunk wrapped in ``[CLS]``/``[SEP]`` and padded with
+    ``[SEP]``; ``(ids (B, L) int64, mask (B, L) int64, token lists)``.
+    Only the tokenizer runs.  Without its files, ``(None, None, None)``."""
 
     def __init__(self):
-        def load():
+        self.tokenizer = None
+        try:
             from transformers import BertTokenizer
 
-            BertTokenizer.from_pretrained("bert-base-uncased",
-                                          local_files_only=True)
-        self.tokenizer = _bert_files("BERT tokenizer", load)
+            self.tokenizer = BertTokenizer.from_pretrained(
+                BERT_NAME, local_files_only=True)
+        except Exception as e:  # noqa: BLE001 - no transformers, no files
+            warnings.warn(f"BERT tokenizer unavailable: {e}")
 
     def __call__(self, sentences: List[str]):
-        return None, None, None
+        if self.tokenizer is None:
+            return None, None, None
+        toks = [self.tokenizer.tokenize(s) for s in sentences]
+        if len(toks) == 1:
+            flat, n = toks[0], BERT_MAX_TOKENS - 2
+            toks = [flat[i:i + n] for i in range(0, max(len(flat), 1), n)]
+        toks = [["[CLS]"] + t + ["[SEP]"] for t in toks]
+        max_len = max(len(t) for t in toks)
+        mask = np.array([[1] * len(t) + [0] * (max_len - len(t))
+                         for t in toks], dtype=np.int64)
+        toks = [t + ["[SEP]"] * (max_len - len(t)) for t in toks]
+        ids = np.array([self.tokenizer.convert_tokens_to_ids(t)
+                        for t in toks], dtype=np.int64)
+        return ids, mask, toks
 
 
 def collate_fn_pad(batch: List[Dict], pad_key: Sequence[str], dim: int = 0):
@@ -316,11 +371,12 @@ class Text(Modality):
 
     def __init__(self, path2data="../dataset/groot/data",
                  path2outdata="../dataset/groot/data", speaker="all",
-                 preprocess_methods=("w2v",), text_aligned=1):
+                 preprocess_methods=("w2v",), text_aligned=1, device=None):
         super().__init__(path2data=path2data, path2outdata=path2outdata,
                          speaker=speaker, preprocess_methods=preprocess_methods)
         self.missing = MissingData(self.path2data)
         self.text_aligned = text_aligned
+        self.device = device             # BERT's (None: the card)
         self._embedders: Dict[str, object] = {}
 
     def fs(self, modality):
@@ -335,7 +391,7 @@ class Text(Modality):
             if method == "w2v":
                 self._embedders[method] = Word2VecEmbedder()
             elif method == "bert":
-                self._embedders[method] = BertEmbedder()
+                self._embedders[method] = BertEmbedder(self.device)
             elif method == "tokens":
                 self._embedders[method] = BertSentenceBatching()
         return self._embedders.get(method)
@@ -514,15 +570,35 @@ class Text(Modality):
         return None
 
     def _bert_aligned(self, words, starts, ends, num_frames) -> np.ndarray:
-        """BERT features over each word's frames: without BERT's files the
-        word vectors (zeros), frame-aligned, as the JAX package falls
-        back."""
-        vecs = self.embedder("bert")(words)
-        return self.frame_align(words, starts, ends, vecs, num_frames)
+        """Each subword's BERT vector over its share of its word's frames
+        (``text.py:484-498``); without BERT's files the word vectors
+        (zeros), frame-aligned."""
+        emb = self.embedder("bert")
+        sub = emb.subword_embed(words)
+        if sub is None:
+            return self.frame_align(words, starts, ends, emb(words),
+                                    num_frames)
+        vecs, tokens = sub
+        delta = (ends - starts).astype(int).tolist()
+        assignments = distribute_frames_over_subwords(words, delta, tokens)
+        return _expand_subwords(vecs, assignments, starts, ends, num_frames)
 
     def _tokens_aligned(self, words, starts, ends, num_frames) -> np.ndarray:
-        """Frame-aligned token ids: without the tokenizer's files each
-        word's index, as the JAX package falls back."""
-        self.embedder("tokens")
-        idx = np.arange(len(words), dtype=float)[:, None]
-        return self.frame_align(words, starts, ends, idx, num_frames)[:, 0]
+        """Each subword's vocabulary id (as float) over its share of its
+        word's frames (``text.py:500-516``); without the tokenizer's files
+        each word's index."""
+        ids, mask, toks = self.embedder("tokens")(
+            [" ".join(w.lower() for w in words)])
+        if ids is None:
+            idx = np.arange(len(words), dtype=float)[:, None]
+            return self.frame_align(words, starts, ends, idx, num_frames)[:, 0]
+        flat_ids, flat_toks = [], []
+        for row_ids, row_mask, row_toks in zip(ids, mask, toks):
+            n = int(row_mask.sum())          # [CLS] ... [SEP] of this row
+            flat_ids.extend(row_ids[1:n - 1].tolist())
+            flat_toks.extend(row_toks[1:n - 1])
+        delta = (ends - starts).astype(int).tolist()
+        assignments = distribute_frames_over_subwords(words, delta,
+                                                      flat_toks)
+        return _expand_subwords(np.asarray(flat_ids, dtype=float)[:, None],
+                                assignments, starts, ends, num_frames)[:, 0]

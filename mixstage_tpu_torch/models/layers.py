@@ -2,11 +2,13 @@
 
 Counterpart of ``mixstage_tpu/models/layers.py``: every layer but the TPU
 relowerings of ``audio_lowering`` (``_Conv2DS2DFold``, ``_Conv2DIm2col``,
-the same math on the same parameters; ``ConvNormRelu`` runs the native
-conv for any ``lowering``).  Forwards take and return
-channels-last tensors ``(B, T, C)`` / ``(B, H, W, C)``, as the JAX package
-does; each convolution runs on a permuted view in torch's ``(B, C, T)`` /
-NCHW layout, so a chain of layers permutes without copying.
+the same math on the same parameters): ``resolve_audio_lowerings`` takes
+every plan the JAX package takes, and ``AudioEncoder`` and
+``ConvNormRelu`` run the native conv for any of them.  Forwards take and
+return channels-last tensors ``(B, T, C)`` / ``(B, H, W, C)``, as the JAX
+package does; each convolution runs on a permuted view in torch's
+``(B, C, T)`` / NCHW layout, so a chain of layers permutes without
+copying.
 
 Submodule and parameter names follow the flax tree (``conv``/``norm``,
 ``stack.conv{i}``, ``unet.pre0`` ...), so ``interop/weights.py`` maps every
@@ -314,6 +316,31 @@ def resize_bilinear_time(x, time_steps: int):
     return y[..., 0].permute(0, 2, 1)
 
 
+# the ``-audio_lowering`` plans' entries: every plan computes the same
+# function from the same parameters (``layers.py:227-258``)
+AUDIO_LOWERING_ENTRIES = ("conv", "s2d", "im2col")
+
+
+def resolve_audio_lowerings(spec) -> Optional[Tuple[str, ...]]:
+    """The ``-audio_lowering`` flag as an ``AudioEncoder`` plan, by the
+    JAX package's rules: None, ``""``, ``"native"``, ``"conv"`` and
+    ``"tpu"`` are the native convolutions (None); else 8 entries from
+    conv|s2d|im2col, a comma-separated string or a sequence.  Anything
+    else raises ``ValueError``.  Every plan runs the native convolution
+    here (cuDNN's is the lowering on the card)."""
+    if spec is None or (isinstance(spec, str) and
+                        spec in ("", "native", "conv", "tpu")):
+        return None
+    if isinstance(spec, str):
+        spec = tuple(s.strip() for s in spec.split(","))
+    plan = tuple(spec)
+    if len(plan) != 8 or not all(p in AUDIO_LOWERING_ENTRIES for p in plan):
+        raise ValueError(
+            f"audio_lowering must be 'native', 'tpu', or 8 comma-separated "
+            f"entries from conv|s2d|im2col; got {spec!r}")
+    return plan
+
+
 class AudioEncoder(nn.Module):
     """2D conv pyramid over (time, mel) log-spectrogram windows
     (``layers.py:260-308``): (B, T, mel) → (B, time_steps, 256).  With
@@ -330,7 +357,7 @@ class AudioEncoder(nn.Module):
         super().__init__()
         if lowerings is not None and (
                 len(lowerings) != 8
-                or any(lo not in ("conv", "s2d", "im2col") for lo in lowerings)):
+                or any(lo not in AUDIO_LOWERING_ENTRIES for lo in lowerings)):
             raise ValueError(f"lowerings must be 8 entries from "
                              f"conv|s2d|im2col, got {lowerings!r}")
         common = dict(type="2d", leaky=True, dtype=dtype, p=p, groups=groups)

@@ -1,8 +1,10 @@
 """Train and eval steps: the GAN, the non-GAN and the classifier trainers.
 
 Counterpart of ``mixstage_tpu/train/steps.py``: every configuration its
-``StepFactory`` builds but ``audio_lowering`` (a TPU relowering of the same
-math, not to port).
+``StepFactory`` builds.  ``audio_lowering`` takes every plan JAX takes
+(``models/layers.py::resolve_audio_lowerings``; a bad one raises
+``ValueError``): all compute the same math on the same parameters, and
+the native convolutions run for each.
 The JAX package jits pure functions of a state pytree; here the modules
 live in ``TrainState`` and a step updates it in place, with
 ``module.train()`` / ``.eval()`` as the mode:
@@ -38,7 +40,9 @@ live in ``TrainState`` and a step updates it in place, with
 * ``fused_decoder``: the backbone runs through autograd and the mixture
   decoder through kernel K3 (``ops/cuda/train_decoder.py``); the decoder's
   running statistics take the flax rule from K3's batch mean / variance.
-  It needs ``p_dropout == 0`` (``:338-339``) and a Mix-StAGE generator.
+  It needs ``p_dropout == 0`` (``:338-339``).  Another model ignores the
+  flag, as JAX reads it only in the Mix-StAGE generator's forward
+  (``:310``): its step runs unfused, K3 launched 0 times.
 * ``dtype=torch.bfloat16`` (``steps.py:136-137``): the modules compute in
   bf16 with float32 parameters, BatchNorm statistics and optimizer state;
   the batch's float leaves are cast to bf16 (``bench.py:227-229``), the
@@ -81,6 +85,7 @@ Configurations the port does not cover raise ``NotImplementedError``.
 from __future__ import annotations
 
 import dataclasses
+import inspect
 from functools import partial
 from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
@@ -92,6 +97,7 @@ from mixstage_tpu_torch.device import resolve_device
 from mixstage_tpu_torch.models.layers import (PoseStyleEncoder,
                                               confidence_entropy_loss,
                                               dropout_rng, reset_parameters_,
+                                              resolve_audio_lowerings,
                                               softmax)
 from mixstage_tpu_torch.models.registry import (DISENTANGLE_INTERNAL_LOSSES,
                                                 get_model_def,
@@ -167,6 +173,11 @@ class StepConfig:
         return "Style" in self.model and not self.is_classifier
 
     @property
+    def fuses_decoder(self) -> bool:
+        """``fused_decoder`` where it applies: a Mix-StAGE generator."""
+        return self.fused_decoder and self.has_style
+
+    @property
     def d_prob(self) -> float:
         r = self.dg_iter_ratio
         return r / (r + 1.0)
@@ -174,16 +185,9 @@ class StepConfig:
 
 def _unsupported(cfg: StepConfig) -> Optional[str]:
     """Why the port cannot run ``cfg`` (None when it can)."""
-    if cfg.audio_lowering:
-        return ("audio_lowering is a TPU relowering plan of the same math; "
-                "the port runs native convs (ROADMAP queue 1 item 4): not "
-                "to port")
-    if cfg.fused_decoder and cfg.p_dropout > 0:
+    if cfg.fuses_decoder and cfg.p_dropout > 0:
         return (f"-fused_decoder requires p_dropout == 0 (steps.py:338-339):"
                 f" K3 has no dropout (ROADMAP queue 3)")
-    if cfg.fused_decoder and not cfg.has_style:
-        return (f"-fused_decoder runs the Mix-StAGE mixture decoder on K3; "
-                f"{cfg.model} has none (ROADMAP queue 3)")
     return None
 
 
@@ -258,13 +262,18 @@ class StepFactory:
         self.cfg = cfg
         self.layout = layout
         self.device = resolve_device(device)
-        if cfg.fused_decoder and cfg.dtype == torch.float64 and \
+        if cfg.fuses_decoder and cfg.dtype == torch.float64 and \
                 self.device.type == "cuda":
             raise NotImplementedError(
                 "-fused_decoder at float64: K3 has float32 and bfloat16 "
                 "modes only; the float64 parity mode runs the unfused "
                 "decoder on the card (ROADMAP queue 3)")
         self.gen_cls = get_model_def(cfg.model)
+        if cfg.audio_lowering and "audio_lowerings" in \
+                inspect.signature(self.gen_cls).parameters:
+            # JAX checks the plan of a generator that takes one
+            # (``steps.py:142-146``); the native convs run for every plan
+            resolve_audio_lowerings(cfg.audio_lowering)
         self.disc_cls = None
         if cfg.gan:
             d_name = cfg.discriminator or infer_discriminator_name(cfg.model)

@@ -222,7 +222,6 @@ class Trainer:
         schedule = make_schedule(args.scheduler, args.lr, args.gamma,
                                  args.scheduler_warmup_steps, total_steps,
                                  steps_per_epoch)
-        lowering = args.audio_lowering
         self.step_cfg = StepConfig(
             model=args.model, gan=bool(args.gan), criterion=args.loss,
             input_modalities=tuple(self.input_modalities),
@@ -245,8 +244,7 @@ class Trainer:
             optim_separate=args.optim_separate,
             optim_mu_dtype=args.optim_mu_dtype,
             fused_decoder=bool(args.fused_decoder),
-            # 'native' is the plain convolutions the port runs
-            audio_lowering=None if lowering in (None, "native") else lowering,
+            audio_lowering=args.audio_lowering,
             p_dropout=float(mk.pop("p", 0.0)), dtype=self.fp,
             model_kwargs=tuple(mk.items()))
         self.factory = StepFactory(self.step_cfg, g_schedule=schedule,

@@ -323,6 +323,8 @@ PORTED = {
     and tr.state.g_opt.SLOTS == ("mu", "nu"),
     # orbax directories (test_torch_port_orbax.py)
     "orbax": lambda tr: tr.book._orbax_path().endswith("_weights.orbax"),
+    # JAX's native convs (test_torch_port_train_steps.py)
+    "audio_lowering": lambda tr: tr.step_cfg.audio_lowering == "tpu",
 }
 
 

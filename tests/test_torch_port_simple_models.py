@@ -46,6 +46,10 @@ CONFIGS = {
                        model_kwargs=(("in_channels", C),)),
     "s2g_gan": dict(model="Speech2Gesture_G", gan=True,
                     model_kwargs=(("in_channels", C),)),
+    # both packages ignore -fused_decoder without the mixture decoder
+    "s2g_gan_fused": dict(model="Speech2Gesture_G", gan=True,
+                          fused_decoder=True,
+                          model_kwargs=(("in_channels", C),)),
     "mixstage_nongan": dict(model="JointLateClusterSoftStyle4_G", gan=False,
                             num_clusters=2,
                             model_kwargs=(("in_channels", C),)),
@@ -54,6 +58,7 @@ CONFIGS = {
 # relative Frobenius per module [largest gap measured, mu or nu]
 MOMENT_TOL = {"s2g_nongan": 3e-4,          # [1.3e-4 gen/unet]
               "s2g_gan": 2e-4,             # [6.0e-5 gen/logits]
+              "s2g_gan_fused": 2e-4,       # the same step
               "mixstage_nongan": 3e-2,     # [1.3e-2 gen/unet]
               "classifier": 4e-3}          # [1.8e-3 gen/classifier1]
 

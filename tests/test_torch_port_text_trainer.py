@@ -24,8 +24,7 @@ step after it then differs by up to 4.1e-4 (``fake_D``; the later eval
 steps by up to 1.7e-5); the sampled metrics count keypoints under a
 threshold, so one flipped keypoint moves them by 1/768.  The step
 configuration each trainer builds equals JAX's field for field (dtypes
-mapped; the port takes ``-audio_lowering native``, the plain convolutions,
-as None), for this run and for a registered Disentangle generator with
+mapped), for this run and for a registered Disentangle generator with
 ``-style_losses``.
 """
 
@@ -169,8 +168,6 @@ def _same_step_config(jcfg, pcfg):
         want, got = getattr(jcfg, f), getattr(pcfg, f)
         if f == "dtype":
             want = dtypes[want]
-        if f == "audio_lowering" and want == "native":
-            want = None
         assert got == want, (f, got, want)
 
 

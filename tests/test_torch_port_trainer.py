@@ -27,7 +27,10 @@ carried over the epoch:
   each value within 1e-5 of its magnitude (+1e-8; measured: 1.2e-7); the
   cluster ``histogram`` counts equal.  Swapping the style-transfer target
   for the speaker's own style moves the ``style`` metrics by more than 1e-2
-  (``test_metric_tolerance_catches_a_swapped_style_target``).
+  (``test_metric_tolerance_catches_a_swapped_style_target``);
+* ``-tb 1``: both trainers write tensorboard event files, read back with
+  tensorboard's ``EventAccumulator``: the same tags and steps, the values
+  (the epoch's losses and metrics) at the results' rtol 1e-4.
 """
 
 import json
@@ -103,9 +106,10 @@ def runs(tmp_path_factory):
     root = tmp_path_factory.mktemp("lifecycle")
     data = str(root / "data")
     make_synthetic_dataset(data, ["oliver", "maher"], 3)
-    jt = JaxTrainer(jax_cfg(base(data, save_dir=str(root / "jax"))), SUB, {})
-    pt = Trainer(config_from_dict(base(data, save_dir=str(root / "port"))),
-                 SUB, {}, device="cpu")
+    jt = JaxTrainer(jax_cfg(base(data, save_dir=str(root / "jax"), tb=1)),
+                    SUB, {})
+    pt = Trainer(config_from_dict(base(data, save_dir=str(root / "port"),
+                                       tb=1)), SUB, {}, device="cpu")
     pt.state = load_jax_train_state(pt.factory, jt.state)
     logs = {"jax": [], "port": []}
     _record(jt, logs["jax"])
@@ -200,6 +204,30 @@ def test_results_match_jax(runs):
             continue
         np.testing.assert_allclose(res_p[k], want, rtol=1e-4, atol=1e-7,
                                    err_msg=k)
+
+
+def _tb_scalars(trainer):
+    """{tag: [(step, value)]} of the event files in the trainer's
+    experiment directory."""
+    from tensorboard.backend.event_processing.event_accumulator import \
+        EventAccumulator
+
+    acc = EventAccumulator(trainer.book.name.dir(trainer.book.save_dir))
+    acc.Reload()
+    return {tag: [(e.step, e.value) for e in acc.Scalars(tag)]
+            for tag in acc.Tags()["scalars"]}
+
+
+def test_tensorboard_scalars_match_jax(runs):
+    want, got = _tb_scalars(runs["jt"]), _tb_scalars(runs["pt"])
+    cpk = runs["pt"].args.cpk
+    assert sorted(got) == sorted(want)
+    assert {f"{cpk}/{s}" for s in ("train", "dev", "test")} <= set(got)
+    for tag, events in want.items():
+        assert [s for s, _ in got[tag]] == [s for s, _ in events], tag
+        np.testing.assert_allclose([v for _, v in got[tag]],
+                                   [v for _, v in events], rtol=1e-4,
+                                   atol=1e-7, err_msg=tag)
 
 
 def _h5_tree(d: Path):
