@@ -24,7 +24,9 @@ themselves.  ``ServingProgram`` is the same call as a pure function of
 the weights (JAX's ``fn.jitted`` of ``fn.bound_args``), which the exported
 artifact (``export.py``) traces.  ``build_waveform_serving_fn`` puts the
 log-mel frontend (``data/audio.py::log_mel_spectrogram``) in front, for
-raw 16 kHz audio.
+raw 16 kHz audio.  Under a ``torch.profiler`` trace each call is a
+``serve.call`` span and its backbone a ``serve.features`` one
+(``train/profiling.py``); the exported program takes neither.
 
 A model built with ``dtype=torch.bfloat16`` serves at that compute dtype,
 as the JAX package's bf16 tier does: audio and style rows are cast to it,
@@ -40,6 +42,7 @@ rounds K4's float32 logits to bfloat16 before the mixture, as JAX's
 
 from __future__ import annotations
 
+import contextlib
 import copy
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -57,6 +60,7 @@ from mixstage_tpu_torch.ops.cuda.quant import (decoder_int8_plain,
                                                pack_decoder_int8,
                                                quantize_folded_decoder)
 from mixstage_tpu_torch.ops.mixture import index_select_outputs
+from mixstage_tpu_torch.train.profiling import span
 
 _FOLDED_KEYS = ("w0", "wc", "biases", "w_logits", "b_logits")
 
@@ -127,17 +131,23 @@ def style_weights(style, num_speakers: int, device,
 
 
 def _features_soft(model: nn.Module, audio, sw, fc, packed,
-                   use_kernel: bool, k1=fused_mixstage_decoder):
+                   use_kernel: bool, k1=fused_mixstage_decoder,
+                   traced: bool = False):
     """The content+style features x and the (B, T, G) mixture attention:
     on the kernel route the classifier chain runs through ``k1`` (K1's
     wrapper, or its registered operator in an exported program) on the
-    weights ``packed`` by ``pack_decoder_bf16``."""
+    weights ``packed`` by ``pack_decoder_bf16``.  ``traced``: the backbone
+    runs in a ``serve.features`` span (the serving function's calls; the
+    exported program's graph takes none)."""
+    with span("serve.features") if traced else contextlib.nullcontext():
+        if use_kernel:
+            x = model.features([audio], None, sw)
+        else:
+            x, _, soft = model.backbone([audio], None, sw)
     if use_kernel:
-        x = model.features([audio], None, sw)
         scores = k1(x, *(fc[k] for k in _FOLDED_KEYS), groups=1,
                     packed=packed.get("classifier"))
         return x, softmax(scores, dim=-1)
-    x, _, soft = model.backbone([audio], None, sw)
     return x, soft
 
 
@@ -160,10 +170,11 @@ def _decode(model: nn.Module, x, fd, packed, use_kernel: bool, qfd=None,
 
 
 def _pose(model: nn.Module, audio, sw, fd, fc, packed, use_kernel: bool,
-          qfd=None, k1=fused_mixstage_decoder):
+          qfd=None, k1=fused_mixstage_decoder, traced: bool = False):
     """The serving body: audio and (B, T, S) style rows in the compute dtype
     → float32 pose (``_features_soft``, ``_decode``)."""
-    x, soft = _features_soft(model, audio, sw, fc, packed, use_kernel, k1)
+    x, soft = _features_soft(model, audio, sw, fc, packed, use_kernel, k1,
+                             traced)
     logits = _decode(model, x, fd, packed, use_kernel, qfd, k1)
     return index_select_outputs(logits, soft, model.num_clusters).float()
 
@@ -417,10 +428,14 @@ def build_serving_fn(model: nn.Module, device=None,
         m, fd_d, fc_d, packed, q = shards[i]
         dev = fd_d["w0"].device
         return _pose(m, *inputs(audio, style, dev), fd_d, fc_d, packed,
-                     use_kernel, q)
+                     use_kernel, q, traced=True)
 
     @torch.inference_mode()
     def fn(audio, style):
+        with span("serve.call"):
+            return call(audio, style)
+
+    def call(audio, style):
         if devices is None:
             return one(0, audio, style)
         audio = torch.as_tensor(audio)
@@ -443,7 +458,8 @@ def build_serving_fn(model: nn.Module, device=None,
         for i, (m, fd_d, fc_d, packed, _) in enumerate(shards):
             dev = fd_d["w0"].device
             a, sw = inputs(audio, style, dev)
-            x, soft = _features_soft(m, a, sw, fc_d, packed, use_kernel)
+            x, soft = _features_soft(m, a, sw, fc_d, packed, use_kernel,
+                                     traced=True)
             part = index_select_outputs(
                 _decode(m, x, fd_d, packed, use_kernel),
                 soft[..., i * gl:(i + 1) * gl], gl)

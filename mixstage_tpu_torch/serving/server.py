@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import collections
 import io
+import itertools
 import json
 import queue
 import threading
@@ -49,6 +50,7 @@ import torch
 
 from mixstage_tpu_torch.ops.bucketing import pow2_pad
 from mixstage_tpu_torch.streaming import StreamingSession
+from mixstage_tpu_torch.train.profiling import enabled, record, span
 
 
 class Overloaded(RuntimeError):
@@ -84,6 +86,12 @@ class DynamicBatcher:
     ``max_queue`` (default ``4 * batch_size``) bounds the backlog; beyond it
     ``submit`` sheds with :class:`Overloaded`.  Requests whose audio shape
     or style form differ go to separate batches.
+
+    Under a ``torch.profiler`` trace (``train/profiling.py``) the worker
+    records, with each batch's id: its gather (``batcher.gather``), its
+    service (``batcher.service``, the serving call's ``serve.call``
+    inside) and each of its requests' queue wait (``batcher.queue_wait``,
+    from ``submit`` to the worker taking it).
     """
 
     def __init__(self, serve_fn: Callable, batch_size: int,
@@ -106,6 +114,7 @@ class DynamicBatcher:
         self.shed = 0
         self.latencies_ms: list = []
         self._stats_lock = threading.Lock()
+        self._batch_ids = itertools.count()
         self._worker.start()
 
     def submit(self, audio: np.ndarray, style) -> Future:
@@ -165,8 +174,9 @@ class DynamicBatcher:
 
     def _drain(self):
         """Block for one request, then take what else arrives within the
-        wait budget, up to the batch size.  Only requests matching the first
-        one's batch key join; the rest wait in ``_pending``."""
+        wait budget, up to the batch size: (the requests, the batch's id),
+        or None.  Only requests matching the first one's batch key join;
+        the rest wait in ``_pending``."""
         if self._pending:
             first = self._pending.popleft()
         else:
@@ -174,66 +184,85 @@ class DynamicBatcher:
                 first = self._queue.get(timeout=0.1)
             except queue.Empty:
                 return None
-        key = self._batch_key(first)
-        items = [first]
-        keep = collections.deque()
-        while self._pending and len(items) < self.batch_size:
-            it = self._pending.popleft()
-            (items if self._batch_key(it) == key else keep).append(it)
-        keep.extend(self._pending)
-        self._pending = keep
-        deadline = time.perf_counter() + self.max_wait_s
-        while len(items) < self.batch_size:
-            remaining = deadline - time.perf_counter()
-            if remaining <= 0:
-                break
-            try:
-                it = self._queue.get(timeout=remaining)
-            except queue.Empty:
-                break
-            if self._batch_key(it) == key:
-                items.append(it)
-            else:
-                self._pending.append(it)
-        return items
+        batch = next(self._batch_ids)
+        traced = enabled()
+        held = time.perf_counter() if traced else 0.0
+        with span("batcher.gather", batch=batch) as gather:
+            key = self._batch_key(first)
+            items = [first]
+            keep = collections.deque()
+            while self._pending and len(items) < self.batch_size:
+                it = self._pending.popleft()
+                (items if self._batch_key(it) == key else keep).append(it)
+            keep.extend(self._pending)
+            self._pending = keep
+            if traced:        # the first request and the stragglers
+                for it in items:
+                    record("batcher.queue_wait", it[3], held, batch=batch)
+            deadline = time.perf_counter() + self.max_wait_s
+            while len(items) < self.batch_size:
+                remaining = deadline - time.perf_counter()
+                if remaining <= 0:
+                    break
+                try:
+                    it = self._queue.get(timeout=remaining)
+                except queue.Empty:
+                    break
+                if self._batch_key(it) == key:
+                    items.append(it)
+                    if traced:
+                        record("batcher.queue_wait", it[3],
+                               time.perf_counter(), batch=batch)
+                else:
+                    self._pending.append(it)
+            gather.note(size=len(items),
+                        full=len(items) == self.batch_size)
+        return items, batch
 
     def _run(self):
         while not self._stop.is_set():
-            items = self._drain()
-            if not items:
+            drained = self._drain()
+            if drained is None:
                 continue
-            n = len(items)
-            try:  # nothing in here may kill the worker thread
-                audio = np.stack([it[0] for it in items])
-                styles = [it[1] for it in items]
-                style = (np.asarray(styles, np.int32)
-                         if all(np.ndim(s) == 0 for s in styles)
-                         else np.stack([np.asarray(s, np.float32)
-                                        for s in styles]))
-                if n < self.batch_size:   # pad to the batch size
-                    pad = self.batch_size - n
-                    audio = np.concatenate(
-                        [audio, np.repeat(audio[:1], pad, axis=0)])
-                    style = np.concatenate(
-                        [style, np.repeat(style[:1], pad, axis=0)])
-                pose = self.serve_fn(audio, style)
-                if isinstance(pose, torch.Tensor):
-                    pose = pose.detach().cpu().numpy()
-                pose = np.asarray(pose)
-            except Exception as exc:  # propagate to every waiter
-                for _, _, fut, _ in items:
-                    fut.set_exception(exc)
-                continue
-            now = time.perf_counter()
-            with self._stats_lock:
-                self.requests += n
-                self.batches += 1
-                self.occupancy_sum += n
-                self.latencies_ms.extend(
-                    (now - it[3]) * 1e3 for it in items)
-                del self.latencies_ms[:-8192]
-            for i, (_, _, fut, _) in enumerate(items):
-                fut.set_result(pose[i])
+            items, batch = drained
+            with span("batcher.service", batch=batch):
+                self._serve(items)
+
+    def _serve(self, items):
+        """One device batch: stack and pad the requests, run the serving
+        call, copy the pose to the host and set every future."""
+        n = len(items)
+        try:  # nothing in here may kill the worker thread
+            audio = np.stack([it[0] for it in items])
+            styles = [it[1] for it in items]
+            style = (np.asarray(styles, np.int32)
+                     if all(np.ndim(s) == 0 for s in styles)
+                     else np.stack([np.asarray(s, np.float32)
+                                    for s in styles]))
+            if n < self.batch_size:   # pad to the batch size
+                pad = self.batch_size - n
+                audio = np.concatenate(
+                    [audio, np.repeat(audio[:1], pad, axis=0)])
+                style = np.concatenate(
+                    [style, np.repeat(style[:1], pad, axis=0)])
+            pose = self.serve_fn(audio, style)
+            if isinstance(pose, torch.Tensor):
+                pose = pose.detach().cpu().numpy()
+            pose = np.asarray(pose)
+        except Exception as exc:  # propagate to every waiter
+            for _, _, fut, _ in items:
+                fut.set_exception(exc)
+            return
+        now = time.perf_counter()
+        with self._stats_lock:
+            self.requests += n
+            self.batches += 1
+            self.occupancy_sum += n
+            self.latencies_ms.extend(
+                (now - it[3]) * 1e3 for it in items)
+            del self.latencies_ms[:-8192]
+        for i, (_, _, fut, _) in enumerate(items):
+            fut.set_result(pose[i])
 
 
 class PoseService:

@@ -78,6 +78,12 @@ live in ``TrainState`` and a step updates it in place, with
   GSPMD step does.  Dropout masks are drawn at each rank's shape.  Under
   expert parallelism (``shard_state_mixture``) the generator decodes its
   rank's experts.
+* Under a ``torch.profiler`` trace each train step is a span
+  (``train/profiling.py``): ``train.g_step`` (the simple and the
+  classifier's steps too) or ``train.d_step``, holding one
+  ``train.forward`` (G's forward, a D step's no-grad one too, D's scores
+  and the losses), one ``train.backward`` (``torch.autograd.grad``) and
+  one ``train.update`` (the gradients' all-reduce, clip and optimizer).
 
 Configurations the port does not cover raise ``NotImplementedError``.
 """
@@ -107,6 +113,7 @@ from mixstage_tpu_torch.parallel.mesh import (all_gather, all_reduce_grads,
                                               mean_over_data, shard_batch,
                                               stats_exchange)
 from mixstage_tpu_torch.train import losses as L
+from mixstage_tpu_torch.train.profiling import span, spanned
 from mixstage_tpu_torch.train.state import (TrainState, g_named_parameters,
                                             make_optimizer,
                                             translate_optim_kwargs)
@@ -608,11 +615,13 @@ class StepFactory:
             state.disc.train(d_train)
 
     def _step_g_opt(self, state, total):
-        grads = torch.autograd.grad(total, state.g_opt.params,
-                                    allow_unused=True)
-        state.g_opt.step(all_reduce_grads(
-            [torch.zeros_like(p) if g is None else g
-             for g, p in zip(grads, state.g_opt.params)], self.layout))
+        with span("train.backward"):
+            grads = torch.autograd.grad(total, state.g_opt.params,
+                                        allow_unused=True)
+        with span("train.update"):
+            state.g_opt.step(all_reduce_grads(
+                [torch.zeros_like(p) if g is None else g
+                 for g, p in zip(grads, state.g_opt.params)], self.layout))
 
     def _shard(self, batch):
         """(this rank's rows of the device batch, whether it was split):
@@ -646,6 +655,7 @@ class StepFactory:
                     "eval": self._eval_step}
         return {"g": self._g_step, "d": self._d_step, "eval": self._eval_step}
 
+    @spanned("train.g_step")
     def _simple_train_step(self, state: TrainState, batch: Batch,
                            rng: Rng = None, use_pose_input: bool = False):
         """Non-GAN step (``steps.py:477-505``): (state, losses, pose)."""
@@ -655,11 +665,13 @@ class StepFactory:
         self._modes(state, True, False)
         with torch.enable_grad(), dropout_rng(drop_gen), \
                 batch_stats(self.layout, sharded):
-            pose, internal, _ = self._forward(state, batch, use_pose_input,
-                                              True, False)
-            pose_loss = self.criterion(pose, y).mean()
-            total = self._with_confidence(pose_loss, batch, y, pose) + \
-                sum(internal.values())
+            with span("train.forward"):
+                pose, internal, _ = self._forward(state, batch,
+                                                  use_pose_input, True,
+                                                  False)
+                pose_loss = self.criterion(pose, y).mean()
+                total = self._with_confidence(pose_loss, batch, y, pose) + \
+                    sum(internal.values())
             self._step_g_opt(state, total)
         state.step += 1
         state.g_step += 1
@@ -667,6 +679,7 @@ class StepFactory:
         losses = {"pose": pose_loss, "total": total, **internal}
         return (state, *self._report(losses, pose.detach(), sharded))
 
+    @spanned("train.g_step")
     def _g_step(self, state: TrainState, batch: Batch, rng: Rng = None,
                 use_pose_input: bool = False):
         """GAN G step (``steps.py:508-554``): (state, losses, pose)."""
@@ -679,17 +692,21 @@ class StepFactory:
         self._modes(state, True, True)
         with torch.enable_grad(), dropout_rng(drop_gen), \
                 batch_stats(self.layout, sharded):
-            pose, internal, _ = self._forward(state, batch, use_pose_input,
-                                              True, False)
-            d_score = self._apply_disc(state, self._d_input(pose, batch["x"]))
-            if cfg.no_grad:
-                d_score = d_score.detach()
-            G_gan = lambda_gan * L.sample_wise_weight_mean(
-                self.criterion(d_score, torch.ones_like(d_score)), 1.0 / W)
-            pose_loss = L.sample_wise_weight_mean(self.criterion(pose, y),
-                                                  1.0 / W)
-            total = self._with_confidence(pose_loss + G_gan, batch, y,
-                                          pose) + sum(internal.values())
+            with span("train.forward"):
+                pose, internal, _ = self._forward(state, batch,
+                                                  use_pose_input, True,
+                                                  False)
+                d_score = self._apply_disc(state,
+                                           self._d_input(pose, batch["x"]))
+                if cfg.no_grad:
+                    d_score = d_score.detach()
+                G_gan = lambda_gan * L.sample_wise_weight_mean(
+                    self.criterion(d_score, torch.ones_like(d_score)),
+                    1.0 / W)
+                pose_loss = L.sample_wise_weight_mean(
+                    self.criterion(pose, y), 1.0 / W)
+                total = self._with_confidence(pose_loss + G_gan, batch, y,
+                                              pose) + sum(internal.values())
             self._step_g_opt(state, total)
         state.step += 1
         state.g_step += 1
@@ -699,6 +716,7 @@ class StepFactory:
                   **internal}
         return (state, *self._report(losses, pose.detach(), sharded))
 
+    @spanned("train.d_step")
     def _d_step(self, state: TrainState, batch: Batch, rng: Rng = None,
                 use_pose_input: bool = False):
         """GAN D step (``steps.py:557-605``): (state, losses, pose)."""
@@ -709,24 +727,30 @@ class StepFactory:
         lambda_D = self._lambda(state.lambda_step, cfg.lambda_D)
         W = self._weights(state, batch)
         self._modes(state, False, True)
-        with torch.no_grad():
-            pose, internal, _ = self._forward(state, batch, use_pose_input,
-                                              False, False)
-        fake_v, real_v = self._d_input(pose, batch["x"]), \
-            self._d_input(y, batch["x"])
-        with torch.enable_grad(), dropout_rng(drop_gen), \
-                batch_stats(self.layout, sharded):
-            fake_score = self._apply_disc(state, fake_v)
-            real_score = self._apply_disc(state, real_v)
-            fake_D = lambda_D * L.sample_wise_weight_mean(
-                self.criterion(fake_score, torch.zeros_like(fake_score)),
-                torch.ones_like(W))
-            real_D = L.sample_wise_weight_mean(
-                self.criterion(real_score, torch.ones_like(real_score)),
-                torch.ones_like(W))
-            total = real_D + fake_D + sum(internal.values())
+        with span("train.forward"):
+            with torch.no_grad():
+                pose, internal, _ = self._forward(state, batch,
+                                                  use_pose_input, False,
+                                                  False)
+            fake_v, real_v = self._d_input(pose, batch["x"]), \
+                self._d_input(y, batch["x"])
+            with torch.enable_grad(), dropout_rng(drop_gen), \
+                    batch_stats(self.layout, sharded):
+                fake_score = self._apply_disc(state, fake_v)
+                real_score = self._apply_disc(state, real_v)
+                fake_D = lambda_D * L.sample_wise_weight_mean(
+                    self.criterion(fake_score,
+                                   torch.zeros_like(fake_score)),
+                    torch.ones_like(W))
+                real_D = L.sample_wise_weight_mean(
+                    self.criterion(real_score, torch.ones_like(real_score)),
+                    torch.ones_like(W))
+                total = real_D + fake_D + sum(internal.values())
+        # the masks and the statistics' group were taken in the forward
+        with span("train.backward"):
             grads = torch.autograd.grad(total, state.d_opt.params)
-        state.d_opt.step(all_reduce_grads(grads, self.layout))
+        with span("train.update"):
+            state.d_opt.step(all_reduce_grads(grads, self.layout))
         state.step += 1
         state.lambda_step += 1
         losses = {"real_D": real_D, "fake_D": fake_D, "total": total,
@@ -770,13 +794,15 @@ class StepFactory:
             acc = (logits.argmax(-1) == y_true).float().mean()
             return (*self._report({"pose": loss, "total": loss, "acc": acc},
                                   logits, sharded), {})
-        drop_gen = split_rng(rng, self.device)[1] \
-            if self.cfg.p_dropout > 0 else None
-        with torch.enable_grad(), dropout_rng(drop_gen), \
-                batch_stats(self.layout, sharded):
-            logits, _ = state.gen(batch["y"])
-            loss = L.cross_entropy(logits, y_true)
-            self._step_g_opt(state, loss)
+        with span("train.g_step"):
+            drop_gen = split_rng(rng, self.device)[1] \
+                if self.cfg.p_dropout > 0 else None
+            with torch.enable_grad(), dropout_rng(drop_gen), \
+                    batch_stats(self.layout, sharded):
+                with span("train.forward"):
+                    logits, _ = state.gen(batch["y"])
+                    loss = L.cross_entropy(logits, y_true)
+                self._step_g_opt(state, loss)
         acc = (logits.argmax(-1) == y_true).float().mean()
         state.step += 1
         state.g_step += 1
