@@ -27,7 +27,6 @@ from __future__ import annotations
 
 import collections
 import contextlib
-import functools
 import itertools
 import os
 import threading
@@ -171,17 +170,6 @@ def span(name: str, **ids):
     if not enabled():
         return _NOOP
     return _Span(name, ids)
-
-
-def spanned(name: str):
-    """Decorate a function so that each call runs inside ``span(name)``."""
-    def wrap(fn):
-        @functools.wraps(fn)
-        def call(*args, **kwargs):
-            with span(name):
-                return fn(*args, **kwargs)
-        return call
-    return wrap
 
 
 def record(name: str, start: float, end: float, **ids) -> None:

@@ -33,6 +33,15 @@ semantics, not ``torch.optim``'s):
   mean ``mu`` of the gradients, ``bias_correction`` divides the moments
   by ``1 - decay^count``;
 * the learning rate is the schedule at the count BEFORE the update;
+* an update has a host half and a device half: ``advance`` moves the
+  count and computes each step-dependent scalar (the rate, the bias
+  corrections) on the host as before, in float32 arithmetic (float64 for
+  float64 parameters), and puts it into a 0-d device tensor kept for the
+  optimizer's life (``scalars``); ``update`` (the clip, then ``apply``)
+  reads those tensors through the tensor-scalar ``_foreach`` overloads, so
+  a CUDA graph that captured it reads each step's values.  A float32 value
+  in a float32 tensor gives the same products and quotients as the
+  host float; ``step`` is both halves;
 * ``text_lr`` (the ``-optim_separate`` flag) is optax's ``multi_transform``
   behind the one clip (``SeparateTextOptimizer``): every parameter under a
   module named ``text_encoder`` runs the same rule at the constant
@@ -76,8 +85,10 @@ class ClippedOptimizer:
 
     ``step(grads)`` updates the parameters, the rule's state tensors (the
     lists named by ``SLOTS``, aligned with ``names``) and ``count`` in
-    place.  A subclass gives ``SLOTS`` and ``_direction(grads)``: the
-    update before the learning rate scales it."""
+    place: ``advance()`` (host), then ``update(grads)`` (device).  A
+    subclass gives ``SLOTS``, ``_direction(grads)`` (the update before the
+    learning rate scales it) and, where its rule has step-dependent
+    scalars, ``_advance()``."""
 
     MAX_NORM = 1.0          # the reference clips G and D to 1 (both steps)
     SLOTS: Tuple[str, ...] = ()
@@ -95,6 +106,8 @@ class ClippedOptimizer:
         # optax does under x64; otherwise the float32 ones of the JAX
         # package's device computation
         self.f64 = any(p.dtype == torch.float64 for p in self.params)
+        # the step scalars' device tensors by name, made at first use
+        self.scalars: Dict[str, torch.Tensor] = {}
 
     def slots(self) -> Dict[str, List[torch.Tensor]]:
         """The rule's state tensors by optax field name (``mu``, ``nu``,
@@ -108,21 +121,56 @@ class ClippedOptimizer:
     def _scalar(self, v) -> float:
         return float(v) if self.f64 else _f32(v)
 
+    def device_tensors(self) -> List[torch.Tensor]:
+        """Every tensor an update reads or writes besides the gradients:
+        the parameters, the rule's state and the step scalars."""
+        return self.params + [t for ts in self.slots().values()
+                              for t in ts] + list(self.scalars.values())
+
+    def _put(self, name: str, value: float) -> None:
+        """``value`` into the step scalar ``name``: a 0-d float32 (float64)
+        tensor on the parameters' device, made at first use."""
+        slot = self.scalars.get(name)
+        if slot is None:
+            slot = self.scalars[name] = torch.zeros(
+                (), dtype=torch.float64 if self.f64 else torch.float32,
+                device=self.params[0].device)
+        slot.fill_(value)
+
+    def advance(self) -> None:
+        """The host half of one update: the rate at the count before it,
+        the count, then the rule's own scalars (``_advance``), each put
+        into its step scalar."""
+        rate = self.learning_rate()
+        self.count += 1
+        self._put("neg_rate", -self._scalar(rate))
+        self._advance()
+
+    def _advance(self) -> None:
+        """The rule's step-dependent scalars (Adam's bias corrections)."""
+
     def _direction(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
         raise NotImplementedError
 
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor]) -> None:
+        """One whole update: ``advance``, then ``update``."""
+        self.advance()
+        self.update(grads)
+
+    @torch.no_grad()
+    def update(self, grads: Sequence[torch.Tensor]) -> None:
+        """The device half of one update, after ``advance``: the clip, then
+        ``apply``; it reads no host value that changes from step to step."""
         self.apply(clip_by_global_norm(_checked(grads, self.params),
                                        self.MAX_NORM, self.expert_norm))
 
     @torch.no_grad()
     def apply(self, grads: List[torch.Tensor]) -> None:
-        """One update from already clipped gradients."""
-        rate = self.learning_rate()
-        self.count += 1
+        """One update from already clipped gradients, with the step
+        scalars of the last ``advance``."""
         upd = self._direction(grads)
-        torch._foreach_mul_(upd, -self._scalar(rate))
+        torch._foreach_mul_(upd, self.scalars["neg_rate"])
         self._after_rate(upd)
         torch._foreach_add_(self.params, upd)
 
@@ -181,6 +229,10 @@ class ClippedAdam(ClippedOptimizer):
         c = torch.tensor(float(self.count), dtype=torch.float32)
         return float(1.0 - torch.tensor(b, dtype=torch.float32) ** c)
 
+    def _advance(self):
+        self._put("bc1", self._bias_correction(self.b1))
+        self._put("bc2", self._bias_correction(self.b2))
+
     def _direction(self, grads):
         b1, b2 = self.b1, self.b2
         if self.mu_dtype is None:
@@ -199,11 +251,10 @@ class ClippedAdam(ClippedOptimizer):
         torch._foreach_mul_(self.nu, b2)
         torch._foreach_add_(self.nu, torch._foreach_mul(
             torch._foreach_mul(grads, grads), 1.0 - b2))
-        bc1, bc2 = self._bias_correction(b1), self._bias_correction(b2)
-        nu_hat = torch._foreach_div(self.nu, bc2)
+        nu_hat = torch._foreach_div(self.nu, self.scalars["bc2"])
         torch._foreach_sqrt_(nu_hat)
         torch._foreach_add_(nu_hat, self.eps)
-        upd = torch._foreach_div(mu, bc1)
+        upd = torch._foreach_div(mu, self.scalars["bc1"])
         torch._foreach_div_(upd, nu_hat)
         return upd
 
@@ -284,6 +335,10 @@ class ClippedRMSprop(ClippedOptimizer):
 
     _bias_correction = ClippedAdam._bias_correction
 
+    def _advance(self):
+        if self.bias_correction:
+            self._put("bc", self._bias_correction(self.decay))
+
     def _direction(self, grads):
         d = self.decay
         torch._foreach_mul_(self.nu, d)
@@ -293,8 +348,8 @@ class ClippedRMSprop(ClippedOptimizer):
         if self.centered:
             torch._foreach_mul_(self.mu, d)
             torch._foreach_add_(self.mu, torch._foreach_mul(grads, 1.0 - d))
+        bc = self.scalars.get("bc")
         if self.bias_correction:
-            bc = self._bias_correction(d)
             den = torch._foreach_div(self.nu, bc)
         if self.centered:
             mu = (torch._foreach_div(self.mu, bc) if self.bias_correction
@@ -380,8 +435,22 @@ class SeparateTextOptimizer:
             out[slot] = tensors
         return out
 
+    def device_tensors(self) -> List[torch.Tensor]:
+        return [t for opt in self.groups.values()
+                for t in opt.device_tensors()]
+
+    def advance(self) -> None:
+        for opt in self.groups.values():
+            if opt.params:
+                opt.advance()
+
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor]) -> None:
+        self.advance()
+        self.update(grads)
+
+    @torch.no_grad()
+    def update(self, grads: Sequence[torch.Tensor]) -> None:
         grads = clip_by_global_norm(_checked(grads, self.params),
                                     self.MAX_NORM, self.expert_norm)
         for g, opt in self.groups.items():

@@ -78,12 +78,17 @@ live in ``TrainState`` and a step updates it in place, with
   GSPMD step does.  Dropout masks are drawn at each rank's shape.  Under
   expert parallelism (``shard_state_mixture``) the generator decodes its
   rank's experts.
+* A step is a host half (``_begin``: the modes, λ and the optimizer's
+  step scalars into device slots), a device half (``_body``) and the
+  host counters (``_count``); the k-step function replays the device half
+  as a CUDA graph where it can (``train/graphs.py``).
 * Under a ``torch.profiler`` trace each train step is a span
   (``train/profiling.py``): ``train.g_step`` (the simple and the
-  classifier's steps too) or ``train.d_step``, holding one
-  ``train.forward`` (G's forward, a D step's no-grad one too, D's scores
-  and the losses), one ``train.backward`` (``torch.autograd.grad``) and
-  one ``train.update`` (the gradients' all-reduce, clip and optimizer).
+  classifier's steps too) or ``train.d_step``, with the id ``graph`` (1
+  for a replay, else 0); an op-by-op step's holds one ``train.forward``
+  (G's forward, a D step's no-grad one too, D's scores and the losses),
+  one ``train.backward`` (``torch.autograd.grad``) and one
+  ``train.update`` (the gradients' all-reduce, clip and optimizer).
 
 Configurations the port does not cover raise ``NotImplementedError``.
 """
@@ -113,7 +118,8 @@ from mixstage_tpu_torch.parallel.mesh import (all_gather, all_reduce_grads,
                                               mean_over_data, shard_batch,
                                               stats_exchange)
 from mixstage_tpu_torch.train import losses as L
-from mixstage_tpu_torch.train.profiling import span, spanned
+from mixstage_tpu_torch.train.graphs import STEP_SPAN, StepGraphs
+from mixstage_tpu_torch.train.profiling import span
 from mixstage_tpu_torch.train.state import (TrainState, g_named_parameters,
                                             make_optimizer,
                                             translate_optim_kwargs)
@@ -299,6 +305,7 @@ class StepFactory:
                                    text_lr=cfg.optim_separate, **opt_kw)
         self.d_tx = make_optimizer(cfg.optim, cfg.lr, schedule=d_schedule,
                                    **opt_kw) if cfg.gan else None
+        self._lambda_slot = None
 
     # ------------------------------------------------------------------ init
     def d_in_channels(self) -> int:
@@ -585,18 +592,19 @@ class StepFactory:
                                    batch["y"])
         return pose, {f"internal_{i}": v for i, v in enumerate(internal)}, {}
 
-    def _lambda(self, step: int, init: float):
-        """The λ ramp's weight: a host float at float32 (and at float64,
-        where JAX's ramp is float64); at bfloat16 a float32 scalar, so the
-        weighted GAN loss (and the total) stay float32, as JAX's
+    def _lambda(self, step: int, init: float) -> torch.Tensor:
+        """The λ ramp's weight at ``step`` in its device slot: a host float
+        in float32 (float64 at float64, where JAX's ramp is float64), put
+        into a 0-d float32 (float64) tensor that the steps read, so that a
+        captured step reads each step's value.  At bfloat16 the float32
+        slot keeps the weighted GAN loss (and the total) float32, as JAX's
         device-computed λ keeps them (``losses.py:81-93``)."""
-        dt = self.cfg.dtype
-        if dt == torch.float64:
-            return L.lambda_schedule(step, init, dtype=torch.float64)
-        value = L.lambda_schedule(step, init)
-        if dt == torch.float32:
-            return value
-        return torch.full((), value, device=self.device, dtype=torch.float32)
+        dt = torch.float64 if self.cfg.dtype == torch.float64 \
+            else torch.float32
+        if self._lambda_slot is None:
+            self._lambda_slot = torch.zeros((), dtype=dt, device=self.device)
+        self._lambda_slot.fill_(L.lambda_schedule(step, init, dtype=dt))
+        return self._lambda_slot
 
     def _out(self, losses):
         """Loss values as float32, whatever the compute dtype
@@ -619,7 +627,7 @@ class StepFactory:
             grads = torch.autograd.grad(total, state.g_opt.params,
                                         allow_unused=True)
         with span("train.update"):
-            state.g_opt.step(all_reduce_grads(
+            state.g_opt.update(all_reduce_grads(
                 [torch.zeros_like(p) if g is None else g
                  for g, p in zip(grads, state.g_opt.params)], self.layout))
 
@@ -655,14 +663,71 @@ class StepFactory:
                     "eval": self._eval_step}
         return {"g": self._g_step, "d": self._d_step, "eval": self._eval_step}
 
-    @spanned("train.g_step")
     def _simple_train_step(self, state: TrainState, batch: Batch,
                            rng: Rng = None, use_pose_input: bool = False):
         """Non-GAN step (``steps.py:477-505``): (state, losses, pose)."""
-        batch, drop_gen = self._prepare(batch, rng)
-        batch, sharded = self._shard(batch)
+        return self._eager("train", state, batch, rng, use_pose_input)
+
+    def _g_step(self, state: TrainState, batch: Batch, rng: Rng = None,
+                use_pose_input: bool = False):
+        """GAN G step (``steps.py:508-554``): (state, losses, pose)."""
+        return self._eager("g", state, batch, rng, use_pose_input)
+
+    def _d_step(self, state: TrainState, batch: Batch, rng: Rng = None,
+                use_pose_input: bool = False):
+        """GAN D step (``steps.py:557-605``): (state, losses, pose)."""
+        return self._eager("d", state, batch, rng, use_pose_input)
+
+    def _eager(self, kind: str, state: TrainState, batch: Batch, rng: Rng,
+               use_pose_input: bool):
+        """One step of ``kind`` ("train": non-GAN, "g", "d") run op by op:
+        the batch to the device, the host half (``_begin``), the device
+        half (``_body``), the counters (``_count``)."""
+        with span(STEP_SPAN[kind], graph=0):
+            batch, drop_gen = self._prepare(batch, rng)
+            batch, sharded = self._shard(batch)
+            self._begin(kind, state)
+            losses, pose = self._body(kind, state, batch, drop_gen, sharded,
+                                      use_pose_input)
+            self._count(kind, state)
+            return (state, *self._report(losses, pose, sharded))
+
+    def _begin(self, kind: str, state: TrainState) -> None:
+        """A step's host half: the modules' modes, then λ and the
+        optimizer's step scalars into their device slots."""
+        cfg = self.cfg
+        if kind == "d":
+            self._modes(state, False, True)
+            self._lambda(state.lambda_step, cfg.lambda_D)
+            state.d_opt.advance()
+            return
+        self._modes(state, True, kind == "g")
+        if kind == "g":
+            self._lambda(state.lambda_step, cfg.lambda_gan)
+        state.g_opt.advance()
+
+    @staticmethod
+    def _count(kind: str, state: TrainState) -> None:
+        """The host counters a step of ``kind`` advances."""
+        state.step += 1
+        if kind != "d":
+            state.g_step += 1
+            state.curriculum_step += 1
+        if kind != "train":
+            state.lambda_step += 1
+
+    def _body(self, kind: str, state: TrainState, batch: Batch, drop_gen,
+              sharded: bool, use_pose_input: bool):
+        """A step's device half, after ``_begin``: (losses, pose).  It
+        reads λ and the optimizer's scalars from their slots and no other
+        host value that changes from step to step, so the k-step
+        function can capture it (``train/graphs.py``)."""
+        body = {"train": self._simple_body, "g": self._g_body,
+                "d": self._d_body}[kind]
+        return body(state, batch, drop_gen, sharded, use_pose_input)
+
+    def _simple_body(self, state, batch, drop_gen, sharded, use_pose_input):
         y = batch["y"]
-        self._modes(state, True, False)
         with torch.enable_grad(), dropout_rng(drop_gen), \
                 batch_stats(self.layout, sharded):
             with span("train.forward"):
@@ -673,23 +738,12 @@ class StepFactory:
                 total = self._with_confidence(pose_loss, batch, y, pose) + \
                     sum(internal.values())
             self._step_g_opt(state, total)
-        state.step += 1
-        state.g_step += 1
-        state.curriculum_step += 1
-        losses = {"pose": pose_loss, "total": total, **internal}
-        return (state, *self._report(losses, pose.detach(), sharded))
+        return {"pose": pose_loss, "total": total, **internal}, pose.detach()
 
-    @spanned("train.g_step")
-    def _g_step(self, state: TrainState, batch: Batch, rng: Rng = None,
-                use_pose_input: bool = False):
-        """GAN G step (``steps.py:508-554``): (state, losses, pose)."""
+    def _g_body(self, state, batch, drop_gen, sharded, use_pose_input):
         cfg = self.cfg
-        batch, drop_gen = self._prepare(batch, rng)
-        batch, sharded = self._shard(batch)
         y = batch["y"]
-        lambda_gan = self._lambda(state.lambda_step, cfg.lambda_gan)
         W = self._weights(state, batch)
-        self._modes(state, True, True)
         with torch.enable_grad(), dropout_rng(drop_gen), \
                 batch_stats(self.layout, sharded):
             with span("train.forward"):
@@ -700,7 +754,7 @@ class StepFactory:
                                            self._d_input(pose, batch["x"]))
                 if cfg.no_grad:
                     d_score = d_score.detach()
-                G_gan = lambda_gan * L.sample_wise_weight_mean(
+                G_gan = self._lambda_slot * L.sample_wise_weight_mean(
                     self.criterion(d_score, torch.ones_like(d_score)),
                     1.0 / W)
                 pose_loss = L.sample_wise_weight_mean(
@@ -708,25 +762,12 @@ class StepFactory:
                 total = self._with_confidence(pose_loss + G_gan, batch, y,
                                               pose) + sum(internal.values())
             self._step_g_opt(state, total)
-        state.step += 1
-        state.g_step += 1
-        state.lambda_step += 1
-        state.curriculum_step += 1
-        losses = {"pose": pose_loss, "G_gan": G_gan, "total": total, "W": W,
-                  **internal}
-        return (state, *self._report(losses, pose.detach(), sharded))
+        return {"pose": pose_loss, "G_gan": G_gan, "total": total, "W": W,
+                **internal}, pose.detach()
 
-    @spanned("train.d_step")
-    def _d_step(self, state: TrainState, batch: Batch, rng: Rng = None,
-                use_pose_input: bool = False):
-        """GAN D step (``steps.py:557-605``): (state, losses, pose)."""
-        cfg = self.cfg
-        batch, drop_gen = self._prepare(batch, rng)
-        batch, sharded = self._shard(batch)
+    def _d_body(self, state, batch, drop_gen, sharded, use_pose_input):
         y = batch["y"]
-        lambda_D = self._lambda(state.lambda_step, cfg.lambda_D)
         W = self._weights(state, batch)
-        self._modes(state, False, True)
         with span("train.forward"):
             with torch.no_grad():
                 pose, internal, _ = self._forward(state, batch,
@@ -738,7 +779,7 @@ class StepFactory:
                     batch_stats(self.layout, sharded):
                 fake_score = self._apply_disc(state, fake_v)
                 real_score = self._apply_disc(state, real_v)
-                fake_D = lambda_D * L.sample_wise_weight_mean(
+                fake_D = self._lambda_slot * L.sample_wise_weight_mean(
                     self.criterion(fake_score,
                                    torch.zeros_like(fake_score)),
                     torch.ones_like(W))
@@ -750,12 +791,9 @@ class StepFactory:
         with span("train.backward"):
             grads = torch.autograd.grad(total, state.d_opt.params)
         with span("train.update"):
-            state.d_opt.step(all_reduce_grads(grads, self.layout))
-        state.step += 1
-        state.lambda_step += 1
-        losses = {"real_D": real_D, "fake_D": fake_D, "total": total,
-                  "W": W, **internal}
-        return (state, *self._report(losses, pose, sharded))
+            state.d_opt.update(all_reduce_grads(grads, self.layout))
+        return {"real_D": real_D, "fake_D": fake_D, "total": total, "W": W,
+                **internal}, pose
 
     @torch.no_grad()
     def _eval_step(self, state: TrainState, batch: Batch,
@@ -794,9 +832,10 @@ class StepFactory:
             acc = (logits.argmax(-1) == y_true).float().mean()
             return (*self._report({"pose": loss, "total": loss, "acc": acc},
                                   logits, sharded), {})
-        with span("train.g_step"):
+        with span("train.g_step", graph=0):
             drop_gen = split_rng(rng, self.device)[1] \
                 if self.cfg.p_dropout > 0 else None
+            state.g_opt.advance()
             with torch.enable_grad(), dropout_rng(drop_gen), \
                     batch_stats(self.layout, sharded):
                 with span("train.forward"):
@@ -822,42 +861,78 @@ class StepFactory:
             keys |= {"W"}
         return sorted(keys)
 
+    def _row(self, losses, keys) -> torch.Tensor:
+        """One step's losses as one float32 row: each of ``keys`` in order
+        (0 where the step has none), ``W``'s B entries in its place."""
+        zero = torch.zeros((1,), device=self.device)
+        return torch.cat([losses[key].float().reshape(-1) if key in losses
+                          else zero for key in keys])
+
+    @staticmethod
+    def _columns(rows, keys) -> Dict[str, torch.Tensor]:
+        """The (k, n) rows of a call as {key: (k,), W: (k, B)}."""
+        B = rows.shape[1] - len(keys) + 1
+        out, j = {}, 0
+        for key in keys:
+            n = B if key == "W" else 1
+            col = rows[:, j:j + n]
+            out[key] = col if key == "W" else col[:, 0]
+            j += n
+        return out
+
+    def _graphable(self) -> bool:
+        """Whether a replayed step computes what the op-by-op one does: on
+        CUDA, with no data-parallel layout (its collectives are not
+        captured), and nothing drawn per step (a replay cannot reseed the
+        noise and dropout generators)."""
+        cfg = self.cfg
+        return self.device.type == "cuda" and self.layout is None and \
+            cfg.noise <= 0 and cfg.p_dropout <= 0
+
     def make_scan_train_step(self, k: int):
         """k sequential train steps per call (``steps.py:656-723``):
         ``fn(state, stacked_batches, coins (k,) host bools: True = D step
         (ignored without a GAN), rngs=None (k seeds or generators)) →
         (state, {key: (k,) float32, W (k, B)}, poses (k, B, T, F) in the
         compute dtype)``.  The audio-input branch only, as in the JAX
-        package; the losses stay on the device (no host sync per step)."""
+        package; the losses stay on the device (no host sync per step).
+        Where ``_graphable``, every call after the first on the same state
+        and batch layout replays each kind of step as a CUDA graph
+        (``train/graphs.py``); the first call, and a call after the state's
+        tensors or the layout changed, runs op by op."""
         if self.cfg.is_classifier:
             raise ValueError("the k-step driver runs the generator's steps; "
                              "the classifier trains one step at a time")
         keys = self.union_keys()
+        graphs = StepGraphs(self, keys) if self._graphable() else None
 
         def scan_step(state, batches: Batch, coins, rngs=None):
             coins = np.asarray(coins, dtype=bool)
             if coins.shape != (k,):
                 raise ValueError(f"coins must have shape ({k},), got "
                                  f"{coins.shape}")
-            rows = {key: [] for key in keys}
-            poses = []
-            zero = torch.zeros((), device=self.device)
+            replay = graphs is not None and graphs.engage(state, batches)
+            rows = poses = None
             for i in range(k):
                 batch = {key: None if v is None else
                          (type(v)(a[i] for a in v) if key == "x" else v[i])
                          for key, v in batches.items()}
-                if not self.cfg.gan:
-                    step = self._simple_train_step
+                kind = "train" if not self.cfg.gan else \
+                    ("d" if coins[i] else "g")
+                if replay:
+                    row, pose = graphs.step(kind, state, batch)
                 else:
-                    step = self._d_step if coins[i] else self._g_step
-                state, losses, pose = step(
-                    state, batch, None if rngs is None else rngs[i],
-                    use_pose_input=False)
-                for key in keys:
-                    rows[key].append(losses[key].float() if key in losses
-                                     else zero)
-                poses.append(pose)
-            return state, {key: torch.stack(v) for key, v in rows.items()}, \
-                torch.stack(poses)
+                    _, losses, pose = self._eager(
+                        kind, state, batch, None if rngs is None else rngs[i],
+                        False)
+                    row = self._row(losses, keys)
+                if rows is None:
+                    rows = row.new_empty((k, *row.shape))
+                    poses = pose.new_empty((k, *pose.shape))
+                rows[i].copy_(row)
+                poses[i].copy_(pose)
+            if graphs is not None and not replay:
+                graphs.settle(state, batches)
+            return state, self._columns(rows, keys), poses
 
         return scan_step
