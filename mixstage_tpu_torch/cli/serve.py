@@ -97,6 +97,7 @@ def build(args: Config, device=None):
     batcher's ``close()``."""
     assert args.load or args.export_dir, \
         "pass -load <PREFIX_weights.p> or -export_dir <artifact>"
+    from mixstage_tpu_torch.ops.bucketing import SERVE_MAX_FRAMES
     from mixstage_tpu_torch.serving import (DynamicBatcher, PoseService,
                                             start_http_server)
 
@@ -163,7 +164,8 @@ def build(args: Config, device=None):
                           frames=int(getattr(serve_fn, "frames", 0) or 64),
                           mel_bins=mel_bins, static_frames=static_frames,
                           # 0 or unset is the 4096 default (config.py help)
-                          max_frames=int(args.serve_max_frames or 0) or 4096)
+                          max_frames=int(args.serve_max_frames or 0)
+                          or SERVE_MAX_FRAMES)
     port = 8008 if args.serve_port is None else int(args.serve_port)
     server = start_http_server(service, port=port, host="0.0.0.0")
     print(f"serving on :{server.server_address[1]} (backend={backend}, "

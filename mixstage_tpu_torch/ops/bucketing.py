@@ -12,6 +12,11 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+# the pose server's request lengths (``serving/server.py::PoseService``):
+# its smallest bucket (the training window, the streaming window) and its
+# default cap, so 64, 128, ..., 4096 frames
+SERVE_FRAMES, SERVE_MAX_FRAMES = 64, 4096
+
 
 def next_pow2(n: int, floor: int = 1) -> int:
     """Smallest value of floor, 2·floor, 4·floor, … that is ≥ n."""
@@ -21,6 +26,15 @@ def next_pow2(n: int, floor: int = 1) -> int:
     while bucket < n:
         bucket *= 2
     return bucket
+
+
+def pow2_buckets(floor: int, cap: int) -> Tuple[int, ...]:
+    """floor, 2·floor, … up to the first that is ≥ cap: every bucket
+    ``next_pow2(n, floor)`` gives for 1 <= n <= cap."""
+    out = [max(int(floor), 1)]
+    while out[-1] < cap:
+        out.append(2 * out[-1])
+    return tuple(out)
 
 
 def pad_repeat_last(arr: np.ndarray, target: int) -> np.ndarray:

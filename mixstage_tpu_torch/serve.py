@@ -24,9 +24,15 @@ themselves.  ``ServingProgram`` is the same call as a pure function of
 the weights (JAX's ``fn.jitted`` of ``fn.bound_args``), which the exported
 artifact (``export.py``) traces.  ``build_waveform_serving_fn`` puts the
 log-mel frontend (``data/audio.py::log_mel_spectrogram``) in front, for
-raw 16 kHz audio.  Under a ``torch.profiler`` trace each call is a
-``serve.call`` span and its backbone a ``serve.features`` one
-(``train/profiling.py``); the exported program takes neither.
+raw 16 kHz audio.
+
+On a CUDA device with no ``devices`` layout the call runs as a CUDA graph
+replay from its second call at a given input key on (``ServingGraphs``):
+launching the backbone's kernels one by one from Python takes longer than
+the card takes to run them.  Under a ``torch.profiler`` trace each call is
+a ``serve.call`` span (id ``graph``: 1 a replay, 0 op by op), an op-by-op
+call's backbone a ``serve.features`` one and a capture a ``serve.capture``
+one (``train/profiling.py``); the exported program takes none.
 
 A model built with ``dtype=torch.bfloat16`` serves at that compute dtype,
 as the JAX package's bf16 tier does: audio and style rows are cast to it,
@@ -42,8 +48,10 @@ rounds K4's float32 logits to bfloat16 before the mixture, as JAX's
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
+import threading
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
@@ -52,6 +60,9 @@ from torch import nn
 from mixstage_tpu_torch.data.audio import log_mel_spectrogram
 from mixstage_tpu_torch.device import resolve_device
 from mixstage_tpu_torch.models.layers import softmax
+from mixstage_tpu_torch.ops.bucketing import (SERVE_FRAMES, SERVE_MAX_FRAMES,
+                                              pow2_buckets)
+from mixstage_tpu_torch.ops.cuda.graphs import CapturedGraph
 from mixstage_tpu_torch.ops.cuda.fused_conv import (
     fold_bn_into_conv, fused_mixstage_decoder, fused_mixstage_decoder_op,
     fused_mixstage_decoder_plain, pack_decoder_bf16)
@@ -217,6 +228,113 @@ class ServingProgram(nn.Module):
             (audio, sw, fd, fc, packed))
 
 
+# the graphs one serving function keeps, one an input key: the pose
+# server pads every request to one of its frame buckets (64 to 4096
+# frames) at its one batch size, and sends the style as ids or as rows
+SERVE_GRAPHS = 2 * len(pow2_buckets(SERVE_FRAMES, SERVE_MAX_FRAMES))
+# the audio frames of a call (batch x frames) up to which its key is
+# captured.  A replay saves the time the card waits on the host's
+# launches, which only small calls leave it: from 128 frames at bs32 on
+# the card's own work hides them, while the graph's pool grows with the
+# frames, and faster.  On an H100 at the benchmark's mixstage8 widths,
+# f32, bs32, a replay against an op-by-op call and the graph's pool: 64
+# frames 3.5 against 5.4 ms, 146 MB; 128 frames 6.6 against 7.1 ms,
+# 1.5 GB; 256 frames 19.0 against 19.5 ms, 5.8 GB; 512 frames 47.1
+# against 47.6 ms, 19.9 GB.
+SERVE_GRAPH_FRAMES = 32 * 128
+
+
+class ServingGraph:
+    """The serving body captured at one input key: static device copies of
+    the audio and the style it reads, the graph, its static output.  A call
+    copies its inputs in, replays, and returns a new tensor copied from the
+    output, which the next replay of any graph of the memory pool ``pool``
+    (a new one where None) may rewrite."""
+
+    def __init__(self, body, audio, style, device, pool=None):
+        self.inputs = tuple(torch.empty(t.shape, dtype=t.dtype, device=device)
+                            for t in (audio, style))
+        self.load(audio, style)
+        self.pool = torch.cuda.graph_pool_handle() if pool is None else pool
+        self.graph = CapturedGraph(lambda: body(*self.inputs), pool=self.pool,
+                                   capture_error_mode="thread_local")
+
+    def load(self, audio, style) -> None:
+        for dst, src in zip(self.inputs, (audio, style)):
+            dst.copy_(src)
+
+    def __call__(self, audio, style):
+        self.load(audio, style)
+        return self.graph.replay().clone()
+
+
+class ServingGraphs:
+    """The single-device serving call on a CUDA device, as graph replays.
+
+    The key is the audio's and the style's shape and dtype (the batch, the
+    frames, the style as (B,) ids or (B, S) rows) with the function's
+    compute dtype and int8 tier.  The first call at a key runs ``body`` op
+    by op: the warm-up a capture needs (cuDNN's plans, the kernels' set-up,
+    the allocator).  The second captures ``body`` from static device inputs
+    to its float32 pose (``ServingGraph``) on a side stream, in
+    ``thread_local`` capture mode, so that other threads (the batcher's
+    front door, another serving function's worker) may run CUDA work
+    meanwhile; it and every later call replay.  One capture runs at a time
+    in the process, and while it runs a random draw on the card from the
+    default generator, in any thread, raises (``ops/cuda/graphs.py``):
+    nothing on the serving path draws.  At most ``SERVE_GRAPHS`` keys are
+    kept, the least recently used dropped.  A call of more than
+    ``SERVE_GRAPH_FRAMES`` audio frames (batch x frames) runs op by op:
+    there a replay saves little and its pool holds gigabytes.  The graphs
+    share one memory pool, and a capture adds only what does not fit in
+    what earlier ones freed (on an H100 at the benchmark's mixstage8
+    widths: 146 MB at bs32 x 64, 1.6 GB for ids and rows at 64 and 128
+    frames).  Calls hold a lock from the copy in to the copy out, so no
+    two replays overlap, and each pose is copied out before another
+    replay may reuse its memory.
+
+    A graph reads the model's parameters and buffers and the folded and
+    packed weights built once in ``build_serving_fn``, by their storage: a
+    ``load_state_dict`` into the model copies into that storage, so a
+    replay computes what an op-by-op call then does (both read the folded
+    weights as they were built); a tensor replaced in the model is not
+    seen.
+    """
+
+    def __init__(self, body, device, dtype: torch.dtype, int8: bool):
+        self.body, self.device, self.tag = body, device, (dtype, int8)
+        self.graphs: "collections.OrderedDict[tuple, Optional[ServingGraph]]" \
+            = collections.OrderedDict()       # None: seen once, not captured
+        self.lock = threading.Lock()
+        self.pool = None        # the graphs' memory pool, the first capture's
+
+    def key(self, audio: torch.Tensor, style: torch.Tensor) -> tuple:
+        return (tuple(audio.shape), audio.dtype, tuple(style.shape),
+                style.dtype) + self.tag
+
+    def __call__(self, audio, style):
+        audio, style = torch.as_tensor(audio), torch.as_tensor(style)
+        key = self.key(audio, style)
+        if audio.shape[0] * audio.shape[1] <= SERVE_GRAPH_FRAMES:
+            with self.lock:
+                seen = key in self.graphs
+                graph = self.graphs.pop(key, None)
+                self.graphs[key] = graph
+                while len(self.graphs) > SERVE_GRAPHS:
+                    self.graphs.popitem(last=False)
+                if seen:
+                    with span("serve.call", graph=1):
+                        if graph is None:
+                            with span("serve.capture"):
+                                graph = self.graphs[key] = ServingGraph(
+                                    self.body, audio, style, self.device,
+                                    self.pool)
+                            self.pool = graph.pool
+                        return graph(audio, style)
+        with span("serve.call", graph=0):
+            return self.body(audio, style, traced=True)
+
+
 PARTITIONS = ("batch", "time", "expert")
 TIME_ALIGN = 32          # UNet1D's 2^5 (its length must divide it)
 
@@ -347,6 +465,16 @@ def build_serving_fn(model: nn.Module, device=None,
     are the same call as a pure function of its weights, which
     ``export.export_serving`` traces; the call itself runs the kernels'
     wrappers directly.
+
+    On a CUDA device with no ``devices``, ``fn.graphs`` (a
+    ``ServingGraphs``) runs every call after the first at an input key as
+    a CUDA graph replay, on either route and every tier; on the CPU and
+    under ``devices`` it is None and every call runs op by op.  The second
+    call at a key captures, at any time in a live server: while it does,
+    a random draw on the card from PyTorch's default generator by another
+    thread of the process raises.  The server, its streaming sessions and
+    the waveform frontend draw nothing; code that shares the process and
+    draws on the card has to pass its own ``torch.Generator``.
     """
     if partition not in PARTITIONS:
         raise ValueError(f"unknown partition {partition!r}; expected "
@@ -424,15 +552,23 @@ def build_serving_fn(model: nn.Module, device=None,
                   for dev in (devices or [device])]
     halo = time_halo(model) if partition == "time" else 0
 
-    def one(i, audio, style):
+    def one(i, audio, style, traced=True):
         m, fd_d, fc_d, packed, q = shards[i]
         dev = fd_d["w0"].device
         return _pose(m, *inputs(audio, style, dev), fd_d, fc_d, packed,
-                     use_kernel, q, traced=True)
+                     use_kernel, q, traced=traced)
+
+    graphs = None
+    if devices is None and device.type == "cuda":
+        graphs = ServingGraphs(
+            lambda audio, style, traced=False: one(0, audio, style, traced),
+            device, dtype, quantize_int8)
 
     @torch.inference_mode()
     def fn(audio, style):
-        with span("serve.call"):
+        if graphs is not None:
+            return graphs(audio, style)
+        with span("serve.call", graph=0):
             return call(audio, style)
 
     def call(audio, style):
@@ -472,6 +608,7 @@ def build_serving_fn(model: nn.Module, device=None,
     fn.dtype = dtype
     fn.use_kernel = use_kernel
     fn.quantize_int8 = quantize_int8
+    fn.graphs = graphs
     fn.program = fn.bound_args = None
     if not quantize_int8 and devices is None:
         fn.program = ServingProgram(model, use_kernel)

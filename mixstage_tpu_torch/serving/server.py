@@ -48,7 +48,8 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
-from mixstage_tpu_torch.ops.bucketing import pow2_pad
+from mixstage_tpu_torch.ops.bucketing import (SERVE_FRAMES,
+                                               SERVE_MAX_FRAMES, pow2_pad)
 from mixstage_tpu_torch.streaming import StreamingSession
 from mixstage_tpu_torch.train.profiling import enabled, record, span
 
@@ -272,10 +273,10 @@ class PoseService:
     def __init__(self, batcher: DynamicBatcher, backend: str = "unknown",
                  timeout_s: float = 30.0, num_styles: Optional[int] = None,
                  waveform_batcher: Optional[DynamicBatcher] = None,
-                 frames: int = 64, stream_idle_s: float = 300.0,
+                 frames: int = SERVE_FRAMES, stream_idle_s: float = 300.0,
                  mel_bins: Optional[int] = None,
                  static_frames: Optional[int] = None, max_streams: int = 64,
-                 max_frames: int = 4096,
+                 max_frames: int = SERVE_MAX_FRAMES,
                  max_body_bytes: int = 64 * 2 ** 20):
         self.batcher = batcher
         self.backend = backend

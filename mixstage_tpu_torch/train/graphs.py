@@ -29,8 +29,10 @@ call captures again.
 
 A replay opens the step's span (``train.g_step`` / ``train.d_step``) with
 the id ``graph=1`` (an op-by-op step: ``graph=0``); a capture is a
-``train.capture`` span.  K3's launch counters (``.launches``,
-``.launches_bf16``) count what a capture launched once for each replay.
+``train.capture`` span.  The kernels' launch counters (``.launches``,
+``.launches_bf16``) count what a capture launched once for each replay
+(``ops/cuda/graphs.py::CapturedGraph``, the serving function's capture
+too).
 """
 
 from __future__ import annotations
@@ -39,18 +41,11 @@ from typing import Dict, List, Tuple
 
 import torch
 
+from mixstage_tpu_torch.ops.cuda.graphs import CapturedGraph
 from mixstage_tpu_torch.train.profiling import span
 
 STEP_SPAN = {"train": "train.g_step", "g": "train.g_step",
              "d": "train.d_step"}
-
-
-def _launch_counts() -> Dict[Tuple, int]:
-    """The launch counters of the kernels a train step runs (K3's)."""
-    from mixstage_tpu_torch.ops.cuda import train_decoder as td
-    return {(fn, c): getattr(fn, c)
-            for fn in (td.decoder_train_fwd, td.decoder_train_bwd)
-            for c in ("launches", "launches_bf16")}
 
 
 def _leaves(batch) -> List[Tuple[str, object]]:
@@ -64,28 +59,6 @@ def _leaves(batch) -> List[Tuple[str, object]]:
     return out
 
 
-class CapturedStep:
-    """``fn()``'s device work captured as one CUDA graph: ``replay()``
-    runs it again and returns the tensors ``fn`` returned, rewritten."""
-
-    def __init__(self, fn):
-        before = _launch_counts()
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            self.outputs = fn()
-        after = _launch_counts()
-        self.launches = {k: after[k] - n for k, n in before.items()
-                         if after[k] != n}
-        for (fn_, c), n in before.items():      # a capture runs nothing
-            setattr(fn_, c, n)
-
-    def replay(self):
-        self.graph.replay()
-        for (fn, c), n in self.launches.items():
-            setattr(fn, c, getattr(fn, c) + n)
-        return self.outputs
-
-
 class StepGraphs:
     """The graphs of one k-step function of ``factory``: ``engage`` at
     each call's start says whether the call replays, ``step`` runs one
@@ -96,7 +69,7 @@ class StepGraphs:
         self.factory, self.keys = factory, keys
         self.key = None
         self.state = None       # held, so that its id is not reused
-        self.graphs: Dict[str, CapturedStep] = {}
+        self.graphs: Dict[str, CapturedGraph] = {}
         self.batch = None       # the static batch the graphs read
 
     def _key(self, state, batches):
@@ -143,7 +116,7 @@ class StepGraphs:
             graph = self.graphs.get(kind)
             if graph is None:
                 with span("train.capture", kind=kind):
-                    graph = self.graphs[kind] = CapturedStep(
+                    graph = self.graphs[kind] = CapturedGraph(
                         lambda: self._device_step(kind, state))
             row, pose = graph.replay()
             f._count(kind, state)

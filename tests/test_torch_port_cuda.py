@@ -954,9 +954,11 @@ def test_bf16_serving_launches_k1_on_weights_packed_at_build(cuda,
                                                              monkeypatch):
     """At the flagship widths (bs32 x 64), the bf16 serving call launches
     K1-bf16 twice and the int8 call on the bf16 model once, each on weights
-    packed when the serving function was built: no call packs them, and a
-    call launches no more kernels than before the split moved to build time
-    (378 and 380, torch.profiler on an H100)."""
+    packed when the serving function was built: no call packs them, and an
+    op-by-op call launches no more kernels than before the split moved to
+    build time (378 and 380, torch.profiler on an H100).  A replay of the
+    call's CUDA graph runs the same kernels, and the copies into its two
+    static inputs and out of its static output."""
     from torch.profiler import ProfilerActivity, profile
 
     from mixstage_tpu_torch.models import JointLateClusterSoftStyle4_G
@@ -981,17 +983,23 @@ def test_bf16_serving_launches_k1_on_weights_packed_at_build(cuda,
     monkeypatch.setattr(fc, "pack_decoder_bf16",
                         lambda fd: packs.append(fd) or pack(fd))
     for name, (fn, k1, most) in fns.items():
-        for _ in range(3):                      # cuDNN picks its algorithms
+        for _ in range(3):      # cuDNN picks its algorithms; then a replay
             fn(audio, styles)
         torch.cuda.synchronize()
         before = fc.fused_mixstage_decoder.launches_bf16
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn(audio, styles)
-            torch.cuda.synchronize()
-        launches = sum(1 for e in prof.events()
-                       if e.device_type == torch.autograd.DeviceType.CUDA)
-        assert fc.fused_mixstage_decoder.launches_bf16 == before + k1, name
-        assert 0 < launches <= most, (name, launches)
+        launches = []
+        for call in (fn.graphs.body, fn):       # op by op, a replay
+            with profile(activities=[ProfilerActivity.CUDA]) as prof, \
+                    torch.inference_mode():
+                call(audio, styles)
+                torch.cuda.synchronize()
+            launches.append(sum(
+                1 for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA))
+        assert fc.fused_mixstage_decoder.launches_bf16 == before + 2 * k1, \
+            name
+        assert 0 < launches[0] <= most, (name, launches)
+        assert launches[1] == launches[0] + 3, (name, launches)
     assert not packs
 
 

@@ -7,13 +7,13 @@ clock and as records in memory, nested alike.
   spans' ``RecordFunction`` nor a ``record_function``).
 * Under ``torch.profiler``: each G and D step is one step span holding
   exactly one ``train.forward``, ``train.backward`` and ``train.update``;
-  a serving call is a ``serve.call`` holding one ``serve.features`` (the
-  exported program's body takes none); the micro-batcher records one
-  ``batcher.queue_wait`` per request and one ``batcher.gather`` and one
-  ``batcher.service`` per batch, all with the batch's id, the service
-  holding the serving call.  The profiler's ``mixstage.`` events nest as
-  the records say, on the records' threads (read for a D step, a serving
-  call and the batcher).
+  a serving call is a ``serve.call`` (``graph=0``: op by op on the CPU)
+  holding one ``serve.features`` (the exported program's body takes
+  none); the micro-batcher records one ``batcher.queue_wait`` per
+  request and one ``batcher.gather`` and one ``batcher.service`` per
+  batch, all with the batch's id, the service holding the serving call.
+  The profiler's ``mixstage.`` events nest as the records say, on the
+  records' threads (read for a D step, a serving call and the batcher).
 * ``reset()`` and ``trace()`` clear the registry.
 
 A small flagship configuration (in_channels 64, 2 clusters, 2 speakers,
@@ -193,7 +193,8 @@ def test_serving_call_spans_and_program_none(serving):
         pose = serving(audio, style)
     recs = profiling.records()
     call, = [r for r in recs if r.name == "serve.call"]
-    assert call.parent is None
+    assert call.parent is None and call.ids == {"graph": 0}
+    assert serving.graphs is None           # the CPU runs op by op
     assert _children(recs, call.id) == ["serve.features"]
     assert len(recs) == 2
     _assert_events_match(prof, recs)
